@@ -1,0 +1,335 @@
+"""Fused FlexibleNeRF MLP forward: the CUDA kernel, its plain PyTorch
+version, the weight packing both read, and the dispatch between them.
+
+Replaces the Pallas TPU kernel `_fwd_kernel`
+(nerfmeshes_tpu/ops/pallas/fused_mlp.py:387, reached through
+`fused_flexible_apply_rays` / `fused_flexible_apply`). The kernel is
+`nerfmeshes_tpu_torch/csrc/fused_mlp_fwd.cu`: CUDA C++ for sm_90a, bound
+through ctypes (ops/kernels/build.py).
+
+What bounds it on an H100: ~1.2 MFLOP per point at lego width (595,844
+parameters per MLP) against ~44 bytes of input and output per point, so
+the tensor cores and not device memory set the pace. The weights
+(1.19 MB in bf16) do not fit a block's shared memory, so the kernel keeps
+points, positional encoding and activations of a 64-point tile in shared
+memory and streams each layer's weights from L2, once per tile; no
+points, PE or activation tensor is ever written to device memory. Its
+design and numerics are described in the .cu file.
+
+Numerics, shared by kernel and plain version: bf16 operands, f32
+accumulation, f32 bias/ReLU/sigmoid; an activation is rounded to bf16
+only as the next product's operand (the TPU kernel's numerics).
+
+Dispatch: CPU tensors take `fused_mlp_plain`; CUDA tensors launch the
+kernel or raise. `launches` counts kernel launches and nothing else.
+
+The TPU kernel's 128-lane layouts (comb_width, d_off, the (8, N) packed
+input, the transposed heads) are TPU constraints and are not carried
+over: here the PE widths are padded to multiples of 16 with zero weight
+columns, and the kernel reads rays directly.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from nerfmeshes_tpu_torch.models.layers import matmul_f32_acc
+from nerfmeshes_tpu_torch.models.nerf_models import FlexibleNeRFModel
+from nerfmeshes_tpu_torch.ops.encoding import frequency_bands, positional_encoding
+from nerfmeshes_tpu_torch.ops.kernels import build
+
+# Kernel launches since the last reset (callers may set it to 0).
+launches = 0
+
+# What the CUDA kernel takes (csrc/fused_mlp_fwd.cu): a hidden width it is
+# instantiated for, at most MAX_BANDS PE bands per encoding and
+# MAX_LAYERS trunk layers (its descriptor holds MAX_LAYERS + 2 products).
+HIDDEN_SIZES = (128, 256)
+MAX_BANDS = 24
+MAX_LAYERS = 14
+# Descriptor: 13 fixed ints (N_DESC_FIXED in the .cu), then the weight
+# and the bias offset of each of the num_layers + 2 products.
+_DESC_FIXED = 13
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclass(frozen=True)
+class MLPSpec:
+    """Static architecture + PE config of a viewdir FlexibleNeRFModel."""
+
+    num_layers: int
+    hidden: int
+    skip_step: int
+    L_x: int
+    L_d: int
+    include_x: bool
+    include_d: bool
+    log_x: bool
+    log_d: bool
+
+    @property
+    def pe_x(self) -> int:
+        return 6 * self.L_x + (3 if self.include_x else 0)
+
+    @property
+    def pe_d(self) -> int:
+        return 6 * self.L_d + (3 if self.include_d else 0)
+
+    @property
+    def pxp(self) -> int:  # xyz PE width padded to the 16-deep product step
+        return _round_up(self.pe_x, 16)
+
+    @property
+    def pdp(self) -> int:
+        return _round_up(self.pe_d, 16)
+
+    @property
+    def skip_layers(self) -> tuple[int, ...]:
+        return tuple(
+            i for i in range(self.num_layers - 1)
+            if i % self.skip_step == 0 and i > 0 and i != self.num_layers - 1
+        )
+
+
+def spec_from_model(model: FlexibleNeRFModel) -> MLPSpec:
+    return MLPSpec(
+        num_layers=model.num_layers,
+        hidden=model.hidden_size,
+        skip_step=model.skip_step,
+        L_x=model.num_encoding_fn_xyz,
+        L_d=model.num_encoding_fn_dir,
+        include_x=model.include_input_xyz,
+        include_d=model.include_input_dir,
+        log_x=model.log_sampling_xyz,
+        log_d=model.log_sampling_dir,
+    )
+
+
+def supports_fused(model) -> bool:
+    """The kernel covers viewdir FlexibleNeRF models of hidden width 128
+    or 256, 1..MAX_BANDS bands per encoding and 1..MAX_LAYERS layers
+    (lego: 8 x 256, L 10/4). Others run through the nn.Module."""
+    return (
+        isinstance(model, FlexibleNeRFModel)
+        and model.use_viewdirs
+        and model.hidden_size in HIDDEN_SIZES
+        and 1 <= model.num_encoding_fn_xyz <= MAX_BANDS
+        and 1 <= model.num_encoding_fn_dir <= MAX_BANDS
+        and 1 <= model.num_layers <= MAX_LAYERS
+    )
+
+
+class PackedMLP(NamedTuple):
+    """A model's weights in the kernel's layout, plus its descriptor.
+
+    weights: flat bf16, per product (layer1, trunk 0..L-2, feat, dir) the
+    (out, in_padded) matrix row-major, then the alpha row and the rgb
+    matrix. biases: flat f32 in the same order. desc/freqs: host arrays the
+    C entry point reads (layout in csrc/fused_mlp_fwd.cu)."""
+
+    spec: MLPSpec
+    weights: torch.Tensor
+    biases: torch.Tensor
+    desc: np.ndarray
+    freqs: np.ndarray
+
+    def gemm(self, g: int, n: int, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """(weight (n, k) bf16, bias (n,) f32) of product g."""
+        n_gemms = self.spec.num_layers + 2
+        w_off = int(self.desc[_DESC_FIXED + g])
+        b_off = int(self.desc[_DESC_FIXED + n_gemms + g])
+        return (self.weights[w_off:w_off + n * k].view(n, k),
+                self.biases[b_off:b_off + n])
+
+    def heads(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(alpha weight (1, H), alpha bias (1,), rgb weight (3, H/2), rgb bias (3,))."""
+        H = self.spec.hidden
+        wa_off, ba_off, wr_off, br_off = (int(v) for v in self.desc[9:13])
+        return (self.weights[wa_off:wa_off + H].view(1, H),
+                self.biases[ba_off:ba_off + 1],
+                self.weights[wr_off:wr_off + 3 * (H // 2)].view(3, H // 2),
+                self.biases[br_off:br_off + 3])
+
+
+def _pad_cols(w: torch.Tensor, width: int) -> torch.Tensor:
+    return F.pad(w, (0, width - w.shape[1]))
+
+
+@torch.no_grad()
+def pack_weights(model: FlexibleNeRFModel) -> PackedMLP:
+    """Pack an eligible model's nn.Linear weights into the kernel layout,
+    on the model's device."""
+    if not supports_fused(model):
+        raise ValueError("model is outside the fused kernel's bound (supports_fused)")
+    spec = spec_from_model(model)
+    H = spec.hidden
+    mats = [_pad_cols(model.layer1.weight, spec.pxp)]
+    vecs = [model.layer1.bias]
+    for i, layer in enumerate(model.layers_xyz):
+        w = layer.weight
+        if i in spec.skip_layers:  # [x | PE(xyz)] columns, PE part padded
+            w = torch.cat([w[:, :H], _pad_cols(w[:, H:], spec.pxp)], dim=1)
+        mats.append(w)
+        vecs.append(layer.bias)
+    mats.append(model.fc_feat.weight)
+    vecs.append(model.fc_feat.bias)
+    wd = model.layers_dir[0].weight  # [feat | PE(dir)] columns
+    mats.append(torch.cat([wd[:, :H], _pad_cols(wd[:, H:], spec.pdp)], dim=1))
+    vecs.append(model.layers_dir[0].bias)
+
+    w_offs = np.cumsum([0] + [m.numel() for m in mats]).tolist()
+    b_offs = np.cumsum([0] + [v.numel() for v in vecs]).tolist()
+    wa_off, ba_off = w_offs[-1], b_offs[-1]
+    wr_off, br_off = wa_off + H, ba_off + 1
+    weights = torch.cat(
+        [m.reshape(-1) for m in mats]
+        + [model.fc_alpha.weight.reshape(-1), model.fc_rgb.weight.reshape(-1)]
+    ).to(torch.bfloat16)
+    biases = torch.cat(vecs + [model.fc_alpha.bias, model.fc_rgb.bias]).float()
+    skip_mask = sum(1 << i for i in spec.skip_layers)
+    desc = np.asarray(
+        [spec.num_layers, H, skip_mask, spec.L_x, spec.L_d, int(spec.include_x),
+         int(spec.include_d), spec.pxp, spec.pdp, wa_off, ba_off, wr_off, br_off]
+        + w_offs[:-1] + b_offs[:-1],
+        dtype=np.int32,
+    )
+    freqs = np.concatenate(
+        [frequency_bands(spec.L_x, spec.log_x), frequency_bands(spec.L_d, spec.log_d)]
+    ).astype(np.float32)
+    return PackedMLP(spec, weights.contiguous(), biases.contiguous(), desc, freqs)
+
+
+def _padded_pe(x: torch.Tensor, L: int, include: bool, log: bool, width: int) -> torch.Tensor:
+    return _pad_cols(positional_encoding(x, L, include, log), width)
+
+
+def _check_rays(origins, directions, z_vals):
+    if z_vals.dim() != 2:
+        raise ValueError(f"z_vals must be (R, S), got {tuple(z_vals.shape)}")
+    R = z_vals.shape[0]
+    for name, t in (("origins", origins), ("directions", directions)):
+        if tuple(t.shape) != (R, 3):
+            raise ValueError(f"{name} must be ({R}, 3), got {tuple(t.shape)}")
+        if t.device != z_vals.device:
+            raise ValueError(f"{name} on {t.device}, z_vals on {z_vals.device}")
+
+
+def _layout(out_n4: torch.Tensor, R: int, S: int, channels_first: bool) -> torch.Tensor:
+    if channels_first:
+        return out_n4.t().reshape(4, R, S)
+    return out_n4.reshape(R, S, 4)
+
+
+def fused_mlp_plain(packed: PackedMLP, origins: torch.Tensor, directions: torch.Tensor,
+                    z_vals: torch.Tensor, *, channels_first: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, on the same packed weights and
+    with the same numerics. o, d (R, 3), z (R, S) -> (4, R, S) or (R, S, 4)."""
+    _check_rays(origins, directions, z_vals)
+    spec = packed.spec
+    H, L = spec.hidden, spec.num_layers
+    bf16 = torch.bfloat16
+    R, S = z_vals.shape
+    o, d, z = origins.float(), directions.float(), z_vals.float()
+    pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
+    dirs = d[:, None, :].expand(R, S, 3).reshape(-1, 3)
+    pe_x = _padded_pe(pts, spec.L_x, spec.include_x, spec.log_x, spec.pxp)
+    pe_d = _padded_pe(dirs, spec.L_d, spec.include_d, spec.log_d, spec.pdp)
+
+    def layer(a, g, n, relu):
+        w, b = packed.gemm(g, n, a.shape[1])
+        y = matmul_f32_acc(a, w, bf16) + b
+        return y.clamp_min(0.0) if relu else y
+
+    x = layer(pe_x, 0, H, relu=False)
+    for i in range(L - 1):
+        a = torch.cat([x.to(bf16), pe_x.to(bf16)], dim=1) if i in spec.skip_layers else x
+        x = layer(a, 1 + i, H, relu=True)
+    wa, ba, wr, br = packed.heads()
+    alpha = matmul_f32_acc(x, wa, bf16) + ba
+    feat = layer(x, L, H, relu=True)
+    h = layer(torch.cat([feat.to(bf16), pe_d.to(bf16)], dim=1), L + 1, H // 2, relu=True)
+    rgb = torch.sigmoid(matmul_f32_acc(h, wr, bf16) + br)
+    return _layout(torch.cat([rgb, alpha], dim=1), R, S, channels_first)
+
+
+def fused_mlp_cuda(packed: PackedMLP, origins: torch.Tensor, directions: torch.Tensor,
+                   z_vals: torch.Tensor, *, channels_first: bool = True) -> torch.Tensor:
+    """Launch the CUDA kernel. o, d (R, 3), z (R, S) f32 on one CUDA device
+    -> (4, R, S) or (R, S, 4) f32."""
+    global launches
+    _check_rays(origins, directions, z_vals)
+    device = z_vals.device
+    if device.type != "cuda":
+        raise ValueError(f"fused_mlp_cuda needs CUDA tensors, got {device}")
+    for name, t in (("weights", packed.weights), ("biases", packed.biases)):
+        if t.device != device:
+            raise ValueError(f"packed {name} on {t.device}, rays on {device}")
+    R, S = z_vals.shape
+    o = origins.float().contiguous()
+    d = directions.float().contiguous()
+    z = z_vals.float().contiguous()
+    # Contiguous (4, R, S) / (R, S, 4): the kernel's (4, N) / (N, 4) rows.
+    out = torch.empty((4, R, S) if channels_first else (R, S, 4),
+                      dtype=torch.float32, device=device)
+    if R * S == 0:
+        return out
+    lib = build.load_library()
+    with torch.cuda.device(device):
+        rc = lib.nm_fused_mlp_fwd(
+            o.data_ptr(), d.data_ptr(), z.data_ptr(), R, S,
+            packed.weights.data_ptr(), packed.biases.data_ptr(),
+            packed.desc.ctypes.data, packed.desc.size,
+            packed.freqs.ctypes.data, packed.freqs.size,
+            out.data_ptr(), int(channels_first),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    build.check(lib, rc, "fused_mlp_fwd launch")
+    launches += 1
+    return out
+
+
+def fused_mlp_rays(packed: PackedMLP, origins: torch.Tensor, directions: torch.Tensor,
+                   z_vals: torch.Tensor, *, channels_first: bool = True) -> torch.Tensor:
+    """The field of the packed MLP at o + d*z: CPU tensors take the plain
+    version, CUDA tensors the kernel."""
+    kind = z_vals.device.type
+    if kind == "cpu":
+        return fused_mlp_plain(packed, origins, directions, z_vals,
+                               channels_first=channels_first)
+    if kind == "cuda":
+        return fused_mlp_cuda(packed, origins, directions, z_vals,
+                              channels_first=channels_first)
+    raise ValueError(f"no fused MLP for {kind} tensors")
+
+
+@torch.no_grad()
+def fused_flexible_apply_rays(model: FlexibleNeRFModel, origins: torch.Tensor,
+                              directions: torch.Tensor, z_vals: torch.Tensor) -> torch.Tensor:
+    """Inference field straight from rays: o, d (R, 3), z (R, S) ->
+    CHANNELS-FIRST (4, R, S) (feed volume_render(channels_first=True))."""
+    return fused_mlp_rays(pack_weights(model), origins, directions, z_vals)
+
+
+@torch.no_grad()
+def fused_flexible_apply(model: FlexibleNeRFModel, ray_points: torch.Tensor,
+                         ray_directions: torch.Tensor) -> torch.Tensor:
+    """Inference drop-in for model(points, dirs) -> (..., 4). Directions may
+    have one fewer batch dim than the points (one per ray). Each point is
+    a ray with origin at the point and one sample at z = 0."""
+    pts = ray_points.reshape(-1, 3)
+    if ray_directions.dim() == ray_points.dim() - 1:
+        dirs = ray_directions[..., None, :].expand(ray_points.shape)
+    else:
+        dirs = ray_directions
+    dirs = dirs.reshape(-1, 3)
+    z = torch.zeros((pts.shape[0], 1), dtype=torch.float32, device=pts.device)
+    out = fused_mlp_rays(pack_weights(model), pts, dirs, z, channels_first=False)
+    return out.reshape(*ray_points.shape[:-1], 4)

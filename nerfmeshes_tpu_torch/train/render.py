@@ -1,0 +1,113 @@
+"""Hierarchical NeRF renderer (counterpart of nerfmeshes_tpu/train/render.py):
+coarse samples -> field -> composite -> PDF samples -> fine field ->
+composite, for one batch of rays."""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from nerfmeshes_tpu_torch.ops.kernels.fused_mlp import (
+    fused_flexible_apply_rays,
+    supports_fused,
+)
+from nerfmeshes_tpu_torch.ops.rays import intervals_to_ray_points
+from nerfmeshes_tpu_torch.ops.render import RenderOutput, volume_render
+from nerfmeshes_tpu_torch.ops.sampling import hierarchical_intervals, ray_sample_interval
+
+
+class RenderSettings(NamedTuple):
+    """Static per-mode settings (from cfg.nerf.train / cfg.nerf.validation)."""
+
+    num_coarse: int
+    num_fine: int
+    perturb: bool
+    lindisp: bool
+    radiance_field_noise_std: float
+    white_background: bool
+    use_fine: bool
+    attenuation_threshold: float = 1e-5
+    use_fused_kernel: bool = True
+
+    @classmethod
+    def from_cfg(cls, cfg, train: bool) -> "RenderSettings":
+        mode = cfg.nerf.train if train else cfg.nerf.validation
+        return cls(
+            num_coarse=mode.num_coarse,
+            num_fine=mode.num_fine,
+            perturb=bool(mode.perturb),
+            lindisp=bool(mode.lindisp),
+            radiance_field_noise_std=float(mode.radiance_field_noise_std),
+            white_background=bool(cfg.dataset.white_background),
+            use_fine=bool(cfg.models.use_fine),
+            use_fused_kernel=bool(cfg.experiment.get("use_fused_kernel", True)),
+        )
+
+
+def _apply_field(model, origins: torch.Tensor, ray_directions: torch.Tensor,
+                 intervals: torch.Tensor, use_fused: bool = False) -> torch.Tensor:
+    """The field of `model` over rays o, d (R, 3) at depths (R, S), returned
+    CHANNELS-FIRST (4, R, S). With `use_fused`, eligible models run through
+    the fused MLP kernel module straight from the rays; others expand the
+    points and call the nn.Module."""
+    if use_fused and supports_fused(model):
+        return fused_flexible_apply_rays(model, origins, ray_directions, intervals)
+    points = intervals_to_ray_points(intervals, ray_directions, origins)
+    dirs = ray_directions[..., None, :].expand(points.shape)
+    return model(points, dirs).movedim(-1, 0)
+
+
+def render_rays(
+    coarse_model,
+    fine_model,
+    ray_origins: torch.Tensor,
+    ray_directions: torch.Tensor,
+    near,
+    far,
+    settings: RenderSettings,
+    *,
+    train: bool,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[RenderOutput, Optional[RenderOutput]]:
+    """Hierarchical render of a ray batch.
+
+    ray_origins: (R, 3) or (3,); ray_directions: (R, 3); near/far: scalars
+    or (R,). `generator` feeds the stochastic branches (perturbed samples,
+    sigma noise) of a training render."""
+    R = ray_directions.shape[0]
+    device = ray_directions.device
+    origins = torch.reshape(ray_origins, (-1, 3)).expand(R, 3)
+    noise_std = settings.radiance_field_noise_std if train else 0.0
+    perturb = settings.perturb and train
+
+    def composite(field, depths):
+        return volume_render(
+            field, depths, ray_directions,
+            train=train,
+            radiance_field_noise_std=noise_std,
+            white_background=settings.white_background,
+            attenuation_threshold=settings.attenuation_threshold,
+            generator=generator,
+            channels_first=True,
+        )
+
+    intervals = ray_sample_interval(
+        settings.num_coarse, R, near, far,
+        lindisp=settings.lindisp, perturb=perturb, generator=generator,
+        dtype=ray_directions.dtype, device=device,
+    )
+    coarse_field = _apply_field(coarse_model, origins, ray_directions, intervals,
+                                use_fused=settings.use_fused_kernel)
+    coarse_bundle = composite(coarse_field, intervals)
+
+    fine_bundle = None
+    if settings.use_fine and fine_model is not None:
+        fine_intervals = hierarchical_intervals(
+            intervals, coarse_bundle.weights, settings.num_fine,
+            perturb=perturb, generator=generator,
+        )
+        fine_field = _apply_field(fine_model, origins, ray_directions, fine_intervals,
+                                  use_fused=settings.use_fused_kernel)
+        fine_bundle = composite(fine_field, fine_intervals)
+    return coarse_bundle, fine_bundle
