@@ -3,19 +3,29 @@
 
     python3 chip_smoke.py          # needs one CUDA card; no arguments
 
-Builds the port's CUDA kernels from csrc/, checks each kernel against its
-plain PyTorch version on the card at the shapes of the render path, then
-drives the render path itself: a NeRFSystem at the lego architecture of
-get_default_cfg() (2 x 8x256 FlexibleNeRF MLPs, 64+128 samples, chunk
-2048, bf16, fused kernel on, random weights from the config's seed)
-renders 2 full 400x400 views of data/hard_blender's test poses through
-query_rays -> render_image. It shows that every chunk went through the
-kernel (2 launches per chunk: coarse and fine) and that the maps are
-finite and in range, and holds one chunk against the nn.Module path.
+Builds the port's CUDA kernels from csrc/ (one nvcc per source, in
+parallel), checks each kernel against its plain PyTorch version on the
+card at the shapes of the render and train paths, then drives both paths:
+
+- render: a NeRFSystem at the lego architecture of get_default_cfg()
+  (2 x 8x256 FlexibleNeRF MLPs, 64+128 samples, chunk 2048, bf16, fused
+  kernels on, random weights from the config's seed) renders 2 full
+  400x400 views of data/hard_blender's test poses through query_rays ->
+  render_image. Every chunk goes through the forward kernel (2 launches
+  per chunk: coarse and fine); the maps are finite and in range; one
+  chunk is held against the nn.Module path.
+- train: a NeRFSystem with the settings of configs/hard-blender.yml
+  (built in code: the card's host may lack PyYAML), on the 20 training
+  images of data/hard_blender, runs 30 steps through setup + fit after 3
+  warm-up steps. Every step launches the forward and the backward kernel
+  twice each (coarse and fine); the loss is finite at every step and
+  falls; one step's grads through the kernels are held against the
+  nn.Module path on the same batch; train rays/s is timed over the 30
+  steps, synchronised.
 
 Prints, on lines of their own: the card's name and power limit as
 nvidia-smi reports them, the build time, per-kernel error and times,
-render rays/s, then a JSON line of the kernels, and last
+render and train rays/s, then a JSON line of the kernels, and last
 {"ok": true, "device": {...}}. Any failed check raises, so the exit code
 is non-zero and no "ok" line is printed. There is no CPU path.
 """
@@ -35,10 +45,70 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 
-# bf16 bar of the fused kernel against its reference, as in
-# tests/test_fused_mlp.py:37.
+# bf16 bars of the fused kernels against their references: forward as in
+# tests/test_fused_mlp.py:37, grads (worst relative error per weight) as
+# in tests/test_fused_mlp.py:65.
 ATOL = RTOL = 2e-2
+GRAD_BAR = 5e-2
 SEED = 0
+WARMUP_STEPS = 3
+TRAIN_STEPS = 30
+
+# configs/hard-blender.yml, the lego training workload, as overrides of
+# get_default_cfg(); tests/test_torch_train.py holds them to the file.
+HARD_BLENDER = {
+    "experiment": {"id": "hard-blender", "randomseed": 42, "compute_dtype": "bfloat16",
+                   "use_early_stopping": False},
+    "dataset": {"type": "blender", "basedir": str(REPO / "data" / "hard_blender"),
+                "near": 2.0, "far": 6.0, "white_background": False,
+                "reduced_resolution": 1, "testskip": 1,
+                "caching": {"use_caching": False,
+                            "cache_dir": str(REPO / "cache" / "hard_blender")}},
+    "models": {
+        "coarse_type": "FlexibleNeRFModel", "fine_type": "FlexibleNeRFModel",
+        "use_fine": True,
+        "coarse": {"num_layers": 8, "skip_step": 4, "hidden_size": 256,
+                   "num_encoding_fn_xyz": 10, "num_encoding_fn_dir": 4,
+                   "use_viewdirs": True},
+        "fine": {"num_layers": 8, "skip_step": 4, "hidden_size": 256,
+                 "num_encoding_fn_xyz": 10, "num_encoding_fn_dir": 4,
+                 "use_viewdirs": True},
+    },
+    "optimizer": {"type": "Adam", "lr": 5.0e-4},
+    "scheduler": {"type": "DefaultScheduler", "options": {"gamma": 0.1, "step_size": 450000}},
+    "nerf": {
+        "train": {"num_random_rays": 2048, "chunksize": 2048, "perturb": True,
+                  "num_coarse": 64, "num_fine": 128, "radiance_field_noise_std": 0.2,
+                  "lindisp": False},
+        "validation": {"chunksize": 65536, "perturb": False, "num_coarse": 64,
+                       "num_fine": 128, "radiance_field_noise_std": 0.0,
+                       "lindisp": False, "num_samples": 1},
+    },
+}
+
+
+def _merge(node, overrides: dict) -> None:
+    for key, value in overrides.items():
+        if key not in node:
+            raise KeyError(f"unknown config key {key!r}")
+        if isinstance(value, dict):
+            _merge(node[key], value)
+        else:
+            node[key] = value
+
+
+def hard_blender_cfg():
+    """configs/hard-blender.yml's settings, plus the smoke's own: no
+    validation (not ported yet), one step per call (a loss per step), and
+    a print only at the end of a fit."""
+    from nerfmeshes_tpu_torch.config import get_default_cfg
+
+    cfg = get_default_cfg()
+    _merge(cfg, HARD_BLENDER)
+    cfg.experiment.validate_every = 0
+    cfg.experiment.steps_per_call = 1
+    cfg.experiment.print_every = 10 ** 9
+    return cfg
 
 
 def _run(cmd: list[str]) -> str:
@@ -189,10 +259,153 @@ def slice_phase(cfg, card: str, device) -> dict:
     return dict(launches=launches, rays_per_s=rays_per_s, seconds=seconds)
 
 
+def _rel_errors(packed, got, want) -> dict:
+    """Worst |got - want| / max |want| per weight and bias of the pack."""
+    g, w = packed.segments(*got), packed.segments(*want)
+    return {k: float((g[k] - w[k]).abs().max() / (w[k].abs().max() + 1e-6)) for k in w}
+
+
+def bwd_kernel_phase(cfg, card: str, device) -> dict:
+    """Backward kernel against its plain version at the train path's
+    coarse (S=64) and fine (S=192) shapes, R = 2048 rays, lego width, a
+    seeded normal cotangent; two launches bitwise equal."""
+    from nerfmeshes_tpu_torch.models import build_model
+    from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerfmeshes_tpu_torch.train.system import init_params
+
+    model = build_model(cfg.models.fine_type, dict(cfg.models.fine),
+                        compute_dtype=torch.bfloat16)
+    init_params(model, None, torch.Generator().manual_seed(SEED))
+    model.to(device)
+    packed = fm.pack_weights(model)
+    rng = np.random.default_rng(SEED)
+    R = int(cfg.nerf.train.num_random_rays)
+    worst_rel = worst_abs = 0.0
+    for S in (int(cfg.nerf.train.num_coarse),
+              int(cfg.nerf.train.num_coarse) + int(cfg.nerf.train.num_fine)):
+        o, d, z = _rays(R, S, rng, device)
+        cot = torch.from_numpy(rng.standard_normal((4, R, S)).astype(np.float32)).to(device)
+        before = fm.bwd_launches
+        got = fm.fused_mlp_bwd_cuda(packed, o, d, z, cot)
+        again = fm.fused_mlp_bwd_cuda(packed, o, d, z, cot)
+        torch.cuda.synchronize()
+        if fm.bwd_launches != before + 2:
+            raise AssertionError(f"bwd launch counter moved {fm.bwd_launches - before}, "
+                                 "expected 2")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"two backward launches differ at S={S}")
+        want = fm.fused_mlp_bwd_plain(packed, o, d, z, cot)
+        if not all(bool(torch.isfinite(g).all()) for g in got):
+            raise AssertionError(f"non-finite grads from the backward kernel at S={S}")
+        rel = _rel_errors(packed, got, want)
+        name = max(rel, key=rel.get)
+        abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        print(f"fused_mlp_bwd R={R} S={S}: worst rel grad err {rel[name]:.3e} ({name}), "
+              f"max abs err {abs_err:.3e} (bar rel {GRAD_BAR}); 2 launches bitwise equal")
+        if rel[name] >= GRAD_BAR:
+            raise AssertionError(f"backward kernel disagrees with the plain version at S={S}")
+        worst_rel = max(worst_rel, rel[name])
+        worst_abs = max(worst_abs, abs_err)
+
+    # Times at the fine shape (the last one checked above).
+    ms = _median_ms(lambda: fm.fused_mlp_bwd_cuda(packed, o, d, z, cot))
+    plain_ms = _median_ms(lambda: fm.fused_mlp_bwd_plain(packed, o, d, z, cot))
+    for name, t in (("kernel", ms), ("plain", plain_ms)):
+        print(f"fused_mlp_bwd {name}: {t:.4f} ms median of 7, {R * S / t * 1e3:.4e} points/s "
+              f"at {R}x{S} points [{card}]")
+    return dict(max_abs_err=worst_abs, max_rel_err=worst_rel, ms=ms, plain_ms=plain_ms)
+
+
+def train_phase(card: str, device) -> dict:
+    """The train path: NeRFSystem.setup + fit at the hard-blender settings."""
+    from nerfmeshes_tpu_torch.data.blender import train_arrays
+    from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerfmeshes_tpu_torch.train.render import RenderSettings
+    from nerfmeshes_tpu_torch.train.step import _sample_ray_batch, train_loss
+    from nerfmeshes_tpu_torch.train.system import NeRFSystem
+
+    class RecordingSystem(NeRFSystem):
+        """Keeps every step's loss on the device (steps_per_call is 1)."""
+
+        def on_step(self, step, metrics):
+            self.losses.append(metrics["train/loss"])
+
+    cfg = hard_blender_cfg()
+    t0 = time.perf_counter()
+    data = train_arrays(cfg, device)
+    n_img, H, W = (int(v) for v in data["targets"].shape[:3])
+    print(f"train data: {n_img} images {H}x{W} decoded and on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    system = RecordingSystem(cfg, device=device).setup(data)
+    system.losses = []
+    system.fit(WARMUP_STEPS)
+    torch.cuda.synchronize()
+
+    system.losses = []
+    fm.launches = fm.bwd_launches = 0
+    t0 = time.perf_counter()
+    metrics = system.fit(WARMUP_STEPS + TRAIN_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    fwd, bwd = fm.launches, fm.bwd_launches
+    losses = torch.stack(system.losses).cpu().tolist()  # the one fetch of the run
+
+    if system.state.step != WARMUP_STEPS + TRAIN_STEPS or len(losses) != TRAIN_STEPS:
+        raise AssertionError(f"step {system.state.step}, {len(losses)} losses recorded")
+    if fwd != 2 * TRAIN_STEPS or bwd != 2 * TRAIN_STEPS:
+        raise AssertionError(f"{fwd} forward and {bwd} backward launches for "
+                             f"{TRAIN_STEPS} steps; expected 2 each per step")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    print(f"train losses: first 5 mean {first:.6f}, last 5 mean {last:.6f}; "
+          f"step {system.state.step} loss {metrics['train/loss']:.6f} "
+          f"lr {metrics['train/lr']:.6e}")
+    if not last < first:
+        raise AssertionError(f"loss did not fall: {losses}")
+
+    # One step's grads, kernels vs nn.Module, on one batch at deterministic
+    # settings so both paths sample the same depths.
+    settings = RenderSettings.from_cfg(cfg, train=True)._replace(
+        perturb=False, radiance_field_noise_std=0.0)
+    batch = _sample_ray_batch(data, torch.Generator(device).manual_seed(SEED), H=H, W=W,
+                              focal=float(data["hwf"][2]),
+                              num_rays=int(cfg.nerf.train.num_random_rays), use_ndc=False)
+    named = [(f"{tag}.{n}", p) for tag, m in (("coarse", system.coarse), ("fine", system.fine))
+             for n, p in m.named_parameters()]
+
+    def grads(use_fused):
+        system.optimizer.zero_grad()
+        loss, _ = train_loss(cfg, system.coarse, system.fine, *batch[:5],
+                             settings=settings._replace(use_fused_kernel=use_fused))
+        loss.backward()
+        return {n: p.grad.clone() for n, p in named}
+
+    fused, module = grads(True), grads(False)
+    system.optimizer.zero_grad()
+    rel = {n: float((fused[n] - module[n]).abs().max() / (module[n].abs().max() + 1e-6))
+           for n in module}
+    name = max(rel, key=rel.get)
+    print(f"train step grads, fused kernels vs nn.Module path: worst rel err "
+          f"{rel[name]:.3e} ({name}; bar {GRAD_BAR})")
+    # The nn.Module rounds each layer's output (and its weight grads) to
+    # bf16 where the kernels keep f32 until the next product, and the fine
+    # samples follow the coarse weights continuously.
+    if rel[name] >= GRAD_BAR:
+        raise AssertionError("fused and nn.Module train grads disagree")
+
+    rays_per_s = TRAIN_STEPS * int(cfg.nerf.train.num_random_rays) / seconds
+    print(f"train: {TRAIN_STEPS} steps of {cfg.nerf.train.num_random_rays} rays in "
+          f"{seconds:.4f} s, {fwd} forward + {bwd} backward kernel launches "
+          f"(2 + 2 per step), {rays_per_s:.6e} rays/s [{card}]")
+    return dict(fwd_launches=fwd, bwd_launches=bwd, rays_per_s=rays_per_s, seconds=seconds,
+                grad_rel_err=rel[name])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
-    from nerfmeshes_tpu.config import get_default_cfg
+    from nerfmeshes_tpu_torch.config import get_default_cfg
     from nerfmeshes_tpu_torch.ops.kernels import build
 
     card = _run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
@@ -217,16 +430,30 @@ def main() -> int:
     cfg.experiment.use_fused_kernel = True
     kern = kernel_phase(cfg, card, device)
     render = slice_phase(cfg, card, device)
+    bkern = bwd_kernel_phase(cfg, card, device)
+    train = train_phase(card, device)
 
     print(json.dumps({"kernels": [{
         "name": "fused_mlp_fwd",
         "route": "cuda",
         "source": "nerfmeshes_tpu_torch/csrc/fused_mlp_fwd.cu",
         "replaces": "nerfmeshes_tpu/ops/pallas/fused_mlp.py:387",
-        "launches": render["launches"],
+        "launches": render["launches"] + train["fwd_launches"],
+        "launches_by_path": {"render": render["launches"], "train": train["fwd_launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],
+    }, {
+        "name": "fused_mlp_bwd",
+        "route": "cuda",
+        "source": "nerfmeshes_tpu_torch/csrc/fused_mlp_bwd.cu",
+        "replaces": "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397",
+        "launches": train["bwd_launches"],
+        "launches_by_path": {"train": train["bwd_launches"]},
+        "max_abs_err": bkern["max_abs_err"],
+        "max_rel_err": bkern["max_rel_err"],
+        "ms": bkern["ms"],
+        "plain_ms": bkern["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -3,8 +3,7 @@
 Reads `transforms_{split}.json` as nerfmeshes_tpu/data/loaders/blender.py
 does (3x4 poses padded to 4x4, focal from camera_angle_x, integer
 downscale), and each image's size from its PNG header alone: no image
-decoder is needed. Image targets and the dataset classes come with a
-later slice.
+decoder is needed. The images themselves: data/blender.py.
 """
 
 from __future__ import annotations

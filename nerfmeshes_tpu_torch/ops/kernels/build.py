@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Every `nerfmeshes_tpu_torch/csrc/*.cu` is compiled on first use into one
+Every `nerfmeshes_tpu_torch/csrc/*.cu` is compiled on first use, one nvcc
+per source, all started together, and the objects are linked into one
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds, not minutes):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/torch_kernels/lib....so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
+         -Xptxas -v -c -o build/torch_kernels/<name>....o csrc/<name>.cu   (each)
+    nvcc -shared -o build/torch_kernels/lib....so build/torch_kernels/*....o
 
 The library name carries a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one loads the cached build. No fast-math
@@ -28,7 +30,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills, per kernel
 )
 
@@ -40,6 +42,14 @@ SIGNATURES = {
     "nm_fused_mlp_fwd": (
         _I,
         [_P, _P, _P, _LL, _I, _P, _P, _P, _I, _P, _I, _P, _I, _P],
+    ),
+    "nm_fused_mlp_bwd_workspace": (
+        _I,
+        [_P, _I, _P, _I, _LL, ctypes.POINTER(_LL)],
+    ),
+    "nm_fused_mlp_bwd": (
+        _I,
+        [_P, _P, _P, _LL, _I, _P, _P, _P, _P, _I, _P, _I, _P, _LL, _P, _P, _P],
     ),
     "nm_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
@@ -72,23 +82,45 @@ def library_path() -> Path:
 
 
 def build_library() -> tuple[Path, str]:
-    """Compile csrc/ unless a build of these exact sources exists.
-    Returns (library path, nvcc's output: '' when the build was cached)."""
+    """Compile csrc/ unless a build of these exact sources exists: one nvcc
+    per .cu, run in parallel, then one link. Returns (library path,
+    nvcc's output: '' when the build was cached)."""
     out = library_path()
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out, proc.stdout + proc.stderr
+    nvcc = find_nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log = []
+    failed = []
+    for cmd, _, proc in jobs:
+        text, _ = proc.communicate()
+        log.append(text)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{text}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return out, "".join(log)
 
 
 @functools.cache

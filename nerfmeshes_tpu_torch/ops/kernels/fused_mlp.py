@@ -1,36 +1,50 @@
-"""Fused FlexibleNeRF MLP forward: the CUDA kernel, its plain PyTorch
-version, the weight packing both read, and the dispatch between them.
+"""Fused FlexibleNeRF MLP, forward and backward: the CUDA kernels, their
+plain PyTorch versions, the weight packing all of them read, the autograd
+Function of the training path, and the dispatch between them.
 
-Replaces the Pallas TPU kernel `_fwd_kernel`
-(nerfmeshes_tpu/ops/pallas/fused_mlp.py:387, reached through
-`fused_flexible_apply_rays` / `fused_flexible_apply`). The kernel is
-`nerfmeshes_tpu_torch/csrc/fused_mlp_fwd.cu`: CUDA C++ for sm_90a, bound
-through ctypes (ops/kernels/build.py).
+Forward: replaces the Pallas TPU kernel `_fwd_kernel`
+(nerfmeshes_tpu/ops/pallas/fused_mlp.py:387). Backward: replaces
+`_bwd_kernel` (:397), the custom-vjp backward of `fused_mlp_train`
+(:623-629). Both are reached through `fused_flexible_apply_rays` /
+`fused_flexible_apply`. The kernels are `nerfmeshes_tpu_torch/csrc/
+fused_mlp_{fwd,bwd}.cu`: CUDA C++ for sm_90a, bound through ctypes
+(ops/kernels/build.py).
 
-What bounds it on an H100: ~1.2 MFLOP per point at lego width (595,844
-parameters per MLP) against ~44 bytes of input and output per point, so
-the tensor cores and not device memory set the pace. The weights
+What bounds the forward on an H100: ~1.2 MFLOP per point at lego width
+(595,844 parameters per MLP) against ~44 bytes of input and output per
+point, so the tensor cores and not device memory set the pace. The weights
 (1.19 MB in bf16) do not fit a block's shared memory, so the kernel keeps
 points, positional encoding and activations of a 64-point tile in shared
 memory and streams each layer's weights from L2, once per tile; no
-points, PE or activation tensor is ever written to device memory. Its
-design and numerics are described in the .cu file.
+points, PE or activation tensor is ever written to device memory. The
+backward contracts the weight grads over all points, which needs a
+stash of each layer's input and output cotangent in device memory and a
+fixed-order reduction (its design is described in the .cu file).
 
-Numerics, shared by kernel and plain version: bf16 operands, f32
+Numerics, shared by kernels and plain versions: bf16 operands, f32
 accumulation, f32 bias/ReLU/sigmoid; an activation is rounded to bf16
-only as the next product's operand (the TPU kernel's numerics).
+only as the next product's operand (the TPU kernel's numerics). The
+backward stashes activations in bf16, takes ReLU masks from the stash,
+multiplies bf16 cotangents, and sums bias grads in f32.
 
-Dispatch: CPU tensors take `fused_mlp_plain`; CUDA tensors launch the
-kernel or raise. `launches` counts kernel launches and nothing else.
+Dispatch: CPU tensors take `fused_mlp_plain` / `fused_mlp_bwd_plain`;
+CUDA tensors launch the kernels or raise. `launches` and `bwd_launches`
+count kernel launches and nothing else.
+
+Training: `FusedMLPTrain` takes the f32 packed weights and biases, built
+from the model's parameters by differentiable cat/pad (`pack_params`), and
+casts them to bf16 inside its forward, so the weight grads reach the
+f32 parameters unrounded, as JAX's custom_vjp passes them.
 
 The TPU kernel's 128-lane layouts (comb_width, d_off, the (8, N) packed
 input, the transposed heads) are TPU constraints and are not carried
 over: here the PE widths are padded to multiples of 16 with zero weight
-columns, and the kernel reads rays directly.
+columns, and the kernels read rays directly.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -43,8 +57,9 @@ from nerfmeshes_tpu_torch.models.nerf_models import FlexibleNeRFModel
 from nerfmeshes_tpu_torch.ops.encoding import frequency_bands, positional_encoding
 from nerfmeshes_tpu_torch.ops.kernels import build
 
-# Kernel launches since the last reset (callers may set it to 0).
-launches = 0
+# Kernel launches since the last reset (callers may set them to 0).
+launches = 0  # forward kernel
+bwd_launches = 0  # backward kernel
 
 # What the CUDA kernel takes (csrc/fused_mlp_fwd.cu): a hidden width it is
 # instantiated for, at most MAX_BANDS PE bands per encoding and
@@ -98,6 +113,13 @@ class MLPSpec:
             if i % self.skip_step == 0 and i > 0 and i != self.num_layers - 1
         )
 
+    def gemm_shapes(self) -> list[tuple[int, int]]:
+        """(out, in_padded) of each product: layer1, trunk 0..L-2, feat, dir."""
+        H = self.hidden
+        trunk = [(H, H + (self.pxp if i in self.skip_layers else 0))
+                 for i in range(self.num_layers - 1)]
+        return [(H, self.pxp), *trunk, (H, H), (H // 2, H + self.pdp)]
+
 
 def spec_from_model(model: FlexibleNeRFModel) -> MLPSpec:
     return MLPSpec(
@@ -130,10 +152,11 @@ def supports_fused(model) -> bool:
 class PackedMLP(NamedTuple):
     """A model's weights in the kernel's layout, plus its descriptor.
 
-    weights: flat bf16, per product (layer1, trunk 0..L-2, feat, dir) the
+    weights: flat, per product (layer1, trunk 0..L-2, feat, dir) the
     (out, in_padded) matrix row-major, then the alpha row and the rgb
-    matrix. biases: flat f32 in the same order. desc/freqs: host arrays the
-    C entry point reads (layout in csrc/fused_mlp_fwd.cu)."""
+    matrix; bf16 for the kernels (pack_weights), f32 for training
+    (pack_params). biases: flat f32 in the same order. desc/freqs: host
+    arrays the C entry points read (layout in csrc/fused_mlp_common.cuh)."""
 
     spec: MLPSpec
     weights: torch.Tensor
@@ -141,32 +164,50 @@ class PackedMLP(NamedTuple):
     desc: np.ndarray
     freqs: np.ndarray
 
-    def gemm(self, g: int, n: int, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """(weight (n, k) bf16, bias (n,) f32) of product g."""
+    def gemm(self, g: int, n: int, k: int, weights: torch.Tensor | None = None,
+             biases: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """(weight (n, k), bias (n,)) of product g, as views of this pack's
+        buffers or of `weights` / `biases` laid out alike (grads)."""
+        weights = self.weights if weights is None else weights
+        biases = self.biases if biases is None else biases
         n_gemms = self.spec.num_layers + 2
         w_off = int(self.desc[_DESC_FIXED + g])
         b_off = int(self.desc[_DESC_FIXED + n_gemms + g])
-        return (self.weights[w_off:w_off + n * k].view(n, k),
-                self.biases[b_off:b_off + n])
+        return weights[w_off:w_off + n * k].view(n, k), biases[b_off:b_off + n]
 
-    def heads(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(alpha weight (1, H), alpha bias (1,), rgb weight (3, H/2), rgb bias (3,))."""
+    def segments(self, weights: torch.Tensor | None = None,
+                 biases: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+        """Every weight and bias of the pack by name ("w0", "b0", ... per
+        product, then "wa", "ba", "wr", "br"), views as in `gemm`."""
+        out = {}
+        for g, (n, k) in enumerate(self.spec.gemm_shapes()):
+            out[f"w{g}"], out[f"b{g}"] = self.gemm(g, n, k, weights, biases)
+        out["wa"], out["ba"], out["wr"], out["br"] = self.heads(weights, biases)
+        return out
+
+    def heads(self, weights: torch.Tensor | None = None, biases: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(alpha weight (1, H), alpha bias (1,), rgb weight (3, H/2), rgb
+        bias (3,)), views as in `gemm`."""
+        weights = self.weights if weights is None else weights
+        biases = self.biases if biases is None else biases
         H = self.spec.hidden
         wa_off, ba_off, wr_off, br_off = (int(v) for v in self.desc[9:13])
-        return (self.weights[wa_off:wa_off + H].view(1, H),
-                self.biases[ba_off:ba_off + 1],
-                self.weights[wr_off:wr_off + 3 * (H // 2)].view(3, H // 2),
-                self.biases[br_off:br_off + 3])
+        return (weights[wa_off:wa_off + H].view(1, H),
+                biases[ba_off:ba_off + 1],
+                weights[wr_off:wr_off + 3 * (H // 2)].view(3, H // 2),
+                biases[br_off:br_off + 3])
 
 
 def _pad_cols(w: torch.Tensor, width: int) -> torch.Tensor:
     return F.pad(w, (0, width - w.shape[1]))
 
 
-@torch.no_grad()
-def pack_weights(model: FlexibleNeRFModel) -> PackedMLP:
-    """Pack an eligible model's nn.Linear weights into the kernel layout,
-    on the model's device."""
+def pack_params(model: FlexibleNeRFModel) -> PackedMLP:
+    """Pack an eligible model's nn.Linear parameters into the kernel
+    layout, in f32 and on the model's device. Built by cat/pad, so under
+    autograd the packed buffers' grads flow back to the parameters (the
+    padding columns' grads are dropped)."""
     if not supports_fused(model):
         raise ValueError("model is outside the fused kernel's bound (supports_fused)")
     spec = spec_from_model(model)
@@ -192,7 +233,7 @@ def pack_weights(model: FlexibleNeRFModel) -> PackedMLP:
     weights = torch.cat(
         [m.reshape(-1) for m in mats]
         + [model.fc_alpha.weight.reshape(-1), model.fc_rgb.weight.reshape(-1)]
-    ).to(torch.bfloat16)
+    ).float()
     biases = torch.cat(vecs + [model.fc_alpha.bias, model.fc_rgb.bias]).float()
     skip_mask = sum(1 << i for i in spec.skip_layers)
     desc = np.asarray(
@@ -205,6 +246,13 @@ def pack_weights(model: FlexibleNeRFModel) -> PackedMLP:
         [frequency_bands(spec.L_x, spec.log_x), frequency_bands(spec.L_d, spec.log_d)]
     ).astype(np.float32)
     return PackedMLP(spec, weights.contiguous(), biases.contiguous(), desc, freqs)
+
+
+@torch.no_grad()
+def pack_weights(model: FlexibleNeRFModel) -> PackedMLP:
+    """The kernels' packing: pack_params with the weights in bf16."""
+    packed = pack_params(model)
+    return packed._replace(weights=packed.weights.to(torch.bfloat16).contiguous())
 
 
 def _padded_pe(x: torch.Tensor, L: int, include: bool, log: bool, width: int) -> torch.Tensor:
@@ -310,12 +358,197 @@ def fused_mlp_rays(packed: PackedMLP, origins: torch.Tensor, directions: torch.T
     raise ValueError(f"no fused MLP for {kind} tensors")
 
 
-@torch.no_grad()
+def _check_grad(grad: torch.Tensor, z_vals: torch.Tensor) -> None:
+    want = (4, *z_vals.shape)
+    if tuple(grad.shape) != want:
+        raise ValueError(f"grad must be {want} (channels-first), got {tuple(grad.shape)}")
+    if grad.device != z_vals.device:
+        raise ValueError(f"grad on {grad.device}, z_vals on {z_vals.device}")
+
+
+def fused_mlp_bwd_plain(packed: PackedMLP, origins: torch.Tensor, directions: torch.Tensor,
+                        z_vals: torch.Tensor, grad: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernel, with _bwd_kernel's
+    numerics (nerfmeshes_tpu/ops/pallas/fused_mlp.py:397-529), not
+    autograd's: activations stashed in bf16, ReLU masks from the stash,
+    every product on bf16 operands (the cotangents too) with f32 sums,
+    bias grads summed in f32 from the f32 cotangent, sigmoid' from the
+    recomputed rgb.
+
+    grad: the (4, R, S) cotangent of the channels-first forward output.
+    Returns f32 grads (dW, dB) laid out as packed.weights / packed.biases."""
+    _check_rays(origins, directions, z_vals)
+    _check_grad(grad, z_vals)
+    spec = packed.spec
+    H, L = spec.hidden, spec.num_layers
+    bf16 = torch.bfloat16
+    R, S = z_vals.shape
+
+    def rnd(t):  # the bf16 operand, in f32 (bf16 x bf16 products are exact in f32)
+        return t.to(bf16).float()
+
+    def dw(dy, x):  # dY^T X over points: the (out, in) weight grad
+        return rnd(dy).t() @ rnd(x)
+
+    def dx(dy, w):  # dY W: the grad of the layer's input
+        return rnd(dy) @ rnd(w)
+
+    o, d, z = origins.float(), directions.float(), z_vals.float()
+    pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
+    dirs = d[:, None, :].expand(R, S, 3).reshape(-1, 3)
+    pe_x = rnd(_padded_pe(pts, spec.L_x, spec.include_x, spec.log_x, spec.pxp))
+    pe_d = rnd(_padded_pe(dirs, spec.L_d, spec.include_d, spec.log_d, spec.pdp))
+
+    # Forward recompute; xs[i] is trunk layer i's input (bf16 stash), xs[-1]
+    # the trunk output.
+    def layer(a, g, n, relu):
+        w, b = packed.gemm(g, n, a.shape[1])
+        y = matmul_f32_acc(a, w, bf16) + b
+        return y.clamp_min(0.0) if relu else y
+
+    def skip_input(x, i):
+        return torch.cat([x, pe_x], dim=1) if i in spec.skip_layers else x
+
+    xs = [rnd(layer(pe_x, 0, H, relu=False))]
+    for i in range(L - 1):
+        xs.append(rnd(layer(skip_input(xs[-1], i), 1 + i, H, relu=True)))
+    trunk_out = xs[-1]
+    feat = rnd(layer(trunk_out, L, H, relu=True))
+    dir_in = torch.cat([feat, pe_d], dim=1)
+    h = rnd(layer(dir_in, L + 1, H // 2, relu=True))
+    wa, _, wr, br = packed.heads()
+    rgb = torch.sigmoid(matmul_f32_acc(h, wr, bf16) + br)
+
+    dW = torch.zeros(packed.weights.shape, dtype=torch.float32, device=z.device)
+    dB = torch.zeros(packed.biases.shape, dtype=torch.float32, device=z.device)
+    g = grad.float().reshape(4, -1).t()
+    drgb = g[:, :3] * rgb * (1.0 - rgb)
+    dalpha = g[:, 3:]
+    dwa, dba, dwr, dbr = packed.heads(dW, dB)
+    dwr.copy_(dw(drgb, h))
+    dbr.copy_(drgb.sum(0))
+    dwa.copy_(dw(dalpha, trunk_out))
+    dba.copy_(dalpha.sum(0))
+
+    def grads_of(gi, dy, x):
+        w_grad, b_grad = packed.gemm(gi, dy.shape[1], x.shape[1], dW, dB)
+        w_grad.copy_(dw(dy, x))
+        b_grad.copy_(dy.sum(0))
+        return packed.gemm(gi, dy.shape[1], x.shape[1])[0][:, :H]  # the x part of W
+
+    dh = dx(drgb, wr) * (h > 0)
+    df = dx(dh, grads_of(L + 1, dh, dir_in)) * (feat > 0)
+    dy = dx(df, grads_of(L, df, trunk_out)) + dx(dalpha, wa)
+    if L >= 2:
+        dy = dy * (trunk_out > 0)
+    for i in reversed(range(L - 1)):
+        dy = dx(dy, grads_of(1 + i, dy, skip_input(xs[i], i)))
+        if i > 0:
+            dy = dy * (xs[i] > 0)
+    grads_of(0, dy, pe_x)
+    return dW, dB
+
+
+def fused_mlp_bwd_cuda(packed: PackedMLP, origins: torch.Tensor, directions: torch.Tensor,
+                       z_vals: torch.Tensor, grad: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel (csrc/fused_mlp_bwd.cu). o, d (R, 3),
+    z (R, S), grad (4, R, S) f32 on one CUDA device -> f32 (dW, dB)."""
+    global bwd_launches
+    _check_rays(origins, directions, z_vals)
+    _check_grad(grad, z_vals)
+    device = z_vals.device
+    if device.type != "cuda":
+        raise ValueError(f"fused_mlp_bwd_cuda needs CUDA tensors, got {device}")
+    for name, t in (("weights", packed.weights), ("biases", packed.biases)):
+        if t.device != device:
+            raise ValueError(f"packed {name} on {t.device}, rays on {device}")
+    if packed.weights.dtype != torch.bfloat16:
+        raise ValueError(f"packed weights must be bf16, got {packed.weights.dtype}")
+    R, S = z_vals.shape
+    dW = torch.zeros(packed.weights.shape, dtype=torch.float32, device=device)
+    dB = torch.zeros(packed.biases.shape, dtype=torch.float32, device=device)
+    if R * S == 0:
+        return dW, dB
+    o = origins.float().contiguous()
+    d = directions.float().contiguous()
+    z = z_vals.float().contiguous()
+    g = grad.float().contiguous()
+    lib = build.load_library()
+    nbytes = ctypes.c_longlong(0)
+    rc = lib.nm_fused_mlp_bwd_workspace(packed.desc.ctypes.data, packed.desc.size,
+                                        packed.freqs.ctypes.data, packed.freqs.size,
+                                        R * S, ctypes.byref(nbytes))
+    build.check(lib, rc, "fused_mlp_bwd workspace")
+    workspace = torch.empty(nbytes.value, dtype=torch.uint8, device=device)
+    with torch.cuda.device(device):
+        rc = lib.nm_fused_mlp_bwd(
+            o.data_ptr(), d.data_ptr(), z.data_ptr(), R, S, g.data_ptr(),
+            packed.weights.data_ptr(), packed.biases.data_ptr(),
+            packed.desc.ctypes.data, packed.desc.size,
+            packed.freqs.ctypes.data, packed.freqs.size,
+            workspace.data_ptr(), nbytes.value, dW.data_ptr(), dB.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    build.check(lib, rc, "fused_mlp_bwd launch")
+    bwd_launches += 1
+    return dW, dB
+
+
+def fused_mlp_bwd(packed: PackedMLP, origins: torch.Tensor, directions: torch.Tensor,
+                  z_vals: torch.Tensor, grad: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Weight and bias grads of the packed MLP's field at o + d*z for the
+    cotangent `grad`: CPU tensors take the plain version, CUDA tensors the
+    kernel."""
+    kind = z_vals.device.type
+    if kind == "cpu":
+        return fused_mlp_bwd_plain(packed, origins, directions, z_vals, grad)
+    if kind == "cuda":
+        return fused_mlp_bwd_cuda(packed, origins, directions, z_vals, grad)
+    raise ValueError(f"no fused MLP backward for {kind} tensors")
+
+
+class FusedMLPTrain(torch.autograd.Function):
+    """The training field: forward through the forward kernel, backward
+    through the backward kernel (the counterpart of JAX's custom-vjp
+    `fused_mlp_train`). Differentiable in the f32 packed weights and
+    biases only; rays get no grad (samples are detached upstream)."""
+
+    @staticmethod
+    def forward(ctx, weights, biases, meta, origins, directions, z_vals):
+        spec, desc, freqs = meta
+        packed = PackedMLP(spec, weights.to(torch.bfloat16).contiguous(),
+                           biases.contiguous(), desc, freqs)
+        ctx.meta = meta
+        ctx.save_for_backward(packed.weights, packed.biases, origins, directions, z_vals)
+        return fused_mlp_rays(packed, origins, directions, z_vals)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        weights, biases, origins, directions, z_vals = ctx.saved_tensors
+        spec, desc, freqs = ctx.meta
+        packed = PackedMLP(spec, weights, biases, desc, freqs)
+        dW, dB = fused_mlp_bwd(packed, origins, directions, z_vals, grad)
+        return dW, dB, None, None, None, None
+
+
 def fused_flexible_apply_rays(model: FlexibleNeRFModel, origins: torch.Tensor,
-                              directions: torch.Tensor, z_vals: torch.Tensor) -> torch.Tensor:
-    """Inference field straight from rays: o, d (R, 3), z (R, S) ->
-    CHANNELS-FIRST (4, R, S) (feed volume_render(channels_first=True))."""
-    return fused_mlp_rays(pack_weights(model), origins, directions, z_vals)
+                              directions: torch.Tensor, z_vals: torch.Tensor, *,
+                              inference: bool = False) -> torch.Tensor:
+    """The field straight from rays: o, d (R, 3), z (R, S) ->
+    CHANNELS-FIRST (4, R, S) (feed volume_render(channels_first=True)).
+    `inference=True` runs the forward kernel without autograd; the default
+    is the training Function, differentiable in the model's parameters."""
+    if inference:
+        with torch.no_grad():
+            return fused_mlp_rays(pack_weights(model), origins, directions, z_vals)
+    packed = pack_params(model)
+    return FusedMLPTrain.apply(packed.weights, packed.biases,
+                               (packed.spec, packed.desc, packed.freqs),
+                               origins, directions, z_vals)
 
 
 @torch.no_grad()

@@ -17,6 +17,32 @@ def cumprod_exclusive(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.cumprod(shifted, dim=-1).movedim(-1, dim)
 
 
+class _CumprodPositive(torch.autograd.Function):
+    """torch.cumprod along the last dim for inputs with no zeros. Its
+    backward is torch's own formula for that case, reversed_cumsum(out *
+    grad) / x, without the check for zeros that torch's cumprod backward
+    reads back to the host (a device sync in every training step)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return (out * grad).flip(-1).cumsum(-1).flip(-1) / x
+
+
+def cumprod_exclusive_positive(x: torch.Tensor) -> torch.Tensor:
+    """cumprod_exclusive along the last dim of an input with no zeros
+    (the transmittance factors 1 - alpha + 1e-10 of compositing)."""
+    shifted = torch.cat([torch.ones_like(x[..., :1]), x[..., :-1]], dim=-1)
+    return _CumprodPositive.apply(shifted)
+
+
 def img2mse(src: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Mean squared error between two images / ray batches."""
     return torch.mean((src - target) ** 2)

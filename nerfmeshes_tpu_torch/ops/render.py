@@ -13,7 +13,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from nerfmeshes_tpu_torch.ops.math import cumprod_exclusive
+from nerfmeshes_tpu_torch.ops.math import cumprod_exclusive_positive
 
 
 class RenderOutput(NamedTuple):
@@ -59,7 +59,7 @@ def volume_render(
         sigma = sigma + noise * radiance_field_noise_std
 
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)
-    transmittance = cumprod_exclusive(1.0 - alpha + 1e-10)
+    transmittance = cumprod_exclusive_positive(1.0 - alpha + 1e-10)
     mask_weights = (transmittance > attenuation_threshold).to(alpha.dtype)
     weights = alpha * transmittance
 
@@ -94,4 +94,4 @@ def density_weights(sigma: torch.Tensor, depth_values: torch.Tensor,
     geometry half of `volume_render`."""
     dists = _distances(depth_values, ray_directions)
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * dists)
-    return alpha * cumprod_exclusive(1.0 - alpha + 1e-10)
+    return alpha * cumprod_exclusive_positive(1.0 - alpha + 1e-10)

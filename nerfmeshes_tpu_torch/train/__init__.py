@@ -1,1 +1,1 @@
-"""Rendering and (from slice 2) training of the port."""
+"""Rendering and training of the port."""

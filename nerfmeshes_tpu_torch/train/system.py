@@ -1,12 +1,16 @@
-"""NeRFSystem, serving half (counterpart of nerfmeshes_tpu/train/system.py).
+"""NeRFSystem (counterpart of nerfmeshes_tpu/train/system.py).
 
 Builds the coarse/fine models from a config, initialises them from the
-config's seed, and renders rays at validation settings. Training
-(`fit`, `validate`), checkpoints and the optimizer come with slice 2.
+config's seed, trains them (`setup` + `fit`) and renders rays at
+validation settings. `validate`, checkpoints and early stopping are not
+ported yet (ROADMAP.md); `fit` raises NotImplementedError when the config
+asks for them, so nothing trains without what it asked for.
 """
 
 from __future__ import annotations
 
+import math
+import time
 from typing import Optional
 
 import torch
@@ -14,7 +18,14 @@ import torch
 from nerfmeshes_tpu_torch.models import build_model
 from nerfmeshes_tpu_torch.models.layers import TorchLinear
 from nerfmeshes_tpu_torch.ops.kernels.fused_mlp import fused_flexible_apply, supports_fused
-from nerfmeshes_tpu_torch.train.step import make_render_chunk, render_image, round_chunk
+from nerfmeshes_tpu_torch.train.optim import build_optimizer
+from nerfmeshes_tpu_torch.train.step import (
+    init_train_state,
+    make_render_chunk,
+    make_train_step,
+    render_image,
+    round_chunk,
+)
 
 
 def compute_dtype_from_cfg(cfg) -> torch.dtype:
@@ -48,19 +59,34 @@ def init_params(coarse, fine, generator: torch.Generator) -> None:
 
 
 class NeRFSystem:
-    """Owns the coarse/fine models and serves renders and point queries."""
+    """Owns the coarse/fine models, their optimizer and train state; trains
+    them and serves renders and point queries."""
 
     def __init__(self, cfg, device: Optional[torch.device] = None):
         self.cfg = cfg
         self.device = torch.device("cpu") if device is None else torch.device(device)
         # Drawn on the CPU so a seed gives the same weights on every device.
         self.coarse, self.fine = create_models(cfg)
-        generator = torch.Generator().manual_seed(int(cfg.experiment.randomseed))
-        init_params(self.coarse, self.fine, generator)
-        for model in (self.coarse, self.fine):
-            if model is not None:
-                model.to(self.device).eval()
+        seed = int(cfg.experiment.randomseed)
+        init_params(self.coarse, self.fine, torch.Generator().manual_seed(seed))
+        models = [m for m in (self.coarse, self.fine) if m is not None]
+        for model in models:
+            model.to(self.device).eval()
+        self.optimizer = build_optimizer([p for m in models for p in m.parameters()], cfg)
+        self.state = init_train_state(self.coarse, self.fine, self.optimizer, seed, self.device)
         self._render_chunk = None
+        self._train_fn = None
+        self._data = None
+
+    # -- setup ----------------------------------------------------------------
+    def setup(self, train_data: dict) -> "NeRFSystem":
+        """Take the training arrays (data/blender.py:train_arrays: targets,
+        poses, bounds on this system's device, hwf) and build the train step
+        and the chunk renderer."""
+        H, W, focal = train_data["hwf"]
+        self._data = train_data
+        self._train_fn = make_train_step(self.cfg, H=int(H), W=int(W), focal=float(focal))
+        return self.setup_eval()
 
     def setup_eval(self) -> "NeRFSystem":
         """Build the chunk renderer at validation settings."""
@@ -89,3 +115,51 @@ class NeRFSystem:
                 and directions is not None and supports_fused(model)):
             return fused_flexible_apply(model, points, directions)
         return model(points, directions)
+
+    # -- fit loop ----------------------------------------------------------------
+    def fit(self, max_steps: Optional[int] = None) -> dict:
+        """Run the train step to `max_steps` (default: experiment.train_iters)
+        in calls of experiment.steps_per_call steps. At the print cadence
+        (and at the end) the last step's metrics come to the host, with
+        train/rays_per_sec, and a non-finite loss stops the run
+        (nerfmeshes_tpu/train/system.py:427-500). Returns the last host
+        metrics."""
+        cfg = self.cfg
+        exp = cfg.experiment
+        if self._train_fn is None:
+            raise RuntimeError("call setup(train_data) before fit()")
+        if int(exp.validate_every) > 0 or bool(exp.use_early_stopping):
+            raise NotImplementedError(
+                "validation, checkpoints and early stopping are not ported yet (ROADMAP.md); "
+                "set experiment.validate_every = 0 and use_early_stopping = False")
+        max_steps = max_steps or int(exp.train_iters)
+        print_every = int(exp.print_every)
+        steps_per_call = int(exp.steps_per_call)
+        rays_per_step = int(cfg.nerf.train.num_random_rays)
+
+        last_metrics: dict = {}
+        t0 = time.perf_counter()
+        rays_done = 0
+        step = self.state.step
+        while step < max_steps:
+            self.state, metrics = self._train_fn(self.state, self._data)
+            step = self.state.step
+            rays_done += steps_per_call * rays_per_step
+            self.on_step(step, metrics)
+            if step % print_every < steps_per_call or step >= max_steps:
+                host = {k: float(v) for k, v in metrics.items() if k != "train/rgb_sum"}
+                host["train/rays_per_sec"] = rays_done / max(time.perf_counter() - t0, 1e-9)
+                loss = host.get("train/loss")
+                if loss is not None and not math.isfinite(loss):
+                    raise RuntimeError(
+                        f"Training diverged: train/loss={loss} at step {step} "
+                        f"(lr={host.get('train/lr')}). Restart with a lower lr, fewer rays, "
+                        "or sigma noise enabled.")
+                last_metrics = host
+                print(f"step {step}: " + " ".join(f"{k}={v:.6g}" for k, v in host.items()),
+                      flush=True)
+        return last_metrics
+
+    def on_step(self, step: int, metrics: dict) -> None:
+        """Hook called after every call of the train step with its device
+        metrics (subclasses; nothing here waits for the device)."""

@@ -1,12 +1,17 @@
-"""The fused MLP kernel module's plain version against the JAX fused
-forward, which on the CPU runs the Pallas kernel in interpret mode
-(nerfmeshes_tpu/ops/pallas/fused_mlp.py:549-550).
+"""The fused MLP kernel module's plain versions against the JAX fused
+forward and backward, which on the CPU run the Pallas kernels in
+interpret mode (nerfmeshes_tpu/ops/pallas/fused_mlp.py:549-550).
 
 Weights start in JAX and are carried across with state_dict_from_flax;
-inputs are made with numpy from a seed. Tolerance atol = rtol = 2e-2, the
-bf16 bar of tests/test_fused_mlp.py:37 (bf16 operands rounded at other
-points, a polynomial sine on the TPU side). The kernel itself runs only
-on a card: tests/test_torch_fused_mlp_gpu.py."""
+JAX grads share the params tree, so the same function maps them to torch
+names. Inputs and cotangents are made with numpy from a seed.
+Tolerances: forward atol = rtol = 2e-2, the bf16 bar of
+tests/test_fused_mlp.py:37 (bf16 operands rounded at other points, a
+polynomial sine on the TPU side); grads worst relative error < 5e-2, the
+bar of tests/test_fused_mlp.py:65, and on the layout edge cases the
+float64-truth criterion of tests/test_fused_mlp.py:127-166 (the sine's
+error can flip a ReLU mask that sits within ~1e-5 of zero). The kernels
+themselves run only on a card: tests/test_torch_fused_mlp_gpu.py."""
 
 import jax
 import jax.numpy as jnp
@@ -78,7 +83,8 @@ def test_rays_forward_matches_jax_kernel(rng, kw):
     want = j_fused.fused_flexible_apply_rays(jm, params, jnp.asarray(o), jnp.asarray(d),
                                              jnp.asarray(z), inference=True)
     before = fm.launches
-    got = fm.fused_flexible_apply_rays(tm, *(torch.from_numpy(a) for a in (o, d, z)))
+    got = fm.fused_flexible_apply_rays(tm, *(torch.from_numpy(a) for a in (o, d, z)),
+                                       inference=True)
     assert fm.launches == before
     assert got.shape == (4, 12, 9)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -151,3 +157,132 @@ def test_dispatch_never_falls_back(rng):
         fm.fused_mlp_rays(p, o.to("meta"), d.to("meta"), z.to("meta"))
     with pytest.raises(ValueError, match=r"\(3, 3\)"):
         fm.fused_mlp_rays(p, o[:2], d, z)
+
+
+# Interpreted Pallas backward: 8 rays x 8 samples, 64 points.
+BWD_R, BWD_S = 8, 8
+GRAD_BAR = 5e-2
+
+
+def _worst_rel(want: dict, got: dict) -> float:
+    return max(float((got[k] - want[k]).abs().max() / (want[k].abs().max() + 1e-6))
+               for k in want)
+
+
+def _jax_grads(jm, params, kw, o, d, z, cot):
+    def loss(p):
+        out = j_fused.fused_flexible_apply_rays(jm, p, jnp.asarray(o), jnp.asarray(d),
+                                                jnp.asarray(z), inference=False)
+        return jnp.sum(out * jnp.asarray(cot))
+
+    g = jax.grad(loss)(params)
+    return state_dict_from_flax(jax.tree_util.tree_map(np.asarray, g), kw)
+
+
+def _port_grads(tm, o, d, z, cot):
+    before = (fm.launches, fm.bwd_launches)
+    out = fm.fused_flexible_apply_rays(tm, *(torch.from_numpy(a) for a in (o, d, z)))
+    (out * torch.from_numpy(cot)).sum().backward()
+    assert (fm.launches, fm.bwd_launches) == before, "CPU tensors must never launch a kernel"
+    return {k: p.grad for k, p in tm.named_parameters()}
+
+
+def _case(rng, kw):
+    jm, params, tm = _pair(kw)
+    o, d, z = _rays(rng, BWD_R, BWD_S)
+    cot = rng.standard_normal((4, BWD_R, BWD_S)).astype(np.float32)
+    want = _jax_grads(jm, params, kw, o, d, z, cot)
+    got = _port_grads(tm, o, d, z, cot)
+    assert set(got) == set(want)
+    return params, (o, d, z, cot), want, got
+
+
+@pytest.mark.parametrize("kw", ARCHS[:3])
+def test_backward_matches_jax_kernel(rng, kw):
+    """The training Function (plain forward and backward on the CPU)
+    against jax.grad through the JAX fused path (Pallas backward), on the
+    architectures of tests/test_fused_mlp.py:29."""
+    _, _, want, got = _case(rng, kw)
+    worst = _worst_rel(want, got)
+    assert worst < GRAD_BAR, f"worst grad rel err {worst}"
+
+
+@pytest.mark.parametrize("kw", ARCHS[3:])
+def test_backward_edge_architectures_vs_f64(rng, kw):
+    """The layout edge cases of tests/test_fused_mlp.py:84-99 (more bands,
+    linear bands, no raw-input lanes, a deep trunk): with 64 points one
+    ReLU mask flipped by the two sines' 1e-5 difference moves a grad by
+    several percent, in either stack. So, as tests/test_fused_mlp.py:127-166
+    does, both are judged against a float64 truth (the f64 flax model on the
+    same weights and points): the port no worse than twice the JAX fused
+    path, or within 5e-2."""
+    params, (o, d, z, cot), want, got = _case(rng, kw)
+    m64 = JaxFlexible(**kw, dtype=jnp.float64)
+    pts = (o[:, None] + d[:, None] * z[..., None]).reshape(-1, 3)
+    dirs = np.repeat(d, BWD_S, axis=0)
+    with jax.enable_x64(True):
+        p64 = jax.tree_util.tree_map(lambda x: jnp.asarray(np.asarray(x), jnp.float64), params)
+        cot64 = jnp.asarray(cot.reshape(4, -1).T, jnp.float64)
+        g64 = jax.grad(lambda q: jnp.sum(m64.apply(q, jnp.asarray(pts, jnp.float64),
+                                                   jnp.asarray(dirs, jnp.float64)) * cot64))(p64)
+        g64 = jax.tree_util.tree_map(lambda x: np.asarray(x, np.float64), g64)
+    truth = {k: v.double() for k, v in state_dict_from_flax(g64, kw).items()}
+    err_jax = _worst_rel(truth, {k: v.double() for k, v in want.items()})
+    err_port = _worst_rel(truth, {k: v.double() for k, v in got.items()})
+    assert err_port < max(2.0 * err_jax, GRAD_BAR), (
+        f"port grads ({err_port:.4f} vs f64) worse than the JAX fused path ({err_jax:.4f})")
+
+
+def test_grads_are_f32_and_unrounded(rng):
+    """The Function is differentiable in the f32 packed weights, so the
+    grads reach the f32 parameters without a bf16 rounding."""
+    _, _, tm = _pair(BASE)
+    o, d, z = (torch.from_numpy(a) for a in _rays(rng, 6, 5))
+    out = fm.fused_flexible_apply_rays(tm, o, d, z)
+    assert out.requires_grad and out.dtype == torch.float32
+    out.square().sum().backward()
+    for name, p in tm.named_parameters():
+        assert p.grad is not None and p.grad.dtype == torch.float32, name
+    weight = tm.layers_xyz[0].weight.grad
+    assert (weight.bfloat16().float() != weight).any(), "weight grads were rounded to bf16"
+
+
+def test_bwd_plain_is_the_function_backward(rng):
+    """fused_mlp_bwd_plain on the packed weights gives the packed grads
+    the Function hands to autograd; padding columns stay out of the
+    parameters' grads."""
+    _, _, tm = _pair(BASE)
+    o, d, z = (torch.from_numpy(a) for a in _rays(rng, 5, 4))
+    cot = torch.from_numpy(rng.standard_normal((4, 5, 4)).astype(np.float32))
+    packed = fm.pack_params(tm)
+    packed.weights.retain_grad()
+    packed.biases.retain_grad()
+    out = fm.FusedMLPTrain.apply(packed.weights, packed.biases,
+                                 (packed.spec, packed.desc, packed.freqs), o, d, z)
+    (out * cot).sum().backward()
+    dW, dB = fm.fused_mlp_bwd_plain(fm.pack_weights(tm), o, d, z, cot)
+    assert torch.equal(packed.weights.grad, dW) and torch.equal(packed.biases.grad, dB)
+    spec = packed.spec
+    w_grad, _ = packed.gemm(0, spec.hidden, spec.pxp, dW, dB)
+    torch.testing.assert_close(tm.layer1.weight.grad, w_grad[:, :spec.pe_x])
+    with pytest.raises(ValueError, match="channels-first"):
+        fm.fused_mlp_bwd_plain(fm.pack_weights(tm), o, d, z, cot.movedim(0, -1))
+
+
+def test_inference_path_builds_no_graph(rng):
+    _, _, tm = _pair(BASE)
+    o, d, z = (torch.from_numpy(a) for a in _rays(rng, 3, 2))
+    out = fm.fused_flexible_apply_rays(tm, o, d, z, inference=True)
+    assert not out.requires_grad
+    torch.testing.assert_close(out, fm.fused_flexible_apply_rays(tm, o, d, z).detach())
+
+
+def test_backward_dispatch_never_falls_back(rng):
+    _, _, tm = _pair(BASE)
+    p = fm.pack_weights(tm)
+    o, d, z = (torch.from_numpy(a) for a in _rays(rng, 3, 2))
+    cot = torch.zeros((4, 3, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        fm.fused_mlp_bwd_cuda(p, o, d, z, cot)
+    with pytest.raises(ValueError):
+        fm.fused_mlp_bwd(p, o.to("meta"), d.to("meta"), z.to("meta"), cot.to("meta"))

@@ -1,4 +1,5 @@
-"""The fused MLP CUDA kernel against its plain version, on the card.
+"""The fused MLP CUDA kernels (forward and backward) against their plain
+versions, on the card.
 
 A CUDA kernel has no CPU mode, so these tests carry the `gpu` marker and
 skip without a card. On a GPU host:
@@ -6,9 +7,11 @@ skip without a card. On a GPU host:
     python -m pytest tests/test_torch_fused_mlp_gpu.py -m gpu --noconftest -q
 
 (`--noconftest`: tests/conftest.py imports jax, which the GPU host does
-not need.) Tolerance atol = rtol = 2e-2, the bf16 bar of
-tests/test_fused_mlp.py:37; kernel and plain version share numerics but
-sum in other orders.
+not need.) Tolerances: forward atol = rtol = 2e-2, the bf16 bar of
+tests/test_fused_mlp.py:37; backward worst relative error per weight or
+bias < 5e-2, the bar of tests/test_fused_mlp.py:65. Kernel and plain
+version share numerics but sum in other orders, so a bf16 rounding of a
+cotangent can fall the other way.
 """
 
 import numpy as np
@@ -77,3 +80,92 @@ def test_kernel_points_entry_and_empty_input(cuda):
     before = fm.launches
     empty = fm.fused_mlp_cuda(fm.pack_weights(model), o[:0], d[:0], z[:0])
     assert empty.shape == (4, 0, 1) and fm.launches == before
+
+
+GRAD_BAR = 5e-2
+
+
+def _grad_case(kw, R, S, device, seed=0):
+    torch.manual_seed(seed)
+    model = FlexibleNeRFModel(**kw, compute_dtype=torch.bfloat16, device=device)
+    packed = fm.pack_weights(model)
+    o, d, z = _rays(R, S, device, seed)
+    rng = np.random.default_rng(seed + 1)
+    cot = torch.from_numpy(rng.standard_normal((4, R, S)).astype(np.float32)).to(device)
+    return packed, (o, d, z, cot)
+
+
+def _worst_rel(packed, got, want):
+    g, w = packed.segments(*got), packed.segments(*want)
+    return max(float((g[k] - w[k]).abs().max() / (w[k].abs().max() + 1e-6)) for k in w)
+
+
+@pytest.mark.parametrize("kw", [LEGO, ARCHS[4]], ids=["lego", "edge"])
+@pytest.mark.parametrize("R,S", [(2048, 64), (2048, 192), (37, 5), (1000, 7)])
+def test_bwd_kernel_matches_plain(cuda, kw, R, S):
+    """Lego width at the train shapes, the edge of supports_fused (14
+    layers, 24 bands), and ragged point counts (185: under one 64-point
+    tile's multiple; 7000: past one 4096-point dW chunk)."""
+    if kw is not LEGO and R * S > 10000:
+        pytest.skip("the edge architecture is checked at the ragged shapes")
+    packed, args = _grad_case(kw, R, S, cuda)
+    before = fm.bwd_launches
+    got = fm.fused_mlp_bwd(packed, *args)
+    torch.cuda.synchronize()
+    assert fm.bwd_launches == before + 1
+    want = fm.fused_mlp_bwd_plain(packed, *args)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        assert bool(torch.isfinite(g).all())
+    worst = _worst_rel(packed, got, want)
+    assert worst < GRAD_BAR, f"worst grad rel err {worst}"
+
+
+def test_bwd_kernel_is_deterministic(cuda):
+    """No float atomics: two launches on the same inputs agree bit for bit."""
+    packed, args = _grad_case(LEGO, 2048, 64, cuda)
+    first = fm.fused_mlp_bwd_cuda(packed, *args)
+    second = fm.fused_mlp_bwd_cuda(packed, *args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_training_function_launches_both_kernels(cuda):
+    model = FlexibleNeRFModel(**LEGO, compute_dtype=torch.bfloat16, device=cuda)
+    o, d, z = _rays(256, 16, cuda)
+    before = (fm.launches, fm.bwd_launches)
+    out = fm.fused_flexible_apply_rays(model, o, d, z)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert (fm.launches, fm.bwd_launches) == (before[0] + 1, before[1] + 1)
+    for name, p in model.named_parameters():
+        assert p.grad is not None and p.grad.dtype == torch.float32, name
+        assert bool(torch.isfinite(p.grad).all()), name
+
+
+def test_train_step_never_waits_for_the_device(cuda):
+    """A call of the train step (sampling, both passes through both
+    kernels, Adam) enqueues without one device-to-host sync."""
+    from nerfmeshes_tpu_torch.config import get_default_cfg
+    from nerfmeshes_tpu_torch.train.system import NeRFSystem
+
+    cfg = get_default_cfg()
+    cfg.nerf.train.num_random_rays = 256
+    cfg.nerf.train.perturb = True
+    cfg.experiment.steps_per_call = 2
+    rng = np.random.default_rng(0)
+    poses = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+    poses[:, 2, 3] = 4.0
+    data = {"targets": torch.from_numpy(rng.uniform(0, 1, (3, 8, 8, 3)).astype(np.float32)).to(cuda),
+            "poses": torch.from_numpy(poses).to(cuda),
+            "bounds": torch.tensor([2.0, 6.0], device=cuda), "hwf": (8, 8, 10.0)}
+    system = NeRFSystem(cfg, device=cuda).setup(data)
+    system.state, _ = system._train_fn(system.state, data)  # first call: allocations
+    torch.cuda.synchronize()
+    launches = (fm.launches, fm.bwd_launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        system.state, metrics = system._train_fn(system.state, data)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (fm.launches - launches[0], fm.bwd_launches - launches[1]) == (4, 4)
+    assert np.isfinite(float(metrics["train/loss"]))

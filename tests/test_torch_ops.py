@@ -48,6 +48,20 @@ def test_cumprod_exclusive(rng, axis):
     assert_close(t_math.cumprod_exclusive(T(x), axis), j_math.cumprod_exclusive(J(x), axis))
 
 
+def test_cumprod_exclusive_positive_grads(rng):
+    """Same values as cumprod_exclusive and the same grads as autograd
+    through torch.cumprod, on inputs with no zeros."""
+    x = rng.uniform(1e-3, 1.5, (5, 9)).astype(np.float32)
+    g = rng.standard_normal((5, 9)).astype(np.float32)
+    a, b = T(x).requires_grad_(), T(x).requires_grad_()
+    got = t_math.cumprod_exclusive_positive(a)
+    want = t_math.cumprod_exclusive(b)
+    assert torch.equal(got, want)
+    (got * T(g)).sum().backward()
+    (want * T(g)).sum().backward()
+    torch.testing.assert_close(a.grad, b.grad, atol=1e-6, rtol=1e-5)
+
+
 def test_img2mse_mse2psnr(rng):
     a, b = rng.uniform(size=(2, 16, 3)).astype(np.float32)
     mse_t, mse_j = t_math.img2mse(T(a), T(b)), j_math.img2mse(J(a), J(b))
