@@ -1,7 +1,8 @@
-// Shared by the fused FlexibleNeRF MLP kernels (fused_mlp_fwd.cu and
-// fused_mlp_bwd.cu): the descriptor of a packed model, the tile of points and
-// positional encoding a block builds in shared memory, and the bias + ReLU
-// product both kernels run for every layer's forward.
+// Shared by the fused FlexibleNeRF MLP kernels (fused_mlp_fwd.cu,
+// fused_mlp_bwd.cu and fused_sigma.cu): the descriptor of a packed model, the
+// tile of points and positional encoding a block builds in shared memory, the
+// bias + ReLU product every kernel runs for every layer's forward, and the
+// trunk and alpha head the forward and sigma kernels share.
 //
 // Weight layout (packed in nerfmeshes_tpu_torch/ops/kernels/fused_mlp.py):
 // one flat bf16 buffer holding, per product (layer1, trunk 0..L-2, feat,
@@ -90,6 +91,18 @@ __device__ __forceinline__ float pe_value(const float* c, int j, int inc, int L,
   return 0.f;  // padding lanes
 }
 
+// One encoding of the tile's BM points: pe[i * peld + j] = PE(c_i)[j] in bf16
+// for j < width (lanes past the encoding read 0), c_i the 3 floats at
+// c + i * stride. Every PE tile of every kernel is built here, so the
+// kernels round PE alike. No barrier.
+__device__ __forceinline__ void pe_tile(const float* c, int stride, int inc, int L,
+                                        const float* f, int width, bf16* pe, int peld) {
+  for (int e = threadIdx.x; e < BM * width; e += THREADS) {
+    const int i = e / width, j = e % width;
+    pe[i * peld + j] = __float2bfloat16(pe_value(c + i * stride, j, inc, L, f));
+  }
+}
+
 // The block's tile of BM points: pts[BM][6] = (o + d*z, d) and the PE tile
 // pe[BM][peld] = [PE(xyz) padded to pxp | PE(dir) padded to pdp], bf16.
 // Points past n_pts read zeros. Ends with a block barrier.
@@ -118,16 +131,8 @@ __device__ void load_tile_inputs(const Desc& d, const float* __restrict__ origin
   }
   __syncthreads();
 
-  const int pxp = d.pxp, pdp = d.pdp;
-  for (int e = tid; e < BM * pxp; e += THREADS) {
-    const int i = e / pxp, j = e % pxp;
-    pe[i * peld + j] = __float2bfloat16(pe_value(pts + i * 6, j, d.inc_x, d.lx, d.fx));
-  }
-  for (int e = tid; e < BM * pdp; e += THREADS) {
-    const int i = e / pdp, j = e % pdp;
-    pe[i * peld + pxp + j] =
-        __float2bfloat16(pe_value(pts + i * 6 + 3, j, d.inc_d, d.ld, d.fd));
-  }
+  pe_tile(pts, 6, d.inc_x, d.lx, d.fx, d.pxp, pe, peld);
+  pe_tile(pts + 3, 6, d.inc_d, d.ld, d.fd, d.pdp, pe + d.pxp, peld);
   __syncthreads();
 }
 
@@ -191,6 +196,46 @@ __device__ void gemm_bias_act(const bf16* __restrict__ a1, int lda1, int k1,
       }
     }
   }
+}
+
+// layer1 (no activation) then the ReLU trunk, PE(xyz) skips where skip_mask
+// says, on a tile whose PE(xyz) occupies columns [0, pxp) of pe. Ping-pongs
+// between act0 and act1 and returns the one holding the trunk output. Ends
+// with a block barrier. The forward and the sigma kernel both run this, so
+// their trunks are one arithmetic.
+template <int H>
+__device__ __forceinline__ bf16* trunk_forward(const Desc& d, const bf16* pe, int peld,
+                                               bf16* act0, bf16* act1,
+                                               const bf16* __restrict__ W,
+                                               const float* __restrict__ B,
+                                               float* wscratch) {
+  constexpr int ALD = H + 8;
+  gemm_bias_act(pe, peld, d.pxp, nullptr, 0, 0, W + d.w_off[0], B + d.b_off[0], H,
+                act0, ALD, false, wscratch);
+  __syncthreads();
+  bf16* cur = act0;
+  bf16* nxt = act1;
+  for (int i = 0; i < d.num_layers - 1; ++i) {
+    const bool skip = (d.skip_mask >> i) & 1;
+    gemm_bias_act(cur, ALD, H, pe, peld, skip ? d.pxp : 0, W + d.w_off[1 + i],
+                  B + d.b_off[1 + i], H, nxt, ALD, true, wscratch);
+    __syncthreads();
+    bf16* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  return cur;
+}
+
+// Raw sigma (the alpha head, no activation) off one trunk output row x.
+template <int H>
+__device__ __forceinline__ float alpha_head(const Desc& d, const bf16* x,
+                                            const bf16* __restrict__ W,
+                                            const float* __restrict__ B) {
+  const bf16* wa = W + d.wa_off;
+  float s = 0.f;
+  for (int k = 0; k < H; ++k) s += __bfloat162float(x[k]) * __bfloat162float(wa[k]);
+  return s + B[d.ba_off];
 }
 
 }  // namespace

@@ -68,32 +68,13 @@ fused_mlp_fwd_kernel(const Desc desc, const float* __restrict__ origins,
   // Points o + d*z, their ray's direction, and the PE tile.
   load_tile_inputs(d, origins, dirs, z, n_pts, samples, base, pts, pe, peld);
 
-  // layer1: PE(xyz) -> hidden, no activation.
-  gemm_bias_act(pe, peld, pxp, nullptr, 0, 0, W + d.w_off[0], B + d.b_off[0], H,
-                act0, ALD, false, wscratch);
-  __syncthreads();
-
-  bf16* cur = act0;
-  bf16* nxt = act1;
-  for (int i = 0; i < d.num_layers - 1; ++i) {
-    const bool skip = (d.skip_mask >> i) & 1;
-    gemm_bias_act(cur, ALD, H, pe, peld, skip ? pxp : 0, W + d.w_off[1 + i],
-                  B + d.b_off[1 + i], H, nxt, ALD, true, wscratch);
-    __syncthreads();
-    bf16* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
+  // layer1 + trunk.
+  bf16* cur = trunk_forward<H>(d, pe, peld, act0, act1, W, B, wscratch);
+  bf16* nxt = cur == act0 ? act1 : act0;
 
   // alpha head (raw sigma) off the trunk output, then the feat head.
   const int L = d.num_layers;
-  for (int p = tid; p < BM; p += THREADS) {
-    const bf16* x = cur + p * ALD;
-    const bf16* wa = W + d.wa_off;
-    float s = 0.f;
-    for (int k = 0; k < H; ++k) s += __bfloat162float(x[k]) * __bfloat162float(wa[k]);
-    alpha[p] = s + B[d.ba_off];
-  }
+  for (int p = tid; p < BM; p += THREADS) alpha[p] = alpha_head<H>(d, cur + p * ALD, W, B);
   gemm_bias_act(cur, ALD, H, nullptr, 0, 0, W + d.w_off[L], B + d.b_off[L], H, nxt,
                 ALD, true, wscratch);
   __syncthreads();

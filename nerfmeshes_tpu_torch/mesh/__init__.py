@@ -1,0 +1,38 @@
+"""Mesh extraction with appearance (counterpart of nerfmeshes_tpu/mesh/,
+without surface_ray, which is queued in ROADMAP.md)."""
+
+from nerfmeshes_tpu_torch.mesh.export import export_obj, export_ply, import_obj
+from nerfmeshes_tpu_torch.mesh.extract import (
+    MeshArgs,
+    SparseDensityGrid,
+    export_marching_cubes,
+    extract_geometry,
+    extract_geometry_with_super_sampling,
+    extract_iso_level,
+    extract_radiance,
+)
+from nerfmeshes_tpu_torch.mesh.metrics import (
+    chamfer_between_meshes,
+    chamfer_distance,
+    normalize_mesh,
+    sample_points_from_mesh,
+)
+from nerfmeshes_tpu_torch.mesh.native import marching_cubes
+
+__all__ = [
+    "MeshArgs",
+    "export_marching_cubes",
+    "SparseDensityGrid",
+    "extract_geometry",
+    "extract_geometry_with_super_sampling",
+    "extract_iso_level",
+    "extract_radiance",
+    "export_obj",
+    "export_ply",
+    "import_obj",
+    "chamfer_between_meshes",
+    "chamfer_distance",
+    "normalize_mesh",
+    "sample_points_from_mesh",
+    "marching_cubes",
+]

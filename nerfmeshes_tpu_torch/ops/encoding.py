@@ -34,7 +34,7 @@ def positional_encoding(
         frequency_bands(num_functions, log_sampling), dtype=x.dtype, device=x.device
     )
     # (..., D, L) -> (..., D*L): the frequencies of one input dim are contiguous.
-    scaled = (x[..., None] * bands).reshape(*x.shape[:-1], -1)
+    scaled = (x[..., None] * bands).reshape(*x.shape[:-1], x.shape[-1] * bands.shape[0])
     parts = [x] if include_input else []
     parts += [torch.sin(scaled), torch.cos(scaled)]
     return torch.cat(parts, dim=-1)

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Every `nerfmeshes_tpu_torch/csrc/*.cu` is compiled on first use, one nvcc
+Every `nerfmeshes_tpu_torch/csrc/*.cu` (the fused MLP forward and
+backward, the sigma-only field) is compiled on first use, one nvcc
 per source, all started together, and the objects are linked into one
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds, not minutes):
@@ -50,6 +51,10 @@ SIGNATURES = {
     "nm_fused_mlp_bwd": (
         _I,
         [_P, _P, _P, _LL, _I, _P, _P, _P, _P, _I, _P, _I, _P, _LL, _P, _P, _P],
+    ),
+    "nm_fused_sigma": (
+        _I,
+        [_P, _LL, _P, _P, _P, _I, _P, _I, _P, _P],
     ),
     "nm_cuda_error_string": (ctypes.c_char_p, [_I]),
 }

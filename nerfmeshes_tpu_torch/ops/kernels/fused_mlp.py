@@ -1,13 +1,17 @@
-"""Fused FlexibleNeRF MLP, forward and backward: the CUDA kernels, their
-plain PyTorch versions, the weight packing all of them read, the autograd
-Function of the training path, and the dispatch between them.
+"""Fused FlexibleNeRF MLP, forward, backward and sigma-only: the CUDA
+kernels, their plain PyTorch versions, the weight packing all of them
+read, the autograd Function of the training path, and the dispatch
+between them.
 
 Forward: replaces the Pallas TPU kernel `_fwd_kernel`
 (nerfmeshes_tpu/ops/pallas/fused_mlp.py:387). Backward: replaces
 `_bwd_kernel` (:397), the custom-vjp backward of `fused_mlp_train`
 (:623-629). Both are reached through `fused_flexible_apply_rays` /
-`fused_flexible_apply`. The kernels are `nerfmeshes_tpu_torch/csrc/
-fused_mlp_{fwd,bwd}.cu`: CUDA C++ for sm_90a, bound through ctypes
+`fused_flexible_apply`. Sigma-only: replaces `_sigma_kernel` (:675), the
+mesh grid's density query, reached through `fused_sigma_points`; it
+reads the forward's packed weights and runs its trunk and alpha head.
+The kernels are `nerfmeshes_tpu_torch/csrc/fused_mlp_{fwd,bwd}.cu` and
+`csrc/fused_sigma.cu`: CUDA C++ for sm_90a, bound through ctypes
 (ops/kernels/build.py).
 
 What bounds the forward on an H100: ~1.2 MFLOP per point at lego width
@@ -27,9 +31,10 @@ only as the next product's operand (the TPU kernel's numerics). The
 backward stashes activations in bf16, takes ReLU masks from the stash,
 multiplies bf16 cotangents, and sums bias grads in f32.
 
-Dispatch: CPU tensors take `fused_mlp_plain` / `fused_mlp_bwd_plain`;
-CUDA tensors launch the kernels or raise. `launches` and `bwd_launches`
-count kernel launches and nothing else.
+Dispatch: CPU tensors take `fused_mlp_plain` / `fused_mlp_bwd_plain` /
+`fused_sigma_plain`; CUDA tensors launch the kernels or raise.
+`launches`, `bwd_launches` and `sigma_launches` count kernel launches and
+nothing else.
 
 Training: `FusedMLPTrain` takes the f32 packed weights and biases, built
 from the model's parameters by differentiable cat/pad (`pack_params`), and
@@ -60,6 +65,7 @@ from nerfmeshes_tpu_torch.ops.kernels import build
 # Kernel launches since the last reset (callers may set them to 0).
 launches = 0  # forward kernel
 bwd_launches = 0  # backward kernel
+sigma_launches = 0  # sigma-only kernel
 
 # What the CUDA kernel takes (csrc/fused_mlp_fwd.cu): a hidden width it is
 # instantiated for, at most MAX_BANDS PE bands per encoding and
@@ -276,6 +282,28 @@ def _layout(out_n4: torch.Tensor, R: int, S: int, channels_first: bool) -> torch
     return out_n4.reshape(R, S, 4)
 
 
+def _layer(packed: PackedMLP, a: torch.Tensor, g: int, n: int, relu: bool) -> torch.Tensor:
+    """Product g on bf16 operands with an f32 sum, then f32 bias (+ ReLU)."""
+    w, b = packed.gemm(g, n, a.shape[1])
+    y = matmul_f32_acc(a, w, torch.bfloat16) + b
+    return y.clamp_min(0.0) if relu else y
+
+
+def _trunk_alpha_plain(packed: PackedMLP, pe_x: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """layer1 + trunk on the padded PE(xyz), then the alpha head: (trunk
+    output (N, H) f32, raw sigma (N, 1) f32). The forward and the sigma
+    plain versions share it, as the kernels share trunk_forward."""
+    spec = packed.spec
+    bf16 = torch.bfloat16
+    x = _layer(packed, pe_x, 0, spec.hidden, relu=False)
+    for i in range(spec.num_layers - 1):
+        a = torch.cat([x.to(bf16), pe_x.to(bf16)], dim=1) if i in spec.skip_layers else x
+        x = _layer(packed, a, 1 + i, spec.hidden, relu=True)
+    wa, ba, _, _ = packed.heads()
+    return x, matmul_f32_acc(x, wa, bf16) + ba
+
+
 def fused_mlp_plain(packed: PackedMLP, origins: torch.Tensor, directions: torch.Tensor,
                     z_vals: torch.Tensor, *, channels_first: bool = True) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on the same packed weights and
@@ -291,19 +319,11 @@ def fused_mlp_plain(packed: PackedMLP, origins: torch.Tensor, directions: torch.
     pe_x = _padded_pe(pts, spec.L_x, spec.include_x, spec.log_x, spec.pxp)
     pe_d = _padded_pe(dirs, spec.L_d, spec.include_d, spec.log_d, spec.pdp)
 
-    def layer(a, g, n, relu):
-        w, b = packed.gemm(g, n, a.shape[1])
-        y = matmul_f32_acc(a, w, bf16) + b
-        return y.clamp_min(0.0) if relu else y
-
-    x = layer(pe_x, 0, H, relu=False)
-    for i in range(L - 1):
-        a = torch.cat([x.to(bf16), pe_x.to(bf16)], dim=1) if i in spec.skip_layers else x
-        x = layer(a, 1 + i, H, relu=True)
-    wa, ba, wr, br = packed.heads()
-    alpha = matmul_f32_acc(x, wa, bf16) + ba
-    feat = layer(x, L, H, relu=True)
-    h = layer(torch.cat([feat.to(bf16), pe_d.to(bf16)], dim=1), L + 1, H // 2, relu=True)
+    x, alpha = _trunk_alpha_plain(packed, pe_x)
+    _, _, wr, br = packed.heads()
+    feat = _layer(packed, x, L, H, relu=True)
+    h = _layer(packed, torch.cat([feat.to(bf16), pe_d.to(bf16)], dim=1), L + 1, H // 2,
+               relu=True)
     rgb = torch.sigmoid(matmul_f32_acc(h, wr, bf16) + br)
     return _layout(torch.cat([rgb, alpha], dim=1), R, S, channels_first)
 
@@ -358,6 +378,71 @@ def fused_mlp_rays(packed: PackedMLP, origins: torch.Tensor, directions: torch.T
     raise ValueError(f"no fused MLP for {kind} tensors")
 
 
+def _check_points(points: torch.Tensor) -> None:
+    if points.dim() != 2 or points.shape[1] != 3:
+        raise ValueError(f"points must be (N, 3), got {tuple(points.shape)}")
+
+
+def fused_sigma_plain(packed: PackedMLP, points: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the sigma kernel: the forward's trunk and
+    alpha head on PE(points), with the forward's numerics. (N, 3) -> (N,)
+    f32 raw sigma (before any ReLU)."""
+    _check_points(points)
+    spec = packed.spec
+    pe_x = _padded_pe(points.float(), spec.L_x, spec.include_x, spec.log_x, spec.pxp)
+    return _trunk_alpha_plain(packed, pe_x)[1][:, 0]
+
+
+def fused_sigma_cuda(packed: PackedMLP, points: torch.Tensor) -> torch.Tensor:
+    """Launch the sigma kernel (csrc/fused_sigma.cu). (N, 3) f32 on one CUDA
+    device -> (N,) f32."""
+    global sigma_launches
+    _check_points(points)
+    device = points.device
+    if device.type != "cuda":
+        raise ValueError(f"fused_sigma_cuda needs CUDA tensors, got {device}")
+    for name, t in (("weights", packed.weights), ("biases", packed.biases)):
+        if t.device != device:
+            raise ValueError(f"packed {name} on {t.device}, points on {device}")
+    if packed.weights.dtype != torch.bfloat16:
+        raise ValueError(f"packed weights must be bf16, got {packed.weights.dtype}")
+    p = points.float().contiguous()
+    out = torch.empty(p.shape[0], dtype=torch.float32, device=device)
+    if p.shape[0] == 0:
+        return out
+    lib = build.load_library()
+    with torch.cuda.device(device):
+        rc = lib.nm_fused_sigma(
+            p.data_ptr(), p.shape[0], packed.weights.data_ptr(), packed.biases.data_ptr(),
+            packed.desc.ctypes.data, packed.desc.size,
+            packed.freqs.ctypes.data, packed.freqs.size,
+            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+        )
+    build.check(lib, rc, "fused_sigma launch")
+    sigma_launches += 1
+    return out
+
+
+@torch.no_grad()
+def fused_sigma_points(packed_or_model: PackedMLP | FlexibleNeRFModel,
+                       points: torch.Tensor) -> torch.Tensor:
+    """Raw sigma of the field at (..., 3) points -> (...,) f32, the
+    counterpart of JAX's fused_sigma_points (inference only: JAX stops the
+    gradient, here no graph is built). CPU tensors take the plain version,
+    CUDA tensors the kernel."""
+    packed = (packed_or_model if isinstance(packed_or_model, PackedMLP)
+              else pack_weights(packed_or_model))
+    flat = points.reshape(-1, 3)
+    kind = flat.device.type
+    if kind == "cpu":
+        out = fused_sigma_plain(packed, flat)
+    elif kind == "cuda":
+        out = fused_sigma_cuda(packed, flat)
+    else:
+        raise ValueError(f"no fused sigma for {kind} tensors")
+    return out.reshape(points.shape[:-1])
+
+
 def _check_grad(grad: torch.Tensor, z_vals: torch.Tensor) -> None:
     want = (4, *z_vals.shape)
     if tuple(grad.shape) != want:
@@ -402,21 +487,16 @@ def fused_mlp_bwd_plain(packed: PackedMLP, origins: torch.Tensor, directions: to
 
     # Forward recompute; xs[i] is trunk layer i's input (bf16 stash), xs[-1]
     # the trunk output.
-    def layer(a, g, n, relu):
-        w, b = packed.gemm(g, n, a.shape[1])
-        y = matmul_f32_acc(a, w, bf16) + b
-        return y.clamp_min(0.0) if relu else y
-
     def skip_input(x, i):
         return torch.cat([x, pe_x], dim=1) if i in spec.skip_layers else x
 
-    xs = [rnd(layer(pe_x, 0, H, relu=False))]
+    xs = [rnd(_layer(packed, pe_x, 0, H, relu=False))]
     for i in range(L - 1):
-        xs.append(rnd(layer(skip_input(xs[-1], i), 1 + i, H, relu=True)))
+        xs.append(rnd(_layer(packed, skip_input(xs[-1], i), 1 + i, H, relu=True)))
     trunk_out = xs[-1]
-    feat = rnd(layer(trunk_out, L, H, relu=True))
+    feat = rnd(_layer(packed, trunk_out, L, H, relu=True))
     dir_in = torch.cat([feat, pe_d], dim=1)
-    h = rnd(layer(dir_in, L + 1, H // 2, relu=True))
+    h = rnd(_layer(packed, dir_in, L + 1, H // 2, relu=True))
     wa, _, wr, br = packed.heads()
     rgb = torch.sigmoid(matmul_f32_acc(h, wr, bf16) + br)
 

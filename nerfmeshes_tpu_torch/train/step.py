@@ -262,6 +262,14 @@ def render_image(
     origins = torch.as_tensor(origins, dtype=torch.float32, device=directions.device)
     R = directions.shape[0]
     origins = torch.reshape(origins, (-1, 3)).expand(R, 3)
+    names = [n for n in RenderOutput._fields if fields is None or n in fields]
+
+    def keep(bundle):
+        """The chunk's wanted maps only: the per-sample weights of every
+        chunk of a million-ray query would not fit the card."""
+        if bundle is None:
+            return None
+        return {name: getattr(bundle, name) for name in names}
 
     pending = []
     for start in range(0, R, chunk_size):
@@ -271,17 +279,15 @@ def render_image(
         if pad:
             o = torch.cat([o, o[-1:].expand(pad, 3)], dim=0)
             d = torch.cat([d, d[-1:].expand(pad, 3)], dim=0)
-        pending.append(render_chunk(o.contiguous(), d.contiguous(), near, far))
+        coarse, fine = render_chunk(o.contiguous(), d.contiguous(), near, far)
+        pending.append((keep(coarse), keep(fine)))
 
     def gather(bundles):
         if not bundles or bundles[0] is None:
             return None
-        out = {}
-        for name in RenderOutput._fields:
-            if fields is not None and name not in fields:
-                out[name] = None
-                continue
-            arr = torch.cat([getattr(b, name) for b in bundles], dim=0)[:R]
+        out = dict.fromkeys(RenderOutput._fields)
+        for name in names:
+            arr = torch.cat([b[name] for b in bundles], dim=0)[:R]
             out[name] = arr.cpu().numpy() if as_numpy else arr
         return RenderOutput(**out)
 

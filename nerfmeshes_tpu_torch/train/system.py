@@ -1,10 +1,12 @@
 """NeRFSystem (counterpart of nerfmeshes_tpu/train/system.py).
 
 Builds the coarse/fine models from a config, initialises them from the
-config's seed, trains them (`setup` + `fit`) and renders rays at
-validation settings. `validate`, checkpoints and early stopping are not
-ported yet (ROADMAP.md); `fit` raises NotImplementedError when the config
-asks for them, so nothing trains without what it asked for.
+config's seed, trains them (`setup` + `fit`), renders rays at
+validation settings and answers mesh extraction's queries
+(`density_points`, `sample_points`, `query_rgb`). `validate`,
+checkpoints and early stopping are not ported yet (ROADMAP.md); `fit`
+raises NotImplementedError when the config asks for them, so nothing
+trains without what it asked for.
 """
 
 from __future__ import annotations
@@ -13,11 +15,18 @@ import math
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from nerfmeshes_tpu_torch.models import build_model
 from nerfmeshes_tpu_torch.models.layers import TorchLinear
-from nerfmeshes_tpu_torch.ops.kernels.fused_mlp import fused_flexible_apply, supports_fused
+from nerfmeshes_tpu_torch.ops.kernels.fused_mlp import (
+    PackedMLP,
+    fused_flexible_apply,
+    fused_sigma_points,
+    pack_weights,
+    supports_fused,
+)
 from nerfmeshes_tpu_torch.train.optim import build_optimizer
 from nerfmeshes_tpu_torch.train.step import (
     init_train_state,
@@ -77,6 +86,7 @@ class NeRFSystem:
         self._render_chunk = None
         self._train_fn = None
         self._data = None
+        self._sigma_cache = None
 
     # -- setup ----------------------------------------------------------------
     def setup(self, train_data: dict) -> "NeRFSystem":
@@ -93,28 +103,82 @@ class NeRFSystem:
         self._render_chunk = make_render_chunk(self.cfg, self.coarse, self.fine)
         return self
 
+    def _on_device(self, x) -> torch.Tensor:
+        """A host array or a tensor as f32 on this system's device (as JAX
+        puts host arrays on its device)."""
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    @property
+    def finest_model(self):
+        return self.fine if self.fine is not None else self.coarse
+
+    def _fused(self) -> bool:
+        return (bool(self.cfg.experiment.get("use_fused_kernel", True))
+                and supports_fused(self.finest_model))
+
     def query_rays(self, origins, directions, near, far, chunk: Optional[int] = None,
                    fields: Optional[tuple] = None, as_numpy: bool = True):
-        """Render rays with the finest model at validation settings; see
+        """Render rays with the finest model at validation settings, on this
+        system's device whatever the rays' (host arrays included); see
         render_image for `fields` and `as_numpy`."""
         if self._render_chunk is None:
             raise RuntimeError("call setup_eval() before query_rays()")
         chunk = round_chunk(chunk or self.cfg.nerf.validation.chunksize)
         coarse, fine = render_image(
-            self._render_chunk, origins, directions, float(near), float(far),
-            chunk_size=chunk, fields=fields, as_numpy=as_numpy,
+            self._render_chunk, self._on_device(origins), self._on_device(directions),
+            float(near), float(far), chunk_size=chunk, fields=fields, as_numpy=as_numpy,
         )
         return fine if fine is not None else coarse
 
+    def query_rgb(self, origins, directions, near, far, chunk: int = 65536,
+                  as_uint8: bool = False) -> np.ndarray:
+        """The finest rgb map of query_rays as a host array: (R, 3) f32, or
+        with `as_uint8` JAX's quantization round(clip(rgb, 0, 1) * 255) as
+        uint8 (nerfmeshes_tpu/train/step.py:421-424), taken on the device.
+        JAX batches every chunk into one program for its TPU link; here one
+        chunk at a time goes to the card, with one fetch at the end."""
+        rgb = self.query_rays(origins, directions, near, far, chunk=chunk,
+                              fields=("rgb_map",), as_numpy=False).rgb_map
+        if as_uint8:
+            rgb = torch.round(rgb.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+        return rgb.cpu().numpy()
+
     @torch.inference_mode()
-    def sample_points(self, points: torch.Tensor,
-                      directions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Point query of the finest field -> (..., 4)."""
-        model = self.fine if self.fine is not None else self.coarse
-        if (bool(self.cfg.experiment.get("use_fused_kernel", True))
-                and directions is not None and supports_fused(model)):
-            return fused_flexible_apply(model, points, directions)
-        return model(points, directions)
+    def sample_points(self, points, directions=None) -> torch.Tensor:
+        """Point query of the finest field -> (..., 4), on this system's
+        device."""
+        points = self._on_device(points)
+        if directions is not None:
+            directions = self._on_device(directions)
+            if self._fused():
+                return fused_flexible_apply(self.finest_model, points, directions)
+        return self.finest_model(points, directions)
+
+    @torch.inference_mode()
+    def density_points(self, points) -> torch.Tensor:
+        """Raw sigma of the finest field at (..., 3) points -> (...,) f32,
+        on this system's device: the sigma-only kernel when the fused
+        kernels are on and the model is in their bound, else channel 3 of
+        the nn.Module (nerfmeshes_tpu/train/system.py:242-268). JAX splits
+        this into density_apply(params, points) + finest_params only so
+        that XLA compiles the grid program once per shape; eager PyTorch
+        needs no such split. The kernel's weight packing is made once and
+        reused until a parameter changes (_sigma_pack), so the tiles of a
+        grid share one, as JAX's tiles share finest_params."""
+        points = self._on_device(points)
+        if self._fused():
+            return fused_sigma_points(self._sigma_pack(), points)
+        return self.finest_model(points, points)[..., 3].float()
+
+    def _sigma_pack(self) -> PackedMLP:
+        """pack_weights(finest_model), cached on the parameters' storage and
+        version counters: an optimizer step, load_state_dict or any other
+        in-place update bumps a version, a move to another device gives new
+        storage, and either makes a new packing."""
+        key = tuple((p.data_ptr(), p._version) for p in self.finest_model.parameters())
+        if self._sigma_cache is None or self._sigma_cache[0] != key:
+            self._sigma_cache = (key, pack_weights(self.finest_model))
+        return self._sigma_cache[1]
 
     # -- fit loop ----------------------------------------------------------------
     def fit(self, max_steps: Optional[int] = None) -> dict:

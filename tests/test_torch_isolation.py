@@ -27,6 +27,7 @@ def test_every_port_module_imports_without_jax():
                                               "nerfmeshes_tpu_torch.")
     )
     assert "nerfmeshes_tpu_torch.ops.kernels.fused_mlp" in modules
+    assert {"nerfmeshes_tpu_torch.mesh.extract", "nerfmeshes_tpu_torch.mesh.native"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
