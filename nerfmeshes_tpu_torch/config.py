@@ -11,6 +11,8 @@ files stays with the JAX package's `load_config`.
 
 from __future__ import annotations
 
+import copy
+
 
 class CfgNode(dict):
     """A dict whose items are also attributes; nested dicts become nodes."""
@@ -31,6 +33,10 @@ class CfgNode(dict):
 
     def to_dict(self) -> dict:
         return {k: v.to_dict() if isinstance(v, CfgNode) else v for k, v in self.items()}
+
+    def clone(self) -> "CfgNode":
+        """A deep copy, as the JAX package's CfgNode.clone gives."""
+        return CfgNode(copy.deepcopy(self.to_dict()))
 
 
 def _mlp_defaults() -> dict:

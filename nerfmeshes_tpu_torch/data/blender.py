@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from nerfmeshes_tpu_torch.data.blender_poses import _PNG_SIGNATURE, read_blender_poses
+from nerfmeshes_tpu_torch.device import resolve_device
 
 _CHANNELS = {2: 3, 6: 4}  # PNG colour type -> channels (RGB, RGBA)
 
@@ -136,10 +137,12 @@ def load_blender_targets(basedir, split: str, *, white_background: bool,
 
 
 def train_arrays(cfg, device=None, split: str = "train") -> dict:
-    """Everything the train step samples from, on `device`: targets
+    """Everything the train step samples from, on `device` (None means
+    the CUDA card): targets
     (N, H, W, 3) f32, poses (N, 4, 4) f32, bounds (2,) f32 ([near, far],
     or [0, 1] under NDC as nerfmeshes_tpu/data/datasets.py:159-169 sets
     it), and hwf = (H, W, focal) on the host."""
+    device = resolve_device(device)
     ds = cfg.dataset
     targets, poses, hwf = load_blender_targets(
         ds.basedir, split, white_background=bool(ds.white_background),

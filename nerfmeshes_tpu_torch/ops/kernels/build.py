@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Every `nerfmeshes_tpu_torch/csrc/*.cu` (the fused MLP forward and
-backward, the sigma-only field) is compiled on first use, one nvcc
+backward, the sigma-only field, the chord compaction) is compiled on
+first use, one nvcc
 per source, all started together, and the objects are linked into one
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds, not minutes):
@@ -38,8 +39,12 @@ NVCC_FLAGS = (
 # C signatures of the library's entry points: name -> (restype, argtypes).
 # Every pointer and the stream are c_void_p, or ctypes would cut them to
 # 32 bits.
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
+    "nm_compact_chords": (
+        _I,
+        [_P, _P, _I, _P, _I, _P, _I, _P, _I, _F, _P, _I, _F, _I, _P, _P, _P, _P, _P],
+    ),
     "nm_fused_mlp_fwd": (
         _I,
         [_P, _P, _P, _LL, _I, _P, _P, _P, _I, _P, _I, _P, _I, _P],

@@ -16,6 +16,7 @@ from typing import Callable, Optional
 
 import torch
 
+from nerfmeshes_tpu_torch.device import resolve_device
 from nerfmeshes_tpu_torch.ops.math import img2mse, mse2psnr
 from nerfmeshes_tpu_torch.ops.rays import CameraIntrinsics, ndc_rays, pixel_directions
 from nerfmeshes_tpu_torch.ops.render import RenderOutput
@@ -38,8 +39,9 @@ class TrainState:
 
 def init_train_state(coarse, fine, optimizer: Optimizer, seed: int,
                      device=None) -> TrainState:
-    """Step 0, with a generator on `device` (the data's) seeded `seed`."""
-    generator = torch.Generator(torch.device("cpu") if device is None else device)
+    """Step 0, with a generator on `device` (the data's; None means the
+    CUDA card) seeded `seed`."""
+    generator = torch.Generator(resolve_device(device))
     return TrainState(coarse, fine, optimizer, 0, generator.manual_seed(int(seed)))
 
 

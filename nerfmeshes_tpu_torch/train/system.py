@@ -18,6 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from nerfmeshes_tpu_torch.device import resolve_device
 from nerfmeshes_tpu_torch.models import build_model
 from nerfmeshes_tpu_torch.models.layers import TorchLinear
 from nerfmeshes_tpu_torch.ops.kernels.fused_mlp import (
@@ -72,8 +73,10 @@ class NeRFSystem:
     them and serves renders and point queries."""
 
     def __init__(self, cfg, device: Optional[torch.device] = None):
+        """`device`: where the models, the train state and every render
+        live; None means the CUDA card (an error without one)."""
         self.cfg = cfg
-        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.device = resolve_device(device)
         # Drawn on the CPU so a seed gives the same weights on every device.
         self.coarse, self.fine = create_models(cfg)
         seed = int(cfg.experiment.randomseed)

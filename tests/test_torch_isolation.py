@@ -28,6 +28,9 @@ def test_every_port_module_imports_without_jax():
     )
     assert "nerfmeshes_tpu_torch.ops.kernels.fused_mlp" in modules
     assert {"nerfmeshes_tpu_torch.mesh.extract", "nerfmeshes_tpu_torch.mesh.native"} <= set(modules)
+    assert {"nerfmeshes_tpu_torch.buff.tree", "nerfmeshes_tpu_torch.buff.system",
+            "nerfmeshes_tpu_torch.ops.kernels.chords", "nerfmeshes_tpu_torch.train.factory",
+            "nerfmeshes_tpu_torch.device"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"

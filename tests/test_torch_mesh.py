@@ -313,7 +313,7 @@ def small_cfg(compute_dtype: str, fused: bool):
 
 def both_systems(cfg):
     jsys = j_system.NeRFSystem(cfg).setup_eval()
-    tsys = t_system.NeRFSystem(cfg).setup_eval()
+    tsys = t_system.NeRFSystem(cfg, device="cpu").setup_eval()
     for model, name, node in ((tsys.coarse, "coarse", cfg.models.coarse),
                               (tsys.fine, "fine", cfg.models.fine)):
         params = jax.tree_util.tree_map(np.asarray, jsys.state.params[name])
@@ -367,7 +367,7 @@ def test_query_rgb_matches_jax(request, systems):
 
 def test_density_points_takes_the_kernel_or_the_module(rng):
     cfg = small_cfg("bfloat16", True)
-    tsys = t_system.NeRFSystem(cfg)
+    tsys = t_system.NeRFSystem(cfg, device="cpu")
     pts = rng.uniform(-1.2, 1.2, (7, 9, 3)).astype(np.float32)
     before = fm.sigma_launches
     fused = tsys.density_points(pts)
@@ -384,7 +384,7 @@ def test_density_points_takes_the_kernel_or_the_module(rng):
 def test_density_points_packs_once_until_the_weights_change(rng, monkeypatch):
     """The grid's tiles share one packing of the weights; an in-place
     update or a load_state_dict makes a new one."""
-    tsys = t_system.NeRFSystem(small_cfg("bfloat16", True))
+    tsys = t_system.NeRFSystem(small_cfg("bfloat16", True), device="cpu")
     packs = []
     monkeypatch.setattr(t_system, "pack_weights",
                         lambda model: packs.append(fm.pack_weights(model)) or packs[-1])

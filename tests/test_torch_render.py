@@ -138,8 +138,8 @@ def test_blender_poses_match_jax_loader():
 
 def test_nerf_system_serves_on_cpu():
     cfg = small_cfg("bfloat16", fused=True)
-    system = t_system.NeRFSystem(cfg).setup_eval()
-    again = t_system.NeRFSystem(cfg)
+    system = t_system.NeRFSystem(cfg, device="cpu").setup_eval()
+    again = t_system.NeRFSystem(cfg, device="cpu")
     for a, b in zip(system.fine.state_dict().values(), again.fine.state_dict().values()):
         assert torch.equal(a, b)  # weights follow the config's seed
     o, d = scene_rays()

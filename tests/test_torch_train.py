@@ -395,7 +395,7 @@ def tiny_train_cfg(fused: bool):
 def test_nerf_system_setup_and_fit(fused, capsys):
     cfg = tiny_train_cfg(fused)
     data = train_arrays(cfg, torch.device("cpu"), split="val")
-    system = t_system.NeRFSystem(cfg).setup(data)
+    system = t_system.NeRFSystem(cfg, device="cpu").setup(data)
     before = [p.detach().clone() for p in system.fine.parameters()]
     launches = (fm.launches, fm.bwd_launches)
     metrics = system.fit(4)
@@ -408,7 +408,7 @@ def test_nerf_system_setup_and_fit(fused, capsys):
     assert any(not torch.equal(a, b) for a, b in zip(before, system.fine.parameters()))
     assert "step 4:" in capsys.readouterr().out
     # The same seed draws the same steps.
-    again = t_system.NeRFSystem(cfg).setup(data)
+    again = t_system.NeRFSystem(cfg, device="cpu").setup(data)
     assert again.fit(4)["train/loss"] == metrics["train/loss"]
 
 
@@ -416,7 +416,7 @@ def test_fit_refuses_what_is_not_ported():
     cfg = tiny_train_cfg(fused=True)
     data = train_arrays(cfg, torch.device("cpu"), split="val")
     with pytest.raises(RuntimeError, match="setup"):
-        t_system.NeRFSystem(cfg).fit(2)
+        t_system.NeRFSystem(cfg, device="cpu").fit(2)
     cfg.experiment.validate_every = 100
     with pytest.raises(NotImplementedError, match="validate_every"):
-        t_system.NeRFSystem(cfg).setup(data).fit(2)
+        t_system.NeRFSystem(cfg, device="cpu").setup(data).fit(2)
