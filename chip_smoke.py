@@ -4,6 +4,8 @@
     python3 chip_smoke.py          # needs one CUDA card; no arguments
     python3 chip_smoke.py --profile-mesh [STEPS ...]   # the mesh profile only
     python3 chip_smoke.py --profile-buff               # the BuFF step profile only
+    python3 chip_smoke.py --profile-train              # the hierarchical step profile only
+    python3 chip_smoke.py --profile-render             # the hierarchical render profile only
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, in
 parallel) and the native mesh library (g++), checks each kernel against
@@ -172,6 +174,10 @@ BUFF_HARD = {
              "eps": 1.0e-4, "use_random_sampling": False, "max_voxel_count": 4096,
              "step_size_integration_offset": BUFF_TREE_STEP, "step_size_tree": BUFF_TREE_STEP},
 }
+# A trained scene, the unit of user work the kernels are ranked in: the
+# hierarchical workload's 20k steps (configs/hard-blender.yml), 200 rendered
+# 400x400 views and one 480^3 mesh, at the smoke's shapes.
+SCENE_STEPS, SCENE_VIEWS, SCENE_MESHES = 20000, 200, 1
 # Published dense peaks of one H100 SXM (the rates chip_smoke.py reckons
 # each kernel's bound from): HBM bytes/s, bf16 tensor-core and f32 FLOP/s.
 PEAK_BYTES = 3.35e12
@@ -234,6 +240,56 @@ def _field_flops(model, heads: bool = True) -> int:
     skip = () if heads else ("fc_feat", "layers_dir", "fc_rgb")
     return 2 * sum(p.numel() for n, p in model.named_parameters()
                    if n.endswith("weight") and not n.startswith(skip))
+
+
+def _rate(name: str, ms: float, flops: float, bound_ms: float, bound_by: str, shape: str,
+          card: str) -> None:
+    """One kernel time beside its bound: TFLOP/s and the bound's share."""
+    print(f"{name} kernel at {shape}: {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {100.0 * bound_ms / ms:.1f}% of the bound [{card}]")
+
+
+def rank_kernels(kern, bkern, skern, ckern, render, train, mesh, buff, buff_render, buff_mesh,
+                 card: str) -> None:
+    """What a kernel costs beyond its bound, launches x (time - bound), per
+    kernel: in this smoke call's paths, and in a trained scene (SCENE_STEPS
+    hierarchical steps, SCENE_VIEWS views, SCENE_MESHES meshes); with the
+    launches per train step, per 400x400 view and per 480^3 mesh. The
+    hierarchical paths launch coarse (S = 64) and fine (S = 192) passes in
+    pairs; a coarse pass counts as a third of a fine one, the time timed."""
+    fwd = kern["ms"] - kern["bound_ms"]  # 2048 x 192
+    fwd_chunk = kern["chunk_ms"] - kern["chunk_bound_ms"]  # 65536 x 192
+    bwd = bkern["ms"] - bkern["bound_ms"]
+    sigma = skern["ms"] - skern["bound_ms"]
+    chords = ckern["ms"] - ckern["bound_ms"]
+    chords_chunk = ckern["chunk_ms"] - ckern["chunk_bound_ms"]
+    pair = 2.0 / 3.0  # per launch of a coarse + fine pair: (1 + 1/3) / 2
+    smoke_ms = {
+        "fused_mlp_fwd": ((render["launches"] + train["fwd_launches"]) * pair * fwd
+                          + mesh["fwd_launches"] * pair * fwd_chunk + buff["fwd_launches"] * fwd
+                          + (buff_render["fwd_launches"] + buff_mesh["fwd_launches"])
+                          * fwd_chunk),
+        "fused_mlp_bwd": train["bwd_launches"] * pair * bwd + buff["bwd_launches"] * bwd,
+        "fused_sigma": (mesh["sigma_launches"] + buff_mesh["sigma_launches"]) * sigma,
+        "fused_chords": (buff["chords_launches"] * chords
+                         + (buff_render["chords_launches"] + buff_mesh["chords_launches"])
+                         * chords_chunk),
+    }
+    per_step = {"fused_mlp_fwd": train["fwd_launches"] / TRAIN_STEPS,
+                "fused_mlp_bwd": train["bwd_launches"] / TRAIN_STEPS}
+    per_view = {"fused_mlp_fwd": render["launches"] / 2}  # the render phase's 2 views
+    per_mesh = {"fused_mlp_fwd": mesh["fwd_launches"], "fused_sigma": mesh["sigma_launches"]}
+    excess = {"fused_mlp_fwd": (pair * fwd, pair * fwd, pair * fwd_chunk),
+              "fused_mlp_bwd": (pair * bwd, 0.0, 0.0), "fused_sigma": (0.0, 0.0, sigma),
+              "fused_chords": (0.0, 0.0, 0.0)}
+    scene_ms = {k: (SCENE_STEPS * per_step.get(k, 0) * excess[k][0]
+                    + SCENE_VIEWS * per_view.get(k, 0) * excess[k][1]
+                    + SCENE_MESHES * per_mesh.get(k, 0) * excess[k][2]) for k in smoke_ms}
+    for k in sorted(smoke_ms, key=lambda k: -scene_ms[k]):
+        print(f"rank {k}: launches per train step {per_step.get(k, 0):g}, per view "
+              f"{per_view.get(k, 0):g}, per mesh {per_mesh.get(k, 0):g}; launches x (time - "
+              f"bound) {smoke_ms[k] / 1e3:.4f} s in this smoke call, "
+              f"{scene_ms[k] / 1e3:.4f} s per trained scene [{card}]")
 
 
 def _run(cmd: list[str]) -> str:
@@ -366,13 +422,17 @@ def kernel_phase(cfg, card: str, device) -> dict:
     with torch.inference_mode():
         module_ms = _median_ms(lambda: model(pts, dirs))
         library_ms = _median_ms(_autocast(lambda: model(pts, dirs)))
-    nbytes = (R * 24 + R * S * 4 + R * S * 16 + packed.weights.numel() * 2
-              + packed.biases.numel() * 4)
-    bound_ms, bound_by = _bound_ms(_field_flops(model) * R * S, nbytes, PEAK_BF16)
+    def fwd_bound(R, S):
+        nbytes = (R * 24 + R * S * 4 + R * S * 16 + packed.weights.numel() * 2
+                  + packed.biases.numel() * 4)
+        return _bound_ms(_field_flops(model) * R * S, nbytes, PEAK_BF16)
+
+    bound_ms, bound_by = fwd_bound(R, S)
     for name, t in (("kernel", ms), ("plain", plain_ms), ("nn.Module", module_ms),
                     ("nn.Module bf16 autocast", library_ms), ("bound", bound_ms)):
         print(f"fused_mlp_fwd {name}: {t:.4f} ms, {R * S / t * 1e3:.4e} points/s "
               f"at {R}x{S} points [{card}]")
+    _rate("fused_mlp_fwd", ms, _field_flops(model) * R * S, bound_ms, bound_by, f"{R}x{S}", card)
 
     # The appearance chunk: 4.2 M and 12.6 M points per launch. The plain
     # version works point by point, so slices of rays check it exactly.
@@ -401,8 +461,12 @@ def kernel_phase(cfg, card: str, device) -> dict:
     big_ms = _median_ms(lambda: fm.fused_mlp_cuda(packed, o, d, z))
     print(f"fused_mlp_fwd kernel: {big_ms:.4f} ms median of 7, {R * S / big_ms * 1e3:.4e} "
           f"points/s at {R}x{S} points [{card}]")
+    chunk_bound_ms, chunk_bound_by = fwd_bound(R, S)
+    _rate("fused_mlp_fwd", big_ms, _field_flops(model) * R * S, chunk_bound_ms, chunk_bound_by,
+          f"{R}x{S} (appearance chunk)", card)
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, chunk_ms=big_ms,
+                chunk_bound_ms=chunk_bound_ms)
 
 
 def slice_phase(cfg, card: str, device) -> dict:
@@ -549,6 +613,8 @@ def bwd_kernel_phase(cfg, card: str, device) -> dict:
                     ("nn.Module + autograd, bf16 autocast", library_ms), ("bound", bound_ms)):
         print(f"fused_mlp_bwd {name}: {t:.4f} ms, {R * S / t * 1e3:.4e} points/s "
               f"at {R}x{S} points [{card}]")
+    _rate("fused_mlp_bwd", ms, 3 * _field_flops(model) * R * S, bound_ms, bound_by, f"{R}x{S}",
+          card)
     return dict(max_abs_err=worst_abs, max_rel_err=worst_rel, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
 
@@ -703,6 +769,8 @@ def sigma_kernel_phase(cfg, card: str, device) -> dict:
                     ("nn.Module bf16 autocast", library_ms), ("bound", bound_ms)):
         print(f"fused_sigma {name}: {t:.4f} ms, {GRID_TILE / t * 1e3:.4e} points/s "
               f"at {GRID_TILE} points [{card}]")
+    _rate("fused_sigma", ms, _field_flops(model, heads=False) * GRID_TILE, bound_ms, bound_by,
+          f"{GRID_TILE} points", card)
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -1129,18 +1197,36 @@ def buff_mesh_phase(system, card: str) -> dict:
 def profile_buff(card: str, device, steps: int = 5) -> None:
     """The BuFF train step breakdown of PERF.md section 5 (--profile-buff):
     buff_hard_cfg() trained past its first consolidation (integration on),
-    then `steps` steps under torch.profiler: device time by kernel, the
-    device's idle share over the steps' span, the host's time to enqueue
-    the steps against the device's, and the host's CUDA calls."""
-    import tempfile
-
-    from torch.profiler import ProfilerActivity, profile
-
+    then `steps` steps under torch.profiler (_profile_steps)."""
     from nerfmeshes_tpu_torch.data.blender import train_arrays
 
     cfg = buff_hard_cfg()
     system = _buff_system(device).setup(train_arrays(cfg, device))
     system.fit(BUFF_CONSOLIDATIONS[0] + 5)
+    _profile_steps(system, "profile buff", card, steps)
+
+
+def profile_train(card: str, device, steps: int = 5) -> None:
+    """The hierarchical train step breakdown of PERF.md section 5
+    (--profile-train): the hard-blender system after its warm-up steps,
+    then `steps` steps under torch.profiler (_profile_steps)."""
+    from nerfmeshes_tpu_torch.data.blender import train_arrays
+    from nerfmeshes_tpu_torch.train.system import NeRFSystem
+
+    cfg = hard_blender_cfg()
+    system = NeRFSystem(cfg, device=device).setup(train_arrays(cfg, device))
+    system.fit(WARMUP_STEPS)
+    _profile_steps(system, "profile train", card, steps)
+
+
+def _profile_steps(system, label: str, card: str, steps: int) -> None:
+    """`steps` train steps of `system` under torch.profiler: device time by
+    kernel, the device's idle share over the steps' span, the host's time
+    to enqueue the steps against the device's, and the host's CUDA calls."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1166,7 +1252,7 @@ def profile_buff(card: str, device, steps: int = 5) -> None:
     for name, s, e in kernels:
         by_name[name] = by_name.get(name, 0.0) + (e - s) / 1e3
     total = sum(by_name.values())
-    print(f"profile buff: {steps} steps, {span / steps:.3f} ms per step of device span, "
+    print(f"{label}: {steps} steps, {span / steps:.3f} ms per step of device span, "
           f"kernels {total:.3f} ms in {len(kernels)} launches, device idle "
           f"{100.0 * (1.0 - busy / span):.2f}%, host enqueue {enqueued * 1e3:.3f} ms "
           f"({100.0 * enqueued * 1e3 / span:.1f}% of the device span), wall "
@@ -1175,13 +1261,13 @@ def profile_buff(card: str, device, steps: int = 5) -> None:
     groups = {"backward tile": ("bwd_tile_kernel",),
               "backward dW partials + reduction": ("dw_partial_kernel", "reduce_rows_kernel"),
               "forward": ("fused_mlp_fwd_kernel",), "chords": ("chords_kernel",)}
-    shares = {label: sum(t for n, t in by_name.items() if any(k in n for k in keys))
-              for label, keys in groups.items()}
+    shares = {group: sum(t for n, t in by_name.items() if any(k in n for k in keys))
+              for group, keys in groups.items()}
     shares["everything else"] = total - sum(shares.values())
-    for label, t in shares.items():
-        print(f"profile buff: {label} {t:.3f} ms, {100.0 * t / total:.2f}% of kernel time")
+    for group, t in shares.items():
+        print(f"{label}: {group} {t:.3f} ms, {100.0 * t / total:.2f}% of kernel time")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"profile buff kernel: {t / steps:.4f} ms per step  {name[:110]}")
+        print(f"{label} kernel: {t / steps:.4f} ms per step  {name[:110]}")
     # Where the host's time goes: the CUDA runtime and driver calls (a
     # synchronising call shows as one long wait per step).
     calls: dict = {}
@@ -1190,9 +1276,61 @@ def profile_buff(card: str, device, steps: int = 5) -> None:
             n, t = calls.get(e["name"], (0, 0.0))
             calls[e["name"]] = (n + 1, t + e.get("dur", 0) / 1e3)
     for name, (n, t) in sorted(calls.items(), key=lambda kv: -kv[1][1])[:8]:
-        print(f"profile buff host call: {name} x{n}, {t:.3f} ms")
+        print(f"{label} host call: {name} x{n}, {t:.3f} ms")
     ops = sum(1 for e in events if e.get("cat") == "cpu_op")
-    print(f"profile buff: {ops / steps:.0f} torch ops dispatched per step")
+    print(f"{label}: {ops / steps:.0f} torch ops dispatched per step")
+
+
+def profile_render(card: str, device, views: int = 2) -> None:
+    """The hierarchical render breakdown of PERF.md section 5
+    (--profile-render): the render phase's system renders `views` 400x400
+    views through query_rays under torch.profiler, after one warm-up chunk:
+    the host's time to enqueue them against the device's span, the
+    device's idle share, and device time by kernel."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from nerfmeshes_tpu_torch.config import get_default_cfg
+    from nerfmeshes_tpu_torch.data.blender_poses import read_blender_poses
+    from nerfmeshes_tpu_torch.train.step import make_pose_rays
+    from nerfmeshes_tpu_torch.train.system import NeRFSystem
+
+    cfg = get_default_cfg()
+    cfg.experiment.compute_dtype = "bfloat16"
+    cfg.experiment.use_fused_kernel = True
+    system = NeRFSystem(cfg, device=device).setup_eval()
+    poses, H, W, focal = read_blender_poses(REPO / "data" / "hard_blender", "test")
+    pose_rays = make_pose_rays(H, W, focal, device=device)
+    near, far = float(cfg.dataset.near), float(cfg.dataset.far)
+    fields = ("rgb_map", "depth_map", "acc_map")
+    rays = [pose_rays(poses[v]) for v in range(views)]
+    chunk = int(cfg.nerf.validation.chunksize)
+    system.query_rays(rays[0][0][:chunk], rays[0][1][:chunk], near, far, fields=fields,
+                      as_numpy=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for o, d in rays:
+            system.query_rays(o, d, near, far, fields=fields, as_numpy=False)
+        enqueued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+               if e.get("cat") == "kernel"]
+    span = (max(e for _, _, e in kernels) - min(s for _, s, _ in kernels)) / 1e3
+    busy = _busy_ms([(s, e) for _, s, e in kernels])
+    fwd = sum(e - s for n, s, e in kernels if "fused_mlp_fwd_kernel" in n) / 1e3
+    total = sum(e - s for _, s, e in kernels) / 1e3
+    print(f"profile render: {views} views, {len(kernels)} kernel launches, device span "
+          f"{span:.3f} ms, kernels {total:.3f} ms (forward kernel {fwd:.3f} ms, "
+          f"{100.0 * fwd / total:.2f}%), device idle {100.0 * (1.0 - busy / span):.2f}%; host "
+          f"enqueue {enqueued * 1e3:.3f} ms ({100.0 * enqueued * 1e3 / span:.1f}% of the device "
+          f"span), wall {wall * 1e3:.3f} ms [{card}]")
 
 
 def _busy_ms(spans) -> float:
@@ -1265,6 +1403,10 @@ def main(argv=None) -> int:
     parser.add_argument("--profile-mesh", type=int, nargs="*", metavar="STEPS",
                         help="instead of the smoke, profile the mesh phase after training "
                              f"to each STEPS (default {MESH_TRAIN_STEPS})")
+    parser.add_argument("--profile-train", action="store_true",
+                        help="instead of the smoke, profile 5 hierarchical train steps")
+    parser.add_argument("--profile-render", action="store_true",
+                        help="instead of the smoke, profile 2 hierarchical 400x400 views")
     parser.add_argument("--profile-buff", action="store_true",
                         help="instead of the smoke, profile 5 BuFF train steps past the first "
                              "consolidation")
@@ -1301,6 +1443,12 @@ def main(argv=None) -> int:
     if opts.profile_buff:
         profile_buff(card, device)
         return 0
+    if opts.profile_train:
+        profile_train(card, device)
+        return 0
+    if opts.profile_render:
+        profile_render(card, device)
+        return 0
 
     cfg = get_default_cfg()
     cfg.experiment.compute_dtype = "bfloat16"
@@ -1317,6 +1465,9 @@ def main(argv=None) -> int:
     buff_render = buff_render_phase(buff_system, card, device)
     buff_mesh = buff_mesh_phase(buff_system, card)
 
+    rank_kernels(kern, bkern, skern, ckern, render, train, mesh, buff, buff_render, buff_mesh,
+                 card)
+
     def entry(name, source, replaces, phase, by_path, **extra):
         return {"name": name, "route": "cuda", "source": f"nerfmeshes_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": sum(by_path.values()),
@@ -1328,7 +1479,8 @@ def main(argv=None) -> int:
         entry("fused_mlp_fwd", "fused_mlp_fwd.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:387", kern,
               {"render": render["launches"], "train": train["fwd_launches"],
                "mesh": mesh["fwd_launches"], "buff_train": buff["fwd_launches"],
-               "buff_render": buff_render["fwd_launches"], "buff_mesh": buff_mesh["fwd_launches"]}),
+               "buff_render": buff_render["fwd_launches"], "buff_mesh": buff_mesh["fwd_launches"]},
+              chunk_ms=kern["chunk_ms"], chunk_bound_ms=kern["chunk_bound_ms"]),
         entry("fused_mlp_bwd", "fused_mlp_bwd.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397", bkern,
               {"train": train["bwd_launches"], "buff_train": buff["bwd_launches"]},
               max_rel_err=bkern["max_rel_err"]),

@@ -1,0 +1,820 @@
+// The field kernel that the forward (fused_mlp_fwd.cu) and the sigma-only
+// (fused_sigma.cu) entry points share, for Hopper (sm_90a): one persistent
+// CTA per SM walks tiles of TILE_M = 128 points; every layer product is a
+// wgmma on weight slabs that a producer warp streams into shared memory by
+// TMA. Both entry points run the same trunk and alpha head code, so on equal
+// points their sigma agrees bit for bit.
+//
+// What bounds it on an H100: ~1.19 MFLOP per point at lego width (8x256,
+// L 10/4) against ~44 bytes of rays in and field out per point, so the
+// tensor cores set the pace (989 TFLOP/s bf16, reachable only through
+// wgmma), and after them the weights: 1.19 MB of bf16 that no CTA can hold,
+// read from L2 once per tile, ~9.3 KB per point at TILE_M = 128.
+//
+// Design, per CTA (3 warpgroups, 384 threads):
+// - Warpgroup 2, the producer (setmaxnreg down to 40 registers): one thread
+//   walks the same (tile, product, K-slab) sequence as the consumers and
+//   copies each slab, 64 K-columns x N rows of one packed (N, K) row-major
+//   matrix (K-major: no transpose, no repack), into a ring of slots with TMA
+//   (one tensor map per product, 128 B swizzle, zeros past K), a full and an
+//   empty mbarrier per slot. A product's last slab also brings its bias and
+//   head weights by bulk copy (L1 holds little beside ~200 KB of shared
+//   memory). It runs ahead across product and tile boundaries: every tile
+//   reads the same weight sequence.
+// - Warpgroups 0 and 1, the consumers (setmaxnreg up to 232): 64 rows each.
+//   Each product is wgmma.mma_async m64 x N x k16, A (activations or PE)
+//   and B (the slab) from shared memory, the f32 sum in registers (m64n256:
+//   128 a thread). The skip and dir layers switch A between the activation
+//   tile and the PE tile per k16 step. A slab is released once the next
+//   slab's products are issued and its own are done (wgmma.wait_group 1),
+//   so the tensor cores always hold queued work.
+// - Epilogue in registers: bias, ReLU, bf16, written in place into the
+//   warpgroup's activation tile (after wait_group 0 and a warpgroup
+//   barrier), then fence.proxy.async and a barrier before the next product
+//   reads it. The alpha (H -> 1) and rgb (H/2 -> 3) heads are dot products
+//   over the accumulator fragment on bf16-rounded inputs, summed across the
+//   4 threads of a row by shuffles.
+// - PE: each consumer thread owns one row of its warpgroup's PE tile and
+//   builds the next tile's two columns at a time between this tile's
+//   products (a table in shared memory says what each column computes), so
+//   the sines overlap the tensor cores.
+// - Shared memory: the ring (slots of [64 x H bf16 slab | 2 KB of params]:
+//   34 KB at H = 256), the activation tiles (128 x H bf16), the PE arena
+//   (two tiles of [PE(xyz) | PE(dir)] per warpgroup, or one where two leave
+//   fewer than 3 ring slots). Lego forward: 3 slots, 2 PE tiles, 215 KB;
+//   the 24-band, 14-layer edge: 2 slots, 1 PE tile. The plan is made at
+//   launch from the card's limit; a descriptor that leaves fewer than 2
+//   slots is refused (cudaErrorInvalidValue), never launched.
+//
+// Numerics (the TPU kernel's): bf16 operands, f32 sums; bias, ReLU and
+// sigmoid in f32; an activation is rounded to bf16 only as the next
+// product's (or head's) operand. sinf/cosf with full range reduction.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time (no -lcuda)
+#include <stdint.h>
+
+#include "fused_mlp_common.cuh"
+
+namespace {
+
+constexpr int TILE_M = 128;                    // points per tile
+constexpr int WG_THREADS = 128;                // one warpgroup
+constexpr int FIELD_THREADS = 3 * WG_THREADS;  // consumers 0, 1; producer 2
+constexpr int SLAB_K = 64;                     // bf16 K-columns per 128 B swizzle atom
+constexpr int ATOM_BYTES = 64 * 128;           // 64 rows x 64 bf16 of an A tile
+constexpr int MAX_STAGES = 8;
+constexpr int PARAM_BYTES = 2048;  // per ring slot: a product's bias (<= 1 KB), head weights
+constexpr int HEAD_OFF = 1024;     // the head weights' offset in a slot's params
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+
+struct FieldMaps {
+  CUtensorMap w[MAX_GEMMS];  // one per product, box 64 x N, 128 B swizzle
+};
+
+// Byte offsets into the dynamic shared memory, and the ring's depth.
+struct FieldLayout {
+  int stages, slab_bytes, slot_bytes;
+  int pe_cols;    // PE columns of a tile: [PE(xyz) | PE(dir)] (sigma: PE(xyz))
+  int pe_slots;   // tiles of PE a warpgroup's arena holds: 2 lets it build ahead
+  int pe_blocks;  // 64-column atoms of a warpgroup's PE arena
+  int act_off, pe_off, bar_off, tab_off, desc_off, bytes;
+};
+
+__host__ __device__ __forceinline__ int round64(int x) { return (x + 63) / 64 * 64; }
+
+// K and N of product g (layer1, trunk 0..L-2, feat, dir) of a width-H model.
+__host__ __device__ __forceinline__ int gemm_k(const Desc& d, int g) {
+  const int L = d.num_layers;
+  if (g == 0) return d.pxp;
+  if (g < L) return d.hidden + (((d.skip_mask >> (g - 1)) & 1) ? d.pxp : 0);
+  if (g == L) return d.hidden;
+  return d.hidden + d.pdp;
+}
+__host__ __device__ __forceinline__ int gemm_n(const Desc& d, int g) {
+  return g == d.num_layers + 1 ? d.hidden / 2 : d.hidden;
+}
+
+// ---------------------------------------------------------------- PTX ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// TMA: the box at (c0 = K offset, c1 = row 0) of `map` into dst, completing
+// its bytes on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Barrier of one warpgroup's 128 threads (ids 1, 2; 0 is __syncthreads).
+__device__ __forceinline__ void wg_barrier(int wg) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(WG_THREADS) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Pins accumulator registers in place around the asynchronous products, so
+// the compiler neither reads them before wgmma.wait_group nor moves them.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&acc)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+}
+
+// wgmma shared-memory descriptor of a K-major operand in the 128 B swizzled
+// layout: rows of 128 B, 8-row groups 1024 B apart (SBO), LBO unused (1).
+// Stepping k16 within the atom adds 32 B to the start address.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// D(64 x N, f32) (+)= A(64 x 16) B(16 x N), bf16, A and B K-major in shared
+// memory. Fragment of thread t (warp w, lane l) of the warpgroup:
+// d[4n + 2i + j] = D[16w + l/4 + 8i][8n + 2(l%4) + j].
+__device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "
+      "%125, %126, %127}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
+        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
+        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
+        "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),
+        "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),
+        "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]),
+        "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
+        "+f"(d[127])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// ------------------------------------------------------------ pipeline ----
+
+// 1D bulk copy of `bytes` (a multiple of 16; both ends 16 B aligned) into
+// shared memory, completing its bytes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The consumers' view of the weight ring: slot `stage` of `stages`, and the
+// parity its full barrier is at. A slot holds one slab, then PARAM_BYTES in
+// which the last slab of a product also brings the product's bias and, for
+// the alpha and rgb heads, their weights.
+struct Ring {
+  uint64_t* full;
+  uint64_t* empty;
+  unsigned char* base;  // slot 0
+  int slot_bytes, slab_bytes, stages, stage;
+  uint32_t phase;
+  __device__ __forceinline__ void advance() {
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  __device__ __forceinline__ const unsigned char* params(int slot) const {
+    return base + slot * slot_bytes + slab_bytes;
+  }
+  // Every consumer warp releases a slot once it is done with it.
+  __device__ __forceinline__ void release(int slot, int lane) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);
+  }
+};
+
+// Shared address of column c (a multiple of 16) of a tile of 64-column
+// atoms: the atom, then 32 B per k16 step inside its 128 B rows.
+__device__ __forceinline__ uint32_t col_addr(int c) {
+  return (c >> 6) * ATOM_BYTES + (c & 63) * 2;
+}
+
+// acc = [A1 | A2] @ W^T over K = k1 + k2, W the product's slabs as they come
+// through the ring. A1 is columns [0, k1) of the warpgroup's tile at shared
+// address a1 (k1 a multiple of 64), A2 columns [c2, c2 + k2) of the tile at
+// a2 (multiples of 16). work() runs while each slab's products do. Ends
+// with every product done (wait_group 0) and returns the product's last
+// slot, still held: its params are the epilogue's, which releases it.
+template <int R, class Work>
+__device__ __forceinline__ int layer_product(float (&acc)[R], Ring& ring, uint32_t a1, int k1,
+                                             uint32_t a2, int c2, int k2, int lane,
+                                             Work&& work) {
+  const int K = k1 + k2;
+  const uint32_t base = smem_u32(ring.base);
+  int prev = -1;
+  fence_regs(acc);
+  wgmma_fence();
+  for (int k0 = 0; k0 < K; k0 += SLAB_K) {
+    mbar_wait(&ring.full[ring.stage], ring.phase);
+    const uint32_t b = base + ring.stage * ring.slot_bytes;
+    // Whole slabs, no branch between the products (a branch makes ptxas
+    // fence and serialize them). Past K the slab holds TMA's zeros, so any
+    // finite A columns add exact zeros there: the last valid k16 step's.
+#pragma unroll
+    for (int k = 0; k < SLAB_K / 16; ++k) {
+      const int kw = min(k0 + 16 * k, K - 16);
+      const uint32_t a = kw < k1 ? a1 + col_addr(kw) : a2 + col_addr(c2 + kw - k1);
+      wgmma_bf16(acc, sw128_desc(a), sw128_desc(b + 32 * k), k0 + k);
+    }
+    wgmma_commit();
+    work();
+    if (prev >= 0) {
+      wgmma_wait<1>();  // the previous slab's products are done: release it
+      ring.release(prev, lane);
+    }
+    prev = ring.stage;
+    ring.advance();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  return prev;
+}
+
+// Byte offset of element (row r, column c) in a tile of 64-column, 128 B
+// swizzled atoms of 64 rows.
+__device__ __forceinline__ int swz(int r, int c) {
+  return (c >> 6) * ATOM_BYTES + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + ((c & 7) << 1);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 bf16x2_at(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// The epilogue of an N = 2R-column product: act = relu?(acc + bias) as bf16
+// into the warpgroup's tile (rows r and r + 8 of the fragment), bias from
+// shared memory. With wa, also the alpha head's partial dot products of
+// those rows over this thread's columns, on the bf16-rounded values. In
+// groups of 8 column chunks: the compiler barrier between groups keeps it
+// from hoisting every load ahead, which costs the registers that hold
+// loop-invariant addresses (their spills go to L2, round trips of ~1 us).
+template <int R>
+__device__ __forceinline__ void epilogue(const float (&acc)[R], const float* bias, bool relu,
+                                         unsigned char* act, int r, int q, const bf16* wa,
+                                         float& s0, float& s1) {
+#pragma unroll
+  for (int n0 = 0; n0 < R / 4; n0 += 8) {
+#pragma unroll
+    for (int n = n0; n < n0 + 8; ++n) {
+      const int col = 8 * n + 2 * q;
+      const float2 b = *reinterpret_cast<const float2*>(bias + col);
+      float v[4] = {acc[4 * n] + b.x, acc[4 * n + 1] + b.y, acc[4 * n + 2] + b.x,
+                    acc[4 * n + 3] + b.y};
+      if (relu) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v[i] = fmaxf(v[i], 0.f);
+      }
+      const uint32_t lo = pack_bf16(v[0], v[1]), hi = pack_bf16(v[2], v[3]);
+      *reinterpret_cast<uint32_t*>(act + swz(r, col)) = lo;
+      *reinterpret_cast<uint32_t*>(act + swz(r + 8, col)) = hi;
+      if (wa != nullptr) {
+        const float2 w = bf16x2_at(wa + col);
+        const float2 x0 = bf16x2_at(reinterpret_cast<const bf16*>(&lo));
+        const float2 x1 = bf16x2_at(reinterpret_cast<const bf16*>(&hi));
+        s0 += x0.x * w.x + x0.y * w.y;
+        s1 += x1.x * w.x + x1.y * w.y;
+      }
+    }
+    asm volatile("" ::: "memory");
+  }
+}
+
+__device__ __forceinline__ float quad_sum(float s) {
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  return s + __shfl_xor_sync(0xffffffffu, s, 2);
+}
+
+// What PE column c of a tile computes (pe_value's cases, resolved once per
+// CTA): code = kind | component << 2 | dir << 4, kind 0 zero (padding), 1
+// the coordinate, 2 sin, 3 cos of coordinate * f.
+struct PeCol {
+  float f;
+  int code;
+};
+
+__device__ __forceinline__ PeCol pe_col(const Desc& d, int c, bool fwd) {
+  const bool dir = c >= d.pxp;
+  int j = dir ? c - d.pxp : c;
+  const int L = dir ? d.ld : d.lx, inc = dir ? d.inc_d : d.inc_x;
+  if (dir && (!fwd || j >= d.pdp)) return {0.f, 0};
+  const int part = dir ? 16 : 0;
+  if (inc) {
+    if (j < 3) return {0.f, 1 | j << 2 | part};
+    j -= 3;
+  }
+  const int kind = j < 3 * L ? 2 : 3;
+  if (kind == 3) j -= 3 * L;
+  if (j >= 3 * L) return {0.f, 0};
+  return {(dir ? d.fd : d.fx)[j % L], kind | (j / L) << 2 | part};
+}
+
+// Builds a warpgroup's PE tile of 64 rows (global rows row0..row0 + 63):
+// the columns of `tab`, [PE(xyz) | PE(dir)] (PE(dir) only for the forward),
+// from column `base` of the warpgroup's PE arena on, in the swizzled layout.
+// Thread t owns row t % 64, whose point start() reads once, and the
+// 8-column chunks t / 64, t / 64 + 2, ...; step() computes the next two
+// columns and stores a chunk (16 B) once it is whole, so that a tile's PE
+// can be built a little at a time between the products of the tile before
+// without holding up their issue. Rows past n_pts read the point 0.
+// Forward: the point is o + d*z of its ray, unfused as in the plain
+// version; sigma: `src` holds the (N, 3) points.
+template <bool FWD>
+struct PeBuild {
+  float x0, x1, x2, v0, v1, v2;
+  uint32_t w0, w1, w2, w3;  // the chunk's column pairs so far, newest last
+  int chunk, pair, base;
+
+  __device__ __forceinline__ void start(const float* __restrict__ src,
+                                        const float* __restrict__ dirs,
+                                        const float* __restrict__ z, long long n_pts,
+                                        int samples, long long row0, int base_col, int t) {
+    const long long g = row0 + (t & 63);
+    x0 = x1 = x2 = v0 = v1 = v2 = 0.f;
+    if (g < n_pts) {
+      if constexpr (FWD) {
+        const long long ray = g / samples;
+        const float zt = z[g];
+        v0 = dirs[3 * ray];
+        v1 = dirs[3 * ray + 1];
+        v2 = dirs[3 * ray + 2];
+        x0 = __fadd_rn(src[3 * ray], __fmul_rn(v0, zt));
+        x1 = __fadd_rn(src[3 * ray + 1], __fmul_rn(v1, zt));
+        x2 = __fadd_rn(src[3 * ray + 2], __fmul_rn(v2, zt));
+      } else {
+        x0 = src[3 * g];
+        x1 = src[3 * g + 1];
+        x2 = src[3 * g + 2];
+      }
+    }
+    chunk = t >> 6;
+    pair = 0;
+    base = base_col;
+  }
+
+  // A warp's lanes share their chunk, so the branches below are uniform.
+  __device__ __forceinline__ void step(const PeCol* tab, int chunks, unsigned char* pe, int t) {
+    if (chunk >= chunks) return;
+    float e[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const PeCol col = tab[8 * chunk + 2 * pair + h];
+      const int comp = (col.code >> 2) & 3, kind = col.code & 3;
+      const bool dir = col.code & 16;
+      const float a = comp == 0 ? (dir ? v0 : x0)
+                                : (comp == 1 ? (dir ? v1 : x1) : (dir ? v2 : x2));
+      if (kind == 2)
+        e[h] = sinf(a * col.f);
+      else if (kind == 3)
+        e[h] = cosf(a * col.f);
+      else
+        e[h] = kind == 1 ? a : 0.f;
+    }
+    w0 = w1;
+    w1 = w2;
+    w2 = w3;
+    w3 = pack_bf16(e[0], e[1]);
+    if (++pair == 4) {
+      *reinterpret_cast<uint4*>(pe + swz(t & 63, base + 8 * chunk)) = make_uint4(w0, w1, w2, w3);
+      pair = 0;
+      chunk += 2;
+    }
+  }
+
+  __device__ __forceinline__ void finish(const PeCol* tab, int chunks, unsigned char* pe, int t) {
+    while (chunk < chunks) step(tab, chunks, pe, t);
+  }
+};
+
+// ------------------------------------------------------------- kernel ----
+
+// The body of the forward and the sigma kernel, each a __global__ of its own
+// name (fused_mlp_fwd_kernel, fused_sigma_kernel) so that a profile tells
+// them apart. FWD: rays (src = origins (R, 3), dirs (R, 3), z (R, S)) ->
+// [rgb, sigma] per point into out, channels-first (4, N) or (N, 4). !FWD:
+// points (src = (N, 3)) -> raw sigma (N,). `maps`, `desc` and `lay` are the
+// kernel's parameters.
+template <int H, bool FWD>
+__device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& desc,
+                                           const FieldLayout& lay, const float* __restrict__ src,
+                                           const float* __restrict__ dirs,
+                                           const float* __restrict__ z, long long n_pts,
+                                           int samples, const bf16* __restrict__ W,
+                                           const float* __restrict__ B, float* __restrict__ out,
+                                           int channels_first) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
+  uint64_t* empty = full + MAX_STAGES;
+  PeCol* tab = reinterpret_cast<PeCol*>(smem + lay.tab_off);
+  // Shared copy of the descriptor: its arrays are indexed at run time.
+  Desc& d = *reinterpret_cast<Desc*>(smem + lay.desc_off);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    d = desc;
+    for (int s = 0; s < lay.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * WG_THREADS / 32);  // every consumer warp releases
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  for (int c = tid; c < lay.pe_cols; c += FIELD_THREADS) tab[c] = pe_col(d, c, FWD);
+  __syncthreads();
+
+  const long long n_tiles = (n_pts + TILE_M - 1) / TILE_M;
+  const int L = d.num_layers;
+  const int wg = tid / WG_THREADS;
+
+  if (wg == 2) {
+    // Producer: one thread streams every product's slabs, tile after tile;
+    // a product's last slab also brings its bias and head weights.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if (tid == 2 * WG_THREADS) {
+      const int n_gemms = FWD ? L + 2 : L;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        for (int g = 0; g < n_gemms; ++g) {
+          const int K = gemm_k(d, g), N = gemm_n(d, g);
+          const bf16* head = g == L - 1 ? W + d.wa_off : (g == L + 1 ? W + d.wr_off : nullptr);
+          const uint32_t head_bytes = g == L - 1 ? 2 * H : 3 * H;
+          for (int k0 = 0; k0 < K; k0 += SLAB_K) {
+            const bool last = k0 + SLAB_K >= K;
+            uint32_t bytes = SLAB_K * N * sizeof(bf16);
+            if (last) bytes += N * sizeof(float) + (head != nullptr ? head_bytes : 0);
+            mbar_wait(&empty[stage], phase ^ 1);
+            mbar_arrive_expect_tx(&full[stage], bytes);
+            unsigned char* slot = smem + stage * lay.slot_bytes;
+            tma_load_2d(slot, &maps.w[g], k0, 0, &full[stage]);
+            if (last) {
+              unsigned char* params = slot + lay.slab_bytes;
+              bulk_load(params, B + d.b_off[g], N * sizeof(float), &full[stage]);
+              if (head != nullptr) bulk_load(params + HEAD_OFF, head, head_bytes, &full[stage]);
+            }
+            if (++stage == lay.stages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+    const int t = tid % WG_THREADS, warp = t / 32, lane = t % 32;
+    const int r = warp * 16 + lane / 4, q = lane % 4;  // fragment rows r, r + 8
+    unsigned char* act = smem + lay.act_off + wg * (H / 64) * ATOM_BYTES;
+    unsigned char* pe = smem + lay.pe_off + wg * lay.pe_blocks * ATOM_BYTES;
+    const uint32_t act_a = smem_u32(act), pe_a = smem_u32(pe);
+    Ring ring{full, empty, smem, lay.slot_bytes, lay.slab_bytes, lay.stages, 0, 0};
+
+    const int chunks = lay.pe_cols / 8;
+    PeBuild<FWD> pb;  // the first tile's PE, then each next tile's
+    pb.start(src, dirs, z, n_pts, samples, (long long)blockIdx.x * TILE_M + wg * 64, 0, t);
+    pb.finish(tab, chunks, pe, t);
+
+    for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const long long row0 = tile * TILE_M + wg * 64;
+      const long long next = tile + gridDim.x;
+      const int pe_base = pb.base;  // this tile's first PE column
+      const float ba = B[d.ba_off];
+      fence_proxy_async();  // this tile's PE, built by every thread, to the products
+      wg_barrier(wg);
+      // With two PE slots the next tile's PE is built in the other one,
+      // a chunk per slab, while this tile's products run.
+      const bool ahead = lay.pe_slots == 2 && next < n_tiles;
+      if (ahead)
+        pb.start(src, dirs, z, n_pts, samples, next * TILE_M + wg * 64, lay.pe_cols - pe_base, t);
+      auto work = [&] {
+        if (ahead) pb.step(tab, chunks, pe, t);
+      };
+
+      // layer1 (no activation), then the ReLU trunk; the alpha head off the
+      // trunk's output. The sigma entry point runs exactly this. Declared
+      // per tile, so the trunk's accumulator is dead while the dir layer's
+      // is live; the first product of a layer overwrites it.
+      float acc[H / 2];
+#pragma unroll
+      for (int i = 0; i < H / 2; ++i) acc[i] = 0.f;
+      float s0 = 0.f, s1 = 0.f;
+      for (int g = 0; g < L; ++g) {
+        const bool skip = g > 0 && ((d.skip_mask >> (g - 1)) & 1);
+        const int slot = layer_product(acc, ring, act_a, g == 0 ? 0 : H, pe_a, pe_base,
+                                       g == 0 || skip ? d.pxp : 0, lane, work);
+        wg_barrier(wg);  // every warp's products have read the tile
+        const unsigned char* params = ring.params(slot);
+        epilogue(acc, reinterpret_cast<const float*>(params), g > 0, act, r, q,
+                 g == L - 1 ? reinterpret_cast<const bf16*>(params + HEAD_OFF) : nullptr, s0, s1);
+        ring.release(slot, lane);
+        fence_proxy_async();
+        wg_barrier(wg);
+      }
+      const float alpha0 = quad_sum(s0) + ba, alpha1 = quad_sum(s1) + ba;
+      const long long g0 = row0 + r, g1 = g0 + 8;
+
+      if constexpr (!FWD) {
+        if (q == 0) {
+          if (g0 < n_pts) out[g0] = alpha0;
+          if (g1 < n_pts) out[g1] = alpha1;
+        }
+      } else {
+        float br[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) br[c] = B[d.br_off + c];
+        // feat, in place.
+        int slot = layer_product(acc, ring, act_a, H, 0, 0, 0, lane, work);
+        wg_barrier(wg);
+        float unused0 = 0.f, unused1 = 0.f;
+        epilogue(acc, reinterpret_cast<const float*>(ring.params(slot)), true, act, r, q,
+                 nullptr, unused0, unused1);
+        ring.release(slot, lane);
+        fence_proxy_async();
+        wg_barrier(wg);
+
+        // dir on [feat | PE(dir)] -> H/2, then the rgb head in registers.
+        float acc_d[H / 4];
+#pragma unroll
+        for (int i = 0; i < H / 4; ++i) acc_d[i] = 0.f;
+        slot = layer_product(acc_d, ring, act_a, H, pe_a, pe_base + d.pxp, d.pdp, lane, work);
+        wg_barrier(wg);
+        const float* bd = reinterpret_cast<const float*>(ring.params(slot));
+        const bf16* wr = reinterpret_cast<const bf16*>(ring.params(slot) + HEAD_OFF);
+        float c0[3] = {0.f, 0.f, 0.f}, c1[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < H / 16; ++n) {
+          if (n % 8 == 0) asm volatile("" ::: "memory");  // as in epilogue()
+          const int col = 8 * n + 2 * q;
+          const float2 b = *reinterpret_cast<const float2*>(bd + col);
+          const float2 h0 = __bfloat1622float2(__floats2bfloat162_rn(
+              fmaxf(acc_d[4 * n] + b.x, 0.f), fmaxf(acc_d[4 * n + 1] + b.y, 0.f)));
+          const float2 h1 = __bfloat1622float2(__floats2bfloat162_rn(
+              fmaxf(acc_d[4 * n + 2] + b.x, 0.f), fmaxf(acc_d[4 * n + 3] + b.y, 0.f)));
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const float2 w = bf16x2_at(wr + c * (H / 2) + col);
+            c0[c] += h0.x * w.x + h0.y * w.y;
+            c1[c] += h1.x * w.x + h1.y * w.y;
+          }
+        }
+        ring.release(slot, lane);
+        float v0 = alpha0, v1 = alpha1;  // lane q writes channel q
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float rgb0 = 1.f / (1.f + expf(-(quad_sum(c0[c]) + br[c])));
+          const float rgb1 = 1.f / (1.f + expf(-(quad_sum(c1[c]) + br[c])));
+          if (q == c) {
+            v0 = rgb0;
+            v1 = rgb1;
+          }
+        }
+        if (g0 < n_pts) out[channels_first ? (long long)q * n_pts + g0 : g0 * 4 + q] = v0;
+        if (g1 < n_pts) out[channels_first ? (long long)q * n_pts + g1 : g1 * 4 + q] = v1;
+      }
+      // The next tile's PE: what is left of it, or all of it with one slot
+      // (this tile's products are done with the slot: a barrier followed
+      // the last product that read it).
+      if (next < n_tiles) {
+        if (!ahead) pb.start(src, dirs, z, n_pts, samples, next * TILE_M + wg * 64, 0, t);
+        pb.finish(tab, chunks, pe, t);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- host ----
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime loaded; null if absent.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The shared-memory plan of a launch: two PE slots where they leave the ring
+// at least 3 stages, else one; cudaErrorInvalidValue when even one slot
+// leaves fewer than 2 stages.
+int field_layout(const Desc& d, bool fwd, int smem_limit, FieldLayout* out) {
+  FieldLayout lay = {};
+  const int H = d.hidden;
+  lay.slab_bytes = SLAB_K * H * (int)sizeof(bf16);
+  lay.slot_bytes = lay.slab_bytes + PARAM_BYTES;
+  lay.pe_cols = d.pxp + (fwd ? d.pdp : 0);
+  const int act_bytes = 2 * (H / 64) * ATOM_BYTES;
+  const int bar_bytes = 2 * MAX_STAGES * (int)sizeof(uint64_t);
+  const int tab_bytes = lay.pe_cols * (int)sizeof(PeCol);
+  const int aux = bar_bytes + tab_bytes + (int)sizeof(Desc);
+  for (lay.pe_slots = 2; lay.pe_slots >= 1; --lay.pe_slots) {
+    lay.pe_blocks = round64(lay.pe_slots * lay.pe_cols) / 64;
+    const int pe_bytes = 2 * lay.pe_blocks * ATOM_BYTES;
+    const int stages = (smem_limit - act_bytes - pe_bytes - aux) / lay.slot_bytes;
+    if (stages < lay.pe_slots + 1) continue;
+    lay.stages = stages < MAX_STAGES ? stages : MAX_STAGES;
+    lay.act_off = lay.stages * lay.slot_bytes;
+    lay.pe_off = lay.act_off + act_bytes;
+    lay.bar_off = lay.pe_off + pe_bytes;
+    lay.tab_off = lay.bar_off + bar_bytes;
+    lay.desc_off = lay.tab_off + tab_bytes;
+    lay.bytes = lay.desc_off + (int)sizeof(Desc);
+    *out = lay;
+    return 0;
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The parameters of a kernel that runs field_body.
+#define FIELD_KERNEL_PARAMS                                                                  \
+  const __grid_constant__ FieldMaps maps, const Desc desc, const FieldLayout lay,            \
+      const float *__restrict__ src, const float *__restrict__ dirs,                         \
+      const float *__restrict__ z, long long n_pts, int samples, const bf16 *__restrict__ W, \
+      const float *__restrict__ B, float *__restrict__ out, int channels_first
+#define FIELD_KERNEL_ARGS maps, desc, lay, src, dirs, z, n_pts, samples, W, B, out, channels_first
+
+typedef void (*FieldKernel)(FieldMaps, Desc, FieldLayout, const float*, const float*,
+                            const float*, long long, int, const bf16*, const float*, float*, int);
+
+// One launch of `kernel` (field_body<H, FWD>) on `stream`: the tensor maps of
+// every product it reads, the shared-memory plan, one CTA per SM (or per
+// tile).
+template <int H, bool FWD>
+int field_launch(FieldKernel kernel, const Desc& d, const float* src, const float* dirs,
+                 const float* z, long long n_pts, int samples, const bf16* W, const float* B,
+                 float* out, int channels_first, cudaStream_t stream) {
+  // The bulk copies need 16 B aligned sources: the weights' and biases'
+  // bases, the heads' offsets and every product's bias offset.
+  if (reinterpret_cast<uintptr_t>(W) % 16 != 0 || reinterpret_cast<uintptr_t>(B) % 16 != 0 ||
+      d.wa_off % 8 != 0 || d.wr_off % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  for (int g = 0; g < d.num_layers + 2; ++g)
+    if (d.b_off[g] % 4 != 0) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, smem_limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  FieldLayout lay;
+  const int rc = field_layout(d, FWD, smem_limit, &lay);
+  if (rc != 0) return rc;
+
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  FieldMaps maps;
+  const int n_gemms = FWD ? d.num_layers + 2 : d.num_layers;
+  for (int g = 0; g < n_gemms; ++g) {
+    const cuuint64_t dims[2] = {(cuuint64_t)gemm_k(d, g), (cuuint64_t)gemm_n(d, g)};
+    const cuuint64_t strides[1] = {dims[0] * sizeof(bf16)};
+    const cuuint32_t box[2] = {SLAB_K, (cuuint32_t)dims[1]};
+    const cuuint32_t elem[2] = {1, 1};
+    const CUresult res = encode(
+        &maps.w[g], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(W + d.w_off[g]),
+        dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (res != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  }
+
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (n_pts + TILE_M - 1) / TILE_M;
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  kernel<<<grid, FIELD_THREADS, lay.bytes, stream>>>(maps, d, lay, src, dirs, z, n_pts, samples,
+                                                     W, B, out, channels_first);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

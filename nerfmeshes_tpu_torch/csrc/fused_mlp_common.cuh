@@ -1,8 +1,16 @@
-// Shared by the fused FlexibleNeRF MLP kernels (fused_mlp_fwd.cu,
-// fused_mlp_bwd.cu and fused_sigma.cu): the descriptor of a packed model, the
-// tile of points and positional encoding a block builds in shared memory, the
-// bias + ReLU product every kernel runs for every layer's forward, and the
-// trunk and alpha head the forward and sigma kernels share.
+// Shared by the fused FlexibleNeRF MLP kernels, which replace the Pallas TPU
+// kernels of nerfmeshes_tpu/ops/pallas/fused_mlp.py: the forward
+// (fused_mlp_fwd.cu, _fwd_kernel :387), the sigma-only field (fused_sigma.cu,
+// _sigma_kernel :675) and the backward (fused_mlp_bwd.cu, _bwd_kernel :397).
+// All three are bound on the H100 by the tensor cores (~1.2 MFLOP per point
+// forward at lego width, 3x that backward, against tens of bytes of I/O),
+// then by the weights read from L2 once per tile of points. The forward and
+// sigma kernels answer with wgmma on TMA-staged weight slabs, 128-point
+// tiles and persistent CTAs (fused_field.cuh). The backward's tile kernel
+// still runs the first design, which lives here: a 64-point tile of points
+// and PE in shared memory and a bias + ReLU product on nvcuda::wmma with
+// weight fragments read from L2 (load_tile_inputs, pe_tile, gemm_bias_act).
+// Every kernel computes PE through pe_value and reads the same descriptor.
 //
 // Weight layout (packed in nerfmeshes_tpu_torch/ops/kernels/fused_mlp.py):
 // one flat bf16 buffer holding, per product (layer1, trunk 0..L-2, feat,
@@ -24,7 +32,7 @@ namespace {
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
-constexpr int BM = 64;  // points per block
+constexpr int BM = 64;  // points per block (backward tile kernel)
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int MAX_L = 24;       // PE bands per encoding
@@ -79,27 +87,32 @@ int parse_desc(const int* desc_i, int n_desc_i, const float* freqs, int n_freqs,
   return 0;
 }
 
-__device__ __forceinline__ float pe_value(const float* c, int j, int inc, int L,
+// PE value j of the point (p0, p1, p2): [p if inc, sin(p_c * f_l) for c, l,
+// cos(p_c * f_l) for c, l, zeros past the encoding]. Every kernel's PE is
+// this arithmetic, so the kernels round PE alike.
+__device__ __forceinline__ float pe_value(float p0, float p1, float p2, int j, int inc, int L,
                                           const float* f) {
   if (inc) {
-    if (j < 3) return c[j];
+    if (j < 3) return j == 0 ? p0 : (j == 1 ? p1 : p2);
     j -= 3;
   }
-  if (j < 3 * L) return sinf(c[j / L] * f[j % L]);
-  j -= 3 * L;
-  if (j < 3 * L) return cosf(c[j / L] * f[j % L]);
-  return 0.f;  // padding lanes
+  const bool is_sin = j < 3 * L;
+  if (!is_sin) j -= 3 * L;
+  if (j >= 3 * L) return 0.f;  // padding lanes
+  const int c = j / L;
+  const float x = (c == 0 ? p0 : (c == 1 ? p1 : p2)) * f[j % L];
+  return is_sin ? sinf(x) : cosf(x);
 }
 
 // One encoding of the tile's BM points: pe[i * peld + j] = PE(c_i)[j] in bf16
 // for j < width (lanes past the encoding read 0), c_i the 3 floats at
-// c + i * stride. Every PE tile of every kernel is built here, so the
-// kernels round PE alike. No barrier.
+// c + i * stride. No barrier.
 __device__ __forceinline__ void pe_tile(const float* c, int stride, int inc, int L,
                                         const float* f, int width, bf16* pe, int peld) {
   for (int e = threadIdx.x; e < BM * width; e += THREADS) {
     const int i = e / width, j = e % width;
-    pe[i * peld + j] = __float2bfloat16(pe_value(c + i * stride, j, inc, L, f));
+    const float* p = c + i * stride;
+    pe[i * peld + j] = __float2bfloat16(pe_value(p[0], p[1], p[2], j, inc, L, f));
   }
 }
 
@@ -196,46 +209,6 @@ __device__ void gemm_bias_act(const bf16* __restrict__ a1, int lda1, int k1,
       }
     }
   }
-}
-
-// layer1 (no activation) then the ReLU trunk, PE(xyz) skips where skip_mask
-// says, on a tile whose PE(xyz) occupies columns [0, pxp) of pe. Ping-pongs
-// between act0 and act1 and returns the one holding the trunk output. Ends
-// with a block barrier. The forward and the sigma kernel both run this, so
-// their trunks are one arithmetic.
-template <int H>
-__device__ __forceinline__ bf16* trunk_forward(const Desc& d, const bf16* pe, int peld,
-                                               bf16* act0, bf16* act1,
-                                               const bf16* __restrict__ W,
-                                               const float* __restrict__ B,
-                                               float* wscratch) {
-  constexpr int ALD = H + 8;
-  gemm_bias_act(pe, peld, d.pxp, nullptr, 0, 0, W + d.w_off[0], B + d.b_off[0], H,
-                act0, ALD, false, wscratch);
-  __syncthreads();
-  bf16* cur = act0;
-  bf16* nxt = act1;
-  for (int i = 0; i < d.num_layers - 1; ++i) {
-    const bool skip = (d.skip_mask >> i) & 1;
-    gemm_bias_act(cur, ALD, H, pe, peld, skip ? d.pxp : 0, W + d.w_off[1 + i],
-                  B + d.b_off[1 + i], H, nxt, ALD, true, wscratch);
-    __syncthreads();
-    bf16* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  return cur;
-}
-
-// Raw sigma (the alpha head, no activation) off one trunk output row x.
-template <int H>
-__device__ __forceinline__ float alpha_head(const Desc& d, const bf16* x,
-                                            const bf16* __restrict__ W,
-                                            const float* __restrict__ B) {
-  const bf16* wa = W + d.wa_off;
-  float s = 0.f;
-  for (int k = 0; k < H; ++k) s += __bfloat162float(x[k]) * __bfloat162float(wa[k]);
-  return s + B[d.ba_off];
 }
 
 }  // namespace

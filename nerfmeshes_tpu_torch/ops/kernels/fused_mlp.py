@@ -16,14 +16,19 @@ The kernels are `nerfmeshes_tpu_torch/csrc/fused_mlp_{fwd,bwd}.cu` and
 
 What bounds the forward on an H100: ~1.2 MFLOP per point at lego width
 (595,844 parameters per MLP) against ~44 bytes of input and output per
-point, so the tensor cores and not device memory set the pace. The weights
-(1.19 MB in bf16) do not fit a block's shared memory, so the kernel keeps
-points, positional encoding and activations of a 64-point tile in shared
-memory and streams each layer's weights from L2, once per tile; no
-points, PE or activation tensor is ever written to device memory. The
-backward contracts the weight grads over all points, which needs a
-stash of each layer's input and output cotangent in device memory and a
-fixed-order reduction (its design is described in the .cu file).
+point, so the tensor cores and not device memory set the pace, and only
+wgmma reaches their rate; next come the weights (1.19 MB in bf16, more
+than a block's shared memory), read from L2 once per tile. The forward
+and sigma kernels share one design (csrc/fused_field.cuh): one persistent
+block per SM walks 128-point tiles; a producer warp streams every layer's
+weights by TMA, in 64-column K-slabs of the packed layout, into a ring in
+shared memory; two warpgroups of 64 points run each layer as wgmma on
+those slabs with the sums in registers, keep PE and activations in shared
+memory and the epilogues and heads in registers. No points, PE or
+activation tensor is ever written to device memory. The backward
+contracts the weight grads over all points, which needs a stash of each
+layer's input and output cotangent in device memory and a fixed-order
+reduction (its design is described in the .cu file).
 
 Numerics, shared by kernels and plain versions: bf16 operands, f32
 accumulation, f32 bias/ReLU/sigmoid; an activation is rounded to bf16

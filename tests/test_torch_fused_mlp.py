@@ -286,3 +286,41 @@ def test_backward_dispatch_never_falls_back(rng):
         fm.fused_mlp_bwd_cuda(p, o, d, z, cot)
     with pytest.raises(ValueError):
         fm.fused_mlp_bwd(p, o.to("meta"), d.to("meta"), z.to("meta"), cot.to("meta"))
+
+
+# The supports_fused grid: both hidden widths, the fewest and most layers
+# and bands, skips on and off, include-input on and off.
+PACK_GRID = [
+    dict(hidden_size=h, num_layers=n, skip_step=s, num_encoding_fn_xyz=lx,
+         num_encoding_fn_dir=ld, include_input_xyz=inc, include_input_dir=inc)
+    for h in fm.HIDDEN_SIZES
+    for n, s in ((1, 4), (8, 4), (fm.MAX_LAYERS, 3))
+    for lx, ld in ((1, 1), (10, 4), (fm.MAX_BANDS, fm.MAX_BANDS))
+    for inc in (True, False)
+]
+
+
+@pytest.mark.parametrize("kw", PACK_GRID, ids=lambda kw: "-".join(map(str, kw.values())))
+def test_packing_feeds_the_asynchronous_copies(kw):
+    """What the forward and sigma kernels' TMA weight copies and register
+    heads need of pack_weights: every product's matrix starts on a 16-byte
+    boundary of the bf16 buffer and its rows are a multiple of 16 bytes
+    long; the alpha and rgb rows start on 16-byte boundaries; every bias
+    vector starts on an even f32 index (read two at a time)."""
+    model = FlexibleNeRFModel(**kw, compute_dtype=torch.bfloat16)
+    assert fm.supports_fused(model)
+    packed = fm.pack_weights(model)
+    spec, desc = packed.spec, packed.desc
+    n_gemms = spec.num_layers + 2
+    shapes = spec.gemm_shapes()
+    assert len(shapes) == n_gemms and packed.weights.dtype == torch.bfloat16
+    nbytes = packed.weights.element_size()
+    w_offs = desc[fm._DESC_FIXED:fm._DESC_FIXED + n_gemms]
+    b_offs = desc[fm._DESC_FIXED + n_gemms:]
+    for (n, k), w_off, b_off in zip(shapes, w_offs, b_offs):
+        assert (int(w_off) * nbytes) % 16 == 0 and (k * nbytes) % 16 == 0, (n, k, w_off)
+        assert int(b_off) % 2 == 0
+    wa_off, ba_off, wr_off, br_off = (int(v) for v in desc[9:13])
+    assert (wa_off * nbytes) % 16 == 0 and (wr_off * nbytes) % 16 == 0
+    end = int(w_offs[-1]) + shapes[-1][0] * shapes[-1][1]
+    assert wa_off == end and packed.weights.numel() == wr_off + 3 * (spec.hidden // 2)

@@ -1,5 +1,7 @@
 """The fused MLP CUDA kernels (forward and backward) against their plain
-versions, on the card.
+versions, on the card: every architecture at the ragged edges of the
+forward's 128-point tiles and past two persistent waves, bitwise repeats,
+and a launch refused for its shared memory.
 
 A CUDA kernel has no CPU mode, so these tests carry the `gpu` marker and
 skip without a card. On a GPU host:
@@ -19,6 +21,7 @@ import pytest
 import torch
 
 from nerfmeshes_tpu_torch.models import FlexibleNeRFModel
+from nerfmeshes_tpu_torch.ops.kernels import build
 from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
 
 pytestmark = pytest.mark.gpu
@@ -68,6 +71,68 @@ def test_kernel_matches_plain(cuda, kw, R, S, channels_first):
     ref = fm.fused_mlp_plain(packed, o, d, z, channels_first=channels_first)
     assert got.shape == ref.shape and bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, ref, atol=2e-2, rtol=2e-2)
+
+
+# Ragged edges of the 128-point tiles the persistent CTAs walk, and more
+# tiles than two waves of one CTA per SM (132 SMs x 128 x 2 = 33,792).
+RAGGED = [1, 63, 65, 127, 128, 129, 257, 40000]
+
+
+@pytest.mark.parametrize("kw", ARCHS, ids=["lego", "small", "deep-linear", "linear-11", "edge"])
+@pytest.mark.parametrize("n", RAGGED)
+def test_kernel_tile_edges(cuda, kw, n):
+    """n points as n rays of one sample: tail rows of the last tile must
+    read zeros and never be written, and a CTA's second and third tiles
+    must see the same weights."""
+    torch.manual_seed(0)
+    model = FlexibleNeRFModel(**kw, compute_dtype=torch.bfloat16, device=cuda)
+    packed = fm.pack_weights(model)
+    o, d, z = _rays(n, 1, cuda, seed=n)
+    got = fm.fused_mlp_cuda(packed, o, d, z)
+    torch.cuda.synchronize()
+    ref = fm.fused_mlp_plain(packed, o, d, z)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ref, atol=2e-2, rtol=2e-2)
+    # Tail rows are never written: the C entry point's (N, 4) rows into a
+    # buffer one row longer leave that row as it was.
+    lib = build.load_library()
+    out = torch.full((n + 1, 4), float("nan"), device=cuda)
+    rc = lib.nm_fused_mlp_fwd(
+        o.data_ptr(), d.data_ptr(), z.data_ptr(), n, 1, packed.weights.data_ptr(),
+        packed.biases.data_ptr(), packed.desc.ctypes.data, packed.desc.size,
+        packed.freqs.ctypes.data, packed.freqs.size, out.data_ptr(), 0,
+        torch.cuda.current_stream().cuda_stream)
+    build.check(lib, rc, "fused_mlp_fwd launch")
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(out[n]).all())
+    torch.testing.assert_close(out[:n], ref.reshape(4, n).t(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("channels_first", [True, False])
+def test_kernel_is_deterministic(cuda, channels_first):
+    """Two launches on the same inputs agree bit for bit (no atomics; each
+    tile's sums run in one fixed order, whichever CTA takes the tile)."""
+    torch.manual_seed(0)
+    packed = fm.pack_weights(FlexibleNeRFModel(**LEGO, compute_dtype=torch.bfloat16,
+                                               device=cuda))
+    o, d, z = _rays(2048, 37, cuda)
+    first = fm.fused_mlp_cuda(packed, o, d, z, channels_first=channels_first)
+    second = fm.fused_mlp_cuda(packed, o, d, z, channels_first=channels_first)
+    assert torch.equal(first, second)
+
+
+def test_kernel_refuses_what_its_shared_memory_cannot_hold(cuda):
+    """A descriptor whose PE tiles leave no room for two weight stages is
+    refused at launch and raises from the wrapper; nothing is launched."""
+    packed = fm.pack_weights(FlexibleNeRFModel(**LEGO, compute_dtype=torch.bfloat16,
+                                               device=cuda))
+    desc = packed.desc.copy()
+    desc[7] = 1024  # pxp: PE(xyz) 1024 columns wide, 256 KB of PE tiles
+    o, d, z = _rays(64, 2, cuda)
+    before = fm.launches
+    with pytest.raises(RuntimeError, match="fused_mlp_fwd launch failed"):
+        fm.fused_mlp_cuda(packed._replace(desc=desc), o, d, z)
+    assert fm.launches == before
 
 
 def test_kernel_points_entry_and_empty_input(cuda):

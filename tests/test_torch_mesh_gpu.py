@@ -1,5 +1,7 @@
 """The mesh slice on the card: the sigma kernel against its plain version
-and against the forward kernel, the grid evaluation without a host sync,
+(at the ragged edges of its 128-point tiles and past two persistent
+waves) and against the forward kernel, bitwise repeats, a launch refused
+for its shared memory, the grid evaluation without a host sync,
 and a small export_marching_cubes on a CUDA NeRFSystem.
 
 A CUDA kernel has no CPU mode, so these tests carry the `gpu` marker and
@@ -24,6 +26,7 @@ from nerfmeshes_tpu_torch.config import get_default_cfg
 from nerfmeshes_tpu_torch.mesh import extract
 from nerfmeshes_tpu_torch.mesh.export import read_ply_binary
 from nerfmeshes_tpu_torch.models import FlexibleNeRFModel
+from nerfmeshes_tpu_torch.ops.kernels import build
 from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
 from nerfmeshes_tpu_torch.train.system import NeRFSystem
 
@@ -61,7 +64,9 @@ def _model(kw, device):
 
 
 @pytest.mark.parametrize("kw", ARCHS, ids=["lego", "small", "deep-linear", "edge", "one-layer"])
-@pytest.mark.parametrize("n", [0, 1, 63, 65, 262144])
+# Ragged edges of the 128-point tiles, more tiles than two persistent waves
+# (40,000 points), and one grid tile of the mesh path (262,144).
+@pytest.mark.parametrize("n", [0, 1, 63, 65, 127, 128, 129, 257, 40000, 262144])
 def test_sigma_kernel_matches_plain(cuda, kw, n):
     packed = fm.pack_weights(_model(kw, cuda))
     pts = _points(n, cuda)
@@ -83,6 +88,37 @@ def test_sigma_kernel_is_forward_channel3(cuda, kw):
     full = fm.fused_mlp_cuda(packed, pts, zeros, torch.zeros((4099, 1), device=cuda))[3, :, 0]
     sigma = fm.fused_sigma_cuda(packed, pts)
     torch.testing.assert_close(sigma, full, atol=1e-5, rtol=0)
+
+
+def test_sigma_kernel_is_deterministic_and_stays_in_its_output(cuda):
+    """Two launches agree bit for bit, and the C entry point writes n
+    values into a longer buffer without touching the rest."""
+    packed = fm.pack_weights(_model(LEGO, cuda))
+    n = 40001
+    pts = _points(n, cuda, seed=2)
+    first = fm.fused_sigma_cuda(packed, pts)
+    assert torch.equal(first, fm.fused_sigma_cuda(packed, pts))
+    lib = build.load_library()
+    out = torch.full((n + 3,), float("nan"), device=cuda)
+    rc = lib.nm_fused_sigma(pts.data_ptr(), n, packed.weights.data_ptr(),
+                            packed.biases.data_ptr(), packed.desc.ctypes.data, packed.desc.size,
+                            packed.freqs.ctypes.data, packed.freqs.size, out.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, rc, "fused_sigma launch")
+    torch.cuda.synchronize()
+    assert torch.equal(out[:n], first) and bool(torch.isnan(out[n:]).all())
+
+
+def test_sigma_kernel_refuses_what_its_shared_memory_cannot_hold(cuda):
+    """A descriptor whose PE tiles leave no room for two weight stages is
+    refused at launch and raises from the wrapper; nothing is launched."""
+    packed = fm.pack_weights(_model(LEGO, cuda))
+    desc = packed.desc.copy()
+    desc[7] = 2048  # pxp: PE(xyz) 2048 columns wide, 512 KB of PE tiles
+    before = fm.sigma_launches
+    with pytest.raises(RuntimeError, match="fused_sigma launch failed"):
+        fm.fused_sigma_cuda(packed._replace(desc=desc), _points(100, cuda))
+    assert fm.sigma_launches == before
 
 
 def _lego_system(device, **experiment):
