@@ -61,7 +61,9 @@ and mesh paths, then drives the hierarchical paths and the BuFF ones:
 Prints, on lines of their own: the card's name and power limit as
 nvidia-smi reports them, the build time, per-kernel error, times, bound
 and library yardstick, render and train rays/s of both systems, the mesh
-phases' times, then a JSON line of the kernels, and last {"ok": true,
+phases' times, last the backward's legs (its transpose, tile kernel and
+dW products) by kernel name, each beside its bound, then a JSON line of
+the kernels, and last {"ok": true,
 "device": {...}}. Any failed check
 raises, so the exit code is non-zero and no "ok" line is printed. There
 is no CPU path.
@@ -242,6 +244,24 @@ def _field_flops(model, heads: bool = True) -> int:
                    if n.endswith("weight") and not n.startswith(skip))
 
 
+def _dx_flops(model) -> int:
+    """FLOPs per point of the backward's dX chain (csrc/fused_mlp_bwd.cu):
+    the cotangent through the x part (first H input columns) of the dir,
+    feat and trunk products, and the rgb and alpha heads' terms."""
+    H = model.hidden_size
+    products = (model.num_layers - 1) * H * H + H * H + (H // 2) * H
+    return 2 * (products + 3 * (H // 2) + H)
+
+
+def _stash_bytes(packed, n_pts: int) -> int:
+    """Bytes of the backward's bf16 stash for n_pts points (stash_layout in
+    csrc/fused_mlp_bwd.cu; rows padded to the tile kernel's 128)."""
+    spec = packed.spec
+    H, L, n_pad = spec.hidden, spec.num_layers, -(-n_pts // 128) * 128
+    per_point = spec.pxp + spec.pdp + H * L + H + H // 2 + H * (L + 1) + H // 2 + 2 * 16
+    return 2 * n_pad * per_point
+
+
 def _rate(name: str, ms: float, flops: float, bound_ms: float, bound_by: str, shape: str,
           card: str) -> None:
     """One kernel time beside its bound: TFLOP/s and the bound's share."""
@@ -308,11 +328,11 @@ def _autocast(fn):
     return run
 
 
-def _kernel_device_ms(fn, key: str, runs: int = 7, warmup: int = 2) -> float:
-    """Median device time in ms of the kernel named `key` that fn()
-    launches once, from torch.profiler over `runs` calls. CUDA events
-    around one call of a kernel that lasts microseconds time the host's
-    enqueue of its wrapper instead."""
+def _traced_kernels(fn, runs: int = 7, warmup: int = 2) -> list:
+    """(name, device ms) of each kernel launch that `runs` calls of fn()
+    made, from torch.profiler, which may drop a few events of a run. CUDA
+    events around one call of a kernel that lasts microseconds time the
+    host's enqueue of its wrapper instead."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -328,10 +348,30 @@ def _kernel_device_ms(fn, key: str, runs: int = 7, warmup: int = 2) -> float:
         trace = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(trace))
         events = json.loads(trace.read_text())["traceEvents"]
-    times = [e["dur"] / 1e3 for e in events if e.get("cat") == "kernel" and key in e["name"]]
-    if len(times) != runs:
+    return [(e["name"], e["dur"] / 1e3) for e in events if e.get("cat") == "kernel"]
+
+
+def _kernel_device_ms(fn, key: str, runs: int = 7) -> float:
+    """Median device time in ms of the kernel named `key` that fn()
+    launches once, over the launches traced in `runs` calls."""
+    times = [t for name, t in _traced_kernels(fn, runs) if key in name]
+    if not 0 < len(times) <= runs:
         raise AssertionError(f"{len(times)} {key} launches traced for {runs} calls")
     return statistics.median(times)
+
+
+def _device_ms_by_group(fn, groups: dict, runs: int = 7) -> dict:
+    """Device time in ms per call of fn() of each group of kernels (name
+    substrings): the group's time over the launches traced of its first
+    name, which fn() launches once per call."""
+    kernels = _traced_kernels(fn, runs)
+    out = {}
+    for group, keys in groups.items():
+        first = sum(1 for name, _ in kernels if keys[0] in name)
+        if not 0 < first <= runs:
+            raise AssertionError(f"{first} {keys[0]} launches traced for {runs} calls")
+        out[group] = sum(t for name, t in kernels if any(k in name for k in keys)) / first
+    return out
 
 
 def _median_ms(fn, runs: int = 7, warmup: int = 2) -> float:
@@ -606,17 +646,57 @@ def bwd_kernel_phase(cfg, card: str, device) -> dict:
     for p in model.parameters():
         p.grad = None
     # Forward recompute, the dX chain and the dW products: 3x the forward.
-    nbytes = (R * 24 + R * S * 4 + R * S * 16 + packed.weights.numel() * 2
-              + (packed.weights.numel() + packed.biases.numel()) * 4)
-    bound_ms, bound_by = _bound_ms(3 * _field_flops(model) * R * S, nbytes, PEAK_BF16)
+    n_pts, n_w = R * S, packed.weights.numel()
+    nbytes = (R * 24 + n_pts * 4 + n_pts * 16 + n_w * 2 + (n_w + packed.biases.numel()) * 4)
+    bound_ms, bound_by = _bound_ms(3 * _field_flops(model) * n_pts, nbytes, PEAK_BF16)
     for name, t in (("kernel", ms), ("plain", plain_ms), ("nn.Module + autograd", module_ms),
                     ("nn.Module + autograd, bf16 autocast", library_ms), ("bound", bound_ms)):
-        print(f"fused_mlp_bwd {name}: {t:.4f} ms, {R * S / t * 1e3:.4e} points/s "
+        print(f"fused_mlp_bwd {name}: {t:.4f} ms, {n_pts / t * 1e3:.4e} points/s "
               f"at {R}x{S} points [{card}]")
-    _rate("fused_mlp_bwd", ms, 3 * _field_flops(model) * R * S, bound_ms, bound_by, f"{R}x{S}",
+    _rate("fused_mlp_bwd", ms, 3 * _field_flops(model) * n_pts, bound_ms, bound_by, f"{R}x{S}",
           card)
+
+    # Its legs, by kernel name, each beside its bound under the stash design.
+    # The transpose: the x parts of the dX chain's matrices read and written.
+    # The tile kernel: the recomputed forward and the dX chain; rays, the
+    # cotangent and the weights read, the stash and the bias partials
+    # written. The dW leg: the dW products; the stash read, the grads
+    # written. Timed by legs_phase, after the other phases.
+    H, L = model.hidden_size, model.num_layers
+    stash = _stash_bytes(packed, n_pts)
+    wt_bytes = 2 * (L + 1) * H * H
+    db_rows = 2 * (-(-n_pts // 128))
+    leg_bounds = {
+        "transpose": _bound_ms(0.0, 2 * wt_bytes, PEAK_BF16),
+        "tile": _bound_ms((_field_flops(model) + _dx_flops(model)) * n_pts,
+                          R * 24 + n_pts * 20 + n_w * 2 + wt_bytes + stash
+                          + db_rows * packed.biases.numel() * 4, PEAK_BF16),
+        "dw": _bound_ms(_field_flops(model) * n_pts,
+                        stash + (n_w + packed.biases.numel()) * 4, PEAK_BF16),
+    }
     return dict(max_abs_err=worst_abs, max_rel_err=worst_rel, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                legs_case=(packed, (o, d, z, cot), leg_bounds, f"{R}x{S}"))
+
+
+def legs_phase(bkern: dict, card: str) -> dict:
+    """The backward's legs at bwd_kernel_phase's fine shape, by kernel name
+    from torch.profiler (7 calls), each beside its bound: {leg: {ms,
+    bound_ms, bound_by}}."""
+    from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+
+    packed, args, leg_bounds, shape = bkern.pop("legs_case")
+    legs = _device_ms_by_group(
+        lambda: fm.fused_mlp_bwd_cuda(packed, *args),
+        {"transpose": ("wt_transpose_kernel",), "tile": ("bwd_tile_kernel",),
+         "dw": ("dw_partial_kernel", "reduce_rows_kernel")})
+    for leg, t in legs.items():
+        b, by = leg_bounds[leg]
+        print(f"fused_mlp_bwd leg {leg}: {t:.4f} ms of device time per call (torch.profiler, "
+              f"mean over 7 calls) at {shape}, bound {b:.4f} ms ({by}), {100.0 * b / t:.1f}% "
+              f"of the bound [{card}]")
+    return {leg: dict(ms=t, bound_ms=leg_bounds[leg][0], bound_by=leg_bounds[leg][1])
+            for leg, t in legs.items()}
 
 
 def train_phase(card: str, device) -> dict:
@@ -1258,7 +1338,8 @@ def _profile_steps(system, label: str, card: str, steps: int) -> None:
           f"({100.0 * enqueued * 1e3 / span:.1f}% of the device span), wall "
           f"{wall * 1e3:.3f} ms; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB [{card}]")
-    groups = {"backward tile": ("bwd_tile_kernel",),
+    groups = {"backward transpose": ("wt_transpose_kernel",),
+              "backward tile": ("bwd_tile_kernel",),
               "backward dW partials + reduction": ("dw_partial_kernel", "reduce_rows_kernel"),
               "forward": ("fused_mlp_fwd_kernel",), "chords": ("chords_kernel",)}
     shares = {group: sum(t for n, t in by_name.items() if any(k in n for k in keys))
@@ -1464,6 +1545,7 @@ def main(argv=None) -> int:
     buff_system = buff.pop("system")
     buff_render = buff_render_phase(buff_system, card, device)
     buff_mesh = buff_mesh_phase(buff_system, card)
+    bkern["legs"] = legs_phase(bkern, card)
 
     rank_kernels(kern, bkern, skern, ckern, render, train, mesh, buff, buff_render, buff_mesh,
                  card)
@@ -1483,7 +1565,7 @@ def main(argv=None) -> int:
               chunk_ms=kern["chunk_ms"], chunk_bound_ms=kern["chunk_bound_ms"]),
         entry("fused_mlp_bwd", "fused_mlp_bwd.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397", bkern,
               {"train": train["bwd_launches"], "buff_train": buff["bwd_launches"]},
-              max_rel_err=bkern["max_rel_err"]),
+              max_rel_err=bkern["max_rel_err"], legs=bkern["legs"]),
         entry("fused_sigma", "fused_sigma.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:675", skern,
               {"mesh": mesh["sigma_launches"], "buff_mesh": buff_mesh["sigma_launches"]}),
         entry("fused_chords", "chords.cu", "nerfmeshes_tpu/ops/pallas/chords.py:98",

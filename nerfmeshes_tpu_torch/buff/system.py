@@ -51,14 +51,15 @@ def buff_render_rays(model, tree_state: TreeState, origins: torch.Tensor,
     Samples come from the tree where the ray crosses an active voxel and
     are stratified elsewhere, picked per ray on the device. The fallback
     is jittered only in training (`settings.perturb and train`, as JAX's
-    BuFF render does, unlike its hierarchical render). A training render
-    that needs random numbers and has no generator raises. `compact`
-    overrides the chord compaction (see ray_voxel_intersect)."""
+    BuFF render does, unlike its hierarchical render). A render without a
+    generator draws from one seeded 0 on the rays' device, as JAX's falls
+    back to `jax.random.key(0)`. `compact` overrides the chord compaction
+    (see ray_voxel_intersect)."""
     R = directions.shape[0]
     perturb = settings.perturb and train
     noise_std = settings.radiance_field_noise_std if train else 0.0
     if (perturb or noise_std > 0.0) and generator is None:
-        raise ValueError("training render with perturb/noise requires a generator")
+        generator = torch.Generator(directions.device).manual_seed(0)
     origins = torch.reshape(origins, (-1, 3)).expand(R, 3)
     stratified = ray_sample_interval(
         settings.num_coarse, R, near, far, lindisp=settings.lindisp, perturb=perturb,

@@ -3,7 +3,10 @@
 // CTA per SM walks tiles of TILE_M = 128 points; every layer product is a
 // wgmma on weight slabs that a producer warp streams into shared memory by
 // TMA. Both entry points run the same trunk and alpha head code, so on equal
-// points their sigma agrees bit for bit.
+// points their sigma agrees bit for bit. The backward's tile kernel
+// (fused_mlp_bwd.cu) is built from the same pieces: Producer, Ring,
+// layer_product, and the epilogue and PE builder with their STASH flag,
+// which also store what they compute to device memory.
 //
 // What bounds it on an H100: ~1.19 MFLOP per point at lego width (8x256,
 // L 10/4) against ~44 bytes of rays in and field out per point, so the
@@ -80,7 +83,7 @@ struct FieldLayout {
   int pe_cols;    // PE columns of a tile: [PE(xyz) | PE(dir)] (sigma: PE(xyz))
   int pe_slots;   // tiles of PE a warpgroup's arena holds: 2 lets it build ahead
   int pe_blocks;  // 64-column atoms of a warpgroup's PE arena
-  int act_off, pe_off, bar_off, tab_off, desc_off, bytes;
+  int act_off, pe_off, extra_off, bar_off, tab_off, desc_off, bytes;
 };
 
 __host__ __device__ __forceinline__ int round64(int x) { return (x + 63) / 64 * 64; }
@@ -367,12 +370,21 @@ __device__ __forceinline__ float2 bf16x2_at(const bf16* p) {
 // groups of 8 column chunks: the compiler barrier between groups keeps it
 // from hoisting every load ahead, which costs the registers that hold
 // loop-invariant addresses (their spills go to L2, round trips of ~1 us).
-template <int R>
+//
+// STASH (the backward's recompute): the same bf16 values also go to rows r
+// and r + 8 of `stash`, a row-major array of N columns, straight from the
+// registers; and, where `bits` is given, whether each is > 0 (the ReLU
+// mask the backward applies) as R bits, bit k for acc[k], in R/32 words,
+// word w at bits[w * WG_THREADS] (a warp's stores of a word are
+// contiguous).
+template <int R, bool STASH = false>
 __device__ __forceinline__ void epilogue(const float (&acc)[R], const float* bias, bool relu,
                                          unsigned char* act, int r, int q, const bf16* wa,
-                                         float& s0, float& s1) {
+                                         float& s0, float& s1, bf16* stash = nullptr,
+                                         uint32_t* bits = nullptr) {
 #pragma unroll
   for (int n0 = 0; n0 < R / 4; n0 += 8) {
+    uint32_t mb = 0;  // STASH: this group's word of mask bits
 #pragma unroll
     for (int n = n0; n < n0 + 8; ++n) {
       const int col = 8 * n + 2 * q;
@@ -386,6 +398,15 @@ __device__ __forceinline__ void epilogue(const float (&acc)[R], const float* bia
       const uint32_t lo = pack_bf16(v[0], v[1]), hi = pack_bf16(v[2], v[3]);
       *reinterpret_cast<uint32_t*>(act + swz(r, col)) = lo;
       *reinterpret_cast<uint32_t*>(act + swz(r + 8, col)) = hi;
+      if constexpr (STASH) {
+        *reinterpret_cast<uint32_t*>(stash + r * 2 * R + col) = lo;
+        *reinterpret_cast<uint32_t*>(stash + (r + 8) * 2 * R + col) = hi;
+        const float2 x0 = bf16x2_at(reinterpret_cast<const bf16*>(&lo));
+        const float2 x1 = bf16x2_at(reinterpret_cast<const bf16*>(&hi));
+        mb |= ((uint32_t)(x0.x > 0.f) | (uint32_t)(x0.y > 0.f) << 1 |
+               (uint32_t)(x1.x > 0.f) << 2 | (uint32_t)(x1.y > 0.f) << 3)
+              << (4 * (n - n0));
+      }
       if (wa != nullptr) {
         const float2 w = bf16x2_at(wa + col);
         const float2 x0 = bf16x2_at(reinterpret_cast<const bf16*>(&lo));
@@ -393,6 +414,9 @@ __device__ __forceinline__ void epilogue(const float (&acc)[R], const float* bia
         s0 += x0.x * w.x + x0.y * w.y;
         s1 += x1.x * w.x + x1.y * w.y;
       }
+    }
+    if constexpr (STASH) {
+      if (bits != nullptr) bits[n0 / 8 * WG_THREADS] = mb;
     }
     asm volatile("" ::: "memory");
   }
@@ -403,9 +427,11 @@ __device__ __forceinline__ float quad_sum(float s) {
   return s + __shfl_xor_sync(0xffffffffu, s, 2);
 }
 
-// What PE column c of a tile computes (pe_value's cases, resolved once per
-// CTA): code = kind | component << 2 | dir << 4, kind 0 zero (padding), 1
-// the coordinate, 2 sin, 3 cos of coordinate * f.
+// What PE column c of a tile computes, resolved once per CTA: PE(p) is
+// [p if included, sin(p_c f_l) for c, l, cos(p_c f_l) for c, l, zeros past
+// the encoding], as the plain version's. code = kind | component << 2 |
+// dir << 4, kind 0 zero (padding), 1 the coordinate, 2 sin, 3 cos of
+// coordinate * f.
 struct PeCol {
   float f;
   int code;
@@ -436,12 +462,19 @@ __device__ __forceinline__ PeCol pe_col(const Desc& d, int c, bool fwd) {
 // can be built a little at a time between the products of the tile before
 // without holding up their issue. Rows past n_pts read the point 0.
 // Forward: the point is o + d*z of its ray, unfused as in the plain
-// version; sigma: `src` holds the (N, 3) points.
-template <bool FWD>
+// version; sigma: `src` holds the (N, 3) points. STASH (the backward): each
+// whole chunk also goes to the point's row of a row-major array of the
+// tab's columns (stash_row), tail rows included.
+template <bool FWD, bool STASH = false>
 struct PeBuild {
   float x0, x1, x2, v0, v1, v2;
   uint32_t w0, w1, w2, w3;  // the chunk's column pairs so far, newest last
   int chunk, pair, base;
+  bf16* row_out;  // STASH: the point's row
+
+  __device__ __forceinline__ void stash_row(bf16* rows, int width, long long row0, int t) {
+    row_out = rows + (row0 + (t & 63)) * width;
+  }
 
   __device__ __forceinline__ void start(const float* __restrict__ src,
                                         const float* __restrict__ dirs,
@@ -494,6 +527,8 @@ struct PeBuild {
     w3 = pack_bf16(e[0], e[1]);
     if (++pair == 4) {
       *reinterpret_cast<uint4*>(pe + swz(t & 63, base + 8 * chunk)) = make_uint4(w0, w1, w2, w3);
+      if constexpr (STASH)
+        *reinterpret_cast<uint4*>(row_out + 8 * chunk) = make_uint4(w0, w1, w2, w3);
       pair = 0;
       chunk += 2;
     }
@@ -503,6 +538,72 @@ struct PeBuild {
     while (chunk < chunks) step(tab, chunks, pe, t);
   }
 };
+
+// The producer's side of the ring: one thread streams a product's K-slabs,
+// the boxes (k0, row) of `map` for k0 < K, N rows each, into the slots in
+// turn; the last slab also brings `bias` (N floats, when given) and
+// `head_bytes` of `head` (when given) into the slot's params.
+struct Producer {
+  int stage;
+  uint32_t phase;
+  __device__ __forceinline__ void product(unsigned char* smem, const FieldLayout& lay,
+                                          uint64_t* full, uint64_t* empty,
+                                          const CUtensorMap* map, int row, int K, int N,
+                                          const float* bias, const bf16* head,
+                                          uint32_t head_bytes) {
+    for (int k0 = 0; k0 < K; k0 += SLAB_K) {
+      const bool last = k0 + SLAB_K >= K;
+      uint32_t bytes = SLAB_K * N * sizeof(bf16);
+      if (last)
+        bytes += (bias != nullptr ? N * sizeof(float) : 0) + (head != nullptr ? head_bytes : 0);
+      mbar_wait(&empty[stage], phase ^ 1);
+      mbar_arrive_expect_tx(&full[stage], bytes);
+      unsigned char* slot = smem + stage * lay.slot_bytes;
+      tma_load_2d(slot, map, k0, row, &full[stage]);
+      if (last) {
+        unsigned char* params = slot + lay.slab_bytes;
+        if (bias != nullptr) bulk_load(params, bias, N * sizeof(float), &full[stage]);
+        if (head != nullptr) bulk_load(params + HEAD_OFF, head, head_bytes, &full[stage]);
+      }
+      if (++stage == lay.stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+};
+
+// The bias and head weights product g of a field brings with its last slab:
+// the alpha head with the trunk's last product, the rgb head with dir.
+__device__ __forceinline__ const bf16* product_head(const Desc& d, const bf16* W, int g,
+                                                    uint32_t* bytes) {
+  const int L = d.num_layers;
+  *bytes = g == L - 1 ? 2 * d.hidden : 3 * d.hidden;
+  return g == L - 1 ? W + d.wa_off : (g == L + 1 ? W + d.wr_off : nullptr);
+}
+
+// Shared-memory set-up of a kernel on the ring: the descriptor's copy (its
+// arrays are indexed at run time), the ring's barriers, the PE column table
+// (pe_col with `fwd`). Ends with a block barrier.
+__device__ __forceinline__ Desc& field_setup(unsigned char* smem, const Desc& desc,
+                                             const FieldLayout& lay, bool fwd) {
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
+  uint64_t* empty = full + MAX_STAGES;
+  PeCol* tab = reinterpret_cast<PeCol*>(smem + lay.tab_off);
+  Desc& d = *reinterpret_cast<Desc*>(smem + lay.desc_off);
+  if (threadIdx.x == 0) {
+    d = desc;
+    for (int s = 0; s < lay.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * WG_THREADS / 32);  // every consumer warp releases
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < lay.pe_cols; c += FIELD_THREADS) tab[c] = pe_col(d, c, fwd);
+  __syncthreads();
+  return d;
+}
 
 // ------------------------------------------------------------- kernel ----
 
@@ -523,21 +624,9 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
   extern __shared__ __align__(1024) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
   uint64_t* empty = full + MAX_STAGES;
-  PeCol* tab = reinterpret_cast<PeCol*>(smem + lay.tab_off);
-  // Shared copy of the descriptor: its arrays are indexed at run time.
-  Desc& d = *reinterpret_cast<Desc*>(smem + lay.desc_off);
+  const PeCol* tab = reinterpret_cast<const PeCol*>(smem + lay.tab_off);
+  const Desc& d = field_setup(smem, desc, lay, FWD);
   const int tid = threadIdx.x;
-  if (tid == 0) {
-    d = desc;
-    for (int s = 0; s < lay.stages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 2 * WG_THREADS / 32);  // every consumer warp releases
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  for (int c = tid; c < lay.pe_cols; c += FIELD_THREADS) tab[c] = pe_col(d, c, FWD);
-  __syncthreads();
 
   const long long n_tiles = (n_pts + TILE_M - 1) / TILE_M;
   const int L = d.num_layers;
@@ -549,31 +638,13 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
     if (tid == 2 * WG_THREADS) {
       const int n_gemms = FWD ? L + 2 : L;
-      int stage = 0;
-      uint32_t phase = 0;
+      Producer prod{0, 0};
       for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
         for (int g = 0; g < n_gemms; ++g) {
-          const int K = gemm_k(d, g), N = gemm_n(d, g);
-          const bf16* head = g == L - 1 ? W + d.wa_off : (g == L + 1 ? W + d.wr_off : nullptr);
-          const uint32_t head_bytes = g == L - 1 ? 2 * H : 3 * H;
-          for (int k0 = 0; k0 < K; k0 += SLAB_K) {
-            const bool last = k0 + SLAB_K >= K;
-            uint32_t bytes = SLAB_K * N * sizeof(bf16);
-            if (last) bytes += N * sizeof(float) + (head != nullptr ? head_bytes : 0);
-            mbar_wait(&empty[stage], phase ^ 1);
-            mbar_arrive_expect_tx(&full[stage], bytes);
-            unsigned char* slot = smem + stage * lay.slot_bytes;
-            tma_load_2d(slot, &maps.w[g], k0, 0, &full[stage]);
-            if (last) {
-              unsigned char* params = slot + lay.slab_bytes;
-              bulk_load(params, B + d.b_off[g], N * sizeof(float), &full[stage]);
-              if (head != nullptr) bulk_load(params + HEAD_OFF, head, head_bytes, &full[stage]);
-            }
-            if (++stage == lay.stages) {
-              stage = 0;
-              phase ^= 1;
-            }
-          }
+          uint32_t head_bytes;
+          const bf16* head = product_head(d, W, g, &head_bytes);
+          prod.product(smem, lay, full, empty, &maps.w[g], 0, gemm_k(d, g), gemm_n(d, g),
+                       B + d.b_off[g], head, head_bytes);
         }
       }
     }
@@ -726,10 +797,54 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// A tensor map over a (rows, K) row-major bf16 matrix at `base`, read in
+// boxes of SLAB_K columns x box_rows rows, 128 B swizzled, zeros past K.
+int encode_slab_map(CUtensorMap* map, const bf16* base, int K, int rows, int box_rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {dims[0] * sizeof(bf16)};
+  const cuuint32_t box[2] = {SLAB_K, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(base),
+                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The launch checks and device facts every kernel on the ring needs: the
+// bulk copies' 16 B aligned sources (the weights' and biases' bases, the
+// heads' offsets, every product's bias offset), the SM count and the
+// card's shared-memory limit per block; then one tensor map per product
+// (the first n_gemms) of the packed weights.
+int field_prepare(const Desc& d, const bf16* W, const float* B, int n_gemms, int* sms,
+                  int* smem_limit, FieldMaps* maps) {
+  if (reinterpret_cast<uintptr_t>(W) % 16 != 0 || reinterpret_cast<uintptr_t>(B) % 16 != 0 ||
+      d.wa_off % 8 != 0 || d.wr_off % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  for (int g = 0; g < d.num_layers + 2; ++g)
+    if (d.b_off[g] % 4 != 0) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  for (int g = 0; g < n_gemms; ++g) {
+    const int rc = encode_slab_map(&maps->w[g], W + d.w_off[g], gemm_k(d, g), gemm_n(d, g),
+                                   gemm_n(d, g));
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
 // The shared-memory plan of a launch: two PE slots where they leave the ring
 // at least 3 stages, else one; cudaErrorInvalidValue when even one slot
-// leaves fewer than 2 stages.
-int field_layout(const Desc& d, bool fwd, int smem_limit, FieldLayout* out) {
+// leaves fewer than 2 stages. `extra_bytes` (a multiple of 16) of the
+// kernel's own follow the PE arena at extra_off.
+int field_layout(const Desc& d, bool fwd, int smem_limit, FieldLayout* out,
+                 int extra_bytes = 0) {
   FieldLayout lay = {};
   const int H = d.hidden;
   lay.slab_bytes = SLAB_K * H * (int)sizeof(bf16);
@@ -742,12 +857,13 @@ int field_layout(const Desc& d, bool fwd, int smem_limit, FieldLayout* out) {
   for (lay.pe_slots = 2; lay.pe_slots >= 1; --lay.pe_slots) {
     lay.pe_blocks = round64(lay.pe_slots * lay.pe_cols) / 64;
     const int pe_bytes = 2 * lay.pe_blocks * ATOM_BYTES;
-    const int stages = (smem_limit - act_bytes - pe_bytes - aux) / lay.slot_bytes;
+    const int stages = (smem_limit - act_bytes - pe_bytes - extra_bytes - aux) / lay.slot_bytes;
     if (stages < lay.pe_slots + 1) continue;
     lay.stages = stages < MAX_STAGES ? stages : MAX_STAGES;
     lay.act_off = lay.stages * lay.slot_bytes;
     lay.pe_off = lay.act_off + act_bytes;
-    lay.bar_off = lay.pe_off + pe_bytes;
+    lay.extra_off = lay.pe_off + pe_bytes;
+    lay.bar_off = lay.extra_off + extra_bytes;
     lay.tab_off = lay.bar_off + bar_bytes;
     lay.desc_off = lay.tab_off + tab_bytes;
     lay.bytes = lay.desc_off + (int)sizeof(Desc);
@@ -775,40 +891,17 @@ template <int H, bool FWD>
 int field_launch(FieldKernel kernel, const Desc& d, const float* src, const float* dirs,
                  const float* z, long long n_pts, int samples, const bf16* W, const float* B,
                  float* out, int channels_first, cudaStream_t stream) {
-  // The bulk copies need 16 B aligned sources: the weights' and biases'
-  // bases, the heads' offsets and every product's bias offset.
-  if (reinterpret_cast<uintptr_t>(W) % 16 != 0 || reinterpret_cast<uintptr_t>(B) % 16 != 0 ||
-      d.wa_off % 8 != 0 || d.wr_off % 8 != 0)
-    return (int)cudaErrorInvalidValue;
-  for (int g = 0; g < d.num_layers + 2; ++g)
-    if (d.b_off[g] % 4 != 0) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0, smem_limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
+  int sms = 0, smem_limit = 0;
+  FieldMaps maps;
+  int rc = field_prepare(d, W, B, FWD ? d.num_layers + 2 : d.num_layers, &sms, &smem_limit,
+                         &maps);
+  if (rc != 0) return rc;
   FieldLayout lay;
-  const int rc = field_layout(d, FWD, smem_limit, &lay);
+  rc = field_layout(d, FWD, smem_limit, &lay);
   if (rc != 0) return rc;
 
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  FieldMaps maps;
-  const int n_gemms = FWD ? d.num_layers + 2 : d.num_layers;
-  for (int g = 0; g < n_gemms; ++g) {
-    const cuuint64_t dims[2] = {(cuuint64_t)gemm_k(d, g), (cuuint64_t)gemm_n(d, g)};
-    const cuuint64_t strides[1] = {dims[0] * sizeof(bf16)};
-    const cuuint32_t box[2] = {SLAB_K, (cuuint32_t)dims[1]};
-    const cuuint32_t elem[2] = {1, 1};
-    const CUresult res = encode(
-        &maps.w[g], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(W + d.w_off[g]),
-        dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    if (res != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
-  }
-
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
   if (err != cudaSuccess) return (int)err;
   const long long tiles = (n_pts + TILE_M - 1) / TILE_M;
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);

@@ -15,41 +15,50 @@
 // with f32 accumulation, bias grads summed in f32 from the f32 cotangent,
 // sigmoid' from the recomputed rgb.
 //
-// What bounds it on an H100: the work is ~2x the forward's (dX and dW
-// products beside the recomputed forward, ~3.5 MFLOP per point at lego
-// width), but the dW products contract over all points, and the TPU kernel's
-// way of doing that, accumulating dW in VMEM across a sequential grid, has no
-// counterpart: blocks run in parallel and in no order, dW (2.4 MB in f32)
-// does not fit a block's 227 KB of shared memory, and a 64-point tile's bf16
-// stash (~338 KB at lego width) does not either.
+// What bounds it on an H100: the work is ~3x the forward's (the recomputed
+// forward, the dX products and the dW products, ~3.5 MFLOP per point at
+// lego width), but the dW products contract over all points, and the TPU
+// kernel's way of doing that, accumulating dW in VMEM across a sequential
+// grid, has no counterpart: blocks run in parallel and in no order, and dW
+// (2.4 MB in f32) fits no block's 227 KB of shared memory.
 //
-// Design (right first, not fast), three kernels, no float atomics, so two
-// launches on the same inputs give bitwise equal grads:
-//   (a) bwd_tile_kernel, one block of 4 warps per 64-point tile: rebuilds the
-//       PE and runs the forward as fused_mlp_fwd.cu does, writing each
-//       layer's bf16 input to a stash in device memory; then runs the
-//       backward chain (dX products by wmma against the weights, read from
-//       L2), writing each layer's bf16 output cotangent dY to the stash and
-//       each bias's f32 column sum over the tile to a per-tile partial.
+// Design, four kernels, no float atomics, so two launches on the same inputs
+// give bitwise equal grads:
+//   (a) wt_transpose_kernel: a bf16 copy of the x part (first H columns) of
+//       every matrix the dX chain multiplies by, transposed, so that the dX
+//       products read K-major slabs through the same tensor maps and
+//       descriptors as the forward (~1.2 MB at lego width).
+//   (b) bwd_tile_kernel, the forward's machinery (fused_field.cuh: one
+//       persistent CTA per SM, a producer streaming weight slabs by TMA into
+//       a ring, two consumer warpgroups of 64 points running wgmma) on
+//       128-point tiles: it recomputes the forward, each epilogue also
+//       storing its bf16 activation from the registers into a stash in
+//       device memory; the rgb and alpha heads' cotangents and the dir
+//       layer's in the dir product's epilogue, in registers; then the dX
+//       chain, L + 1 wgmma products on the activation tile, each epilogue
+//       writing bf16(dY) to the stash and in place as the next product's A
+//       tile, with each bias's f32 column sum over the warpgroup's 64 rows.
 //       ~10 KB of stash per point at lego width (3.9 GB at 2048 x 192).
-//   (b) dw_partial_kernel: dW = dY^T X over points as split-K wmma products,
+//   (c) dw_partial_kernel: dW = dY^T X over points as split-K wmma products,
 //       one block per 64x64 tile of a weight matrix and per chunk of
 //       CHUNK_PTS points, each writing its own f32 partial.
-//   (c) reduce_rows_kernel: the partials summed in a fixed order (chunks for
-//       dW; tiles in two levels for the biases).
+//   (d) reduce_rows_kernel: the partials summed in a fixed order (chunks for
+//       dW; warpgroup rows in two levels for the biases).
 // The stash costs device-memory traffic (~20 KB per point written and read)
-// that a fused design would keep on chip; making it fast is later work.
+// that a fused design would keep on chip: later work, as is moving (c) to
+// wgmma.
 
-#include "fused_mlp_common.cuh"
+#include "fused_field.cuh"
 
 namespace {
 
 constexpr int HEAD_LD = 16;      // rgb / alpha cotangent rows, padded to one product step
 constexpr int CHUNK_PTS = 4096;  // points per dW partial
-constexpr int DB_GROUP = 64;     // tiles per first-level bias reduction
+constexpr int DB_GROUP = 64;     // bias partial rows per first-level reduction
 constexpr int DW_TILE = 64;      // dW tile edge per block (2 x 2 warps of 32 x 32)
 constexpr int MAX_JOBS = 2 * MAX_GEMMS + 2;
 constexpr int REDUCE_THREADS = 256;
+constexpr int TRANSPOSE_THREADS = 256;
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
@@ -86,233 +95,406 @@ __host__ __device__ Stash stash_layout(const Desc& d, long long n_pad) {
   return s;
 }
 
-// Copies a BM x width bf16 tile (width a multiple of 8) from shared memory to
-// BM rows of a global array, 16 bytes per thread and step.
-__device__ void store_tile(const bf16* __restrict__ s, int lds, int width,
-                           bf16* __restrict__ g, int ldg) {
-  const int vecs = width / 8;
-  for (int e = threadIdx.x; e < BM * vecs; e += THREADS) {
-    const int r = e / vecs, c = (e % vecs) * 8;
-    *reinterpret_cast<uint4*>(g + (size_t)r * ldg + c) =
-        *reinterpret_cast<const uint4*>(s + r * lds + c);
+// wt[(j H + n) H + k] = W_g[k][n] for g = L + 1 - j (j = 0: dir, 1: feat,
+// 2..L: trunk layers L - 2 down to 0), n < H (the x part of the product's
+// input), k < N_g (zeros past it): row block j is the K-major B operand of
+// the dX chain's product j.
+__global__ void __launch_bounds__(TRANSPOSE_THREADS)
+wt_transpose_kernel(const Desc d, const bf16* __restrict__ W, bf16* __restrict__ wt) {
+  const int H = d.hidden;
+  const long long total = (long long)(d.num_layers + 1) * H * H;
+  for (long long e = (long long)blockIdx.x * TRANSPOSE_THREADS + threadIdx.x; e < total;
+       e += (long long)gridDim.x * TRANSPOSE_THREADS) {
+    const int k = (int)(e % H), n = (int)((e / H) % H), j = (int)(e / ((long long)H * H));
+    const int g = d.num_layers + 1 - j;
+    wt[e] = k < gemm_n(d, g) ? W[d.w_off[g] + (size_t)k * gemm_k(d, g) + n]
+                             : __float2bfloat16(0.f);
   }
 }
 
-// The backward of one layer for the block's tile:
-//   v[p, n] = sum_k dy[p, k] W[k, n]          (bf16 operands, f32 sum)
-//   v += bf16(add_a[p]) * add_w[n]             (when add_w: the alpha head)
-//   v = mask[p, n] > 0 ? v : 0                 (when mask: a ReLU's output)
-// W is the layer's (out, in) matrix, row-major with ld ldw: K = out rows and
-// the first N columns (the x part of its input). Writes bf16(v) to `out`
-// (shared) and `gout` (the stash), and each column's f32 sum over the BM
-// points to colsum[n], in a fixed order. K a multiple of 16, N of 32.
-__device__ void gemm_dx(const bf16* __restrict__ dy, int lddy, int K,
-                        const bf16* __restrict__ w, int ldw, int N,
-                        const float* __restrict__ add_a, int add_lda,
-                        const bf16* __restrict__ add_w,
-                        const bf16* __restrict__ mask, int ldm,
-                        bf16* __restrict__ out, int ldo, bf16* __restrict__ gout,
-                        int ldgo, float* __restrict__ colsum,
-                        float* __restrict__ scratch) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int n0 = warp * 32; n0 < N; n0 += WARPS * 32) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BM / 16][2];
+// Tensor maps of the tile kernel: the forward's products, then the
+// transposed copy wt, (L + 1) H rows of H columns, read in H-row boxes.
+struct BwdMaps {
+  FieldMaps fwd;
+  CUtensorMap wt;
+};
+
+// The tile kernel's arguments, in the parameter space: read there when
+// used rather than held in registers.
+struct BwdArgs {
+  const float* origins;
+  const float* dirs;
+  const float* z;
+  const float* grad;  // (4, n_pts) f32
+  const bf16* W;
+  const float* B;
+  bf16* stash;
+  Stash st;
+  uint32_t* bits;  // ReLU masks of products 1..L (mask_words)
+  float* dbpart;   // one row of nb_ld per warpgroup of 64 points
+  long long n_pts, n_pad, n_tiles;
+  int samples, nb_ld;
+};
+
+// The ReLU masks of forward product g's output (g = 1..L), as the recompute
+// epilogue stores them: per (g, tile, warpgroup), H/64 words per thread,
+// word w of thread t at w * WG_THREADS + t, bit k for its accumulator k.
+// A dX epilogue reads them back with loads issued before its product, so
+// the mask costs 4 registers, not the 64 that its bf16 values would (the
+// kernel has 168 a thread).
+__host__ __device__ __forceinline__ size_t mask_words(int H, long long n_tiles, int g,
+                                                      long long tile, int wg, int t) {
+  return (((size_t)g * n_tiles + tile) * 2 + wg) * WG_THREADS * (H / 64) + t;
+}
+
+// Per-warp column partials the tile kernel keeps in shared memory: 4 warps
+// x (H + 4) floats per warpgroup (the dir epilogue's 4 extra: rgb, alpha).
+__host__ __device__ __forceinline__ int part_ld(int H) { return H + 4; }
+int part_bytes(int H) { return 2 * 4 * part_ld(H) * (int)sizeof(float); }
+
+// One step of colsum8: lanes that differ in `bit` swap halves of their
+// first 2h partials and each keeps the sum of the half it holds.
+template <int h, int bit>
+__device__ __forceinline__ void colsum_halve(float (&cs)[8], int lane) {
+  const bool up = lane & bit;
 #pragma unroll
-    for (int m = 0; m < BM / 16; ++m) {
-      wmma::fill_fragment(acc[m][0], 0.f);
-      wmma::fill_fragment(acc[m][1], 0.f);
-    }
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b0, b1;
-      wmma::load_matrix_sync(b0, w + (size_t)k0 * ldw + n0, ldw);
-      wmma::load_matrix_sync(b1, w + (size_t)k0 * ldw + n0 + 16, ldw);
-#pragma unroll
-      for (int m = 0; m < BM / 16; ++m) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-        wmma::load_matrix_sync(af, dy + m * 16 * lddy + k0, lddy);
-        wmma::mma_sync(acc[m][0], af, b0, acc[m][0]);
-        wmma::mma_sync(acc[m][1], af, b1, acc[m][1]);
-      }
-    }
-    float cs0 = 0.f, cs1 = 0.f;  // lanes 0-15: columns n0 + lane, n0 + 16 + lane
-#pragma unroll
-    for (int m = 0; m < BM / 16; ++m) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::store_matrix_sync(scratch, acc[m][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int p = m * 16 + (e >> 4);
-          const int col = n0 + 16 * j + (e & 15);
-          float v = scratch[e];
-          if (add_w != nullptr)
-            v += bf16_round(add_a[p * add_lda]) * __bfloat162float(add_w[col]);
-          if (mask != nullptr && !(__bfloat162float(mask[(size_t)p * ldm + col]) > 0.f))
-            v = 0.f;
-          scratch[e] = v;
-          const bf16 b = __float2bfloat16(v);
-          out[p * ldo + col] = b;
-          gout[(size_t)p * ldgo + col] = b;
-        }
-        __syncwarp();
-        if (lane < 16) {
-          float s = 0.f;
-          for (int r = 0; r < 16; ++r) s += scratch[r * 16 + lane];
-          if (j == 0)
-            cs0 += s;
-          else
-            cs1 += s;
-        }
-        __syncwarp();
-      }
-    }
-    if (lane < 16) {
-      colsum[n0 + lane] = cs0;
-      colsum[n0 + 16 + lane] = cs1;
-    }
+  for (int k = 0; k < h; ++k) {
+    const float send = up ? cs[k] : cs[k + h];
+    const float keep = up ? cs[k + h] : cs[k];
+    cs[k] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
   }
 }
 
+// The column sums of 4 fragment chunks n0..n0+3 over the warp's 16 rows:
+// cs[2i + j] is the thread's partial (rows r, r + 8) of column
+// 8 (n0 + i) + 2q + j. Lanes of equal q sum them in one fixed order,
+// halving what each holds per step (lane bits 4, 3, 2: 7 shuffles for 8
+// columns), and each lane stores the one column sum it is left with into
+// the warp's row of `part`.
+__device__ __forceinline__ void colsum8(float (&cs)[8], float* part, int n0, int q, int lane) {
+  colsum_halve<4, 16>(cs, lane);
+  colsum_halve<2, 8>(cs, lane);
+  colsum_halve<1, 4>(cs, lane);
+  const int m = ((lane >> 4) & 1) * 4 + ((lane >> 3) & 1) * 2 + ((lane >> 2) & 1);
+  part[8 * (n0 + (m >> 1)) + 2 * q + (m & 1)] = cs[0];
+}
+
+// A warpgroup's bias partial of n columns: its 4 warps' rows of `part`
+// summed in order, into dst[0, n). After a warpgroup barrier.
+__device__ __forceinline__ void flush_colsum(const float* part, int ld, int n, float* dst,
+                                             int t) {
+  for (int c = t; c < n; c += WG_THREADS)
+    dst[c] = part[c] + part[ld + c] + part[2 * ld + c] + part[3 * ld + c];
+}
+
+// The epilogue of a dX product of N = 2R columns (rows r, r + 8 of the
+// fragment): v = acc (+ bf16(dalpha) wa[col] for the trunk output), zeroed
+// where bit k of mw is clear (masked: the forward's bf16 output of that
+// product was not > 0; layer1 has no ReLU); bf16(v) to the stash's dY rows
+// and in place into the warpgroup's A tile; v's column sums over the
+// warp's 16 rows into `part`.
+template <int R>
+__device__ __forceinline__ void dx_epilogue(const float (&acc)[R], unsigned char* act, int r,
+                                            int q, int lane, bool masked,
+                                            const uint32_t (&mw)[R / 32], const bf16* wa,
+                                            float a0, float a1, bf16* dy, float* part) {
+  constexpr int N = 2 * R;
+#pragma unroll
+  for (int n0 = 0; n0 < R / 4; n0 += 4) {
+    float cs[8];
+#pragma unroll
+    for (int n = n0; n < n0 + 4; ++n) {
+      const int col = 8 * n + 2 * q;
+      float v[4] = {acc[4 * n], acc[4 * n + 1], acc[4 * n + 2], acc[4 * n + 3]};
+      if (wa != nullptr) {
+        const float2 w = bf16x2_at(wa + col);
+        v[0] += a0 * w.x;
+        v[1] += a0 * w.y;
+        v[2] += a1 * w.x;
+        v[3] += a1 * w.y;
+      }
+      if (masked) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (!((mw[n / 8] >> (4 * (n % 8) + i)) & 1u)) v[i] = 0.f;
+      }
+      const uint32_t lo = pack_bf16(v[0], v[1]), hi = pack_bf16(v[2], v[3]);
+      *reinterpret_cast<uint32_t*>(act + swz(r, col)) = lo;
+      *reinterpret_cast<uint32_t*>(act + swz(r + 8, col)) = hi;
+      *reinterpret_cast<uint32_t*>(dy + r * N + col) = lo;
+      *reinterpret_cast<uint32_t*>(dy + (r + 8) * N + col) = hi;
+      cs[2 * (n - n0)] = v[0] + v[2];
+      cs[2 * (n - n0) + 1] = v[1] + v[3];
+    }
+    colsum8(cs, part, n0, q, lane);
+  }
+}
+
+// One thread's mask words of forward product g (mask_words), loaded ahead
+// of the dX product that needs them.
+template <int W>
+__device__ __forceinline__ void load_mask(uint32_t (&mw)[W], const uint32_t* p) {
+#pragma unroll
+  for (int w = 0; w < W; ++w) mw[w] = __ldcg(p + w * WG_THREADS);
+}
+
+// The backward's tile kernel (see the top of the file): field_body's
+// producer, ring and forward recompute, then the heads and the dX chain.
+// Rows past n_pts read the point 0 and a zero cotangent, so the stash's
+// tail rows hold finite activations and zero cotangents, as the dW
+// products over n_pad rows need.
 template <int H>
-__global__ void __launch_bounds__(THREADS)
-bwd_tile_kernel(const Desc desc, const float* __restrict__ origins,
-                const float* __restrict__ dirs, const float* __restrict__ z,
-                long long n_pts, int samples, const float* __restrict__ grad,
-                const bf16* __restrict__ W, const float* __restrict__ B,
-                bf16* __restrict__ stash, long long n_pad,
-                float* __restrict__ dbpart, int nb_ld) {
-  constexpr int ALD = H + 8;  // row stride 16 B off a 128 B multiple
-  constexpr int HH = H / 2;
-  extern __shared__ __align__(128) unsigned char smem[];
-
+__global__ void __launch_bounds__(FIELD_THREADS, 1)
+bwd_tile_kernel(const __grid_constant__ BwdMaps maps, const Desc desc, const FieldLayout lay,
+                const BwdArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
+  uint64_t* empty = full + MAX_STAGES;
+  const PeCol* tab = reinterpret_cast<const PeCol*>(smem + lay.tab_off);
+  const Desc& d = field_setup(smem, desc, lay, true);
   const int tid = threadIdx.x;
-  const int pxp = desc.pxp, pdp = desc.pdp;
-  const int pw = pxp + pdp;
-  const int peld = pw + 8;
-  bf16* act0 = reinterpret_cast<bf16*>(smem);
-  bf16* act1 = act0 + BM * ALD;
-  bf16* pe = act1 + BM * ALD;
-  float* scratch = reinterpret_cast<float*>(pe + BM * peld);
-  float* pts = scratch + WARPS * 256;  // [BM][6]: xyz, dir
-  float* gh = pts + BM * 6;            // [BM][4]: cotangents of rgb pre-sigmoid, alpha
-  float* wscratch = scratch + (tid >> 5) * 256;
-  Desc& d = *reinterpret_cast<Desc*>(gh + BM * 4);
-  if (tid == 0) d = desc;
-  __syncthreads();
-
   const int L = d.num_layers;
-  const long long base = (long long)blockIdx.x * BM;
-  const Stash st = stash_layout(d, n_pad);
-  bf16* const s_pe = stash + st.pe + (size_t)base * pw;
-  bf16* const s_feat = stash + st.feat + (size_t)base * H;
-  bf16* const s_h = stash + st.h + (size_t)base * HH;
-  bf16* const s_dy_dir = stash + st.dy_dir + (size_t)base * HH;
-  bf16* const s_dy_a = stash + st.dy_a + (size_t)base * HEAD_LD;
-  bf16* const s_dy_rgb = stash + st.dy_rgb + (size_t)base * HEAD_LD;
-  auto s_act = [&](int i) { return stash + st.act + ((size_t)i * n_pad + base) * H; };
-  auto s_dy = [&](int g) { return stash + st.dy + ((size_t)g * n_pad + base) * H; };
-  float* const db = dbpart + (size_t)blockIdx.x * nb_ld;
+  const int wg = tid / WG_THREADS;
 
-  // ---- forward, as fused_mlp_fwd.cu, stashing every layer's input ----
-  load_tile_inputs(d, origins, dirs, z, n_pts, samples, base, pts, pe, peld);
-  store_tile(pe, peld, pw, s_pe, pw);
-
-  gemm_bias_act(pe, peld, pxp, nullptr, 0, 0, W + d.w_off[0], B + d.b_off[0], H,
-                act0, ALD, false, wscratch);
-  __syncthreads();
-  store_tile(act0, ALD, H, s_act(0), H);
-
-  bf16* cur = act0;
-  bf16* nxt = act1;
-  for (int i = 0; i < L - 1; ++i) {
-    const bool skip = (d.skip_mask >> i) & 1;
-    gemm_bias_act(cur, ALD, H, pe, peld, skip ? pxp : 0, W + d.w_off[1 + i],
-                  B + d.b_off[1 + i], H, nxt, ALD, true, wscratch);
-    __syncthreads();
-    store_tile(nxt, ALD, H, s_act(i + 1), H);
-    bf16* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  // cur: trunk output. feat head into nxt, dir layer on [feat | PE(dir)] into cur.
-  gemm_bias_act(cur, ALD, H, nullptr, 0, 0, W + d.w_off[L], B + d.b_off[L], H, nxt,
-                ALD, true, wscratch);
-  __syncthreads();
-  store_tile(nxt, ALD, H, s_feat, H);
-  gemm_bias_act(nxt, ALD, H, pe + pxp, peld, pdp, W + d.w_off[L + 1],
-                B + d.b_off[L + 1], HH, cur, ALD, true, wscratch);
-  __syncthreads();
-  store_tile(cur, ALD, HH, s_h, HH);
-
-  // ---- heads: the cotangent through the rgb sigmoid, and alpha's ----
-  for (int e = tid; e < BM * 4; e += THREADS) {
-    const int p = e >> 2, c = e & 3;
-    const long long g = base + p;
-    float v = g < n_pts ? grad[(size_t)c * n_pts + g] : 0.f;
-    if (c < 3) {
-      const bf16* h = cur + p * ALD;
-      const bf16* wr = W + d.wr_off + c * HH;
-      float s = 0.f;
-      for (int k = 0; k < HH; ++k) s += __bfloat162float(h[k]) * __bfloat162float(wr[k]);
-      const float rgb = 1.f / (1.f + expf(-(s + B[d.br_off + c])));
-      v = v * rgb * (1.f - rgb);
+  if (wg == 2) {
+    // Producer: the forward's products, then the dX chain's on wt (the
+    // trunk output's brings the alpha head for its rank-1 term).
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if (tid == 2 * WG_THREADS) {
+      Producer prod{0, 0};
+      for (long long t = blockIdx.x; t < a.n_tiles; t += gridDim.x) {
+        for (int g = 0; g < L + 2; ++g) {
+          uint32_t head_bytes;
+          const bf16* head = product_head(d, a.W, g, &head_bytes);
+          prod.product(smem, lay, full, empty, &maps.fwd.w[g], 0, gemm_k(d, g), gemm_n(d, g),
+                       a.B + d.b_off[g], head, head_bytes);
+        }
+        for (int j = 0; j <= L; ++j)
+          prod.product(smem, lay, full, empty, &maps.wt, j * H, j == 0 ? H / 2 : H, H, nullptr,
+                       j == 1 ? a.W + d.wa_off : nullptr, 2 * H);
+      }
     }
-    gh[e] = v;
-  }
-  __syncthreads();
-  for (int e = tid; e < BM * HEAD_LD; e += THREADS) {
-    const int p = e / HEAD_LD, c = e % HEAD_LD;
-    s_dy_rgb[e] = __float2bfloat16(c < 3 ? gh[p * 4 + c] : 0.f);
-    s_dy_a[e] = __float2bfloat16(c == 0 ? gh[p * 4 + 3] : 0.f);
-  }
-  if (tid < 4) {
-    float s = 0.f;
-    for (int p = 0; p < BM; ++p) s += gh[p * 4 + tid];
-    db[tid < 3 ? d.br_off + tid : d.ba_off] = s;
-  }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+    const int t = tid % WG_THREADS, warp = t / 32, lane = t % 32;
+    const int r = warp * 16 + lane / 4, q = lane % 4;  // fragment rows r, r + 8
+    unsigned char* act = smem + lay.act_off + wg * (H / 64) * ATOM_BYTES;
+    unsigned char* pe = smem + lay.pe_off + wg * lay.pe_blocks * ATOM_BYTES;
+    float* part = reinterpret_cast<float*>(smem + lay.extra_off) + wg * 4 * part_ld(H);
+    const uint32_t act_a = smem_u32(act), pe_a = smem_u32(pe);
+    Ring ring{full, empty, smem, lay.slot_bytes, lay.slab_bytes, lay.stages, 0, 0};
 
-  // dir layer's output cotangent dh = (drgb @ Wr) * (h > 0), into nxt (feat
-  // is stashed already).
-  for (int o = tid; o < HH; o += THREADS) {
-    float cs = 0.f;
-    for (int p = 0; p < BM; ++p) {
-      float v = 0.f;
+    const int chunks = lay.pe_cols / 8;
+    PeBuild<true, true> pb;  // the first tile's PE, then each next tile's
+    pb.start(a.origins, a.dirs, a.z, a.n_pts, a.samples, (long long)blockIdx.x * TILE_M + wg * 64,
+             0, t);
+    pb.stash_row(a.stash + a.st.pe, lay.pe_cols, (long long)blockIdx.x * TILE_M + wg * 64, t);
+    pb.finish(tab, chunks, pe, t);
+
+    for (long long tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+      const long long row0 = tile * TILE_M + wg * 64;
+      const long long next = tile + gridDim.x;
+      const int pe_base = pb.base;  // this tile's first PE column
+      fence_proxy_async();  // this tile's PE, built by every thread, to the products
+      wg_barrier(wg);
+      // With two PE slots the next tile's PE is built in the other one, a
+      // chunk per slab of the forward's products; with one, after the dX
+      // chain. Either way the builder's registers are free for the dX
+      // chain's epilogues.
+      const bool ahead = lay.pe_slots == 2 && next < a.n_tiles;
+      auto begin_next = [&] {
+        const long long next0 = next * TILE_M + wg * 64;
+        pb.start(a.origins, a.dirs, a.z, a.n_pts, a.samples, next0,
+                 lay.pe_slots == 2 ? lay.pe_cols - pe_base : 0, t);
+        pb.stash_row(a.stash + a.st.pe, lay.pe_cols, next0, t);
+      };
+      if (ahead) begin_next();
+      auto work = [&] {
+        if (ahead) pb.step(tab, chunks, pe, t);
+      };
+      auto no_work = [] {};
+
+      // ---- the forward, as field_body<H, true>, stashing every output
+      // (and the ReLU masks of products 1..L) ----
+      float acc[H / 2];
 #pragma unroll
-      for (int c = 0; c < 3; ++c)
-        v += bf16_round(gh[p * 4 + c]) * __bfloat162float(W[d.wr_off + c * HH + o]);
-      if (!(__bfloat162float(cur[p * ALD + o]) > 0.f)) v = 0.f;
-      const bf16 b = __float2bfloat16(v);
-      nxt[p * ALD + o] = b;
-      s_dy_dir[(size_t)p * HH + o] = b;
-      cs += v;
-    }
-    db[d.b_off[L + 1] + o] = cs;
-  }
-  __syncthreads();
+      for (int i = 0; i < H / 2; ++i) acc[i] = 0.f;
+      float unused0 = 0.f, unused1 = 0.f;
+      for (int g = 0; g <= L; ++g) {  // layer1, the trunk, feat
+        const bool skip = g > 0 && g < L && ((d.skip_mask >> (g - 1)) & 1);
+        const int slot = layer_product(acc, ring, act_a, g == 0 ? 0 : H, pe_a, pe_base,
+                                       g == 0 || skip ? d.pxp : 0, lane, work);
+        wg_barrier(wg);  // every warp's products have read the tile
+        bf16* const out =
+            a.stash + (g < L ? a.st.act + (size_t)g * a.n_pad * H : a.st.feat) + row0 * H;
+        epilogue<H / 2, true>(acc, reinterpret_cast<const float*>(ring.params(slot)), g > 0, act,
+                              r, q, nullptr, unused0, unused1, out,
+                              g > 0 ? a.bits + mask_words(H, a.n_tiles, g, tile, wg, t)
+                                    : nullptr);
+        ring.release(slot, lane);
+        fence_proxy_async();
+        wg_barrier(wg);
+      }
 
-  // feat head: df = (dh @ Wd[:, :H]) * (feat > 0), into cur.
-  gemm_dx(nxt, ALD, HH, W + d.w_off[L + 1], H + pdp, H, nullptr, 0, nullptr, s_feat,
-          H, cur, ALD, s_dy(L), H, db + d.b_off[L], wscratch);
-  __syncthreads();
-  // trunk output: dx = df @ Wf + bf16(dalpha) Wa, masked where the trunk
-  // output is a ReLU's (L >= 2), into nxt.
-  gemm_dx(cur, ALD, H, W + d.w_off[L], H, H, gh + 3, 4, W + d.wa_off,
-          L >= 2 ? s_act(L - 1) : nullptr, H, nxt, ALD, s_dy(L - 1), H,
-          db + d.b_off[L - 1], wscratch);
-  __syncthreads();
-  // trunk layers backwards: product 1 + i's cotangent -> product i's.
-  cur = nxt;
-  nxt = (cur == act0) ? act1 : act0;
-  for (int i = L - 2; i >= 0; --i) {
-    const int ldw = H + (((d.skip_mask >> i) & 1) ? pxp : 0);
-    gemm_dx(cur, ALD, H, W + d.w_off[1 + i], ldw, H, nullptr, 0, nullptr,
-            i > 0 ? s_act(i) : nullptr, H, nxt, ALD, s_dy(i), H, db + d.b_off[i],
-            wscratch);
-    __syncthreads();
-    bf16* t = cur;
-    cur = nxt;
-    nxt = t;
+      // dir on [feat | PE(dir)] -> H/2, then the heads in registers.
+      float acc_d[H / 4];
+#pragma unroll
+      for (int i = 0; i < H / 4; ++i) acc_d[i] = 0.f;
+      int slot = layer_product(acc_d, ring, act_a, H, pe_a, pe_base + d.pxp, d.pdp, lane, work);
+      wg_barrier(wg);
+      if (ahead) pb.finish(tab, chunks, pe, t);
+      const float* bd = reinterpret_cast<const float*>(ring.params(slot));
+      const bf16* wr = reinterpret_cast<const bf16*>(ring.params(slot) + HEAD_OFF);
+      bf16* const h_out = a.stash + a.st.h + row0 * (H / 2);
+      float c0[3] = {0.f, 0.f, 0.f}, c1[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < H / 16; ++n) {
+        if (n % 8 == 0) asm volatile("" ::: "memory");  // as in epilogue()
+        const int col = 8 * n + 2 * q;
+        const float2 b = *reinterpret_cast<const float2*>(bd + col);
+        const uint32_t lo = pack_bf16(fmaxf(acc_d[4 * n] + b.x, 0.f),
+                                      fmaxf(acc_d[4 * n + 1] + b.y, 0.f));
+        const uint32_t hi = pack_bf16(fmaxf(acc_d[4 * n + 2] + b.x, 0.f),
+                                      fmaxf(acc_d[4 * n + 3] + b.y, 0.f));
+        *reinterpret_cast<uint32_t*>(h_out + r * (H / 2) + col) = lo;
+        *reinterpret_cast<uint32_t*>(h_out + (r + 8) * (H / 2) + col) = hi;
+        const float2 h0 = bf16x2_at(reinterpret_cast<const bf16*>(&lo));
+        const float2 h1 = bf16x2_at(reinterpret_cast<const bf16*>(&hi));
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float2 w = bf16x2_at(wr + c * (H / 2) + col);
+          c0[c] += h0.x * w.x + h0.y * w.y;
+          c1[c] += h1.x * w.x + h1.y * w.y;
+        }
+      }
+      // rgb, its cotangent through the sigmoid, and alpha's, rows r, r + 8
+      // (every lane of a quad holds them); tail rows take a zero cotangent.
+      const long long g0 = row0 + r, g1 = g0 + 8;
+      float dr0[3], dr1[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float br = a.B[d.br_off + c];
+        const float rgb0 = 1.f / (1.f + expf(-(quad_sum(c0[c]) + br)));
+        const float rgb1 = 1.f / (1.f + expf(-(quad_sum(c1[c]) + br)));
+        dr0[c] = (g0 < a.n_pts ? a.grad[c * a.n_pts + g0] : 0.f) * rgb0 * (1.f - rgb0);
+        dr1[c] = (g1 < a.n_pts ? a.grad[c * a.n_pts + g1] : 0.f) * rgb1 * (1.f - rgb1);
+      }
+      const float da0 = g0 < a.n_pts ? a.grad[3 * a.n_pts + g0] : 0.f;
+      const float da1 = g1 < a.n_pts ? a.grad[3 * a.n_pts + g1] : 0.f;
+      {
+        // dy_rgb, dy_a: lane q writes columns 4q..4q+3 of both rows.
+        const uint2 zero = make_uint2(0u, 0u);
+        bf16* const yr = a.stash + a.st.dy_rgb + (size_t)row0 * HEAD_LD + 4 * q;
+        bf16* const ya = a.stash + a.st.dy_a + (size_t)row0 * HEAD_LD + 4 * q;
+        *reinterpret_cast<uint2*>(yr + r * HEAD_LD) =
+            q == 0 ? make_uint2(pack_bf16(dr0[0], dr0[1]), pack_bf16(dr0[2], 0.f)) : zero;
+        *reinterpret_cast<uint2*>(yr + (r + 8) * HEAD_LD) =
+            q == 0 ? make_uint2(pack_bf16(dr1[0], dr1[1]), pack_bf16(dr1[2], 0.f)) : zero;
+        *reinterpret_cast<uint2*>(ya + r * HEAD_LD) =
+            q == 0 ? make_uint2(pack_bf16(da0, 0.f), 0u) : zero;
+        *reinterpret_cast<uint2*>(ya + (r + 8) * HEAD_LD) =
+            q == 0 ? make_uint2(pack_bf16(da1, 0.f), 0u) : zero;
+      }
+      // The dir layer's output cotangent dh = sum_c bf16(drgb_c) Wr[c, :],
+      // masked by h > 0: to the stash, and as the A tile of the first dX
+      // product (feat is stashed already).
+      {
+        float rb0[3], rb1[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          rb0[c] = bf16_round(dr0[c]);
+          rb1[c] = bf16_round(dr1[c]);
+        }
+        bf16* const dh_out = a.stash + a.st.dy_dir + row0 * (H / 2);
+        float* const my_part = part + warp * part_ld(H);
+#pragma unroll
+        for (int n0 = 0; n0 < H / 16; n0 += 4) {
+          float cs[8];
+#pragma unroll
+          for (int n = n0; n < n0 + 4; ++n) {
+            const int col = 8 * n + 2 * q;
+            const float2 b = *reinterpret_cast<const float2*>(bd + col);
+            const float2 h0 = __bfloat1622float2(__floats2bfloat162_rn(
+                fmaxf(acc_d[4 * n] + b.x, 0.f), fmaxf(acc_d[4 * n + 1] + b.y, 0.f)));
+            const float2 h1 = __bfloat1622float2(__floats2bfloat162_rn(
+                fmaxf(acc_d[4 * n + 2] + b.x, 0.f), fmaxf(acc_d[4 * n + 3] + b.y, 0.f)));
+            float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+              const float2 w = bf16x2_at(wr + c * (H / 2) + col);
+              v[0] += rb0[c] * w.x;
+              v[1] += rb0[c] * w.y;
+              v[2] += rb1[c] * w.x;
+              v[3] += rb1[c] * w.y;
+            }
+            if (!(h0.x > 0.f)) v[0] = 0.f;
+            if (!(h0.y > 0.f)) v[1] = 0.f;
+            if (!(h1.x > 0.f)) v[2] = 0.f;
+            if (!(h1.y > 0.f)) v[3] = 0.f;
+            const uint32_t lo = pack_bf16(v[0], v[1]), hi = pack_bf16(v[2], v[3]);
+            *reinterpret_cast<uint32_t*>(act + swz(r, col)) = lo;
+            *reinterpret_cast<uint32_t*>(act + swz(r + 8, col)) = hi;
+            *reinterpret_cast<uint32_t*>(dh_out + r * (H / 2) + col) = lo;
+            *reinterpret_cast<uint32_t*>(dh_out + (r + 8) * (H / 2) + col) = hi;
+            cs[2 * (n - n0)] = v[0] + v[2];
+            cs[2 * (n - n0) + 1] = v[1] + v[3];
+          }
+          colsum8(cs, my_part, n0, q, lane);
+        }
+        // The heads' bias sums: rows r, r + 8, then the warp's row groups.
+        float hs[4] = {dr0[0] + dr1[0], dr0[1] + dr1[1], dr0[2] + dr1[2], da0 + da1};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+#pragma unroll
+          for (int bit = 4; bit <= 16; bit *= 2) hs[k] += __shfl_xor_sync(0xffffffffu, hs[k], bit);
+        }
+        if (lane == 0) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) my_part[H / 2 + k] = hs[k];
+        }
+      }
+      ring.release(slot, lane);
+      fence_proxy_async();
+      wg_barrier(wg);
+      float* const db = a.dbpart + (2 * tile + wg) * a.nb_ld;
+      flush_colsum(part, part_ld(H), H / 2, db + d.b_off[L + 1], t);
+      if (t < 4) {
+        const int c = H / 2 + t;
+        db[t < 3 ? d.br_off + t : d.ba_off] =
+            part[c] + part[part_ld(H) + c] + part[2 * part_ld(H) + c] + part[3 * part_ld(H) + c];
+      }
+      const float a0 = bf16_round(da0), a1 = bf16_round(da1);
+
+      // ---- the dX chain: product j gives the output cotangent of forward
+      // product g = L - j (feat, the trunk output, ..., layer1) ----
+      // A fresh accumulator: layer_product pins acc's registers on entry, so
+      // without this the trunk's sums would stay live (and spill) across
+      // the dir product and the heads.
+#pragma unroll
+      for (int i = 0; i < H / 2; ++i) acc[i] = 0.f;
+      for (int j = 0; j <= L; ++j) {
+        const int g = L - j;
+        uint32_t mw[H / 64] = {};
+        if (g > 0) load_mask(mw, a.bits + mask_words(H, a.n_tiles, g, tile, wg, t));
+        slot = layer_product(acc, ring, act_a, j == 0 ? H / 2 : H, 0, 0, 0, lane, no_work);
+        wg_barrier(wg);
+        const bf16* wa =
+            j == 1 ? reinterpret_cast<const bf16*>(ring.params(slot) + HEAD_OFF) : nullptr;
+        dx_epilogue(acc, act, r, q, lane, g > 0, mw, wa, a0, a1,
+                    a.stash + a.st.dy + ((size_t)g * a.n_pad + row0) * H,
+                    part + warp * part_ld(H));
+        ring.release(slot, lane);
+        fence_proxy_async();
+        wg_barrier(wg);
+        flush_colsum(part, part_ld(H), H, a.dbpart + (2 * tile + wg) * a.nb_ld + d.b_off[g], t);
+      }
+      // With one PE slot, the next tile's PE now (the dir product, the
+      // last to read this tile's, is done: barriers followed it).
+      if (!ahead && next < a.n_tiles) {
+        begin_next();
+        pb.finish(tab, chunks, pe, t);
+      }
+    }
   }
 }
 
@@ -405,17 +587,18 @@ reduce_rows_kernel(const float* __restrict__ in, long long ld_in, int rows, int 
 // Workspace layout (bytes), every region on a 256 B boundary.
 struct Workspace {
   long long n_pad;
-  int tiles, chunks, groups;
+  int tiles, db_rows, chunks, groups;
   int n_weights, n_biases, tw_ld, nb_ld;
-  size_t partial, dbpart, dbtmp, total;
+  size_t partial, dbpart, dbtmp, wt, bits, total;
 };
 
 Workspace workspace_layout(const Desc& d, long long n_pts) {
   Workspace w;
-  w.n_pad = (long long)round_up((size_t)n_pts, BM);
-  w.tiles = (int)(w.n_pad / BM);
+  w.n_pad = (long long)round_up((size_t)n_pts, TILE_M);
+  w.tiles = (int)(w.n_pad / TILE_M);
+  w.db_rows = 2 * w.tiles;  // one per warpgroup of 64 points
   w.chunks = (int)((w.n_pad + CHUNK_PTS - 1) / CHUNK_PTS);
-  w.groups = (w.tiles + DB_GROUP - 1) / DB_GROUP;
+  w.groups = (w.db_rows + DB_GROUP - 1) / DB_GROUP;
   w.n_weights = d.wr_off + 3 * (d.hidden / 2);
   w.n_biases = d.br_off + 3;
   w.tw_ld = (int)round_up(w.n_weights, 64);
@@ -423,8 +606,11 @@ Workspace workspace_layout(const Desc& d, long long n_pts) {
   const size_t stash = round_up(stash_layout(d, w.n_pad).end * sizeof(bf16), 256);
   w.partial = stash;
   w.dbpart = w.partial + (size_t)w.chunks * w.tw_ld * sizeof(float);
-  w.dbtmp = w.dbpart + (size_t)w.tiles * w.nb_ld * sizeof(float);
-  w.total = w.dbtmp + (size_t)w.groups * w.nb_ld * sizeof(float);
+  w.dbtmp = w.dbpart + (size_t)w.db_rows * w.nb_ld * sizeof(float);
+  w.wt = w.dbtmp + (size_t)w.groups * w.nb_ld * sizeof(float);
+  w.bits = w.wt + round_up((size_t)(d.num_layers + 1) * d.hidden * d.hidden * sizeof(bf16), 256);
+  w.total = w.bits + round_up(
+      mask_words(d.hidden, w.tiles, d.num_layers + 1, 0, 0, 0) * sizeof(uint32_t), 256);
   return w;
 }
 
@@ -472,24 +658,51 @@ DwJobs dw_jobs(const Desc& d, long long n_pad) {
   return jobs;
 }
 
-template <int H>
-size_t tile_smem_bytes(const Desc& d) {
-  const size_t peld = d.pxp + d.pdp + 8;
-  return 2 * BM * (H + 8) * sizeof(bf16) + BM * peld * sizeof(bf16) +
-         (WARPS * 256 + BM * 6 + BM * 4) * sizeof(float) + sizeof(Desc);
-}
-
+// The transpose and the tile kernel on stream s. Every check (alignment,
+// tensor maps, the shared-memory plan: a descriptor that leaves the ring
+// fewer than 2 slots is refused with cudaErrorInvalidValue) comes before
+// the first launch.
 template <int H>
 int launch_tiles(const Desc& d, const Workspace& ws, const float* o, const float* dirs,
                  const float* z, long long n_pts, int samples, const float* grad,
                  const bf16* W, const float* B, unsigned char* base, cudaStream_t s) {
-  const size_t smem = tile_smem_bytes<H>(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_tile_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int sms = 0, smem_limit = 0;
+  BwdMaps maps;
+  int rc = field_prepare(d, W, B, d.num_layers + 2, &sms, &smem_limit, &maps.fwd);
+  if (rc != 0) return rc;
+  bf16* wt = reinterpret_cast<bf16*>(base + ws.wt);
+  rc = encode_slab_map(&maps.wt, wt, H, (d.num_layers + 1) * H, H);
+  if (rc != 0) return rc;
+  FieldLayout lay;
+  rc = field_layout(d, true, smem_limit, &lay, part_bytes(H));
+  if (rc != 0) return rc;
+  cudaError_t err = cudaFuncSetAttribute(bwd_tile_kernel<H>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
   if (err != cudaSuccess) return (int)err;
-  bwd_tile_kernel<H><<<(unsigned)ws.tiles, THREADS, smem, s>>>(
-      d, o, dirs, z, n_pts, samples, grad, W, B, reinterpret_cast<bf16*>(base),
-      ws.n_pad, reinterpret_cast<float*>(base + ws.dbpart), ws.nb_ld);
+
+  const long long wt_elems = (long long)(d.num_layers + 1) * H * H;
+  wt_transpose_kernel<<<(unsigned)((wt_elems + TRANSPOSE_THREADS - 1) / TRANSPOSE_THREADS),
+                        TRANSPOSE_THREADS, 0, s>>>(d, W, wt);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  BwdArgs args;
+  args.origins = o;
+  args.dirs = dirs;
+  args.z = z;
+  args.grad = grad;
+  args.W = W;
+  args.B = B;
+  args.stash = reinterpret_cast<bf16*>(base);
+  args.st = stash_layout(d, ws.n_pad);
+  args.bits = reinterpret_cast<uint32_t*>(base + ws.bits);
+  args.dbpart = reinterpret_cast<float*>(base + ws.dbpart);
+  args.n_pts = n_pts;
+  args.n_pad = ws.n_pad;
+  args.n_tiles = ws.tiles;
+  args.samples = samples;
+  args.nb_ld = ws.nb_ld;
+  const unsigned grid = (unsigned)(ws.tiles < sms ? ws.tiles : sms);
+  bwd_tile_kernel<H><<<grid, FIELD_THREADS, lay.bytes, s>>>(maps, d, lay, args);
   return (int)cudaGetLastError();
 }
 
@@ -555,7 +768,7 @@ extern "C" int nm_fused_mlp_bwd(const float* origins, const float* dirs, const f
 
   float* dbpart = reinterpret_cast<float*>(base + ws.dbpart);
   float* dbtmp = reinterpret_cast<float*>(base + ws.dbtmp);
-  err = reduce_rows(dbpart, ws.nb_ld, ws.tiles, ws.n_biases, DB_GROUP, dbtmp, ws.nb_ld, s);
+  err = reduce_rows(dbpart, ws.nb_ld, ws.db_rows, ws.n_biases, DB_GROUP, dbtmp, ws.nb_ld, s);
   if (err != 0) return err;
   return reduce_rows(dbtmp, ws.nb_ld, ws.groups, ws.n_biases, ws.groups, dB, 0, s);
 }

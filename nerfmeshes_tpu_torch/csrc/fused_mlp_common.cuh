@@ -4,13 +4,11 @@
 // _sigma_kernel :675) and the backward (fused_mlp_bwd.cu, _bwd_kernel :397).
 // All three are bound on the H100 by the tensor cores (~1.2 MFLOP per point
 // forward at lego width, 3x that backward, against tens of bytes of I/O),
-// then by the weights read from L2 once per tile of points. The forward and
-// sigma kernels answer with wgmma on TMA-staged weight slabs, 128-point
-// tiles and persistent CTAs (fused_field.cuh). The backward's tile kernel
-// still runs the first design, which lives here: a 64-point tile of points
-// and PE in shared memory and a bias + ReLU product on nvcuda::wmma with
-// weight fragments read from L2 (load_tile_inputs, pe_tile, gemm_bias_act).
-// Every kernel computes PE through pe_value and reads the same descriptor.
+// then by the weights read from L2 once per tile of points. The forward,
+// the sigma kernel and the backward's tile kernel answer with wgmma on
+// TMA-staged weight slabs, 128-point tiles and persistent CTAs
+// (fused_field.cuh); the backward's dW products still run on nvcuda::wmma
+// (WARPS, THREADS below). Every kernel reads the same descriptor.
 //
 // Weight layout (packed in nerfmeshes_tpu_torch/ops/kernels/fused_mlp.py):
 // one flat bf16 buffer holding, per product (layer1, trunk 0..L-2, feat,
@@ -32,8 +30,7 @@ namespace {
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
-constexpr int BM = 64;  // points per block (backward tile kernel)
-constexpr int WARPS = 4;
+constexpr int WARPS = 4;  // the backward's dW blocks
 constexpr int THREADS = WARPS * 32;
 constexpr int MAX_L = 24;       // PE bands per encoding
 constexpr int MAX_GEMMS = 16;   // layer1 + trunk + feat + dir
@@ -85,130 +82,6 @@ int parse_desc(const int* desc_i, int n_desc_i, const float* freqs, int n_freqs,
   for (int l = 0; l < d.ld; ++l) d.fd[l] = freqs[d.lx + l];
   *out = d;
   return 0;
-}
-
-// PE value j of the point (p0, p1, p2): [p if inc, sin(p_c * f_l) for c, l,
-// cos(p_c * f_l) for c, l, zeros past the encoding]. Every kernel's PE is
-// this arithmetic, so the kernels round PE alike.
-__device__ __forceinline__ float pe_value(float p0, float p1, float p2, int j, int inc, int L,
-                                          const float* f) {
-  if (inc) {
-    if (j < 3) return j == 0 ? p0 : (j == 1 ? p1 : p2);
-    j -= 3;
-  }
-  const bool is_sin = j < 3 * L;
-  if (!is_sin) j -= 3 * L;
-  if (j >= 3 * L) return 0.f;  // padding lanes
-  const int c = j / L;
-  const float x = (c == 0 ? p0 : (c == 1 ? p1 : p2)) * f[j % L];
-  return is_sin ? sinf(x) : cosf(x);
-}
-
-// One encoding of the tile's BM points: pe[i * peld + j] = PE(c_i)[j] in bf16
-// for j < width (lanes past the encoding read 0), c_i the 3 floats at
-// c + i * stride. No barrier.
-__device__ __forceinline__ void pe_tile(const float* c, int stride, int inc, int L,
-                                        const float* f, int width, bf16* pe, int peld) {
-  for (int e = threadIdx.x; e < BM * width; e += THREADS) {
-    const int i = e / width, j = e % width;
-    const float* p = c + i * stride;
-    pe[i * peld + j] = __float2bfloat16(pe_value(p[0], p[1], p[2], j, inc, L, f));
-  }
-}
-
-// The block's tile of BM points: pts[BM][6] = (o + d*z, d) and the PE tile
-// pe[BM][peld] = [PE(xyz) padded to pxp | PE(dir) padded to pdp], bf16.
-// Points past n_pts read zeros. Ends with a block barrier.
-__device__ void load_tile_inputs(const Desc& d, const float* __restrict__ origins,
-                                 const float* __restrict__ dirs,
-                                 const float* __restrict__ z, long long n_pts,
-                                 int samples, long long base, float* pts, bf16* pe,
-                                 int peld) {
-  const int tid = threadIdx.x;
-  for (int i = tid; i < BM; i += THREADS) {
-    const long long g = base + i;
-    float v[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (g < n_pts) {
-      const long long r = g / samples;
-      const float t = z[g];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float dc = dirs[3 * r + c];
-        // Unfused multiply and add: the same rounding as the plain version.
-        v[c] = __fadd_rn(origins[3 * r + c], __fmul_rn(dc, t));
-        v[3 + c] = dc;
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < 6; ++c) pts[i * 6 + c] = v[c];
-  }
-  __syncthreads();
-
-  pe_tile(pts, 6, d.inc_x, d.lx, d.fx, d.pxp, pe, peld);
-  pe_tile(pts + 3, 6, d.inc_d, d.ld, d.fd, d.pdp, pe + d.pxp, peld);
-  __syncthreads();
-}
-
-// out[BM, N] = act([a1 | a2] @ W^T + bias), W is (N, k1 + k2) row-major.
-// k1, k2 and N are multiples of 16 (N of 32); lda*, ldo multiples of 8.
-// Each warp owns 32-column slices of the output and loads its weight
-// fragments straight from global memory (L2-resident after the first tiles).
-__device__ void gemm_bias_act(const bf16* __restrict__ a1, int lda1, int k1,
-                              const bf16* __restrict__ a2, int lda2, int k2,
-                              const bf16* __restrict__ w,
-                              const float* __restrict__ bias, int N,
-                              bf16* __restrict__ out, int ldo, bool relu,
-                              float* __restrict__ scratch) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int K = k1 + k2;
-  for (int n0 = warp * 32; n0 < N; n0 += WARPS * 32) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BM / 16][2];
-#pragma unroll
-    for (int m = 0; m < BM / 16; ++m) {
-      wmma::fill_fragment(acc[m][0], 0.f);
-      wmma::fill_fragment(acc[m][1], 0.f);
-    }
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      const bf16* a;
-      int lda;
-      if (k0 < k1) {
-        a = a1 + k0;
-        lda = lda1;
-      } else {
-        a = a2 + (k0 - k1);
-        lda = lda2;
-      }
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b0, b1;
-      wmma::load_matrix_sync(b0, w + (size_t)n0 * K + k0, K);
-      wmma::load_matrix_sync(b1, w + (size_t)(n0 + 16) * K + k0, K);
-#pragma unroll
-      for (int m = 0; m < BM / 16; ++m) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-        wmma::load_matrix_sync(af, a + m * 16 * lda, lda);
-        wmma::mma_sync(acc[m][0], af, b0, acc[m][0]);
-        wmma::mma_sync(acc[m][1], af, b1, acc[m][1]);
-      }
-    }
-    // Epilogue through a per-warp 16x16 f32 scratch tile: the accumulator's
-    // register layout is opaque under wmma.
-#pragma unroll
-    for (int m = 0; m < BM / 16; ++m) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::store_matrix_sync(scratch, acc[m][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int r = e >> 4, c = e & 15;
-          const int col = n0 + 16 * j + c;
-          float v = scratch[e] + bias[col];
-          if (relu) v = fmaxf(v, 0.f);
-          out[(m * 16 + r) * ldo + col] = __float2bfloat16(v);
-        }
-        __syncwarp();
-      }
-    }
-  }
 }
 
 }  // namespace

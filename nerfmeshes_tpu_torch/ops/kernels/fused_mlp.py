@@ -28,7 +28,9 @@ memory and the epilogues and heads in registers. No points, PE or
 activation tensor is ever written to device memory. The backward
 contracts the weight grads over all points, which needs a stash of each
 layer's input and output cotangent in device memory and a fixed-order
-reduction (its design is described in the .cu file).
+reduction: its tile kernel, which recomputes the forward and runs the dX
+chain, is that same design with the stash stores added; the dW products
+over the stash follow (the .cu file describes both).
 
 Numerics, shared by kernels and plain versions: bf16 operands, f32
 accumulation, f32 bias/ReLU/sigmoid; an activation is rounded to bf16

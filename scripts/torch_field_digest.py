@@ -1,0 +1,64 @@
+#!/usr/bin/env python3
+"""SHA-256 digests of the fused forward and sigma kernels' outputs on one
+seeded lego-width case, printed as one JSON line: the check that a change
+to their shared body (nerfmeshes_tpu_torch/csrc/fused_field.cuh) leaves
+their bits as they were. tests/test_torch_fused_mlp_gpu.py holds the
+kernels to the digests this script printed before such a change.
+
+    python scripts/torch_field_digest.py      # needs a CUDA card
+
+The weights and inputs come from numpy's generator seeded 0, so the case
+does not depend on torch's random streams.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from nerfmeshes_tpu_torch.models import FlexibleNeRFModel  # noqa: E402
+from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm  # noqa: E402
+
+R, S, POINTS = 2048, 64, 65536
+
+
+def _sha(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def digests(device) -> dict:
+    """{"fwd": digest of the (4, R, S) forward, "sigma": of the (POINTS,)
+    sigma kernel's output}, both launched on `device`."""
+    rng = np.random.default_rng(0)
+    model = FlexibleNeRFModel(num_layers=8, hidden_size=256, skip_step=4,
+                              num_encoding_fn_xyz=10, num_encoding_fn_dir=4,
+                              compute_dtype=torch.bfloat16)
+    with torch.no_grad():
+        for p in model.parameters():
+            w = rng.standard_normal(tuple(p.shape)) / np.sqrt(p.shape[-1])
+            p.copy_(torch.from_numpy(w.astype(np.float32)))
+    packed = fm.pack_weights(model.to(device))
+    o = rng.standard_normal((R, 3))
+    o = 4.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = -o + rng.uniform(-1.0, 1.0, (R, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    z = np.sort(rng.uniform(2.0, 6.0, (R, S)), axis=1)
+    pts = rng.uniform(-1.2, 1.2, (POINTS, 3))
+    o, d, z, pts = (torch.from_numpy(a.astype(np.float32)).to(device) for a in (o, d, z, pts))
+    fwd = fm.fused_mlp_cuda(packed, o, d, z)
+    sigma = fm.fused_sigma_cuda(packed, pts)
+    torch.cuda.synchronize()
+    return {"fwd": _sha(fwd), "sigma": _sha(sigma)}
+
+
+if __name__ == "__main__":
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    print(json.dumps(digests(torch.device("cuda"))))

@@ -279,6 +279,34 @@ def test_buff_render_rays_matches_jax(dtype, fused):
                                    atol=2e-2, rtol=0)
 
 
+def test_training_render_without_a_generator_draws_from_seed_0():
+    """JAX's BuFF render falls back to jax.random.key(0) without a key
+    (nerfmeshes_tpu/buff/system.py:62-64); the port falls back to a
+    generator seeded 0 on the rays' device, so a training render with
+    jitter and noise runs and equals the same render given that generator."""
+    cfg = buff_cfg()
+    cfg.nerf.train.perturb = True
+    cfg.nerf.train.radiance_field_noise_std = 0.5
+    _, _, tm = both_models(cfg)
+    t_state = t_tree.TreeSampling(cfg).device_state(CPU)
+    active = np.arange(t_state.active.shape[0]) % 2 == 0
+    t_state.active = torch.from_numpy(active) & t_state.active
+    o, d = (torch.from_numpy(a) for a in scene_rays(32, seed=3))
+    settings = t_render.RenderSettings.from_cfg(cfg, train=True)
+    assert settings.perturb and settings.radiance_field_noise_std > 0.0
+    with torch.no_grad():
+        got = t_buff.buff_render_rays(tm, t_state, o, d, 2.0, FAR, settings, train=True)
+        want = t_buff.buff_render_rays(tm, t_state, o, d, 2.0, FAR, settings, train=True,
+                                       generator=torch.Generator(CPU).manual_seed(0))
+        other = t_buff.buff_render_rays(tm, t_state, o, d, 2.0, FAR, settings, train=True,
+                                        generator=torch.Generator(CPU).manual_seed(1))
+    assert 0 < int(got[2].sum()) < len(got[2])
+    for name in ("rgb_map", "depth_map", "acc_map"):
+        torch.testing.assert_close(getattr(got[0], name), getattr(want[0], name),
+                                   rtol=0, atol=0)
+    assert not torch.equal(got[0].rgb_map, other[0].rgb_map)
+
+
 def test_buff_step_grads_match_jax():
     """f32, perturb off, sigma noise 0: the loss and every grad of one BuFF
     step against jax.grad of the JAX loss, from the same weights and rays."""

@@ -13,6 +13,9 @@ float64-truth criterion of tests/test_fused_mlp.py:127-166 (the sine's
 error can flip a ReLU mask that sits within ~1e-5 of zero). The kernels
 themselves run only on a card: tests/test_torch_fused_mlp_gpu.py."""
 
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -324,3 +327,39 @@ def test_packing_feeds_the_asynchronous_copies(kw):
     assert (wa_off * nbytes) % 16 == 0 and (wr_off * nbytes) % 16 == 0
     end = int(w_offs[-1]) + shapes[-1][0] * shapes[-1][1]
     assert wa_off == end and packed.weights.numel() == wr_off + 3 * (spec.hidden // 2)
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# (architecture, forward FLOPs per point, dX-chain FLOPs per point, stash
+# bytes for 1000 points). Lego: 2 x 593,408 weights; dX over the x parts,
+# 2 x (7 trunk + feat) x 256^2 + 2 x 128 x 256 + the heads' 2 x (3 x 128 +
+# 256); stash per point 96 PE + 8 x 256 act + 256 feat + 128 h + 9 x 256
+# dY + 128 dY_dir + 2 x 16 heads = 4992 bf16, on 1024 rows (128-point
+# tiles). The 4x128 base: PE widths 27 -> 32 and 15 -> 16, skip at layer 2.
+LEG_COUNTS = [
+    (dict(num_layers=8, hidden_size=256, skip_step=4, num_encoding_fn_xyz=10,
+          num_encoding_fn_dir=4), 1186816, 1115392, 1024 * 4992 * 2),
+    (BASE, 163840, 148096, 1024 * 1488 * 2),
+]
+
+
+@pytest.mark.parametrize("kw,field,dx,stash", LEG_COUNTS, ids=["lego", "base"])
+def test_chip_smoke_counts_the_backward_legs_work(kw, field, dx, stash):
+    """The counts chip_smoke.py reckons the backward's legs' bounds from:
+    the forward's FLOPs (the tile kernel's recompute, and the dW leg's
+    products), the dX chain's, and the bytes of the bf16 stash
+    (stash_layout in csrc/fused_mlp_bwd.cu) that the tile kernel writes
+    and the dW leg reads."""
+    smoke = _chip_smoke()
+    model = FlexibleNeRFModel(**kw, compute_dtype=torch.bfloat16)
+    packed = fm.pack_weights(model)
+    assert smoke._field_flops(model) == field
+    assert smoke._dx_flops(model) == dx
+    assert smoke._stash_bytes(packed, 1000) == stash

@@ -1,7 +1,9 @@
 """The fused MLP CUDA kernels (forward and backward) against their plain
 versions, on the card: every architecture at the ragged edges of the
-forward's 128-point tiles and past two persistent waves, bitwise repeats,
-and a launch refused for its shared memory.
+128-point tiles and past two persistent waves, skips the models do not
+make (after layer1, after the last trunk layer), a backward workspace
+full of NaN, bitwise repeats, launches refused for their shared memory,
+and the forward's and sigma kernel's output bits on a seeded case.
 
 A CUDA kernel has no CPU mode, so these tests carry the `gpu` marker and
 skip without a card. On a GPU host:
@@ -16,11 +18,17 @@ version share numerics but sum in other orders, so a bf16 rounding of a
 cotangent can fall the other way.
 """
 
+import ctypes
+import dataclasses
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from nerfmeshes_tpu_torch.models import FlexibleNeRFModel
+from nerfmeshes_tpu_torch.ops.encoding import frequency_bands
 from nerfmeshes_tpu_torch.ops.kernels import build
 from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
 
@@ -234,3 +242,169 @@ def test_train_step_never_waits_for_the_device(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert (fm.launches - launches[0], fm.bwd_launches - launches[1]) == (4, 4)
     assert np.isfinite(float(metrics["train/loss"]))
+
+
+@pytest.mark.parametrize("kw", [LEGO, ARCHS[1]], ids=["lego", "small"])
+@pytest.mark.parametrize("R,S", [(1, 1), (127, 1), (128, 1), (129, 1), (2049, 64)])
+def test_bwd_kernel_tile_edges(cuda, kw, R, S):
+    """Point counts at the edges of the tile kernel's 128-point tiles (and
+    of its warpgroups' 64-point halves): tail rows take the point 0 and a
+    zero cotangent and must add nothing to any grad."""
+    if kw is not LEGO and R * S > 10000:
+        pytest.skip("the small architecture is checked at the single-sample edges")
+    packed, args = _grad_case(kw, R, S, cuda, seed=R)
+    got = fm.fused_mlp_bwd_cuda(packed, *args)
+    torch.cuda.synchronize()
+    want = fm.fused_mlp_bwd_plain(packed, *args)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    worst = _worst_rel(packed, got, want)
+    assert worst < GRAD_BAR, f"worst grad rel err {worst}"
+
+
+def _bwd_into(packed, args, workspace):
+    """The C entry point on a workspace the caller made."""
+    o, d, z, cot = args
+    R, S = z.shape
+    lib = build.load_library()
+    dW = torch.zeros(packed.weights.shape, dtype=torch.float32, device=z.device)
+    dB = torch.zeros(packed.biases.shape, dtype=torch.float32, device=z.device)
+    rc = lib.nm_fused_mlp_bwd(
+        o.data_ptr(), d.data_ptr(), z.data_ptr(), R, S, cot.data_ptr(),
+        packed.weights.data_ptr(), packed.biases.data_ptr(), packed.desc.ctypes.data,
+        packed.desc.size, packed.freqs.ctypes.data, packed.freqs.size, workspace.data_ptr(),
+        workspace.numel(), dW.data_ptr(), dB.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    build.check(lib, rc, "fused_mlp_bwd launch")
+    return dW, dB
+
+
+@pytest.mark.parametrize("R,S", [(37, 5), (1000, 7)])
+def test_bwd_kernel_writes_every_row_it_reads(cuda, R, S):
+    """A workspace full of NaN: the tile kernel must write every stash row
+    and every bias partial the dW products and reductions read, the tail
+    rows of the last tile included (finite activations, zero cotangents)."""
+    packed, args = _grad_case(LEGO, R, S, cuda, seed=3)
+    lib = build.load_library()
+    nbytes = ctypes.c_longlong(0)
+    rc = lib.nm_fused_mlp_bwd_workspace(packed.desc.ctypes.data, packed.desc.size,
+                                        packed.freqs.ctypes.data, packed.freqs.size, R * S,
+                                        ctypes.byref(nbytes))
+    build.check(lib, rc, "fused_mlp_bwd workspace")
+    assert nbytes.value % 4 == 0
+    workspace = torch.full((nbytes.value // 4,), float("nan"), device=cuda).view(torch.uint8)
+    got = _bwd_into(packed, args, workspace)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    want = fm.fused_mlp_bwd_plain(packed, *args)
+    worst = _worst_rel(packed, got, want)
+    assert worst < GRAD_BAR, f"worst grad rel err {worst}"
+    again = fm.fused_mlp_bwd_cuda(packed, *args)  # on a fresh torch.empty workspace
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@dataclasses.dataclass(frozen=True)
+class _SkipSpec(fm.MLPSpec):
+    """A spec whose skips are given, not derived from skip_step: the
+    kernels take any skip mask, the models make only some."""
+
+    skips: tuple = ()
+
+    @property
+    def skip_layers(self) -> tuple:
+        return self.skips
+
+
+def _pack_with_skips(hidden, num_layers, skips, device, seed=0):
+    """A pack of seeded weights laid out as pack_params lays them out, with
+    PE(xyz) fed into the trunk layers in `skips`."""
+    spec = _SkipSpec(num_layers=num_layers, hidden=hidden, skip_step=1, L_x=6, L_d=3,
+                     include_x=True, include_d=True, log_x=True, log_d=True,
+                     skips=tuple(skips))
+    rng = np.random.default_rng(seed)
+    shapes = spec.gemm_shapes() + [(1, hidden), (3, hidden // 2)]
+    mats = [rng.standard_normal((n, k)) / np.sqrt(k) for n, k in shapes]
+    vecs = [0.1 * rng.standard_normal(n) for n, _ in shapes]
+    w_offs = np.cumsum([0] + [m.size for m in mats]).tolist()
+    b_offs = np.cumsum([0] + [v.size for v in vecs]).tolist()
+    n_gemms = num_layers + 2
+    desc = np.asarray(
+        [num_layers, hidden, sum(1 << i for i in skips), spec.L_x, spec.L_d, 1, 1, spec.pxp,
+         spec.pdp, w_offs[n_gemms], b_offs[n_gemms], w_offs[n_gemms + 1], b_offs[n_gemms + 1]]
+        + w_offs[:n_gemms] + b_offs[:n_gemms], dtype=np.int32)
+    freqs = np.concatenate([frequency_bands(spec.L_x, True),
+                            frequency_bands(spec.L_d, True)]).astype(np.float32)
+    weights = torch.from_numpy(np.concatenate([m.ravel() for m in mats]).astype(np.float32))
+    biases = torch.from_numpy(np.concatenate(vecs).astype(np.float32))
+    return fm.PackedMLP(spec, weights.to(device=device, dtype=torch.bfloat16), biases.to(device),
+                        desc, freqs)
+
+
+@pytest.mark.parametrize("hidden", [128, 256])
+def test_kernels_take_skips_after_layer1_and_the_last_trunk_layer(cuda, hidden):
+    """Skips the models never make (trunk layer 0, right after layer1, and
+    the last trunk layer) through the forward and the backward."""
+    packed = _pack_with_skips(hidden, 6, (0, 4), cuda)
+    assert packed.spec.gemm_shapes()[1][1] == hidden + packed.spec.pxp
+    o, d, z = _rays(2048, 8, cuda, seed=5)
+    got = fm.fused_mlp_cuda(packed, o, d, z)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, fm.fused_mlp_plain(packed, o, d, z), atol=2e-2, rtol=2e-2)
+    rng = np.random.default_rng(6)
+    cot = torch.from_numpy(rng.standard_normal((4, 2048, 8)).astype(np.float32)).to(cuda)
+    got = fm.fused_mlp_bwd_cuda(packed, o, d, z, cot)
+    torch.cuda.synchronize()
+    want = fm.fused_mlp_bwd_plain(packed, o, d, z, cot)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    worst = _worst_rel(packed, got, want)
+    assert worst < GRAD_BAR, f"worst grad rel err {worst}"
+
+
+@pytest.mark.parametrize("kw", ARCHS, ids=["lego", "small", "deep-linear", "linear-11", "edge"])
+def test_bwd_kernel_every_architecture(cuda, kw):
+    """Every architecture of the forward's tests, 1000 rays x 7 samples: H =
+    128 and 256, no include_input, the 24-band 14-layer edge (one PE tile,
+    two ring slots). Fewer points make the worst relative error a matter of
+    which bf16 roundings fall the other way: at 129 x 3 the lego and edge
+    grads of this kernel and of its wmma predecessor both miss the bar
+    against plain, by the same amount."""
+    packed, args = _grad_case(kw, 1000, 7, cuda)
+    got = fm.fused_mlp_bwd_cuda(packed, *args)
+    torch.cuda.synchronize()
+    want = fm.fused_mlp_bwd_plain(packed, *args)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    worst = _worst_rel(packed, got, want)
+    assert worst < GRAD_BAR, f"worst grad rel err {worst}"
+
+
+def test_bwd_kernel_refuses_what_its_shared_memory_cannot_hold(cuda):
+    """As the forward: a descriptor whose PE tiles leave no room for two
+    weight stages is refused before any of the backward's launches."""
+    packed, (o, d, z, cot) = _grad_case(LEGO, 64, 2, cuda)
+    desc = packed.desc.copy()
+    desc[7] = 1024  # pxp: PE(xyz) 1024 columns wide
+    before = fm.bwd_launches
+    with pytest.raises(RuntimeError, match="fused_mlp_bwd launch failed"):
+        fm.fused_mlp_bwd_cuda(packed._replace(desc=desc), o, d, z, cot)
+    assert fm.bwd_launches == before
+
+
+def _digest_script():
+    path = Path(__file__).resolve().parents[1] / "scripts" / "torch_field_digest.py"
+    spec = importlib.util.spec_from_file_location("torch_field_digest", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# SHA-256 of the forward's (4, 2048, 64) output and the sigma kernel's
+# (65536,) output on scripts/torch_field_digest.py's seeded lego case, as
+# the kernels of fused_field.cuh gave them before the backward came to
+# share that file (the script's output on the card, NVIDIA H100 80GB HBM3).
+FIELD_DIGESTS = {"fwd": "8d7ba437dfa4bddc37a1d4a483f17ba1d1a72746f68e286be08dcedee5fdaa14",
+                 "sigma": "b411031d57dc210ff8db8d732c2429f4fe3ece1333c18ce59cacdb31f45300c6"}
+
+
+def test_forward_and_sigma_keep_their_bits(cuda):
+    """The backward reuses fused_field.cuh; the forward's and the sigma
+    kernel's outputs stay bit for bit what they were."""
+    got = _digest_script().digests(cuda)
+    assert got == FIELD_DIGESTS
