@@ -62,7 +62,8 @@ Prints, on lines of their own: the card's name and power limit as
 nvidia-smi reports them, the build time, per-kernel error, times, bound
 and library yardstick, render and train rays/s of both systems, the mesh
 phases' times, last the backward's legs (its transpose, tile kernel and
-dW products) by kernel name, each beside its bound, then a JSON line of
+dW products) by kernel name, each beside its bound, and the dW leg beside
+its torch.mm yardstick, then a JSON line of
 the kernels, and last {"ok": true,
 "device": {...}}. Any failed check
 raises, so the exit code is non-zero and no "ok" line is printed. There
@@ -189,6 +190,16 @@ PEAK_F32 = 67e12
 # subtractions, 6 multiplies, 6 selects, 8 comparisons, 4 max/min, 6
 # logical ands (csrc/chords.cu).
 CHORD_TEST_OPS = 36
+# The backward's legs by kernel name (csrc/fused_mlp_bwd.cu), as legs_phase
+# and the step profiles group a trace (reduce_rows_kernel sums the dW
+# partials and, twice, the bias partials); tests/test_torch_fused_mlp.py
+# holds every name to a __global__ of the csrc/ sources.
+BWD_LEGS = {"transpose": ("wt_transpose_kernel",), "tile": ("bwd_tile_kernel",),
+            "dw": ("dw_kernel", "reduce_rows_kernel")}
+PROFILE_GROUPS = {"backward transpose": BWD_LEGS["transpose"],
+                  "backward tile": BWD_LEGS["tile"],
+                  "backward dW + reductions": BWD_LEGS["dw"],
+                  "forward": ("fused_mlp_fwd_kernel",), "chords": ("chords_kernel",)}
 
 
 def _merge(node, overrides: dict) -> None:
@@ -256,10 +267,51 @@ def _dx_flops(model) -> int:
 def _stash_bytes(packed, n_pts: int) -> int:
     """Bytes of the backward's bf16 stash for n_pts points (stash_layout in
     csrc/fused_mlp_bwd.cu; rows padded to the tile kernel's 128)."""
-    spec = packed.spec
-    H, L, n_pad = spec.hidden, spec.num_layers, -(-n_pts // 128) * 128
-    per_point = spec.pxp + spec.pdp + H * L + H + H // 2 + H * (L + 1) + H // 2 + 2 * 16
-    return 2 * n_pad * per_point
+    return 2 * _dw_products(packed.spec, n_pts)[1]
+
+
+def _dw_products(spec, n_pts: int) -> tuple[list, int]:
+    """The dW leg's products (dw_jobs in csrc/fused_mlp_bwd.cu) over the
+    stash of n_pts points: ([(dY offset, dY row stride, dW rows, X offset,
+    X row stride, X's first column, dW columns)], stash elements), offsets
+    in bf16 elements of stash_layout, rows padded to 128 points."""
+    H, L, pxp, pdp = spec.hidden, spec.num_layers, spec.pxp, spec.pdp
+    n = -(-n_pts // 128) * 128
+    act = n * (pxp + pdp)
+    feat = act + n * H * L
+    h = feat + n * H
+    dy = h + n * H // 2
+    dy_dir = dy + n * H * (L + 1)
+    dy_a = dy_dir + n * H // 2
+    dy_rgb = dy_a + n * 16
+    jobs = [(dy, H, H, 0, pxp + pdp, 0, pxp)]
+    for i in range(L - 1):
+        jobs.append((dy + (1 + i) * n * H, H, H, act + i * n * H, H, 0, H))
+        if i in spec.skip_layers:
+            jobs.append((dy + (1 + i) * n * H, H, H, 0, pxp + pdp, 0, pxp))
+    jobs += [(dy + L * n * H, H, H, act + (L - 1) * n * H, H, 0, H),
+             (dy_dir, H // 2, H // 2, feat, H, 0, H),
+             (dy_dir, H // 2, H // 2, 0, pxp + pdp, pxp, pdp),
+             (dy_a, 16, 1, act + (L - 1) * n * H, H, 0, H),
+             (dy_rgb, 16, 3, h, H // 2, 0, H // 2)]
+    return jobs, dy_rgb + n * 16
+
+
+def _dw_library_ms(spec, n_pts: int, device) -> float:
+    """The dW leg's library yardstick: torch.mm(dY^T, X) (cuBLAS, bf16 in,
+    f32 sums, bf16 out) for each of its products on views with the stash's
+    shapes and row strides, over a seeded bf16 stash; the median of 7 of
+    each, summed. Never called by the port."""
+    jobs, size = _dw_products(spec, n_pts)
+    n = -(-n_pts // 128) * 128
+    stash = torch.randn(size, generator=torch.Generator(device).manual_seed(SEED),
+                        device=device, dtype=torch.bfloat16)
+    total = 0.0
+    for dy0, ldy, m, x0, ldx, c0, cols in jobs:
+        dy = stash[dy0:dy0 + n * ldy].view(n, ldy)[:, :m]
+        x = stash[x0:x0 + n * ldx].view(n, ldx)[:, c0:c0 + cols]
+        total += _median_ms(lambda dy=dy, x=x: torch.mm(dy.t(), x))
+    return total
 
 
 def _rate(name: str, ms: float, flops: float, bound_ms: float, bound_by: str, shape: str,
@@ -681,22 +733,24 @@ def bwd_kernel_phase(cfg, card: str, device) -> dict:
 
 def legs_phase(bkern: dict, card: str) -> dict:
     """The backward's legs at bwd_kernel_phase's fine shape, by kernel name
-    from torch.profiler (7 calls), each beside its bound: {leg: {ms,
-    bound_ms, bound_by}}."""
+    from torch.profiler (7 calls), each beside its bound and, for the dW
+    leg, its library yardstick: {leg: {ms, bound_ms, bound_by,
+    library_ms}}."""
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
 
     packed, args, leg_bounds, shape = bkern.pop("legs_case")
-    legs = _device_ms_by_group(
-        lambda: fm.fused_mlp_bwd_cuda(packed, *args),
-        {"transpose": ("wt_transpose_kernel",), "tile": ("bwd_tile_kernel",),
-         "dw": ("dw_partial_kernel", "reduce_rows_kernel")})
+    legs = _device_ms_by_group(lambda: fm.fused_mlp_bwd_cuda(packed, *args), BWD_LEGS)
+    library = {leg: None for leg in legs}
+    library["dw"] = _dw_library_ms(packed.spec, args[2].numel(), args[2].device)
     for leg, t in legs.items():
         b, by = leg_bounds[leg]
-        print(f"fused_mlp_bwd leg {leg}: {t:.4f} ms of device time per call (torch.profiler, "
-              f"mean over 7 calls) at {shape}, bound {b:.4f} ms ({by}), {100.0 * b / t:.1f}% "
-              f"of the bound [{card}]")
-    return {leg: dict(ms=t, bound_ms=leg_bounds[leg][0], bound_by=leg_bounds[leg][1])
-            for leg, t in legs.items()}
+        lib = ("none: no one PyTorch call" if library[leg] is None else
+               f"{library[leg]:.4f} ms (torch.mm per product, median of 7, summed)")
+        print(f"fused_mlp_bwd leg {leg} ({' + '.join(BWD_LEGS[leg])}): {t:.4f} ms of device "
+              f"time per call (torch.profiler, mean over 7 calls) at {shape}, bound {b:.4f} ms "
+              f"({by}), {100.0 * b / t:.1f}% of the bound; library {lib} [{card}]")
+    return {leg: dict(ms=t, bound_ms=leg_bounds[leg][0], bound_by=leg_bounds[leg][1],
+                      library_ms=library[leg]) for leg, t in legs.items()}
 
 
 def train_phase(card: str, device) -> dict:
@@ -1338,12 +1392,8 @@ def _profile_steps(system, label: str, card: str, steps: int) -> None:
           f"({100.0 * enqueued * 1e3 / span:.1f}% of the device span), wall "
           f"{wall * 1e3:.3f} ms; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB [{card}]")
-    groups = {"backward transpose": ("wt_transpose_kernel",),
-              "backward tile": ("bwd_tile_kernel",),
-              "backward dW partials + reduction": ("dw_partial_kernel", "reduce_rows_kernel"),
-              "forward": ("fused_mlp_fwd_kernel",), "chords": ("chords_kernel",)}
     shares = {group: sum(t for n, t in by_name.items() if any(k in n for k in keys))
-              for group, keys in groups.items()}
+              for group, keys in PROFILE_GROUPS.items()}
     shares["everything else"] = total - sum(shares.values())
     for group, t in shares.items():
         print(f"{label}: {group} {t:.3f} ms, {100.0 * t / total:.2f}% of kernel time")

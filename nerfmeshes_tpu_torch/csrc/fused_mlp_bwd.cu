@@ -20,7 +20,9 @@
 // lego width), but the dW products contract over all points, and the TPU
 // kernel's way of doing that, accumulating dW in VMEM across a sequential
 // grid, has no counterpart: blocks run in parallel and in no order, and dW
-// (2.4 MB in f32) fits no block's 227 KB of shared memory.
+// (2.4 MB in f32) fits no block's 227 KB of shared memory. So the products
+// that make dY and those that contract it meet in device memory: a bf16
+// stash, ~10 KB per point at lego width, written once and read back once.
 //
 // Design, four kernels, no float atomics, so two launches on the same inputs
 // give bitwise equal grads:
@@ -32,31 +34,38 @@
 //       persistent CTA per SM, a producer streaming weight slabs by TMA into
 //       a ring, two consumer warpgroups of 64 points running wgmma) on
 //       128-point tiles: it recomputes the forward, each epilogue also
-//       storing its bf16 activation from the registers into a stash in
-//       device memory; the rgb and alpha heads' cotangents and the dir
-//       layer's in the dir product's epilogue, in registers; then the dX
-//       chain, L + 1 wgmma products on the activation tile, each epilogue
-//       writing bf16(dY) to the stash and in place as the next product's A
-//       tile, with each bias's f32 column sum over the warpgroup's 64 rows.
-//       ~10 KB of stash per point at lego width (3.9 GB at 2048 x 192).
-//   (c) dw_partial_kernel: dW = dY^T X over points as split-K wmma products,
-//       one block per 64x64 tile of a weight matrix and per chunk of
-//       CHUNK_PTS points, each writing its own f32 partial.
-//   (d) reduce_rows_kernel: the partials summed in a fixed order (chunks for
+//       storing its bf16 activation from the registers into the stash; the
+//       rgb and alpha heads' cotangents and the dir layer's in the dir
+//       product's epilogue, in registers; then the dX chain, L + 1 wgmma
+//       products on the activation tile, each epilogue writing bf16(dY) to
+//       the stash and in place as the next product's A tile, with each
+//       bias's f32 column sum over the warpgroup's 64 rows. 3.9 GB of stash
+//       at 2048 x 192.
+//   (c) dw_kernel, dW = dY^T X for every weight matrix: ~1.2 MFLOP per point
+//       against the ~10 KB of stash it reads, ~120 FLOP/B, under the ~295
+//       FLOP/B at which bf16 tensor cores rather than HBM set the pace. So
+//       it is built to read the stash about once with many bytes in flight:
+//       a CTA per (128 x 256 block of a matrix, range of points), a producer
+//       thread streaming 48 KB stages (64 points of dY's and X's rows) by
+//       TMA straight from the row-major stash into a ring of 4, and two
+//       consumer warpgroups contracting each stage with wgmma on MN-major
+//       operands (the points are the stash's rows). The two row blocks of a
+//       matrix over the same points run side by side and share X through
+//       L2; at most DW_RANGES ranges, so the f32 partials stay ~58 MB at
+//       lego width.
+//   (d) reduce_rows_kernel: the partials summed in a fixed order (ranges for
 //       dW; warpgroup rows in two levels for the biases).
 // The stash costs device-memory traffic (~20 KB per point written and read)
-// that a fused design would keep on chip: later work, as is moving (c) to
-// wgmma.
+// that a fused design would keep on chip: later work.
+
+#include <limits.h>
 
 #include "fused_field.cuh"
 
 namespace {
 
 constexpr int HEAD_LD = 16;      // rgb / alpha cotangent rows, padded to one product step
-constexpr int CHUNK_PTS = 4096;  // points per dW partial
 constexpr int DB_GROUP = 64;     // bias partial rows per first-level reduction
-constexpr int DW_TILE = 64;      // dW tile edge per block (2 x 2 warps of 32 x 32)
-constexpr int MAX_JOBS = 2 * MAX_GEMMS + 2;
 constexpr int REDUCE_THREADS = 256;
 constexpr int TRANSPOSE_THREADS = 256;
 
@@ -498,74 +507,154 @@ bwd_tile_kernel(const __grid_constant__ BwdMaps maps, const Desc desc, const Fie
   }
 }
 
-// One dW = dY^T X product, or one column block of it ([x | PE] inputs).
+// ---- (c) the dW leg: dW = dY^T X, contracted over points ----
+//
+// Both operands come straight from the row-major stash (points x features),
+// so the contraction axis, the points, is each operand's outer dimension:
+// A = dY^T (M = dW rows) and B = X (N = dW columns) are MN-major in shared
+// memory, a box of 64 points x 64 features per TMA load, 128 B swizzled,
+// and wgmma reads them through its transpose immediates (sw128_mn_desc,
+// wgmma_bf16_mn). A work unit is one 128 x 256 block of a dW matrix (job)
+// over one range of points: two 64-row atoms of dY (one per consumer
+// warpgroup, each an m64n256 f32 accumulator) and four 64-column atoms of
+// X per 64-point stage. Columns or rows past a map's width arrive as TMA's
+// zeros (the heads' 16-column cotangents, the narrower PE jobs) and rows
+// or columns past the job's are computed and never written.
+
+constexpr int MAX_JOBS = 2 * MAX_GEMMS + 2;
+constexpr int DW_A_ATOMS = 2;   // dW rows per unit: 64 per consumer warpgroup
+constexpr int DW_B_ATOMS = 4;   // dW columns per unit: 256
+constexpr int DW_STAGE_BYTES = (DW_A_ATOMS + DW_B_ATOMS) * ATOM_BYTES;  // 48 KB, 64 points
+constexpr int DW_STAGES = 4;
+constexpr int DW_SMEM = DW_STAGES * DW_STAGE_BYTES + 2 * DW_STAGES * (int)sizeof(uint64_t);
+constexpr int DW_RANGES = 24;        // point ranges, at most (partials per dW element)
+constexpr int DW_MIN_RANGE = 2048;   // points per range, at least (short inputs)
+
+// The stash regions the dW products read, one tensor map each (box 64 x 64).
+enum DwMap { MAP_PE, MAP_ACT, MAP_H, MAP_DY, MAP_DY_DIR, MAP_DY_A, MAP_DY_RGB, N_MAPS };
+
+// One dW = dY^T X product, or one column block of it ([x | PE] inputs):
+// dY's columns [a_col, a_col + m) and X's [b_col, b_col + n) of the rows
+// from a_row / b_row of their maps (the region's first point).
 struct DwJob {
-  long long dy_off, x_off;  // element offsets in the stash
-  int ldy, m, m_real;       // dY row stride, rows of dW computed / kept
-  int ldx, n;               // X row stride, columns of this block
+  int a_map, a_row, a_col, b_map, b_row, b_col;
+  int m, m_real, n;         // dW rows computed / kept, columns
   int w_off, ldw, col_off;  // where dW lies in the packed weights
-  int tiles_n, tile_start;  // DW_TILE tiles along n; first tile's index
+  int m_blocks, unit0;      // 128-row blocks; the job's first unit
 };
 
-struct DwJobs {
-  int count, tiles;
+// The dW kernel's arguments, in the parameter space. Unit u of job j
+// (unit0 <= u < the next job's unit0) is its 128-row block (u - unit0) %
+// m_blocks over point range (u - unit0) / m_blocks: the two blocks of a
+// matrix over the same points are neighbours in launch order, so they run
+// side by side and the X slabs they share come from L2.
+struct DwArgs {
+  CUtensorMap maps[N_MAPS];
   DwJob job[MAX_JOBS];
+  int count, range_pts;
+  long long n_pad;  // points, a multiple of 64
+  float* partial;   // one row of part_ld per point range
+  long long part_ld;
 };
 
-__global__ void __launch_bounds__(THREADS)
-dw_partial_kernel(const DwJobs jobs, const bf16* __restrict__ stash, long long n_pad,
-                  float* __restrict__ partial, long long part_ld) {
-  __shared__ __align__(32) float scratch[WARPS][256];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+// dW partials: one CTA per unit, a producer thread streaming the unit's
+// stages by TMA into a ring of DW_STAGES, two consumer warpgroups each
+// accumulating its 64 x 256 block in registers over the range's points in
+// order (the same sums on every launch, whichever SM runs the unit), then
+// writing the job's rows and columns of it to the range's partial row.
+__global__ void __launch_bounds__(FIELD_THREADS, 1) dw_kernel(const __grid_constant__ DwArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + DW_STAGES * DW_STAGE_BYTES);
+  uint64_t* empty = full + DW_STAGES;
+  const int tid = threadIdx.x, wg = tid / WG_THREADS;
   int j = 0;
-  while (j + 1 < jobs.count && (int)blockIdx.x >= jobs.job[j + 1].tile_start) ++j;
-  const DwJob& jb = jobs.job[j];
-  const int t = (int)blockIdx.x - jb.tile_start;
-  const int m0 = (t / jb.tiles_n) * DW_TILE + (warp >> 1) * 32;
-  const int n0 = (t % jb.tiles_n) * DW_TILE + (warp & 1) * 32;
-  const bool mv1 = m0 + 16 < jb.m, nv1 = n0 + 16 < jb.n;
-  if (m0 >= jb.m || n0 >= jb.n) return;  // warp-uniform; no block barrier below
-
-  const bf16* dy = stash + jb.dy_off;
-  const bf16* x = stash + jb.x_off;
-  const long long p0 = (long long)blockIdx.y * CHUNK_PTS;
-  const long long p1 = p0 + CHUNK_PTS < n_pad ? p0 + CHUNK_PTS : n_pad;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    wmma::fill_fragment(acc[a][0], 0.f);
-    wmma::fill_fragment(acc[a][1], 0.f);
+  while (j + 1 < a.count && (int)blockIdx.x >= a.job[j + 1].unit0) ++j;
+  const DwJob& jb = a.job[j];
+  const int local = (int)blockIdx.x - jb.unit0;
+  const int mb = local % jb.m_blocks;
+  const long long p0 = (long long)(local / jb.m_blocks) * a.range_pts;
+  const long long p1 = p0 + a.range_pts < a.n_pad ? p0 + a.range_pts : a.n_pad;
+  const int slabs = (int)((p1 - p0) / SLAB_K);
+  if (tid == 0) {
+    for (int s = 0; s < DW_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * WG_THREADS / 32);  // every consumer warp releases
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  for (long long p = p0; p < p1; p += 16) {
-    // dY^T as a col-major (m, points) A operand; X as a row-major (points, n) B.
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a0, a1;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b0, b1;
-    wmma::load_matrix_sync(a0, dy + (size_t)p * jb.ldy + m0, jb.ldy);
-    wmma::load_matrix_sync(b0, x + (size_t)p * jb.ldx + n0, jb.ldx);
-    if (mv1) wmma::load_matrix_sync(a1, dy + (size_t)p * jb.ldy + m0 + 16, jb.ldy);
-    if (nv1) wmma::load_matrix_sync(b1, x + (size_t)p * jb.ldx + n0 + 16, jb.ldx);
-    wmma::mma_sync(acc[0][0], a0, b0, acc[0][0]);
-    if (nv1) wmma::mma_sync(acc[0][1], a0, b1, acc[0][1]);
-    if (mv1) wmma::mma_sync(acc[1][0], a1, b0, acc[1][0]);
-    if (mv1 && nv1) wmma::mma_sync(acc[1][1], a1, b1, acc[1][1]);
-  }
+  __syncthreads();
 
-  float* out = partial + (size_t)blockIdx.y * part_ld + jb.w_off + jb.col_off;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if (tid == 2 * WG_THREADS) {
+      const CUtensorMap* am = &a.maps[jb.a_map];
+      const CUtensorMap* bm = &a.maps[jb.b_map];
+      const int a_col = jb.a_col + mb * DW_A_ATOMS * 64;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int s = 0; s < slabs; ++s) {
+        const int pt = (int)(p0 + (long long)s * SLAB_K);
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_arrive_expect_tx(&full[stage], DW_STAGE_BYTES);
+        unsigned char* dst = smem + stage * DW_STAGE_BYTES;
 #pragma unroll
-  for (int a = 0; a < 2; ++a) {
+        for (int i = 0; i < DW_A_ATOMS; ++i)
+          tma_load_2d(dst + i * ATOM_BYTES, am, a_col + 64 * i, jb.a_row + pt, &full[stage]);
 #pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      if ((a == 1 && !mv1) || (b == 1 && !nv1)) continue;
-      wmma::store_matrix_sync(scratch[warp], acc[a][b], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = m0 + 16 * a + (e >> 4);
-        if (row < jb.m_real)
-          out[(size_t)row * jb.ldw + n0 + 16 * b + (e & 15)] = scratch[warp][e];
+        for (int i = 0; i < DW_B_ATOMS; ++i)
+          tma_load_2d(dst + (DW_A_ATOMS + i) * ATOM_BYTES, bm, jb.b_col + 64 * i, jb.b_row + pt,
+                      &full[stage]);
+        if (++stage == DW_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
-      __syncwarp();
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+    const int t = tid % WG_THREADS, warp = t / 32, lane = t % 32;
+    Ring ring{full, empty, smem, DW_STAGE_BYTES, DW_STAGE_BYTES, DW_STAGES, 0, 0};
+    const uint32_t base = smem_u32(smem);
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    int prev = -1;
+    fence_regs(acc);
+    wgmma_fence();
+    for (int s = 0; s < slabs; ++s) {
+      mbar_wait(&ring.full[ring.stage], ring.phase);
+      const uint32_t st = base + ring.stage * DW_STAGE_BYTES;
+#pragma unroll
+      for (int k = 0; k < SLAB_K / 16; ++k)
+        wgmma_bf16_mn(acc, sw128_mn_desc(st + wg * ATOM_BYTES + 2048 * k),
+                      sw128_mn_desc(st + DW_A_ATOMS * ATOM_BYTES + 2048 * k), s + k);
+      wgmma_commit();
+      if (prev >= 0) {
+        wgmma_wait<1>();  // the previous stage's products are done: release it
+        ring.release(prev, lane);
+      }
+      prev = ring.stage;
+      ring.advance();
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    // acc[4n + 2i + c] is dW row 16 warp + lane / 4 + 8 i of this
+    // warpgroup's 64, column 8 n + 2 (lane % 4) + c.
+    const int row0 = mb * DW_A_ATOMS * 64 + wg * 64 + warp * 16 + lane / 4;
+    float* const out = a.partial + (size_t)(p0 / a.range_pts) * a.part_ld + jb.w_off + jb.col_off;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row >= jb.m_real) continue;
+      float* const dst = out + (size_t)row * jb.ldw;
+#pragma unroll
+      for (int n = 0; n < 32; ++n) {
+        const int col = 8 * n + 2 * (lane % 4);
+        if (col < jb.n)
+          *reinterpret_cast<float2*>(dst + col) = make_float2(acc[4 * n + 2 * i],
+                                                              acc[4 * n + 2 * i + 1]);
+      }
     }
   }
 }
@@ -584,10 +673,27 @@ reduce_rows_kernel(const float* __restrict__ in, long long ld_in, int rows, int 
   out[(size_t)blockIdx.y * ld_out + c] = s;
 }
 
+int reduce_rows(const float* in, long long ld_in, int rows, int cols, int group,
+                float* out, long long ld_out, cudaStream_t s) {
+  const dim3 grid((cols + REDUCE_THREADS - 1) / REDUCE_THREADS,
+                  (rows + group - 1) / group);
+  reduce_rows_kernel<<<grid, REDUCE_THREADS, 0, s>>>(in, ld_in, rows, cols, group, out,
+                                                     ld_out);
+  return (int)cudaGetLastError();
+}
+
+// Points per dW range for n_pad points (a multiple of 64): about n_pad /
+// DW_RANGES in whole 64-point stages, at least DW_MIN_RANGE. Fixed by the
+// shape alone, so the partials, and dW's bits, are the same on every card.
+int dw_range_pts(long long n_pad) {
+  const long long r = (long long)round_up((size_t)((n_pad + DW_RANGES - 1) / DW_RANGES), SLAB_K);
+  return (int)(r > DW_MIN_RANGE ? r : DW_MIN_RANGE);
+}
+
 // Workspace layout (bytes), every region on a 256 B boundary.
 struct Workspace {
   long long n_pad;
-  int tiles, db_rows, chunks, groups;
+  int tiles, db_rows, range_pts, ranges, groups;
   int n_weights, n_biases, tw_ld, nb_ld;
   size_t partial, dbpart, dbtmp, wt, bits, total;
 };
@@ -597,7 +703,8 @@ Workspace workspace_layout(const Desc& d, long long n_pts) {
   w.n_pad = (long long)round_up((size_t)n_pts, TILE_M);
   w.tiles = (int)(w.n_pad / TILE_M);
   w.db_rows = 2 * w.tiles;  // one per warpgroup of 64 points
-  w.chunks = (int)((w.n_pad + CHUNK_PTS - 1) / CHUNK_PTS);
+  w.range_pts = dw_range_pts(w.n_pad);
+  w.ranges = (int)((w.n_pad + w.range_pts - 1) / w.range_pts);
   w.groups = (w.db_rows + DB_GROUP - 1) / DB_GROUP;
   w.n_weights = d.wr_off + 3 * (d.hidden / 2);
   w.n_biases = d.br_off + 3;
@@ -605,7 +712,7 @@ Workspace workspace_layout(const Desc& d, long long n_pts) {
   w.nb_ld = (int)round_up(w.n_biases, 64);
   const size_t stash = round_up(stash_layout(d, w.n_pad).end * sizeof(bf16), 256);
   w.partial = stash;
-  w.dbpart = w.partial + (size_t)w.chunks * w.tw_ld * sizeof(float);
+  w.dbpart = w.partial + (size_t)w.ranges * w.tw_ld * sizeof(float);
   w.dbtmp = w.dbpart + (size_t)w.db_rows * w.nb_ld * sizeof(float);
   w.wt = w.dbtmp + (size_t)w.groups * w.nb_ld * sizeof(float);
   w.bits = w.wt + round_up((size_t)(d.num_layers + 1) * d.hidden * d.hidden * sizeof(bf16), 256);
@@ -614,48 +721,65 @@ Workspace workspace_layout(const Desc& d, long long n_pts) {
   return w;
 }
 
-void add_job(DwJobs* jobs, size_t dy_off, int ldy, int m, int m_real, size_t x_off,
-             int ldx, int n, int w_off, int ldw, int col_off) {
-  DwJob& jb = jobs->job[jobs->count++];
-  jb.dy_off = (long long)dy_off;
-  jb.x_off = (long long)x_off;
-  jb.ldy = ldy;
-  jb.m = m;
-  jb.m_real = m_real;
-  jb.ldx = ldx;
-  jb.n = n;
-  jb.w_off = w_off;
-  jb.ldw = ldw;
-  jb.col_off = col_off;
-  jb.tiles_n = (n + DW_TILE - 1) / DW_TILE;
-  jb.tile_start = jobs->tiles;
-  jobs->tiles += ((m + DW_TILE - 1) / DW_TILE) * jb.tiles_n;
+// Appends a job whose units follow the `units` before it; returns the total.
+int add_job(DwArgs* a, int units, int ranges, DwJob jb) {
+  jb.m_blocks = (jb.m + DW_A_ATOMS * 64 - 1) / (DW_A_ATOMS * 64);
+  jb.unit0 = units;
+  a->job[a->count++] = jb;
+  return units + jb.m_blocks * ranges;
 }
 
-// Every weight matrix of the packed layout as dW = dY^T X jobs over the stash.
-DwJobs dw_jobs(const Desc& d, long long n_pad) {
-  const Stash st = stash_layout(d, n_pad);
-  const size_t n = (size_t)n_pad;
+// Every weight matrix of the packed layout as dW = dY^T X jobs over the
+// stash's maps (encode_dw_maps); returns the number of units.
+int dw_jobs(const Desc& d, int n, int ranges, DwArgs* a) {
   const int H = d.hidden, L = d.num_layers, pxp = d.pxp, pdp = d.pdp;
-  const int pw = pxp + pdp;
-  auto act = [&](int i) { return st.act + (size_t)i * n * H; };
-  auto dy = [&](int g) { return st.dy + (size_t)g * n * H; };
-  DwJobs jobs = {};
-  add_job(&jobs, dy(0), H, H, H, st.pe, pw, pxp, d.w_off[0], pxp, 0);  // layer1
+  int u = 0;
+  u = add_job(a, u, ranges, {MAP_DY, 0, 0, MAP_PE, 0, 0, H, H, pxp, d.w_off[0], pxp, 0});
   for (int i = 0; i < L - 1; ++i) {
     const bool skip = (d.skip_mask >> i) & 1;
     const int ldw = H + (skip ? pxp : 0);
-    add_job(&jobs, dy(1 + i), H, H, H, act(i), H, H, d.w_off[1 + i], ldw, 0);
-    if (skip) add_job(&jobs, dy(1 + i), H, H, H, st.pe, pw, pxp, d.w_off[1 + i], ldw, H);
+    u = add_job(a, u, ranges,
+                {MAP_DY, (1 + i) * n, 0, MAP_ACT, i * n, 0, H, H, H, d.w_off[1 + i], ldw, 0});
+    if (skip)
+      u = add_job(a, u, ranges,
+                  {MAP_DY, (1 + i) * n, 0, MAP_PE, 0, 0, H, H, pxp, d.w_off[1 + i], ldw, H});
   }
-  add_job(&jobs, dy(L), H, H, H, act(L - 1), H, H, d.w_off[L], H, 0);  // feat
-  add_job(&jobs, st.dy_dir, H / 2, H / 2, H / 2, st.feat, H, H, d.w_off[L + 1], H + pdp,
-          0);  // dir, feat part
-  add_job(&jobs, st.dy_dir, H / 2, H / 2, H / 2, st.pe + pxp, pw, pdp, d.w_off[L + 1],
-          H + pdp, H);  // dir, PE(dir) part
-  add_job(&jobs, st.dy_a, HEAD_LD, HEAD_LD, 1, act(L - 1), H, H, d.wa_off, H, 0);
-  add_job(&jobs, st.dy_rgb, HEAD_LD, HEAD_LD, 3, st.h, H / 2, H / 2, d.wr_off, H / 2, 0);
-  return jobs;
+  u = add_job(a, u, ranges,  // feat
+              {MAP_DY, L * n, 0, MAP_ACT, (L - 1) * n, 0, H, H, H, d.w_off[L], H, 0});
+  u = add_job(a, u, ranges,  // dir: the feat part (feat follows act[L - 1]), then PE(dir)
+              {MAP_DY_DIR, 0, 0, MAP_ACT, L * n, 0, H / 2, H / 2, H, d.w_off[L + 1], H + pdp, 0});
+  u = add_job(a, u, ranges,
+              {MAP_DY_DIR, 0, 0, MAP_PE, 0, pxp, H / 2, H / 2, pdp, d.w_off[L + 1], H + pdp, H});
+  u = add_job(a, u, ranges,  // the heads: 1 and 3 of their 16 cotangent columns
+              {MAP_DY_A, 0, 0, MAP_ACT, (L - 1) * n, 0, HEAD_LD, 1, H, d.wa_off, H, 0});
+  return add_job(a, u, ranges, {MAP_DY_RGB, 0, 0, MAP_H, 0, 0, HEAD_LD, 3, H / 2, d.wr_off, H / 2, 0});
+}
+
+// One tensor map per stash region the dW products read, box 64 x 64.
+int encode_dw_maps(const Desc& d, const bf16* stash, int n, CUtensorMap* maps) {
+  const Stash st = stash_layout(d, n);
+  const int H = d.hidden, L = d.num_layers;
+  const struct {
+    size_t off;
+    int cols, rows;
+  } region[N_MAPS] = {{st.pe, d.pxp + d.pdp, n}, {st.act, H, (L + 1) * n}, {st.h, H / 2, n},
+                      {st.dy, H, (L + 1) * n},   {st.dy_dir, H / 2, n},     {st.dy_a, HEAD_LD, n},
+                      {st.dy_rgb, HEAD_LD, n}};
+  for (int i = 0; i < N_MAPS; ++i) {
+    const int rc = encode_slab_map(&maps[i], stash + region[i].off, region[i].cols,
+                                   region[i].rows, SLAB_K);
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
+
+// dw_kernel over `units` units, then its partials summed over the point
+// ranges in order into out (rows of `cols`, contiguous).
+int launch_dw(const DwArgs& a, int units, int ranges, int cols, float* out, cudaStream_t s) {
+  dw_kernel<<<units, FIELD_THREADS, DW_SMEM, s>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return reduce_rows(a.partial, a.part_ld, ranges, cols, ranges, out, 0, s);
 }
 
 // The transpose and the tile kernel on stream s. Every check (alignment,
@@ -706,15 +830,6 @@ int launch_tiles(const Desc& d, const Workspace& ws, const float* o, const float
   return (int)cudaGetLastError();
 }
 
-int reduce_rows(const float* in, long long ld_in, int rows, int cols, int group,
-                float* out, long long ld_out, cudaStream_t s) {
-  const dim3 grid((cols + REDUCE_THREADS - 1) / REDUCE_THREADS,
-                  (rows + group - 1) / group);
-  reduce_rows_kernel<<<grid, REDUCE_THREADS, 0, s>>>(in, ld_in, rows, cols, group, out,
-                                                     ld_out);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // Bytes of device workspace nm_fused_mlp_bwd needs for n_pts points.
@@ -750,20 +865,28 @@ extern "C" int nm_fused_mlp_bwd(const float* origins, const float* dirs, const f
   unsigned char* base = static_cast<unsigned char*>(workspace);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
+  // The dW leg's maps, jobs and shared memory first: every check before
+  // the first launch.
+  if ((long long)(d.num_layers + 1) * ws.n_pad > INT_MAX) return (int)cudaErrorInvalidValue;
+  DwArgs dw = {};
+  err = encode_dw_maps(d, reinterpret_cast<const bf16*>(base), (int)ws.n_pad, dw.maps);
+  if (err != 0) return err;
+  const int units = dw_jobs(d, (int)ws.n_pad, ws.ranges, &dw);
+  dw.range_pts = ws.range_pts;
+  dw.n_pad = ws.n_pad;
+  dw.partial = reinterpret_cast<float*>(base + ws.partial);
+  dw.part_ld = ws.tw_ld;
+  err = (int)cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  DW_SMEM);
+  if (err != 0) return err;
+
   err = d.hidden == 128
             ? launch_tiles<128>(d, ws, origins, dirs, z, n_pts, samples, grad, W, biases,
                                 base, s)
             : launch_tiles<256>(d, ws, origins, dirs, z, n_pts, samples, grad, W, biases,
                                 base, s);
   if (err != 0) return err;
-
-  const DwJobs jobs = dw_jobs(d, ws.n_pad);
-  float* partial = reinterpret_cast<float*>(base + ws.partial);
-  dw_partial_kernel<<<dim3(jobs.tiles, ws.chunks), THREADS, 0, s>>>(
-      jobs, reinterpret_cast<const bf16*>(base), ws.n_pad, partial, ws.tw_ld);
-  err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  err = reduce_rows(partial, ws.tw_ld, ws.chunks, ws.n_weights, ws.chunks, dW, 0, s);
+  err = launch_dw(dw, units, ws.ranges, ws.n_weights, dW, s);
   if (err != 0) return err;
 
   float* dbpart = reinterpret_cast<float*>(base + ws.dbpart);
@@ -771,4 +894,36 @@ extern "C" int nm_fused_mlp_bwd(const float* origins, const float* dirs, const f
   err = reduce_rows(dbpart, ws.nb_ld, ws.db_rows, ws.n_biases, DB_GROUP, dbtmp, ws.nb_ld, s);
   if (err != 0) return err;
   return reduce_rows(dbtmp, ws.nb_ld, ws.groups, ws.n_biases, ws.groups, dB, 0, s);
+}
+
+// The dW leg alone on one product, for its tests: out (m, n) f32 = dy^T x
+// over n_pts points, dy (n_pts, ldy) and x (n_pts, ldx) row-major bf16 on
+// 16 B aligned bases (ldy, ldx multiples of 8; m <= ldy, n <= ldx, n <=
+// 256), through dw_kernel and the reduction over its point ranges, as the
+// backward runs them. partial: scratch of partial_floats f32, at least
+// DW_RANGES x round_up(m n, 64). Returns a cudaError_t code; 0 on success.
+extern "C" int nm_dw_product(const void* dy, int ldy, int m, const void* x, int ldx, int n,
+                             long long n_pts, float* partial, long long partial_floats,
+                             float* out, void* stream) {
+  if (m <= 0 || n <= 0 || n > DW_B_ATOMS * 64 || m > ldy || n > ldx || ldy % 8 != 0 ||
+      ldx % 8 != 0 || n_pts <= 0 || n_pts > INT_MAX - SLAB_K)
+    return (int)cudaErrorInvalidValue;
+  const long long n_pad = (long long)round_up((size_t)n_pts, SLAB_K);
+  DwArgs a = {};
+  a.range_pts = dw_range_pts(n_pad);
+  a.n_pad = n_pad;
+  a.partial = partial;
+  a.part_ld = (long long)round_up((size_t)m * n, 64);
+  const int ranges = (int)((n_pad + a.range_pts - 1) / a.range_pts);
+  if (partial_floats < ranges * a.part_ld) return (int)cudaErrorInvalidValue;
+  // Rows past n_pts (up to n_pad) arrive as TMA's zeros.
+  int err = encode_slab_map(&a.maps[0], static_cast<const bf16*>(dy), ldy, (int)n_pts, SLAB_K);
+  if (err == 0)
+    err = encode_slab_map(&a.maps[1], static_cast<const bf16*>(x), ldx, (int)n_pts, SLAB_K);
+  if (err == 0)
+    err = (int)cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    DW_SMEM);
+  if (err != 0) return err;
+  const int units = add_job(&a, 0, ranges, {0, 0, 0, 1, 0, 0, m, m, n, 0, n, 0});
+  return launch_dw(a, units, ranges, m * n, out, static_cast<cudaStream_t>(stream));
 }

@@ -2,13 +2,11 @@
 // kernels of nerfmeshes_tpu/ops/pallas/fused_mlp.py: the forward
 // (fused_mlp_fwd.cu, _fwd_kernel :387), the sigma-only field (fused_sigma.cu,
 // _sigma_kernel :675) and the backward (fused_mlp_bwd.cu, _bwd_kernel :397).
-// All three are bound on the H100 by the tensor cores (~1.2 MFLOP per point
-// forward at lego width, 3x that backward, against tens of bytes of I/O),
-// then by the weights read from L2 once per tile of points. The forward,
-// the sigma kernel and the backward's tile kernel answer with wgmma on
-// TMA-staged weight slabs, 128-point tiles and persistent CTAs
-// (fused_field.cuh); the backward's dW products still run on nvcuda::wmma
-// (WARPS, THREADS below). Every kernel reads the same descriptor.
+// The forward and the sigma kernel are bound on the H100 by the tensor cores
+// (~1.2 MFLOP per point at lego width against tens of bytes of I/O), then
+// by the weights read from L2 once per tile of points; the backward by its
+// stash's device-memory traffic. All of them run wgmma on TMA-staged
+// shared memory (fused_field.cuh). Every kernel reads the same descriptor.
 //
 // Weight layout (packed in nerfmeshes_tpu_torch/ops/kernels/fused_mlp.py):
 // one flat bf16 buffer holding, per product (layer1, trunk 0..L-2, feat,
@@ -23,15 +21,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 namespace {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
-constexpr int WARPS = 4;  // the backward's dW blocks
-constexpr int THREADS = WARPS * 32;
 constexpr int MAX_L = 24;       // PE bands per encoding
 constexpr int MAX_GEMMS = 16;   // layer1 + trunk + feat + dir
 constexpr int N_DESC_FIXED = 13;

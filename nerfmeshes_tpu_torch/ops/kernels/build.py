@@ -57,6 +57,10 @@ SIGNATURES = {
         _I,
         [_P, _P, _P, _LL, _I, _P, _P, _P, _P, _I, _P, _I, _P, _LL, _P, _P, _P],
     ),
+    "nm_dw_product": (
+        _I,
+        [_P, _I, _I, _P, _I, _I, _LL, _P, _LL, _P, _P],
+    ),
     "nm_fused_sigma": (
         _I,
         [_P, _LL, _P, _P, _P, _I, _P, _I, _P, _P],

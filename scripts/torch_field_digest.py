@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
-"""SHA-256 digests of the fused forward and sigma kernels' outputs on one
-seeded lego-width case, printed as one JSON line: the check that a change
-to their shared body (nerfmeshes_tpu_torch/csrc/fused_field.cuh) leaves
-their bits as they were. tests/test_torch_fused_mlp_gpu.py holds the
-kernels to the digests this script printed before such a change.
+"""SHA-256 digests of the fused forward and sigma kernels' outputs, and of
+the backward's bias and weight grads, on one seeded lego-width case,
+printed as one JSON line: the check that a change to a kernel leaves the
+bits it does not mean to change as they were (the forward and sigma
+kernels share nerfmeshes_tpu_torch/csrc/fused_field.cuh with the
+backward's tile kernel; the backward's dB comes from the tile kernel
+alone, its dW also from the dW leg). tests/test_torch_fused_mlp_gpu.py
+holds the kernels to the digests this script printed before such a
+change.
 
     python scripts/torch_field_digest.py      # needs a CUDA card
 
@@ -35,7 +39,8 @@ def _sha(t: torch.Tensor) -> str:
 
 def digests(device) -> dict:
     """{"fwd": digest of the (4, R, S) forward, "sigma": of the (POINTS,)
-    sigma kernel's output}, both launched on `device`."""
+    sigma kernel's output, "bwd_dB" / "bwd_dW": of the backward's f32
+    grads for a seeded (4, R, S) cotangent}, all launched on `device`."""
     rng = np.random.default_rng(0)
     model = FlexibleNeRFModel(num_layers=8, hidden_size=256, skip_step=4,
                               num_encoding_fn_xyz=10, num_encoding_fn_dir=4,
@@ -54,8 +59,11 @@ def digests(device) -> dict:
     o, d, z, pts = (torch.from_numpy(a.astype(np.float32)).to(device) for a in (o, d, z, pts))
     fwd = fm.fused_mlp_cuda(packed, o, d, z)
     sigma = fm.fused_sigma_cuda(packed, pts)
+    cot = np.random.default_rng(1).standard_normal((4, R, S))
+    cot = torch.from_numpy(cot.astype(np.float32)).to(device)
+    dW, dB = fm.fused_mlp_bwd_cuda(packed, o, d, z, cot)
     torch.cuda.synchronize()
-    return {"fwd": _sha(fwd), "sigma": _sha(sigma)}
+    return {"fwd": _sha(fwd), "sigma": _sha(sigma), "bwd_dB": _sha(dB), "bwd_dW": _sha(dW)}
 
 
 if __name__ == "__main__":

@@ -363,3 +363,33 @@ def test_chip_smoke_counts_the_backward_legs_work(kw, field, dx, stash):
     assert smoke._field_flops(model) == field
     assert smoke._dx_flops(model) == dx
     assert smoke._stash_bytes(packed, 1000) == stash
+
+
+@pytest.mark.parametrize("kw", [kw for kw, *_ in LEG_COUNTS], ids=["lego", "base"])
+def test_chip_smoke_dw_yardstick_covers_every_weight(kw):
+    """chip_smoke.py's dW yardstick times one torch.mm per product of the
+    dW leg (dw_jobs in csrc/fused_mlp_bwd.cu): together they make every
+    packed weight's grad once, and their views lie inside the stash."""
+    smoke = _chip_smoke()
+    packed = fm.pack_weights(FlexibleNeRFModel(**kw, compute_dtype=torch.bfloat16))
+    jobs, size = smoke._dw_products(packed.spec, 1000)
+    assert sum(m * cols for _, _, m, _, _, _, cols in jobs) == packed.weights.numel()
+    for dy0, ldy, m, x0, ldx, c0, cols in jobs:
+        assert m <= ldy and c0 + cols <= ldx
+        assert dy0 + 1024 * ldy <= size and x0 + 1024 * ldx <= size
+
+
+def test_chip_smoke_groups_kernels_the_sources_define():
+    """Every kernel name chip_smoke.py groups a trace by (the backward's legs,
+    the step profiles) is a __global__ of nerfmeshes_tpu_torch/csrc/, so a
+    renamed kernel fails here rather than in a profile on the card."""
+    import re
+
+    smoke = _chip_smoke()
+    csrc = Path(fm.__file__).resolve().parents[2] / "csrc"
+    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
+    defined = {name for src in csrc.glob("*.cu*") for name in pattern.findall(src.read_text())}
+    assert {"bwd_tile_kernel", "dw_kernel", "fused_mlp_fwd_kernel"} <= defined
+    names = {k for keys in (*smoke.BWD_LEGS.values(), *smoke.PROFILE_GROUPS.values())
+             for k in keys}
+    assert names <= defined, sorted(names - defined)

