@@ -96,6 +96,8 @@ GRAD_BAR = 5e-2
 SIGMA_FWD_BAR = 1e-5
 SEED = 0
 WARMUP_STEPS = 3
+# The host's sleep at each end of a torch.profiler trace (_traced_kernels).
+TRACE_PAD_S = 0.01
 TRAIN_STEPS = 30
 # The mesh grid of scripts/bench_mesh.py and scripts/quality_800.py, the
 # mesh CLI's extent, and the grid tile per sigma launch (extract.py).
@@ -382,9 +384,14 @@ def _autocast(fn):
 
 def _traced_kernels(fn, runs: int = 7, warmup: int = 2) -> list:
     """(name, device ms) of each kernel launch that `runs` calls of fn()
-    made, from torch.profiler, which may drop a few events of a run. CUDA
-    events around one call of a kernel that lasts microseconds time the
-    host's enqueue of its wrapper instead."""
+    made, from torch.profiler. CUDA events around one call of a kernel that
+    lasts microseconds time the host's enqueue of its wrapper instead. The
+    host sleeps TRACE_PAD_S before the calls and after their
+    synchronisation, inside the trace: the profiler keeps the kernel events
+    that fall within its window, and places them on the host's clock with
+    an error of up to ~0.2 ms (kernels that start before their launch in
+    scripts/torch_trace_probe.py's traces), so a short run's events could
+    otherwise fall outside it."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -393,9 +400,11 @@ def _traced_kernels(fn, runs: int = 7, warmup: int = 2) -> list:
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_PAD_S)
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
     with tempfile.TemporaryDirectory() as tmp:
         trace = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(trace))
@@ -440,6 +449,28 @@ def _median_ms(fn, runs: int = 7, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _back_to_back_ms(fn, launches: int = 20, runs: int = 7) -> float:
+    """Median over `runs` of the device time per launch of `launches`
+    back-to-back calls of fn(), by CUDA events, each run enqueued behind a
+    ~10 ms spin of the card so the host's enqueue never starves it: a
+    kernel's time with the gaps between its launches, beside the
+    profiler's time of the kernel alone."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        torch.cuda._sleep(20_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -1031,16 +1062,14 @@ def _chord_bound(R: int, V: int, active: int, K: int) -> tuple[float, str]:
     return _bound_ms(float(R) * active * CHORD_TEST_OPS, nbytes, PEAK_F32)
 
 
-def chords_kernel_phase(card: str, device) -> dict:
-    """The chord kernel against compact_chords_plain on the card, bit for
-    bit (torch.equal on all four outputs), at the BuFF paths' shapes: 2048
-    camera rays against the initial 12^3 tree padded to capacity 4096 (K
-    64), a tree after one consolidation of a seeded memm, per-ray bounds,
-    axis-aligned rays from the grid's face planes, a binding cap (K 8), and
-    the 65536-ray appearance chunk. Then both are timed at 2048 x 4096 x 64
-    and 65536 x 4096 x 64."""
+def _chord_inputs(device) -> dict:
+    """The chord phase's inputs, made from SEED: the initial 12^3 tree of
+    configs/buff-hard-250k.yml padded to capacity 4096 (1728 active), a
+    tree after one consolidation of a seeded memm, 2048 camera rays with
+    per-ray bounds, 2048 axis-aligned rays, the 65536-ray appearance chunk,
+    the consolidated tree with 10% of its voxels active, and a table of
+    20,000 random boxes (past one shared-memory stage of the kernel)."""
     from nerfmeshes_tpu_torch.buff.tree import TreeSampling
-    from nerfmeshes_tpu_torch.ops.kernels import chords as ch
 
     cfg = buff_hard_cfg()
     tree = TreeSampling(cfg)
@@ -1049,7 +1078,7 @@ def chords_kernel_phase(card: str, device) -> dict:
     memm = rng.uniform(0.0, 1.0, tree.capacity).astype(np.float32)
     memm[rng.uniform(size=tree.capacity) < 0.2] = 0.0
     grown = tree.consolidate(memm, device)
-    R, K = int(cfg.nerf.train.num_random_rays), 64
+    R = int(cfg.nerf.train.num_random_rays)
     o, d, _ = _rays(R, 1, rng, device)
     near = torch.from_numpy(rng.uniform(1.5, 2.5, R).astype(np.float32)).to(device)
     far = near + torch.from_numpy(rng.uniform(3.0, 4.0, R).astype(np.float32)).to(device)
@@ -1066,16 +1095,56 @@ def chords_kernel_phase(card: str, device) -> dict:
     d_axis[np.arange(R), axis] = sign
     o_axis, d_axis = (torch.from_numpy(a).to(device) for a in (o_axis, d_axis))
     o_app, d_app, _ = _surface_rays(APPEARANCE_CHUNK, 1, rng, device)
+    sparse = grown.active & torch.from_numpy(rng.uniform(size=tree.capacity) < 0.1).to(device)
+    lo = rng.uniform(-2.0, 2.0, (20000, 3)).astype(np.float32)
+    boxes = np.stack([lo, lo + rng.uniform(0.02, 0.3, (20000, 3)).astype(np.float32)], axis=1)
+    large = (torch.from_numpy(boxes).to(device),
+             torch.from_numpy(rng.uniform(size=20000) < 0.6).to(device))
+    return dict(initial=initial, grown=grown, o=o, d=d, near=near, far=far,
+                o_axis=o_axis, d_axis=d_axis, o_app=o_app, d_app=d_app, sparse=sparse,
+                large=large)
+
+
+def chord_timed_cases(inputs: dict) -> dict:
+    """name -> (voxels, active, origins, dirs, near, far) of the chord
+    kernel's timed reads: the train step's 2048 rays on the consolidated
+    tree (4095 active) and on the initial one (1728 of 4096 active), and
+    the 65536-ray appearance chunk on the consolidated tree."""
+    grown, initial = inputs["grown"], inputs["initial"]
+    o, d = inputs["o"], inputs["d"]
+    return {"train": (grown.voxels, grown.active, o, d, 2.0, 6.0),
+            "initial": (initial.voxels, initial.active, o, d, 2.0, 6.0),
+            "chunk": (grown.voxels, grown.active, inputs["o_app"], inputs["d_app"], 0.0, 4.0)}
+
+
+def chords_kernel_phase(card: str, device) -> dict:
+    """The chord kernel against compact_chords_plain on the card, bit for
+    bit (torch.equal on all four outputs), at the BuFF paths' shapes: 2048
+    camera rays against the initial 12^3 tree padded to capacity 4096 (K
+    64), a tree after one consolidation of a seeded memm, per-ray bounds,
+    axis-aligned rays from the grid's face planes, a binding cap (K 8), the
+    65536-ray appearance chunk, a sparse active set and a table larger than
+    one shared-memory stage. Then both are timed at 2048 x 4096 x 64 on the
+    consolidated and the initial tree, and at 65536 x 4096 x 64."""
+    from nerfmeshes_tpu_torch.ops.kernels import chords as ch
+
+    inputs = _chord_inputs(device)
+    initial, grown = inputs["initial"], inputs["grown"]
+    o, d, o_app, d_app = inputs["o"], inputs["d"], inputs["o_app"], inputs["d_app"]
+    K = 64
     cases = {
-        "initial tree": (initial, o, d, 2.0, 6.0, K),
-        "consolidated tree": (grown, o, d, 2.0, 6.0, K),
-        "per-ray near/far": (grown, o, d, near, far, K),
-        "axis-aligned rays": (initial, o_axis, d_axis, 2.0, 6.0, K),
-        "binding cap": (grown, o, d, 2.0, 6.0, 8),
-        "appearance chunk": (grown, o_app, d_app, 0.0, 4.0, K),
+        "initial tree": (initial.voxels, initial.active, o, d, 2.0, 6.0, K),
+        "consolidated tree": (grown.voxels, grown.active, o, d, 2.0, 6.0, K),
+        "per-ray near/far": (grown.voxels, grown.active, o, d, inputs["near"], inputs["far"], K),
+        "axis-aligned rays": (initial.voxels, initial.active, inputs["o_axis"], inputs["d_axis"],
+                              2.0, 6.0, K),
+        "binding cap": (grown.voxels, grown.active, o, d, 2.0, 6.0, 8),
+        "appearance chunk": (grown.voxels, grown.active, o_app, d_app, 0.0, 4.0, K),
+        "sparse active": (grown.voxels, inputs["sparse"], o, d, 2.0, 6.0, K),
+        "large table": (*inputs["large"], o, d, 2.0, 6.0, K),
     }
-    for name, (tree_state, oo, dd, n, f, k) in cases.items():
-        args = (tree_state.voxels, tree_state.active, oo, dd, n, f)
+    for name, (*args, k) in cases.items():
+        voxels, active, dd = args[0], args[1], args[3]
         before = ch.launches
         got = ch.compact_chords_cuda(*args, K=k)
         torch.cuda.synchronize()
@@ -1084,8 +1153,8 @@ def chords_kernel_phase(card: str, device) -> dict:
         want = ch.compact_chords_plain(*args, K=k)
         equal = [torch.equal(g, w) for g, w in zip(got, want)]
         n_hit = got.n_hit.float()
-        print(f"fused_chords {name}: R={dd.shape[0]} V={tree_state.voxels.shape[0]} "
-              f"({int(tree_state.active.sum())} active) K={k}: bitwise equal "
+        print(f"fused_chords {name}: R={dd.shape[0]} V={voxels.shape[0]} "
+              f"({int(active.sum())} active) K={k}: bitwise equal "
               f"{dict(zip(ch.Chords._fields, equal))}; chords per ray mean "
               f"{float(n_hit.mean()):.2f} max {int(n_hit.max())}, rays over the cap "
               f"{int((got.n_hit > k).sum())}")
@@ -1097,24 +1166,33 @@ def chords_kernel_phase(card: str, device) -> dict:
             raise AssertionError(f"no ray hits the tree ({name})")
 
     times = {}
-    for name, (oo, dd, n, f) in (("train", (o, d, 2.0, 6.0)),
-                                 ("chunk", (o_app, d_app, 0.0, 4.0))):
-        args = (grown.voxels, grown.active, oo, dd, n, f)
-        rays, V = dd.shape[0], grown.voxels.shape[0]
+    for name, args in chord_timed_cases(inputs).items():
+        voxels, active, rays = args[0], args[1], args[3].shape[0]
+        V, n_active = voxels.shape[0], int(active.sum())
         ms = _kernel_device_ms(lambda: ch.compact_chords_cuda(*args, K=K), "chords_kernel")
+        b2b_ms = _back_to_back_ms(lambda: ch.compact_chords_cuda(*args, K=K))
         call_ms = _median_ms(lambda: ch.compact_chords_cuda(*args, K=K))
         plain_ms = _median_ms(lambda: ch.compact_chords_plain(*args, K=K))
-        bound_ms, bound_by = _chord_bound(rays, V, int(grown.active.sum()), K)
-        print(f"fused_chords {rays}x{V}x{K}: kernel {ms:.4f} ms on the device (torch.profiler), "
-              f"{call_ms:.4f} ms per call with its enqueue (CUDA events), plain {plain_ms:.4f} ms "
-              f"(medians of 7), bound {bound_ms * 1e3:.3f} us ({bound_by}); "
-              f"{rays * V / ms * 1e3:.4e} tests/s; no single PyTorch call computes it "
+        bound_ms, bound_by = _chord_bound(rays, V, n_active, K)
+        print(f"fused_chords {rays}x{V}x{K} ({n_active} active): kernel {ms:.4f} ms on the "
+              f"device (torch.profiler), {b2b_ms:.4f} ms a launch of 20 back to back, "
+              f"{call_ms:.4f} ms per call with its enqueue, plain {plain_ms:.4f} ms (CUDA events; "
+              f"medians of 7), bound {bound_ms * 1e3:.3f} us ({bound_by}, "
+              f"{100.0 * bound_ms / ms:.1f}% of the kernel's time); "
+              f"{rays * n_active / ms * 1e3:.4e} tests/s; no single PyTorch call computes it "
               f"[{card}]")
-        times[name] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by)
+        times[name] = dict(ms=ms, b2b_ms=b2b_ms, call_ms=call_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
+    print(f"fused_chords bound: {CHORD_TEST_OPS} f32 operations a test at {PEAK_F32 / 1e12:.0f} "
+          f"TFLOP/s, a rate that counts a fused multiply-add as two; the slab test cannot fuse "
+          f"and keep its bits, so a test of ~24 issued instructions at the full issue rate "
+          f"would read ~75% of this bound")
     return dict(max_abs_err=0.0, bitwise_equal=True, **times["train"],
-                chunk_ms=times["chunk"]["ms"], chunk_plain_ms=times["chunk"]["plain_ms"],
-                chunk_bound_ms=times["chunk"]["bound_ms"])
+                chunk_ms=times["chunk"]["ms"], chunk_b2b_ms=times["chunk"]["b2b_ms"],
+                chunk_plain_ms=times["chunk"]["plain_ms"],
+                chunk_bound_ms=times["chunk"]["bound_ms"], initial_ms=times["initial"]["ms"],
+                initial_b2b_ms=times["initial"]["b2b_ms"],
+                initial_bound_ms=times["initial"]["bound_ms"])
 
 
 def _buff_system(device):
@@ -1623,8 +1701,9 @@ def main(argv=None) -> int:
               {"train": buff["chords_launches"], "render": buff_render["chords_launches"],
                "mesh": buff_mesh["chords_launches"]},
               bitwise_equal=ckern["bitwise_equal"], bound_us=ckern["bound_ms"] * 1e3,
-              call_ms=ckern["call_ms"],
-              chunk_ms=ckern["chunk_ms"], chunk_plain_ms=ckern["chunk_plain_ms"],
+              call_ms=ckern["call_ms"], b2b_ms=ckern["b2b_ms"],
+              chunk_ms=ckern["chunk_ms"], chunk_b2b_ms=ckern["chunk_b2b_ms"],
+              chunk_plain_ms=ckern["chunk_plain_ms"],
               chunk_bound_ms=ckern["chunk_bound_ms"]),
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -144,6 +144,29 @@ def _kernel_bound(x) -> tuple[int, int, float]:
     return 0, 0, float(x)
 
 
+def empty_chords(R: int, K: int, device) -> Chords:
+    """Uninitialised outputs for R rays and K slots."""
+    return Chords(torch.empty((R, K), dtype=torch.float32, device=device),
+                  torch.empty((R, K), dtype=torch.float32, device=device),
+                  torch.empty((R, K), dtype=torch.int32, device=device),
+                  torch.empty((R,), dtype=torch.int32, device=device))
+
+
+def call_entry(entry, out: Chords, voxels, active, origins, dirs, near, far) -> int:
+    """Call `entry`, a library's nm_compact_chords (ctypes, with the
+    argtypes of build.SIGNATURES), into `out` on the current stream of
+    dirs' device; returns the CUDA error code it gave."""
+    near_p, near_s, near_v = _kernel_bound(near)
+    far_p, far_s, far_v = _kernel_bound(far)
+    return entry(
+        voxels.data_ptr(), active.data_ptr(), voxels.shape[0],
+        origins.data_ptr(), 3 if origins.numel() > 3 else 0,
+        dirs.data_ptr(), dirs.shape[0], near_p, near_s, near_v, far_p, far_s, far_v,
+        out.lo_k.shape[1], out.lo_k.data_ptr(), out.hi_k.data_ptr(), out.ids_k.data_ptr(),
+        out.n_hit.data_ptr(), torch.cuda.current_stream(dirs.device).cuda_stream,
+    )
+
+
 def compact_chords_cuda(voxels, active, origins, dirs, near, far, *, K: int) -> Chords:
     """Launch the kernel (csrc/chords.cu) on tensors of one CUDA device.
     Inputs must be contiguous; origins may be one (3,) origin for all rays."""
@@ -156,23 +179,12 @@ def compact_chords_cuda(voxels, active, origins, dirs, near, far, *, K: int) -> 
                     ("dirs", dirs)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    out = Chords(torch.empty((R, K), dtype=torch.float32, device=device),
-                 torch.empty((R, K), dtype=torch.float32, device=device),
-                 torch.empty((R, K), dtype=torch.int32, device=device),
-                 torch.empty((R,), dtype=torch.int32, device=device))
+    out = empty_chords(R, K, device)
     if R == 0:
         return out
-    near_p, near_s, near_v = _kernel_bound(near)
-    far_p, far_s, far_v = _kernel_bound(far)
     lib = build.load_library()
     with torch.cuda.device(device):
-        rc = lib.nm_compact_chords(
-            voxels.data_ptr(), active.data_ptr(), V,
-            origins.data_ptr(), 3 if origins.numel() > 3 else 0,
-            dirs.data_ptr(), R, near_p, near_s, near_v, far_p, far_s, far_v, K,
-            out.lo_k.data_ptr(), out.hi_k.data_ptr(), out.ids_k.data_ptr(),
-            out.n_hit.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
-        )
+        rc = call_entry(lib.nm_compact_chords, out, voxels, active, origins, dirs, near, far)
     build.check(lib, rc, "compact_chords launch")
     launches += 1
     return out

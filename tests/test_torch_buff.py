@@ -496,3 +496,21 @@ def test_chip_smoke_buff_cfg_is_buff_hard_250k():
     assert (got.dataset.near, got.dataset.far) == (want.dataset.near, want.dataset.far)
     assert got.dataset.white_background == want.dataset.white_background
     assert got.experiment.validate_every == 0 and got.experiment.steps_per_call == 1
+
+
+def test_chip_smoke_chord_reads_are_the_stated_shapes():
+    """The chord kernel's timed reads in chip_smoke.py (and
+    scripts/torch_chords_ab.py) are the shapes PERF.md names: 2048 rays on
+    the consolidated tree (4095 of 4096 active) and on the padded initial
+    12^3 tree (1728 active), the 65536-ray appearance chunk; its bitwise
+    cases include a sparse active set and a 20,000-box table, past one
+    shared-memory stage of the kernel (7232 boxes)."""
+    smoke = _chip_smoke()
+    inputs = smoke._chord_inputs(CPU)
+    shapes = {name: (args[3].shape[0], args[0].shape[0], int(args[1].sum()))
+              for name, args in smoke.chord_timed_cases(inputs).items()}
+    assert shapes == {"train": (2048, 4096, 4095), "initial": (2048, 4096, 1728),
+                      "chunk": (65536, 4096, 4095)}
+    assert 0 < int(inputs["sparse"].sum()) < 4095 // 5
+    voxels, active = inputs["large"]
+    assert voxels.shape == (20000, 2, 3) and int(active.sum()) > 7232

@@ -88,7 +88,7 @@ def both(voxels, active, o, d, near, far, K):
 @pytest.mark.parametrize("K", [1, 7, 64, 256])
 def test_kernel_matches_plain_bitwise(cuda, V, K):
     voxels, active = voxel_set(V, cuda)
-    o, d = camera_rays(1003, cuda)  # ragged: not a multiple of the block's 8 rays
+    o, d = camera_rays(1003, cuda)  # ragged: not a multiple of the 16-ray tile
     got = both(voxels, active, o, d, 2.0, 6.0, min(K, V))
     if V > 1:
         assert int(got.n_hit.max()) > 1
@@ -143,6 +143,101 @@ def test_kernel_refuses_mixed_devices_and_strided_inputs(cuda):
     with pytest.raises(ValueError):
         tc.compact_chords_cuda(voxels.cpu(), active.cpu(), o.cpu(), d.cpu(), 2.0, 6.0, K=8)
     assert tc.launches == before
+
+
+# The kernel stages the active voxels once per CTA and walks tiles of 16
+# rays (csrc/chords.cu: RT), splitting the active list across the CTA's
+# warps; a table past 7232 voxels (CV_MAX) is scanned in chunks.
+RAY_TILE = 16
+
+
+def _initial_tree(device):
+    """The padded initial tree as TreeSampling.device_state builds it: a
+    12^3 grid (1728 active) padded with inactive far boxes to 4096."""
+    cfg = _buff_cfg()
+    assert cfg.tree.subdivision_outer_count == 12
+    return t_tree.TreeSampling(cfg).device_state(device)
+
+
+def test_kernel_on_the_padded_initial_tree(cuda):
+    state = _initial_tree(cuda)
+    assert int(state.active.sum()) == 1728 and state.voxels.shape[0] == 4096
+    o, d = camera_rays(2048, cuda, seed=6)
+    got = both(state.voxels, state.active, o, d, 2.0, 6.0, 64)
+    assert int(got.n_hit.max()) > 1
+    assert int(got.ids_k.max()) < 1728  # pad boxes are never chords
+
+
+def test_kernel_with_no_voxel_active(cuda):
+    voxels, active = voxel_set(4096, cuda)
+    o, d = camera_rays(300, cuda, seed=7)
+    got = both(voxels, torch.zeros_like(active), o, d, 2.0, 6.0, 64)
+    assert int(got.n_hit.abs().sum()) == 0
+    assert bool((got.lo_k == tc.BIG).all() and (got.hi_k == tc.BIG).all())
+    assert int(got.ids_k.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("K", [1, 64, 300])
+def test_kernel_on_a_table_past_one_stage(cuda, K):
+    """20,000 random boxes, 60% active: the chunked path, ranks carried
+    across chunks; K 300 is past every ray's hits."""
+    rng = np.random.default_rng(8)
+    lo = rng.uniform(-2.0, 2.0, (20000, 3)).astype(np.float32)
+    boxes = np.stack([lo, lo + rng.uniform(0.02, 0.3, (20000, 3)).astype(np.float32)], axis=1)
+    voxels = torch.from_numpy(boxes).to(cuda)
+    active = torch.from_numpy(rng.uniform(size=20000) < 0.6).to(cuda)
+    o, d = camera_rays(500, cuda, seed=9)
+    got = both(voxels, active, o, d, 2.0, 6.0, K)
+    assert int(got.n_hit.max()) > 1
+    if K == 300:
+        assert int(got.n_hit.max()) < K
+    if K > 1:  # chords come from more than one chunk of the table
+        assert int(got.ids_k.max()) > 7232
+
+
+def test_kernel_on_boxes_with_lo_above_hi(cuda):
+    """A table where some boxes have lo > hi on an axis: the kernel's short
+    test holds only for ordered boxes, so such a table takes the full one,
+    with the same bits as the plain version; so does a NaN coordinate."""
+    rng = np.random.default_rng(13)
+    lo = rng.uniform(-2.0, 2.0, (3000, 3)).astype(np.float32)
+    boxes = np.stack([lo, lo + rng.uniform(0.02, 0.6, (3000, 3)).astype(np.float32)], axis=1)
+    flip = rng.uniform(size=3000) < 0.1
+    axis = rng.integers(0, 3, 3000)
+    boxes[flip, 0, axis[flip]], boxes[flip, 1, axis[flip]] = (boxes[flip, 1, axis[flip]],
+                                                             boxes[flip, 0, axis[flip]])
+    boxes[7, 0, 1] = np.nan
+    voxels = torch.from_numpy(boxes).to(cuda)
+    active = torch.ones(3000, dtype=torch.bool, device=cuda)
+    o, d = camera_rays(700, cuda, seed=14)
+    got = both(voxels, active, o, d, 0.0, 8.0, 64)
+    assert int(got.n_hit.max()) > 1
+
+
+@pytest.mark.parametrize("K", [1, 200])
+def test_kernel_caps_of_one_and_past_every_hit(cuda, K):
+    voxels, active = voxel_set(4096, cuda)
+    o, d = camera_rays(1003, cuda, seed=10)
+    got = both(voxels, active, o, d, 2.0, 6.0, K)
+    if K == 1:
+        assert int((got.n_hit > 1).sum()) > 0
+    else:
+        assert int(got.n_hit.max()) < K
+
+
+@pytest.mark.parametrize("R", [1, RAY_TILE - 1, RAY_TILE + 1, 132 * RAY_TILE + 1])
+def test_kernel_around_the_ray_tile(cuda, R):
+    state = _initial_tree(cuda)
+    o, d = camera_rays(R, cuda, seed=11)
+    both(state.voxels, state.active, o, d, 2.0, 6.0, 64)
+
+
+def test_two_launches_agree_at_the_appearance_chunk(cuda):
+    voxels, active = voxel_set(4096, cuda)
+    o, d = camera_rays(65536 + 3, cuda, seed=12)
+    first = both(voxels, active, o, d, 2.0, 6.0, 64)
+    second = tc.compact_chords_cuda(voxels, active, o, d, 2.0, 6.0, K=64)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def _buff_cfg(**tree):

@@ -7,10 +7,11 @@ it) and JAX's monolithic one-hot compaction (nerfmeshes_tpu/buff/tree.py:
 316-393, written out below from JAX's own `_slab_test`), and above
 `_SLAB_V` voxels JAX's slab scan `_chords_by_slab`. The cases are those of
 tests/test_chords_kernel.py:61-154, plus caps that are not multiples of 8
-(JAX's kernel takes only those; the port's takes any K >= 1) and V = 4096
-(past JAX's 2048-voxel slab bound). ids compare as values: JAX carries
-them as f32, the port as int32. The CUDA kernel itself runs only on a
-card: tests/test_torch_buff_gpu.py.
+(JAX's kernel takes only those; the port's takes any K >= 1), V = 4096
+(past JAX's 2048-voxel slab bound) and the BuFF sampler's capacity-padded
+initial tree (1728 of 4096 voxels active, the rest far pad boxes). ids
+compare as values: JAX carries them as f32, the port as int32. The CUDA
+kernel itself runs only on a card: tests/test_torch_buff_gpu.py.
 """
 
 import jax
@@ -86,11 +87,22 @@ def case(name):
         act = rng.uniform(size=len(vox)) > 0.3
         o, d = make_rays(rng, 64)
         return vox, act, o, d, 0.1, 10.0, 64
+    if name == "padded":  # the initial 12^3 tree padded to capacity 4096 (buff/tree.py:96-101)
+        vox = np.concatenate([grid_voxels(12, -2.0, 2.0),
+                              np.tile(np.array([[[1e8] * 3, [1e8 + 1.0] * 3]], np.float32),
+                                      (4096 - 1728, 1, 1))])
+        act = np.arange(4096) < 1728
+        rng = np.random.default_rng(9)
+        o = rng.standard_normal((16, 3))
+        o = (4.0 * o / np.linalg.norm(o, axis=1, keepdims=True)).astype(np.float32)
+        d = -o + rng.uniform(-1.0, 1.0, (16, 3))
+        d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+        return vox, act, o, d, 2.0, 6.0, 64
     raise KeyError(name)
 
 
 CASES = ["monolithic", "per_ray_bounds", "cap_binding", "inactive", "axis_aligned",
-         "axis_aligned_on_faces", "miss", "k1", "k7", "k12", "v4096"]
+         "axis_aligned_on_faces", "miss", "k1", "k7", "k12", "v4096", "padded"]
 KERNEL_CASES = [c for c in CASES if c not in ("k1", "k7", "k12")]  # K % 8 == 0
 
 
@@ -223,3 +235,35 @@ def test_dispatch_never_falls_back():
         tc.compact_chords(*t, torch.zeros(5), far, K=K)
     empty = tc.compact_chords(t[0], t[1], t[2][:0], t[3][:0], near, far, K=K)
     assert empty.lo_k.shape == (0, K) and empty.n_hit.shape == (0,)
+
+
+def test_call_entry_passes_the_c_signature(monkeypatch):
+    """call_entry, which the wrapper and scripts/torch_chords_ab.py share,
+    passes nm_compact_chords its arguments in build.SIGNATURES' order:
+    sizes, the origin stride (3 a ray, 0 for one origin), each bound by
+    value or by pointer and stride, K from the outputs, the stream."""
+    from types import SimpleNamespace
+
+    from nerfmeshes_tpu_torch.ops.kernels import build
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: SimpleNamespace(cuda_stream=7))
+    vox, act, o, d, near, far, K = case("monolithic")
+    vox, act, o, d = (torch.from_numpy(x) for x in (vox, act, o, d))
+    R, V = d.shape[0], vox.shape[0]
+    far_rays = torch.full((R,), far, dtype=torch.float32)
+    out = tc.empty_chords(R, K, d.device)
+    calls = []
+    assert tc.call_entry(lambda *a: calls.append(a) or 0, out, vox, act, o, d, near, far) == 0
+    assert tc.call_entry(lambda *a: calls.append(a) or 0, out, vox, act, o[0], d, near,
+                         far_rays) == 0
+    n_args = len(build.SIGNATURES["nm_compact_chords"][1])
+    outputs = (out.lo_k.data_ptr(), out.hi_k.data_ptr(), out.ids_k.data_ptr(),
+               out.n_hit.data_ptr())
+    for args, o_stride, far_args in ((calls[0], 3, (0, 0, far)),
+                                     (calls[1], 0, (far_rays.data_ptr(), 1, 0.0))):
+        assert len(args) == n_args
+        assert args[:7] == (vox.data_ptr(), act.data_ptr(), V, o.data_ptr(), o_stride,
+                            d.data_ptr(), R)
+        assert args[7:10] == (0, 0, pytest.approx(near)) and args[10:13] == pytest.approx(far_args)
+        assert args[13] == K and args[14:18] == outputs and args[18] == 7
+    assert tuple(out.lo_k.shape) == (R, K) and out.ids_k.dtype == torch.int32
