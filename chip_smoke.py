@@ -57,6 +57,17 @@ and mesh paths, then drives the hierarchical paths and the BuFF ones:
   restricted to the tree's leaves, its appearance pass through the tree
   (one chord and one forward launch per chunk), with the mesh checks
   above.
+- the CLI chains (cli_chain): configs/hard-blender.yml and then
+  configs/buff-hard-250k.yml (its procedural 800^2 scene) at full width
+  through the CLIs' main(argv), in-process, into a temporary logdir:
+  train_nerf with validation and checkpoints; the run's datasets, a
+  fresh system restored from it (its state equal to the trained one bit
+  for bit), a validation at the last step (the run's validation/loss bit
+  for bit) and a save, each timed; train_nerf resumed with
+  --log-checkpoint; eval_nerf on the test split; mesh_nerf at 480^3.
+  Every leg's launches of each kernel equal the counts the code
+  predicts; at most 3 numbered checkpoints stay beside `last`; the
+  validation loss falls; the mesh is not empty.
 
 Prints, on lines of their own: the card's name and power limit as
 nvidia-smi reports them, the build time, per-kernel error, times, bound
@@ -1406,6 +1417,207 @@ def buff_mesh_phase(system, card: str) -> dict:
                             module_rgb=module_rgb)
 
 
+# The CLI phases: the shipped configs through train -> resume -> eval ->
+# mesh, each CLI's main(argv) called in-process so that every kernel's
+# launches can be read per leg. (config, first train_iters, resumed
+# train_iters, the first leg's overrides.)
+CLI_RUN = ("hard-blender.yml", 500, 1000,
+           ["experiment.validate_every", "250"])
+BUFF_CLI_RUN = ("buff-hard-250k.yml", 400, 600,
+                ["experiment.validate_every", "200", "tree.step_size_integration_offset", "100",
+                 "tree.step_size_tree", "100"])
+KERNELS = ("fwd", "bwd", "sigma", "chords")
+
+
+def _launch_counts() -> dict:
+    from nerfmeshes_tpu_torch.ops.kernels import chords as ch
+    from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+
+    return {"fwd": fm.launches, "bwd": fm.bwd_launches, "sigma": fm.sigma_launches,
+            "chords": ch.launches}
+
+
+def _leg(fn):
+    """(fn(), seconds, launches of each kernel) of one CLI leg, the counts
+    set to 0 just before it and read just after, synchronised."""
+    from nerfmeshes_tpu_torch.ops.kernels import chords as ch
+    from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+
+    torch.cuda.synchronize()
+    fm.launches = fm.bwd_launches = fm.sigma_launches = ch.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, _launch_counts()
+
+
+def _state_equal(a, b) -> bool:
+    """Nested checkpoint states equal bit for bit (tensors on any device)."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.cpu(), b.cpu()))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_state_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_state_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _validations(cfg, start: int, stop: int) -> int:
+    """Validations fit makes from step `start` to `stop` (NeRFSystem.fit's
+    cadence)."""
+    spc, every = int(cfg.experiment.steps_per_call), int(cfg.experiment.validate_every)
+    return sum(1 for step in range(start + spc, stop + 1, spc)
+               if step % every < spc or step >= stop)
+
+
+def cli_chain(name: str, card: str) -> dict:
+    """One shipped config through the CLIs at its full width, on the card
+    (the CLIs' default), into a temporary logdir: train_nerf to the first
+    step count (validating and checkpointing); the run's datasets, a fresh
+    system restored from the run (its state equal to the trained one bit
+    for bit), a validation at the last step (the run's logged
+    validation/loss bit for bit) and a save, each a leg of its own;
+    train_nerf resumed with --log-checkpoint to the second step count,
+    eval_nerf on the test split and mesh_nerf at MESH_RES^3. Each leg's
+    kernel launches equal the counts the code predicts; at most 3 numbered
+    checkpoints stay beside `last`; the validation loss is finite and
+    falls; the mesh is not empty."""
+    import tempfile
+
+    from nerfmeshes_tpu_torch.cli import eval_nerf, mesh_nerf, train_nerf
+    from nerfmeshes_tpu_torch.config import load_config
+    from nerfmeshes_tpu_torch.config.paths import load_hparams, resolve_paths
+    from nerfmeshes_tpu_torch.data.datasets import DatasetType, build_dataset
+    from nerfmeshes_tpu_torch.train.factory import build_system
+
+    config, first, second, overrides = CLI_RUN if name == "cli" else BUFF_CLI_RUN
+    buff = name == "buff_cli"
+    per_chunk = 1 if buff else 2  # forward launches per render chunk
+    out = {"legs": {}}
+
+    def leg(label, fn, want):
+        result, seconds, got = _leg(fn)
+        want = {k: want.get(k, 0) for k in KERNELS}
+        print(f"{name} {label}: {seconds:.4f} s; launches {got} (predicted {want}) [{card}]")
+        if got != want:
+            raise AssertionError(f"{name} {label}: launches {got}, predicted {want}")
+        out["legs"][label] = dict(seconds=seconds, launches=got)
+        return result
+
+    with tempfile.TemporaryDirectory() as tmp:
+        opts = ["experiment.logdir", tmp, *overrides]
+        if not buff:
+            opts += ["dataset.basedir", str(REPO / "data" / "hard_blender")]
+        cfg = load_config(str(REPO / "configs" / config), opts)
+        val_views = int(cfg.nerf.validation.num_samples)
+        chunk = int(cfg.nerf.validation.chunksize)
+
+        def render_launches(views: int, H: int, W: int) -> dict:
+            chunks = views * math.ceil(H * W / chunk)
+            return {"fwd": per_chunk * chunks, "chords": chunks if buff else 0}
+
+        def train_launches(start: int, stop: int, H: int, W: int) -> dict:
+            steps = stop - start
+            val = render_launches(_validations(cfg, start, stop) * val_views, H, W)
+            return {"fwd": per_chunk * steps + val["fwd"], "bwd": per_chunk * steps,
+                    "chords": (steps + val["chords"]) if buff else 0}
+
+        if buff:
+            syn = cfg.dataset.synthetic
+            val_hw = test_hw = (int(syn.image_size),) * 2
+            test_views = max(2, int(syn.num_images) // 4)
+        else:
+            from nerfmeshes_tpu_torch.data.blender_poses import read_blender_poses
+
+            reduced = cfg.dataset.reduced_resolution
+            _, H, W, _ = read_blender_poses(cfg.dataset.basedir, "val", reduced)
+            val_hw = test_hw = (H, W)
+            test_views = len(read_blender_poses(cfg.dataset.basedir, "test")[0])
+
+        argv = ["--config", str(REPO / "configs" / config), "--override",
+                "experiment.train_iters", str(first), *opts]
+        system = leg("train", lambda: train_nerf.main(argv), train_launches(0, first, *val_hw))
+        run = system.paths.log_dir
+        records = [json.loads(line) for line in (run / "events" / "metrics.jsonl").open()]
+        train_rps = [r["train/rays_per_sec"] for r in records if "train/rays_per_sec" in r][-1]
+        val_losses = {r["step"]: r["validation/loss"] for r in records if "validation/loss" in r}
+        print(f"{name} train: step {system.state.step}, train/rays_per_sec {train_rps:.6e}; "
+              f"validation/loss by step {val_losses} [{card}]")
+
+        # A fresh system restored from the run, as eval and mesh restore it,
+        # leg by leg: the datasets (for BuFF the ground-truth renders), the
+        # restore, a validation at the run's last step, a checkpoint save.
+        cfg2, paths2 = resolve_paths(log_checkpoint=str(run))
+        leg("train_set", lambda: build_dataset(cfg2, DatasetType.TRAIN), {})
+        val_set = leg("val_set", lambda: build_dataset(cfg2, DatasetType.VALIDATION), {})
+        fresh = leg("restore",
+                    lambda: build_system(cfg2, paths2).setup_eval(val_set).restore(last=True), {})
+        metrics = leg("validate", lambda: fresh.validate(step=first),
+                      render_launches(val_views, *val_hw))
+        leg("save", lambda: fresh.save(val_loss=metrics["validation/loss"]), {})
+        same_state = _state_equal(fresh.checkpoint_state(), system.checkpoint_state())
+        same_loss = metrics["validation/loss"] == val_losses[first]
+        print(f"{name} restore: state (step, parameters, Adam, schedule, generator"
+              + (", tree" if buff else "") + f") equal bit for bit: {same_state}; "
+              f"validation/loss at step {first} {metrics['validation/loss']!r} vs the run's "
+              f"{val_losses[first]!r}: equal {same_loss}")
+        if not (same_state and same_loss):
+            raise AssertionError(f"{name}: the restored system differs from the saved run")
+        if buff:
+            cap = load_hparams(run).tree.max_chords_per_ray
+            print(f"{name} chord cap in hparams.yaml {cap}, the system's "
+                  f"{system.cfg.tree.max_chords_per_ray}; consolidations after "
+                  f"{system.consolidation_steps}")
+            if cap != system.cfg.tree.max_chords_per_ray or not system.consolidation_steps:
+                raise AssertionError(f"{name}: chord cap or consolidations not as saved")
+        del fresh, system, val_set
+
+        resume = ["--log-checkpoint", str(run), "--override", "experiment.train_iters",
+                  str(second)]
+        system = leg("resume", lambda: train_nerf.main(resume),
+                     train_launches(first, second, *val_hw))
+        records = [json.loads(line) for line in (run / "events" / "metrics.jsonl").open()]
+        val_losses = {r["step"]: r["validation/loss"] for r in records if "validation/loss" in r}
+        steps = sorted(int(p.name) for p in (run / "checkpoints").iterdir() if p.name.isdigit())
+        kept = sorted(p.name for p in (run / "checkpoints").iterdir() if not p.name.isdigit())
+        first_val, last_val = val_losses[min(val_losses)], val_losses[max(val_losses)]
+        print(f"{name} resume: step {system.state.step}; validation/loss by step {val_losses}; "
+              f"checkpoints {steps} + {kept}")
+        if system.state.step != second or len(steps) > 3 or kept != ["last"]:
+            raise AssertionError(f"{name}: step {system.state.step}, checkpoints {steps} {kept}")
+        if not all(math.isfinite(v) for v in val_losses.values()) or not last_val < first_val:
+            raise AssertionError(f"{name}: validation loss not finite and falling: {val_losses}")
+        del system
+
+        result = leg("eval", lambda: eval_nerf.main(["--log-checkpoint", str(run)]),
+                     render_launches(test_views, *test_hw))
+        print(f"{name} eval: {test_views} test views {test_hw[0]}x{test_hw[1]}: psnr "
+              f"{result['psnr']:.4f} ssim {result['ssim']:.4f} mse {result['mse']:.6f} [{card}]")
+
+        def mesh():
+            return mesh_nerf.main(["--log-checkpoint", str(run), "--res", str(MESH_RES),
+                                   "--save-dir", str(Path(tmp) / "mesh"),
+                                   "--mesh-name", "mesh.ply"])
+
+        # The appearance pass's chunks follow the vertex count.
+        (vertices, triangles, _, _), seconds, got = _leg(mesh)
+        chunks = math.ceil(len(vertices) / APPEARANCE_CHUNK)
+        want = {"fwd": per_chunk * chunks, "chords": chunks if buff else 0, "bwd": 0,
+                "sigma": math.ceil(MESH_RES ** 3 / GRID_TILE)}
+        print(f"{name} mesh: {seconds:.4f} s; {len(vertices)} vertices, {len(triangles)} "
+              f"triangles; launches {got} (predicted {want}) [{card}]")
+        if got != want or len(vertices) == 0 or len(triangles) == 0:
+            raise AssertionError(f"{name} mesh: launches {got} (predicted {want}), "
+                                 f"{len(vertices)} vertices")
+        out["legs"]["mesh"] = dict(seconds=seconds, launches=got)
+    print(f"{name} legs (s): " + ", ".join(f"{k} {v['seconds']:.4f}" for k, v in out["legs"].items())
+          + f"; total {sum(v['seconds'] for v in out['legs'].values()):.4f} [{card}]")
+    out.update(train_rays_per_s=train_rps, val_losses=val_losses, eval=result,
+               vertices=len(vertices))
+    return out
+
+
 def profile_buff(card: str, device, steps: int = 5) -> None:
     """The BuFF train step breakdown of PERF.md section 5 (--profile-buff):
     buff_hard_cfg() trained past its first consolidation (integration on),
@@ -1673,7 +1885,12 @@ def main(argv=None) -> int:
     buff_system = buff.pop("system")
     buff_render = buff_render_phase(buff_system, card, device)
     buff_mesh = buff_mesh_phase(buff_system, card)
+    del buff_system
     bkern["legs"] = legs_phase(bkern, card)
+    chains = {name: cli_chain(name, card) for name in ("cli", "buff_cli")}
+    cli = {k: {f"{name}_{leg}": info["launches"][k] for name, chain in chains.items()
+               for leg, info in chain["legs"].items() if info["launches"][k]}
+           for k in KERNELS}
 
     rank_kernels(kern, bkern, skern, ckern, render, train, mesh, buff, buff_render, buff_mesh,
                  card)
@@ -1689,17 +1906,19 @@ def main(argv=None) -> int:
         entry("fused_mlp_fwd", "fused_mlp_fwd.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:387", kern,
               {"render": render["launches"], "train": train["fwd_launches"],
                "mesh": mesh["fwd_launches"], "buff_train": buff["fwd_launches"],
-               "buff_render": buff_render["fwd_launches"], "buff_mesh": buff_mesh["fwd_launches"]},
+               "buff_render": buff_render["fwd_launches"], "buff_mesh": buff_mesh["fwd_launches"],
+               **cli["fwd"]},
               chunk_ms=kern["chunk_ms"], chunk_bound_ms=kern["chunk_bound_ms"]),
         entry("fused_mlp_bwd", "fused_mlp_bwd.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397", bkern,
-              {"train": train["bwd_launches"], "buff_train": buff["bwd_launches"]},
+              {"train": train["bwd_launches"], "buff_train": buff["bwd_launches"], **cli["bwd"]},
               max_rel_err=bkern["max_rel_err"], legs=bkern["legs"]),
         entry("fused_sigma", "fused_sigma.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:675", skern,
-              {"mesh": mesh["sigma_launches"], "buff_mesh": buff_mesh["sigma_launches"]}),
+              {"mesh": mesh["sigma_launches"], "buff_mesh": buff_mesh["sigma_launches"],
+               **cli["sigma"]}),
         entry("fused_chords", "chords.cu", "nerfmeshes_tpu/ops/pallas/chords.py:98",
               dict(ckern, library_ms=None),
               {"train": buff["chords_launches"], "render": buff_render["chords_launches"],
-               "mesh": buff_mesh["chords_launches"]},
+               "mesh": buff_mesh["chords_launches"], **cli["chords"]},
               bitwise_equal=ckern["bitwise_equal"], bound_us=ckern["bound_ms"] * 1e3,
               call_ms=ckern["call_ms"], b2b_ms=ckern["b2b_ms"],
               chunk_ms=ckern["chunk_ms"], chunk_b2b_ms=ckern["chunk_b2b_ms"],

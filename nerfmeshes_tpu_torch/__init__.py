@@ -6,8 +6,9 @@ mirrors the module of the same path there and is held against it by the
 becomes a kernel written by hand for Hopper under `csrc/`, built with
 nvcc on first use (`ops/kernels/build.py`).
 
-This package imports torch and numpy, and nothing of the JAX package:
-`config.py` carries the JAX schema's defaults.
+This package imports torch and numpy, and nothing of the JAX package (nor
+PyYAML): `config/` carries the JAX schema's defaults and reads the YAML
+configs and run directories itself.
 """
 
 __version__ = "0.1.0"

@@ -27,6 +27,7 @@ from nerfmeshes_tpu_torch.buff.tree import (
     integrate,
     ray_voxel_intersect,
 )
+from nerfmeshes_tpu_torch.config.paths import save_hparams
 from nerfmeshes_tpu_torch.ops.kernels.chords import compact_chords
 from nerfmeshes_tpu_torch.ops.math import img2mse, mse2psnr
 from nerfmeshes_tpu_torch.ops.render import volume_render
@@ -158,36 +159,31 @@ class BuFFSystem(NeRFSystem):
     """NeRFSystem with tree sampling; build_system picks it for
     cfg.experiment.model == 'BuFFModel'. One model: cfg.models.use_fine is
     forced off on a copy of the config, as the reference's BuFFModel builds
-    only the coarse network.
+    only the coarse network. Validation renders through the tree; a
+    checkpoint carries the tree (TreeSampling.serialize) and the steps it
+    was consolidated after, and a grown chord cap is written back to the
+    run's hparams.yaml.
 
-    Not ported yet (ROADMAP.md): checkpoints (so a grown chord cap is not
-    written back to hparams, and `serialize` is not yet called), validation,
-    TensorBoard tree logging and the random voxel sampler."""
+    Not ported yet (ROADMAP.md): TensorBoard tree logging and the random
+    voxel sampler."""
 
-    def __init__(self, cfg, device: Optional[torch.device] = None):
+    def __init__(self, cfg, paths=None, device: Optional[torch.device] = None):
         cfg = cfg.clone()
         cfg.models.use_fine = False
-        super().__init__(cfg, device)
+        super().__init__(cfg, paths, device)
         self.tree = TreeSampling(cfg)
         self.tree_state = self.tree.device_state(self.device)
         self.consolidation_steps: list[int] = []  # steps after which the tree was rebuilt
         self._dropped_pending: deque = deque()
         self._warned_capped = False
-        self._hwf = None
 
     # -- setup ----------------------------------------------------------------
-    def setup(self, train_data: dict) -> "BuFFSystem":
-        """Take the training arrays (data/blender.py:train_arrays) and build
-        the train step and the chunk renderer."""
-        self._data = train_data
-        self._hwf = tuple(train_data["hwf"])
-        self._build_train_fn()
-        return self.setup_eval()
-
-    def setup_eval(self) -> "BuFFSystem":
+    def setup_eval(self, val_dataset=None) -> "BuFFSystem":
         """Build the chunk renderer at validation settings. It reads the
         tree state and the chord cap at call time, so a consolidation or a
         grown cap never leaves it stale."""
+        if val_dataset is not None:
+            self.val_dataset = val_dataset
         settings = RenderSettings.from_cfg(self.cfg, train=False)
 
         @torch.inference_mode()
@@ -226,16 +222,23 @@ class BuFFSystem(NeRFSystem):
             host, done = dropped, None
         self._dropped_pending.append((host, done, step))
 
+    def _read_dropped(self, wait: bool = False) -> None:
+        """Note the dropped-chords counters whose copies have landed, in
+        order; with `wait`, every pending one."""
+        while self._dropped_pending:
+            host, done, at = self._dropped_pending[0]
+            if done is not None and not wait and not done.query():
+                break
+            if done is not None:
+                done.synchronize()
+            self._dropped_pending.popleft()
+            self._note_dropped(float(host), at)
+
     def on_step(self, step: int, metrics: dict) -> None:
         """Read the dropped-chords counters whose copies have landed (on the
         card, the earlier calls'; nothing waits), then consolidate the tree
         when a boundary fell inside this call."""
-        while self._dropped_pending:
-            host, done, at = self._dropped_pending[0]
-            if done is not None and not done.query():
-                break
-            self._dropped_pending.popleft()
-            self._note_dropped(float(host), at)
+        self._read_dropped()
         spc = int(self.cfg.experiment.steps_per_call)
         boundary = self.tree.integration_offset + self.tree.step_size_tree
         if step >= boundary and (step - self.tree.integration_offset) % self.tree.step_size_tree < spc:
@@ -284,8 +287,28 @@ class BuFFSystem(NeRFSystem):
         print(f"BuFF: raising tree.max_chords_per_ray {cur} -> {new} (dropped chords "
               "observed).", flush=True)
         self.cfg.tree.max_chords_per_ray = new
+        if self.paths is not None:
+            # A later resume, eval or mesh reads the cap from hparams.yaml.
+            save_hparams(self.cfg, self.paths)
         if self._hwf is not None:
             self._build_train_fn()
+
+    # -- persistence ------------------------------------------------------------------
+    def save(self, val_loss: Optional[float] = None) -> None:
+        """Checkpoint after reading every pending dropped-chords counter, so
+        a cap the run has outgrown grows (and reaches hparams.yaml) before
+        the checkpoint, in a resumed run as in an uninterrupted one."""
+        self._read_dropped(wait=True)
+        super().save(val_loss)
+
+    def checkpoint_extra(self) -> dict:
+        tree = {k: torch.as_tensor(v) for k, v in self.tree.serialize(self.tree_state).items()}
+        return {"tree": tree, "consolidation_steps": list(self.consolidation_steps)}
+
+    def load_checkpoint_extra(self, extra: dict) -> None:
+        tree = {k: v.numpy() for k, v in extra["tree"].items()}
+        self.tree_state = self.tree.deserialize(tree, self.device)
+        self.consolidation_steps = list(extra["consolidation_steps"])
 
     # -- mesh -----------------------------------------------------------------------
     def mesh_mask_aabbs(self) -> np.ndarray:

@@ -1,42 +1,16 @@
-"""The default experiment config, without YAML (counterpart of
-nerfmeshes_tpu/config/schema.py:get_default_cfg).
+"""The default experiment config and YAML loading (counterpart of
+nerfmeshes_tpu/config/schema.py).
 
-The port reads a config by attribute (`cfg.models.fine.hidden_size`) and
-`.get`; any nested mapping with both works, the JAX package's CfgNode
-included. This module gives the port its own defaults for hosts without
-PyYAML or the JAX package (the GPU host): the same keys and values as
-the JAX schema, which tests/test_torch_train.py holds it to. Loading YAML
-files stays with the JAX package's `load_config`.
+The same keys and values as the JAX schema, which
+tests/test_torch_config.py holds it to; `load_config` merges an
+experiment YAML onto them through the port's own CfgNode and YAML reader,
+so neither PyYAML nor the JAX package is needed (the GPU host has
+neither).
 """
 
 from __future__ import annotations
 
-import copy
-
-
-class CfgNode(dict):
-    """A dict whose items are also attributes; nested dicts become nodes."""
-
-    def __init__(self, init: dict | None = None):
-        super().__init__()
-        for key, value in (init or {}).items():
-            self[key] = CfgNode(value) if isinstance(value, dict) else value
-
-    def __getattr__(self, name: str):
-        try:
-            return self[name]
-        except KeyError:
-            raise AttributeError(f"No config key {name!r}") from None
-
-    def __setattr__(self, name: str, value) -> None:
-        self[name] = value
-
-    def to_dict(self) -> dict:
-        return {k: v.to_dict() if isinstance(v, CfgNode) else v for k, v in self.items()}
-
-    def clone(self) -> "CfgNode":
-        """A deep copy, as the JAX package's CfgNode.clone gives."""
-        return CfgNode(copy.deepcopy(self.to_dict()))
+from nerfmeshes_tpu_torch.config.cfgnode import CfgNode
 
 
 def _mlp_defaults() -> dict:
@@ -170,3 +144,12 @@ def get_default_cfg() -> CfgNode:
             "validation": _nerf_mode_defaults(train=False),
         },
     })
+
+
+def load_config(path: str, overrides: list | None = None) -> CfgNode:
+    """Load an experiment YAML on top of the default schema."""
+    cfg = get_default_cfg()
+    cfg.merge_from_file(path)
+    if overrides:
+        cfg.merge_from_list(overrides)
+    return cfg

@@ -1,6 +1,5 @@
-"""Blender scene targets for training (counterpart of
-nerfmeshes_tpu/data/loaders/blender.py and the device handover of
-nerfmeshes_tpu/data/datasets.py:187-203).
+"""Blender scenes (counterpart of nerfmeshes_tpu/data/loaders/blender.py),
+and the PNG reader and writer of the port.
 
 The GPU host has neither imageio nor PIL, so PNGs are decoded here with
 numpy and zlib: 8-bit RGB or RGBA, non-interlaced, all five row filters.
@@ -10,10 +9,15 @@ by anti-diagonals: every byte of one diagonal depends only on earlier
 diagonals, and all images of one size, all channels and all bytes of a
 diagonal decode in one vectorised step.
 
-Targets are f32 / 255, composited on a white background with their alpha
-when the config asks for it, as the JAX loader does (:113-117). Not ported
-yet (ROADMAP.md): `reduced_resolution > 1` and per-frame `*_depth.exr` /
-`*_normal.png` targets; both raise NotImplementedError.
+`write_png` encodes 8-bit grey, RGB or RGBA (filter 0 on every row), for
+the logger's validation images and the eval CLI's renders.
+
+Targets are f32 / 255, box-downscaled by `reduced_resolution` (the JAX
+loader's cv2 INTER_AREA at an integer factor) and then composited on a
+white background with their alpha when the config asks for it, as the
+JAX loader does. Per-frame `*_depth.exr` / `*_normal.png` targets raise
+NotImplementedError: no EXR decoder is on the GPU host, and nothing reads
+normal targets (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -24,10 +28,10 @@ import zlib
 from pathlib import Path
 
 import numpy as np
-import torch
 
 from nerfmeshes_tpu_torch.data.blender_poses import _PNG_SIGNATURE, read_blender_poses
-from nerfmeshes_tpu_torch.device import resolve_device
+from nerfmeshes_tpu_torch.data.bundle import DataBundle
+from nerfmeshes_tpu_torch.data.helpers import resize_image
 
 _CHANNELS = {2: 3, 6: 4}  # PNG colour type -> channels (RGB, RGBA)
 
@@ -106,14 +110,32 @@ def read_pngs(paths) -> list[np.ndarray]:
     return out
 
 
-def load_blender_targets(basedir, split: str, *, white_background: bool,
-                         reduced_resolution: int = 1):
-    """One split's targets and cameras: (targets (N, H, W, 3) f32 in [0, 1],
-    poses (N, 4, 4) f32, (H, W, focal))."""
-    if reduced_resolution is not None and reduced_resolution > 1:
-        raise NotImplementedError(
-            "reduced_resolution > 1 is not ported yet (queued in ROADMAP.md)")
-    basedir = Path(basedir)
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def write_png(path, image: np.ndarray) -> None:
+    """Encode a (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA uint8 image."""
+    img = np.asarray(image)
+    if img.dtype != np.uint8:
+        raise ValueError(f"write_png takes uint8 pixels, got {img.dtype}")
+    if img.ndim == 2:
+        img = img[..., None]
+    H, W, C = img.shape
+    colour = {1: 0, 3: 2, 4: 6}[C]
+    rows = np.concatenate([np.zeros((H, 1), np.uint8), img.reshape(H, W * C)], axis=1)
+    Path(path).write_bytes(
+        _PNG_SIGNATURE
+        + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, colour, 0, 0, 0))
+        + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+        + _png_chunk(b"IEND", b""))
+
+
+def load_blender_data(cfg, split: str) -> DataBundle:
+    """One split's targets and cameras as a host DataBundle: targets
+    (N, H, W, 3) f32 in [0, 1], poses (N, 4, 4) f32, hwf f32 [H, W, focal]."""
+    ds = cfg.dataset
+    basedir = Path(ds.basedir)
     with (basedir / f"transforms_{split}.json").open("r") as fp:
         frames = json.load(fp)["frames"]
     stems = [basedir / frame["file_path"] for frame in frames]
@@ -121,36 +143,41 @@ def load_blender_targets(basedir, split: str, *, white_background: bool,
         for extra in (Path(f"{stem}_depth.exr"), Path(f"{stem}_normal.png")):
             if extra.exists():
                 raise NotImplementedError(
-                    f"{extra.name}: depth and normal targets are not ported yet "
-                    "(queued in ROADMAP.md)")
+                    f"{extra.name}: depth and normal targets are not ported (queued in "
+                    "ROADMAP.md)")
     imgs = np.stack(read_pngs([stem.with_suffix(".png") for stem in stems]))
     imgs = imgs.astype(np.float32) / 255.0
-    if white_background and imgs.shape[-1] == 4:
+    poses, H, W, focal = read_blender_poses(basedir, split, ds.reduced_resolution)
+    if ds.reduced_resolution is not None and ds.reduced_resolution > 1:
+        imgs = np.stack([resize_image(im, (H, W)) for im in imgs])
+    if imgs.shape[1:3] != (H, W):
+        raise ValueError(f"images are {imgs.shape[1:3]}, the PNG headers say {(H, W)}")
+    if ds.white_background and imgs.shape[-1] == 4:
         alpha = imgs[..., -1:]
         imgs = imgs[..., :3] * alpha + (1.0 - alpha)
     else:
         imgs = imgs[..., :3]
-    poses, H, W, focal = read_blender_poses(basedir, split)
-    if imgs.shape[1:3] != (H, W):
-        raise ValueError(f"images are {imgs.shape[1:3]}, the PNG headers say {(H, W)}")
-    return np.ascontiguousarray(imgs), poses, (H, W, focal)
+    return DataBundle(ray_targets=np.ascontiguousarray(imgs), poses=poses,
+                      hwf=np.array([H, W, focal], dtype=np.float32))
+
+
+def load_blender_targets(basedir, split: str, *, white_background: bool,
+                         reduced_resolution: int = 1):
+    """One split's targets and cameras: (targets (N, H, W, 3) f32 in [0, 1],
+    poses (N, 4, 4) f32, (H, W, focal))."""
+    from nerfmeshes_tpu_torch.config import get_default_cfg
+
+    cfg = get_default_cfg()
+    cfg.dataset.update(basedir=str(basedir), white_background=white_background,
+                       reduced_resolution=reduced_resolution)
+    bundle = load_blender_data(cfg, split)
+    H, W, focal = bundle.hwf
+    return bundle.ray_targets, bundle.poses, (int(H), int(W), float(focal))
 
 
 def train_arrays(cfg, device=None, split: str = "train") -> dict:
-    """Everything the train step samples from, on `device` (None means
-    the CUDA card): targets
-    (N, H, W, 3) f32, poses (N, 4, 4) f32, bounds (2,) f32 ([near, far],
-    or [0, 1] under NDC as nerfmeshes_tpu/data/datasets.py:159-169 sets
-    it), and hwf = (H, W, focal) on the host."""
-    device = resolve_device(device)
-    ds = cfg.dataset
-    targets, poses, hwf = load_blender_targets(
-        ds.basedir, split, white_background=bool(ds.white_background),
-        reduced_resolution=ds.reduced_resolution)
-    bounds = [0.0, 1.0] if ds.use_ndc else [float(ds.near), float(ds.far)]
-    return {
-        "targets": torch.from_numpy(targets).to(device),
-        "poses": torch.from_numpy(poses).to(device),
-        "bounds": torch.tensor(bounds, dtype=torch.float32, device=device),
-        "hwf": hwf,
-    }
+    """Everything the train step samples from, on `device` (None means the
+    CUDA card): BlenderDataset(cfg, split).device_arrays()."""
+    from nerfmeshes_tpu_torch.data.datasets import BlenderDataset, DatasetType
+
+    return BlenderDataset(cfg, DatasetType(split), device=device).device_arrays()

@@ -3,16 +3,17 @@
 from __future__ import annotations
 
 
-def build_system(cfg, device=None):
+def build_system(cfg, paths=None, device=None):
     """NeRFSystem for cfg.experiment.model 'NeRFModel', BuFFSystem for
-    'BuFFModel', on `device` (None: the CUDA card)."""
+    'BuFFModel', logging and checkpointing to `paths` (None: neither), on
+    `device` (None: the CUDA card)."""
     name = cfg.experiment.model
     if name == "NeRFModel":
         from nerfmeshes_tpu_torch.train.system import NeRFSystem
 
-        return NeRFSystem(cfg, device)
+        return NeRFSystem(cfg, paths, device)
     if name == "BuFFModel":
         from nerfmeshes_tpu_torch.buff.system import BuFFSystem
 
-        return BuFFSystem(cfg, device)
+        return BuFFSystem(cfg, paths, device)
     raise ValueError(f"Unknown experiment model {name!r}")

@@ -123,6 +123,21 @@ class Optimizer:
         for p in self.params:
             p.grad = None
 
+    def state_dict(self) -> dict:
+        """Adam's state, the schedule's position (LambdaLR.last_epoch; its
+        lambda is rebuilt from the config) and the MultiSteps accumulator,
+        as tensors and plain containers."""
+        return {"adam": self.adam.state_dict(), "schedule_step": self.lr_scheduler.last_epoch,
+                "micro": self._micro, "mean": self._mean}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adam.load_state_dict(state["adam"])
+        self.lr_scheduler.last_epoch = int(state["schedule_step"])
+        self.lr_scheduler._last_lr = [g["lr"] for g in self.adam.param_groups]
+        self._micro = int(state["micro"])
+        self._mean = (None if state["mean"] is None else
+                      [m.to(p.device) for m, p in zip(state["mean"], self.params)])
+
     def lr_at(self, step: int) -> float:
         """The schedule at a micro-step count (the train/lr metric)."""
         return self.schedule(step // self.accum)

@@ -1,23 +1,29 @@
 """NeRFSystem (counterpart of nerfmeshes_tpu/train/system.py).
 
 Builds the coarse/fine models from a config, initialises them from the
-config's seed, trains them (`setup` + `fit`), renders rays at
+config's seed, trains them (`setup` + `fit`) with validation, checkpoints
+and the early-collapse check at the config's cadence, renders rays at
 validation settings and answers mesh extraction's queries
-(`density_points`, `sample_points`, `query_rgb`). `validate`,
-checkpoints and early stopping are not ported yet (ROADMAP.md); `fit`
-raises NotImplementedError when the config asks for them, so nothing
-trains without what it asked for.
+(`density_points`, `sample_points`, `query_rgb`). With an ExperimentPaths
+it logs to <run>/events and checkpoints to <run>/checkpoints.
+
+The train step never reads from the device: the print cadence, a
+validation, a checkpoint save and the early-stopping step are the only
+places the host waits for it.
 """
 
 from __future__ import annotations
 
 import math
+import sys
 import time
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
+from nerfmeshes_tpu_torch.data.datasets import DatasetType, build_dataset
 from nerfmeshes_tpu_torch.device import resolve_device
 from nerfmeshes_tpu_torch.models import build_model
 from nerfmeshes_tpu_torch.models.layers import TorchLinear
@@ -28,6 +34,8 @@ from nerfmeshes_tpu_torch.ops.kernels.fused_mlp import (
     pack_weights,
     supports_fused,
 )
+from nerfmeshes_tpu_torch.ops.math import img2mse
+from nerfmeshes_tpu_torch.train.checkpoint import CheckpointManager
 from nerfmeshes_tpu_torch.train.optim import build_optimizer
 from nerfmeshes_tpu_torch.train.step import (
     init_train_state,
@@ -36,6 +44,7 @@ from nerfmeshes_tpu_torch.train.step import (
     render_image,
     round_chunk,
 )
+from nerfmeshes_tpu_torch.utils.logging import MetricsLogger, cast_to_disparity_image
 
 
 def compute_dtype_from_cfg(cfg) -> torch.dtype:
@@ -56,6 +65,16 @@ def create_models(cfg, device: Optional[torch.device] = None):
     return coarse, fine
 
 
+def _host_psnr(mse: float) -> float:
+    """mse2psnr on a host float (zero taken as 1e-5)."""
+    return -10.0 * math.log10(mse if mse > 0 else 1e-5)
+
+
+def _rgb_u8(rgb: torch.Tensor, H: int, W: int) -> np.ndarray:
+    """(H*W, 3) [0, 1] -> (H, W, 3) uint8, quantised on the device."""
+    return (rgb.reshape(H, W, 3).clamp(0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
+
+
 def init_params(coarse, fine, generator: torch.Generator) -> None:
     """Redraw every layer of the coarse, then the fine model from
     `generator` (torch's default init), in place. The generator and the
@@ -72,10 +91,13 @@ class NeRFSystem:
     """Owns the coarse/fine models, their optimizer and train state; trains
     them and serves renders and point queries."""
 
-    def __init__(self, cfg, device: Optional[torch.device] = None):
-        """`device`: where the models, the train state and every render
-        live; None means the CUDA card (an error without one)."""
+    def __init__(self, cfg, paths=None, device: Optional[torch.device] = None):
+        """`paths`: an ExperimentPaths for the logger and the checkpoints
+        (None: neither). `device`: where the models, the train state, the
+        datasets and every render live; None means the CUDA card (an error
+        without one)."""
         self.cfg = cfg
+        self.paths = paths
         self.device = resolve_device(device)
         # Drawn on the CPU so a seed gives the same weights on every device.
         self.coarse, self.fine = create_models(cfg)
@@ -86,23 +108,44 @@ class NeRFSystem:
             model.to(self.device).eval()
         self.optimizer = build_optimizer([p for m in models for p in m.parameters()], cfg)
         self.state = init_train_state(self.coarse, self.fine, self.optimizer, seed, self.device)
+        self.train_dataset = None
+        self.val_dataset = None
         self._render_chunk = None
         self._train_fn = None
         self._data = None
+        self._hwf = None
         self._sigma_cache = None
+        self.logger = (MetricsLogger(paths.events_dir, use_acronyms=bool(cfg.logging.use_acronyms))
+                       if paths is not None else None)
+        self.ckpt = CheckpointManager(paths.checkpoint_dir) if paths is not None else None
 
     # -- setup ----------------------------------------------------------------
-    def setup(self, train_data: dict) -> "NeRFSystem":
-        """Take the training arrays (data/blender.py:train_arrays: targets,
-        poses, bounds on this system's device, hwf) and build the train step
-        and the chunk renderer."""
-        H, W, focal = train_data["hwf"]
-        self._data = train_data
-        self._train_fn = make_train_step(self.cfg, H=int(H), W=int(W), focal=float(focal))
-        return self.setup_eval()
+    def setup(self, train_dataset=None, val_dataset=None) -> "NeRFSystem":
+        """Build the train step and the chunk renderer. `train_dataset`: a
+        RayDataset, the arrays of RayDataset.device_arrays (or
+        data/blender.py:train_arrays) on this system's device, or None to
+        build the config's training split. `val_dataset`: a RayDataset, or
+        None to build the config's validation split at the first
+        validate()."""
+        if isinstance(train_dataset, dict):
+            self._data = train_dataset
+        else:
+            self.train_dataset = train_dataset or build_dataset(
+                self.cfg, DatasetType.TRAIN, self.device)
+            self._data = self.train_dataset.device_arrays(self.device)
+        self._hwf = tuple(self._data["hwf"])
+        self._build_train_fn()
+        return self.setup_eval(val_dataset)
 
-    def setup_eval(self) -> "NeRFSystem":
-        """Build the chunk renderer at validation settings."""
+    def _build_train_fn(self) -> None:
+        H, W, focal = self._hwf
+        self._train_fn = make_train_step(self.cfg, H=int(H), W=int(W), focal=float(focal))
+
+    def setup_eval(self, val_dataset=None) -> "NeRFSystem":
+        """Build the chunk renderer at validation settings (and take
+        `val_dataset` for validate, when given)."""
+        if val_dataset is not None:
+            self.val_dataset = val_dataset
         self._render_chunk = make_render_chunk(self.cfg, self.coarse, self.fine)
         return self
 
@@ -183,23 +226,124 @@ class NeRFSystem:
             self._sigma_cache = (key, pack_weights(self.finest_model))
         return self._sigma_cache[1]
 
+    # -- validation --------------------------------------------------------------
+    def validate(self, max_images: Optional[int] = None, log_images: bool = True,
+                 step: Optional[int] = None) -> dict:
+        """Render nerf.validation.num_samples validation views (all with
+        -1) and return the coarse/fine MSE and PSNR and their summed loss,
+        with the chamfer term when the config asks for it. Views are drawn
+        with replacement from a generator seeded by the step (by 0 under
+        nerf.validation.fixed_views). Rays and targets stay on the device;
+        the losses come to the host in one fetch after the loop, and with
+        `log_images` each view's renders go to the logger as PNGs."""
+        cfg_val = self.cfg.nerf.validation
+        if self.val_dataset is None:
+            self.val_dataset = build_dataset(self.cfg, DatasetType.VALIDATION, self.device)
+        val = self.val_dataset
+        num = cfg_val.num_samples if max_images is None else max_images
+        n_total = len(val)
+        cur_step = self.state.step if step is None else int(step)
+        if num == -1 or num is None:
+            indices = list(range(n_total))
+        else:
+            seed = 0 if bool(cfg_val.get("fixed_views", False)) else cur_step
+            indices = np.random.default_rng(seed).integers(
+                0, n_total, size=max(1, min(num, n_total))).tolist()
+        self._last_val_indices = indices
+
+        H, W, _ = (int(v) for v in val.hwf)
+        log = log_images and self.logger is not None
+        losses, fine_losses = [], []
+        for i, idx in enumerate(indices):
+            origins, directions = val.image_rays(idx)
+            near, far = np.asarray(val._bounds_for(idx)).reshape(-1)[:2]
+            target = val.image_targets(idx)
+            coarse, fine = render_image(
+                self._render_chunk, origins, directions, float(near), float(far),
+                chunk_size=round_chunk(cfg_val.chunksize),
+                fields=("rgb_map", "disp_map") if log else ("rgb_map",), as_numpy=False)
+            losses.append(img2mse(coarse.rgb_map, target))
+            finest = coarse
+            if fine is not None:
+                fine_losses.append(img2mse(fine.rgb_map, target))
+                finest = fine
+            if log:
+                kind = "fine" if fine is not None else "coarse"
+                self.logger.log_image(f"validation/rgb_{kind}/{i}",
+                                      _rgb_u8(finest.rgb_map, H, W), cur_step)
+                if fine is not None:
+                    self.logger.log_image(f"validation/rgb_coarse/{i}",
+                                          _rgb_u8(coarse.rgb_map, H, W), cur_step)
+                disp = cast_to_disparity_image(
+                    finest.disp_map.reshape(H, W).cpu().numpy(),
+                    white_background=bool(self.cfg.dataset.white_background))
+                self.logger.log_image(f"validation/disparity/{i}",
+                                      disp[..., None].repeat(3, -1), cur_step)
+                self.logger.log_image(f"validation/img_target/{i}", _rgb_u8(target, H, W),
+                                      cur_step)
+
+        fetched = torch.stack(losses + fine_losses).cpu().tolist()  # the one fetch
+        coarse_loss = float(np.mean(fetched[:len(losses)]))
+        metrics = {"validation/coarse_loss": coarse_loss,
+                   "validation/coarse_psnr": _host_psnr(coarse_loss)}
+        loss = coarse_loss
+        if fine_losses:
+            fine_loss = float(np.mean(fetched[len(losses):]))
+            loss = loss + fine_loss
+            metrics["validation/fine_loss"] = fine_loss
+            metrics["validation/fine_psnr"] = _host_psnr(fine_loss)
+        metrics["validation/loss"] = loss
+        chamfer = self._chamfer_validation()
+        if chamfer is not None:
+            metrics["validation/chamfer_loss"] = chamfer
+        return metrics
+
+    def _chamfer_validation(self) -> Optional[float]:
+        """With experiment.chamfer_loss, the chamfer distance between the
+        field's iso-surface at 64^3 and <basedir>/model.obj, both
+        normalised and sampled at experiment.chamfer_sampling_size points;
+        None without the file or when the surface is empty."""
+        cfg = self.cfg
+        if not cfg.experiment.chamfer_loss:
+            return None
+        target_path = Path(cfg.dataset.basedir) / "model.obj"
+        if not target_path.exists():
+            return None
+        from nerfmeshes_tpu_torch.mesh import (
+            MeshArgs,
+            chamfer_distance,
+            extract_geometry,
+            import_obj,
+            normalize_mesh,
+            sample_points_from_mesh,
+        )
+
+        n_samples = int(cfg.experiment.chamfer_sampling_size)
+        verts_t, faces_t, _, _ = import_obj(str(target_path))
+        verts, faces, _, _ = extract_geometry(
+            self.sample_points, MeshArgs(res=64, limit=1.2, iso_level=32),
+            density_fn=self.density_points, device=self.device)
+        if len(faces) == 0:
+            return None
+        pts_a = sample_points_from_mesh(normalize_mesh(verts_t), faces_t, n_samples)
+        pts_b = sample_points_from_mesh(normalize_mesh(verts), faces, n_samples)
+        return float(chamfer_distance(pts_a, pts_b))
+
     # -- fit loop ----------------------------------------------------------------
     def fit(self, max_steps: Optional[int] = None) -> dict:
         """Run the train step to `max_steps` (default: experiment.train_iters)
         in calls of experiment.steps_per_call steps. At the print cadence
         (and at the end) the last step's metrics come to the host, with
-        train/rays_per_sec, and a non-finite loss stops the run
-        (nerfmeshes_tpu/train/system.py:427-500). Returns the last host
-        metrics."""
+        train/rays_per_sec, go to the logger and the console, and a
+        non-finite loss stops the run. Every experiment.validate_every
+        steps (and at the end) the system validates and, with paths,
+        checkpoints. Returns the last host metrics, validation's included."""
         cfg = self.cfg
         exp = cfg.experiment
         if self._train_fn is None:
-            raise RuntimeError("call setup(train_data) before fit()")
-        if int(exp.validate_every) > 0 or bool(exp.use_early_stopping):
-            raise NotImplementedError(
-                "validation, checkpoints and early stopping are not ported yet (ROADMAP.md); "
-                "set experiment.validate_every = 0 and use_early_stopping = False")
+            raise RuntimeError("call setup() before fit()")
         max_steps = max_steps or int(exp.train_iters)
+        validate_every = int(exp.validate_every)
         print_every = int(exp.print_every)
         steps_per_call = int(exp.steps_per_call)
         rays_per_step = int(cfg.nerf.train.num_random_rays)
@@ -213,6 +357,7 @@ class NeRFSystem:
             step = self.state.step
             rays_done += steps_per_call * rays_per_step
             self.on_step(step, metrics)
+            self._check_early_stopping(metrics, step)
             if step % print_every < steps_per_call or step >= max_steps:
                 host = {k: float(v) for k, v in metrics.items() if k != "train/rgb_sum"}
                 host["train/rays_per_sec"] = rays_done / max(time.perf_counter() - t0, 1e-9)
@@ -220,13 +365,78 @@ class NeRFSystem:
                 if loss is not None and not math.isfinite(loss):
                     raise RuntimeError(
                         f"Training diverged: train/loss={loss} at step {step} "
-                        f"(lr={host.get('train/lr')}). Restart with a lower lr, fewer rays, "
-                        "or sigma noise enabled.")
+                        f"(lr={host.get('train/lr')}). Restart from the last checkpoint with "
+                        "a lower lr, fewer rays, or sigma noise enabled.")
                 last_metrics = host
-                print(f"step {step}: " + " ".join(f"{k}={v:.6g}" for k, v in host.items()),
-                      flush=True)
+                self._report(host, step)
+            if validate_every > 0 and (step % validate_every < steps_per_call
+                                       or step >= max_steps):
+                val_metrics = self.validate(step=step)
+                last_metrics.update(val_metrics)
+                self._report(val_metrics, step)
+                if self.ckpt is not None:
+                    self.save(val_loss=val_metrics["validation/loss"])
         return last_metrics
+
+    def _report(self, metrics: dict, step: int) -> None:
+        """Log host metrics (metrics.jsonl and the console line), or print
+        them without a logger."""
+        if self.logger is not None:
+            self.logger.log_scalars(metrics, step)
+            print(self.logger.console_line(metrics, step), flush=True)
+        else:
+            print(f"step {step}: " + " ".join(f"{k}={v:.6g}" for k, v in metrics.items()),
+                  flush=True)
 
     def on_step(self, step: int, metrics: dict) -> None:
         """Hook called after every call of the train step with its device
         metrics (subclasses; nothing here waits for the device)."""
+
+    def _check_early_stopping(self, metrics: dict, step: int) -> None:
+        """With experiment.use_early_stopping, exit(-1) on colour collapse
+        (the finest render's rgb sum under 1e-12) at the call that reaches
+        experiment.early_stopping_step: one host read, at that step only."""
+        exp = self.cfg.experiment
+        if not exp.use_early_stopping:
+            return
+        if abs(step - int(exp.early_stopping_step)) < int(exp.steps_per_call):
+            rgb_sum = float(metrics["train/rgb_sum"])
+            if rgb_sum < 1e-12:
+                print(f"Model is stuck in local minima, collapsing to {rgb_sum}; exiting.",
+                      flush=True)
+                sys.exit(-1)
+
+    # -- persistence -----------------------------------------------------------------
+    def checkpoint_state(self) -> dict:
+        """What a checkpoint holds: the step, both models' parameters, the
+        optimizer (Adam, the schedule's position, the accumulator), the
+        train generator's state and checkpoint_extra()."""
+        return {"step": self.state.step, "coarse": self.coarse.state_dict(),
+                "fine": None if self.fine is None else self.fine.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "generator": self.state.generator.get_state(),
+                "extra": self.checkpoint_extra()}
+
+    def save(self, val_loss: Optional[float] = None) -> None:
+        self.ckpt.save(self.checkpoint_state(), self.state.step, val_loss=val_loss)
+
+    def restore(self, step: Optional[int] = None, last: bool = False) -> "NeRFSystem":
+        """Load checkpoint `step` (or `last`, or the latest kept) into the
+        models, the optimizer and the train state, in place. The generator
+        takes its state back on the device type it was saved from."""
+        saved = self.ckpt.restore(step=step, last=last)
+        self.coarse.load_state_dict(saved["coarse"])
+        if self.fine is not None:
+            self.fine.load_state_dict(saved["fine"])
+        self.optimizer.load_state_dict(saved["optimizer"])
+        self.state.generator.set_state(saved["generator"])
+        self.state.step = int(saved["step"])
+        self.load_checkpoint_extra(saved["extra"])
+        return self
+
+    def checkpoint_extra(self) -> dict:
+        """Subclass state that rides along in a checkpoint."""
+        return {}
+
+    def load_checkpoint_extra(self, extra: dict) -> None:
+        pass

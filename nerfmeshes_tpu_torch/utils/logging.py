@@ -1,0 +1,75 @@
+"""Metric and image logging (counterpart of nerfmeshes_tpu/utils/logging.py).
+
+An append-only metrics.jsonl (one record per log call: step, time and the
+metrics, the JAX package's keys), the console line with acronymised
+metric names, and validation images as PNGs under <events>/images/
+through the port's own PNG writer. No TensorBoard: the GPU host has none,
+and the JAX package runs without it too; its depth-projection and tree
+loggers, which need it, stay off (`_tb` is None), as there.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+from typing import Dict
+
+import numpy as np
+
+from nerfmeshes_tpu_torch.data.blender import write_png
+
+
+def acronym(name: str) -> str:
+    """'train/coarse_loss' -> 't/cl'. Single-word metrics stay whole, so
+    'loss' and 'lr' don't both collapse to 'l'."""
+    scope, _, metric = name.partition("/")
+    if not metric:
+        return scope
+    parts = [p for p in metric.split("_") if p]
+    short = "".join(p[0] for p in parts) if len(parts) > 1 else parts[0]
+    return f"{scope[0]}/{short}"
+
+
+def cast_to_disparity_image(disp, white_background: bool = False) -> np.ndarray:
+    """(H, W) disparity -> min-max normalised uint8, holes white on a white
+    background (counterpart of nerfmeshes_tpu/utils/images.py)."""
+    disp = np.asarray(disp)
+    span = max(float(disp.max() - disp.min()), 1e-10)
+    img = (np.clip((disp - disp.min()) / span, 0.0, 1.0) * 255).astype(np.uint8)
+    if white_background:
+        img[img == 0] = 255
+    return img
+
+
+class MetricsLogger:
+    def __init__(self, log_dir, use_acronyms: bool = True):
+        self.log_dir = Path(log_dir)
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self.use_acronyms = use_acronyms
+        self._jsonl = open(self.log_dir / "metrics.jsonl", "a")
+        self._tb = None
+
+    def log_scalars(self, metrics: Dict[str, float], step: int) -> None:
+        rec = {"step": int(step), "time": time.time()}
+        rec.update({k: float(v) for k, v in metrics.items()})
+        self._jsonl.write(json.dumps(rec) + "\n")
+        self._jsonl.flush()
+
+    def log_image(self, tag: str, image, step: int) -> None:
+        """image: (H, W, 3) float in [0, 1] or uint8, written to
+        images/<tag with '/' as '_'>_<step>.png."""
+        img = np.asarray(image)
+        if img.dtype != np.uint8:
+            img = (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+        out_dir = self.log_dir / "images"
+        out_dir.mkdir(exist_ok=True)
+        write_png(out_dir / f"{tag.replace('/', '_')}_{step}.png", img)
+
+    def console_line(self, metrics: Dict[str, float], step: int) -> str:
+        items = [f"{acronym(k) if self.use_acronyms else k}={float(v):.5g}"
+                 for k, v in metrics.items()]
+        return f"[step {step}] " + " ".join(items)
+
+    def close(self) -> None:
+        self._jsonl.close()

@@ -128,8 +128,11 @@ def test_white_background_composites_alpha(tmp_path):
 
 
 def test_unported_inputs_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="reduced_resolution"):
-        load_blender_targets(SCENE, "val", white_background=False, reduced_resolution=2)
+    """Depth EXRs are not read (no decoder on the GPU host), and a
+    downscale the box mean cannot give exactly raises. reduced_resolution
+    2 is held to cv2 INTER_AREA in tests/test_torch_datasets.py."""
+    with pytest.raises(NotImplementedError, match="integer downscale"):
+        load_blender_targets(SCENE, "val", white_background=False, reduced_resolution=3)
     scene = tmp_path / "scene"
     shutil.copytree(SCENE / "val", scene / "val")
     shutil.copy(SCENE / "transforms_val.json", scene)

@@ -1,0 +1,108 @@
+"""The port's CLIs (nerfmeshes_tpu_torch/cli/) end to end on
+configs/tiny.yml with --device cpu, against the JAX package's CLIs.
+
+- train -> resume -> eval -> mesh in-process, into tmp_path: the run
+  directory's layout, metrics.jsonl's records with JAX's keys, checkpoints
+  at the validation cadence;
+- a run resumed with --log-checkpoint reaches the uninterrupted run's
+  parameters, optimizer state and generator bit for bit;
+- eval prints JAX's eval lines (per view and the dataset), number for
+  number in format; mesh writes the mesh and the phases line;
+- the flags the port refuses (--gpus 2, --synthesis-video) say why, and
+  without --device the CLIs need the card.
+"""
+
+import json
+import re
+from pathlib import Path
+
+import pytest
+import torch
+
+from nerfmeshes_tpu.cli import eval_nerf as j_eval
+from nerfmeshes_tpu.cli import train_nerf as j_train
+from nerfmeshes_tpu_torch.cli import eval_nerf, mesh_nerf, train_nerf
+
+torch.set_num_threads(1)
+TINY = str(Path(__file__).resolve().parents[1] / "configs" / "tiny.yml")
+
+
+def _train(root, *extra):
+    return train_nerf.main(["--config", TINY, "--device", "cpu", "--override",
+                            "experiment.logdir", str(root), "experiment.train_iters", "20",
+                            "experiment.validate_every", "10", *extra])
+
+
+def _records(run):
+    return [json.loads(line) for line in (run / "events" / "metrics.jsonl").open()]
+
+
+def _template(text):
+    """The output's lines with every number replaced by N."""
+    return [re.sub(r"-?\d+(\.\d+)?", "N", line) for line in text.strip().splitlines()]
+
+
+@pytest.fixture(scope="module")
+def jax_run(tmp_path_factory):
+    """The JAX CLIs' tiny run (10 steps) and its eval output."""
+    root = tmp_path_factory.mktemp("jax")
+    j_train.main(["--config", TINY, "--override", "experiment.logdir", str(root),
+                  "experiment.train_iters", "10", "experiment.validate_every", "10"])
+    return root / "tiny" / "default" / "version_0"
+
+
+def test_train_resume_eval_mesh(tmp_path, jax_run, capsys):
+    system = _train(tmp_path / "logs")
+    run = tmp_path / "logs" / "tiny" / "default" / "version_0"
+    assert system.paths.log_dir == run and system.state.step == 20
+    assert (run / "hparams.yaml").exists()
+    assert sorted(p.name for p in (run / "checkpoints").iterdir()) == ["10", "20", "last"]
+    images = {p.name for p in (run / "events" / "images").iterdir()}
+    assert "validation_rgb_coarse_0_20.png" in images
+    records = _records(run)
+    assert [r["step"] for r in records] == [10, 20, 20]  # val 10; train + val 20
+    j_records = _records(jax_run)
+    assert {tuple(r) for r in records} == {tuple(r) for r in j_records}
+
+    resumed = train_nerf.main(["--log-checkpoint", str(run), "--device", "cpu",
+                               "--override", "experiment.train_iters", "30"])
+    assert "Resumed from step 20" in capsys.readouterr().out
+    whole = _train(tmp_path / "whole", "experiment.train_iters", "30", "--use-profiler")
+    assert (whole.paths.log_dir / "profile" / "trace.json").exists()
+    assert resumed.state.step == whole.state.step == 30
+    for a, b in zip(resumed.checkpoint_state().values(), whole.checkpoint_state().values()):
+        a, b = torch.utils._pytree.tree_flatten(a)[0], torch.utils._pytree.tree_flatten(b)[0]
+        assert all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+                   for x, y in zip(a, b))
+
+    capsys.readouterr()
+    result = eval_nerf.main(["--log-checkpoint", str(run), "--device", "cpu",
+                             "--save-dir", str(tmp_path / "eval"), "--save-images",
+                             "--save-disparity"])
+    got = capsys.readouterr().out
+    j_eval.main(["--log-checkpoint", str(jax_run)])
+    want = capsys.readouterr().out
+    assert _template(got) == _template(want) == [
+        "[N] mse=N psnr=N ssim=N", "[N] mse=N psnr=N ssim=N", "dataset: mse=N psnr=N ssim=N"]
+    assert f"psnr={result['psnr']:.2f}" in got
+    saved = sorted(p.name for p in (tmp_path / "eval").iterdir())
+    assert saved == [f"000{i}_{kind}.png" for i in range(2)
+                     for kind in ("disparity", "rgb", "target")]
+
+    vertices, triangles, _, _ = mesh_nerf.main(
+        ["--log-checkpoint", str(run), "--device", "cpu", "--res", "32",
+         "--save-dir", str(tmp_path / "mesh")])
+    out = capsys.readouterr().out
+    assert f"Extracted {len(vertices)} vertices" in out and "phases: " in out
+    assert (tmp_path / "mesh" / "mesh.obj").exists()
+
+
+def test_refused_flags_say_why(tmp_path, monkeypatch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train_nerf.main(["--config", TINY, "--gpus", "2", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="GIF"):
+        eval_nerf.main(["--log-checkpoint", str(tmp_path), "--synthesis-video", "a.gif"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_nerf.main(["--config", TINY, "--override", "experiment.logdir",
+                         str(tmp_path / "logs")])

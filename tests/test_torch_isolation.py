@@ -1,7 +1,8 @@
 """The port stands apart from JAX, and has no CPU fallback for the card.
 
-- Importing every module of nerfmeshes_tpu_torch loads no jax (nor flax,
-  optax, orbax) in a fresh interpreter.
+- Importing every module of nerfmeshes_tpu_torch, the CLIs included, loads
+  no jax (nor flax, optax, orbax), no PyYAML and nothing of the JAX
+  package in a fresh interpreter.
 - chip_smoke.py on a host without a CUDA card exits non-zero and prints
   no "ok" line.
 """
@@ -31,11 +32,19 @@ def test_every_port_module_imports_without_jax():
     assert {"nerfmeshes_tpu_torch.buff.tree", "nerfmeshes_tpu_torch.buff.system",
             "nerfmeshes_tpu_torch.ops.kernels.chords", "nerfmeshes_tpu_torch.train.factory",
             "nerfmeshes_tpu_torch.device"} <= set(modules)
+    assert {"nerfmeshes_tpu_torch.config.cfgnode", "nerfmeshes_tpu_torch.config.yaml_lite",
+            "nerfmeshes_tpu_torch.config.schema", "nerfmeshes_tpu_torch.config.paths",
+            "nerfmeshes_tpu_torch.train.checkpoint", "nerfmeshes_tpu_torch.utils.logging",
+            "nerfmeshes_tpu_torch.data.helpers", "nerfmeshes_tpu_torch.data.bundle",
+            "nerfmeshes_tpu_torch.data.datasets", "nerfmeshes_tpu_torch.data.synthetic",
+            "nerfmeshes_tpu_torch.cli.train_nerf", "nerfmeshes_tpu_torch.cli.eval_nerf",
+            "nerfmeshes_tpu_torch.cli.mesh_nerf"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in ('jax', 'flax', 'optax', 'orbax') if m in sys.modules)\n"
+        "bad = sorted(m for m in ('jax', 'flax', 'optax', 'orbax', 'yaml', 'nerfmeshes_tpu')\n"
+        "             if m in sys.modules)\n"
         "assert not bad, bad\n"
         "print('imported', len(sys.modules))\n"
     )

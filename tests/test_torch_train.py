@@ -412,11 +412,25 @@ def test_nerf_system_setup_and_fit(fused, capsys):
     assert again.fit(4)["train/loss"] == metrics["train/loss"]
 
 
-def test_fit_refuses_what_is_not_ported():
+def test_fit_refuses_what_is_not_ported(tmp_path):
+    """fit needs setup first; with validate_every it validates at the
+    cadence and at the end, and with paths checkpoints after each
+    validation (it refused validate_every > 0 before validation was
+    ported)."""
+    from nerfmeshes_tpu_torch.config.paths import ExperimentPaths
+    from nerfmeshes_tpu_torch.data.datasets import DatasetType, SyntheticDataset
+
     cfg = tiny_train_cfg(fused=True)
     data = train_arrays(cfg, torch.device("cpu"), split="val")
     with pytest.raises(RuntimeError, match="setup"):
         t_system.NeRFSystem(cfg, device="cpu").fit(2)
-    cfg.experiment.validate_every = 100
-    with pytest.raises(NotImplementedError, match="validate_every"):
-        t_system.NeRFSystem(cfg, device="cpu").setup(data).fit(2)
+    cfg.experiment.validate_every = 4
+    val = SyntheticDataset(cfg, DatasetType.VALIDATION, num_images=2, image_size=8,
+                           gt_samples=16, device="cpu")
+    paths = ExperimentPaths(tmp_path / "run").create()
+    system = t_system.NeRFSystem(cfg, paths, device="cpu").setup(data, val)
+    metrics = system.fit(6)
+    assert system.state.step == 6
+    assert {"validation/loss", "validation/coarse_psnr", "validation/fine_psnr"} <= set(metrics)
+    assert system.ckpt.steps() == [4, 6]
+    assert (paths.checkpoint_dir / "last" / "state.pt").exists()
