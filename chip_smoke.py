@@ -67,7 +67,18 @@ and mesh paths, then drives the hierarchical paths and the BuFF ones:
   --log-checkpoint; eval_nerf on the test split; mesh_nerf at 480^3.
   Every leg's launches of each kernel equal the counts the code
   predicts; at most 3 numbered checkpoints stay beside `last`; the
-  validation loss falls; the mesh is not empty.
+  validation loss falls; the mesh is not empty. The hierarchical chain
+  ends with surface_ray's CLI on its run (the 8 x 4 orbit of 400x400
+  views at the run's focal, 2 forward launches per chunk); the PLY reads
+  back with finite points and unit normals.
+- H = 128: the forward kernel at 2048 x 64 and 2048 x 128 and the
+  backward at 2048 x 128, at the width of configs/hard-llff.yml (8x128),
+  held against their plain versions and timed (h128_kernel_phase).
+- the forward-facing chain (llff_cli): configs/hard-llff.yml as shipped on
+  data/hard_llff (21 training views, 3 held out; NDC rays, per-image
+  COLMAP bounds, two 8x128 fields through the fused kernels): train 500
+  steps validating every 250, the restore check, resume to 1000, eval of
+  the 3 held-out views; no mesh (JAX meshes no NDC field either).
 
 Prints, on lines of their own: the card's name and power limit as
 nvidia-smi reports them, the build time, per-kernel error, times, bound
@@ -237,6 +248,14 @@ def hard_blender_cfg():
     cfg.experiment.steps_per_call = 1
     cfg.experiment.print_every = 10 ** 9
     return cfg
+
+
+def llff_cfg():
+    """configs/hard-llff.yml as shipped, on the repo's data/hard_llff."""
+    from nerfmeshes_tpu_torch.config import load_config
+
+    return load_config(str(REPO / "configs" / "hard-llff.yml"),
+                       ["dataset.basedir", str(REPO / "data" / "hard_llff")])
 
 
 def buff_hard_cfg():
@@ -528,45 +547,10 @@ def kernel_phase(cfg, card: str, device) -> dict:
     for S in (int(cfg.nerf.validation.num_coarse),
               int(cfg.nerf.validation.num_coarse) + int(cfg.nerf.validation.num_fine)):
         o, d, z = _rays(R, S, rng, device)
-        before = fm.launches
-        got = fm.fused_mlp_cuda(packed, o, d, z)
-        torch.cuda.synchronize()
-        if fm.launches != before + 1:
-            raise AssertionError(f"launch counter moved {fm.launches - before}, expected 1")
-        ref = fm.fused_mlp_plain(packed, o, d, z)
-        if got.shape != (4, R, S) or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"kernel output shape {tuple(got.shape)} or non-finite values")
-        err_rgb = float((got[:3] - ref[:3]).abs().max())
-        err_sigma = float((got[3] - ref[3]).abs().max())
-        print(f"fused_mlp_fwd R={R} S={S}: max abs err rgb {err_rgb:.3e} sigma "
-              f"{err_sigma:.3e} (bar atol=rtol={ATOL})")
-        if not torch.allclose(got, ref, atol=ATOL, rtol=RTOL):
-            raise AssertionError(f"kernel disagrees with the plain version at S={S}")
-        worst = max(worst, err_rgb, err_sigma)
+        worst = max(worst, _fwd_check(packed, o, d, z, model.hidden_size))
 
     # Times at the render fine shape (the last one checked above).
-    ms = _median_ms(lambda: fm.fused_mlp_cuda(packed, o, d, z))
-    plain_ms = _median_ms(lambda: fm.fused_mlp_plain(packed, o, d, z))
-    # Library yardstick: the nn.Module at the same points under bf16
-    # autocast (cuBLAS tensor-core products layer by layer), beside the
-    # module as it is (f32 products of bf16-rounded operands); the port
-    # never calls either for a fused-eligible model.
-    pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
-    dirs = d[:, None, :].expand(R, S, 3).reshape(-1, 3)
-    with torch.inference_mode():
-        module_ms = _median_ms(lambda: model(pts, dirs))
-        library_ms = _median_ms(_autocast(lambda: model(pts, dirs)))
-    def fwd_bound(R, S):
-        nbytes = (R * 24 + R * S * 4 + R * S * 16 + packed.weights.numel() * 2
-                  + packed.biases.numel() * 4)
-        return _bound_ms(_field_flops(model) * R * S, nbytes, PEAK_BF16)
-
-    bound_ms, bound_by = fwd_bound(R, S)
-    for name, t in (("kernel", ms), ("plain", plain_ms), ("nn.Module", module_ms),
-                    ("nn.Module bf16 autocast", library_ms), ("bound", bound_ms)):
-        print(f"fused_mlp_fwd {name}: {t:.4f} ms, {R * S / t * 1e3:.4e} points/s "
-              f"at {R}x{S} points [{card}]")
-    _rate("fused_mlp_fwd", ms, _field_flops(model) * R * S, bound_ms, bound_by, f"{R}x{S}", card)
+    times = _fwd_times(model, packed, o, d, z, card)
 
     # The appearance chunk: 4.2 M and 12.6 M points per launch. The plain
     # version works point by point, so slices of rays check it exactly.
@@ -595,12 +579,102 @@ def kernel_phase(cfg, card: str, device) -> dict:
     big_ms = _median_ms(lambda: fm.fused_mlp_cuda(packed, o, d, z))
     print(f"fused_mlp_fwd kernel: {big_ms:.4f} ms median of 7, {R * S / big_ms * 1e3:.4e} "
           f"points/s at {R}x{S} points [{card}]")
-    chunk_bound_ms, chunk_bound_by = fwd_bound(R, S)
+    chunk_bound_ms, chunk_bound_by = _fwd_bound(model, packed, R, S)
     _rate("fused_mlp_fwd", big_ms, _field_flops(model) * R * S, chunk_bound_ms, chunk_bound_by,
           f"{R}x{S} (appearance chunk)", card)
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, chunk_ms=big_ms,
-                chunk_bound_ms=chunk_bound_ms)
+    return dict(max_abs_err=worst, **times, chunk_ms=big_ms, chunk_bound_ms=chunk_bound_ms)
+
+
+def _fwd_check(packed, o, d, z, hidden: int) -> float:
+    """One launch of the forward kernel at rays (o, d, z), counted once,
+    finite, of shape (4, R, S) and within atol = rtol = 2e-2 of the plain
+    version; returns the max abs error."""
+    from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+
+    R, S = z.shape
+    before = fm.launches
+    got = fm.fused_mlp_cuda(packed, o, d, z)
+    torch.cuda.synchronize()
+    if fm.launches != before + 1:
+        raise AssertionError(f"launch counter moved {fm.launches - before}, expected 1")
+    ref = fm.fused_mlp_plain(packed, o, d, z)
+    if got.shape != (4, R, S) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"kernel output shape {tuple(got.shape)} or non-finite values")
+    err_rgb = float((got[:3] - ref[:3]).abs().max())
+    err_sigma = float((got[3] - ref[3]).abs().max())
+    print(f"fused_mlp_fwd H={hidden} R={R} S={S}: max abs err rgb {err_rgb:.3e} sigma "
+          f"{err_sigma:.3e} (bar atol=rtol={ATOL})")
+    if not torch.allclose(got, ref, atol=ATOL, rtol=RTOL):
+        raise AssertionError(f"kernel disagrees with the plain version at H={hidden} S={S}")
+    return max(err_rgb, err_sigma)
+
+
+def _fwd_bound(model, packed, R: int, S: int) -> tuple[float, str]:
+    """The forward kernel's bound at R rays x S samples: the field's
+    products, against rays and depths read, the output written and the
+    packed weights read once."""
+    nbytes = (R * 24 + R * S * 4 + R * S * 16 + packed.weights.numel() * 2
+              + packed.biases.numel() * 4)
+    return _bound_ms(_field_flops(model) * R * S, nbytes, PEAK_BF16)
+
+
+def _fwd_times(model, packed, o, d, z, card: str) -> dict:
+    """The forward kernel at rays (o, d, z), timed beside its plain version,
+    the library yardstick (the nn.Module at the same points under bf16
+    autocast: cuBLAS tensor-core products layer by layer; the module as it
+    is beside it, f32 products of bf16-rounded operands; the port calls
+    neither for a fused-eligible model) and its bound."""
+    from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+
+    R, S = z.shape
+    ms = _median_ms(lambda: fm.fused_mlp_cuda(packed, o, d, z))
+    plain_ms = _median_ms(lambda: fm.fused_mlp_plain(packed, o, d, z))
+    pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
+    dirs = d[:, None, :].expand(R, S, 3).reshape(-1, 3)
+    with torch.inference_mode():
+        module_ms = _median_ms(lambda: model(pts, dirs))
+        library_ms = _median_ms(_autocast(lambda: model(pts, dirs)))
+    bound_ms, bound_by = _fwd_bound(model, packed, R, S)
+    for name, t in (("kernel", ms), ("plain", plain_ms), ("nn.Module", module_ms),
+                    ("nn.Module bf16 autocast", library_ms), ("bound", bound_ms)):
+        print(f"fused_mlp_fwd {name}: {t:.4f} ms, {R * S / t * 1e3:.4e} points/s "
+              f"at {R}x{S} points, H={model.hidden_size} [{card}]")
+    _rate("fused_mlp_fwd", ms, _field_flops(model) * R * S, bound_ms, bound_by,
+          f"{R}x{S}, H={model.hidden_size}", card)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def h128_kernel_phase(card: str, device) -> dict:
+    """The forward and backward kernels at the width of configs/hard-llff.yml
+    (8x128 FlexibleNeRF, PE 10/4), at its train shapes: 2048 rays x 64
+    coarse and x 128 fine samples. Each shape of the forward is held
+    against its plain version (atol = rtol = 2e-2) and timed
+    (_fwd_times); the backward is held at both shapes and timed at 2048 x
+    128 (bwd_kernel_phase). Returns {"fwd": {S: row}, "bwd": row}."""
+    from nerfmeshes_tpu_torch.models import build_model
+    from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerfmeshes_tpu_torch.train.system import init_params
+
+    cfg = llff_cfg()
+    model = build_model(cfg.models.fine_type, dict(cfg.models.fine),
+                        compute_dtype=torch.bfloat16)
+    if model.hidden_size != 128 or not fm.supports_fused(model):
+        raise AssertionError("hard-llff.yml's field is not an 8x128 fused model")
+    init_params(model, None, torch.Generator().manual_seed(SEED))
+    model.to(device).eval()
+    packed = fm.pack_weights(model)
+    rng = np.random.default_rng(SEED)
+    R = int(cfg.nerf.train.num_random_rays)
+    rows = {}
+    for S in (int(cfg.nerf.train.num_coarse),
+              int(cfg.nerf.train.num_coarse) + int(cfg.nerf.train.num_fine)):
+        o, d, z = _rays(R, S, rng, device)
+        rows[S] = dict(max_abs_err=_fwd_check(packed, o, d, z, model.hidden_size),
+                       shape=f"{R}x{S}", **_fwd_times(model, packed, o, d, z, card))
+    bwd = bwd_kernel_phase(cfg, card, device)
+    bwd.pop("legs_case")
+    return {"fwd": rows, "bwd": dict(bwd, shape=f"{R}x{S}")}
 
 
 def slice_phase(cfg, card: str, device) -> dict:
@@ -746,9 +820,9 @@ def bwd_kernel_phase(cfg, card: str, device) -> dict:
     for name, t in (("kernel", ms), ("plain", plain_ms), ("nn.Module + autograd", module_ms),
                     ("nn.Module + autograd, bf16 autocast", library_ms), ("bound", bound_ms)):
         print(f"fused_mlp_bwd {name}: {t:.4f} ms, {n_pts / t * 1e3:.4e} points/s "
-              f"at {R}x{S} points [{card}]")
-    _rate("fused_mlp_bwd", ms, 3 * _field_flops(model) * n_pts, bound_ms, bound_by, f"{R}x{S}",
-          card)
+              f"at {R}x{S} points, H={model.hidden_size} [{card}]")
+    _rate("fused_mlp_bwd", ms, 3 * _field_flops(model) * n_pts, bound_ms, bound_by,
+          f"{R}x{S}, H={model.hidden_size}", card)
 
     # Its legs, by kernel name, each beside its bound under the stash design.
     # The transpose: the x parts of the dX chain's matrices read and written.
@@ -1426,6 +1500,11 @@ CLI_RUN = ("hard-blender.yml", 500, 1000,
 BUFF_CLI_RUN = ("buff-hard-250k.yml", 400, 600,
                 ["experiment.validate_every", "200", "tree.step_size_integration_offset", "100",
                  "tree.step_size_tree", "100"])
+LLFF_CLI_RUN = ("hard-llff.yml", 500, 1000, ["experiment.validate_every", "250"])
+CLI_RUNS = {"cli": CLI_RUN, "buff_cli": BUFF_CLI_RUN, "llff_cli": LLFF_CLI_RUN}
+# The surface-ray leg of the hierarchical chain: the CLI's 8 x 4 orbit of
+# 400^2 views at the run's own focal (--focal 0).
+SURFACE_VIEWS, SURFACE_SIZE = 8 * 4, 400
 KERNELS = ("fwd", "bwd", "sigma", "chords")
 
 
@@ -1479,10 +1558,12 @@ def cli_chain(name: str, card: str) -> dict:
     for bit), a validation at the last step (the run's logged
     validation/loss bit for bit) and a save, each a leg of its own;
     train_nerf resumed with --log-checkpoint to the second step count,
-    eval_nerf on the test split and mesh_nerf at MESH_RES^3. Each leg's
+    eval_nerf on the test split and mesh_nerf at MESH_RES^3 (not for the
+    forward-facing llff_cli: JAX meshes no NDC field either); for the
+    hierarchical chain, surface_ray's point cloud of the run. Each leg's
     kernel launches equal the counts the code predicts; at most 3 numbered
     checkpoints stay beside `last`; the validation loss is finite and
-    falls; the mesh is not empty."""
+    falls; the mesh and the point cloud are not empty."""
     import tempfile
 
     from nerfmeshes_tpu_torch.cli import eval_nerf, mesh_nerf, train_nerf
@@ -1491,8 +1572,9 @@ def cli_chain(name: str, card: str) -> dict:
     from nerfmeshes_tpu_torch.data.datasets import DatasetType, build_dataset
     from nerfmeshes_tpu_torch.train.factory import build_system
 
-    config, first, second, overrides = CLI_RUN if name == "cli" else BUFF_CLI_RUN
+    config, first, second, overrides = CLI_RUNS[name]
     buff = name == "buff_cli"
+    llff = name == "llff_cli"
     per_chunk = 1 if buff else 2  # forward launches per render chunk
     out = {"legs": {}}
 
@@ -1508,7 +1590,8 @@ def cli_chain(name: str, card: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         opts = ["experiment.logdir", tmp, *overrides]
         if not buff:
-            opts += ["dataset.basedir", str(REPO / "data" / "hard_blender")]
+            scene = "hard_llff" if llff else "hard_blender"
+            opts += ["dataset.basedir", str(REPO / "data" / scene)]
         cfg = load_config(str(REPO / "configs" / config), opts)
         val_views = int(cfg.nerf.validation.num_samples)
         chunk = int(cfg.nerf.validation.chunksize)
@@ -1527,6 +1610,15 @@ def cli_chain(name: str, card: str) -> dict:
             syn = cfg.dataset.synthetic
             val_hw = test_hw = (int(syn.image_size),) * 2
             test_views = max(2, int(syn.num_images) // 4)
+        elif llff:
+            from nerfmeshes_tpu_torch.data.blender_poses import png_size
+
+            if int(cfg.dataset.llff_downsample_factor) != 1:
+                raise AssertionError("llff_cli predicts launches for full-size images only")
+            images = sorted((Path(cfg.dataset.basedir) / "images").iterdir())
+            val_hw = test_hw = png_size(images[0])
+            # Every llff_hold_step-th view is held out; TEST follows validation.
+            test_views = len(range(0, len(images), int(cfg.dataset.llff_hold_step)))
         else:
             from nerfmeshes_tpu_torch.data.blender_poses import read_blender_poses
 
@@ -1595,27 +1687,62 @@ def cli_chain(name: str, card: str) -> dict:
         print(f"{name} eval: {test_views} test views {test_hw[0]}x{test_hw[1]}: psnr "
               f"{result['psnr']:.4f} ssim {result['ssim']:.4f} mse {result['mse']:.6f} [{card}]")
 
-        def mesh():
-            return mesh_nerf.main(["--log-checkpoint", str(run), "--res", str(MESH_RES),
-                                   "--save-dir", str(Path(tmp) / "mesh"),
-                                   "--mesh-name", "mesh.ply"])
+        out.update(train_rays_per_s=train_rps, val_losses=val_losses, eval=result)
+        if not llff:
+            def mesh():
+                return mesh_nerf.main(["--log-checkpoint", str(run), "--res", str(MESH_RES),
+                                       "--save-dir", str(Path(tmp) / "mesh"),
+                                       "--mesh-name", "mesh.ply"])
 
-        # The appearance pass's chunks follow the vertex count.
-        (vertices, triangles, _, _), seconds, got = _leg(mesh)
-        chunks = math.ceil(len(vertices) / APPEARANCE_CHUNK)
-        want = {"fwd": per_chunk * chunks, "chords": chunks if buff else 0, "bwd": 0,
-                "sigma": math.ceil(MESH_RES ** 3 / GRID_TILE)}
-        print(f"{name} mesh: {seconds:.4f} s; {len(vertices)} vertices, {len(triangles)} "
-              f"triangles; launches {got} (predicted {want}) [{card}]")
-        if got != want or len(vertices) == 0 or len(triangles) == 0:
-            raise AssertionError(f"{name} mesh: launches {got} (predicted {want}), "
-                                 f"{len(vertices)} vertices")
-        out["legs"]["mesh"] = dict(seconds=seconds, launches=got)
+            # The appearance pass's chunks follow the vertex count.
+            (vertices, triangles, _, _), seconds, got = _leg(mesh)
+            chunks = math.ceil(len(vertices) / APPEARANCE_CHUNK)
+            want = {"fwd": per_chunk * chunks, "chords": chunks if buff else 0, "bwd": 0,
+                    "sigma": math.ceil(MESH_RES ** 3 / GRID_TILE)}
+            print(f"{name} mesh: {seconds:.4f} s; {len(vertices)} vertices, {len(triangles)} "
+                  f"triangles; launches {got} (predicted {want}) [{card}]")
+            if got != want or len(vertices) == 0 or len(triangles) == 0:
+                raise AssertionError(f"{name} mesh: launches {got} (predicted {want}), "
+                                     f"{len(vertices)} vertices")
+            out["legs"]["mesh"] = dict(seconds=seconds, launches=got)
+            out["vertices"] = len(vertices)
+        if name == "cli":
+            out["surface_points"] = _surface_ray_leg(name, run, Path(tmp), leg, card)
     print(f"{name} legs (s): " + ", ".join(f"{k} {v['seconds']:.4f}" for k, v in out["legs"].items())
           + f"; total {sum(v['seconds'] for v in out['legs'].values()):.4f} [{card}]")
-    out.update(train_rays_per_s=train_rps, val_losses=val_losses, eval=result,
-               vertices=len(vertices))
     return out
+
+
+def _surface_ray_leg(name: str, run: Path, tmp: Path, leg, card: str) -> int:
+    """surface_ray's CLI on the chain's run: the default 8 x 4 orbit of
+    SURFACE_SIZE^2 views at the run's own focal, 2 forward launches per
+    validation chunk of every view. The PLY reads back with the CLI's
+    points, which are finite, at least one, with unit normals and colours
+    in [0, 1]. Returns the point count."""
+    from nerfmeshes_tpu_torch.cli import surface_ray
+    from nerfmeshes_tpu_torch.config.paths import load_hparams
+    from nerfmeshes_tpu_torch.mesh.export import read_ply_binary
+
+    chunk = int(load_hparams(run).nerf.validation.chunksize)
+    path = tmp / "surface" / "points.ply"
+    points, normals, colors = leg(
+        "surface_ray",
+        lambda: surface_ray.main(["--log-checkpoint", str(run), "--img-size", str(SURFACE_SIZE),
+                                  "--focal", "0", "--save-path", str(path)]),
+        {"fwd": 2 * SURFACE_VIEWS * math.ceil(SURFACE_SIZE ** 2 / chunk)})
+    back, _, back_normals, back_colors = read_ply_binary(str(path))
+    lengths = np.linalg.norm(back_normals, axis=1) if len(back) else np.ones(1)
+    print(f"{name} surface_ray: {len(points)} points from {SURFACE_VIEWS} views "
+          f"{SURFACE_SIZE}x{SURFACE_SIZE}; normal lengths in [{lengths.min():.6f}, "
+          f"{lengths.max():.6f}] [{card}]")
+    if len(points) == 0 or not np.array_equal(back, points):
+        raise AssertionError(f"{name} surface_ray: {len(points)} points, the PLY holds "
+                             f"{len(back)}")
+    if not (np.isfinite(back).all() and np.abs(lengths - 1.0).max() < 1e-3):
+        raise AssertionError(f"{name} surface_ray: non-finite points or normals off unit length")
+    if not np.array_equal(back_colors, np.round(colors * 255.0).astype(np.uint8)):
+        raise AssertionError(f"{name} surface_ray: the PLY's colours differ from the CLI's")
+    return len(points)
 
 
 def profile_buff(card: str, device, steps: int = 5) -> None:
@@ -1887,7 +2014,8 @@ def main(argv=None) -> int:
     buff_mesh = buff_mesh_phase(buff_system, card)
     del buff_system
     bkern["legs"] = legs_phase(bkern, card)
-    chains = {name: cli_chain(name, card) for name in ("cli", "buff_cli")}
+    h128 = h128_kernel_phase(card, device)
+    chains = {name: cli_chain(name, card) for name in CLI_RUNS}
     cli = {k: {f"{name}_{leg}": info["launches"][k] for name, chain in chains.items()
                for leg, info in chain["legs"].items() if info["launches"][k]}
            for k in KERNELS}
@@ -1902,16 +2030,35 @@ def main(argv=None) -> int:
                 "ms": phase["ms"], "plain_ms": phase["plain_ms"], "bound_ms": phase["bound_ms"],
                 "bound_by": phase["bound_by"], "library_ms": phase["library_ms"], **extra}
 
+    # The H = 128 rows: the same kernels at hard-llff.yml's width; their
+    # launches are the llff chain's, every train step and render chunk one
+    # coarse (S = 64) and one fine (S = 128) launch.
+    llff_fwd = {k: v for k, v in cli["fwd"].items() if k.startswith("llff_cli_")}
+    llff_bwd = {k: v for k, v in cli["bwd"].items() if k.startswith("llff_cli_")}
+    coarse, fine = sorted(h128["fwd"])
+    h128_rows = [
+        entry(f"fused_mlp_fwd H=128 S={S}", "fused_mlp_fwd.cu",
+              "nerfmeshes_tpu/ops/pallas/fused_mlp.py:387", h128["fwd"][S],
+              {k: v // 2 for k, v in llff_fwd.items()}, shape=h128["fwd"][S]["shape"],
+              hidden=128)
+        for S in (coarse, fine)]
+    h128_rows.append(entry("fused_mlp_bwd H=128", "fused_mlp_bwd.cu",
+                           "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397", h128["bwd"], llff_bwd,
+                           shape=h128["bwd"]["shape"], hidden=128,
+                           max_rel_err=h128["bwd"]["max_rel_err"]))
+
     print(json.dumps({"kernels": [
         entry("fused_mlp_fwd", "fused_mlp_fwd.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:387", kern,
               {"render": render["launches"], "train": train["fwd_launches"],
                "mesh": mesh["fwd_launches"], "buff_train": buff["fwd_launches"],
                "buff_render": buff_render["fwd_launches"], "buff_mesh": buff_mesh["fwd_launches"],
                **cli["fwd"]},
-              chunk_ms=kern["chunk_ms"], chunk_bound_ms=kern["chunk_bound_ms"]),
+              chunk_ms=kern["chunk_ms"], chunk_bound_ms=kern["chunk_bound_ms"],
+              shape="2048x192", hidden=256),
         entry("fused_mlp_bwd", "fused_mlp_bwd.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397", bkern,
               {"train": train["bwd_launches"], "buff_train": buff["bwd_launches"], **cli["bwd"]},
-              max_rel_err=bkern["max_rel_err"], legs=bkern["legs"]),
+              max_rel_err=bkern["max_rel_err"], legs=bkern["legs"], shape="2048x192",
+              hidden=256),
         entry("fused_sigma", "fused_sigma.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:675", skern,
               {"mesh": mesh["sigma_launches"], "buff_mesh": buff_mesh["sigma_launches"],
                **cli["sigma"]}),
@@ -1924,6 +2071,7 @@ def main(argv=None) -> int:
               chunk_ms=ckern["chunk_ms"], chunk_b2b_ms=ckern["chunk_b2b_ms"],
               chunk_plain_ms=ckern["chunk_plain_ms"],
               chunk_bound_ms=ckern["chunk_bound_ms"]),
+        *h128_rows,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

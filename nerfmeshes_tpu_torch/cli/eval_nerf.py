@@ -1,7 +1,8 @@
 """Evaluation CLI (counterpart of nerfmeshes_tpu/cli/eval_nerf.py, the same
-flags plus --device): renders the test split (or 120 synthesized orbit
-views), prints per-view and dataset MSE/PSNR/SSIM, and optionally saves
-rgb, target and disparity PNGs. The metrics are computed on the device;
+flags plus --device): renders the test split (or 120 synthesized views:
+the Blender orbit, or a COLMAP scene's own render path), prints per-view
+and dataset MSE/PSNR/SSIM, and optionally saves rgb, target and disparity
+PNGs (disparity only beside the rgb ones, as JAX writes them). The metrics are computed on the device;
 two scalars come to the host per view.
 
     python -m nerfmeshes_tpu_torch.cli.eval_nerf --log-checkpoint logs/.../version_0
@@ -99,10 +100,12 @@ def main(argv=None) -> dict:
             if target is not None:
                 tgt = (target.reshape(H, W, 3).clamp(0.0, 1.0) * 255).to(torch.uint8)
                 write_png(save_dir / f"{idx:04d}_target.png", tgt.cpu().numpy())
-        if save_dir and args.save_disparity:
-            disp = out.disp_map.reshape(H, W).cpu().numpy()
-            write_png(save_dir / f"{idx:04d}_disparity.png",
-                      cast_to_disparity_image(disp, cfg.dataset.white_background))
+            # Disparity rides with the rgb PNGs, as in JAX: --save-disparity
+            # alone writes nothing.
+            if args.save_disparity:
+                disp = out.disp_map.reshape(H, W).cpu().numpy()
+                write_png(save_dir / f"{idx:04d}_disparity.png",
+                          cast_to_disparity_image(disp, cfg.dataset.white_background))
 
     if not mses:
         return {}

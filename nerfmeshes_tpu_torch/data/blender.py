@@ -9,8 +9,10 @@ by anti-diagonals: every byte of one diagonal depends only on earlier
 diagonals, and all images of one size, all channels and all bytes of a
 diagonal decode in one vectorised step.
 
-`write_png` encodes 8-bit grey, RGB or RGBA (filter 0 on every row), for
-the logger's validation images and the eval CLI's renders.
+`read_images` is what the LLFF and COLMAP loaders read through: PNGs
+only, a JPEG refused by name. `write_png` encodes 8-bit grey, RGB or RGBA
+(filter 0 on every row), for the logger's validation images, the eval
+CLI's renders and the LLFF `images_{factor}/` cache.
 
 Targets are f32 / 255, box-downscaled by `reduced_resolution` (the JAX
 loader's cv2 INTER_AREA at an integer factor) and then composited on a
@@ -108,6 +110,22 @@ def read_pngs(paths) -> list[np.ndarray]:
         for n, img in zip(idx, pixels):
             out[n] = img
     return out
+
+
+_JPEG_SUFFIXES = (".jpg", ".jpeg")
+
+
+def read_images(paths) -> list[np.ndarray]:
+    """The images at `paths` as (H, W, C) uint8 arrays: PNGs through
+    read_pngs. A JPEG raises NotImplementedError: the GPU host has no JPEG
+    decoder, and nothing falls back."""
+    paths = [Path(p) for p in paths]
+    for path in paths:
+        if path.suffix.lower() in _JPEG_SUFFIXES:
+            raise NotImplementedError(
+                f"{path}: JPEG decoding is not ported (queued in ROADMAP.md); convert the "
+                "images to PNG")
+    return read_pngs(paths)
 
 
 def _png_chunk(kind: bytes, body: bytes) -> bytes:

@@ -9,7 +9,9 @@ its targets on the device and keeps them there (the synthetic scenes'
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Mapping, Optional
+
+import numpy as np
 
 Array = Any  # np.ndarray | torch.Tensor
 
@@ -37,3 +39,18 @@ class DataBundle:
             f.name: getattr(self, f.name) if f.name in ("ray_bounds", "hwf")
             or getattr(self, f.name) is None else getattr(self, f.name)[index]
             for f in dataclasses.fields(self)})
+
+    # -- the split cache's npz ----------------------------------------------------
+    def serialize(self) -> dict:
+        """The fields that are set, as host arrays under JAX's npz keys."""
+        return {f.name: np.asarray(v.cpu() if hasattr(v, "cpu") else v)
+                for f in dataclasses.fields(self)
+                if (v := getattr(self, f.name)) is not None}
+
+    @classmethod
+    def deserialize(cls, data: Mapping) -> "DataBundle":
+        """A bundle from serialize()'s keys (an npz either stack wrote). JAX
+        may also have stored target_normals, which nothing reads: it is left
+        behind."""
+        return cls(**{f.name: np.asarray(data[f.name]) if f.name in data else None
+                      for f in dataclasses.fields(cls)})

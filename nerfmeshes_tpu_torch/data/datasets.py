@@ -6,12 +6,17 @@ The whole split lives on the device: the train step samples its rays from
 rays made on the device (`image_rays`) against targets taken there
 (`image_targets`), so no image's rays cross the host.
 
-Not ported (ROADMAP.md): the LLFF/COLMAP and ScanNet datasets and the npz
-cache of `dataset.caching`; each raises NotImplementedError.
+With `dataset.caching.use_caching` a split's bundle is kept in
+`{cache_dir}/{split}.npz` under JAX's keys, so either stack reads a cache
+the other wrote; `override_caching` reloads and rewrites it.
+
+Not ported (ROADMAP.md): the ScanNet dataset, which raises
+NotImplementedError.
 """
 
 from __future__ import annotations
 
+import os
 from enum import Enum
 from pathlib import Path
 from typing import Optional
@@ -46,10 +51,16 @@ class RayDataset:
         self.type = type
         self.device = resolve_device(device)
         self.synthetic_poses: Optional[np.ndarray] = None
-        if cfg.dataset.caching.use_caching:
-            raise NotImplementedError(
-                "dataset.caching (the npz split cache) is not ported; queued in ROADMAP.md")
-        bundle = self.load_dataset()
+        cache_cfg = cfg.dataset.caching
+        cache_path = Path(cache_cfg.cache_dir) / f"{type.value}.npz"
+        if cache_cfg.use_caching and cache_path.exists() and not cache_cfg.override_caching:
+            with np.load(cache_path, allow_pickle=False) as data:
+                bundle = DataBundle.deserialize(data)
+        else:
+            bundle = self.load_dataset()
+            if cache_cfg.use_caching:
+                os.makedirs(cache_path.parent, exist_ok=True)
+                np.savez(cache_path, **bundle.serialize())
         if bundle.ray_bounds is None:
             bundle.ray_bounds = np.array([cfg.dataset.near, cfg.dataset.far], dtype=np.float32)
         self.bundle = bundle
@@ -204,8 +215,11 @@ def build_dataset(cfg, type: DatasetType, device=None) -> RayDataset:
         return BlenderDataset(cfg, type, device)
     if kind == "synthetic":
         return SyntheticDataset(cfg, type, device=device)
-    if kind in ("colmap", "scannet"):
+    if kind == "colmap":
+        from nerfmeshes_tpu_torch.data.colmap_dataset import ColmapDataset
+
+        return ColmapDataset(cfg, type, device)
+    if kind == "scannet":
         raise NotImplementedError(
-            f"dataset type {kind!r} is not ported yet (LLFF/COLMAP and ScanNet are queued "
-            "in ROADMAP.md)")
+            "dataset type 'scannet' is not ported yet (ScanNet is queued in ROADMAP.md)")
     raise ValueError(f"Unknown dataset type {kind!r}")

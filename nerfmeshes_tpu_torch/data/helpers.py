@@ -45,13 +45,21 @@ def synthesis_poses(step: float = 3.0, phi: float = -30.0, radius: float = 4.0) 
 
 def resize_image(img: np.ndarray, new_hw: tuple[int, int]) -> np.ndarray:
     """(H, W, ...) -> new_hw by the mean of each factor x factor box: what
-    the JAX loader's cv2 INTER_AREA resize computes at an integer factor
-    (the GPU host has no cv2). Other sizes raise."""
+    the JAX loaders' cv2 INTER_AREA resize computes at an integer factor
+    (the GPU host has no cv2). Other sizes raise. A float image gives its
+    f32 mean; a uint8 image its integer mean rounded as cv2 rounds uint8:
+    half up at factor 2 (its vector path), half to even otherwise."""
     H, W = img.shape[:2]
     h, w = new_hw
     if h == 0 or w == 0 or H % h or W % w or H // h != W // w:
         raise NotImplementedError(
             f"resize {H}x{W} -> {h}x{w}: only an integer downscale of both sides by one "
-            "factor (reduced_resolution dividing the image size) is ported")
+            "factor is ported (fractional INTER_AREA is queued in ROADMAP.md)")
     f = H // h
-    return img.reshape(h, f, w, f, *img.shape[2:]).mean(axis=(1, 3), dtype=np.float32)
+    boxes = img.reshape(h, f, w, f, *img.shape[2:])
+    if img.dtype != np.uint8:
+        return boxes.mean(axis=(1, 3), dtype=np.float32)
+    total = boxes.sum(axis=(1, 3), dtype=np.int64)
+    area = f * f
+    mean = (total + area // 2) // area if f == 2 else np.rint(total / area)
+    return mean.astype(np.uint8)

@@ -1,5 +1,5 @@
-"""Mesh extraction with appearance (counterpart of nerfmeshes_tpu/mesh/,
-without surface_ray, which is queued in ROADMAP.md)."""
+"""Mesh extraction with appearance, and surface point clouds by ray
+casting (counterpart of nerfmeshes_tpu/mesh/)."""
 
 from nerfmeshes_tpu_torch.mesh.export import export_obj, export_ply, import_obj
 from nerfmeshes_tpu_torch.mesh.extract import (
@@ -18,6 +18,11 @@ from nerfmeshes_tpu_torch.mesh.metrics import (
     sample_points_from_mesh,
 )
 from nerfmeshes_tpu_torch.mesh.native import marching_cubes
+from nerfmeshes_tpu_torch.mesh.surface_ray import (
+    export_surface_ray,
+    neighborhood_consistency_mask,
+    surface_points_from_views,
+)
 
 __all__ = [
     "MeshArgs",
@@ -35,4 +40,7 @@ __all__ = [
     "normalize_mesh",
     "sample_points_from_mesh",
     "marching_cubes",
+    "export_surface_ray",
+    "neighborhood_consistency_mask",
+    "surface_points_from_views",
 ]

@@ -7,7 +7,9 @@ configs/tiny.yml with --device cpu, against the JAX package's CLIs.
 - a run resumed with --log-checkpoint reaches the uninterrupted run's
   parameters, optimizer state and generator bit for bit;
 - eval prints JAX's eval lines (per view and the dataset), number for
-  number in format; mesh writes the mesh and the phases line;
+  number in format, and writes the files JAX's eval writes for each
+  combination of --save-images and --save-disparity; mesh writes the mesh
+  and the phases line;
 - the flags the port refuses (--gpus 2, --synthesis-video) say why, and
   without --device the CLIs need the card.
 """
@@ -95,6 +97,30 @@ def test_train_resume_eval_mesh(tmp_path, jax_run, capsys):
     out = capsys.readouterr().out
     assert f"Extracted {len(vertices)} vertices" in out and "phases: " in out
     assert (tmp_path / "mesh" / "mesh.obj").exists()
+
+
+@pytest.fixture(scope="module")
+def port_run(tmp_path_factory):
+    """The port's tiny run at JAX's settings (10 steps)."""
+    root = tmp_path_factory.mktemp("port")
+    train_nerf.main(["--config", TINY, "--device", "cpu", "--override", "experiment.logdir",
+                     str(root), "experiment.train_iters", "10", "experiment.validate_every",
+                     "10"])
+    return root / "tiny" / "default" / "version_0"
+
+
+@pytest.mark.parametrize("flags", [["--save-disparity"], ["--save-images"],
+                                   ["--save-images", "--save-disparity"], []])
+def test_eval_writes_the_files_jax_writes(tmp_path, jax_run, port_run, flags):
+    """Disparity PNGs come only with the rgb ones: --save-disparity alone
+    writes nothing, in both stacks."""
+    j_eval.main(["--log-checkpoint", str(jax_run), "--save-dir", str(tmp_path / "jax"), *flags])
+    eval_nerf.main(["--log-checkpoint", str(port_run), "--device", "cpu",
+                    "--save-dir", str(tmp_path / "port"), *flags])
+    got = sorted(p.name for p in (tmp_path / "port").iterdir())
+    assert got == sorted(p.name for p in (tmp_path / "jax").iterdir())
+    if "--save-images" not in flags:
+        assert got == []
 
 
 def test_refused_flags_say_why(tmp_path, monkeypatch):

@@ -39,6 +39,10 @@ def test_every_port_module_imports_without_jax():
             "nerfmeshes_tpu_torch.data.datasets", "nerfmeshes_tpu_torch.data.synthetic",
             "nerfmeshes_tpu_torch.cli.train_nerf", "nerfmeshes_tpu_torch.cli.eval_nerf",
             "nerfmeshes_tpu_torch.cli.mesh_nerf"} <= set(modules)
+    assert {"nerfmeshes_tpu_torch.data.loaders", "nerfmeshes_tpu_torch.data.loaders.llff",
+            "nerfmeshes_tpu_torch.data.loaders.colmap", "nerfmeshes_tpu_torch.data.colmap_dataset",
+            "nerfmeshes_tpu_torch.cli.colmap_convert", "nerfmeshes_tpu_torch.cli.surface_ray",
+            "nerfmeshes_tpu_torch.mesh.surface_ray"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
