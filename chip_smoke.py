@@ -8,9 +8,10 @@
     python3 chip_smoke.py --profile-render             # the hierarchical render profile only
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, in
-parallel) and the native mesh library (g++), checks each kernel against
-its plain PyTorch version on the card at the shapes of the render, train
-and mesh paths, then drives the hierarchical paths and the BuFF ones:
+parallel), the native mesh library and the JPEG decoder (g++), checks
+each kernel against its plain PyTorch version on the card at the shapes
+of the render, train and mesh paths, then drives the hierarchical paths
+and the BuFF ones:
 
 - render: a NeRFSystem at the lego architecture of get_default_cfg()
   (2 x 8x256 FlexibleNeRF MLPs, 64+128 samples, chunk 2048, bf16, fused
@@ -79,6 +80,16 @@ and mesh paths, then drives the hierarchical paths and the BuFF ones:
   COLMAP bounds, two 8x128 fields through the fused kernels): train 500
   steps validating every 250, the restore check, resume to 1000, eval of
   the 3 held-out views; no mesh (JAX meshes no NDC field either).
+- JPEG (jpeg_phase): the port's decoder, built with g++, decodes the 14
+  1296x968 4:2:0 frames of data/hard_scannet/scene.sens; every frame's
+  pixels hash to data/hard_scannet/digests.json (PIL's decode where the
+  stream was written); ms per frame and MB/s are host times.
+- the ScanNet-layout chain (scannet_cli): configs/hard-blender.yml's 2 x
+  8x256 fields on that stream (dataset.type scannet): +z rays from an
+  off-centre principal point, unnormalised directions, depth targets,
+  1296x968 views (20 validation chunks of 65,536 rays, 40 forward
+  launches a view); train 500 steps validating every 250, the restore
+  check, resume to 1000, eval of the 2 test frames, mesh 480^3.
 
 Prints, on lines of their own: the card's name and power limit as
 nvidia-smi reports them, the build time, per-kernel error, times, bound
@@ -1501,7 +1512,14 @@ BUFF_CLI_RUN = ("buff-hard-250k.yml", 400, 600,
                 ["experiment.validate_every", "200", "tree.step_size_integration_offset", "100",
                  "tree.step_size_tree", "100"])
 LLFF_CLI_RUN = ("hard-llff.yml", 500, 1000, ["experiment.validate_every", "250"])
-CLI_RUNS = {"cli": CLI_RUN, "buff_cli": BUFF_CLI_RUN, "llff_cli": LLFF_CLI_RUN}
+# hard-blender.yml's 2 x 8x256 fields on ScanNet's camera layout: the
+# data/hard_scannet stream (1296x968 JPEG frames, +z rays from an
+# off-centre principal point, unnormalised directions).
+SCANNET = REPO / "data" / "hard_scannet"
+SCANNET_CLI_RUN = ("hard-blender.yml", 500, 1000,
+                   ["experiment.validate_every", "250", "dataset.type", "scannet"])
+CLI_RUNS = {"cli": CLI_RUN, "buff_cli": BUFF_CLI_RUN, "llff_cli": LLFF_CLI_RUN,
+            "scannet_cli": SCANNET_CLI_RUN}
 # The surface-ray leg of the hierarchical chain: the CLI's 8 x 4 orbit of
 # 400^2 views at the run's own focal (--focal 0).
 SURFACE_VIEWS, SURFACE_SIZE = 8 * 4, 400
@@ -1575,6 +1593,7 @@ def cli_chain(name: str, card: str) -> dict:
     config, first, second, overrides = CLI_RUNS[name]
     buff = name == "buff_cli"
     llff = name == "llff_cli"
+    scannet = name == "scannet_cli"
     per_chunk = 1 if buff else 2  # forward launches per render chunk
     out = {"legs": {}}
 
@@ -1589,7 +1608,9 @@ def cli_chain(name: str, card: str) -> dict:
 
     with tempfile.TemporaryDirectory() as tmp:
         opts = ["experiment.logdir", tmp, *overrides]
-        if not buff:
+        if scannet:
+            opts += ["dataset.basedir", str(SCANNET / "scene.sens")]
+        elif not buff:
             scene = "hard_llff" if llff else "hard_blender"
             opts += ["dataset.basedir", str(REPO / "data" / scene)]
         cfg = load_config(str(REPO / "configs" / config), opts)
@@ -1619,6 +1640,15 @@ def cli_chain(name: str, card: str) -> dict:
             val_hw = test_hw = png_size(images[0])
             # Every llff_hold_step-th view is held out; TEST follows validation.
             test_views = len(range(0, len(images), int(cfg.dataset.llff_hold_step)))
+        elif scannet:
+            from nerfmeshes_tpu_torch.data.loaders.scannet import SensorData
+
+            sens = SensorData(cfg.dataset.basedir)
+            val_hw = test_hw = (sens.color_height, sens.color_width)
+            # TEST: every 8th frame from frame 2, those with a finite pose.
+            test_views = sum(1 for i in range(2, len(sens.frames), 8)
+                             if np.isfinite(sens.frames[i].camera_to_world).all())
+            del sens
         else:
             from nerfmeshes_tpu_torch.data.blender_poses import read_blender_poses
 
@@ -1711,6 +1741,44 @@ def cli_chain(name: str, card: str) -> dict:
     print(f"{name} legs (s): " + ", ".join(f"{k} {v['seconds']:.4f}" for k, v in out["legs"].items())
           + f"; total {sum(v['seconds'] for v in out['legs'].values()):.4f} [{card}]")
     return out
+
+
+def jpeg_phase(card: str) -> dict:
+    """The port's JPEG decoder (host C++, built with this host's g++) on
+    every colour frame of data/hard_scannet/scene.sens: 1296x968 baseline
+    4:2:0, as ScanNet stores its frames. Each frame's pixels must hash to
+    digests.json's sha256 (PIL's decode where the stream was written; this
+    host has no other decoder). Times are host times: ms per frame (median
+    of 5 decodes of each frame) and MB/s of JPEG read."""
+    import hashlib
+
+    from nerfmeshes_tpu_torch.data.jpeg import decode_jpeg
+    from nerfmeshes_tpu_torch.data.loaders.scannet import SensorData
+
+    sens = SensorData(str(SCANNET / "scene.sens"))
+    digests = json.loads((SCANNET / "digests.json").read_text())["frames"]
+    if len(digests) != len(sens.frames):
+        raise AssertionError(f"jpeg: {len(sens.frames)} frames, {len(digests)} digests")
+    ms, nbytes = [], 0
+    for frame, want in zip(sens.frames, digests):
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            pixels = decode_jpeg(frame.color_data, f"frame {want['frame']}")
+            runs.append(time.perf_counter() - t0)
+        digest = hashlib.sha256(pixels.tobytes()).hexdigest()
+        if list(pixels.shape) != want["shape"] or digest != want["sha256"]:
+            raise AssertionError(f"jpeg: frame {want['frame']} {pixels.shape} sha256 {digest}, "
+                                 f"digests.json {want['shape']} {want['sha256']}")
+        ms.append(1e3 * statistics.median(runs))
+        nbytes += len(frame.color_data)
+    per_frame = statistics.median(ms)
+    rate = nbytes / (sum(ms) / 1e3) / 1e6
+    H, W = sens.color_height, sens.color_width
+    print(f"jpeg: {len(ms)} frames {W}x{H} 4:2:0, digests equal digests.json; host decode "
+          f"{per_frame:.4f} ms per frame (median; range {min(ms):.4f}-{max(ms):.4f}), "
+          f"{rate:.4f} MB/s of JPEG, {H * W / per_frame / 1e3:.4f} Mpixel/s [{card}]")
+    return {"frames": len(ms), "ms_per_frame": per_frame, "mb_per_s": rate}
 
 
 def _surface_ray_leg(name: str, run: Path, tmp: Path, leg, card: str) -> int:
@@ -1962,6 +2030,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
     from nerfmeshes_tpu_torch.config import get_default_cfg
+    from nerfmeshes_tpu_torch.data import jpeg
     from nerfmeshes_tpu_torch.mesh import native
     from nerfmeshes_tpu_torch.ops.kernels import build
 
@@ -1985,6 +2054,9 @@ def main(argv=None) -> int:
     native.get_lib()
     print(f"native mesh library (g++): {time.perf_counter() - t0:.2f} s -> "
           f"{native.library_path().name}")
+    t0 = time.perf_counter()
+    jpeg.get_lib()
+    print(f"JPEG decoder (g++): {time.perf_counter() - t0:.2f} s -> {jpeg.library_path().name}")
     if opts.profile_mesh is not None:
         profile_mesh(card, device, opts.profile_mesh or [MESH_TRAIN_STEPS])
         return 0
@@ -2015,6 +2087,7 @@ def main(argv=None) -> int:
     del buff_system
     bkern["legs"] = legs_phase(bkern, card)
     h128 = h128_kernel_phase(card, device)
+    jpeg_phase(card)
     chains = {name: cli_chain(name, card) for name in CLI_RUNS}
     cli = {k: {f"{name}_{leg}": info["launches"][k] for name, chain in chains.items()
                for leg, info in chain["legs"].items() if info["launches"][k]}

@@ -30,6 +30,7 @@ from nerfmeshes_tpu_torch.buff.tree import (
 from nerfmeshes_tpu_torch.config.paths import save_hparams
 from nerfmeshes_tpu_torch.ops.kernels.chords import compact_chords
 from nerfmeshes_tpu_torch.ops.math import img2mse, mse2psnr
+from nerfmeshes_tpu_torch.ops.rays import CameraIntrinsics
 from nerfmeshes_tpu_torch.ops.render import volume_render
 from nerfmeshes_tpu_torch.ops.sampling import ray_sample_interval
 from nerfmeshes_tpu_torch.train.render import RenderSettings, _apply_field
@@ -111,9 +112,11 @@ def buff_train_loss(cfg, model, tree_state: TreeState, origins, directions, targ
 
 
 def make_buff_train_step(cfg, *, H: int, W: int, focal: float,
-                         steps_per_call: Optional[int] = None):
+                         steps_per_call: Optional[int] = None,
+                         intrinsics: Optional[CameraIntrinsics] = None):
     """fn(state, tree_state, data) -> (state, tree_state, metrics):
-    `steps_per_call` steps of sample rays -> tree-sampled render -> MSE ->
+    `steps_per_call` steps of sample rays (under `intrinsics`; None:
+    CameraIntrinsics.from_hwf) -> tree-sampled render -> MSE ->
     Adam, each followed, from step step_size_integration_offset on, by the
     integration of its weights into the tree. Metrics are the last step's,
     except train/dropped_chords, summed over the call's steps (a cap that
@@ -130,7 +133,7 @@ def make_buff_train_step(cfg, *, H: int, W: int, focal: float,
     def one_step(state: TrainState, tree_state: TreeState, data: dict):
         origins, directions, targets, near, far, depth_tgt = _sample_ray_batch(
             data, state.generator, H=H, W=W, focal=focal, num_rays=num_rays,
-            use_ndc=use_ndc, sample_all_images=sample_all)
+            use_ndc=use_ndc, intrinsics=intrinsics, sample_all_images=sample_all)
         loss, metrics, aux = buff_train_loss(
             cfg, state.coarse, tree_state, origins, directions, targets, near, far, depth_tgt,
             generator=state.generator, settings=settings, max_chords=max_chords)
@@ -199,7 +202,8 @@ class BuFFSystem(NeRFSystem):
 
     def _build_train_fn(self) -> None:
         H, W, focal = self._hwf
-        buff_fn = make_buff_train_step(self.cfg, H=int(H), W=int(W), focal=float(focal))
+        buff_fn = make_buff_train_step(self.cfg, H=int(H), W=int(W), focal=float(focal),
+                                       intrinsics=self._intrinsics)
 
         def train_fn(state, data):
             state, self.tree_state, metrics = buff_fn(state, self.tree_state, data)

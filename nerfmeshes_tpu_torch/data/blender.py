@@ -10,9 +10,11 @@ diagonals, and all images of one size, all channels and all bytes of a
 diagonal decode in one vectorised step.
 
 `read_images` is what the LLFF and COLMAP loaders read through: PNGs
-only, a JPEG refused by name. `write_png` encodes 8-bit grey, RGB or RGBA
+here, JPEGs (`.jpg` / `.jpeg`, any case) through the port's baseline
+decoder, `data/jpeg.py`. `write_png` encodes 8-bit grey, RGB or RGBA
 (filter 0 on every row), for the logger's validation images, the eval
-CLI's renders and the LLFF `images_{factor}/` cache.
+CLI's renders and the LLFF `images_{factor}/` cache, and 16-bit grey, for
+ScanNet's depth exporter.
 
 Targets are f32 / 255, box-downscaled by `reduced_resolution` (the JAX
 loader's cv2 INTER_AREA at an integer factor) and then composited on a
@@ -34,6 +36,7 @@ import numpy as np
 from nerfmeshes_tpu_torch.data.blender_poses import _PNG_SIGNATURE, read_blender_poses
 from nerfmeshes_tpu_torch.data.bundle import DataBundle
 from nerfmeshes_tpu_torch.data.helpers import resize_image
+from nerfmeshes_tpu_torch.data.jpeg import JPEG_SUFFIXES, read_jpeg
 
 _CHANNELS = {2: 3, 6: 4}  # PNG colour type -> channels (RGB, RGBA)
 
@@ -90,17 +93,26 @@ def _unfilter(filters: np.ndarray, raw: np.ndarray) -> np.ndarray:
     return x[:, 1:, 1:].astype(np.uint8)
 
 
+def _png_rows(data: bytes, name) -> tuple[tuple[int, int, int], np.ndarray]:
+    """((H, W, C), the (H, 1 + W * C) filtered rows) of one PNG."""
+    header, payload = _png_chunks(data, name)
+    H, W, C = header
+    rows = np.frombuffer(zlib.decompress(payload), np.uint8)
+    if rows.size != H * (1 + W * C):
+        raise ValueError(f"{name}: {rows.size} bytes of image data for {H}x{W}x{C}")
+    return header, rows.reshape(H, 1 + W * C)
+
+
+def decode_png(data: bytes, name: str = "bytes") -> np.ndarray:
+    """One PNG's bytes -> (H, W, C) uint8, as read_pngs decodes a file."""
+    (H, W, C), rows = _png_rows(data, name)
+    return _unfilter(rows[None, :, 0], rows[None, :, 1:].reshape(1, H, W, C))[0]
+
+
 def read_pngs(paths) -> list[np.ndarray]:
     """Decode PNGs to (H, W, C) uint8 arrays, C = 3 (RGB) or 4 (RGBA).
     Images of one size and channel count decode together."""
-    parsed = []
-    for path in paths:
-        header, payload = _png_chunks(Path(path).read_bytes(), path)
-        H, W, C = header
-        rows = np.frombuffer(zlib.decompress(payload), np.uint8)
-        if rows.size != H * (1 + W * C):
-            raise ValueError(f"{path}: {rows.size} bytes of image data for {H}x{W}x{C}")
-        parsed.append((header, rows.reshape(H, 1 + W * C)))
+    parsed = [_png_rows(Path(path).read_bytes(), path) for path in paths]
     out: list = [None] * len(parsed)
     for header in {h for h, _ in parsed}:
         idx = [n for n, (h, _) in enumerate(parsed) if h == header]
@@ -112,20 +124,14 @@ def read_pngs(paths) -> list[np.ndarray]:
     return out
 
 
-_JPEG_SUFFIXES = (".jpg", ".jpeg")
-
-
 def read_images(paths) -> list[np.ndarray]:
-    """The images at `paths` as (H, W, C) uint8 arrays: PNGs through
-    read_pngs. A JPEG raises NotImplementedError: the GPU host has no JPEG
-    decoder, and nothing falls back."""
+    """The images at `paths` as (H, W, C) uint8 arrays (a grey JPEG as
+    (H, W)): JPEGs through data/jpeg.py:read_jpeg, the rest through
+    read_pngs."""
     paths = [Path(p) for p in paths]
-    for path in paths:
-        if path.suffix.lower() in _JPEG_SUFFIXES:
-            raise NotImplementedError(
-                f"{path}: JPEG decoding is not ported (queued in ROADMAP.md); convert the "
-                "images to PNG")
-    return read_pngs(paths)
+    is_jpeg = [p.suffix.lower() in JPEG_SUFFIXES for p in paths]
+    pngs = iter(read_pngs([p for p, j in zip(paths, is_jpeg) if not j]))
+    return [read_jpeg(p) if j else next(pngs) for p, j in zip(paths, is_jpeg)]
 
 
 def _png_chunk(kind: bytes, body: bytes) -> bytes:
@@ -133,18 +139,22 @@ def _png_chunk(kind: bytes, body: bytes) -> bytes:
 
 
 def write_png(path, image: np.ndarray) -> None:
-    """Encode a (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA uint8 image."""
+    """Encode a (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA uint8 image,
+    or a (H, W) uint16 one as 16-bit grey (big-endian samples, as imageio
+    writes a uint16 array)."""
     img = np.asarray(image)
-    if img.dtype != np.uint8:
-        raise ValueError(f"write_png takes uint8 pixels, got {img.dtype}")
+    if not (img.dtype == np.uint8 or (img.dtype == np.uint16 and img.ndim == 2)):
+        raise ValueError(f"write_png takes uint8 pixels or (H, W) uint16, got {img.dtype} "
+                         f"{img.shape}")
     if img.ndim == 2:
         img = img[..., None]
     H, W, C = img.shape
     colour = {1: 0, 3: 2, 4: 6}[C]
-    rows = np.concatenate([np.zeros((H, 1), np.uint8), img.reshape(H, W * C)], axis=1)
+    samples = img.astype(">u2").view(np.uint8) if img.dtype == np.uint16 else img
+    rows = np.concatenate([np.zeros((H, 1), np.uint8), samples.reshape(H, -1)], axis=1)
     Path(path).write_bytes(
         _PNG_SIGNATURE
-        + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, colour, 0, 0, 0))
+        + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8 * img.itemsize, colour, 0, 0, 0))
         + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
         + _png_chunk(b"IEND", b""))
 

@@ -66,7 +66,7 @@ class ColmapDataset(RayDataset):
 
 class GeneralColmapDataset(RayDataset):
     """Rays straight from a COLMAP sparse reconstruction (sparse/0); its
-    images are read from images/ by name (PNG only), and images without a
+    images are read from images/ by name (PNG or JPEG), and images without a
     file are skipped."""
 
     def __init__(self, cfg, type: DatasetType = DatasetType.TRAIN, resolution: float = 1.0,

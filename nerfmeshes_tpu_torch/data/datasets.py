@@ -9,9 +9,6 @@ rays made on the device (`image_rays`) against targets taken there
 With `dataset.caching.use_caching` a split's bundle is kept in
 `{cache_dir}/{split}.npz` under JAX's keys, so either stack reads a cache
 the other wrote; `override_caching` reloads and rewrites it.
-
-Not ported (ROADMAP.md): the ScanNet dataset, which raises
-NotImplementedError.
 """
 
 from __future__ import annotations
@@ -220,6 +217,7 @@ def build_dataset(cfg, type: DatasetType, device=None) -> RayDataset:
 
         return ColmapDataset(cfg, type, device)
     if kind == "scannet":
-        raise NotImplementedError(
-            "dataset type 'scannet' is not ported yet (ScanNet is queued in ROADMAP.md)")
+        from nerfmeshes_tpu_torch.data.scannet_dataset import ScanNetDataset
+
+        return ScanNetDataset(cfg, type, device=device)
     raise ValueError(f"Unknown dataset type {kind!r}")

@@ -1,5 +1,5 @@
-"""Host-side data helpers: orbit poses and the image downscale
-(counterpart of nerfmeshes_tpu/data/helpers.py)."""
+"""Host-side data helpers: orbit poses, the image downscale and the
+nearest-neighbour resize (counterpart of nerfmeshes_tpu/data/helpers.py)."""
 
 from __future__ import annotations
 
@@ -63,3 +63,20 @@ def resize_image(img: np.ndarray, new_hw: tuple[int, int]) -> np.ndarray:
     area = f * f
     mean = (total + area // 2) // area if f == 2 else np.rint(total / area)
     return mean.astype(np.uint8)
+
+
+def resize_nearest(img: np.ndarray, new_hw: tuple[int, int]) -> np.ndarray:
+    """(H, W, ...) -> new_hw by cv2.resize's INTER_NEAREST, which the JAX
+    ScanNet loaders call (nerfmeshes_tpu/data/loaders/scannet.py:119-124,
+    scannet_dataset.py:42-46): output column x reads source column
+    floor(x * (1 / (w / W))) in double, clamped to W - 1, and rows alike.
+    The reciprocal of the scale, as cv2 computes it, not W / w: the two
+    differ in the last bit for some sizes, and so in the column read."""
+    H, W = img.shape[:2]
+    h, w = new_hw
+
+    def source(n_src: int, n_dst: int) -> np.ndarray:
+        idx = np.floor(np.arange(n_dst) * (1.0 / (n_dst / n_src))).astype(np.int64)
+        return np.minimum(idx, n_src - 1)
+
+    return img[source(H, h)][:, source(W, w)]

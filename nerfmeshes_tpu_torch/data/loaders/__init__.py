@@ -1,6 +1,5 @@
 """Scene loaders (counterpart of nerfmeshes_tpu/data/loaders/): Blender
-(`data/blender.py`), LLFF and the COLMAP model. ScanNet's names wait for
-its slice (ROADMAP.md)."""
+(`data/blender.py`), LLFF, the COLMAP model and ScanNet's .sens streams."""
 
 from nerfmeshes_tpu_torch.data.blender import load_blender_data
 from nerfmeshes_tpu_torch.data.loaders.colmap import (
@@ -16,6 +15,7 @@ from nerfmeshes_tpu_torch.data.loaders.colmap import (
     write_model,
 )
 from nerfmeshes_tpu_torch.data.loaders.llff import load_llff_data, minify
+from nerfmeshes_tpu_torch.data.loaders.scannet import RGBDFrame, SensorData, write_sens
 
 __all__ = [
     "load_blender_data",
@@ -31,4 +31,7 @@ __all__ = [
     "Point3D",
     "qvec2rotmat",
     "rotmat2qvec",
+    "RGBDFrame",
+    "SensorData",
+    "write_sens",
 ]

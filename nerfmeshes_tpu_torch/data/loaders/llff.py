@@ -4,8 +4,9 @@ nerfmeshes_tpu/data/loaders/llff.py, numpy on the host as there).
 The pose algebra is JAX's line for line, so poses, bounds and render
 paths come out bit for bit the same. Images are read as JAX reads them:
 uint8 / 255.0 in float64, then cast to f32. Two changes of infrastructure:
-PNGs are decoded by the port's own reader (`data/blender.py:read_images`;
-a JPEG raises, the GPU host has no decoder), and `minify` writes its
+images are decoded by the port's own readers (`data/blender.py:read_images`:
+PNG, and baseline JPEG through `data/jpeg.py`, bit for bit what imageio
+reads), and `minify` writes its
 `images_{factor}/` cache with the integer box mean of
 `data/helpers.py:resize_image`, rounded as cv2 INTER_AREA rounds, where
 JAX calls cv2. The cache's directory and PNG names are JAX's, so either

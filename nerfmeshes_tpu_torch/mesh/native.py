@@ -4,9 +4,8 @@ or a block-sparse grid, the dense fill of a block-sparse grid, and a
 buffered OBJ writer.
 
 The library is built with g++ at first use into `build/native/` (listed
-in .gitignore), under a name keyed on a hash of the source, the flags and
-the host, so an edited source rebuilds and every later process on the
-host loads the cached build (~4 s to build). A failed build raises:
+in .gitignore) by utils/gxx.py, under a name keyed on a hash of the
+source, the flags and the host (~4 s to build). A failed build raises:
 unlike the JAX package's loader (nerfmeshes_tpu/mesh/native.py:118-130)
 nothing falls back to numpy.
 `marching_tetrahedra_numpy` stays as a plain function with the library's
@@ -17,19 +16,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import platform
-import subprocess
 from pathlib import Path
 from typing import Tuple
 
 import numpy as np
 
+from nerfmeshes_tpu_torch.utils import gxx
+
 _REPO_ROOT = Path(__file__).resolve().parents[2]
 BUILD_DIR = _REPO_ROOT / "build" / "native"
-# The JAX package's flags, so both builds march alike.
-GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
 
 def source_path() -> Path:
@@ -39,29 +35,12 @@ def source_path() -> Path:
 
 
 def library_path() -> Path:
-    src = source_path()
-    digest = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    # -march=native builds for this host's CPU: a checkout copied to
-    # another host must not load it.
-    digest.update(f"{platform.node()} {platform.machine()}".encode())
-    digest.update(src.read_bytes())
-    return BUILD_DIR / f"libmarching_{digest.hexdigest()[:16]}.so"
+    return gxx.library_path(source_path(), BUILD_DIR, "marching")
 
 
 def build_library() -> Path:
     """Compile the source unless a build of it exists; returns its path."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = ["g++", *GXX_FLAGS, str(source_path()), "-o", str(tmp)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out
+    return gxx.build_library(source_path(), library_path())
 
 
 _F = ctypes.POINTER(ctypes.c_float)

@@ -58,12 +58,14 @@ def draw_ray_indices(generator: torch.Generator, num_images: int, H: int, W: int
 
 
 def rays_from_indices(data: dict, img: torch.Tensor, pix: torch.Tensor, *, H: int, W: int,
-                      focal: float, use_ndc: bool):
+                      focal: float, use_ndc: bool,
+                      intrinsics: Optional[CameraIntrinsics] = None):
     """The deterministic half of `_sample_ray_batch`: world rays, targets
     and bounds of the pixels `pix` of images `img` (0-dim: one image; (R,):
-    one per ray). Returns (origins (R, 3), directions (R, 3), targets
-    (R, 3), near, far, depth or None); near/far are 0-dim, or (R,) for
-    per-image bounds (N, 2) in the global pool."""
+    one per ray), the pixel directions under `intrinsics` (None:
+    CameraIntrinsics.from_hwf). Returns (origins (R, 3), directions (R, 3),
+    targets (R, 3), near, far, depth or None); near/far are 0-dim, or (R,)
+    for per-image bounds (N, 2) in the global pool."""
     # Flat gathers and index_select only: a 0-dim device tensor used as an
     # index would be read back to the host, a sync in every step.
     num_images = data["poses"].shape[0]
@@ -79,7 +81,9 @@ def rays_from_indices(data: dict, img: torch.Tensor, pix: torch.Tensor, *, H: in
 
     x = (pix % W).float()
     y = torch.div(pix, W, rounding_mode="floor").float()
-    dirs_cam = pixel_directions(x, y, CameraIntrinsics.from_hwf(H, W, focal))
+    if intrinsics is None:
+        intrinsics = CameraIntrinsics.from_hwf(H, W, focal)
+    dirs_cam = pixel_directions(x, y, intrinsics)
     if pose.dim() == 3:  # one pose per ray
         directions = torch.einsum("rij,rj->ri", pose[:, :3, :3], dirs_cam)
         origins = pose[:, :3, 3]
@@ -99,13 +103,15 @@ def rays_from_indices(data: dict, img: torch.Tensor, pix: torch.Tensor, *, H: in
 
 def _sample_ray_batch(data: dict, generator: torch.Generator, *, H: int, W: int,
                       focal: float, num_rays: int, use_ndc: bool,
+                      intrinsics: Optional[CameraIntrinsics] = None,
                       sample_all_images: bool = False):
     """One training batch drawn on the data's device
     (nerfmeshes_tpu/train/step.py:44-111)."""
     img, pix = draw_ray_indices(generator, data["poses"].shape[0], H, W, num_rays,
                                 sample_all_images=sample_all_images,
                                 device=data["targets"].device)
-    return rays_from_indices(data, img, pix, H=H, W=W, focal=focal, use_ndc=use_ndc)
+    return rays_from_indices(data, img, pix, H=H, W=W, focal=focal, use_ndc=use_ndc,
+                             intrinsics=intrinsics)
 
 
 def depth_loss_metrics(scope: str, rgb_out, rgb_tgt, depth_out, depth_tgt,
@@ -163,9 +169,11 @@ def train_loss(cfg, coarse_model, fine_model, origins, directions, targets, near
 
 
 def make_train_step(cfg, *, H: int, W: int, focal: float,
-                    steps_per_call: Optional[int] = None) -> Callable:
+                    steps_per_call: Optional[int] = None,
+                    intrinsics: Optional[CameraIntrinsics] = None) -> Callable:
     """fn(state, data) -> (state, metrics): `steps_per_call` optimizer
-    steps (micro-steps under gradient accumulation), metrics of the last.
+    steps (micro-steps under gradient accumulation), metrics of the last,
+    the rays drawn under `intrinsics` (None: CameraIntrinsics.from_hwf).
     Nothing in the loop waits for the device."""
     settings = RenderSettings.from_cfg(cfg, train=True)
     num_rays = int(cfg.nerf.train.num_random_rays)
@@ -177,7 +185,7 @@ def make_train_step(cfg, *, H: int, W: int, focal: float,
     def one_step(state: TrainState, data: dict) -> dict:
         origins, directions, targets, near, far, depth_tgt = _sample_ray_batch(
             data, state.generator, H=H, W=W, focal=focal, num_rays=num_rays,
-            use_ndc=use_ndc, sample_all_images=sample_all,
+            use_ndc=use_ndc, intrinsics=intrinsics, sample_all_images=sample_all,
         )
         loss, metrics = train_loss(cfg, state.coarse, state.fine, origins, directions,
                                    targets, near, far, depth_tgt,

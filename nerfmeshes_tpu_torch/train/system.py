@@ -114,6 +114,7 @@ class NeRFSystem:
         self._train_fn = None
         self._data = None
         self._hwf = None
+        self._intrinsics = None
         self._sigma_cache = None
         self.logger = (MetricsLogger(paths.events_dir, use_acronyms=bool(cfg.logging.use_acronyms))
                        if paths is not None else None)
@@ -126,20 +127,29 @@ class NeRFSystem:
         data/blender.py:train_arrays) on this system's device, or None to
         build the config's training split. `val_dataset`: a RayDataset, or
         None to build the config's validation split at the first
-        validate()."""
+        validate().
+
+        The train rays follow the dataset's `intrinsics()` (ScanNet's +z,
+        image-down y and principal point, as JAX's system passes them,
+        nerfmeshes_tpu/train/system.py:141). A dict of arrays has no
+        dataset: its optional "intrinsics" entry, a CameraIntrinsics, is
+        used, and without one CameraIntrinsics.from_hwf(hwf)."""
         if isinstance(train_dataset, dict):
             self._data = train_dataset
+            self._intrinsics = train_dataset.get("intrinsics")
         else:
             self.train_dataset = train_dataset or build_dataset(
                 self.cfg, DatasetType.TRAIN, self.device)
             self._data = self.train_dataset.device_arrays(self.device)
+            self._intrinsics = self.train_dataset.intrinsics()
         self._hwf = tuple(self._data["hwf"])
         self._build_train_fn()
         return self.setup_eval(val_dataset)
 
     def _build_train_fn(self) -> None:
         H, W, focal = self._hwf
-        self._train_fn = make_train_step(self.cfg, H=int(H), W=int(W), focal=float(focal))
+        self._train_fn = make_train_step(self.cfg, H=int(H), W=int(W), focal=float(focal),
+                                         intrinsics=self._intrinsics)
 
     def setup_eval(self, val_dataset=None) -> "NeRFSystem":
         """Build the chunk renderer at validation settings (and take

@@ -13,7 +13,9 @@ data/colmap_dataset.py) against the JAX package, on the CPU.
 - Without a `colmap` binary, a scene with no sparse model raises a clear
   FileNotFoundError; with a stand-in binary on PATH, the three COLMAP
   steps run in JAX's order. The CLI refuses an unknown matcher.
-- GeneralColmapDataset equals JAX's on a fabricated sparse model.
+- GeneralColmapDataset equals JAX's on a fabricated sparse model, with
+  PNG and with JPEG images (targets bit for bit: the port's decoder equals
+  imageio's).
 """
 
 import os
@@ -124,21 +126,23 @@ def test_quaternions_match_jax():
                                    atol=1e-12)
 
 
-def _sparse_scene(base: Path, mod, images_dir="images", seed=0):
-    """A scene with a sparse/0 binary model written by `mod`: 4 PNGs, image
-    ids out of name order, cameras looking along +z at a point cloud, one
-    image that sees no point."""
+def _sparse_scene(base: Path, mod, images_dir="images", seed=0, ext="png"):
+    """A scene with a sparse/0 binary model written by `mod`: 4 PNGs (or
+    with ext "JPG" baseline JPEGs written by PIL), image ids out of name
+    order, cameras looking along +z at a point cloud, one image that sees
+    no point."""
     rng = np.random.default_rng(seed)
     (base / images_dir).mkdir(parents=True)
     H, W = 24, 32
     cams = {1: mod.Camera(1, "SIMPLE_RADIAL", W, H, np.array([30.0, W / 2, H / 2, 0.0]))}
     images, points = {}, {}
     for i, name_idx in ((7, 2), (2, 0), (5, 3), (3, 1)):
-        imageio.imwrite(base / images_dir / f"img_{name_idx:03d}.png",
-                        (rng.uniform(0, 1, (H, W, 3)) * 255).astype(np.uint8))
+        imageio.imwrite(base / images_dir / f"img_{name_idx:03d}.{ext}",
+                        (rng.uniform(0, 1, (H, W, 3)) * 255).astype(np.uint8),
+                        **({"format": "JPEG"} if ext != "png" else {}))
         q = np.array([1.0, 0.05 * i, -0.03 * i, 0.02])
         images[i] = mod.Image(i, q / np.linalg.norm(q), np.array([0.1 * i, -0.2, float(i)]), 1,
-                              f"img_{name_idx:03d}.png", np.zeros((0, 2)),
+                              f"img_{name_idx:03d}.{ext}", np.zeros((0, 2)),
                               np.zeros(0, np.int64))
     for j in range(30):
         seen = np.array([7, 2, 5]) if j % 2 else np.array([2, 7])
@@ -212,3 +216,17 @@ def test_general_colmap_dataset_matches_jax(tmp_path):
         np.testing.assert_array_equal(g, w)
     for g, w in zip(got.image_rays(2), want.image_rays(2)):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-6)
+
+
+def test_general_colmap_dataset_on_jpeg_matches_jax(tmp_path):
+    base = _sparse_scene(tmp_path / "scene", t_colmap, ext="JPG")
+    j_cfg, t_cfg = j_default_cfg(), get_default_cfg()
+    for cfg in (j_cfg, t_cfg):
+        cfg.dataset.update(type="general_colmap", basedir=str(base))
+    want = j_colmap_ds.GeneralColmapDataset(j_cfg, JDatasetType.TRAIN)
+    got = t_colmap_ds.GeneralColmapDataset(t_cfg, DatasetType.TRAIN, device=CPU)
+    assert len(got) == len(want) == 4
+    for key in ("ray_targets", "poses", "hwf"):
+        g, w = getattr(got.bundle, key), np.asarray(getattr(want.bundle, key))
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)

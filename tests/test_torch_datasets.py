@@ -7,8 +7,9 @@ package's, on the CPU.
   hwf exactly.
 - Orbit poses exactly; one image's device rays (NDC on and off, and the
   synthesized orbit) within 1e-6 of JAX's, bounds exactly; testskip, the
-  train arrays and the dataset factory as JAX's (ScanNet still raises;
-  COLMAP and the split cache: tests/test_torch_llff.py).
+  train arrays and the dataset factory as JAX's (ScanNet builds: its
+  parity is tests/test_torch_scannet.py; COLMAP and the split cache:
+  tests/test_torch_llff.py).
 - The reduced-resolution box mean within 1e-6 of cv2 INTER_AREA, and the
   Blender loader at reduced_resolution 2 within 1e-6 of JAX's loader.
 """
@@ -146,11 +147,31 @@ def test_synthetic_dataset_follows_the_config():
     assert arrays["hwf"][:2] == (6, 6)
 
 
-def test_unported_datasets_raise():
+def test_unported_datasets_raise(tmp_path):
+    """Named when ScanNet raised: `scannet` now builds a ScanNetDataset over
+    a .sens stream (2 JPEG frames); an unknown type still raises."""
+    import io
+    import zlib
+
+    from PIL import Image
+
+    from nerfmeshes_tpu_torch.data.loaders.scannet import RGBDFrame, write_sens
+    from nerfmeshes_tpu_torch.data.scannet_dataset import ScanNetDataset
+
+    rng = np.random.default_rng(0)
+    frames = []
+    for i in range(2):
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, (8, 12, 3), dtype=np.uint8)).save(buf, "JPEG")
+        depth = rng.integers(500, 3000, (8, 12)).astype(np.uint16)
+        frames.append(RGBDFrame(np.eye(4, dtype=np.float32), i, i, buf.getvalue(),
+                                zlib.compress(depth.tobytes())))
+    write_sens(str(tmp_path / "scene.sens"), frames, color_size=(12, 8), depth_size=(12, 8))
     cfg = get_default_cfg()
-    cfg.dataset.type = "scannet"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_datasets.build_dataset(cfg, t_datasets.DatasetType.TRAIN, CPU)
+    cfg.dataset.update(type="scannet", basedir=str(tmp_path / "scene.sens"))
+    ds = t_datasets.build_dataset(cfg, t_datasets.DatasetType.TRAIN, CPU)
+    assert isinstance(ds, ScanNetDataset) and len(ds) == 2 and ds.device == CPU
+    assert ds.bundle.ray_targets.shape == (2, 8, 12, 3)
     cfg.dataset.type = "nope"
     with pytest.raises(ValueError, match="nope"):
         t_datasets.build_dataset(cfg, t_datasets.DatasetType.TRAIN, CPU)

@@ -43,6 +43,8 @@ def test_every_port_module_imports_without_jax():
             "nerfmeshes_tpu_torch.data.loaders.colmap", "nerfmeshes_tpu_torch.data.colmap_dataset",
             "nerfmeshes_tpu_torch.cli.colmap_convert", "nerfmeshes_tpu_torch.cli.surface_ray",
             "nerfmeshes_tpu_torch.mesh.surface_ray"} <= set(modules)
+    assert {"nerfmeshes_tpu_torch.data.jpeg", "nerfmeshes_tpu_torch.data.loaders.scannet",
+            "nerfmeshes_tpu_torch.data.scannet_dataset"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"

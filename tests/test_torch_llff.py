@@ -8,7 +8,10 @@ the JAX package, on the CPU.
   JAX's bit for bit (the same numpy algebra; images uint8 / 255.0 in
   float64, cast to f32), i_test equal. Each stack minifies its own copy.
 - minify's PNGs within 1 LSB of JAX's cv2 INTER_AREA ones.
-- A JPEG input raises NotImplementedError naming the file.
+- JPEG originals (the scene's images re-encoded by PIL, 4:2:0):
+  load_llff_data at factor 1 and minify's PNGs at factor 2 equal JAX's bit
+  for bit (the port's decoder equals imageio's; the box mean at factor 2
+  rounds as cv2 does).
 - ColmapDataset: splits, hwf, bounds and device_arrays equal JAX's; one
   held-out view's NDC rays within 1e-6 of JAX's image_rays; synthesis()
   poses within 1e-6; a split cache written by either stack is read by the
@@ -152,13 +155,31 @@ def test_uint8_box_mean_rounds_as_cv2():
             assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
 
 
+def _jpeg_copy(scene: Path, tmp_path: Path, name: str) -> Path:
+    """_copy with every image re-encoded as a baseline 4:2:0 JPEG (.JPG)."""
+    from PIL import Image
+
+    dst = _copy(scene, tmp_path, name)
+    for png in sorted((dst / "images").iterdir()):
+        Image.open(png).convert("RGB").save(png.with_suffix(".JPG"), quality=90,
+                                            subsampling=2)
+        png.unlink()
+    return dst
+
+
 def test_jpeg_input_raises(scene, tmp_path):
-    root = _copy(scene, tmp_path, "jpeg")
-    (root / "images" / "im_005.png").rename(root / "images" / "im_005.JPG")
-    with pytest.raises(NotImplementedError, match=r"im_005\.JPG.*ROADMAP"):
-        t_llff.load_llff_data(str(root), factor=1)
-    with pytest.raises(NotImplementedError, match=r"im_005\.JPG"):
-        t_llff.minify(str(root), 2)
+    """Named when a JPEG raised; now JPEG originals load as JAX loads them."""
+    got = t_llff.load_llff_data(str(_jpeg_copy(scene, tmp_path, "port")), factor=1)
+    want = j_llff.load_llff_data(str(_jpeg_copy(scene, tmp_path, "jax")), factor=1)
+    _assert_same_load(got, want)
+    got_dir = t_llff.minify(str(tmp_path / "port"), 2)
+    want_dir = j_llff.minify(str(tmp_path / "jax"), 2)
+    names = sorted(p.name for p in got_dir.iterdir())
+    assert names == sorted(p.name for p in want_dir.iterdir()) == [
+        f"im_{i:03d}.png" for i in range(6)]
+    for name in names:
+        np.testing.assert_array_equal(imageio.imread(got_dir / name),
+                                      imageio.imread(want_dir / name))
 
 
 def _colmap_cfgs(basedir, hold=3, use_ndc=True, spherify=False, factor=2, **dataset):
