@@ -91,6 +91,20 @@ and the BuFF ones:
   launches a view); train 500 steps validating every 250, the restore
   check, resume to 1000, eval of the 2 test frames, mesh 480^3.
 
+- the zoo chain (zoo_cli): configs/hard-blender.yml with a
+  SpecularSimpleModel coarse model at its class defaults (its (field,
+  specular) output through every render) and AdamW; the fine 8x256
+  FlexibleNeRF through the kernels, one forward and one backward launch a
+  step; train 500 steps validating every 250, the restore check, resume
+  to 1000, eval, mesh 480^3.
+- the zoo (zoo_phase): each of the six other MODEL_REGISTRY models at its
+  class defaults, f32 and bf16, one forward and backward at 2048 x 64
+  points on the card against the CPU run of the same weights; ms per
+  forward + backward; DropModel's dropout from a CUDA generator.
+- BuFF's random sampler (buff_random): the BuFF workload with
+  tree.use_random_sampling and RMSprop, 200 steps and a 400x400 view; no
+  chord launch; every tree sample inside a chord its ray hits.
+
 Prints, on lines of their own: the card's name and power limit as
 nvidia-smi reports them, the build time, per-kernel error, times, bound
 and library yardstick, render and train rays/s of both systems, the mesh
@@ -1291,9 +1305,10 @@ def chords_kernel_phase(card: str, device) -> dict:
                 initial_bound_ms=times["initial"]["bound_ms"])
 
 
-def _buff_system(device):
-    """The smoke's BuFF system, recording each call's loss and dropped
-    chords on the device, and the tree before each consolidation."""
+def _buff_system(device, cfg=None):
+    """The smoke's BuFF system (at `cfg`, default buff_hard_cfg()), recording
+    each call's loss and dropped chords on the device, and the tree before
+    each consolidation."""
     from nerfmeshes_tpu_torch.buff.system import BuFFSystem
 
     class RecordingBuFF(BuFFSystem):
@@ -1305,7 +1320,7 @@ def _buff_system(device):
             if self.tree_state is not before:
                 self.replaced[step] = before
 
-    system = RecordingBuFF(buff_hard_cfg(), device=device)
+    system = RecordingBuFF(cfg if cfg is not None else buff_hard_cfg(), device=device)
     system.losses, system.dropped, system.replaced = [], [], {}
     return system
 
@@ -1518,8 +1533,20 @@ LLFF_CLI_RUN = ("hard-llff.yml", 500, 1000, ["experiment.validate_every", "250"]
 SCANNET = REPO / "data" / "hard_scannet"
 SCANNET_CLI_RUN = ("hard-blender.yml", 500, 1000,
                    ["experiment.validate_every", "250", "dataset.type", "scannet"])
+# hard-blender.yml with a zoo coarse model and AdamW: the coarse model a
+# SpecularSimpleModel at its class defaults (the reference's widths; the
+# config's coarse keys, and the schema's num_layers_view -1, set to them),
+# its (field, specular) output through the render from the first step;
+# the fine model the config's 8x256 FlexibleNeRF through the fused kernels.
+ZOO_COARSE = {"num_layers": 4, "num_layers_view": 2, "hidden_size": 128, "skip_step": 1,
+              "num_encoding_fn_xyz": 128, "num_encoding_fn_dir": 4}
+ZOO_CLI_RUN = ("hard-blender.yml", 500, 1000,
+               ["experiment.validate_every", "250", "models.coarse_type", "SpecularSimpleModel",
+                "optimizer.type", "AdamW",
+                *(x for k, v in ZOO_COARSE.items() for x in (f"models.coarse.{k}", str(v)))])
+ZOO_COARSE_PARAMS = 435_717  # SpecularSimpleModel at its class defaults
 CLI_RUNS = {"cli": CLI_RUN, "buff_cli": BUFF_CLI_RUN, "llff_cli": LLFF_CLI_RUN,
-            "scannet_cli": SCANNET_CLI_RUN}
+            "scannet_cli": SCANNET_CLI_RUN, "zoo_cli": ZOO_CLI_RUN}
 # The surface-ray leg of the hierarchical chain: the CLI's 8 x 4 orbit of
 # 400^2 views at the run's own focal (--focal 0).
 SURFACE_VIEWS, SURFACE_SIZE = 8 * 4, 400
@@ -1594,7 +1621,11 @@ def cli_chain(name: str, card: str) -> dict:
     buff = name == "buff_cli"
     llff = name == "llff_cli"
     scannet = name == "scannet_cli"
-    per_chunk = 1 if buff else 2  # forward launches per render chunk
+    zoo = name == "zoo_cli"
+    # Forward launches per render chunk and backward launches per step: one
+    # field through the kernels in BuFF and the zoo chain (its coarse model
+    # runs as the nn.Module), two elsewhere.
+    per_chunk = 1 if buff or zoo else 2
     out = {"legs": {}}
 
     def leg(label, fn, want):
@@ -1666,6 +1697,14 @@ def cli_chain(name: str, card: str) -> dict:
         val_losses = {r["step"]: r["validation/loss"] for r in records if "validation/loss" in r}
         print(f"{name} train: step {system.state.step}, train/rays_per_sec {train_rps:.6e}; "
               f"validation/loss by step {val_losses} [{card}]")
+        if zoo:
+            coarse_params = sum(p.numel() for p in system.coarse.parameters())
+            print(f"{name} models: coarse {type(system.coarse).__name__} ({coarse_params} "
+                  f"parameters), fine {type(system.fine).__name__}; optimizer "
+                  f"{system.optimizer.kind}")
+            if (type(system.coarse).__name__, coarse_params, system.optimizer.kind) != (
+                    "SpecularSimpleModel", ZOO_COARSE_PARAMS, "AdamW"):
+                raise AssertionError(f"{name}: not the zoo coarse model at its class defaults")
 
         # A fresh system restored from the run, as eval and mesh restore it,
         # leg by leg: the datasets (for BuFF the ground-truth renders), the
@@ -1680,7 +1719,7 @@ def cli_chain(name: str, card: str) -> dict:
         leg("save", lambda: fresh.save(val_loss=metrics["validation/loss"]), {})
         same_state = _state_equal(fresh.checkpoint_state(), system.checkpoint_state())
         same_loss = metrics["validation/loss"] == val_losses[first]
-        print(f"{name} restore: state (step, parameters, Adam, schedule, generator"
+        print(f"{name} restore: state (step, parameters, optimizer, schedule, generator"
               + (", tree" if buff else "") + f") equal bit for bit: {same_state}; "
               f"validation/loss at step {first} {metrics['validation/loss']!r} vs the run's "
               f"{val_losses[first]!r}: equal {same_loss}")
@@ -1741,6 +1780,216 @@ def cli_chain(name: str, card: str) -> dict:
     print(f"{name} legs (s): " + ", ".join(f"{k} {v['seconds']:.4f}" for k, v in out["legs"].items())
           + f"; total {sum(v['seconds'] for v in out['legs'].values()):.4f} [{card}]")
     return out
+
+
+ZOO = ("SimpleModel", "SpecularSimpleModel", "FlatModel", "ResModel", "DropModel",
+       "RotFlexibleNeRFModel")
+ZOO_RAYS, ZOO_SAMPLES = 2048, 64
+# The field within 1e-5 in f32 (TF32 off) and 2e-2 in bf16, the CPU tests'
+# bars (tests/test_torch_zoo.py); every grad's worst relative error (max
+# |card - cpu| / max |cpu|) within 1e-3 in f32 and 5e-2 in bf16. The CPU
+# tests hold f32 grads to 1e-4 against JAX on the same CPU; across devices
+# the f32 GEMMs sum in other orders, a pre-activation within rounding of 0
+# flips its ReLU, and a leaf whose units fire at few points moves by that
+# point's whole term: 1e-4 of max |grad| at 2048 x 64 points, 4.4e-4 at
+# 256 x 64 on an H100 (the fields agree within 1.8e-7 meanwhile).
+ZOO_FIELD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+ZOO_GRAD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+
+
+def worst_grad_error(cpu, card) -> tuple[float, str]:
+    """(worst max |card - cpu| / max |cpu| over the leaves' grads, its leaf)."""
+    return max((float((a.grad - b.grad.cpu()).abs().max() / (a.grad.abs().max() + 1e-9)), key)
+               for (key, a), b in zip(cpu.named_parameters(), card.parameters()))
+
+
+def _zoo_points(device):
+    """(points, directions) (ZOO_RAYS, ZOO_SAMPLES, 3) along the scene's
+    camera rays at sorted depths in [2, 6], on `device`."""
+    o, d, z = _rays(ZOO_RAYS, ZOO_SAMPLES, np.random.default_rng(SEED + 7), device)
+    pts = o[:, None] + d[:, None] * z[..., None]
+    return pts, d[:, None].expand(pts.shape).contiguous()
+
+
+def _zoo_step(model, pts, dirs, **kw):
+    """(field, loss) of one forward and backward of sum(field^2); a
+    (field, specular) output gives its field."""
+    from nerfmeshes_tpu_torch.models.nerf_models import field_of
+
+    field = field_of(model(pts, dirs, **kw))
+    loss = (field.float() ** 2).sum()
+    loss.backward()
+    return field.detach(), loss.detach()
+
+
+def zoo_phase(card: str, device) -> dict:
+    """The six zoo models (no kernel of their own: XLA in the JAX package,
+    torch ops here) at their class defaults, in f32 and bf16: one forward
+    and one backward of sum(field^2) at ZOO_RAYS x ZOO_SAMPLES points on
+    the card, held against the CPU run of the same module with the same
+    weights (ZOO_FIELD_TOL, ZOO_GRAD_TOL); ms per forward + backward on the
+    card, CUDA events, median of 5 after one warm-up. DropModel's dropout
+    in training then draws from a CUDA generator: the share kept among the
+    trunk's non-zero values within 3 sigma of 0.5."""
+    from nerfmeshes_tpu_torch.models import nerf_models as tm
+    from nerfmeshes_tpu_torch.train.system import init_params
+
+    pts, dirs = _zoo_points(device)
+    pts_cpu, dirs_cpu = pts.cpu(), dirs.cpu()
+    out = {}
+    for name in ZOO:
+        for dtype in ("float32", "bfloat16"):
+            compute = getattr(torch, dtype)
+            cpu = tm.build_model(name, {}, compute_dtype=compute)
+            init_params(cpu, None, torch.Generator().manual_seed(SEED))
+            card_model = tm.build_model(name, {}, compute_dtype=compute)
+            card_model.load_state_dict(cpu.state_dict())
+            card_model.to(device)
+
+            def step():
+                card_model.zero_grad(set_to_none=True)
+                return _zoo_step(card_model, pts, dirs)
+
+            ms = _median_ms(step, runs=5, warmup=1)
+            got, _ = step()
+            want, _ = _zoo_step(cpu, pts_cpu, dirs_cpu)
+            diff = (got.cpu().float() - want.float()).abs()
+            field_err = float(diff.max())
+            # assert_allclose's test: |card - cpu| <= atol + rtol |cpu|, atol = rtol.
+            field_ok = bool((diff <= ZOO_FIELD_TOL[dtype] * (1.0 + want.float().abs())).all())
+            grad_err, worst = worst_grad_error(cpu, card_model)
+            params = sum(p.numel() for p in cpu.parameters())
+            print(f"zoo {name} {dtype}: {params} parameters; {ZOO_RAYS}x{ZOO_SAMPLES} points "
+                  f"forward + backward {ms:.4f} ms on the card; vs the CPU run: field max abs "
+                  f"err {field_err:.3e} (bar {ZOO_FIELD_TOL[dtype]}), grads worst rel err "
+                  f"{grad_err:.3e} at {worst} (bar {ZOO_GRAD_TOL[dtype]}) [{card}]")
+            if not (field_ok and grad_err < ZOO_GRAD_TOL[dtype]):
+                raise AssertionError(f"zoo {name} {dtype}: the card's run differs from the CPU's")
+            out[f"{name}_{dtype}"] = dict(ms=ms, field_err=field_err, grad_err=grad_err,
+                                          params=params)
+            if name == "DropModel" and dtype == "bfloat16":
+                out["dropout"] = _dropout_check(tm, card_model, pts, dirs)
+            del cpu, card_model
+    return out
+
+
+def _dropout_check(tm, model, pts, dirs) -> dict:
+    """DropModel in training on the card: its dropout draws from a CUDA
+    generator; the share kept among the non-zero trunk values within 3
+    sigma of 0.5; the same seed draws the same mask."""
+    seen = []
+    real = tm.dropout
+
+    def recording(x, rate, generator):
+        if generator is None or generator.device.type != "cuda":
+            raise AssertionError("DropModel's dropout did not draw from a CUDA generator")
+        y = real(x, rate, generator)
+        seen.append((y != 0, x != 0))
+        return y
+
+    tm.dropout = recording
+    try:
+        with torch.no_grad():
+            a = model(pts, dirs, deterministic=False,
+                      generator=torch.Generator(pts.device).manual_seed(SEED))
+            b = model(pts, dirs, deterministic=False,
+                      generator=torch.Generator(pts.device).manual_seed(SEED))
+    finally:
+        tm.dropout = real
+    kept, nonzero = seen[0]
+    n = int(nonzero.sum())
+    share = float(kept[nonzero].float().mean())
+    sigma = math.sqrt(0.25 / n)
+    print(f"zoo DropModel dropout on the card: kept {share:.6f} of {n} non-zero trunk values "
+          f"(0.5 +- 3 sigma = {3 * sigma:.2e}); repeatable from a seed: {torch.equal(a, b)}")
+    if abs(share - 0.5) > 3 * sigma or not torch.equal(a, b):
+        raise AssertionError("DropModel's dropout rate or repeatability is off on the card")
+    return dict(share=share, n=n)
+
+
+BUFF_RANDOM_STEPS = 200
+
+
+def buff_random_phase(card: str, device) -> dict:
+    """buff_hard_cfg() with tree.use_random_sampling and RMSprop: 200 train
+    steps, then one 400x400 test view. No chord launch (the random sampler
+    slab-tests every voxel itself, as JAX's does); one forward and one
+    backward launch a step, one forward launch a view chunk; the loss is
+    finite and falls; every tree sample of a 2048-ray batch on the trained
+    tree lies in a chord of a voxel its ray hits (to 1e-6 * far), sorted,
+    with no chord dropped."""
+    from nerfmeshes_tpu_torch.buff.tree import ray_voxel_intersect
+    from nerfmeshes_tpu_torch.data.blender import train_arrays
+    from nerfmeshes_tpu_torch.data.blender_poses import read_blender_poses
+    from nerfmeshes_tpu_torch.ops.kernels import chords as ch
+    from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerfmeshes_tpu_torch.train.step import make_pose_rays
+
+    cfg = buff_hard_cfg()
+    cfg.tree.use_random_sampling = True
+    cfg.optimizer.type = "RMSprop"
+    system = _buff_system(device, cfg).setup(train_arrays(cfg, device))
+    torch.cuda.synchronize()
+    ch.launches = fm.launches = fm.bwd_launches = 0
+    t0 = time.perf_counter()
+    system.fit(BUFF_RANDOM_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    train = {"chords": ch.launches, "fwd": fm.launches, "bwd": fm.bwd_launches}
+    losses = torch.stack(system.losses).cpu().tolist()
+    first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    rays = int(cfg.nerf.train.num_random_rays)
+    print(f"buff_random train: {BUFF_RANDOM_STEPS} steps (random sampler, RMSprop) in "
+          f"{seconds:.4f} s, {BUFF_RANDOM_STEPS * rays / seconds:.6e} rays/s; launches {train} "
+          f"(predicted chords 0, fwd {BUFF_RANDOM_STEPS}, bwd {BUFF_RANDOM_STEPS}); loss first "
+          f"10 mean {first:.6f}, last 10 {last:.6f} [{card}]")
+    if train != {"chords": 0, "fwd": BUFF_RANDOM_STEPS, "bwd": BUFF_RANDOM_STEPS}:
+        raise AssertionError(f"buff_random train launches {train}")
+    if not all(math.isfinite(v) for v in losses) or not last < first:
+        raise AssertionError(f"buff_random loss not finite and falling: {first} -> {last}")
+
+    poses, H, W, focal = read_blender_poses(REPO / "data" / "hard_blender", "test")
+    o, d = make_pose_rays(H, W, focal, device=device)(poses[0])
+    near, far = float(cfg.dataset.near), float(cfg.dataset.far)
+    chunk = int(cfg.nerf.validation.chunksize)
+    torch.cuda.synchronize()
+    ch.launches = fm.launches = 0
+    t0 = time.perf_counter()
+    view = system.query_rays(o, d, near, far, fields=("rgb_map", "acc_map"), as_numpy=False)
+    torch.cuda.synchronize()
+    view_s = time.perf_counter() - t0
+    view_launches = {"chords": ch.launches, "fwd": fm.launches}
+    chunks = math.ceil(H * W / chunk)
+    print(f"buff_random view {H}x{W}: {view_s:.4f} s, launches {view_launches} (predicted "
+          f"chords 0, fwd {chunks}); acc mean {float(view.acc_map.mean()):.4f} [{card}]")
+    if view_launches != {"chords": 0, "fwd": chunks}:
+        raise AssertionError(f"buff_random view launches {view_launches}")
+    if not bool(torch.isfinite(view.rgb_map).all()):
+        raise AssertionError("buff_random view: non-finite rgb")
+
+    tree = system.tree_state
+    ob, db = o[:CHECK_RAYS].contiguous(), d[:CHECK_RAYS].contiguous()
+    S = int(cfg.nerf.validation.num_coarse)
+    z, idx, hit, dropped = ray_voxel_intersect(
+        tree.voxels, tree.active, ob, db, near, far, samples_count=S, use_random_sampling=True,
+        generator=torch.Generator(device).manual_seed(SEED))
+    inv = 1.0 / db
+    mask, tmin, tmax = ch.slab_test(tree.voxels, tree.active, ob, inv, inv < 0.0, near, far)
+    rows = hit.nonzero()[:, 0]
+    ids = idx[rows].long()
+    inside = torch.gather(mask[rows], 1, ids).all()
+    tol = 1e-6 * far
+    in_chord = ((z[rows] >= torch.gather(tmin[rows], 1, ids) - tol)
+                & (z[rows] <= torch.gather(tmax[rows], 1, ids) + tol)).all()
+    ordered = bool((z[rows].diff(dim=1) >= 0).all())
+    print(f"buff_random sampler on the trained tree: {int(hit.sum())} of {CHECK_RAYS} rays hit; "
+          f"every sample in a hit voxel {bool(inside)}, inside its chord {bool(in_chord)}, "
+          f"sorted {ordered}, dropped {int(dropped.sum())}")
+    if not (bool(inside) and bool(in_chord) and ordered and int(dropped.sum()) == 0
+            and int(hit.sum()) > 0):
+        raise AssertionError("buff_random: a tree sample lies outside its ray's hit chords")
+    return dict(train=train, view=view_launches, seconds=seconds, view_s=view_s,
+                loss_first=first, loss_last=last)
 
 
 def jpeg_phase(card: str) -> dict:
@@ -2089,6 +2338,8 @@ def main(argv=None) -> int:
     h128 = h128_kernel_phase(card, device)
     jpeg_phase(card)
     chains = {name: cli_chain(name, card) for name in CLI_RUNS}
+    zoo_phase(card, device)
+    buff_random = buff_random_phase(card, device)
     cli = {k: {f"{name}_{leg}": info["launches"][k] for name, chain in chains.items()
                for leg, info in chain["legs"].items() if info["launches"][k]}
            for k in KERNELS}
@@ -2125,11 +2376,13 @@ def main(argv=None) -> int:
               {"render": render["launches"], "train": train["fwd_launches"],
                "mesh": mesh["fwd_launches"], "buff_train": buff["fwd_launches"],
                "buff_render": buff_render["fwd_launches"], "buff_mesh": buff_mesh["fwd_launches"],
-               **cli["fwd"]},
+               **cli["fwd"], "buff_random_train": buff_random["train"]["fwd"],
+               "buff_random_view": buff_random["view"]["fwd"]},
               chunk_ms=kern["chunk_ms"], chunk_bound_ms=kern["chunk_bound_ms"],
               shape="2048x192", hidden=256),
         entry("fused_mlp_bwd", "fused_mlp_bwd.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397", bkern,
-              {"train": train["bwd_launches"], "buff_train": buff["bwd_launches"], **cli["bwd"]},
+              {"train": train["bwd_launches"], "buff_train": buff["bwd_launches"], **cli["bwd"],
+               "buff_random_train": buff_random["train"]["bwd"]},
               max_rel_err=bkern["max_rel_err"], legs=bkern["legs"], shape="2048x192",
               hidden=256),
         entry("fused_sigma", "fused_sigma.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:675", skern,

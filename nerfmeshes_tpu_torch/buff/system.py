@@ -33,7 +33,7 @@ from nerfmeshes_tpu_torch.ops.math import img2mse, mse2psnr
 from nerfmeshes_tpu_torch.ops.rays import CameraIntrinsics
 from nerfmeshes_tpu_torch.ops.render import volume_render
 from nerfmeshes_tpu_torch.ops.sampling import ray_sample_interval
-from nerfmeshes_tpu_torch.train.render import RenderSettings, _apply_field
+from nerfmeshes_tpu_torch.train.render import RenderSettings, _apply_field, draws_in_training
 from nerfmeshes_tpu_torch.train.step import (
     TrainState,
     _sample_ray_batch,
@@ -53,14 +53,18 @@ def buff_render_rays(model, tree_state: TreeState, origins: torch.Tensor,
     Samples come from the tree where the ray crosses an active voxel and
     are stratified elsewhere, picked per ray on the device. The fallback
     is jittered only in training (`settings.perturb and train`, as JAX's
-    BuFF render does, unlike its hierarchical render). A render without a
+    BuFF render does, unlike its hierarchical render). A render that draws
+    random numbers (the jitter, sigma noise, a DropModel's dropout in
+    training, or the random voxel sampler, in eval too) without a
     generator draws from one seeded 0 on the rays' device, as JAX's falls
     back to `jax.random.key(0)`. `compact` overrides the chord compaction
     (see ray_voxel_intersect)."""
     R = directions.shape[0]
     perturb = settings.perturb and train
     noise_std = settings.radiance_field_noise_std if train else 0.0
-    if (perturb or noise_std > 0.0) and generator is None:
+    draws = (perturb or noise_std > 0.0 or use_random_sampling
+             or (train and draws_in_training(model)))
+    if draws and generator is None:
         generator = torch.Generator(directions.device).manual_seed(0)
     origins = torch.reshape(origins, (-1, 3)).expand(R, 3)
     stratified = ray_sample_interval(
@@ -69,10 +73,11 @@ def buff_render_rays(model, tree_state: TreeState, origins: torch.Tensor,
     z_tree, voxel_idx, ray_mask, dropped = ray_voxel_intersect(
         tree_state.voxels, tree_state.active, origins, directions, near, far,
         samples_count=settings.num_coarse, use_random_sampling=use_random_sampling,
-        max_chords=max_chords, compact=compact)
+        max_chords=max_chords, compact=compact, generator=generator)
     intervals = torch.where(ray_mask[:, None], z_tree, stratified)
     field = _apply_field(model, origins, directions, intervals,
-                         use_fused=settings.use_fused_kernel, inference=not train)
+                         use_fused=settings.use_fused_kernel, inference=not train,
+                         generator=generator)
     bundle = volume_render(
         field, intervals, directions, train=train, radiance_field_noise_std=noise_std,
         white_background=settings.white_background,
@@ -167,8 +172,7 @@ class BuFFSystem(NeRFSystem):
     was consolidated after, and a grown chord cap is written back to the
     run's hparams.yaml.
 
-    Not ported yet (ROADMAP.md): TensorBoard tree logging and the random
-    voxel sampler."""
+    Not ported yet (ROADMAP.md): TensorBoard tree logging."""
 
     def __init__(self, cfg, paths=None, device: Optional[torch.device] = None):
         cfg = cfg.clone()

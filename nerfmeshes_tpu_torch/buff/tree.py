@@ -9,28 +9,30 @@
   (ops/kernels/chords.py, the port of the TPU `_chords_kernel`), a stable
   depth sort of the K chords, and the inverse length mapping with
   torch.searchsorted and gathers. JAX spells the gathers and searches as
-  one-hot MXU contractions for its TPU; the values are the same.
+  one-hot MXU contractions for its TPU; the values are the same. With
+  `use_random_sampling` it is the random sampler instead
+  (`random_voxel_samples`): no chord kernel, as in JAX.
 - `integrate` folds rendered weights into the per-voxel running mean with
   a scatter-add over the voxels.
-
-The random multinomial sampler (`use_random_sampling`) is not ported yet
-(ROADMAP.md); the shipped BuFF configs do not use it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from nerfmeshes_tpu_torch.ops.kernels.chords import BIG, compact_chords
+from nerfmeshes_tpu_torch.ops.kernels.chords import BIG, _bound, compact_chords, slab_test
 
 # Inactive-row sentinel: a degenerate box far outside any scene, so the slab
 # test never passes the near/far cap.
 _PAD_LO = 1e8
 _PAD_HI = 1e8 + 1.0
+
+# The random sampler slab-tests at most this many ray-voxel pairs at once.
+RANDOM_SLAB_PAIRS = 1 << 25
 
 # Default chord-slot cap: a ray crosses ~3 * outer_count cells of the
 # shipped grids, and BuFFSystem doubles the cap when chords are dropped.
@@ -207,10 +209,62 @@ def _unit_linspace(num: int, device) -> torch.Tensor:
     return steps / torch.full((), num - 1, dtype=torch.float32, device=device)
 
 
+def random_voxel_samples(voxels: torch.Tensor, active: torch.Tensor, origins: torch.Tensor,
+                         dirs: torch.Tensor, near, far, *, samples_count: int,
+                         generator: torch.Generator) -> Intersection:
+    """The random sampler (nerfmeshes_tpu/buff/tree.py:323-343): for each
+    of `samples_count` samples a voxel uniform over the ray's hit voxels
+    (JAX's logits, 0 on a hit and -27.63 on a miss, give a miss 1e-12 of
+    a hit's odds), then a depth uniform in that voxel's chord; the samples
+    sorted by depth. A ray that hits nothing has equal logits everywhere
+    in JAX, so its voxels are drawn uniformly over all V (its samples are
+    not used: ray_mask is False). `dropped` is all zeros: this sampler has
+    no chord cap.
+
+    The draw is an inverse CDF on integer ranks: rank floor(u * n) of the
+    ray's n candidates, then the voxel whose running count reaches rank +
+    1. Every uniform is drawn for all rays first, so the chunking over
+    rays (at most RANDOM_SLAB_PAIRS ray-voxel pairs slab-tested at once)
+    does not change the result."""
+    R, V = dirs.shape[0], voxels.shape[0]
+    device = dirs.device
+    origins = origins.reshape(-1, 3).expand(R, 3)
+    u_voxel = torch.rand((R, samples_count), generator=generator, device=device)
+    u_depth = torch.rand((R, samples_count), generator=generator, device=device)
+    near_r, far_r = _bound(near, R), _bound(far, R)
+    inv_d = 1.0 / dirs
+    z_parts, id_parts, hit_parts = [], [], []
+    step = max(1, RANDOM_SLAB_PAIRS // max(V, 1))
+    for a in range(0, R, step):
+        b = min(R, a + step)
+
+        def rows(x):
+            return x[a:b] if isinstance(x, torch.Tensor) and x.dim() > 0 else x
+
+        mask, tmin, tmax = slab_test(voxels, active, origins[a:b], inv_d[a:b],
+                                     inv_d[a:b] < 0.0, rows(near_r), rows(far_r))
+        hit = mask.any(dim=1)
+        weight = torch.where(hit[:, None], mask, True).to(torch.int32)
+        counts = torch.cumsum(weight, dim=1, dtype=torch.int32)
+        n = counts[:, -1:]
+        rank = torch.minimum((u_voxel[a:b] * n.float()).long(), n.long() - 1)
+        idx = torch.searchsorted(counts, (rank + 1).to(torch.int32), side="left")
+        lo = torch.gather(tmin, 1, idx)
+        hi = torch.gather(tmax, 1, idx)
+        z = lo + (hi - lo) * u_depth[a:b]
+        z, order = torch.sort(z, dim=-1, stable=True)
+        z_parts.append(z)
+        id_parts.append(torch.gather(idx, 1, order).to(torch.int32))
+        hit_parts.append(hit)
+    return Intersection(torch.cat(z_parts), torch.cat(id_parts), torch.cat(hit_parts),
+                        torch.zeros(R, dtype=torch.int32, device=device))
+
+
 def ray_voxel_intersect(voxels: torch.Tensor, active: torch.Tensor, origins: torch.Tensor,
                         dirs: torch.Tensor, near, far, *, samples_count: int,
                         use_random_sampling: bool = False, max_chords: int = 0,
-                        compact=compact_chords) -> Intersection:
+                        compact=compact_chords,
+                        generator: Optional[torch.Generator] = None) -> Intersection:
     """Batch ray/voxel intersection and per-ray depth samples, sorted by
     depth (nerfmeshes_tpu/buff/tree.py:217-421).
 
@@ -220,11 +274,14 @@ def ray_voxel_intersect(voxels: torch.Tensor, active: torch.Tensor, origins: tor
     order (`dropped` counts those past K), sorted by entry depth, and
     `samples_count` targets spaced evenly over the total chord length are
     mapped back into the chords. `compact` is the chord compaction
-    (tests pass compact_chords_plain to hold the kernel against it)."""
+    (tests pass compact_chords_plain to hold the kernel against it).
+    `use_random_sampling` takes random_voxel_samples instead, which draws
+    from `generator` (required there) and never runs `compact`."""
     if use_random_sampling:
-        raise NotImplementedError(
-            "the random voxel sampler (tree.use_random_sampling) is not ported yet "
-            "(queued in ROADMAP.md); the shipped BuFF configs use the deterministic one")
+        if generator is None:
+            raise ValueError("random voxel sampling requires a generator")
+        return random_voxel_samples(voxels, active, origins, dirs, near, far,
+                                    samples_count=samples_count, generator=generator)
     R = dirs.shape[0]
     V = voxels.shape[0]
     K = min(V, max_chords if max_chords > 0 else AUTO_CHORD_CAP)

@@ -5,12 +5,20 @@ The schedules are optax's formulas written as plain functions of the
 update count, in float32 as optax evaluates them, driving
 `torch.optim.lr_scheduler.LambdaLR` over a base lr of 1, so the lr an
 update uses is the schedule at the update count before the increment,
-as optax reads it. `build_optimizer` takes Adam
-with optax's defaults (b1 0.9, b2 0.999, eps 1e-8 outside the square
-root), which torch.optim.Adam shares. The other optimizer names of the
-JAX package raise NotImplementedError: optax's defaults for them differ
-from torch.optim's (AdamW's weight decay, RMSprop's decay, Adagrad's
-initial accumulator) and are queued in ROADMAP.md.
+as optax reads it. `build_optimizer` takes the six optimizer names of
+the JAX package with optax's (0.2.6) defaults:
+- Adam: b1 0.9, b2 0.999, eps 1e-8 outside the square root
+  (torch.optim.Adam's defaults);
+- AdamW: Adam with weight decay 1e-4 on every parameter, decoupled and
+  scaled by the lr (torch.optim.AdamW with weight_decay=1e-4);
+- Adamax: nu = max(b2 nu, |g| + eps), eps 1e-8 (torch.optim.Adamax);
+- SGD: no momentum (torch.optim.SGD);
+- RMSprop: decay 0.9, eps 1e-8 inside the square root, initial scale 0,
+  no bias correction (`OptaxRMSprop`; torch's alpha is 0.99 and its eps
+  outside the root);
+- Adagrad: initial accumulator 0.1, eps 1e-7 inside the square root, 0
+  where the accumulator is 0 (`OptaxAdagrad`; torch starts at 0 and adds
+  eps outside the root).
 
 Gradient accumulation follows optax.MultiSteps: the running mean of k
 micro-batch grads, then one update and one schedule tick per k calls.
@@ -18,7 +26,7 @@ micro-batch grads, then one update and one schedule tick per k calls.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
@@ -77,26 +85,93 @@ def accumulation_steps(cfg) -> int:
     return max(1, int(cfg.optimizer.get("accumulate_steps", 1)))
 
 
+class OptaxRMSprop(torch.optim.Optimizer):
+    """optax.rmsprop(lr) with its defaults: nu = decay nu + (1 - decay) g^2
+    from nu = initial_scale, and p -= lr g / sqrt(nu + eps)
+    (optax/_src/transform.py:scale_by_rms, eps_in_sqrt=True, no bias
+    correction, no momentum)."""
+
+    def __init__(self, params, lr: float = 1.0, decay: float = 0.9, eps: float = 1e-8,
+                 initial_scale: float = 0.0):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps, initial_scale=initial_scale))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["nu"] = torch.full_like(p, group["initial_scale"])
+                nu = state["nu"]
+                nu.mul_(group["decay"]).add_((1.0 - group["decay"]) * p.grad * p.grad)
+                p.add_(p.grad * torch.rsqrt(nu + group["eps"]), alpha=-group["lr"])
+
+
+class OptaxAdagrad(torch.optim.Optimizer):
+    """optax.adagrad(lr) with its defaults: s = s + g^2 from s =
+    initial_accumulator_value, and p -= lr g / sqrt(s + eps) where s > 0,
+    0 elsewhere (optax/_src/transform.py:scale_by_rss)."""
+
+    def __init__(self, params, lr: float = 1.0, initial_accumulator_value: float = 0.1,
+                 eps: float = 1e-7):
+        super().__init__(params, dict(lr=lr, initial_accumulator_value=initial_accumulator_value,
+                                      eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["sum_of_squares"] = torch.full_like(
+                        p, group["initial_accumulator_value"])
+                s = state["sum_of_squares"]
+                s.add_(p.grad * p.grad)
+                scale = torch.where(s > 0, torch.rsqrt(s + group["eps"]), torch.zeros_like(s))
+                p.add_(scale * p.grad, alpha=-group["lr"])
+
+
+def make_rule(kind: str, params: list) -> torch.optim.Optimizer:
+    """The update rule of optimizer `kind` at a base lr of 1 (the schedule
+    scales it), with optax's defaults."""
+    if kind == "Adam":
+        return torch.optim.Adam(params, lr=1.0, betas=(0.9, 0.999), eps=1e-8)
+    if kind == "AdamW":
+        return torch.optim.AdamW(params, lr=1.0, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=1e-4)
+    if kind == "Adamax":
+        return torch.optim.Adamax(params, lr=1.0, betas=(0.9, 0.999), eps=1e-8)
+    if kind == "SGD":
+        return torch.optim.SGD(params, lr=1.0)
+    if kind == "RMSprop":
+        return OptaxRMSprop(params, lr=1.0)
+    if kind == "Adagrad":
+        return OptaxAdagrad(params, lr=1.0)
+    raise ValueError(f"Unknown optimizer type {kind!r}")
+
+
 class Optimizer:
-    """torch.optim.Adam + LambdaLR with optax.MultiSteps accumulation.
+    """cfg.optimizer.type's update rule + LambdaLR with optax.MultiSteps
+    accumulation.
 
     `step()` takes the grads now in the parameters' .grad as one
     micro-batch: it folds them into the running mean, and on every k-th
-    call applies one Adam update with that mean and ticks the schedule.
-    It leaves .grad cleared."""
+    call applies one update with that mean and ticks the schedule. A
+    parameter without a grad takes a zero grad, as optax updates every
+    leaf. It leaves .grad cleared."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], cfg):
         self.params = [p for p in params]
         self.schedule = build_schedule(cfg)
         self.accum = accumulation_steps(cfg)
-        kind = cfg.optimizer.type
-        if kind != "Adam":
-            raise NotImplementedError(
-                f"optimizer {kind!r} is not ported yet: only Adam is (optax's defaults for "
-                "the others differ from torch.optim's; queued in ROADMAP.md)")
-        self.adam = torch.optim.Adam(self.params, lr=1.0, betas=(0.9, 0.999), eps=1e-8)
-        self.lr_scheduler = torch.optim.lr_scheduler.LambdaLR(self.adam, self.schedule)
-        self._mean = None
+        self.kind = cfg.optimizer.type
+        self.rule = make_rule(self.kind, self.params)
+        self.lr_scheduler = torch.optim.lr_scheduler.LambdaLR(self.rule, self.schedule)
+        self._mean: Optional[list] = None
         self._micro = 0
 
     def step(self) -> None:
@@ -115,7 +190,10 @@ class Optimizer:
                 p.grad = acc.clone()
                 acc.zero_()
             self._micro = 0
-        self.adam.step()
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        self.rule.step()
         self.lr_scheduler.step()
         self.zero_grad()
 
@@ -124,16 +202,22 @@ class Optimizer:
             p.grad = None
 
     def state_dict(self) -> dict:
-        """Adam's state, the schedule's position (LambdaLR.last_epoch; its
-        lambda is rebuilt from the config) and the MultiSteps accumulator,
-        as tensors and plain containers."""
-        return {"adam": self.adam.state_dict(), "schedule_step": self.lr_scheduler.last_epoch,
+        """The rule's name and state, the schedule's position
+        (LambdaLR.last_epoch; its lambda is rebuilt from the config) and
+        the MultiSteps accumulator, as tensors and plain containers."""
+        return {"type": self.kind, "rule": self.rule.state_dict(),
+                "schedule_step": self.lr_scheduler.last_epoch,
                 "micro": self._micro, "mean": self._mean}
 
     def load_state_dict(self, state: dict) -> None:
-        self.adam.load_state_dict(state["adam"])
+        """Load a state_dict(); a checkpoint written before the rules were
+        named holds Adam's state under "adam"."""
+        kind = state.get("type", "Adam")
+        if kind != self.kind:
+            raise ValueError(f"the checkpoint's optimizer is {kind}, the config's {self.kind}")
+        self.rule.load_state_dict(state["rule"] if "rule" in state else state["adam"])
         self.lr_scheduler.last_epoch = int(state["schedule_step"])
-        self.lr_scheduler._last_lr = [g["lr"] for g in self.adam.param_groups]
+        self.lr_scheduler._last_lr = [g["lr"] for g in self.rule.param_groups]
         self._micro = int(state["micro"])
         self._mean = (None if state["mean"] is None else
                       [m.to(p.device) for m, p in zip(state["mean"], self.params)])

@@ -8,6 +8,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from nerfmeshes_tpu_torch.models.nerf_models import DropModel, field_of
 from nerfmeshes_tpu_torch.ops.kernels.fused_mlp import (
     fused_flexible_apply_rays,
     supports_fused,
@@ -45,20 +46,33 @@ class RenderSettings(NamedTuple):
         )
 
 
+def draws_in_training(model) -> bool:
+    """Whether `model`'s training forward takes random numbers (DropModel's
+    dropout)."""
+    return isinstance(model, DropModel)
+
+
 def _apply_field(model, origins: torch.Tensor, ray_directions: torch.Tensor,
                  intervals: torch.Tensor, use_fused: bool = False,
-                 inference: bool = False) -> torch.Tensor:
+                 inference: bool = False,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """The field of `model` over rays o, d (R, 3) at depths (R, S), returned
     CHANNELS-FIRST (4, R, S). With `use_fused`, eligible models run through
     the fused MLP kernels straight from the rays: the forward kernel alone
     with `inference`, else the training Function (forward and backward
-    kernels). Others expand the points and call the nn.Module."""
+    kernels). Others expand the points and call the nn.Module: a DropModel
+    drops from `generator` unless `inference` (nerfmeshes_tpu/train/
+    render.py:74-87), and a (field, aux) output gives its field."""
     if use_fused and supports_fused(model):
         return fused_flexible_apply_rays(model, origins, ray_directions, intervals,
                                          inference=inference)
     points = intervals_to_ray_points(intervals, ray_directions, origins)
     dirs = ray_directions[..., None, :].expand(points.shape)
-    return model(points, dirs).movedim(-1, 0)
+    if draws_in_training(model) and not inference:
+        out = model(points, dirs, deterministic=False, generator=generator)
+    else:
+        out = model(points, dirs)
+    return field_of(out).movedim(-1, 0)
 
 
 def render_rays(
@@ -77,17 +91,18 @@ def render_rays(
 
     ray_origins: (R, 3) or (3,); ray_directions: (R, 3); near/far: scalars
     or (R,). `generator` (on the rays' device) feeds the stochastic
-    branches: perturbed samples whenever settings.perturb, sigma noise in
-    training. A training render that needs random numbers and has no
-    generator raises, as JAX's does without a key (train/render.py:110-114);
-    any other render without one draws from a generator seeded 0, as JAX
-    falls back to key(0)."""
+    branches: perturbed samples whenever settings.perturb, sigma noise and
+    a DropModel's dropout in training. A training render that needs random
+    numbers for perturb or noise and has no generator raises, as JAX's does
+    without a key (train/render.py:110-114); any other render without one
+    draws from a generator seeded 0, as JAX falls back to key(0)."""
     R = ray_directions.shape[0]
     device = ray_directions.device
     needs_rng = train and (settings.perturb or settings.radiance_field_noise_std > 0.0)
     if needs_rng and generator is None:
         raise ValueError("training render with perturb/noise requires a generator")
-    if generator is None and settings.perturb:
+    if generator is None and (settings.perturb or (train and any(
+            draws_in_training(m) for m in (coarse_model, fine_model)))):
         generator = torch.Generator(device).manual_seed(0)
     origins = torch.reshape(ray_origins, (-1, 3)).expand(R, 3)
     noise_std = settings.radiance_field_noise_std if train else 0.0
@@ -110,7 +125,8 @@ def render_rays(
         dtype=ray_directions.dtype, device=device,
     )
     coarse_field = _apply_field(coarse_model, origins, ray_directions, intervals,
-                                use_fused=settings.use_fused_kernel, inference=not train)
+                                use_fused=settings.use_fused_kernel, inference=not train,
+                                generator=generator)
     coarse_bundle = composite(coarse_field, intervals)
 
     fine_bundle = None
@@ -120,6 +136,7 @@ def render_rays(
             perturb=perturb, generator=generator,
         )
         fine_field = _apply_field(fine_model, origins, ray_directions, fine_intervals,
-                                  use_fused=settings.use_fused_kernel, inference=not train)
+                                  use_fused=settings.use_fused_kernel, inference=not train,
+                                  generator=generator)
         fine_bundle = composite(fine_field, fine_intervals)
     return coarse_bundle, fine_bundle

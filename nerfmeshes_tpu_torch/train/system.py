@@ -26,7 +26,7 @@ import torch
 from nerfmeshes_tpu_torch.data.datasets import DatasetType, build_dataset
 from nerfmeshes_tpu_torch.device import resolve_device
 from nerfmeshes_tpu_torch.models import build_model
-from nerfmeshes_tpu_torch.models.layers import TorchLinear
+from nerfmeshes_tpu_torch.models.nerf_models import field_of
 from nerfmeshes_tpu_torch.ops.kernels.fused_mlp import (
     PackedMLP,
     fused_flexible_apply,
@@ -77,14 +77,16 @@ def _rgb_u8(rgb: torch.Tensor, H: int, W: int) -> np.ndarray:
 
 def init_params(coarse, fine, generator: torch.Generator) -> None:
     """Redraw every layer of the coarse, then the fine model from
-    `generator` (torch's default init), in place. The generator and the
-    models must be on one device."""
+    `generator`, in place, each with its own init (models/layers.py;
+    TorchLinear: torch's default). The generator and the models must be on
+    one device."""
     for model in (coarse, fine):
         if model is None:
             continue
         for module in model.modules():
-            if isinstance(module, TorchLinear):
-                module.reset_parameters(generator)
+            reset = getattr(module, "reset_parameters", None)
+            if reset is not None:
+                reset(generator)
 
 
 class NeRFSystem:
@@ -202,13 +204,13 @@ class NeRFSystem:
     @torch.inference_mode()
     def sample_points(self, points, directions=None) -> torch.Tensor:
         """Point query of the finest field -> (..., 4), on this system's
-        device."""
+        device (the field alone of a model that returns (field, aux))."""
         points = self._on_device(points)
         if directions is not None:
             directions = self._on_device(directions)
             if self._fused():
                 return fused_flexible_apply(self.finest_model, points, directions)
-        return self.finest_model(points, directions)
+        return field_of(self.finest_model(points, directions))
 
     @torch.inference_mode()
     def density_points(self, points) -> torch.Tensor:
@@ -224,7 +226,7 @@ class NeRFSystem:
         points = self._on_device(points)
         if self._fused():
             return fused_sigma_points(self._sigma_pack(), points)
-        return self.finest_model(points, points)[..., 3].float()
+        return field_of(self.finest_model(points, points))[..., 3].float()
 
     def _sigma_pack(self) -> PackedMLP:
         """pack_weights(finest_model), cached on the parameters' storage and

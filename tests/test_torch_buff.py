@@ -225,12 +225,138 @@ def test_ray_voxel_intersect_matches_jax(name):
 
 
 def test_random_sampler_is_not_ported_yet():
+    """Once a "not ported" check: the random sampler now runs, from a
+    generator (without one it raises, as JAX's does without a key), and
+    never reaches the chord compaction."""
     state = t_tree.TreeSampling(buff_cfg()).device_state(CPU)
-    o, d = scene_rays(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_tree.ray_voxel_intersect(state.voxels, state.active, torch.from_numpy(o),
-                                   torch.from_numpy(d), 2.0, FAR, samples_count=8,
+    o, d = (torch.from_numpy(a) for a in scene_rays(4))
+    with pytest.raises(ValueError, match="generator"):
+        t_tree.ray_voxel_intersect(state.voxels, state.active, o, d, 2.0, FAR, samples_count=8,
                                    use_random_sampling=True)
+
+    def no_compaction(*args, **kwargs):
+        raise AssertionError("the random sampler ran the chord compaction")
+
+    z, idx, mask, dropped = t_tree.ray_voxel_intersect(
+        state.voxels, state.active, o, d, 2.0, FAR, samples_count=8, use_random_sampling=True,
+        compact=no_compaction, generator=torch.Generator().manual_seed(0))
+    assert z.shape == idx.shape == (4, 8) and idx.dtype == torch.int32
+    assert mask.all() and not dropped.any()
+
+
+def random_case(seed=0, R=48, per_ray=False):
+    """A 4^3 tree with every third voxel inactive, rays of which some miss
+    it, near/far scalars or per ray."""
+    cfg = buff_cfg()
+    state = t_tree.TreeSampling(cfg).device_state(CPU)
+    active = np.arange(state.active.shape[0]) % 3 != 0
+    state.active = torch.from_numpy(active) & state.active
+    o, d = scene_rays(R, seed=seed)
+    d[: R // 6] *= -1.0  # aimed away: these miss the tree
+    near, far = 2.0, FAR
+    if per_ray:
+        rng = np.random.default_rng(seed + 1)
+        near = rng.uniform(1.5, 3.0, R).astype(np.float32)
+        far = (near + rng.uniform(2.0, 3.5, R)).astype(np.float32)
+    return cfg, state, o, d, near, far
+
+
+@pytest.mark.parametrize("per_ray", [False, True], ids=["scalar_bounds", "per_ray_bounds"])
+def test_random_sampler_keeps_jax_invariants(per_ray):
+    """Samples sorted by depth, each inside the chord of a voxel its ray
+    hits (the slab test's own chord, to 1e-6 * far); ray_mask equal to
+    JAX's; dropped all zero; with several ray chunks (RANDOM_SLAB_PAIRS
+    cut small) the same samples."""
+    cfg, state, o, d, near, far = random_case(per_ray=per_ray)
+    S = 32
+    as_t = (lambda x: torch.from_numpy(x) if isinstance(x, np.ndarray) else x)
+    as_j = (lambda x: jnp.asarray(x) if isinstance(x, np.ndarray) else x)
+    args = (state.voxels, state.active, torch.from_numpy(o), torch.from_numpy(d), as_t(near),
+            as_t(far))
+    got = t_tree.ray_voxel_intersect(*args, samples_count=S, use_random_sampling=True,
+                                     generator=torch.Generator().manual_seed(1))
+    z, idx, mask, dropped = (a.numpy() for a in got)
+    want = j_tree.ray_voxel_intersect(jnp.asarray(state.voxels.numpy()),
+                                      jnp.asarray(state.active.numpy()), jnp.asarray(o),
+                                      jnp.asarray(d), as_j(near), as_j(far), samples_count=S,
+                                      use_random_sampling=True, key=jax.random.key(1))
+    np.testing.assert_array_equal(mask, np.asarray(want[2]))
+    assert 0 < mask.sum() < len(mask)
+    assert not dropped.any() and not np.asarray(want[3]).any()
+    hit_z = np.where(mask[:, None], z, 0.0)
+    assert (np.diff(hit_z, axis=1) >= 0).all()
+    inv = 1.0 / torch.from_numpy(d)
+    bounds = [x[:, None] if isinstance(x, torch.Tensor) and x.dim() else x
+              for x in (as_t(near), as_t(far))]
+    smask, tmin, tmax = tc.slab_test(state.voxels, state.active, torch.from_numpy(o), inv,
+                                     inv < 0.0, *bounds)
+    rows = np.nonzero(mask)[0]
+    idx_h = torch.from_numpy(idx[rows].astype(np.int64))
+    assert torch.gather(smask[rows], 1, idx_h).all()
+    lo = torch.gather(tmin[rows], 1, idx_h).numpy()
+    hi = torch.gather(tmax[rows], 1, idx_h).numpy()
+    tol = 1e-6 * FAR
+    assert ((z[rows] >= lo - tol) & (z[rows] <= hi + tol)).all()
+    # The chunking over rays changes nothing.
+    small = t_tree.RANDOM_SLAB_PAIRS
+    try:
+        t_tree.RANDOM_SLAB_PAIRS = 7 * state.voxels.shape[0]
+        again = t_tree.ray_voxel_intersect(*args, samples_count=S, use_random_sampling=True,
+                                           generator=torch.Generator().manual_seed(1))
+    finally:
+        t_tree.RANDOM_SLAB_PAIRS = small
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_random_sampler_draws_uniformly_like_jax():
+    """The voxel draws of both samplers on the same rays, pooled into
+    (ray, voxel) bins: each is uniform over its ray's hit voxels (a
+    chi-square test against that expectation) and the two histograms
+    agree (a two-sample chi-square test); p-values above 1e-3. A ray
+    that hits nothing draws uniformly over all V voxels in both, inactive
+    ones included."""
+    from scipy import stats
+
+    cfg, state, o, d, near, far = random_case(seed=4, R=24)
+    S = 512
+    got = t_tree.ray_voxel_intersect(state.voxels, state.active, torch.from_numpy(o),
+                                     torch.from_numpy(d), near, far, samples_count=S,
+                                     use_random_sampling=True,
+                                     generator=torch.Generator().manual_seed(2))
+    want = j_tree.ray_voxel_intersect(jnp.asarray(state.voxels.numpy()),
+                                      jnp.asarray(state.active.numpy()), jnp.asarray(o),
+                                      jnp.asarray(d), near, far, samples_count=S,
+                                      use_random_sampling=True, key=jax.random.key(2))
+    mask = got[2].numpy()
+    V = state.voxels.shape[0]
+    inv = 1.0 / torch.from_numpy(d)
+    smask = tc.slab_test(state.voxels, state.active, torch.from_numpy(o), inv, inv < 0.0,
+                         near, far)[0].numpy()
+
+    def hist(ids):
+        h = np.zeros((len(o), V), np.int64)
+        for r in range(len(o)):
+            h[r] = np.bincount(ids[r], minlength=V)
+        return h
+
+    h_t, h_j = hist(got[1].numpy()), hist(np.asarray(want[1]))
+    hit = mask
+    for h in (h_t, h_j):
+        assert (h[hit][~smask[hit]] == 0).all()  # never a missed voxel on a hitting ray
+        expected = np.where(smask[hit], S / smask[hit].sum(1, keepdims=True), 0.0)
+        cells = smask[hit]
+        chi = (((h[hit] - expected) ** 2)[cells] / expected[cells]).sum()
+        dof = int(cells.sum()) - int(hit.sum())
+        assert stats.chi2.sf(chi, dof) > 1e-3
+        # Rays without a hit: every voxel, active or not, is a candidate.
+        miss = h[~hit].sum(0)
+        chi_m = ((miss - miss.sum() / V) ** 2 / (miss.sum() / V)).sum()
+        assert stats.chi2.sf(chi_m, V - 1) > 1e-3
+        assert miss[~state.active.numpy()].sum() > 0
+    both = (h_t + h_j)[hit] > 0
+    chi2 = (((h_t - h_j)[hit] ** 2)[both] / (h_t + h_j)[hit][both]).sum()
+    assert stats.chi2.sf(chi2, int(both.sum()) - int(hit.sum())) > 1e-3
 
 
 # -- renders and one step ------------------------------------------------------------------
@@ -428,6 +554,31 @@ def test_buff_system_consolidates_grows_its_cap_and_renders_the_fresh_tree(capsy
     assert system.query_rgb(o, d, 2.0, FAR, chunk=16).shape == (40, 3)
     aabbs = system.mesh_mask_aabbs()
     assert aabbs.shape == (len(system.tree.leaves), 2, 3)
+
+
+def test_buff_system_trains_and_renders_with_the_random_sampler(monkeypatch):
+    """tree.use_random_sampling with RMSprop: the system trains through a
+    consolidation and renders, the chord compaction never runs, the loss
+    is finite, and an eval render (no generator: one seeded 0) repeats."""
+    cfg = tiny_system_cfg()
+    cfg.tree.use_random_sampling = True
+    cfg.optimizer.type = "RMSprop"
+
+    def no_compaction(*args, **kwargs):
+        raise AssertionError("the random sampler ran the chord compaction")
+
+    monkeypatch.setattr(tc, "compact_chords_plain", no_compaction)
+    system = t_buff.BuFFSystem(cfg, device=CPU).setup(train_arrays(cfg, CPU, split="val"))
+    before = (fm.launches, fm.bwd_launches, tc.launches)
+    metrics = system.fit(8)
+    assert (fm.launches, fm.bwd_launches, tc.launches) == before
+    assert system.consolidation_steps == [8]
+    assert np.isfinite(metrics["train/loss"]) and metrics["train/dropped_chords"] == 0.0
+    o, d = scene_rays(40, seed=6)
+    first = system.query_rays(o, d, 2.0, FAR, fields=("rgb_map",))
+    second = system.query_rays(o, d, 2.0, FAR, fields=("rgb_map",))
+    np.testing.assert_array_equal(first.rgb_map, second.rgb_map)
+    assert np.isfinite(first.rgb_map).all()
 
 
 def test_chord_cap_stops_at_its_ceiling(capsys):

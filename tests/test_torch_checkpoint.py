@@ -165,3 +165,52 @@ def test_restore_picks_a_step(tmp_path):
     assert at8.state.step == 8 and latest.state.step == 12
     assert _equal(_snapshot(latest), _snapshot(system))
     assert not _equal(_snapshot(at8)["coarse"], _snapshot(system)["coarse"])
+
+
+# Each optimizer with a zoo coarse model beside the FlexibleNeRF fine one:
+# the rule's state, a DropModel's dropout draws (from the train generator)
+# and FastRotPos's B buffer all cross the checkpoint.
+OPTIMIZER_ZOO = [("Adam", "DropModel"), ("AdamW", "SpecularSimpleModel"), ("Adamax", "FlatModel"),
+                 ("SGD", "ResModel"), ("RMSprop", "RotFlexibleNeRFModel"),
+                 ("Adagrad", "SimpleModel")]
+
+
+@pytest.mark.parametrize("kind,coarse", OPTIMIZER_ZOO, ids=[k for k, _ in OPTIMIZER_ZOO])
+def test_resume_is_bit_for_bit_for_each_optimizer(tmp_path, kind, coarse):
+    cfg = _hier_cfg()
+    cfg.optimizer.type = kind
+    cfg.models.coarse_type = coarse
+    data = _datasets(cfg)
+    whole = _system(cfg, tmp_path / "whole", data)
+    whole.fit(20)
+    first = _system(cfg, tmp_path / "split", data)
+    first.fit(10)
+    assert first.checkpoint_state()["optimizer"]["type"] == kind
+    resumed = _system(load_hparams(tmp_path / "split"), tmp_path / "split", data)
+    resumed.restore(last=True)
+    assert _equal(_snapshot(resumed), _snapshot(first))
+    resumed.fit(20)
+    assert _equal(_snapshot(resumed), _snapshot(whole))
+    assert type(resumed.coarse).__name__ == coarse
+
+
+def test_checkpoint_with_the_adam_key_restores(tmp_path):
+    """A checkpoint written before the optimizer state named its rule
+    (Adam's state under "adam") restores and trains on as the
+    uninterrupted run does."""
+    cfg = _hier_cfg()
+    data = _datasets(cfg)
+    whole = _system(cfg, tmp_path / "whole", data)
+    whole.fit(20)
+    first = _system(cfg, tmp_path / "split", data)
+    first.fit(10)
+    path = tmp_path / "split" / "checkpoints" / "last" / "state.pt"
+    state = torch.load(path, weights_only=True)
+    opt = state["optimizer"]
+    state["optimizer"] = {"adam": opt["rule"], "schedule_step": opt["schedule_step"],
+                          "micro": opt["micro"], "mean": opt["mean"]}
+    torch.save(state, path)
+    resumed = _system(cfg, tmp_path / "split", data).restore(last=True)
+    assert _equal(_snapshot(resumed), _snapshot(first))
+    resumed.fit(20)
+    assert _equal(_snapshot(resumed), _snapshot(whole))

@@ -45,6 +45,9 @@ def test_every_port_module_imports_without_jax():
             "nerfmeshes_tpu_torch.mesh.surface_ray"} <= set(modules)
     assert {"nerfmeshes_tpu_torch.data.jpeg", "nerfmeshes_tpu_torch.data.loaders.scannet",
             "nerfmeshes_tpu_torch.data.scannet_dataset"} <= set(modules)
+    assert {"nerfmeshes_tpu_torch.models.layers", "nerfmeshes_tpu_torch.models.nerf_models",
+            "nerfmeshes_tpu_torch.models.transplant", "nerfmeshes_tpu_torch.train.optim",
+            "nerfmeshes_tpu_torch.train.render", "nerfmeshes_tpu_torch.buff.tree"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"

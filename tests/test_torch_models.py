@@ -86,11 +86,18 @@ def test_transplant_raises_on_mismatch(rng):
 
 
 def test_build_model_config_and_zoo():
+    """build_model ignores the keys a model does not take; the zoo's other
+    names build (once a "not ported" check; their parity with flax is
+    tests/test_torch_zoo.py), and an unknown name raises KeyError, as the
+    JAX registry lookup does."""
     m = build_model("FlexibleNeRFModel", {"num_layers": 3, "hidden_size": 32,
                                           "encoding": "positional"})
     assert (m.num_layers, m.hidden_size) == (3, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("SimpleModel", {})
+    m = build_model("SimpleModel", {"num_layers": 3, "hidden_size": 32, "use_viewdirs": False,
+                                    "encoding": "fastrot"})
+    assert (m.num_layers, m.hidden_size, type(m.encode_xyz).__name__) == (3, 32, "FastRotPos")
+    with pytest.raises(KeyError):
+        build_model("NoSuchModel", {})
 
 
 def test_reset_parameters_is_seeded_torch_default():
