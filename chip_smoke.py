@@ -104,6 +104,26 @@ and the BuFF ones:
 - BuFF's random sampler (buff_random): the BuFF workload with
   tree.use_random_sampling and RMSprop, 200 steps and a 400x400 view; no
   chord launch; every tree sample inside a chord its ray hits.
+- event files: every chain's run directory is read back through
+  utils/tb_events.py:read_events (both CRCs of every record): each metric
+  a scalar at its step, the description and config texts once per train
+  CLI call, and in buff_cli the "Tree" mesh and "Tree Memm" image at each
+  consolidation and the step after; the seconds inside the event writer
+  and, for BuFF, in _log_tree per consolidation.
+- the reference importer (import_cli, inside the cli and buff_cli
+  chains): the chain's run written as a reference Lightning checkpoint
+  (weights under the reference's names, BuFF's tree in the reference's
+  layout, the flat hparams.yaml beside it), imported with
+  import_checkpoint's CLI, evaluated and meshed: weights and tree equal
+  the source's, eval PSNR/SSIM/MSE and the mesh's vertex count equal the
+  source run's, launches as the chain's.
+- tb_phase: configs/hard-blender.yml on the ScanNet stream (depth
+  targets), 300 steps, a depth projection every 100 steps (2 forward
+  launches each), one validation: the event file's scalars, images,
+  texts and 3 "Point Cloud" meshes checked; crc_phase: the writer's
+  CRC32C in MB/s on this host; depth_sampling: every strategy of
+  ops/depth_sampling.py on the card from a CUDA generator, sorted and in
+  bounds, linear and proximal equal to the CPU within 1e-6.
 
 Prints, on lines of their own: the card's name and power limit as
 nvidia-smi reports them, the build time, per-kernel error, times, bound
@@ -120,8 +140,10 @@ is no CPU path.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1637,7 +1659,12 @@ def cli_chain(name: str, card: str) -> dict:
         out["legs"][label] = dict(seconds=seconds, launches=got)
         return result
 
-    with tempfile.TemporaryDirectory() as tmp:
+    from nerfmeshes_tpu_torch.buff.system import BuFFSystem
+    from nerfmeshes_tpu_torch.utils.tb_events import EventWriter
+
+    with (tempfile.TemporaryDirectory() as tmp,
+          _CallTimer(EventWriter, EVENT_WRITES) as writes,
+          _CallTimer(BuFFSystem, ("_log_tree",), sync=True) as trees):
         opts = ["experiment.logdir", tmp, *overrides]
         if scannet:
             opts += ["dataset.basedir", str(SCANNET / "scene.sens")]
@@ -1749,6 +1776,8 @@ def cli_chain(name: str, card: str) -> dict:
             raise AssertionError(f"{name}: step {system.state.step}, checkpoints {steps} {kept}")
         if not all(math.isfinite(v) for v in val_losses.values()) or not last_val < first_val:
             raise AssertionError(f"{name}: validation loss not finite and falling: {val_losses}")
+        out["events"] = check_run_events(name, run, records, 2,
+                                         system.consolidation_steps if buff else [], card)
         del system
 
         result = leg("eval", lambda: eval_nerf.main(["--log-checkpoint", str(run)]),
@@ -1757,28 +1786,414 @@ def cli_chain(name: str, card: str) -> dict:
               f"{result['psnr']:.4f} ssim {result['ssim']:.4f} mse {result['mse']:.6f} [{card}]")
 
         out.update(train_rays_per_s=train_rps, val_losses=val_losses, eval=result)
-        if not llff:
+
+        def mesh_leg(label: str, log_dir: Path) -> int:
+            """mesh_nerf at MESH_RES^3 on a run; the appearance pass's
+            chunks follow the vertex count. Returns the vertex count."""
             def mesh():
-                return mesh_nerf.main(["--log-checkpoint", str(run), "--res", str(MESH_RES),
-                                       "--save-dir", str(Path(tmp) / "mesh"),
+                return mesh_nerf.main(["--log-checkpoint", str(log_dir), "--res", str(MESH_RES),
+                                       "--save-dir", str(Path(tmp) / label),
                                        "--mesh-name", "mesh.ply"])
 
-            # The appearance pass's chunks follow the vertex count.
             (vertices, triangles, _, _), seconds, got = _leg(mesh)
             chunks = math.ceil(len(vertices) / APPEARANCE_CHUNK)
             want = {"fwd": per_chunk * chunks, "chords": chunks if buff else 0, "bwd": 0,
                     "sigma": math.ceil(MESH_RES ** 3 / GRID_TILE)}
-            print(f"{name} mesh: {seconds:.4f} s; {len(vertices)} vertices, {len(triangles)} "
-                  f"triangles; launches {got} (predicted {want}) [{card}]")
+            print(f"{name} {label}: {seconds:.4f} s; {len(vertices)} vertices, "
+                  f"{len(triangles)} triangles; launches {got} (predicted {want}) [{card}]")
             if got != want or len(vertices) == 0 or len(triangles) == 0:
-                raise AssertionError(f"{name} mesh: launches {got} (predicted {want}), "
+                raise AssertionError(f"{name} {label}: launches {got} (predicted {want}), "
                                      f"{len(vertices)} vertices")
-            out["legs"]["mesh"] = dict(seconds=seconds, launches=got)
-            out["vertices"] = len(vertices)
+            out["legs"][label] = dict(seconds=seconds, launches=got)
+            return len(vertices)
+
+        if not llff:
+            out["vertices"] = mesh_leg("mesh", run)
+        if name in IMPORT_CHAINS:
+            out["import"] = import_cli(name, run, Path(tmp), out, leg, mesh_leg,
+                                       render_launches(test_views, *test_hw), card)
         if name == "cli":
             out["surface_points"] = _surface_ray_leg(name, run, Path(tmp), leg, card)
+    out["event_s"] = writes.seconds
     print(f"{name} legs (s): " + ", ".join(f"{k} {v['seconds']:.4f}" for k, v in out["legs"].items())
-          + f"; total {sum(v['seconds'] for v in out['legs'].values()):.4f} [{card}]")
+          + f"; total {sum(v['seconds'] for v in out['legs'].values()):.4f}; inside the event "
+          f"writer {writes.seconds:.4f} s over {writes.calls} calls"
+          + (f", _log_tree {trees.seconds:.4f} s over {trees.calls} calls "
+             f"({trees.seconds / max(trees.calls // 2, 1):.4f} s a consolidation)" if buff else "")
+          + f" [{card}]")
+    if buff:
+        out["log_tree_s_per_consolidation"] = trees.seconds / max(trees.calls // 2, 1)
+    return out
+
+
+# Event writes timed inside each chain: the writer's public calls.
+EVENT_WRITES = ("add_scalar", "add_image", "add_png", "add_text", "add_mesh")
+# The chains whose runs import_cli carries over through a reference-layout
+# checkpoint.
+IMPORT_CHAINS = ("cli", "buff_cli")
+
+
+class _CallTimer:
+    """While active, sums the host seconds of the outermost calls of the
+    named methods of `cls` (patched on the class, restored on exit);
+    `sync` synchronises the card at both ends of a call."""
+
+    def __init__(self, cls, names, sync: bool = False):
+        self.cls, self.names, self.sync = cls, tuple(names), sync
+        self.seconds, self.calls, self._depth = 0.0, 0, 0
+
+    def __enter__(self):
+        self._saved = {n: self.cls.__dict__[n] for n in self.names}
+        for n, fn in self._saved.items():
+            setattr(self.cls, n, self._wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._saved.items():
+            setattr(self.cls, n, fn)
+
+    def _wrap(self, fn):
+        timer = self
+
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            if timer._depth:
+                return fn(*args, **kwargs)
+            timer._depth += 1
+            if timer.sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                if timer.sync:
+                    torch.cuda.synchronize()
+                timer.seconds += time.perf_counter() - t0
+                timer.calls += 1
+                timer._depth -= 1
+
+        return timed
+
+
+def _run_events(run: Path) -> tuple[list, list, float]:
+    """(files, every event after each file's version record, seconds to
+    read them): read_events checks both CRCs of every record and raises on
+    a bad one."""
+    from nerfmeshes_tpu_torch.utils.tb_events import FILE_VERSION, event_files, read_events
+
+    files = event_files(run / "events")
+    t0 = time.perf_counter()
+    events = []
+    for path in files:
+        got = read_events(path)
+        if got[0].get("file_version") != FILE_VERSION:
+            raise AssertionError(f"{path.name}: first record {got[0]}")
+        events += got[1:]
+    return files, events, time.perf_counter() - t0
+
+
+def _steps_of(events: list, tag: str) -> list:
+    return sorted(e["step"] for e in events if e["summary"] and e["summary"][0]["tag"] == tag)
+
+
+def check_run_events(name: str, run: Path, records: list, train_calls: int,
+                     consolidations: list, card: str) -> dict:
+    """A chain's event files after its train and resume legs: every CRC
+    valid; each metric of metrics.jsonl a scalar at its step (and no other
+    scalar); the description and config texts once per train CLI call;
+    with `consolidations` (BuFF) the "Tree" mesh and the "Tree Memm"
+    image at each consolidation step and the step after, once each."""
+    files, events, read_s = _run_events(run)
+    scalars = sorted((e["step"], v["tag"]) for e in events for v in e["summary"]
+                     if "simple_value" in v)
+    want = sorted((r["step"], k) for r in records for k in r if k not in ("step", "time"))
+    texts = [v["tag"] for e in events for v in e["summary"] if v["tag"].endswith("/text_summary")]
+    tree_steps = sorted(s + d for s in consolidations for d in (0, 1))
+    trees, memms = _steps_of(events, "Tree_VERTEX"), _steps_of(events, "Tree Memm")
+    size = sum(p.stat().st_size for p in files)
+    print(f"{name} events: {len(files)} files, {len(events)} events, {size} bytes, read and "
+          f"CRC-checked in {read_s:.4f} s; {len(scalars)} scalars at steps "
+          f"{sorted({s for s, _ in scalars})}; texts {sorted(set(texts))} x {len(texts) // 2}"
+          + (f"; Tree at {trees}, Tree Memm at {memms}" if consolidations else "") + f" [{card}]")
+    if scalars != want:
+        raise AssertionError(f"{name} events: scalars {scalars[:6]}..., metrics.jsonl {want[:6]}")
+    if sorted(texts) != sorted(["description/text_summary", "config/text_summary"] * train_calls):
+        raise AssertionError(f"{name} events: texts {texts}")
+    if trees != tree_steps or memms != tree_steps:
+        raise AssertionError(f"{name} events: Tree at {trees}, Tree Memm at {memms}, "
+                             f"consolidations {consolidations}")
+    return {"files": len(files), "events": len(events), "bytes": size, "read_s": read_s}
+
+
+def import_cli(name: str, run: Path, tmp: Path, source: dict, leg, mesh_leg, eval_launches: dict,
+               card: str) -> dict:
+    """The chain's trained run carried over as the reference would hand it
+    over: its weights under the reference's names in a Lightning-layout
+    model_last.ckpt ({"state_dict": model_coarse.* and model_fine.*, or
+    model.* and, for BuFF, the reference's tree {voxels (V, 2, 3), memm,
+    counter}; "global_step"; "epoch"}), the run's flat dot-keyed
+    hparams.yaml one directory up; imported with the port's
+    import_checkpoint CLI, then eval_nerf and mesh_nerf on the new run.
+    The imported weights equal the source's bit for bit, the step its
+    global_step, a BuFF tree's serialization the source's; eval equals the
+    source run's PSNR, SSIM and MSE to the last digit and the mesh its
+    vertex count (same weights, same kernels); launches as the chain's."""
+    from nerfmeshes_tpu_torch.cli import eval_nerf, import_checkpoint
+    from nerfmeshes_tpu_torch.config.paths import resolve_paths
+    from nerfmeshes_tpu_torch.train.factory import build_system
+
+    buff = name == "buff_cli"
+    cfg, paths = resolve_paths(log_checkpoint=str(run))
+    src = build_system(cfg, paths).restore(last=True)
+    models = ({"model.": (src.coarse, cfg.models.coarse)} if buff else
+              {"model_coarse.": (src.coarse, cfg.models.coarse),
+               "model_fine.": (src.fine, cfg.models.fine)})
+    state_dict = {}
+    for prefix, (model, model_cfg) in models.items():
+        names = import_checkpoint._torch_linear_order(int(model_cfg.num_layers),
+                                                      bool(model_cfg.use_viewdirs))
+        own = model.state_dict()
+        if sorted(own) != sorted(f"{n}.{p}" for n in names for p in ("weight", "bias")):
+            raise AssertionError(f"import_cli {name}: {sorted(own)} are not the reference's names")
+        state_dict.update({f"{prefix}{k}": v.detach().cpu().clone() for k, v in own.items()})
+    ckpt = {"state_dict": state_dict, "global_step": src.state.step, "epoch": 0}
+    if buff:
+        leaves = src.tree.leaves
+        ckpt["tree"] = {
+            "voxels": torch.from_numpy(np.stack([np.stack([l.lo, l.hi]) for l in leaves])),
+            "memm": src.tree_state.memm[:len(leaves)].cpu().clone(),
+            "counter": src.tree_state.counter}
+    reference = tmp / "reference"
+    (reference / "checkpoints").mkdir(parents=True)
+    ckpt_path = reference / "checkpoints" / "model_last.ckpt"
+    torch.save(ckpt, ckpt_path)
+    shutil.copyfile(run / "hparams.yaml", reference / "hparams.yaml")
+    print(f"import_cli {name}: {ckpt_path.stat().st_size} bytes of Lightning-layout checkpoint, "
+          f"{len(state_dict)} tensors under {sorted(models)}"
+          + (f", a tree of {len(ckpt['tree']['voxels'])} voxels" if buff else ""))
+
+    imported = leg("import", lambda: import_checkpoint.main(
+        ["--ckpt", str(ckpt_path), "--override", "experiment.logdir", str(tmp / "imported")]), {})
+    same_weights = all(
+        torch.equal(v.cpu(), state_dict[f"{prefix}{k}"])
+        for prefix, model in (("model." if buff else "model_coarse.", imported.coarse),
+                              *((("model_fine.", imported.fine),) if not buff else ()))
+        for k, v in model.state_dict().items())
+    same_tree = True
+    if buff:
+        got = imported.tree.serialize(imported.tree_state)
+        want = src.tree.serialize(src.tree_state)
+        same_tree = all(np.array_equal(got[k], want[k]) for k in
+                        ("leaf_lo", "leaf_hi", "leaf_depth", "memm", "num_leaves"))
+        same_tree &= int(got["counter"]) == int(want["counter"])
+    print(f"import_cli {name}: weights equal bit for bit {same_weights}; step "
+          f"{imported.state.step} (global_step {ckpt['global_step']})"
+          + (f"; tree serialization equal {same_tree}" if buff else ""))
+    if not (same_weights and same_tree and imported.state.step == ckpt["global_step"]):
+        raise AssertionError(f"import_cli {name}: the imported run differs from the source")
+    new_run = imported.paths.log_dir
+    del imported, src
+
+    result = leg("import_eval", lambda: eval_nerf.main(["--log-checkpoint", str(new_run)]),
+                 eval_launches)
+    was = source["eval"]
+    print(f"import_cli {name} eval: psnr {result['psnr']!r} ssim {result['ssim']!r} mse "
+          f"{result['mse']!r}; the source run's {was['psnr']!r} {was['ssim']!r} "
+          f"{was['mse']!r} [{card}]")
+    if (result["psnr"], result["ssim"], result["mse"]) != (was["psnr"], was["ssim"], was["mse"]):
+        raise AssertionError(f"import_cli {name}: eval differs from the source run's")
+    vertices = mesh_leg("import_mesh", new_run)
+    if vertices != source["vertices"]:
+        raise AssertionError(f"import_cli {name}: {vertices} vertices, the source's "
+                             f"{source['vertices']}")
+    return {"eval": result, "vertices": vertices}
+
+
+# The event-file phase: hard-blender.yml's 2 x 8x256 fields on the ScanNet
+# stream (depth targets), 300 steps printing every 100, a depth projection
+# every 100 steps, one validation at the end.
+TB_RUN = ("hard-blender.yml", 300,
+          ["experiment.validate_every", "300", "experiment.print_every", "100",
+           "logging.use_projection", "True", "logging.projection_step_size", "100",
+           "dataset.type", "scannet"])
+PROBE_RAYS = 2048  # NeRFSystem._log_depth_projection's max_rays
+POINT_CODES = {(0, 0, 255): "target", (0, 255, 0): "within 0.2", (0, 0, 0): "false void",
+               (255, 0, 0): "false surface"}
+
+
+def tb_phase(card: str, extra=()) -> dict:
+    """train_nerf on TB_RUN (`extra`: more overrides), then its event file
+    read back: every CRC valid; each metric of metrics.jsonl a scalar at its
+    print step; the validation images at the last step; the description
+    and config texts; a "Point Cloud" mesh at each projection step, its
+    colours the four codes of depth_point_clouds, the target's points
+    first, target + predicted points in all. Launches: the train steps',
+    the validation's, and 2 forward launches (coarse, fine) per projection,
+    whose probe is one chunk."""
+    import tempfile
+
+    from nerfmeshes_tpu_torch.cli import train_nerf
+    from nerfmeshes_tpu_torch.config import load_config
+    from nerfmeshes_tpu_torch.data.loaders.scannet import SensorData
+    from nerfmeshes_tpu_torch.train.system import NeRFSystem
+    from nerfmeshes_tpu_torch.utils.tb_events import EventWriter
+
+    config, steps, overrides = TB_RUN
+    with tempfile.TemporaryDirectory() as tmp:
+        opts = ["experiment.logdir", tmp, "experiment.train_iters", str(steps), *overrides,
+                "dataset.basedir", str(SCANNET / "scene.sens"), *extra]
+        cfg = load_config(str(REPO / "configs" / config), opts)
+        spc, every = int(cfg.experiment.steps_per_call), int(cfg.logging.projection_step_size)
+        projections = [s for s in range(spc, steps + 1, spc) if s >= every and s % every < spc]
+        sens = SensorData(cfg.dataset.basedir)
+        H, W = sens.color_height, sens.color_width
+        del sens
+        probe = len(range(0, H * W, max(1, H * W // PROBE_RAYS)))
+        chunk = int(cfg.nerf.validation.chunksize)
+        per_chunk = 2 if cfg.models.use_fine else 1
+        val_views = _validations(cfg, 0, steps) * int(cfg.nerf.validation.num_samples)
+        want = {"fwd": per_chunk * (steps + val_views * math.ceil(H * W / chunk)
+                                    + len(projections) * math.ceil(probe / min(chunk, probe))),
+                "bwd": per_chunk * steps, "sigma": 0, "chords": 0}
+        argv = ["--config", str(REPO / "configs" / config), "--override", *opts]
+        with (_CallTimer(NeRFSystem, ("_log_depth_projection",), sync=True) as proj,
+              _CallTimer(EventWriter, EVENT_WRITES) as writes):
+            system, seconds, got = _leg(lambda: train_nerf.main(argv))
+        print(f"tb_phase train: {steps} steps, {len(projections)} projections at {projections} "
+              f"of {probe} rays: {seconds:.4f} s ({proj.seconds:.4f} s in the projections, "
+              f"{proj.seconds / max(proj.calls, 1):.4f} s each; {writes.seconds:.4f} s inside "
+              f"the event writer); launches {got} (predicted "
+              f"{want}) [{card}]")
+        if got != want or proj.calls != len(projections):
+            raise AssertionError(f"tb_phase: launches {got} (predicted {want}), "
+                                 f"{proj.calls} projections")
+        run = system.paths.log_dir
+        records = [json.loads(line) for line in (run / "events" / "metrics.jsonl").open()]
+        files, events, read_s = _run_events(run)
+        scalars = sorted((e["step"], v["tag"]) for e in events for v in e["summary"]
+                         if "simple_value" in v)
+        print_steps = sorted({r["step"] for r in records})
+        if scalars != sorted((r["step"], k) for r in records for k in r
+                             if k not in ("step", "time")) or len(print_steps) != steps // 100:
+            raise AssertionError(f"tb_phase: scalars at {sorted({s for s, _ in scalars})}")
+        kinds = ("rgb_fine", "rgb_coarse", "disparity", "img_target") if per_chunk == 2 else (
+            "rgb_coarse", "disparity", "img_target")
+        images = sorted((e["step"], v["tag"]) for e in events for v in e["summary"]
+                        if "image" in v)
+        views = int(cfg.nerf.validation.num_samples)
+        if images != sorted((steps, f"validation/{k}/{i}") for k in kinds for i in range(views)):
+            raise AssertionError(f"tb_phase: images {images}")
+        texts = {v["tag"]: v["tensor"]["string_val"][0].decode("utf-8") for e in events
+                 for v in e["summary"] if v["tag"].endswith("/text_summary")}
+        if texts != {"description/text_summary": str(system.cfg.experiment.description),
+                     "config/text_summary": system.cfg.dump()}:
+            raise AssertionError(f"tb_phase: texts {sorted(texts)}")
+        clouds = [e for e in events if e["summary"][0]["tag"] == "Point Cloud_VERTEX"]
+        codes, distinct = {}, {}
+        for e in clouds:
+            verts, colors = (v["tensor"] for v in e["summary"])
+            # Eval depth is 0 where a ray's accumulated weight is under 1 (JAX's
+            # volume_render, and the reference's): those rays' predicted points
+            # all sit at the camera, one distinct point.
+            predicted = verts["float_val"].reshape(-1, 3)[probe:]
+            distinct[e["step"]] = len(np.unique(predicted, axis=0))
+            rgb = colors["float_val"].reshape(-1, 3).astype(np.int64)
+            found = {k: int((rgb == k).all(-1).sum()) for k in POINT_CODES}
+            if (verts["shape"] != [1, 2 * probe, 3] or colors["shape"] != verts["shape"]
+                    or sum(found.values()) != 2 * probe or not (rgb[:probe] == (0, 0, 255)).all()
+                    or not np.isfinite(verts["float_val"]).all()):
+                raise AssertionError(f"tb_phase: point cloud at {e['step']}: {verts['shape']}, "
+                                     f"codes {found}")
+            codes[e["step"]] = {POINT_CODES[k]: n for k, n in found.items()}
+        size = sum(p.stat().st_size for p in files)
+        print(f"tb_phase events: {len(files)} file, {len(events)} events, {size} bytes, read and "
+              f"CRC-checked in {read_s:.4f} s; scalars at {print_steps}; {len(images)} images at "
+              f"step {steps}; texts {sorted(texts)}; point clouds at {sorted(codes)}, points by "
+              f"code {codes}; distinct predicted points by step {distinct} (eval depth is 0 "
+              f"where the accumulated weight is under 1) [{card}]")
+        if sorted(codes) != projections:
+            raise AssertionError(f"tb_phase: point clouds at {sorted(codes)}, want {projections}")
+    return {"legs": {"train": dict(seconds=seconds, launches=got)},
+            "projection_s": proj.seconds / max(proj.calls, 1), "event_s": writes.seconds,
+            "events": len(events),
+            "bytes": size, "read_s": read_s}
+
+
+def crc_phase(card: str, nbytes: int = 1_400_000) -> dict:
+    """The event writer's CRC32C on the host, over a grown tree's mesh
+    record size (4096 voxels: ~1.4 MB): median of 5 after one warm-up,
+    and the same data through the table-driven loop alone."""
+    from nerfmeshes_tpu_torch.utils import tb_events
+
+    data = np.random.default_rng(SEED).integers(0, 256, nbytes, dtype=np.uint8).tobytes()
+    if tb_events.crc32c(data) != tb_events._crc_loop(data, 0xFFFFFFFF) ^ 0xFFFFFFFF:
+        raise AssertionError("crc32c: the lane path differs from the table-driven loop")
+    runs = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        tb_events.crc32c(data)
+        runs.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    tb_events._crc_loop(data, 0xFFFFFFFF)
+    loop_s = time.perf_counter() - t0
+    sec = statistics.median(runs[1:])
+    print(f"crc32c: {nbytes} bytes in {1e3 * sec:.4f} ms (median of 5), {nbytes / sec / 1e6:.4f} "
+          f"MB/s, {1e3 * sec / (nbytes / 1e6):.4f} ms per MB; the table-driven loop alone "
+          f"{1e3 * loop_s:.4f} ms ({nbytes / loop_s / 1e6:.4f} MB/s) [{card}]")
+    return {"mb_per_s": nbytes / sec / 1e6, "loop_mb_per_s": nbytes / loop_s / 1e6}
+
+
+DEPTH_RAYS, DEPTH_SAMPLES = 65536, 64
+
+
+def depth_sampling_phase(card: str, device) -> dict:
+    """Each strategy of ops/depth_sampling.py on the card from a CUDA
+    generator, at 65,536 rays x 64 samples with half the rays' depth
+    unknown: sorted along every ray, inside the strategy's bounds per ray;
+    linear and proximal (deterministic) equal their CPU run within 1e-6;
+    ms per call (CUDA events, median of 7)."""
+    from nerfmeshes_tpu_torch.ops import depth_sampling as ds
+
+    rng = np.random.default_rng(SEED)
+    depth_np = rng.uniform(2.5, 4.5, DEPTH_RAYS).astype(np.float32)
+    depth_np[::2] = 0.0
+    near, far, empty = 2.0, 6.0, 0.0
+    has = torch.from_numpy(depth_np != empty)[:, None]
+    depth_t = torch.from_numpy(depth_np)[:, None]
+    band = ((0.0 - 0.5) / 2.0, (1.0 - 0.5) / 2.0)  # surface_band's defaults (off, fc2)
+    bounds = {
+        "linear": (near, far), "random": (near, far),
+        "depth_informed": (near, torch.where(has, depth_t + 0.5, far)),
+        "surface_band": (torch.where(has, band[0], near), torch.where(has, band[1], far)),
+        "proximal": (torch.where(has, depth_t - 0.4, near), far)}
+    out = {}
+    for strategy in ds.STRATEGIES:
+        def call(dev):
+            gen = torch.Generator(dev).manual_seed(SEED)
+            return ds.depth_guided_intervals(strategy, near, far, DEPTH_RAYS, DEPTH_SAMPLES,
+                                             generator=gen, empty=empty,
+                                             depth=torch.from_numpy(depth_np).to(dev))
+
+        z = call(device)
+        torch.cuda.synchronize()
+        lo, hi = bounds[strategy]
+        zc = z.cpu()
+        ok = (z.device.type == "cuda" and zc.shape == (DEPTH_RAYS, DEPTH_SAMPLES)
+              and bool((zc[:, 1:] >= zc[:, :-1]).all())
+              and bool((zc >= torch.as_tensor(lo) - 1e-5).all())
+              and bool((zc <= torch.as_tensor(hi) + 1e-5).all()))
+        err = None
+        if strategy in ("linear", "proximal"):
+            err = float((zc - call("cpu")).abs().max())
+            ok &= err <= 1e-6
+        ms = _median_ms(lambda: call(device))
+        print(f"depth_sampling {strategy}: on the card sorted and inside its bounds {ok}"
+              + (f", max |card - cpu| {err:.3e}" if err is not None else "")
+              + f"; {ms:.4f} ms per call at {DEPTH_RAYS}x{DEPTH_SAMPLES} [{card}]")
+        if not ok:
+            raise AssertionError(f"depth_sampling {strategy}: out of bounds, unsorted or off "
+                                 f"the CPU run ({err})")
+        out[strategy] = {"ms": ms, "max_abs_err": err}
     return out
 
 
@@ -2338,8 +2753,20 @@ def main(argv=None) -> int:
     h128 = h128_kernel_phase(card, device)
     jpeg_phase(card)
     chains = {name: cli_chain(name, card) for name in CLI_RUNS}
+    chains["tb_phase"] = tb_phase(card)
+    crc = crc_phase(card)
+    depth_sampling_phase(card, device)
     zoo_phase(card, device)
     buff_random = buff_random_phase(card, device)
+    new_legs = {f"{name} {leg}": chains[name]["legs"][leg]["seconds"]
+                for name in IMPORT_CHAINS for leg in ("import", "import_eval", "import_mesh")}
+    new_legs["tb_phase train"] = chains["tb_phase"]["legs"]["train"]["seconds"]
+    print("new legs (s): " + ", ".join(f"{k} {v:.4f}" for k, v in new_legs.items())
+          + "; event writing inside the chains (s): "
+          + ", ".join(f"{k} {v['event_s']:.4f}" for k, v in chains.items() if "event_s" in v)
+          + f"; _log_tree {chains['buff_cli']['log_tree_s_per_consolidation']:.4f} s a "
+          f"consolidation; a projection {chains['tb_phase']['projection_s']:.4f} s; crc32c "
+          f"{crc['mb_per_s']:.4f} MB/s [{card}]")
     cli = {k: {f"{name}_{leg}": info["launches"][k] for name, chain in chains.items()
                for leg, info in chain["legs"].items() if info["launches"][k]}
            for k in KERNELS}

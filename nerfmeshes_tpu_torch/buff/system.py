@@ -40,6 +40,7 @@ from nerfmeshes_tpu_torch.train.step import (
     depth_loss_metrics,
 )
 from nerfmeshes_tpu_torch.train.system import NeRFSystem
+from nerfmeshes_tpu_torch.utils.loggers import TreeLogger, TreeWeightsLogger
 
 
 def buff_render_rays(model, tree_state: TreeState, origins: torch.Tensor,
@@ -170,9 +171,7 @@ class BuFFSystem(NeRFSystem):
     only the coarse network. Validation renders through the tree; a
     checkpoint carries the tree (TreeSampling.serialize) and the steps it
     was consolidated after, and a grown chord cap is written back to the
-    run's hparams.yaml.
-
-    Not ported yet (ROADMAP.md): TensorBoard tree logging."""
+    run's hparams.yaml."""
 
     def __init__(self, cfg, paths=None, device: Optional[torch.device] = None):
         cfg = cfg.clone()
@@ -245,14 +244,30 @@ class BuFFSystem(NeRFSystem):
     def on_step(self, step: int, metrics: dict) -> None:
         """Read the dropped-chords counters whose copies have landed (on the
         card, the earlier calls'; nothing waits), then consolidate the tree
-        when a boundary fell inside this call."""
+        when a boundary fell inside this call, logging it before and after
+        (_log_tree)."""
         self._read_dropped()
         spc = int(self.cfg.experiment.steps_per_call)
         boundary = self.tree.integration_offset + self.tree.step_size_tree
         if step >= boundary and (step - self.tree.integration_offset) % self.tree.step_size_tree < spc:
+            self._log_tree(step)
             memm = self.tree_state.memm.cpu().numpy()  # the one read of memm
             self.tree_state = self.tree.consolidate(memm, self.device)
             self.consolidation_steps.append(step)
+            self._log_tree(step + 1)
+
+    def _log_tree(self, step: int) -> None:
+        """The active voxels as a "Tree" mesh and their sorted memm as the
+        "Tree Memm" image, to the event file (the reference logs these every
+        train step, src/models/model_buff.py:100-107; here, as in the JAX
+        package, around each consolidation, where the host reads the tree
+        anyway)."""
+        if self.logger is None:
+            return
+        active = self.tree_state.active.cpu().numpy()
+        TreeLogger().tick(self.logger._tb, step, self.tree_state.voxels.cpu().numpy(), active)
+        TreeWeightsLogger().tick(self.logger._tb, step, self.tree_state.memm.cpu().numpy(),
+                                 active)
 
     # -- chord cap --------------------------------------------------------------------
     def _effective_max_chords(self) -> int:

@@ -64,6 +64,8 @@ def main(argv=None):
         system.restore(step=None if args.checkpoint == "last" else int(args.checkpoint),
                        last=args.checkpoint == "last")
         print(f"Resumed from step {system.state.step}")
+    system.logger.log_text("description", str(cfg.experiment.description))
+    system.logger.log_text("config", cfg.dump())
 
     if args.use_profiler:
         from torch.profiler import ProfilerActivity, profile

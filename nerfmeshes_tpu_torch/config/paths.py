@@ -3,7 +3,7 @@
 Layout: <logdir>/<experiment.id>/<run_name>/version_<k>/
            hparams.yaml          (flat dot-keyed config, resume source)
            checkpoints/          (train/checkpoint.py: <step>/ and last/)
-           events/               (metrics.jsonl, images/)
+           events/               (metrics.jsonl, images/, events.out.tfevents.*)
 
 A new run picks the next free version_k; `--log-checkpoint` resumes by
 re-nesting the flat hparams.yaml into a CfgNode. hparams.yaml is written

@@ -11,10 +11,10 @@ diagonal decode in one vectorised step.
 
 `read_images` is what the LLFF and COLMAP loaders read through: PNGs
 here, JPEGs (`.jpg` / `.jpeg`, any case) through the port's baseline
-decoder, `data/jpeg.py`. `write_png` encodes 8-bit grey, RGB or RGBA
-(filter 0 on every row), for the logger's validation images, the eval
-CLI's renders and the LLFF `images_{factor}/` cache, and 16-bit grey, for
-ScanNet's depth exporter.
+decoder, `data/jpeg.py`. `encode_png` (and `write_png`, its file)
+encodes 8-bit grey, RGB or RGBA (filter 0 on every row), for the logger's
+validation images and event files, the eval CLI's renders and the LLFF
+`images_{factor}/` cache, and 16-bit grey, for ScanNet's depth exporter.
 
 Targets are f32 / 255, box-downscaled by `reduced_resolution` (the JAX
 loader's cv2 INTER_AREA at an integer factor) and then composited on a
@@ -139,12 +139,17 @@ def _png_chunk(kind: bytes, body: bytes) -> bytes:
 
 
 def write_png(path, image: np.ndarray) -> None:
-    """Encode a (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA uint8 image,
-    or a (H, W) uint16 one as 16-bit grey (big-endian samples, as imageio
-    writes a uint16 array)."""
+    """Write encode_png(image) to `path`."""
+    Path(path).write_bytes(encode_png(image))
+
+
+def encode_png(image: np.ndarray) -> bytes:
+    """The PNG file of a (H, W) grey, (H, W, 3) RGB or (H, W, 4) RGBA uint8
+    image, or a (H, W) uint16 one as 16-bit grey (big-endian samples, as
+    imageio writes a uint16 array)."""
     img = np.asarray(image)
     if not (img.dtype == np.uint8 or (img.dtype == np.uint16 and img.ndim == 2)):
-        raise ValueError(f"write_png takes uint8 pixels or (H, W) uint16, got {img.dtype} "
+        raise ValueError(f"encode_png takes uint8 pixels or (H, W) uint16, got {img.dtype} "
                          f"{img.shape}")
     if img.ndim == 2:
         img = img[..., None]
@@ -152,11 +157,10 @@ def write_png(path, image: np.ndarray) -> None:
     colour = {1: 0, 3: 2, 4: 6}[C]
     samples = img.astype(">u2").view(np.uint8) if img.dtype == np.uint16 else img
     rows = np.concatenate([np.zeros((H, 1), np.uint8), samples.reshape(H, -1)], axis=1)
-    Path(path).write_bytes(
-        _PNG_SIGNATURE
-        + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8 * img.itemsize, colour, 0, 0, 0))
-        + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-        + _png_chunk(b"IEND", b""))
+    return (_PNG_SIGNATURE
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8 * img.itemsize, colour, 0, 0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _png_chunk(b"IEND", b""))
 
 
 def load_blender_data(cfg, split: str) -> DataBundle:

@@ -57,6 +57,29 @@ def ray_sample_interval(
     return intervals.contiguous()
 
 
+def sorted_uniforms(generator: Optional[torch.Generator], shape, *,
+                    dtype: torch.dtype = torch.float32,
+                    device: Optional[torch.device] = None) -> torch.Tensor:
+    """Order statistics of n iid U(0, 1) along the last axis of `shape`:
+    the normalised cumulative sums of n + 1 exponential spacings, which are
+    jointly distributed as sorted uniforms (the JAX package's sort-free
+    construction). On the generator's device unless `device` says."""
+    *batch, n = shape
+    if device is None:
+        device = generator.device if generator is not None else None
+    e = torch.empty((*batch, n + 1), dtype=dtype, device=device).exponential_(
+        generator=generator)
+    cums = torch.cumsum(e, dim=-1)
+    return cums[..., :-1] / cums[..., -1:]
+
+
+def merge_sorted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Merge two row-sorted arrays (..., n) + (..., m) -> (..., n + m),
+    ties `a` first: a stable sort of the concatenation (JAX builds the same
+    values from rank sums, which suit its TPU)."""
+    return torch.sort(torch.cat([a, b], dim=-1), dim=-1, stable=True).values
+
+
 def sample_pdf(
     bins: torch.Tensor,
     weights: torch.Tensor,

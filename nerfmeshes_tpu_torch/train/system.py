@@ -44,6 +44,7 @@ from nerfmeshes_tpu_torch.train.step import (
     render_image,
     round_chunk,
 )
+from nerfmeshes_tpu_torch.utils.loggers import DepthProjectionLogger
 from nerfmeshes_tpu_torch.utils.logging import MetricsLogger, cast_to_disparity_image
 
 
@@ -118,6 +119,7 @@ class NeRFSystem:
         self._hwf = None
         self._intrinsics = None
         self._sigma_cache = None
+        self._proj_logger = DepthProjectionLogger(step_size=1)
         self.logger = (MetricsLogger(paths.events_dir, use_acronyms=bool(cfg.logging.use_acronyms))
                        if paths is not None else None)
         self.ckpt = CheckpointManager(paths.checkpoint_dir) if paths is not None else None
@@ -349,7 +351,11 @@ class NeRFSystem:
         train/rays_per_sec, go to the logger and the console, and a
         non-finite loss stops the run. Every experiment.validate_every
         steps (and at the end) the system validates and, with paths,
-        checkpoints. Returns the last host metrics, validation's included."""
+        checkpoints. With logging.use_projection, a logger and a dataset
+        (not a dict of arrays), every logging.projection_step_size steps
+        the depth point cloud of train view 0 goes to the event file
+        (_log_depth_projection). Returns the last host metrics,
+        validation's included."""
         cfg = self.cfg
         exp = cfg.experiment
         if self._train_fn is None:
@@ -359,6 +365,9 @@ class NeRFSystem:
         print_every = int(exp.print_every)
         steps_per_call = int(exp.steps_per_call)
         rays_per_step = int(cfg.nerf.train.num_random_rays)
+        proj_every = max(1, int(cfg.logging.projection_step_size))
+        use_projection = (bool(cfg.logging.use_projection) and self.logger is not None
+                          and self.train_dataset is not None)
 
         last_metrics: dict = {}
         t0 = time.perf_counter()
@@ -370,6 +379,8 @@ class NeRFSystem:
             rays_done += steps_per_call * rays_per_step
             self.on_step(step, metrics)
             self._check_early_stopping(metrics, step)
+            if use_projection and step >= proj_every and step % proj_every < steps_per_call:
+                self._log_depth_projection(step)
             if step % print_every < steps_per_call or step >= max_steps:
                 host = {k: float(v) for k, v in metrics.items() if k != "train/rgb_sum"}
                 host["train/rays_per_sec"] = rays_done / max(time.perf_counter() - t0, 1e-9)
@@ -399,6 +410,29 @@ class NeRFSystem:
         else:
             print(f"step {step}: " + " ".join(f"{k}={v:.6g}" for k, v in metrics.items()),
                   flush=True)
+
+    def _log_depth_projection(self, step: int, max_rays: int = 2048) -> None:
+        """The predicted (and, where the dataset has one, the target) depth
+        point cloud of a probe of train view 0 as a "Point Cloud" mesh
+        (reference: LoggerDepthProjection, src/nerf/loggers.py:7-31).
+
+        As in the JAX package, the probe is every stride-th ray of the view,
+        about `max_rays` of them, rendered at validation settings (which
+        draw nothing from the train generator) in one chunk: the train step
+        keeps its batch on the device."""
+        dataset = self.train_dataset
+        origins, directions = dataset.image_rays(0)
+        stride = max(1, int(directions.shape[0]) // max_rays)
+        o, d = origins[::stride], directions[::stride]
+        near, far = np.asarray(dataset._bounds_for(0)).reshape(-1)[:2]
+        depth = self.query_rays(
+            o, d, near, far, fields=("depth_map",),
+            chunk=min(int(self.cfg.nerf.validation.chunksize), d.shape[0])).depth_map
+        depth_target = None
+        if dataset.bundle.target_depth is not None:
+            depth_target = np.asarray(dataset.bundle.target_depth[0]).reshape(-1)[::stride]
+        self._proj_logger.tick(self.logger._tb, step, o.cpu().numpy(), d.cpu().numpy(), depth,
+                               depth_target)
 
     def on_step(self, step: int, metrics: dict) -> None:
         """Hook called after every call of the train step with its device

@@ -2,10 +2,12 @@
 
 An append-only metrics.jsonl (one record per log call: step, time and the
 metrics, the JAX package's keys), the console line with acronymised
-metric names, and validation images as PNGs under <events>/images/
-through the port's own PNG writer. No TensorBoard: the GPU host has none,
-and the JAX package runs without it too; its depth-projection and tree
-loggers, which need it, stay off (`_tb` is None), as there.
+metric names, validation images as PNGs under <events>/images/ through
+the port's own PNG writer, and a TensorBoard event file in <events>
+(utils/tb_events.py, written without tensorboard: the GPU host has none)
+that gets the scalars, images and texts where the JAX package's
+SummaryWriter gets them, and that the depth-projection and tree loggers
+(utils/loggers.py) write their meshes and images to (`_tb`).
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from typing import Dict
 
 import numpy as np
 
-from nerfmeshes_tpu_torch.data.blender import write_png
+from nerfmeshes_tpu_torch.data.blender import encode_png
+from nerfmeshes_tpu_torch.utils.tb_events import EventWriter
 
 
 def acronym(name: str) -> str:
@@ -48,11 +51,13 @@ class MetricsLogger:
         self.log_dir.mkdir(parents=True, exist_ok=True)
         self.use_acronyms = use_acronyms
         self._jsonl = open(self.log_dir / "metrics.jsonl", "a")
-        self._tb = None
+        self._tb = EventWriter(self.log_dir)
 
     def log_scalars(self, metrics: Dict[str, float], step: int) -> None:
         rec = {"step": int(step), "time": time.time()}
-        rec.update({k: float(v) for k, v in metrics.items()})
+        for k, v in metrics.items():
+            rec[k] = float(v)
+            self._tb.add_scalar(k, float(v), step)
         self._jsonl.write(json.dumps(rec) + "\n")
         self._jsonl.flush()
 
@@ -62,9 +67,14 @@ class MetricsLogger:
         img = np.asarray(image)
         if img.dtype != np.uint8:
             img = (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+        png = encode_png(img)  # one encoding for the event file and the PNG
+        self._tb.add_png(tag, png, img.shape if img.ndim == 3 else (*img.shape, 1), step)
         out_dir = self.log_dir / "images"
         out_dir.mkdir(exist_ok=True)
-        write_png(out_dir / f"{tag.replace('/', '_')}_{step}.png", img)
+        (out_dir / f"{tag.replace('/', '_')}_{step}.png").write_bytes(png)
+
+    def log_text(self, tag: str, text: str, step: int = 0) -> None:
+        self._tb.add_text(tag, text, step)
 
     def console_line(self, metrics: Dict[str, float], step: int) -> str:
         items = [f"{acronym(k) if self.use_acronyms else k}={float(v):.5g}"
@@ -73,3 +83,4 @@ class MetricsLogger:
 
     def close(self) -> None:
         self._jsonl.close()
+        self._tb.close()

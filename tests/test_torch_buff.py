@@ -665,3 +665,43 @@ def test_chip_smoke_chord_reads_are_the_stated_shapes():
     assert 0 < int(inputs["sparse"].sum()) < 4095 // 5
     voxels, active = inputs["large"]
     assert voxels.shape == (20000, 2, 3) and int(active.sum()) > 7232
+
+
+def test_buff_system_logs_the_tree_around_each_consolidation(tmp_path):
+    """With a logger, each consolidation writes the "Tree" mesh and the
+    "Tree Memm" image twice: at the step (the tree about to be pruned and
+    subdivided) and at the step + 1 (the new tree, memm reset); each mesh
+    holds the active voxels only. Training is the same with or without."""
+    from nerfmeshes_tpu_torch.config.paths import ExperimentPaths
+    from nerfmeshes_tpu_torch.utils.tb_events import event_files, read_events
+
+    cfg = tiny_system_cfg()
+    cfg.logging.use_projection = False
+    data = train_arrays(cfg, CPU, split="val")
+    paths = ExperimentPaths(tmp_path / "run").create()
+    system = t_buff.BuFFSystem(cfg, paths, device=CPU).setup(data)
+    logged = []
+    real = system._log_tree
+
+    def counted(step):
+        logged.append((step, int(system.tree_state.active.sum())))
+        real(step)
+
+    system._log_tree = counted
+    system.fit(12)
+    assert system.consolidation_steps == [8, 12]
+    assert [s for s, _ in logged] == [8, 9, 12, 13]
+    events = [e for f in event_files(paths.events_dir) for e in read_events(f)[1:]
+              if e["summary"][0]["tag"] in ("Tree_VERTEX", "Tree Memm")]
+    trees = [(e["step"], e["summary"]) for e in events if e["summary"][0]["tag"] == "Tree_VERTEX"]
+    memms = [e["step"] for e in events if e["summary"][0]["tag"] == "Tree Memm"]
+    assert [s for s, _ in trees] == memms == [8, 9, 12, 13]
+    for (step, values), (_, active) in zip(trees, logged):
+        assert [v["tag"] for v in values] == ["Tree_VERTEX", "Tree_FACE", "Tree_COLOR"]
+        assert values[0]["tensor"]["shape"] == [1, 8 * active, 3]
+        assert values[1]["tensor"]["shape"] == [1, 12 * active, 3]
+    assert logged[-1][1] == len(system.tree.leaves)
+    plain = t_buff.BuFFSystem(cfg, device=CPU).setup(data)
+    plain.fit(12)
+    assert torch.equal(plain.tree_state.voxels, system.tree_state.voxels)
+    assert torch.equal(plain.state.generator.get_state(), system.state.generator.get_state())

@@ -18,6 +18,7 @@ import json
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -132,3 +133,25 @@ def test_refused_flags_say_why(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_nerf.main(["--config", TINY, "--override", "experiment.logdir",
                          str(tmp_path / "logs")])
+
+
+def test_train_writes_the_description_config_and_scalars_to_the_event_file(port_run):
+    """As the JAX CLI does: the description and the config text before
+    fit, then each metric of metrics.jsonl as a scalar at its step."""
+    from nerfmeshes_tpu_torch.config.paths import load_hparams
+    from nerfmeshes_tpu_torch.utils.tb_events import event_files, read_events
+
+    files = event_files(port_run / "events")
+    events = [e for f in files for e in read_events(f)[1:]]
+    texts = {v["tag"]: v["tensor"]["string_val"][0].decode("utf-8")
+             for e in events for v in e["summary"] if v["tag"].endswith("/text_summary")}
+    cfg = load_hparams(port_run)
+    assert texts == {"description/text_summary": cfg.experiment.description,
+                     "config/text_summary": cfg.dump()}
+    scalars = [(e["step"], v["tag"], v["simple_value"]) for e in events for v in e["summary"]
+               if "simple_value" in v]
+    want = [(r["step"], k, float(np.float32(v))) for r in _records(port_run)
+            for k, v in r.items() if k not in ("step", "time")]
+    assert scalars == want and len(want) > 5
+    images = {v["tag"] for e in events for v in e["summary"] if "image" in v}
+    assert images == {f"validation/{k}/0" for k in ("rgb_coarse", "disparity", "img_target")}

@@ -1,8 +1,8 @@
 """The port stands apart from JAX, and has no CPU fallback for the card.
 
 - Importing every module of nerfmeshes_tpu_torch, the CLIs included, loads
-  no jax (nor flax, optax, orbax), no PyYAML and nothing of the JAX
-  package in a fresh interpreter.
+  no jax (nor flax, optax, orbax), no PyYAML, no tensorboard, no
+  matplotlib and nothing of the JAX package in a fresh interpreter.
 - chip_smoke.py on a host without a CUDA card exits non-zero and prints
   no "ok" line.
 """
@@ -48,11 +48,15 @@ def test_every_port_module_imports_without_jax():
     assert {"nerfmeshes_tpu_torch.models.layers", "nerfmeshes_tpu_torch.models.nerf_models",
             "nerfmeshes_tpu_torch.models.transplant", "nerfmeshes_tpu_torch.train.optim",
             "nerfmeshes_tpu_torch.train.render", "nerfmeshes_tpu_torch.buff.tree"} <= set(modules)
+    assert {"nerfmeshes_tpu_torch.utils.tb_events", "nerfmeshes_tpu_torch.utils.loggers",
+            "nerfmeshes_tpu_torch.cli.import_checkpoint",
+            "nerfmeshes_tpu_torch.ops.depth_sampling"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in ('jax', 'flax', 'optax', 'orbax', 'yaml', 'nerfmeshes_tpu')\n"
+        "bad = sorted(m for m in ('jax', 'flax', 'optax', 'orbax', 'yaml', 'nerfmeshes_tpu',\n"
+        "                         'tensorboard', 'matplotlib')\n"
         "             if m in sys.modules)\n"
         "assert not bad, bad\n"
         "print('imported', len(sys.modules))\n"

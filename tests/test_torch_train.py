@@ -440,3 +440,88 @@ def test_fit_refuses_what_is_not_ported(tmp_path):
     assert {"validation/loss", "validation/coarse_psnr", "validation/fine_psnr"} <= set(metrics)
     assert system.ckpt.steps() == [4, 6]
     assert (paths.checkpoint_dir / "last" / "state.pt").exists()
+
+
+# -- the depth projection -----------------------------------------------------------------
+
+def _projection_run(stack: str, root: Path, use_projection: bool, steps: int = 12):
+    """tiny.yml with depth targets (the synthetic scene's), 2 steps a call
+    and a projection every 3 steps, trained for `steps` steps by `stack`
+    into `root`: (the system, the steps of its "Point Cloud" meshes). Seed
+    7: the port's draw of tiny.yml's seed 42 is a dead start (no density
+    anywhere, so the probe's depth never moves)."""
+    from nerfmeshes_tpu_torch.utils.tb_events import event_files, read_events
+
+    overrides = ["experiment.logdir", str(root), "experiment.steps_per_call", "2",
+                 "experiment.print_every", "2", "experiment.validate_every", "0",
+                 "logging.use_projection", str(use_projection),
+                 "logging.projection_step_size", "3", "experiment.randomseed", "7"]
+    tiny = str(REPO / "configs" / "tiny.yml")
+    if stack == "jax":
+        from nerfmeshes_tpu.config.paths import resolve_paths as resolve
+        from nerfmeshes_tpu.data.datasets import DatasetType, SyntheticDataset
+
+        cfg, paths = resolve(config_path=tiny, overrides=overrides)
+        system = j_system.NeRFSystem(cfg, paths)
+        kwargs = {}
+    else:
+        from nerfmeshes_tpu_torch.config.paths import resolve_paths as resolve
+        from nerfmeshes_tpu_torch.data.datasets import DatasetType, SyntheticDataset
+
+        cfg, paths = resolve(config_path=tiny, overrides=overrides)
+        system = t_system.NeRFSystem(cfg, paths, device="cpu")
+        kwargs = {"device": "cpu"}
+    train = SyntheticDataset(cfg, DatasetType.TRAIN, num_images=2, image_size=12,
+                             with_depth=True, gt_samples=16, **kwargs)
+    val = SyntheticDataset(cfg, DatasetType.VALIDATION, num_images=2, image_size=8,
+                           gt_samples=16, **kwargs)
+    system.setup(train, val)
+    system.fit(steps)
+    system.logger.close()
+    steps_seen = [e["step"] for f in event_files(paths.events_dir) for e in read_events(f)[1:]
+                  if e["summary"][0]["tag"] == "Point Cloud_VERTEX"]
+    return system, steps_seen
+
+
+def test_projection_fires_at_jaxs_cadence(tmp_path):
+    """Fire when step >= projection_step_size and step % projection_step_size
+    < steps_per_call (steps 4, 6, 10, 12 at 3 and 2), in both stacks, each
+    mesh holding the target and the predicted cloud of the probe (all 144
+    rays of a 12x12 view: fewer than 2048, stride 1)."""
+    from nerfmeshes_tpu_torch.utils.tb_events import event_files, read_events
+
+    _, jax_steps = _projection_run("jax", tmp_path / "jax", True)
+    system, port_steps = _projection_run("port", tmp_path / "port", True)
+    assert port_steps == jax_steps == [4, 6, 10, 12]
+    meshes = [e["summary"] for f in event_files(system.paths.events_dir)
+              for e in read_events(f)[1:] if e["summary"][0]["tag"] == "Point Cloud_VERTEX"]
+    predicted = []
+    for values in meshes:
+        verts, colors = values[0]["tensor"], values[1]["tensor"]
+        assert verts["shape"] == colors["shape"] == [1, 2 * 144, 3]
+        colors = colors["float_val"].reshape(-1, 3)
+        assert (colors[:144] == [0, 0, 255]).all()
+        assert np.isfinite(verts["float_val"]).all()
+        predicted.append(verts["float_val"].reshape(-1, 3)[144:])
+    # The probe renders the training field: its predicted points move (on the
+    # rays whose accumulated weight reaches 1: elsewhere eval depth is 0, as
+    # in JAX's volume_render).
+    assert not np.array_equal(predicted[0], predicted[-1])
+
+
+def test_projection_leaves_the_train_stream_and_losses_alone(tmp_path):
+    on, steps = _projection_run("port", tmp_path / "on", True)
+    off, none = _projection_run("port", tmp_path / "off", False)
+    assert steps and none == []
+    assert torch.equal(on.state.generator.get_state(), off.state.generator.get_state())
+
+    def losses(system):
+        import json
+
+        return [json.loads(line)["train/loss"]
+                for line in (system.paths.events_dir / "metrics.jsonl").open()]
+
+    assert losses(on) == losses(off) and len(losses(on)) == 6
+    for a, b in zip(on.fine.parameters() if on.fine else on.coarse.parameters(),
+                    off.fine.parameters() if off.fine else off.coarse.parameters()):
+        assert torch.equal(a, b)
