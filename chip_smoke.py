@@ -124,6 +124,18 @@ and the BuFF ones:
   CRC32C in MB/s on this host; depth_sampling: every strategy of
   ops/depth_sampling.py on the card from a CUDA generator, sorted and in
   bounds, linear and proximal equal to the CPU within 1e-6.
+- data parallelism (dist_phase, parallel/mesh.py): on a forced one-rank
+  NCCL group, a hierarchical and a BuFF step on one injected 2048-ray
+  batch bitwise equal to the unforced steps (grads; memm under torch's
+  deterministic algorithms), DIST_ROUNDS rounds of 30 timed steps each
+  way, the flat grad all-reduce's ms and bytes; then 2 gloo ranks
+  sharing the card (spawned by parallel.mesh.launch), each on its 1024
+  rays of the batch: reduced grads within 1e-4 of max |grad| of one
+  process's, BuFF memm within 1e-5, a 400x400 view through the sharded
+  render and the 480^3 sharded sigma grid bit for bit against one
+  rank's, each rank's launches (train 2 + 2, BuFF 1 + 1 + 1, view 158,
+  grid 422) as the code predicts; then each kernel alone at the per-rank
+  shapes, beside its bound.
 
 Prints, on lines of their own: the card's name and power limit as
 nvidia-smi reports them, the build time, per-kernel error, times, bound
@@ -141,6 +153,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
 import math
 import shutil
@@ -665,6 +678,16 @@ def _fwd_bound(model, packed, R: int, S: int) -> tuple[float, str]:
     return _bound_ms(_field_flops(model) * R * S, nbytes, PEAK_BF16)
 
 
+def _bwd_bound(model, packed, R: int, S: int) -> tuple[float, str]:
+    """The backward kernel's bound at R rays x S samples: the forward
+    recompute, the dX chain and the dW products (3x the forward's
+    operations), against rays, depths and the cotangent read, the packed
+    weights read once and the f32 grads written."""
+    n_pts, n_w = R * S, packed.weights.numel()
+    nbytes = (R * 24 + n_pts * 4 + n_pts * 16 + n_w * 2 + (n_w + packed.biases.numel()) * 4)
+    return _bound_ms(3 * _field_flops(model) * n_pts, nbytes, PEAK_BF16)
+
+
 def _fwd_times(model, packed, o, d, z, card: str) -> dict:
     """The forward kernel at rays (o, d, z), timed beside its plain version,
     the library yardstick (the nn.Module at the same points under bf16
@@ -860,10 +883,8 @@ def bwd_kernel_phase(cfg, card: str, device) -> dict:
     library_ms = _median_ms(_autocast(module_grads))
     for p in model.parameters():
         p.grad = None
-    # Forward recompute, the dX chain and the dW products: 3x the forward.
     n_pts, n_w = R * S, packed.weights.numel()
-    nbytes = (R * 24 + n_pts * 4 + n_pts * 16 + n_w * 2 + (n_w + packed.biases.numel()) * 4)
-    bound_ms, bound_by = _bound_ms(3 * _field_flops(model) * n_pts, nbytes, PEAK_BF16)
+    bound_ms, bound_by = _bwd_bound(model, packed, R, S)
     for name, t in (("kernel", ms), ("plain", plain_ms), ("nn.Module + autograd", module_ms),
                     ("nn.Module + autograd, bf16 autocast", library_ms), ("bound", bound_ms)):
         print(f"fused_mlp_bwd {name}: {t:.4f} ms, {n_pts / t * 1e3:.4e} points/s "
@@ -2477,6 +2498,401 @@ def _surface_ray_leg(name: str, run: Path, tmp: Path, leg, card: str) -> int:
     return len(points)
 
 
+# -- data parallelism (parallel/mesh.py) ------------------------------------------
+
+DIST_STEPS = 30  # timed steps a run on the forced one-rank group
+DIST_ROUNDS = 3  # rounds of unforced, forced, forced, unforced runs
+DIST_WORLD = 2  # gloo ranks sharing the card
+DIST_BAR = 1e-4  # reduced grads against one process's: of max |grad|
+DIST_MEMM_BAR = 1e-5  # memm against one process's
+
+
+def _dist_cfg(buff: bool):
+    """The train settings of the dist phase, made deterministic (perturb
+    off, sigma noise 0) so that sharded and one-process steps sample the
+    same depths; BuFF integrates from step 0."""
+    cfg = buff_hard_cfg() if buff else hard_blender_cfg()
+    cfg.nerf.train.perturb = False
+    cfg.nerf.train.radiance_field_noise_std = 0.0
+    if buff:
+        cfg.tree.step_size_integration_offset = 0
+    return cfg
+
+
+def _dist_batch(cfg, device):
+    """The injected batch: num_random_rays camera rays of the lego scene
+    and random targets, made from SEED (the same on every rank)."""
+    rng = np.random.default_rng(SEED)
+    o, d, _ = _rays(int(cfg.nerf.train.num_random_rays), 1, rng, device)
+    t = torch.from_numpy(rng.uniform(0.0, 1.0, (o.shape[0], 3)).astype(np.float32))
+    return o, d, t.to(device)
+
+
+def _dist_state(cfg, device):
+    """Models, optimizer and train state from SEED, as NeRFSystem makes them."""
+    from nerfmeshes_tpu_torch.train.optim import build_optimizer
+    from nerfmeshes_tpu_torch.train.step import init_train_state
+    from nerfmeshes_tpu_torch.train.system import create_models, init_params
+
+    coarse, fine = create_models(cfg)
+    init_params(coarse, fine, torch.Generator().manual_seed(SEED))
+    models = [m for m in (coarse, fine) if m is not None]
+    for m in models:
+        m.to(device)
+    opt = build_optimizer([p for m in models for p in m.parameters()], cfg)
+    return init_train_state(coarse, fine, opt, SEED, device)
+
+
+def _dist_step_fn(cfg, group, buff: bool):
+    from nerfmeshes_tpu_torch.buff.system import make_buff_train_step
+    from nerfmeshes_tpu_torch.train.step import make_train_step
+
+    make = make_buff_train_step if buff else make_train_step
+    return make(cfg, H=1, W=1, focal=1.0, steps_per_call=1, group=group)
+
+
+def _dist_step(cfg, batch, group, buff: bool, rows=slice(None)):
+    """One train step on `batch`'s `rows`: (the grads the optimizer got,
+    one flat f32 tensor; memm after the step, or None)."""
+    from nerfmeshes_tpu_torch.buff.tree import TreeSampling
+
+    state = _dist_state(cfg, batch[0].device)
+    seen = []
+    step = state.optimizer.step
+
+    def spying():
+        seen.append(torch.cat([p.grad.reshape(-1) for p in state.optimizer.params]).clone())
+        step()
+
+    state.optimizer.step = spying
+    fn = _dist_step_fn(cfg, group, buff)
+    rays = (*(a[rows] for a in batch), 2.0, 6.0, None)
+    if buff:
+        tree_state = TreeSampling(cfg).device_state(batch[0].device)
+        _, tree_state, _ = fn(state, tree_state, None, rays=rays)
+        return seen[0], tree_state.memm.clone()
+    fn(state, None, rays=rays)
+    return seen[0], None
+
+
+def _dist_steps_ms(cfg, batch, group, buff: bool, steps: int = DIST_STEPS) -> float:
+    """Host ms per train step over `steps` calls on the injected batch
+    after 3 warm-ups, synchronised (the settings' own draws and all)."""
+    from nerfmeshes_tpu_torch.buff.tree import TreeSampling
+
+    state = _dist_state(cfg, batch[0].device)
+    fn = _dist_step_fn(cfg, group, buff)
+    rays = (*batch, 2.0, 6.0, None)
+    tree = [TreeSampling(cfg).device_state(batch[0].device)] if buff else None
+
+    def call():
+        if buff:
+            _, tree[0], _ = fn(state, tree[0], None, rays=rays)
+        else:
+            fn(state, None, rays=rays)
+
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def dist_forced_phase(card: str, device) -> dict:
+    """World size 1 under NCCL, forced: the sharded step bodies and their
+    collectives on a one-rank group. The hierarchical and the BuFF step on
+    an injected batch give grads and memm bitwise equal to the unforced
+    steps'; runs of DIST_STEPS steps are timed in DIST_ROUNDS rounds of
+    unforced, forced, forced, unforced; the flat grad all-reduce is timed
+    alone, a call and back to back."""
+    import torch.distributed as dist
+
+    from nerfmeshes_tpu_torch.parallel import mesh as pm
+    from nerfmeshes_tpu_torch.train.step import all_mean_grads
+
+    group = pm.forced(device)
+    out = {}
+    for name, buff in (("train", False), ("buff_train", True)):
+        cfg = _dist_cfg(buff)
+        batch = _dist_batch(cfg, device)
+        # index_add_ (integrate) sums with float atomics unless asked not to.
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        g_un, m_un = _dist_step(cfg, batch, None, buff)
+        g_fo, m_fo = _dist_step(cfg, batch, group, buff)
+        torch.use_deterministic_algorithms(False)
+        same = torch.equal(g_un, g_fo) and (m_un is None or torch.equal(m_un, m_fo))
+        print(f"dist forced {name}: NCCL one-rank group vs no group on one injected batch of "
+              f"{batch[0].shape[0]} rays: {g_un.numel()} grads bitwise equal "
+              f"{torch.equal(g_un, g_fo)}"
+              + ("" if m_un is None else f", memm bitwise equal {torch.equal(m_un, m_fo)}"))
+        if not same:
+            raise AssertionError(f"the forced {name} step differs from the unforced one")
+        timed = buff_hard_cfg() if buff else hard_blender_cfg()
+        ms = {"unforced": [], "forced": []}
+        for _ in range(DIST_ROUNDS):
+            for label in ("unforced", "forced", "forced", "unforced"):
+                ms[label].append(_dist_steps_ms(timed, batch,
+                                                group if label == "forced" else None, buff))
+        un, fo = statistics.median(ms["unforced"]), statistics.median(ms["forced"])
+        print(f"dist forced {name}: {DIST_ROUNDS} rounds of unforced, forced, forced, unforced "
+              f"runs of {DIST_STEPS} steps; ms a step, median (min-max): unforced {un:.4f} "
+              f"({min(ms['unforced']):.4f}-{max(ms['unforced']):.4f}), forced {fo:.4f} "
+              f"({min(ms['forced']):.4f}-{max(ms['forced']):.4f}) (NCCL one-rank group); "
+              f"the collective path {fo - un:+.4f} ms a step ({100.0 * (fo - un) / un:+.2f}%) "
+              f"[{card}]")
+        out[name] = dict(unforced_ms=un, forced_ms=fo, grads=g_un.numel())
+
+    # The flat grad bucket of the hierarchical step: all_reduce alone, and
+    # all_mean_grads (concatenation, all_reduce, views) as the step runs it.
+    state = _dist_state(hard_blender_cfg(), device)
+    params = state.optimizer.params
+    for p in params:
+        p.grad = torch.randn_like(p)
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    reduce_ms = _median_ms(lambda: pm.all_mean_(flat, group), runs=21)
+    bucket_ms = _median_ms(lambda: all_mean_grads(params, group), runs=21)
+    reduce_b2b = _back_to_back_ms(lambda: pm.all_mean_(flat, group))
+    bucket_b2b = _back_to_back_ms(lambda: all_mean_grads(params, group))
+    nbytes = flat.numel() * 4
+    print(f"dist grad all-reduce (NCCL, one rank): {flat.numel()} f32 grads, {nbytes} bytes; "
+          f"all_reduce + div {reduce_ms:.4f} ms a call (CUDA events, median of 21), "
+          f"{reduce_b2b:.4f} ms back to back; all_mean_grads (cat + all_reduce + div + views) "
+          f"{bucket_ms:.4f} ms a call, {bucket_b2b:.4f} ms back to back [{card}]")
+    out["allreduce"] = dict(bytes=nbytes, ms=reduce_ms, bucket_ms=bucket_ms,
+                            b2b_ms=reduce_b2b, bucket_b2b_ms=bucket_b2b)
+    dist.destroy_process_group()
+    return out
+
+
+def _dist_rank(group, out_dir: str) -> None:
+    """One of the ranks sharing the card under gloo: the checks of
+    dist_phase, each sharded run between launch counters set to 0 and
+    read, beside this rank's one-process reference; writes
+    rank<r>.json."""
+    from nerfmeshes_tpu_torch.data.blender_poses import read_blender_poses
+    from nerfmeshes_tpu_torch.mesh.extract import _grid_tiles
+    from nerfmeshes_tpu_torch.ops.kernels import build
+    from nerfmeshes_tpu_torch.ops.kernels import chords as ch
+    from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerfmeshes_tpu_torch.parallel.mesh import gather_rows
+    from nerfmeshes_tpu_torch.train.step import make_pose_rays
+    from nerfmeshes_tpu_torch.train.system import NeRFSystem
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load_library()  # built by the parent
+    device = group.device
+    out = {"rank": group.rank, "world": group.world, "backend": group.backend}
+
+    def counts():
+        return {"fwd": fm.launches, "bwd": fm.bwd_launches, "sigma": fm.sigma_launches,
+                "chords": ch.launches}
+
+    def reset():
+        fm.launches = fm.bwd_launches = fm.sigma_launches = ch.launches = 0
+
+    # gloo on CUDA tensors: the zero-buffer all_reduce is the gather.
+    mine = torch.arange(6, dtype=torch.float32, device=device).reshape(3, 2) + 100 * group.rank
+    got = gather_rows([mine], group)[0]
+    want = torch.cat([torch.arange(6, dtype=torch.float32, device=device).reshape(3, 2)
+                      + 100 * r for r in range(group.world)])
+    out["gather_exact"] = bool(torch.equal(got, want))
+
+    for name, buff in (("train", False), ("buff_train", True)):
+        cfg = _dist_cfg(buff)
+        batch = _dist_batch(cfg, device)
+        rows = group.local_rows(batch[0].shape[0])
+        reset()
+        g_sh, m_sh = _dist_step(cfg, batch, group, buff, rows)
+        torch.cuda.synchronize()
+        out[f"{name}_launches"] = counts()
+        g_one, m_one = _dist_step(cfg, batch, None, buff)
+        out[f"{name}_grad_err"] = _rel_err(g_sh, g_one)
+        out[f"{name}_local_rays"] = rows.stop - rows.start
+        if m_sh is not None:
+            out[f"{name}_memm_err"] = float((m_sh - m_one).abs().max())
+            out[f"{name}_memm_max"] = float(m_one.abs().max())
+
+    # A 400x400 view of data/hard_blender through the sharded render.
+    cfg = _lego_bf16_cfg()
+    sharded = NeRFSystem(cfg, group=group).setup_eval()
+    single = NeRFSystem(cfg, device=device).setup_eval()
+    poses, H, W, focal = read_blender_poses(REPO / "data" / "hard_blender", "test")
+    o, d = make_pose_rays(H, W, focal, device=device)(poses[0])
+    fields = ("rgb_map", "depth_map", "acc_map")
+    near, far = float(cfg.dataset.near), float(cfg.dataset.far)
+    sharded.query_rays(o[:2048], d[:2048], near, far, fields=fields, as_numpy=False)
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    view = sharded.query_rays(o, d, near, far, fields=fields, as_numpy=False)
+    torch.cuda.synchronize()
+    out["render_s"] = time.perf_counter() - t0
+    out["render_launches"] = counts()
+    ref = single.query_rays(o, d, near, far, fields=fields, as_numpy=False)
+    out["render_bitwise"] = all(torch.equal(getattr(view, f), getattr(ref, f)) for f in fields)
+    out["render_max_diff"] = max(float((getattr(view, f) - getattr(ref, f)).abs().max())
+                                 for f in fields)
+    out["render_rays"] = H * W
+    out["render_chunk"] = int(cfg.nerf.validation.chunksize)
+
+    # The 480^3 sigma grid of the same field, sharded, against one rank's.
+    reset()
+    t0 = time.perf_counter()
+    grid = _grid_tiles(sharded.density_points, MESH_LIMIT, (MESH_RES,) * 3, GRID_TILE, device,
+                       torch.float32, group=group)
+    torch.cuda.synchronize()
+    out["grid_s"] = time.perf_counter() - t0
+    out["grid_launches"] = counts()
+    ref = _grid_tiles(single.density_points, MESH_LIMIT, (MESH_RES,) * 3, GRID_TILE, device,
+                      torch.float32)
+    out["grid_bitwise"] = bool(torch.equal(grid, ref))
+    out["grid_max_diff"] = float((grid - ref).abs().max())
+    Path(out_dir, f"rank{group.rank}.json").write_text(json.dumps(out))
+
+
+def _per_rank_kernel_rows(card: str, device, rows_2048: dict) -> dict:
+    """Each kernel alone on the card at the shape one of DIST_WORLD ranks
+    gives it (1024 x 64 and 1024 x 192 forward, 1024 x 192 backward, 1024
+    BuFF rays of chords, 131,072 grid points of sigma), timed by CUDA
+    events (median of 7), beside its bound and the one-rank row of this
+    call at 2048 rays or 262,144 points."""
+    from nerfmeshes_tpu_torch.models import build_model
+    from nerfmeshes_tpu_torch.ops.kernels import chords as ch
+    from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerfmeshes_tpu_torch.train.system import init_params
+
+    cfg = _lego_bf16_cfg()
+    model = build_model(cfg.models.fine_type, dict(cfg.models.fine), compute_dtype=torch.bfloat16)
+    init_params(model, None, torch.Generator().manual_seed(SEED))
+    model.to(device).eval()
+    packed = fm.pack_weights(model)
+    rng = np.random.default_rng(SEED)
+    R = 2048 // DIST_WORLD
+    rows = {}
+    for S in (64, 192):
+        o, d, z = _rays(R, S, rng, device)
+        ms = _median_ms(lambda: fm.fused_mlp_cuda(packed, o, d, z))
+        rows[f"fused_mlp_fwd {R}x{S}"] = (ms, *_fwd_bound(model, packed, R, S))
+    cot = torch.from_numpy(rng.standard_normal((4, R, 192)).astype(np.float32)).to(device)
+    ms = _median_ms(lambda: fm.fused_mlp_bwd_cuda(packed, o, d, z, cot))
+    rows[f"fused_mlp_bwd {R}x192"] = (ms, *_bwd_bound(model, packed, R, 192))
+    n = GRID_TILE // DIST_WORLD
+    pts = torch.from_numpy(rng.uniform(-MESH_LIMIT, MESH_LIMIT, (n, 3)).astype(np.float32))
+    pts = pts.to(device)
+    ms = _median_ms(lambda: fm.fused_sigma_cuda(packed, pts))
+    nbytes = n * 16 + packed.weights.numel() * 2 + packed.biases.numel() * 4
+    rows[f"fused_sigma {n}"] = (ms, *_bound_ms(_field_flops(model, heads=False) * n, nbytes,
+                                               PEAK_BF16))
+    inputs = _chord_inputs(device)
+    initial = inputs["initial"]
+    o1, d1 = inputs["o"][:R].contiguous(), inputs["d"][:R].contiguous()
+    K = 64
+    ms = _kernel_device_ms(lambda: ch.compact_chords_cuda(initial.voxels, initial.active, o1,
+                                                          d1, 2.0, 6.0, K=K), "chords")
+    rows[f"fused_chords {R} rays"] = (ms, *_chord_bound(R, initial.voxels.shape[0],
+                                                        int(initial.active.sum()), K))
+    for name, (ms, bound, by) in rows.items():
+        kernel = name.split()[0]
+        whole = rows_2048.get(kernel)
+        beside = ("" if whole is None else
+                  f"; one rank's row: {whole['ms']:.4f} ms, bound {whole['bound_ms']:.4f} ms")
+        print(f"dist per-rank {name}: {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+              f"{100.0 * bound / ms:.1f}% of the bound{beside} [{card}]")
+    return {k: dict(ms=v[0], bound_ms=v[1], bound_by=v[2]) for k, v in rows.items()}
+
+
+def _lego_bf16_cfg():
+    """get_default_cfg()'s lego field in bf16 through the fused kernels."""
+    from nerfmeshes_tpu_torch.config import get_default_cfg
+
+    cfg = get_default_cfg()
+    cfg.experiment.compute_dtype = "bfloat16"
+    cfg.experiment.use_fused_kernel = True
+    return cfg
+
+
+def check_dist_ranks(ranks: list, card: str, device) -> dict:
+    """Print and hold each rank's record of _dist_rank to dist_phase's bars
+    and to the launches the code makes per rank; returns those counts by
+    path."""
+    chunks = math.ceil(ranks[0]["render_rays"] / ranks[0]["render_chunk"])
+    tiles = math.ceil(MESH_RES ** 3 / GRID_TILE)
+    want = {"train": {"fwd": 2, "bwd": 2, "sigma": 0, "chords": 0},
+            "buff_train": {"fwd": 1, "bwd": 1, "sigma": 0, "chords": 1},
+            "render": {"fwd": 2 * chunks, "bwd": 0, "sigma": 0, "chords": 0},
+            "grid": {"fwd": 0, "bwd": 0, "sigma": tiles, "chords": 0}}
+    for r in ranks:
+        tag = f"dist rank {r['rank']} of {r['world']} ({r['backend']}, {device})"
+        print(f"{tag}: gather exact {r['gather_exact']}; train grads worst rel err "
+              f"{r['train_grad_err']:.3e}, BuFF grads {r['buff_train_grad_err']:.3e} (bar "
+              f"{DIST_BAR}), BuFF memm max abs diff {r['buff_train_memm_err']:.3e} of max "
+              f"{r['buff_train_memm_max']:.3e} (bar {DIST_MEMM_BAR}); {r['train_local_rays']} "
+              f"rays a rank; 400x400 view bitwise {r['render_bitwise']} (max diff "
+              f"{r['render_max_diff']:.3e}) in {r['render_s']:.4f} s; 480^3 grid bitwise "
+              f"{r['grid_bitwise']} (max diff {r['grid_max_diff']:.3e}) in {r['grid_s']:.4f} s; "
+              f"launches " + ", ".join(f"{p} {r[p + '_launches']}" for p in want) + f" [{card}]")
+        if not r["gather_exact"]:
+            raise AssertionError("gloo's zero-buffer all_reduce is not the gather")
+        for path in ("train", "buff_train"):
+            if not r[f"{path}_grad_err"] <= DIST_BAR:
+                raise AssertionError(f"rank {r['rank']}: {path} grads off by "
+                                     f"{r[f'{path}_grad_err']}")
+        if not r["buff_train_memm_err"] <= DIST_MEMM_BAR:
+            raise AssertionError(f"rank {r['rank']}: BuFF memm off by {r['buff_train_memm_err']}")
+        if not (r["render_bitwise"] and r["grid_bitwise"]):
+            raise AssertionError(f"rank {r['rank']}: sharded render or grid not bit-equal")
+        for path, counts in want.items():
+            if r[f"{path}_launches"] != counts:
+                raise AssertionError(f"rank {r['rank']}: {path} launches "
+                                     f"{r[f'{path}_launches']}, expected {counts}")
+    return want
+
+
+def dist_phase(card: str, device, rows_2048: dict) -> dict:
+    """Data parallelism on the card (parallel/mesh.py): the forced NCCL
+    one-rank phase (dist_forced_phase), then DIST_WORLD ranks sharing the
+    card under gloo (_dist_rank), each on its half of the same injected
+    batch: the reduced grads of a hierarchical and a BuFF step against
+    one process's on the whole batch (within DIST_BAR of max |grad|), the
+    BuFF memm (within DIST_MEMM_BAR), a 400x400 view through the sharded
+    render and the 480^3 sharded sigma grid against one rank's (bit for
+    bit), each rank's launches against the code's count; then the kernels
+    alone at the per-rank shapes. Returns rank 0's launches by path and
+    the numbers printed."""
+    from nerfmeshes_tpu_torch.parallel.mesh import launch
+
+    forced = dist_forced_phase(card, device)
+    # The ranks share the card with this process: hand back what the
+    # earlier phases left in the caching allocator.
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"dist: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB of the "
+          f"card ({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated) before the ranks "
+          f"start [{card}]")
+    out_dir = REPO / "build" / "dist_phase"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    launch(_dist_rank, DIST_WORLD, torch.device("cuda", torch.cuda.current_device()),
+           backend="gloo", args=(str(out_dir),))
+    seconds = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(DIST_WORLD)]
+    want = check_dist_ranks(ranks, card, device)
+    print(f"dist: {DIST_WORLD} gloo ranks on one card, spawned, checked and joined in "
+          f"{seconds:.2f} s [{card}]")
+    per_rank = _per_rank_kernel_rows(card, device, rows_2048)
+    launches = {k: {f"dist_{path}": ranks[0][f"{path}_launches"][k] for path in want
+                    if ranks[0][f"{path}_launches"][k]} for k in KERNELS}
+    return dict(forced=forced, per_rank=per_rank, launches=launches, seconds=seconds)
+
+
 def profile_buff(card: str, device, steps: int = 5) -> None:
     """The BuFF train step breakdown of PERF.md section 5 (--profile-buff):
     buff_hard_cfg() trained past its first consolidation (integration on),
@@ -2751,6 +3167,8 @@ def main(argv=None) -> int:
     del buff_system
     bkern["legs"] = legs_phase(bkern, card)
     h128 = h128_kernel_phase(card, device)
+    dist = dist_phase(card, device, {"fused_mlp_fwd": kern, "fused_mlp_bwd": bkern,
+                                     "fused_sigma": skern, "fused_chords": ckern})
     jpeg_phase(card)
     chains = {name: cli_chain(name, card) for name in CLI_RUNS}
     chains["tb_phase"] = tb_phase(card)
@@ -2804,21 +3222,28 @@ def main(argv=None) -> int:
                "mesh": mesh["fwd_launches"], "buff_train": buff["fwd_launches"],
                "buff_render": buff_render["fwd_launches"], "buff_mesh": buff_mesh["fwd_launches"],
                **cli["fwd"], "buff_random_train": buff_random["train"]["fwd"],
-               "buff_random_view": buff_random["view"]["fwd"]},
+               "buff_random_view": buff_random["view"]["fwd"], **dist["launches"]["fwd"]},
               chunk_ms=kern["chunk_ms"], chunk_bound_ms=kern["chunk_bound_ms"],
-              shape="2048x192", hidden=256),
+              shape="2048x192", hidden=256, per_rank={
+                  k: v for k, v in dist["per_rank"].items() if k.startswith("fused_mlp_fwd")}),
         entry("fused_mlp_bwd", "fused_mlp_bwd.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397", bkern,
               {"train": train["bwd_launches"], "buff_train": buff["bwd_launches"], **cli["bwd"],
-               "buff_random_train": buff_random["train"]["bwd"]},
+               "buff_random_train": buff_random["train"]["bwd"], **dist["launches"]["bwd"]},
               max_rel_err=bkern["max_rel_err"], legs=bkern["legs"], shape="2048x192",
-              hidden=256),
+              hidden=256, per_rank={k: v for k, v in dist["per_rank"].items()
+                                    if k.startswith("fused_mlp_bwd")}),
         entry("fused_sigma", "fused_sigma.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:675", skern,
               {"mesh": mesh["sigma_launches"], "buff_mesh": buff_mesh["sigma_launches"],
-               **cli["sigma"]}),
+               **cli["sigma"], **dist["launches"]["sigma"]},
+              per_rank={k: v for k, v in dist["per_rank"].items()
+                        if k.startswith("fused_sigma")}),
         entry("fused_chords", "chords.cu", "nerfmeshes_tpu/ops/pallas/chords.py:98",
               dict(ckern, library_ms=None),
               {"train": buff["chords_launches"], "render": buff_render["chords_launches"],
-               "mesh": buff_mesh["chords_launches"], **cli["chords"]},
+               "mesh": buff_mesh["chords_launches"], **cli["chords"],
+               **dist["launches"]["chords"]},
+              per_rank={k: v for k, v in dist["per_rank"].items()
+                        if k.startswith("fused_chords")},
               bitwise_equal=ckern["bitwise_equal"], bound_us=ckern["bound_ms"] * 1e3,
               call_ms=ckern["call_ms"], b2b_ms=ckern["b2b_ms"],
               chunk_ms=ckern["chunk_ms"], chunk_b2b_ms=ckern["chunk_b2b_ms"],

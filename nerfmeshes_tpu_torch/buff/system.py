@@ -33,11 +33,15 @@ from nerfmeshes_tpu_torch.ops.math import img2mse, mse2psnr
 from nerfmeshes_tpu_torch.ops.rays import CameraIntrinsics
 from nerfmeshes_tpu_torch.ops.render import volume_render
 from nerfmeshes_tpu_torch.ops.sampling import ray_sample_interval
+from nerfmeshes_tpu_torch.parallel.mesh import DataGroup
 from nerfmeshes_tpu_torch.train.render import RenderSettings, _apply_field, draws_in_training
 from nerfmeshes_tpu_torch.train.step import (
     TrainState,
-    _sample_ray_batch,
+    all_mean_grads,
+    all_mean_metrics,
+    batch_source,
     depth_loss_metrics,
+    shard_render_chunk,
 )
 from nerfmeshes_tpu_torch.train.system import NeRFSystem
 from nerfmeshes_tpu_torch.utils.loggers import TreeLogger, TreeWeightsLogger
@@ -119,46 +123,58 @@ def buff_train_loss(cfg, model, tree_state: TreeState, origins, directions, targ
 
 def make_buff_train_step(cfg, *, H: int, W: int, focal: float,
                          steps_per_call: Optional[int] = None,
-                         intrinsics: Optional[CameraIntrinsics] = None):
-    """fn(state, tree_state, data) -> (state, tree_state, metrics):
-    `steps_per_call` steps of sample rays (under `intrinsics`; None:
-    CameraIntrinsics.from_hwf) -> tree-sampled render -> MSE ->
+                         intrinsics: Optional[CameraIntrinsics] = None,
+                         group: Optional[DataGroup] = None):
+    """fn(state, tree_state, data, rays=None) -> (state, tree_state,
+    metrics): `steps_per_call` steps of sample rays (under `intrinsics`;
+    None: CameraIntrinsics.from_hwf) -> tree-sampled render -> MSE ->
     Adam, each followed, from step step_size_integration_offset on, by the
     integration of its weights into the tree. Metrics are the last step's,
     except train/dropped_chords, summed over the call's steps (a cap that
-    binds on one step of a call is seen). Nothing waits for the device."""
+    binds on one step of a call is seen). Nothing waits for the device.
+
+    With a sharded `group`, the hierarchical step's split
+    (train/step.py:batch_source, make_train_step): the rank's own pixels
+    and render draws, grads averaged before each optimizer micro-step,
+    the voxel accumulators summed over the group inside `integrate`, and
+    the metrics averaged once per call (train/dropped_chords: the mean over
+    ranks of each rank's batch sum, nerfmeshes_tpu/buff/system.py:181-185).
+    `rays` replaces the drawn batch, as in make_train_step."""
     settings = RenderSettings.from_cfg(cfg, train=True)
-    num_rays = int(cfg.nerf.train.num_random_rays)
-    use_ndc = bool(cfg.dataset.use_ndc)
-    sample_all = bool(cfg.nerf.train.get("sample_all_images", False))
     max_chords = int(cfg.tree.get("max_chords_per_ray", 0))
     offset = int(cfg.tree.step_size_integration_offset)
     if steps_per_call is None:
         steps_per_call = int(cfg.experiment.steps_per_call)
+    source = batch_source(cfg, H=H, W=W, focal=focal, intrinsics=intrinsics, group=group)
+    sharded = group is not None and group.sharded
 
-    def one_step(state: TrainState, tree_state: TreeState, data: dict):
-        origins, directions, targets, near, far, depth_tgt = _sample_ray_batch(
-            data, state.generator, H=H, W=W, focal=focal, num_rays=num_rays,
-            use_ndc=use_ndc, intrinsics=intrinsics, sample_all_images=sample_all)
+    def one_step(state: TrainState, tree_state: TreeState, data: dict, rays):
+        (origins, directions, targets, near, far, depth_tgt), generator = source(
+            state, data, rays)
         loss, metrics, aux = buff_train_loss(
             cfg, state.coarse, tree_state, origins, directions, targets, near, far, depth_tgt,
-            generator=state.generator, settings=settings, max_chords=max_chords)
+            generator=generator, settings=settings, max_chords=max_chords)
         loss.backward()
+        if sharded:
+            all_mean_grads(state.optimizer.params, group)
         state.optimizer.step()
         metrics["train/lr"] = state.optimizer.lr_at(state.step)
         if state.step >= offset:
             tree_state = integrate(tree_state, aux["voxel_idx"], aux["weights"],
-                                   aux["mask_weights"], aux["ray_mask"])
+                                   aux["mask_weights"], aux["ray_mask"],
+                                   group=group if sharded else None)
         state.step += 1
         return tree_state, metrics
 
-    def multi_step(state: TrainState, tree_state: TreeState, data: dict):
+    def multi_step(state: TrainState, tree_state: TreeState, data: dict, rays=None):
         dropped = None
         for _ in range(steps_per_call):
-            tree_state, metrics = one_step(state, tree_state, data)
+            tree_state, metrics = one_step(state, tree_state, data, rays)
             d = metrics["train/dropped_chords"]
             dropped = d if dropped is None else dropped + d
         metrics["train/dropped_chords"] = dropped
+        if sharded:
+            metrics = all_mean_metrics(metrics, group)
         return state, tree_state, metrics
 
     return multi_step
@@ -173,10 +189,11 @@ class BuFFSystem(NeRFSystem):
     was consolidated after, and a grown chord cap is written back to the
     run's hparams.yaml."""
 
-    def __init__(self, cfg, paths=None, device: Optional[torch.device] = None):
+    def __init__(self, cfg, paths=None, device: Optional[torch.device] = None,
+                 group: Optional[DataGroup] = None):
         cfg = cfg.clone()
         cfg.models.use_fine = False
-        super().__init__(cfg, paths, device)
+        super().__init__(cfg, paths, device, group)
         self.tree = TreeSampling(cfg)
         self.tree_state = self.tree.device_state(self.device)
         self.consolidation_steps: list[int] = []  # steps after which the tree was rebuilt
@@ -193,20 +210,20 @@ class BuFFSystem(NeRFSystem):
         settings = RenderSettings.from_cfg(self.cfg, train=False)
 
         @torch.inference_mode()
-        def render_chunk(origins, directions, near, far):
+        def render_chunk(origins, directions, near, far, fields=None):
             bundle, _, _, _ = buff_render_rays(
                 self.coarse, self.tree_state, origins, directions, near, far, settings,
                 train=False, use_random_sampling=bool(self.cfg.tree.use_random_sampling),
                 max_chords=int(self.cfg.tree.get("max_chords_per_ray", 0)))
             return bundle, None
 
-        self._render_chunk = render_chunk
+        self._render_chunk = shard_render_chunk(render_chunk, self.group)
         return self
 
     def _build_train_fn(self) -> None:
         H, W, focal = self._hwf
         buff_fn = make_buff_train_step(self.cfg, H=int(H), W=int(W), focal=float(focal),
-                                       intrinsics=self._intrinsics)
+                                       intrinsics=self._intrinsics, group=self.group)
 
         def train_fn(state, data):
             state, self.tree_state, metrics = buff_fn(state, self.tree_state, data)
@@ -231,10 +248,14 @@ class BuFFSystem(NeRFSystem):
 
     def _read_dropped(self, wait: bool = False) -> None:
         """Note the dropped-chords counters whose copies have landed, in
-        order; with `wait`, every pending one."""
-        while self._dropped_pending:
+        order; with `wait`, every pending one. Under a sharded group every
+        rank must grow the cap at the same step, so each counter (the same
+        on every rank after the all-reduce) is read one call after it was
+        sent, waiting for it, whatever else has landed."""
+        in_step = self.group.sharded and not wait
+        while len(self._dropped_pending) > (1 if in_step else 0):
             host, done, at = self._dropped_pending[0]
-            if done is not None and not wait and not done.query():
+            if done is not None and not (wait or in_step) and not done.query():
                 break
             if done is not None:
                 done.synchronize()
@@ -245,7 +266,9 @@ class BuFFSystem(NeRFSystem):
         """Read the dropped-chords counters whose copies have landed (on the
         card, the earlier calls'; nothing waits), then consolidate the tree
         when a boundary fell inside this call, logging it before and after
-        (_log_tree)."""
+        (_log_tree). Under a sharded group every rank consolidates from the
+        same memm (integrate sums the accumulators over the group), so the
+        trees stay equal without a broadcast."""
         self._read_dropped()
         spc = int(self.cfg.experiment.steps_per_call)
         boundary = self.tree.integration_offset + self.tree.step_size_tree
@@ -310,7 +333,7 @@ class BuFFSystem(NeRFSystem):
         print(f"BuFF: raising tree.max_chords_per_ray {cur} -> {new} (dropped chords "
               "observed).", flush=True)
         self.cfg.tree.max_chords_per_ray = new
-        if self.paths is not None:
+        if self.paths is not None and self.group.is_main:
             # A later resume, eval or mesh reads the cap from hparams.yaml.
             save_hparams(self.cfg, self.paths)
         if self._hwf is not None:

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from nerfmeshes_tpu_torch.ops.kernels.chords import BIG, _bound, compact_chords, slab_test
+from nerfmeshes_tpu_torch.parallel.mesh import DataGroup, all_sum_
 
 # Inactive-row sentinel: a degenerate box far outside any scene, so the slab
 # test never passes the near/far cap.
@@ -313,10 +314,14 @@ def ray_voxel_intersect(voxels: torch.Tensor, active: torch.Tensor, origins: tor
 
 
 def integrate(state: TreeState, voxel_idx: torch.Tensor, weights: torch.Tensor,
-              mask_weights: torch.Tensor, ray_mask: torch.Tensor) -> TreeState:
+              mask_weights: torch.Tensor, ray_mask: torch.Tensor,
+              group: Optional[DataGroup] = None) -> TreeState:
     """Fold rendered sample weights into the per-voxel running mean
     (nerfmeshes_tpu/buff/tree.py:553-603). voxel_idx / weights /
-    mask_weights (R, S), ray_mask (R,).
+    mask_weights (R, S), ray_mask (R,). With a sharded `group` (each rank
+    its own rays) the voxel accumulators are summed over the group in one
+    all_reduce before the update, as JAX psums them, so every rank
+    integrates the global batch and keeps the same memm.
 
     A scatter-add over the voxels where JAX contracts a one-hot on its MXU.
     On the card index_add_ sums with float atomics, in an order that
@@ -329,6 +334,8 @@ def integrate(state: TreeState, voxel_idx: torch.Tensor, weights: torch.Tensor,
     f = (mask_weights * rm).reshape(-1)
     acc = torch.zeros(V, dtype=weights.dtype, device=weights.device).index_add_(0, flat_idx, w)
     freq = torch.zeros(V, dtype=weights.dtype, device=weights.device).index_add_(0, flat_idx, f)
+    if group is not None and group.sharded:
+        acc, freq = all_sum_(torch.cat([acc, freq]), group).split(V)
     hit = freq > 0
     one = torch.ones((), dtype=freq.dtype, device=freq.device)
     delta = torch.where(hit, acc / torch.where(hit, freq, one) - state.memm,

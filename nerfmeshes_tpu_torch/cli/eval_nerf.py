@@ -6,6 +6,9 @@ PNGs (disparity only beside the rgb ones, as JAX writes them). The metrics are c
 two scalars come to the host per view.
 
     python -m nerfmeshes_tpu_torch.cli.eval_nerf --log-checkpoint logs/.../version_0
+
+Every view's rays are split over every visible card (parallel/mesh.py),
+or over the ranks torchrun started; rank 0 prints and writes the images.
 """
 
 from __future__ import annotations
@@ -52,6 +55,14 @@ def main(argv=None) -> dict:
                          "(queued in ROADMAP.md); use --synthesis-images --save-dir to "
                          "write the frames as PNGs")
 
+    from nerfmeshes_tpu_torch.parallel.mesh import cli_world, run_cli
+
+    return run_cli(evaluate, args, cli_world(args.device))
+
+
+def evaluate(args, group) -> dict:
+    """The CLI's body on one rank of `group` (every rank returns the
+    metrics; rank 0 prints and writes)."""
     import torch
 
     from nerfmeshes_tpu_torch.config.paths import resolve_paths
@@ -62,7 +73,7 @@ def main(argv=None) -> dict:
     from nerfmeshes_tpu_torch.utils.logging import cast_to_disparity_image
 
     cfg, paths = resolve_paths(log_checkpoint=args.log_checkpoint)
-    system = build_system(cfg, paths, args.device)
+    system = build_system(cfg, paths, group=group)
     dataset = build_dataset(cfg, DatasetType.TEST, system.device)
     if args.synthesis_images:
         dataset.synthesis()
@@ -70,7 +81,8 @@ def main(argv=None) -> dict:
     system.restore(step=None if args.checkpoint == "last" else int(args.checkpoint),
                    last=args.checkpoint == "last")
 
-    save_dir = Path(args.save_dir) if args.save_dir else None
+    main = group.is_main
+    save_dir = Path(args.save_dir) if args.save_dir and main else None
     if save_dir:
         os.makedirs(save_dir, exist_ok=True)
     save_rgb = bool(save_dir and (args.save_images or args.synthesis_images))
@@ -92,7 +104,8 @@ def main(argv=None) -> dict:
             mses.append(mse)
             ssims.append(s_val)
             line += f" mse={mse:.5f} psnr={_psnr(mse):.2f} ssim={s_val:.4f}"
-        print(line, flush=True)
+        if main:
+            print(line, flush=True)
 
         if save_rgb:
             rgb = (out.rgb_map.reshape(H, W, 3).clamp(0.0, 1.0) * 255.0).to(torch.uint8)
@@ -111,8 +124,9 @@ def main(argv=None) -> dict:
         return {}
     result = {"mse": float(np.mean(mses)), "ssim": float(np.mean(ssims))}
     result["psnr"] = _psnr(result["mse"])
-    print(f"dataset: mse={result['mse']:.5f} psnr={result['psnr']:.2f} "
-          f"ssim={result['ssim']:.4f}")
+    if main:
+        print(f"dataset: mse={result['mse']:.5f} psnr={result['psnr']:.2f} "
+              f"ssim={result['ssim']:.4f}")
     return result
 
 

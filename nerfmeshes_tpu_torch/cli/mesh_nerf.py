@@ -3,6 +3,10 @@ same flags plus --device): dense sigma grid -> iso-surface ->
 inverse-normal appearance -> OBJ (or binary PLY for a .ply name).
 
     python -m nerfmeshes_tpu_torch.cli.mesh_nerf --log-checkpoint logs/.../version_0 --res 480
+
+The grid and the appearance rays are split over every visible card
+(parallel/mesh.py), or over the ranks torchrun started; rank 0 marches,
+prints and writes the mesh.
 """
 
 from __future__ import annotations
@@ -42,16 +46,24 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    """Mesh a run; returns (vertices, triangles, diffuse, normals)."""
+    """Mesh a run; returns (vertices, triangles, diffuse, normals) (None
+    when it spawned its ranks)."""
     args = build_parser().parse_args(argv)
 
+    from nerfmeshes_tpu_torch.parallel.mesh import cli_world, run_cli
+
+    return run_cli(mesh, args, cli_world(args.device))
+
+
+def mesh(args, group):
+    """The CLI's body on one rank of `group`."""
     from nerfmeshes_tpu_torch.config.paths import resolve_paths
     from nerfmeshes_tpu_torch.mesh import MeshArgs, export_marching_cubes
     from nerfmeshes_tpu_torch.mesh.extract import LAST_TIMINGS
     from nerfmeshes_tpu_torch.train.factory import build_system
 
     cfg, paths = resolve_paths(log_checkpoint=args.log_checkpoint)
-    system = build_system(cfg, paths, args.device)
+    system = build_system(cfg, paths, group=group)
     system.setup_eval()
     system.restore(step=None if args.checkpoint == "last" else int(args.checkpoint),
                    last=args.checkpoint == "last")
@@ -64,15 +76,17 @@ def main(argv=None):
         use_cached_mesh=args.use_cached_mesh, override_cache_mesh=args.override_cache_mesh,
         cache_name=args.cache_name, save_dir=args.save_dir, mesh_name=args.mesh_name)
     t0 = time.time()
-    mesh = export_marching_cubes(system, mesh_args)
-    vertices, triangles = mesh[0], mesh[1]
+    out = export_marching_cubes(system, mesh_args)
+    if not group.is_main:
+        return out
+    vertices, triangles = out[0], out[1]
     print(f"Extracted {len(vertices)} vertices / {len(triangles)} triangles "
           f"in {time.time() - t0:.1f}s -> {args.save_dir}/{args.mesh_name}")
     if LAST_TIMINGS:
         print("phases: " + " ".join(
             f"{k}={v:.1f}s" if k.endswith("_s") else f"{k}={int(v)}"
             for k, v in LAST_TIMINGS.items()))
-    return mesh
+    return out
 
 
 if __name__ == "__main__":

@@ -5,6 +5,9 @@ surface points, with normals and colours, to PLY.
 
     python -m nerfmeshes_tpu_torch.cli.surface_ray --log-checkpoint logs/.../version_0 \
         --img-size 400 --focal 0 --save-path points.ply
+
+Every view's rays are split over every visible card (parallel/mesh.py),
+or over the ranks torchrun started; rank 0 prints and writes the file.
 """
 
 from __future__ import annotations
@@ -48,15 +51,23 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    """Export a run's surface points; returns (points, normals, colors)."""
+    """Export a run's surface points; returns (points, normals, colors)
+    (None when it spawned its ranks)."""
     args = build_parser().parse_args(argv)
 
+    from nerfmeshes_tpu_torch.parallel.mesh import cli_world, run_cli
+
+    return run_cli(surface_ray, args, cli_world(args.device))
+
+
+def surface_ray(args, group):
+    """The CLI's body on one rank of `group`."""
     from nerfmeshes_tpu_torch.config.paths import resolve_paths
     from nerfmeshes_tpu_torch.mesh.surface_ray import export_surface_ray
     from nerfmeshes_tpu_torch.train.factory import build_system
 
     cfg, paths = resolve_paths(log_checkpoint=args.log_checkpoint)
-    system = build_system(cfg, paths, args.device)
+    system = build_system(cfg, paths, group=group)
     system.setup_eval(None)
     system.restore(step=None if args.checkpoint == "last" else int(args.checkpoint),
                    last=args.checkpoint == "last")
@@ -68,13 +79,15 @@ def main(argv=None):
         focal = float(build_dataset(cfg, DatasetType.VALIDATION, system.device).hwf[2])
 
     out = Path(args.save_path)
-    out.parent.mkdir(parents=True, exist_ok=True)
+    if group.is_main:
+        out.parent.mkdir(parents=True, exist_ok=True)
     result = export_surface_ray(
         system, str(out), hwf=(args.img_size, args.img_size, focal), poses_y=args.poses_y,
         poses_x=args.poses_x, radius=args.radius, step_size=args.step_size,
         dist_threshold=args.dist_threshold, prob_threshold=args.prob_threshold,
         binary=not args.ascii)
-    print(f"wrote {len(result[0])} surface points -> {out}", flush=True)
+    if group.is_main:
+        print(f"wrote {len(result[0])} surface points -> {out}", flush=True)
     return result
 
 

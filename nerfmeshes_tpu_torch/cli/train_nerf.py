@@ -3,6 +3,12 @@ flags plus --device).
 
     python -m nerfmeshes_tpu_torch.cli.train_nerf --config configs/tiny.yml
     python -m nerfmeshes_tpu_torch.cli.train_nerf --log-checkpoint logs/.../version_0
+    python -m nerfmeshes_tpu_torch.cli.train_nerf --config configs/tiny.yml --gpus 2
+    torchrun --nproc-per-node 2 -m nerfmeshes_tpu_torch.cli.train_nerf --config ...
+
+The rays of every step are split over the ranks (parallel/mesh.py): by
+default one per visible card, `--gpus N` of them, or with `--device cpu`
+N gloo ranks on the host; under torchrun, the ranks it started.
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--run-name", type=str, default=None,
                         help="Name of the run (log subdir).")
     parser.add_argument("--gpus", type=int, default=None,
-                        help="Cards to use; only one is supported so far.")
+                        help="Cards to split the rays over (default: every visible card; "
+                             "with --device cpu, gloo ranks on the host, default 1).")
     parser.add_argument("--precision", type=str, default=None, choices=["32", "16", "bf16"],
                         help="Compute precision override (16 maps to bf16).")
     parser.add_argument("--deterministic", action="store_true", default=True,
@@ -39,15 +46,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    """Train (or resume) a run; returns the trained system."""
+    """Train (or resume) a run; returns the trained system (None when it
+    spawned its ranks)."""
     args = build_parser().parse_args(argv)
-    if args.gpus is not None and args.gpus > 1:
-        raise NotImplementedError(
-            "--gpus > 1: multi-GPU training is not ported yet (queued in ROADMAP.md)")
 
+    from nerfmeshes_tpu_torch.parallel.mesh import cli_world, run_cli
+
+    return run_cli(train, args, cli_world(args.device, args.gpus))
+
+
+def train(args, group):
+    """The CLI's body on one rank of `group`: rank 0 resolves the run
+    directory (and writes hparams.yaml), the other ranks read it back."""
     import torch
 
     from nerfmeshes_tpu_torch.config.paths import resolve_paths
+    from nerfmeshes_tpu_torch.parallel.mesh import broadcast_text
     from nerfmeshes_tpu_torch.train.factory import build_system
 
     # --precision is folded into the overrides so that it lands in
@@ -56,16 +70,22 @@ def main(argv=None):
     if args.precision:
         overrides += ["experiment.compute_dtype",
                       {"32": "float32", "16": "bfloat16", "bf16": "bfloat16"}[args.precision]]
-    cfg, paths = resolve_paths(config_path=args.config, log_checkpoint=args.log_checkpoint,
-                               run_name=args.run_name, overrides=overrides)
-    system = build_system(cfg, paths, args.device)
+    if group.is_main:
+        cfg, paths = resolve_paths(config_path=args.config, log_checkpoint=args.log_checkpoint,
+                                   run_name=args.run_name, overrides=overrides)
+    log_dir = broadcast_text(str(paths.log_dir) if group.is_main else None, group)
+    if not group.is_main:
+        cfg, paths = resolve_paths(log_checkpoint=log_dir)
+    system = build_system(cfg, paths, group=group)
     system.setup()
     if args.log_checkpoint is not None:
         system.restore(step=None if args.checkpoint == "last" else int(args.checkpoint),
                        last=args.checkpoint == "last")
-        print(f"Resumed from step {system.state.step}")
-    system.logger.log_text("description", str(cfg.experiment.description))
-    system.logger.log_text("config", cfg.dump())
+        if group.is_main:
+            print(f"Resumed from step {system.state.step}")
+    if system.logger is not None:
+        system.logger.log_text("description", str(cfg.experiment.description))
+        system.logger.log_text("config", cfg.dump())
 
     if args.use_profiler:
         from torch.profiler import ProfilerActivity, profile
@@ -79,11 +99,13 @@ def main(argv=None):
             system.fit(max_steps=system.state.step + 3 * int(cfg.experiment.steps_per_call))
             if system.device.type == "cuda":
                 torch.cuda.synchronize(system.device)
-        prof.export_chrome_trace(str(trace_dir / "trace.json"))
-        print(f"Profile trace written to {trace_dir}")
+        if group.is_main:
+            prof.export_chrome_trace(str(trace_dir / "trace.json"))
+            print(f"Profile trace written to {trace_dir}")
 
     system.fit()
-    print("Training complete.")
+    if group.is_main:
+        print("Training complete.")
     return system
 
 

@@ -11,9 +11,13 @@ The native C++ library marches them; the appearance pass renders along
 the inverse vertex normals through the system's query_rgb (the forward
 kernel).
 
-One device: JAX's `mesh=` sharding of the grid waits for the multi-GPU
-slice. LAST_TIMINGS keeps the JAX package's keys; device phases end in
-torch.cuda.synchronize() on a CUDA device.
+With a sharded DataGroup (parallel/mesh.py), as with JAX's `mesh=`,
+rank r evaluates points [i*tile + r*local, i*tile + (r+1)*local) of every
+tile (local = tile / world) and the grid is gathered in flat-index order
+by one all_reduce; rank 0 alone reduces it to blocks, marches and writes,
+and broadcasts the geometry for the appearance pass, which renders through
+the group's query_rgb. LAST_TIMINGS keeps the JAX package's keys (rank
+0's); device phases end in torch.cuda.synchronize() on a CUDA device.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch.nn.functional as F
 
 from nerfmeshes_tpu_torch.mesh.export import export_obj, export_ply_binary
 from nerfmeshes_tpu_torch.mesh.native import fill_blocks_native, marching_cubes
+from nerfmeshes_tpu_torch.parallel.mesh import DataGroup, all_sum_, broadcast_
 
 # Phase times (s) and statistics of the last extraction, by the JAX
 # package's names: grid_eval_device_s, grid_transfer_s (+ its split),
@@ -83,11 +88,29 @@ def grid_points(idx: torch.Tensor, nums, limit: float) -> torch.Tensor:
 
 
 def _grid_tiles(fn: Callable, limit: float, nums, tile: int, device, dtype: torch.dtype,
-                channels: int = 1) -> torch.Tensor:
+                channels: int = 1, group: Optional[DataGroup] = None) -> torch.Tensor:
     """fn(points (m, 3)) at every grid point, `tile` points per call, into
     one flat (n[, channels]) `dtype` tensor on `device`. Enqueues only:
-    nothing is read back."""
+    nothing is read back.
+
+    With a sharded `group`, JAX's split (nerfmeshes_tpu/mesh/extract.py:
+    83-103): the tile rounds up to a multiple of the world size, rank r
+    evaluates its `tile / world` points of every tile (the last tile runs
+    past the grid, as JAX's does) into a zero-filled grid, and one
+    all_reduce sums the ranks' grids into the whole one."""
     n = int(np.prod(nums))
+    if group is not None and group.sharded:
+        world = group.world
+        tile = -(-tile // world) * world
+        local = tile // world
+        n_tiles = -(-n // tile)
+        out = torch.zeros((n_tiles * tile, channels) if channels > 1 else (n_tiles * tile,),
+                          dtype=dtype, device=device)
+        for i in range(n_tiles):
+            start = i * tile + group.rank * local
+            idx = torch.arange(start, start + local, dtype=torch.int64, device=device)
+            out[start:start + local] = fn(grid_points(idx, nums, limit))
+        return all_sum_(out, group)[:n]
     out = torch.empty((n, channels) if channels > 1 else (n,), dtype=dtype, device=device)
     for start in range(0, n, tile):
         idx = torch.arange(start, min(start + tile, n), dtype=torch.int64, device=device)
@@ -96,7 +119,8 @@ def _grid_tiles(fn: Callable, limit: float, nums, tile: int, device, dtype: torc
 
 
 def _grid_eval(sample_points_fn, limit: float, nums, *, channels: int, tile: int,
-               density_fn=None, device=None) -> np.ndarray:
+               density_fn=None, device=None, group: Optional[DataGroup] = None
+               ) -> np.ndarray:
     """The field over the dense grid, evaluated on `device`, returned as
     f16-rounded f32 (the JAX package sends the grid to the host as f16)."""
     if channels == 1 and density_fn is not None:
@@ -107,7 +131,7 @@ def _grid_eval(sample_points_fn, limit: float, nums, *, channels: int, tile: int
         fn = lambda pts: sample_points_fn(pts, pts)  # noqa: E731
     t0 = time.perf_counter()
     with torch.inference_mode():
-        dev = _grid_tiles(fn, limit, nums, tile, device, torch.float16, channels)
+        dev = _grid_tiles(fn, limit, nums, tile, device, torch.float16, channels, group)
     _sync(device)
     LAST_TIMINGS["grid_eval_device_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -118,17 +142,20 @@ def _grid_eval(sample_points_fn, limit: float, nums, *, channels: int, tile: int
 
 
 def extract_density(sample_points_fn, limit: float, nums, *, tile: int = 262144,
-                    density_fn=None, device=None) -> np.ndarray:
+                    density_fn=None, device=None, group: Optional[DataGroup] = None
+                    ) -> np.ndarray:
     """Density-only grid (nx, ny, nz). `density_fn` ((N, 3) points -> (N,)
-    sigma), when given, replaces the full field query (the sigma kernel)."""
+    sigma), when given, replaces the full field query (the sigma kernel).
+    With a sharded `group` every rank evaluates its share and returns the
+    whole grid."""
     if isinstance(nums, int):
         nums = (nums,) * 3
     return _grid_eval(sample_points_fn, limit, tuple(nums), channels=1, tile=tile,
-                      density_fn=density_fn, device=device)
+                      density_fn=density_fn, device=device, group=group)
 
 
 def extract_radiance(sample_points_fn, limit: float, nums, *, tile: int = 65536,
-                     device=None) -> np.ndarray:
+                     device=None, group: Optional[DataGroup] = None) -> np.ndarray:
     """Full radiance grid -> (nx, ny, nz, 4) (the reference's
     extract_radiance, src/mesh_nerf.py:27-53; geometry uses extract_density)."""
     if isinstance(nums, int):
@@ -136,7 +163,7 @@ def extract_radiance(sample_points_fn, limit: float, nums, *, tile: int = 65536,
     if len(nums) != 3:
         raise ValueError(f"nums must give 3 axes, got {nums}")
     return _grid_eval(sample_points_fn, limit, tuple(nums), channels=4, tile=tile,
-                      device=device)
+                      device=device, group=group)
 
 
 @dataclass
@@ -235,7 +262,8 @@ def _block_stats(flat: torch.Tensor, res: int, keep: Optional[np.ndarray]):
 
 def _sparse_density_extract(density_fn, limit: float, res: int, iso_level: float, *,
                             tile: int = 262144, clamp_iso: bool = True, mask_aabbs=None,
-                            device=None) -> Tuple[SparseDensityGrid, float]:
+                            device=None, group: Optional[DataGroup] = None
+                            ) -> Tuple[SparseDensityGrid, float]:
     """Density grid via sparse block transfer -> (SparseDensityGrid, iso).
 
     The res^3 grid never crosses to the host: the device computes the iso
@@ -245,7 +273,9 @@ def _sparse_density_extract(density_fn, limit: float, res: int, iso_level: float
     fetched blocks, so the surface is exact, and an unfetched block is
     one-sided, so its min fill adds no crossing. The JAX package pads the
     fetch list to a multiple of 4096 to keep XLA's shapes fixed; eager
-    PyTorch gathers exactly the fetched blocks."""
+    PyTorch gathers exactly the fetched blocks. With a sharded `group`
+    the grid is evaluated over the group (_grid_tiles) and the ranks
+    other than 0 return (None, None) after it."""
     if res % 8:
         raise ValueError(f"the sparse path needs res % 8 == 0, got {res}")
     B = res // 8
@@ -256,7 +286,10 @@ def _sparse_density_extract(density_fn, limit: float, res: int, iso_level: float
 
     t0 = time.perf_counter()
     with torch.inference_mode():
-        flat = _grid_tiles(density_fn, limit, (res,) * 3, tile, device, torch.float32)
+        flat = _grid_tiles(density_fn, limit, (res,) * 3, tile, device, torch.float32,
+                           group=group)
+        if group is not None and not group.is_main:
+            return None, None
         stats_dev, blocks3_dev, sigma = _block_stats(flat, res, keep)
         del flat
     _sync(device)
@@ -357,23 +390,29 @@ def _world(vertices: np.ndarray, args: MeshArgs) -> np.ndarray:
 
 
 def extract_geometry(sample_points_fn, args: MeshArgs, *, density_fn=None, mask_aabbs=None,
-                     device=None):
+                     device=None, group: Optional[DataGroup] = None):
     """(vertices in world coordinates, triangles, normals, density grid)
     (reference: src/mesh_nerf.py:68-92).
 
     With a `density_fn` and res % 8 == 0 (res >= 32) the grid transfers
     sparsely and the density returned is a SparseDensityGrid, not an
-    ndarray (`.to_dense()` builds one)."""
+    ndarray (`.to_dense()` builds one). With a sharded `group` the grid is
+    evaluated over the group and the ranks other than 0 return four Nones
+    (export_marching_cubes broadcasts rank 0's geometry)."""
     if not args.tree_mask:
         mask_aabbs = None
+    off_main = group is not None and not group.is_main
     if density_fn is not None and args.res % 8 == 0 and args.res >= 32:
         density, iso_value = _sparse_density_extract(
             density_fn, args.limit, args.res, args.iso_level, clamp_iso=args.clamp_iso,
-            mask_aabbs=mask_aabbs, device=device)
+            mask_aabbs=mask_aabbs, device=device, group=group)
     else:
         density = extract_density(sample_points_fn, args.limit, args.res,
-                                  density_fn=density_fn, device=device)
-        density, iso_value = _mask_dense_density(density, args, mask_aabbs)
+                                  density_fn=density_fn, device=device, group=group)
+        if not off_main:
+            density, iso_value = _mask_dense_density(density, args, mask_aabbs)
+    if off_main:
+        return None, None, None, None
     t0 = time.perf_counter()
     vertices, triangles, normals = marching_cubes(density, iso_value)
     LAST_TIMINGS["marching_cubes_s"] = time.perf_counter() - t0
@@ -381,12 +420,13 @@ def extract_geometry(sample_points_fn, args: MeshArgs, *, density_fn=None, mask_
 
 
 def extract_geometry_with_super_sampling(sample_points_fn, args: MeshArgs, *, density_fn=None,
-                                         mask_aabbs=None, device=None):
+                                         mask_aabbs=None, device=None,
+                                         group: Optional[DataGroup] = None):
     """Axis-wise super-sampled extraction: the grid is evaluated at a
     higher resolution along each axis in turn, each averaged back to the
     base resolution, and the three averaged (the reference stubs this path,
     src/mesh_nerf.py:95-128). The support mask applies at the base
-    resolution."""
+    resolution. A sharded `group` as in extract_geometry."""
     s = args.super_sampling
     if s < 1:
         raise ValueError(f"super_sampling must be >= 1, got {s}")
@@ -399,7 +439,9 @@ def extract_geometry_with_super_sampling(sample_points_fn, args: MeshArgs, *, de
         nums = [base, base, base]
         nums[axis] = dense
         density = extract_density(sample_points_fn, args.limit, tuple(nums),
-                                  density_fn=density_fn, device=device)
+                                  density_fn=density_fn, device=device, group=group)
+        if group is not None and not group.is_main:
+            continue
         # Sample i of the base axis averages fine samples i*(s+1) +- s.
         fine = np.moveaxis(density, axis, 0)
         groups = fine[: (base - 1) * (s + 1) + 1]
@@ -411,6 +453,8 @@ def extract_geometry_with_super_sampling(sample_points_fn, args: MeshArgs, *, de
             out = out + 0.5 * (groups[lo] + groups[hi])
         out = out / (1 + s)
         acc += np.moveaxis(out, 0, axis)
+    if group is not None and not group.is_main:
+        return None, None, None, None
     density = acc / 3.0
     density, iso_value = _mask_dense_density(density, args, mask_aabbs)
     vertices, triangles, normals = marching_cubes(density, iso_value)
@@ -425,7 +469,14 @@ def export_marching_cubes(system, args: MeshArgs
     chunk, as_uint8) and a `device` (a port NeRFSystem does). A `.ply`
     mesh_name writes binary PLY; anything else the reference's ASCII OBJ.
 
-    Returns (vertices, triangles, diffuse, normals)."""
+    A system with a sharded `group` evaluates the grid and renders the
+    appearance over its group; rank 0 marches, writes the cache and the
+    mesh, and broadcasts the geometry. Every rank returns the same
+    (vertices, triangles, diffuse, normals)."""
+    group = getattr(system, "group", None)
+    if group is not None and not group.sharded:
+        group = None
+    main = group is None or group.is_main
     os.makedirs(args.save_dir, exist_ok=True)
     cache_path = Path(args.save_dir) / args.cache_name
     geometry_fn = (extract_geometry_with_super_sampling if args.super_sampling >= 1
@@ -438,9 +489,11 @@ def export_marching_cubes(system, args: MeshArgs
         mask_aabbs = system.mesh_mask_aabbs() if hasattr(system, "mesh_mask_aabbs") else None
         vertices, triangles, normals, _ = geometry_fn(
             system.sample_points, args, density_fn=getattr(system, "density_points", None),
-            mask_aabbs=mask_aabbs, device=getattr(system, "device", None))
-        if args.use_cached_mesh or args.override_cache_mesh:
+            mask_aabbs=mask_aabbs, device=getattr(system, "device", None), group=group)
+        if main and (args.use_cached_mesh or args.override_cache_mesh):
             np.savez(cache_path, vertices=vertices, triangles=triangles, normals=normals)
+    if group is not None:
+        vertices, triangles, normals = _broadcast_mesh(group, vertices, triangles, normals)
 
     # Appearance: cast along inverse surface normals (src/mesh_nerf.py:161-195).
     t0 = time.perf_counter()
@@ -462,13 +515,38 @@ def export_marching_cubes(system, args: MeshArgs
 
     t0 = time.perf_counter()
     mesh_path = Path(args.save_dir) / args.mesh_name
-    if mesh_path.suffix.lower() == ".ply":
+    if main and mesh_path.suffix.lower() == ".ply":
         export_ply_binary(vertices, triangles, colors=diffuse, normals=normals,
                           filename=str(mesh_path))
-    else:
+    elif main:
         export_obj(vertices, triangles, diffuse, normals, str(mesh_path))
     LAST_TIMINGS["write_s"] = time.perf_counter() - t0
+    if group is not None:
+        group.barrier()
     return vertices, triangles, diffuse, normals
+
+
+def _broadcast_mesh(group: DataGroup, vertices, triangles, normals):
+    """Rank 0's (vertices, triangles, normals) on every rank: the counts,
+    then the f32 vertices and normals side by side, then the int32
+    triangles, each one broadcast on the group's device."""
+    if group.is_main:
+        counts = [len(vertices), len(triangles)]
+        vn = np.concatenate([vertices, normals], 1).astype(np.float32)
+        tri = np.asarray(triangles, np.int32)
+    else:
+        counts = [0, 0]
+    nv, nt = broadcast_(torch.tensor(counts, device=group.device), group).tolist()
+    if not group.is_main:
+        vn = np.zeros((nv, 6), np.float32)
+        tri = np.zeros((nt, 3), np.int32)
+    if nv:
+        vn = broadcast_(torch.from_numpy(vn).to(group.device), group).cpu().numpy()
+    if nt:
+        tri = broadcast_(torch.from_numpy(tri).to(group.device), group).cpu().numpy()
+    if group.is_main:
+        return vertices, triangles, normals
+    return vn[:, :3].copy(), tri, vn[:, 3:].copy()
 
 
 def _query_diffuse_direct(system, targets, directions, batch_size: int) -> np.ndarray:

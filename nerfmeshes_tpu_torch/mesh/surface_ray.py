@@ -147,6 +147,8 @@ def surface_points_from_views(
             pending.append((pose, _mask_pack(origin, dirs, depth, rgb, dist_threshold,
                                              prob_threshold, step_size=int(step_size))))
 
+    if not getattr(getattr(system, "group", None), "is_main", True):
+        log_every = 0  # rank 0 alone prints
     pts_all, nrm_all, rgb_all = [], [], []
     for i, (pose, packed) in enumerate(pending):
         points, mask, rgb = (t.cpu().numpy() for t in packed)
@@ -183,7 +185,9 @@ def export_surface_ray(
     """Orbit poses -> masked surface points -> PLY file (binary, or ASCII
     with `binary=False`). Defaults: 8 x 4 poses at radius 4, 800^2 views at
     focal 1111.1111, s = 2, squared distance 0.002, fraction 0.6; near and
-    far from the system's config. Returns (points, normals, colors)."""
+    far from the system's config. Returns (points, normals, colors). A
+    system with a sharded `group` renders each view over its group; every
+    rank returns the points, rank 0 alone prints and writes the file."""
     from nerfmeshes_tpu_torch.mesh.export import export_ply, export_ply_binary
 
     if hwf is None:
@@ -196,6 +200,10 @@ def export_surface_ray(
     points, normals, colors = surface_points_from_views(
         system, poses, hwf, near, far, step_size=step_size, dist_threshold=dist_threshold,
         prob_threshold=prob_threshold, log_every=log_every)
-    writer = export_ply_binary if binary else export_ply
-    writer(points, triangles=None, colors=colors, normals=normals, filename=filename)
+    group = getattr(system, "group", None)
+    if group is None or group.is_main:
+        writer = export_ply_binary if binary else export_ply
+        writer(points, triangles=None, colors=colors, normals=normals, filename=filename)
+    if group is not None:
+        group.barrier()
     return points, normals, colors

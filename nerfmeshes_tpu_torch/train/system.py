@@ -10,6 +10,13 @@ it logs to <run>/events and checkpoints to <run>/checkpoints.
 The train step never reads from the device: the print cadence, a
 validation, a checkpoint save and the early-stopping step are the only
 places the host waits for it.
+
+With a DataGroup (parallel/mesh.py) of several ranks, or a forced one,
+every rank holds the whole system; the train step, the chunk renderer and
+so validation, query_rays and query_rgb split their rays over the group.
+Every rank sees the same reduced metrics and gathered renders, so every
+rank takes the same decisions; rank 0 alone logs, prints and writes
+checkpoints, with a barrier after each save.
 """
 
 from __future__ import annotations
@@ -24,7 +31,6 @@ import numpy as np
 import torch
 
 from nerfmeshes_tpu_torch.data.datasets import DatasetType, build_dataset
-from nerfmeshes_tpu_torch.device import resolve_device
 from nerfmeshes_tpu_torch.models import build_model
 from nerfmeshes_tpu_torch.models.nerf_models import field_of
 from nerfmeshes_tpu_torch.ops.kernels.fused_mlp import (
@@ -35,6 +41,7 @@ from nerfmeshes_tpu_torch.ops.kernels.fused_mlp import (
     supports_fused,
 )
 from nerfmeshes_tpu_torch.ops.math import img2mse
+from nerfmeshes_tpu_torch.parallel.mesh import DataGroup, broadcast_params, round_chunk, single
 from nerfmeshes_tpu_torch.train.checkpoint import CheckpointManager
 from nerfmeshes_tpu_torch.train.optim import build_optimizer
 from nerfmeshes_tpu_torch.train.step import (
@@ -42,7 +49,6 @@ from nerfmeshes_tpu_torch.train.step import (
     make_render_chunk,
     make_train_step,
     render_image,
-    round_chunk,
 )
 from nerfmeshes_tpu_torch.utils.loggers import DepthProjectionLogger
 from nerfmeshes_tpu_torch.utils.logging import MetricsLogger, cast_to_disparity_image
@@ -94,14 +100,23 @@ class NeRFSystem:
     """Owns the coarse/fine models, their optimizer and train state; trains
     them and serves renders and point queries."""
 
-    def __init__(self, cfg, paths=None, device: Optional[torch.device] = None):
+    def __init__(self, cfg, paths=None, device: Optional[torch.device] = None,
+                 group: Optional[DataGroup] = None):
         """`paths`: an ExperimentPaths for the logger and the checkpoints
         (None: neither). `device`: where the models, the train state, the
         datasets and every render live; None means the CUDA card (an error
-        without one)."""
+        without one). `group`: the data-parallel group this system is a
+        rank of (None: one rank on `device`); its device is the system's.
+        Rank 0's parameters are broadcast to every rank here and after
+        restore()."""
         self.cfg = cfg
         self.paths = paths
-        self.device = resolve_device(device)
+        if group is None:
+            group = single(device)
+        elif device is not None and torch.device(device) != group.device:
+            raise ValueError(f"device {device} is not the group's {group.device}")
+        self.group = group
+        self.device = group.device
         # Drawn on the CPU so a seed gives the same weights on every device.
         self.coarse, self.fine = create_models(cfg)
         seed = int(cfg.experiment.randomseed)
@@ -111,6 +126,7 @@ class NeRFSystem:
             model.to(self.device).eval()
         self.optimizer = build_optimizer([p for m in models for p in m.parameters()], cfg)
         self.state = init_train_state(self.coarse, self.fine, self.optimizer, seed, self.device)
+        broadcast_params(self.optimizer.params, group)
         self.train_dataset = None
         self.val_dataset = None
         self._render_chunk = None
@@ -121,7 +137,7 @@ class NeRFSystem:
         self._sigma_cache = None
         self._proj_logger = DepthProjectionLogger(step_size=1)
         self.logger = (MetricsLogger(paths.events_dir, use_acronyms=bool(cfg.logging.use_acronyms))
-                       if paths is not None else None)
+                       if paths is not None and group.is_main else None)
         self.ckpt = CheckpointManager(paths.checkpoint_dir) if paths is not None else None
 
     # -- setup ----------------------------------------------------------------
@@ -153,14 +169,15 @@ class NeRFSystem:
     def _build_train_fn(self) -> None:
         H, W, focal = self._hwf
         self._train_fn = make_train_step(self.cfg, H=int(H), W=int(W), focal=float(focal),
-                                         intrinsics=self._intrinsics)
+                                         intrinsics=self._intrinsics, group=self.group)
 
     def setup_eval(self, val_dataset=None) -> "NeRFSystem":
         """Build the chunk renderer at validation settings (and take
         `val_dataset` for validate, when given)."""
         if val_dataset is not None:
             self.val_dataset = val_dataset
-        self._render_chunk = make_render_chunk(self.cfg, self.coarse, self.fine)
+        self._render_chunk = make_render_chunk(self.cfg, self.coarse, self.fine,
+                                               group=self.group)
         return self
 
     def _on_device(self, x) -> torch.Tensor:
@@ -183,7 +200,7 @@ class NeRFSystem:
         render_image for `fields` and `as_numpy`."""
         if self._render_chunk is None:
             raise RuntimeError("call setup_eval() before query_rays()")
-        chunk = round_chunk(chunk or self.cfg.nerf.validation.chunksize)
+        chunk = round_chunk(chunk or self.cfg.nerf.validation.chunksize, self.group.world)
         coarse, fine = render_image(
             self._render_chunk, self._on_device(origins), self._on_device(directions),
             float(near), float(far), chunk_size=chunk, fields=fields, as_numpy=as_numpy,
@@ -249,7 +266,10 @@ class NeRFSystem:
         with replacement from a generator seeded by the step (by 0 under
         nerf.validation.fixed_views). Rays and targets stay on the device;
         the losses come to the host in one fetch after the loop, and with
-        `log_images` each view's renders go to the logger as PNGs."""
+        `log_images` each view's renders go to the logger as PNGs. Under a
+        sharded group every rank renders its share of each view and holds
+        the gathered maps, so every rank computes the same losses and takes
+        the same checkpoint and early-stopping decisions; rank 0 logs."""
         cfg_val = self.cfg.nerf.validation
         if self.val_dataset is None:
             self.val_dataset = build_dataset(self.cfg, DatasetType.VALIDATION, self.device)
@@ -266,6 +286,8 @@ class NeRFSystem:
         self._last_val_indices = indices
 
         H, W, _ = (int(v) for v in val.hwf)
+        # The maps to gather are the same on every rank; rank 0 logs them.
+        gather_disp = log_images and self.paths is not None
         log = log_images and self.logger is not None
         losses, fine_losses = [], []
         for i, idx in enumerate(indices):
@@ -274,8 +296,9 @@ class NeRFSystem:
             target = val.image_targets(idx)
             coarse, fine = render_image(
                 self._render_chunk, origins, directions, float(near), float(far),
-                chunk_size=round_chunk(cfg_val.chunksize),
-                fields=("rgb_map", "disp_map") if log else ("rgb_map",), as_numpy=False)
+                chunk_size=round_chunk(cfg_val.chunksize, self.group.world),
+                fields=("rgb_map", "disp_map") if gather_disp else ("rgb_map",),
+                as_numpy=False)
             losses.append(img2mse(coarse.rgb_map, target))
             finest = coarse
             if fine is not None:
@@ -366,7 +389,8 @@ class NeRFSystem:
         steps_per_call = int(exp.steps_per_call)
         rays_per_step = int(cfg.nerf.train.num_random_rays)
         proj_every = max(1, int(cfg.logging.projection_step_size))
-        use_projection = (bool(cfg.logging.use_projection) and self.logger is not None
+        # Every rank renders the projection (a sharded render); rank 0 logs it.
+        use_projection = (bool(cfg.logging.use_projection) and self.paths is not None
                           and self.train_dataset is not None)
 
         last_metrics: dict = {}
@@ -403,7 +427,9 @@ class NeRFSystem:
 
     def _report(self, metrics: dict, step: int) -> None:
         """Log host metrics (metrics.jsonl and the console line), or print
-        them without a logger."""
+        them without a logger; on rank 0 only."""
+        if not self.group.is_main:
+            return
         if self.logger is not None:
             self.logger.log_scalars(metrics, step)
             print(self.logger.console_line(metrics, step), flush=True)
@@ -431,8 +457,9 @@ class NeRFSystem:
         depth_target = None
         if dataset.bundle.target_depth is not None:
             depth_target = np.asarray(dataset.bundle.target_depth[0]).reshape(-1)[::stride]
-        self._proj_logger.tick(self.logger._tb, step, o.cpu().numpy(), d.cpu().numpy(), depth,
-                               depth_target)
+        if self.logger is not None:
+            self._proj_logger.tick(self.logger._tb, step, o.cpu().numpy(), d.cpu().numpy(),
+                                   depth, depth_target)
 
     def on_step(self, step: int, metrics: dict) -> None:
         """Hook called after every call of the train step with its device
@@ -464,12 +491,17 @@ class NeRFSystem:
                 "extra": self.checkpoint_extra()}
 
     def save(self, val_loss: Optional[float] = None) -> None:
-        self.ckpt.save(self.checkpoint_state(), self.state.step, val_loss=val_loss)
+        """Checkpoint the state (rank 0 writes; every rank waits for it)."""
+        if self.group.is_main:
+            self.ckpt.save(self.checkpoint_state(), self.state.step, val_loss=val_loss)
+        self.group.barrier()
 
     def restore(self, step: Optional[int] = None, last: bool = False) -> "NeRFSystem":
         """Load checkpoint `step` (or `last`, or the latest kept) into the
         models, the optimizer and the train state, in place. The generator
-        takes its state back on the device type it was saved from."""
+        takes its state back on the device type it was saved from. Every
+        rank reads the same files, whatever the world size that wrote
+        them, and then takes rank 0's parameters."""
         saved = self.ckpt.restore(step=step, last=last)
         self.coarse.load_state_dict(saved["coarse"])
         if self.fine is not None:
@@ -478,6 +510,7 @@ class NeRFSystem:
         self.state.generator.set_state(saved["generator"])
         self.state.step = int(saved["step"])
         self.load_checkpoint_extra(saved["extra"])
+        broadcast_params(self.optimizer.params, self.group)
         return self
 
     def checkpoint_extra(self) -> dict:

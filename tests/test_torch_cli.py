@@ -125,8 +125,15 @@ def test_eval_writes_the_files_jax_writes(tmp_path, jax_run, port_run, flags):
 
 
 def test_refused_flags_say_why(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_nerf.main(["--config", TINY, "--gpus", "2", "--device", "cpu"])
+    # --gpus above 1 is no longer refused: on the host it asks for that
+    # many gloo ranks (tests/test_torch_parallel_cli.py runs them).
+    from nerfmeshes_tpu_torch.parallel import mesh as t_mesh
+
+    spawned = []
+    monkeypatch.setattr(t_mesh, "launch",
+                        lambda fn, world, device, **kw: spawned.append((world, device)))
+    assert train_nerf.main(["--config", TINY, "--gpus", "2", "--device", "cpu"]) is None
+    assert spawned == [(2, "cpu")]
     with pytest.raises(SystemExit, match="GIF"):
         eval_nerf.main(["--log-checkpoint", str(tmp_path), "--synthesis-video", "a.gif"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
