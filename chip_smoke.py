@@ -8,7 +8,8 @@
     python3 chip_smoke.py --profile-render             # the hierarchical render profile only
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, in
-parallel), the native mesh library and the JPEG decoder (g++), checks
+parallel), the native mesh library, the JPEG decoder and encoder and the
+GIF encoder (g++), checks
 each kernel against its plain PyTorch version on the card at the shapes
 of the render, train and mesh paths, then drives the hierarchical paths
 and the BuFF ones:
@@ -71,7 +72,21 @@ and the BuFF ones:
   validation loss falls; the mesh is not empty. The hierarchical chain
   ends with surface_ray's CLI on its run (the 8 x 4 orbit of 400x400
   views at the run's focal, 2 forward launches per chunk); the PLY reads
-  back with finite points and unit normals.
+  back with finite points and unit normals; then eval_nerf
+  --synthesis-video (synthesis_leg): the 120 orbit views, each through the
+  forward kernel as a test view, into one GIF by the port's g++-built
+  writer, whose blocks are walked (120 frames of 400x400, 4 cs each, loop
+  0, the trailer); the render and writer seconds and the file's MB.
+- the normals chain (normals_chain): hard-blender.yml at
+  reduced_resolution 3 (133x133, the fractional INTER_AREA) on a copy of
+  data/hard_blender with a `*_normal.png` beside every frame, the split
+  cache on: the splits' build (normals in every bundle and npz), 200
+  train steps, eval of the test split; launches as predicted, the
+  validation loss falls.
+- export_color_images (export_color_phase): data/hard_scannet's 14 colour
+  frames re-encoded as `{f}.jpg` by the port's g++-built JPEG encoder;
+  each decodes within 30 dB PSNR of its source frame at least; host ms per
+  1296x968 encode.
 - H = 128: the forward kernel at 2048 x 64 and 2048 x 128 and the
   backward at 2048 x 128, at the width of configs/hard-llff.yml (8x128),
   held against their plain versions and timed (h128_kernel_phase).
@@ -83,7 +98,10 @@ and the BuFF ones:
 - JPEG (jpeg_phase): the port's decoder, built with g++, decodes the 14
   1296x968 4:2:0 frames of data/hard_scannet/scene.sens; every frame's
   pixels hash to data/hard_scannet/digests.json (PIL's decode where the
-  stream was written); ms per frame and MB/s are host times.
+  stream was written); ms per frame and MB/s are host times. Then the
+  progressive and 4:1:1 fixtures of tests/data/jpeg/ against their
+  digests.json, and the decode time of its 1296x968 progressive fixture
+  beside the same pixels as a baseline file.
 - the ScanNet-layout chain (scannet_cli): configs/hard-blender.yml's 2 x
   8x256 fields on that stream (dataset.type scannet): +z rays from an
   off-centre principal point, unnormalised directions, depth targets,
@@ -135,7 +153,8 @@ and the BuFF ones:
   render and the 480^3 sharded sigma grid bit for bit against one
   rank's, each rank's launches (train 2 + 2, BuFF 1 + 1 + 1, view 158,
   grid 422) as the code predicts; then each kernel alone at the per-rank
-  shapes, beside its bound.
+  shapes, beside its bound and its library yardstick (the nn.Module under
+  bf16 autocast; none for chords).
 
 Prints, on lines of their own: the card's name and power limit as
 nvidia-smi reports them, the build time, per-kernel error, times, bound
@@ -1618,6 +1637,22 @@ def _leg(fn):
     return out, time.perf_counter() - t0, _launch_counts()
 
 
+def _checked_legs(name: str, out: dict, card: str):
+    """leg(label, fn, want): fn() as one leg (_leg), printed with its
+    seconds and launches, which must equal `want` (absent kernels: 0);
+    recorded in out["legs"]. Returns fn()'s result."""
+    def leg(label, fn, want):
+        result, seconds, got = _leg(fn)
+        want = {k: want.get(k, 0) for k in KERNELS}
+        print(f"{name} {label}: {seconds:.4f} s; launches {got} (predicted {want}) [{card}]")
+        if got != want:
+            raise AssertionError(f"{name} {label}: launches {got}, predicted {want}")
+        out["legs"][label] = dict(seconds=seconds, launches=got)
+        return result
+
+    return leg
+
+
 def _state_equal(a, b) -> bool:
     """Nested checkpoint states equal bit for bit (tensors on any device)."""
     if isinstance(a, torch.Tensor):
@@ -1670,15 +1705,7 @@ def cli_chain(name: str, card: str) -> dict:
     # runs as the nn.Module), two elsewhere.
     per_chunk = 1 if buff or zoo else 2
     out = {"legs": {}}
-
-    def leg(label, fn, want):
-        result, seconds, got = _leg(fn)
-        want = {k: want.get(k, 0) for k in KERNELS}
-        print(f"{name} {label}: {seconds:.4f} s; launches {got} (predicted {want}) [{card}]")
-        if got != want:
-            raise AssertionError(f"{name} {label}: launches {got}, predicted {want}")
-        out["legs"][label] = dict(seconds=seconds, launches=got)
-        return result
+    leg = _checked_legs(name, out, card)
 
     from nerfmeshes_tpu_torch.buff.system import BuFFSystem
     from nerfmeshes_tpu_torch.utils.tb_events import EventWriter
@@ -1835,6 +1862,17 @@ def cli_chain(name: str, card: str) -> dict:
                                        render_launches(test_views, *test_hw), card)
         if name == "cli":
             out["surface_points"] = _surface_ray_leg(name, run, Path(tmp), leg, card)
+            out["synthesis"] = _synthesis_leg(name, run, Path(tmp), leg,
+                                              render_launches(SYNTHESIS_VIEWS, *test_hw),
+                                              test_hw, card)
+            total = out["legs"]["synthesis"]["seconds"]
+            out["synthesis"]["render_s"] = total - out["synthesis"]["writer_s"]
+            print(f"{name} synthesis: {total:.4f} s: render and fetch "
+                  f"{out['synthesis']['render_s']:.4f} s ({SYNTHESIS_VIEWS} views, "
+                  f"{1e3 * out['synthesis']['render_s'] / SYNTHESIS_VIEWS:.4f} ms a view), GIF "
+                  f"writer {out['synthesis']['writer_s']:.4f} s "
+                  f"({1e3 * out['synthesis']['writer_s'] / SYNTHESIS_VIEWS:.4f} ms a frame) "
+                  f"[{card}]")
     out["event_s"] = writes.seconds
     print(f"{name} legs (s): " + ", ".join(f"{k} {v['seconds']:.4f}" for k, v in out["legs"].items())
           + f"; total {sum(v['seconds'] for v in out['legs'].values()):.4f}; inside the event "
@@ -2463,7 +2501,181 @@ def jpeg_phase(card: str) -> dict:
     print(f"jpeg: {len(ms)} frames {W}x{H} 4:2:0, digests equal digests.json; host decode "
           f"{per_frame:.4f} ms per frame (median; range {min(ms):.4f}-{max(ms):.4f}), "
           f"{rate:.4f} MB/s of JPEG, {H * W / per_frame / 1e3:.4f} Mpixel/s [{card}]")
-    return {"frames": len(ms), "ms_per_frame": per_frame, "mb_per_s": rate}
+    return {"frames": len(ms), "ms_per_frame": per_frame, "mb_per_s": rate,
+            **jpeg_fixtures_phase(card)}
+
+
+JPEG_FIXTURES = REPO / "tests" / "data" / "jpeg"
+
+
+def jpeg_fixtures_phase(card: str) -> dict:
+    """The decoder on the committed progressive (SOF2: PIL's and cv2's,
+    4:2:0, 4:4:4, grey, restart intervals) and 4:1:1 (cv2's, baseline and
+    progressive) fixtures of tests/data/jpeg/: each decode's pixels hash to
+    digests.json's SHA-256 of imageio's (written where the fixtures were
+    made). Then the 1296x968 progressive fixture's decode time beside the
+    same pixels' baseline 4:2:0 file (the port's encoder's), median of 5
+    each: host times."""
+    import hashlib
+
+    from nerfmeshes_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+
+    digests = json.loads((JPEG_FIXTURES / "digests.json").read_text())
+    for name, want in sorted(digests.items()):
+        pixels = decode_jpeg((JPEG_FIXTURES / name).read_bytes(), name)
+        digest = hashlib.sha256(pixels.tobytes()).hexdigest()
+        if list(pixels.shape) != want["shape"] or digest != want["sha256"]:
+            raise AssertionError(f"jpeg fixture {name} ({want['frame']} {want['sampling']}): "
+                                 f"{pixels.shape} sha256 {digest}, digests.json {want}")
+    kinds = sorted({f"{d['frame']} {d['sampling'].split(',')[0]}" for d in digests.values()})
+    print(f"jpeg fixtures: {len(digests)} files ({', '.join(kinds)}) hash to digests.json "
+          f"[{card}]")
+
+    def decode_ms(data: bytes) -> float:
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            decode_jpeg(data)
+            runs.append(time.perf_counter() - t0)
+        return 1e3 * statistics.median(runs)
+
+    progressive = (JPEG_FIXTURES / "prog_1296x968_pil.jpg").read_bytes()
+    baseline = encode_jpeg(decode_jpeg(progressive))
+    prog_ms, base_ms = decode_ms(progressive), decode_ms(baseline)
+    print(f"jpeg decode 1296x968: progressive {prog_ms:.4f} ms ({len(progressive)} B), "
+          f"baseline {base_ms:.4f} ms ({len(baseline)} B), host times [{card}]")
+    return {"fixtures": len(digests), "progressive_ms": prog_ms, "baseline_ms": base_ms}
+
+
+def export_color_phase(card: str) -> dict:
+    """SensorData.export_color_images of data/hard_scannet/scene.sens: one
+    `{f}.jpg` per frame, re-encoded by the port's g++-built encoder (the
+    bytes imageio's writer gives, held to PIL's in the CPU tests). Each
+    file decodes (the port's decoder) to its source frame within 30 dB
+    PSNR at least; the seconds of the export and ms per 1296x968 encode
+    (median of 5) are host times."""
+    import os
+    import tempfile
+
+    from nerfmeshes_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+    from nerfmeshes_tpu_torch.data.loaders.scannet import SensorData
+
+    sens = SensorData(str(SCANNET / "scene.sens"))
+    n = len(sens.frames)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        sens.export_color_images(tmp)
+        seconds = time.perf_counter() - t0
+        names = sorted(os.listdir(tmp), key=lambda f: int(f.split(".")[0]))
+        if names != [f"{f}.jpg" for f in range(n)]:
+            raise AssertionError(f"export_color_images wrote {names}")
+        psnrs, nbytes = [], 0
+        for f in range(n):
+            data = (Path(tmp) / f"{f}.jpg").read_bytes()
+            nbytes += len(data)
+            err = decode_jpeg(data).astype(np.float64) - sens.color_image(f)
+            psnrs.append(10 * math.log10(255.0 ** 2 / max(float(np.mean(err ** 2)), 1e-12)))
+    frame = sens.color_image(0)
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        encode_jpeg(frame)
+        runs.append(time.perf_counter() - t0)
+    ms = 1e3 * statistics.median(runs)
+    H, W = frame.shape[:2]
+    print(f"export_color_images: {n} frames {W}x{H} in {seconds:.4f} s ({nbytes / 1e6:.4f} MB); "
+          f"PSNR against the source frames {min(psnrs):.4f}-{max(psnrs):.4f} dB; host encode "
+          f"{ms:.4f} ms per frame (median of 5) [{card}]")
+    if min(psnrs) < 30.0:
+        raise AssertionError(f"export_color_images: PSNR {min(psnrs):.4f} dB below 30")
+    return {"frames": n, "seconds": seconds, "encode_ms": ms, "min_psnr": min(psnrs)}
+
+
+NORMALS_STEPS = 200
+NORMALS_REDUCED = 3  # 400^2 -> 133^2: cv2 INTER_AREA at a fractional scale
+NORMALS_RUN = ["experiment.validate_every", "100",
+               "dataset.reduced_resolution", str(NORMALS_REDUCED)]
+
+
+def normals_chain(card: str) -> dict:
+    """configs/hard-blender.yml (2 x 8x256 fields through the kernels) at
+    reduced_resolution 3 on a copy of data/hard_blender with an RGB
+    `*_normal.png` beside every frame (written with the port's PNG writer:
+    a smooth field of unit normals stored as (n + 1) / 2 * 255), with the
+    split cache on: the three splits' build (PNG decode, the fractional
+    INTER_AREA of targets and normals, the npz), 200 train steps through
+    train_nerf validating every 100, then eval_nerf on the test split.
+    Each leg's launches equal the code's prediction; the normals are in
+    every bundle and in every split's npz at 133 x 133; the validation
+    loss falls."""
+    import tempfile
+
+    from nerfmeshes_tpu_torch.cli import eval_nerf, train_nerf
+    from nerfmeshes_tpu_torch.config import load_config
+    from nerfmeshes_tpu_torch.data.blender import write_png
+    from nerfmeshes_tpu_torch.data.blender_poses import png_size
+    from nerfmeshes_tpu_torch.data.datasets import DatasetType, build_dataset
+
+    out = {"legs": {}}
+    leg = _checked_legs("normals", out, card)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        scene = tmp / "hard_blender"
+        t0 = time.perf_counter()
+        shutil.copytree(REPO / "data" / "hard_blender", scene)
+        counts = {}
+        for split in ("train", "val", "test"):
+            frames = json.loads((scene / f"transforms_{split}.json").read_text())["frames"]
+            counts[split] = len(frames)
+            for i, frame in enumerate(frames):
+                stem = scene / frame["file_path"]
+                H, W = png_size(stem.with_suffix(".png"))
+                yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+                n = np.stack([np.sin(xx / 57.0 + i), np.cos(yy / 43.0), np.ones_like(xx)], -1)
+                n /= np.linalg.norm(n, axis=-1, keepdims=True)
+                write_png(Path(f"{stem}_normal.png"), ((n + 1) * 127.5).astype(np.uint8))
+        print(f"normals: {sum(counts.values())} normal maps written in "
+              f"{time.perf_counter() - t0:.4f} s [{card}]")
+        cache = tmp / "cache"
+        opts = ["experiment.logdir", str(tmp / "logs"), "dataset.basedir", str(scene),
+                "dataset.caching.use_caching", "true", "dataset.caching.cache_dir", str(cache),
+                *NORMALS_RUN]
+        cfg = load_config(str(REPO / "configs" / "hard-blender.yml"), opts)
+        splits = leg("splits", lambda: {t: build_dataset(cfg, t) for t in DatasetType}, {})
+        side = 400 // NORMALS_REDUCED
+        for t, ds in splits.items():
+            shape = tuple(ds.bundle.target_normals.shape)
+            with np.load(cache / f"{t.value}.npz") as data:
+                cached = tuple(data["target_normals"].shape)
+            print(f"normals {t.value}: bundle target_normals {shape}, npz {cached}, targets "
+                  f"{tuple(ds.bundle.ray_targets.shape)} [{card}]")
+            if not (shape == cached == (counts[t.value], side, side, 3)):
+                raise AssertionError(f"normals {t.value}: {shape} in the bundle, {cached} cached")
+        del splits
+
+        chunk = int(cfg.nerf.validation.chunksize)
+        view = 2 * math.ceil(side * side / chunk)
+        vals = _validations(cfg, 0, NORMALS_STEPS) * int(cfg.nerf.validation.num_samples)
+        argv = ["--config", str(REPO / "configs" / "hard-blender.yml"), "--override",
+                "experiment.train_iters", str(NORMALS_STEPS), *opts]
+        system = leg("train", lambda: train_nerf.main(argv),
+                     {"fwd": 2 * NORMALS_STEPS + vals * view, "bwd": 2 * NORMALS_STEPS})
+        run = system.paths.log_dir
+        del system
+        records = [json.loads(line) for line in (run / "events" / "metrics.jsonl").open()]
+        val = {r["step"]: r["validation/loss"] for r in records if "validation/loss" in r}
+        train_loss = {r["step"]: r["train/loss"] for r in records if "train/loss" in r}
+        print(f"normals train: train/loss by step {train_loss}; validation/loss by step {val} "
+              f"[{card}]")
+        if not (all(math.isfinite(v) for v in val.values()) and val[max(val)] < val[min(val)]):
+            raise AssertionError(f"normals: validation loss not finite and falling: {val}")
+        result = leg("eval", lambda: eval_nerf.main(["--log-checkpoint", str(run)]),
+                     {"fwd": counts["test"] * view})
+        print(f"normals eval: {counts['test']} test views {side}x{side}: psnr "
+              f"{result['psnr']:.4f} ssim {result['ssim']:.4f} mse {result['mse']:.6f} [{card}]")
+    out.update(val_losses=val, eval=result)
+    return out
 
 
 def _surface_ray_leg(name: str, run: Path, tmp: Path, leg, card: str) -> int:
@@ -2496,6 +2708,42 @@ def _surface_ray_leg(name: str, run: Path, tmp: Path, leg, card: str) -> int:
     if not np.array_equal(back_colors, np.round(colors * 255.0).astype(np.uint8)):
         raise AssertionError(f"{name} surface_ray: the PLY's colours differ from the CLI's")
     return len(points)
+
+
+SYNTHESIS_VIEWS = 120  # the orbit of data/helpers.py:synthesis_poses
+
+
+def _synthesis_leg(name: str, run: Path, tmp: Path, leg, want: dict, hw, card: str) -> dict:
+    """eval_nerf --synthesis-video on the chain's run: the 120 orbit views
+    at the test split's size, each through the forward kernel as a test
+    view is (`want`: 120 x the per-view count), written as one GIF by the
+    port's g++-built writer. The file's blocks are walked without a
+    decoder (the card host has none): the header at the view size, 120
+    image descriptors over the whole screen, a delay of 4 hundredths on
+    each (imageio reads 42 ms as 40), the NETSCAPE loop count 0, the
+    trailer. Returns the render and writer seconds and the file's MB."""
+    from nerfmeshes_tpu_torch.cli import eval_nerf
+    from nerfmeshes_tpu_torch.data import gif
+
+    path = tmp / "synthesis" / "orbit.gif"
+    with _CallTimer(gif, ("write_gif",)) as writer:
+        leg("synthesis", lambda: eval_nerf.main(["--log-checkpoint", str(run),
+                                                 "--synthesis-video", str(path)]), want)
+    summary = gif.gif_summary(path.read_bytes())
+    H, W = hw
+    ok = (summary["width"], summary["height"]) == (W, H) and summary["trailer"] \
+        and summary["frames"] == [(0, 0, W, H)] * SYNTHESIS_VIEWS \
+        and summary["delays"] == [4] * SYNTHESIS_VIEWS and summary["loop"] == 0
+    mb = path.stat().st_size / 1e6
+    print(f"{name} synthesis: {len(summary['frames'])} frames {W}x{H}, delays "
+          f"{sorted(set(summary['delays']))} cs, loop {summary['loop']}, trailer "
+          f"{summary['trailer']}; GIF writer {writer.seconds:.4f} s ({writer.calls} call), "
+          f"{mb:.4f} MB [{card}]")
+    if not ok or writer.calls != 1:
+        raise AssertionError(f"{name} synthesis: the GIF's blocks are not the orbit's: "
+                             f"{ {k: v for k, v in summary.items() if k != 'frames'} }, "
+                             f"{len(summary['frames'])} frames, {writer.calls} writes")
+    return {"writer_s": writer.seconds, "mb": mb}
 
 
 # -- data parallelism (parallel/mesh.py) ------------------------------------------
@@ -2761,8 +3009,10 @@ def _per_rank_kernel_rows(card: str, device, rows_2048: dict) -> dict:
     """Each kernel alone on the card at the shape one of DIST_WORLD ranks
     gives it (1024 x 64 and 1024 x 192 forward, 1024 x 192 backward, 1024
     BuFF rays of chords, 131,072 grid points of sigma), timed by CUDA
-    events (median of 7), beside its bound and the one-rank row of this
-    call at 2048 rays or 262,144 points."""
+    events (median of 7), beside its bound, its library yardstick (the
+    nn.Module under bf16 autocast, as the one-rank rows time it; none for
+    chords) and the one-rank row of this call at 2048 rays or 262,144
+    points."""
     from nerfmeshes_tpu_torch.models import build_model
     from nerfmeshes_tpu_torch.ops.kernels import chords as ch
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
@@ -2776,20 +3026,46 @@ def _per_rank_kernel_rows(card: str, device, rows_2048: dict) -> dict:
     rng = np.random.default_rng(SEED)
     R = 2048 // DIST_WORLD
     rows = {}
+
+    def points(o, d, z):
+        S = z.shape[1]
+        pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
+        return pts, d[:, None, :].expand(len(o), S, 3).reshape(-1, 3)
+
+    # Library yardsticks as the one-rank rows time them: the nn.Module under
+    # bf16 autocast at the same points (forward, sigma), and with autograd
+    # for the same cotangent (backward).
     for S in (64, 192):
         o, d, z = _rays(R, S, rng, device)
         ms = _median_ms(lambda: fm.fused_mlp_cuda(packed, o, d, z))
-        rows[f"fused_mlp_fwd {R}x{S}"] = (ms, *_fwd_bound(model, packed, R, S))
+        pts, dirs = points(o, d, z)
+        with torch.inference_mode():
+            library = _median_ms(_autocast(lambda: model(pts, dirs)))
+        rows[f"fused_mlp_fwd {R}x{S}"] = (ms, *_fwd_bound(model, packed, R, S), library)
     cot = torch.from_numpy(rng.standard_normal((4, R, 192)).astype(np.float32)).to(device)
     ms = _median_ms(lambda: fm.fused_mlp_bwd_cuda(packed, o, d, z, cot))
-    rows[f"fused_mlp_bwd {R}x192"] = (ms, *_bwd_bound(model, packed, R, 192))
+    pts, dirs = points(o, d, z)
+    cot_points = cot.reshape(4, -1).t().contiguous()
+
+    def module_grads():
+        for p in model.parameters():
+            p.grad = None
+        model(pts, dirs).float().backward(cot_points)
+
+    library = _median_ms(_autocast(module_grads))
+    for p in model.parameters():
+        p.grad = None
+    rows[f"fused_mlp_bwd {R}x192"] = (ms, *_bwd_bound(model, packed, R, 192), library)
     n = GRID_TILE // DIST_WORLD
     pts = torch.from_numpy(rng.uniform(-MESH_LIMIT, MESH_LIMIT, (n, 3)).astype(np.float32))
     pts = pts.to(device)
     ms = _median_ms(lambda: fm.fused_sigma_cuda(packed, pts))
     nbytes = n * 16 + packed.weights.numel() * 2 + packed.biases.numel() * 4
+    zeros = torch.zeros_like(pts)
+    with torch.inference_mode():
+        library = _median_ms(_autocast(lambda: model(pts, zeros)))
     rows[f"fused_sigma {n}"] = (ms, *_bound_ms(_field_flops(model, heads=False) * n, nbytes,
-                                               PEAK_BF16))
+                                               PEAK_BF16), library)
     inputs = _chord_inputs(device)
     initial = inputs["initial"]
     o1, d1 = inputs["o"][:R].contiguous(), inputs["d"][:R].contiguous()
@@ -2797,15 +3073,17 @@ def _per_rank_kernel_rows(card: str, device, rows_2048: dict) -> dict:
     ms = _kernel_device_ms(lambda: ch.compact_chords_cuda(initial.voxels, initial.active, o1,
                                                           d1, 2.0, 6.0, K=K), "chords")
     rows[f"fused_chords {R} rays"] = (ms, *_chord_bound(R, initial.voxels.shape[0],
-                                                        int(initial.active.sum()), K))
-    for name, (ms, bound, by) in rows.items():
+                                                        int(initial.active.sum()), K), None)
+    for name, (ms, bound, by, library) in rows.items():
         kernel = name.split()[0]
         whole = rows_2048.get(kernel)
         beside = ("" if whole is None else
                   f"; one rank's row: {whole['ms']:.4f} ms, bound {whole['bound_ms']:.4f} ms")
+        lib = "" if library is None else f", library (nn.Module, bf16 autocast) {library:.4f} ms"
         print(f"dist per-rank {name}: {ms:.4f} ms, bound {bound:.4f} ms ({by}), "
-              f"{100.0 * bound / ms:.1f}% of the bound{beside} [{card}]")
-    return {k: dict(ms=v[0], bound_ms=v[1], bound_by=v[2]) for k, v in rows.items()}
+              f"{100.0 * bound / ms:.1f}% of the bound{lib}{beside} [{card}]")
+    return {k: dict(ms=v[0], bound_ms=v[1], bound_by=v[2], library_ms=v[3])
+            for k, v in rows.items()}
 
 
 def _lego_bf16_cfg():
@@ -3110,7 +3388,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
     from nerfmeshes_tpu_torch.config import get_default_cfg
-    from nerfmeshes_tpu_torch.data import jpeg
+    from nerfmeshes_tpu_torch.data import gif, jpeg
     from nerfmeshes_tpu_torch.mesh import native
     from nerfmeshes_tpu_torch.ops.kernels import build
 
@@ -3137,6 +3415,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     jpeg.get_lib()
     print(f"JPEG decoder (g++): {time.perf_counter() - t0:.2f} s -> {jpeg.library_path().name}")
+    for label, build_codec in (("JPEG encoder", jpeg.build_encoder), ("GIF encoder",
+                                                                       gif.build_library)):
+        t0 = time.perf_counter()
+        path = build_codec()
+        print(f"{label} (g++): {time.perf_counter() - t0:.2f} s -> {path.name}")
     if opts.profile_mesh is not None:
         profile_mesh(card, device, opts.profile_mesh or [MESH_TRAIN_STEPS])
         return 0
@@ -3171,6 +3454,8 @@ def main(argv=None) -> int:
                                      "fused_sigma": skern, "fused_chords": ckern})
     jpeg_phase(card)
     chains = {name: cli_chain(name, card) for name in CLI_RUNS}
+    chains["normals"] = normals_chain(card)
+    colour = export_color_phase(card)
     chains["tb_phase"] = tb_phase(card)
     crc = crc_phase(card)
     depth_sampling_phase(card, device)
@@ -3179,6 +3464,9 @@ def main(argv=None) -> int:
     new_legs = {f"{name} {leg}": chains[name]["legs"][leg]["seconds"]
                 for name in IMPORT_CHAINS for leg in ("import", "import_eval", "import_mesh")}
     new_legs["tb_phase train"] = chains["tb_phase"]["legs"]["train"]["seconds"]
+    new_legs["cli synthesis"] = chains["cli"]["legs"]["synthesis"]["seconds"]
+    new_legs.update({f"normals {k}": v["seconds"] for k, v in chains["normals"]["legs"].items()})
+    new_legs["export_color_images"] = colour["seconds"]
     print("new legs (s): " + ", ".join(f"{k} {v:.4f}" for k, v in new_legs.items())
           + "; event writing inside the chains (s): "
           + ", ".join(f"{k} {v['event_s']:.4f}" for k, v in chains.items() if "event_s" in v)

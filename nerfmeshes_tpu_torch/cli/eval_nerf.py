@@ -2,8 +2,9 @@
 flags plus --device): renders the test split (or 120 synthesized views:
 the Blender orbit, or a COLMAP scene's own render path), prints per-view
 and dataset MSE/PSNR/SSIM, and optionally saves rgb, target and disparity
-PNGs (disparity only beside the rgb ones, as JAX writes them). The metrics are computed on the device;
-two scalars come to the host per view.
+PNGs (disparity only beside the rgb ones, as JAX writes them), or with
+--synthesis-video the orbit as an animated GIF (data/gif.py). The metrics
+are computed on the device; two scalars come to the host per view.
 
     python -m nerfmeshes_tpu_torch.cli.eval_nerf --log-checkpoint logs/.../version_0
 
@@ -34,8 +35,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--synthesis-images", action="store_true", default=False,
                         help="Render 120 synthesized orbit poses instead of the test split.")
     parser.add_argument("--synthesis-video", type=str, default=None,
-                        help="Assemble the orbit into an animated GIF (not ported: the GPU "
-                             "host has no GIF writer).")
+                        help="Also assemble the rendered frames into an animated GIF at this "
+                             "path (implies --synthesis-images).")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device to run on (default: the CUDA card; 'cpu' to run "
                              "on the host).")
@@ -50,10 +51,10 @@ def main(argv=None) -> dict:
     """Evaluate a run; returns the dataset's mse, psnr and ssim (empty for
     synthesized views, which have no targets)."""
     args = build_parser().parse_args(argv)
-    if args.synthesis_video:
-        raise SystemExit("--synthesis-video is not ported: the GPU host has no GIF writer "
-                         "(queued in ROADMAP.md); use --synthesis-images --save-dir to "
-                         "write the frames as PNGs")
+    if args.synthesis_video and not args.synthesis_video.endswith(".gif"):
+        # Before anything is built: JAX's check and message.
+        raise SystemExit("--synthesis-video: only .gif is supported in this environment "
+                         "(no ffmpeg); got " + args.synthesis_video)
 
     from nerfmeshes_tpu_torch.parallel.mesh import cli_world, run_cli
 
@@ -68,14 +69,15 @@ def evaluate(args, group) -> dict:
     from nerfmeshes_tpu_torch.config.paths import resolve_paths
     from nerfmeshes_tpu_torch.data.blender import write_png
     from nerfmeshes_tpu_torch.data.datasets import DatasetType, build_dataset
+    from nerfmeshes_tpu_torch.data.gif import write_gif
     from nerfmeshes_tpu_torch.ops.math import ssim
     from nerfmeshes_tpu_torch.train.factory import build_system
-    from nerfmeshes_tpu_torch.utils.logging import cast_to_disparity_image
+    from nerfmeshes_tpu_torch.utils.images import cast_to_disparity_image
 
     cfg, paths = resolve_paths(log_checkpoint=args.log_checkpoint)
     system = build_system(cfg, paths, group=group)
     dataset = build_dataset(cfg, DatasetType.TEST, system.device)
-    if args.synthesis_images:
+    if args.synthesis_images or args.synthesis_video:
         dataset.synthesis()
     system.setup_eval(dataset)
     system.restore(step=None if args.checkpoint == "last" else int(args.checkpoint),
@@ -86,6 +88,9 @@ def evaluate(args, group) -> dict:
     if save_dir:
         os.makedirs(save_dir, exist_ok=True)
     save_rgb = bool(save_dir and (args.save_images or args.synthesis_images))
+    # Rank 0 keeps the orbit's uint8 frames for the GIF, fetched once with
+    # the PNGs'.
+    video_frames = [] if args.synthesis_video and main else None
     H, W = (int(v) for v in dataset.hwf[:2])
     mses, ssims = [], []
     for idx in range(len(dataset)):
@@ -107,9 +112,14 @@ def evaluate(args, group) -> dict:
         if main:
             print(line, flush=True)
 
-        if save_rgb:
+        rgb = None
+        if save_rgb or video_frames is not None:
             rgb = (out.rgb_map.reshape(H, W, 3).clamp(0.0, 1.0) * 255.0).to(torch.uint8)
-            write_png(save_dir / f"{idx:04d}_rgb.png", rgb.cpu().numpy())
+            rgb = rgb.cpu().numpy()
+        if video_frames is not None:
+            video_frames.append(rgb)
+        if save_rgb:
+            write_png(save_dir / f"{idx:04d}_rgb.png", rgb)
             if target is not None:
                 tgt = (target.reshape(H, W, 3).clamp(0.0, 1.0) * 255).to(torch.uint8)
                 write_png(save_dir / f"{idx:04d}_target.png", tgt.cpu().numpy())
@@ -119,6 +129,13 @@ def evaluate(args, group) -> dict:
                 disp = out.disp_map.reshape(H, W).cpu().numpy()
                 write_png(save_dir / f"{idx:04d}_disparity.png",
                           cast_to_disparity_image(disp, cfg.dataset.white_background))
+
+    if video_frames:
+        path = Path(args.synthesis_video)
+        os.makedirs(path.resolve().parent, exist_ok=True)
+        # JAX's imageio.mimwrite(path, frames, duration=42, loop=0).
+        write_gif(path, video_frames, duration_ms=42, loop=0)
+        print(f"wrote {len(video_frames)}-frame animation -> {args.synthesis_video}")
 
     if not mses:
         return {}

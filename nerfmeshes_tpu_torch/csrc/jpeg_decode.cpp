@@ -1,23 +1,33 @@
 // Baseline JPEG decoder of the PyTorch port (host C++, built with g++ by
 // nerfmeshes_tpu_torch/data/jpeg.py and bound with ctypes).
 //
-// Decodes sequential DCT JPEG (SOF0 and SOF1), 8-bit, Huffman-coded, with 1
-// or 3 components, sampling factors 1 or 2 on each axis, restart intervals
-// and any number of scans (interleaved or not). The output is what libjpeg
-// gives with its default decompression parameters, bit for bit:
+// Decodes sequential (SOF0, SOF1) and progressive (SOF2) DCT JPEG, 8-bit,
+// Huffman-coded, with 1 or 3 components, integer sampling ratios (1, 2 or
+// 4 on an axis), restart intervals and any number of scans (interleaved or
+// not). The output is what libjpeg gives with its default decompression
+// parameters, bit for bit:
+//   - progressive scans as jdphuff.c decodes them (spectral selection,
+//     successive approximation: DC and AC first and refinement scans, EOB
+//     runs, restarts) into the coefficient buffers a sequential scan fills;
+//     the whole file is read before any output, as jpeg_start_decompress
+//     absorbs a multi-scan file, so every coefficient is final and
+//     jdcoefct.c's block smoothing (only for coefficients still partly
+//     known) has nothing to do;
 //   - the integer IDCT of jidctint.c (JDCT_ISLOW) with its descale and
 //     range limit (a 1024-entry wrap, as prepare_range_limit_table builds);
 //   - "fancy" triangular chroma upsampling of jdsample.c: h2v1 and h2v2 when
 //     the downsampled width exceeds 2 (else box replication), h1v2 always;
 //     the rows above the first and below the last real row, and the columns
 //     beyond either edge, replicate the edge sample (jdmainct.c's context
-//     pointers, the special first and last columns);
+//     pointers, the special first and last columns); any other integer
+//     ratio (4:1:1's 4 x 1 among them) replicates each sample, jdsample.c's
+//     int_upsample;
 //   - the fixed-point YCbCr -> RGB tables of jdcolor.c (16 scale bits);
 //   - jdapimin.c's colour-space guess: JFIF means YCbCr, an Adobe marker's
 //     transform 0 means RGB, component ids 'R','G','B' mean RGB.
 // APPn and COM segments are skipped (the EXIF orientation is not applied).
-// Progressive, lossless, arithmetic-coded, hierarchical, 12-bit and
-// 4-component files return NM_JPEG_UNSUPPORTED with a message.
+// Lossless, arithmetic-coded, hierarchical, 12-bit and 4-component files
+// return NM_JPEG_UNSUPPORTED with a message.
 //
 // C entry points:
 //   int nm_jpeg_info(data, size, hwc[3], err, errlen)   header only
@@ -291,6 +301,8 @@ void idct_islow(const int16_t* in, const int32_t* q, uint8_t* out, int stride) {
   }
 }
 
+enum class ScanKind { kSequential, kDcFirst, kDcRefine, kAcFirst, kAcRefine };
+
 class Decoder {
  public:
   Decoder(const uint8_t* data, size_t size) : d_(data), n_(size) {}
@@ -313,12 +325,14 @@ class Decoder {
       size_t sl = len - 2;
       size_t end = p + len;
       switch (m) {
-        case 0xC0: case 0xC1:
+        case 0xC0: case 0xC1: case 0xC2:
+          progressive_ = m == 0xC2;
           frame(s, sl);
           if (header_only) return;
           break;
-        case 0xC2: case 0xC6: case 0xCA: case 0xCE:
-          fail(NM_JPEG_UNSUPPORTED, "progressive JPEG (SOF" + std::to_string(m - 0xC0) + ")");
+        case 0xC6: case 0xCA: case 0xCE:
+          fail(NM_JPEG_UNSUPPORTED, "hierarchical or arithmetic-coded progressive JPEG (SOF" +
+                                        std::to_string(m - 0xC0) + ")");
         case 0xC3: case 0xC7: case 0xCB: case 0xCF:
           fail(NM_JPEG_UNSUPPORTED, "lossless JPEG (SOF" + std::to_string(m - 0xC0) + ")");
         case 0xC5:
@@ -436,10 +450,10 @@ class Decoder {
     mcux_ = (W_ + 8 * hmax_ - 1) / (8 * hmax_);
     mcuy_ = (H_ + 8 * vmax_ - 1) / (8 * vmax_);
     for (auto& c : comp_) {
-      int rx = hmax_ / c.h, ry = vmax_ / c.v;
-      if (hmax_ % c.h || vmax_ % c.v || rx > 2 || ry > 2)
-        fail(NM_JPEG_UNSUPPORTED, "sampling factors other than 1 or 2 on an axis (" +
-                                      std::to_string(c.h) + "x" + std::to_string(c.v) + ")");
+      if (hmax_ % c.h || vmax_ % c.v)
+        fail(NM_JPEG_UNSUPPORTED, "a fractional sampling ratio (" + std::to_string(c.h) + "x" +
+                                      std::to_string(c.v) + " of " + std::to_string(hmax_) +
+                                      "x" + std::to_string(vmax_) + ")");
       c.bw = mcux_ * c.h;
       c.bh = mcuy_ * c.v;
       c.dw = (W_ * c.h + hmax_ - 1) / hmax_;
@@ -492,8 +506,7 @@ class Decoder {
       if (!c) fail(NM_JPEG_CORRUPT, "SOS names an unknown component");
       c->td = s[2 + 2 * i] >> 4;
       c->ta = s[2 + 2 * i] & 15;
-      if (c->td > 3 || c->ta > 3 || !dc_[c->td].defined || !ac_[c->ta].defined)
-        fail(NM_JPEG_CORRUPT, "scan uses an undefined Huffman table");
+      if (c->td > 3 || c->ta > 3) fail(NM_JPEG_CORRUPT, "bad Huffman table id");
       if (!c->latched) {  // libjpeg latches a component's table at its first scan
         if (!qdef_[c->tq]) fail(NM_JPEG_CORRUPT, "undefined quantization table");
         memcpy(c->quant, qt_[c->tq], sizeof(c->quant));
@@ -502,9 +515,25 @@ class Decoder {
       c->pred = 0;
       sc.push_back(c);
     }
-    int ss = s[1 + 2 * ns], se = s[2 + 2 * ns], ahal = s[3 + 2 * ns];
-    if (ss != 0 || se != 63 || ahal != 0)
-      fail(NM_JPEG_UNSUPPORTED, "a scan with spectral selection or successive approximation");
+    int ss = s[1 + 2 * ns], se = s[2 + 2 * ns], ah = s[3 + 2 * ns] >> 4, al = s[3 + 2 * ns] & 15;
+    if (!progressive_) {
+      if (ss != 0 || se != 63 || ah != 0 || al != 0)
+        fail(NM_JPEG_CORRUPT, "a sequential scan with spectral selection or approximation");
+    } else if (ss == 0 ? se != 0 : (se < ss || se > 63 || ns != 1)) {
+      fail(NM_JPEG_CORRUPT, "bad progressive scan parameters");
+    } else if (al > 13 || (ah && ah != al + 1)) {
+      fail(NM_JPEG_CORRUPT, "bad successive approximation");
+    }
+    // Only the tables this kind of scan reads must be defined.
+    for (auto* c : sc) {
+      bool need_dc = ss == 0 && ah == 0, need_ac = se > 0;
+      if ((need_dc && !dc_[c->td].defined) || (need_ac && !ac_[c->ta].defined))
+        fail(NM_JPEG_CORRUPT, "scan uses an undefined Huffman table");
+    }
+    ScanKind kind = !progressive_ ? ScanKind::kSequential
+                    : ss == 0     ? (ah ? ScanKind::kDcRefine : ScanKind::kDcFirst)
+                                  : (ah ? ScanKind::kAcRefine : ScanKind::kAcFirst);
+    eobrun_ = 0;
     BitReader br(d_, n_, data_pos);
     int blocks_x, blocks_y;
     if (ns == 1) {  // non-interleaved: one block per MCU over the component's own size
@@ -522,19 +551,108 @@ class Decoder {
           br.restart(next_rst);
           next_rst = (next_rst + 1) & 7;
           for (auto* c : sc) c->pred = 0;
+          eobrun_ = 0;
         }
         if (ns == 1) {
-          block(br, *sc[0], my, mx);
+          any_block(br, kind, *sc[0], my, mx, ss, se, al);
         } else {
           for (auto* c : sc)
             for (int v = 0; v < c->v; ++v)
-              for (int h = 0; h < c->h; ++h) block(br, *c, my * c->v + v, mx * c->h + h);
+              for (int h = 0; h < c->h; ++h)
+                any_block(br, kind, *c, my * c->v + v, mx * c->h + h, ss, se, al);
         }
         ++done;
       }
     }
     scanned_ = true;
     return br.next_marker();
+  }
+
+  void any_block(BitReader& br, ScanKind kind, Component& c, int by, int bx, int ss, int se,
+                 int al) {
+    int16_t* b = &c.coef[(size_t(by) * c.bw + bx) * 64];
+    switch (kind) {
+      case ScanKind::kSequential: block(br, c, by, bx); break;
+      case ScanKind::kDcFirst: dc_first(br, c, b, al); break;
+      case ScanKind::kDcRefine:
+        if (br.bits(1)) b[0] = static_cast<int16_t>(b[0] | (1 << al));
+        break;
+      case ScanKind::kAcFirst: ac_first(br, c, b, ss, se, al); break;
+      case ScanKind::kAcRefine: ac_refine(br, c, b, ss, se, al); break;
+    }
+  }
+
+  // jdphuff.c's decode_mcu_DC_first: the DC difference, shifted by Al.
+  void dc_first(BitReader& br, Component& c, int16_t* b, int al) {
+    int t = br.decode(dc_[c.td]);
+    if (t > 16) fail(NM_JPEG_CORRUPT, "bad DC coefficient size");
+    c.pred += br.receive_extend(t);
+    b[0] = static_cast<int16_t>(int32_t(uint32_t(c.pred) << al));
+  }
+
+  // decode_mcu_AC_first: one band of a block, or one block of an EOB run.
+  void ac_first(BitReader& br, Component& c, int16_t* b, int ss, int se, int al) {
+    if (eobrun_ > 0) {
+      --eobrun_;
+      return;
+    }
+    const Huffman& ac = ac_[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      int rs = br.decode(ac);
+      int r = rs >> 4, sz = rs & 15;
+      if (sz) {
+        k += r;
+        b[kNatural[k]] = static_cast<int16_t>(int32_t(uint32_t(br.receive_extend(sz)) << al));
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun_ = 1 << r;
+        if (r) eobrun_ += br.bits(r);
+        --eobrun_;
+        break;
+      }
+    }
+  }
+
+  // decode_mcu_AC_refine: a correction bit for every coefficient already
+  // nonzero, and the band's newly nonzero ones (+-1 << Al).
+  void ac_refine(BitReader& br, Component& c, int16_t* b, int ss, int se, int al) {
+    const int p1 = 1 << al, m1 = -(1 << al);
+    auto refine = [&](int16_t& coef) {
+      if (br.bits(1) && (coef & p1) == 0) coef = static_cast<int16_t>(coef + (coef >= 0 ? p1 : m1));
+    };
+    int k = ss;
+    if (eobrun_ == 0) {
+      const Huffman& ac = ac_[c.ta];
+      for (; k <= se; ++k) {
+        int rs = br.decode(ac);
+        int r = rs >> 4, sz = rs & 15, v = 0;
+        if (sz) {
+          v = br.bits(1) ? p1 : m1;  // a size other than 1 is corrupt; libjpeg warns and goes on
+        } else if (r != 15) {
+          eobrun_ = 1 << r;
+          if (r) eobrun_ += br.bits(r);
+          break;
+        }
+        do {
+          int16_t& coef = b[kNatural[k]];
+          if (coef != 0) {
+            refine(coef);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (v) b[kNatural[k]] = static_cast<int16_t>(v);
+      }
+    }
+    if (eobrun_ > 0) {
+      for (; k <= se; ++k) {
+        int16_t& coef = b[kNatural[k]];
+        if (coef != 0) refine(coef);
+      }
+      --eobrun_;
+    }
   }
 
   void block(BitReader& br, Component& c, int by, int bx) {
@@ -588,6 +706,9 @@ class Decoder {
         const uint8_t* s1 = row(below ? j + 1 : j - 1);
         int bias = below ? 2 : 1;
         for (int i = 0; i < W_; ++i) o[i] = static_cast<uint8_t>((s0[i] * 3 + s1[i] + bias) >> 2);
+      } else if (rx != 2 || ry != 2) {  // int_upsample: replicate rx x ry
+        const uint8_t* s = row(j);
+        for (int i = 0; i < W_; ++i) o[i] = s[i / rx];
       } else {  // rx == 2 && ry == 2
         const uint8_t* s0 = row(j);
         if (c.dw > 2) {  // h2v2_fancy_upsample
@@ -612,6 +733,8 @@ class Decoder {
   size_t n_;
   int H_ = 0, W_ = 0, ncomp_ = 0, hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
   int restart_interval_ = 0;
+  int eobrun_ = 0;  // blocks left in a progressive AC scan's end-of-band run
+  bool progressive_ = false;
   bool have_frame_ = false, scanned_ = false, jfif_ = false, adobe_ = false;
   int adobe_transform_ = -1;
   std::vector<Component> comp_;

@@ -16,12 +16,13 @@ encodes 8-bit grey, RGB or RGBA (filter 0 on every row), for the logger's
 validation images and event files, the eval CLI's renders and the LLFF
 `images_{factor}/` cache, and 16-bit grey, for ScanNet's depth exporter.
 
-Targets are f32 / 255, box-downscaled by `reduced_resolution` (the JAX
-loader's cv2 INTER_AREA at an integer factor) and then composited on a
-white background with their alpha when the config asks for it, as the
-JAX loader does. Per-frame `*_depth.exr` / `*_normal.png` targets raise
-NotImplementedError: no EXR decoder is on the GPU host, and nothing reads
-normal targets (ROADMAP.md).
+Targets are f32 / 255, downscaled by `reduced_resolution` (the JAX
+loader's cv2 INTER_AREA, data/helpers.py:resize_image) and then
+composited on a white background with their alpha when the config asks
+for it, as the JAX loader does. Per-frame `*_normal.png` files become
+`target_normals` (RGB / 255, resized as the targets are) when every frame
+has one, as in JAX; nothing trains on them. Per-frame `*_depth.exr`
+targets raise NotImplementedError: no EXR decoder is on the GPU host.
 """
 
 from __future__ import annotations
@@ -165,23 +166,31 @@ def encode_png(image: np.ndarray) -> bytes:
 
 def load_blender_data(cfg, split: str) -> DataBundle:
     """One split's targets and cameras as a host DataBundle: targets
-    (N, H, W, 3) f32 in [0, 1], poses (N, 4, 4) f32, hwf f32 [H, W, focal]."""
+    (N, H, W, 3) f32 in [0, 1], poses (N, 4, 4) f32, hwf f32 [H, W, focal],
+    and target_normals (N, H, W, 3) f32 in [0, 1] or None."""
     ds = cfg.dataset
     basedir = Path(ds.basedir)
     with (basedir / f"transforms_{split}.json").open("r") as fp:
         frames = json.load(fp)["frames"]
     stems = [basedir / frame["file_path"] for frame in frames]
     for stem in stems:
-        for extra in (Path(f"{stem}_depth.exr"), Path(f"{stem}_normal.png")):
-            if extra.exists():
-                raise NotImplementedError(
-                    f"{extra.name}: depth and normal targets are not ported (queued in "
-                    "ROADMAP.md)")
+        depth = Path(f"{stem}_depth.exr")
+        if depth.exists():
+            raise NotImplementedError(
+                f"{depth.name}: depth targets are not ported: no EXR decoder is on the GPU "
+                "host (ROADMAP.md)")
     imgs = np.stack(read_pngs([stem.with_suffix(".png") for stem in stems]))
     imgs = imgs.astype(np.float32) / 255.0
+    # JAX's rule: normals only when every frame has its own.
+    normal_paths = [Path(f"{stem}_normal.png") for stem in stems]
+    normals = None
+    if all(p.exists() for p in normal_paths):
+        normals = np.stack(read_pngs(normal_paths)).astype(np.float32)[..., :3] / 255.0
     poses, H, W, focal = read_blender_poses(basedir, split, ds.reduced_resolution)
     if ds.reduced_resolution is not None and ds.reduced_resolution > 1:
         imgs = np.stack([resize_image(im, (H, W)) for im in imgs])
+        if normals is not None:
+            normals = np.stack([resize_image(n, (H, W)) for n in normals])
     if imgs.shape[1:3] != (H, W):
         raise ValueError(f"images are {imgs.shape[1:3]}, the PNG headers say {(H, W)}")
     if ds.white_background and imgs.shape[-1] == 4:
@@ -189,8 +198,8 @@ def load_blender_data(cfg, split: str) -> DataBundle:
         imgs = imgs[..., :3] * alpha + (1.0 - alpha)
     else:
         imgs = imgs[..., :3]
-    return DataBundle(ray_targets=np.ascontiguousarray(imgs), poses=poses,
-                      hwf=np.array([H, W, focal], dtype=np.float32))
+    return DataBundle(ray_targets=np.ascontiguousarray(imgs), target_normals=normals,
+                      poses=poses, hwf=np.array([H, W, focal], dtype=np.float32))
 
 
 def load_blender_targets(basedir, split: str, *, white_background: bool,

@@ -22,6 +22,8 @@ class DataBundle:
         ray_targets:    (N, H, W, 3)
         ray_bounds:     (2,) or (N, 2) near/far
         target_depth:   optional (N, H, W)
+        target_normals: optional (N, H, W, 3) f32 in [0, 1], the Blender
+                        loader's `*_normal.png` / 255 (nothing trains on it)
         poses:          (N, 4, 4)
         hwf:            (3,) f32 = [H, W, focal]
     """
@@ -29,6 +31,7 @@ class DataBundle:
     ray_targets: Optional[Array] = None
     ray_bounds: Optional[Array] = None
     target_depth: Optional[Array] = None
+    target_normals: Optional[Array] = None
     poses: Optional[Array] = None
     hwf: Optional[Array] = None
 
@@ -49,8 +52,6 @@ class DataBundle:
 
     @classmethod
     def deserialize(cls, data: Mapping) -> "DataBundle":
-        """A bundle from serialize()'s keys (an npz either stack wrote). JAX
-        may also have stored target_normals, which nothing reads: it is left
-        behind."""
+        """A bundle from serialize()'s keys (an npz either stack wrote)."""
         return cls(**{f.name: np.asarray(data[f.name]) if f.name in data else None
                       for f in dataclasses.fields(cls)})

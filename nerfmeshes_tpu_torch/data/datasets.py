@@ -26,6 +26,7 @@ from nerfmeshes_tpu_torch.data.helpers import synthesis_poses
 from nerfmeshes_tpu_torch.device import resolve_device
 from nerfmeshes_tpu_torch.ops.rays import (
     CameraIntrinsics,
+    get_ray_bundle,
     get_ray_bundle_intrinsics,
     ndc_rays,
 )
@@ -35,6 +36,15 @@ class DatasetType(Enum):
     TRAIN = "train"
     TEST = "test"
     VALIDATION = "val"
+
+
+def convert_poses_to_rays(poses: np.ndarray, H: int, W: int, focal: float):
+    """Every pose's rays at once, on the host: origins (N, 3) and unit
+    directions (N, H, W, 3) as numpy f32 (the datasets make their rays on
+    the device instead, one image at a time)."""
+    origins, directions = get_ray_bundle(int(H), int(W), float(focal),
+                                         torch.as_tensor(np.asarray(poses, np.float32)))
+    return origins.numpy(), directions.numpy()
 
 
 class RayDataset:

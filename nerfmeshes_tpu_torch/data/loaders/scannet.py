@@ -7,15 +7,14 @@ camera_to_world, timestamps and the compressed colour (JPEG) and depth
 (zlib'd uint16) payloads. The parser, the writer and the exporters are
 JAX's; what JAX reads through imageio and cv2 goes through the port's own
 code: colour through `data/jpeg.py` (PNG colour through
-`data/blender.py:decode_png`), the depth exporter's resize through
-`data/helpers.py:resize_nearest` (cv2's INTER_NEAREST) and its 16-bit PNGs
-through `data/blender.py:write_png`.
-
-Not ported (ROADMAP.md): `export_color_images`, which re-encodes JPEG; the
-port has no JPEG encoder, so it raises NotImplementedError.
+`data/blender.py:decode_png`), the exporters' resize through
+`data/helpers.py:resize_nearest` (cv2's INTER_NEAREST), the depth PNGs
+(16-bit) through `data/blender.py:write_png` and the colour JPEGs through
+`data/jpeg.py:write_jpeg` (the bytes imageio's JPEG writer gives).
 
     python -m nerfmeshes_tpu_torch.data.loaders.scannet --filename scene.sens \\
-        --output_path out --export_depth_images --export_poses --export_intrinsics
+        --output_path out --export_depth_images --export_color_images --export_poses \\
+        --export_intrinsics
 """
 
 from __future__ import annotations
@@ -126,9 +125,18 @@ class SensorData:
             write_png(os.path.join(output_path, f"{f}.png"), depth)
 
     def export_color_images(self, output_path, image_size=None, frame_skip=1):
-        raise NotImplementedError(
-            "export_color_images re-encodes the colour frames as JPEG, and the port has no "
-            "JPEG encoder (queued in ROADMAP.md)")
+        """Every frame_skip-th colour frame as `{f}.jpg`, resized to
+        image_size (H, W) by cv2's nearest rule when given, re-encoded as
+        imageio's JPEG writer encodes it (data/jpeg.py:write_jpeg)."""
+        from nerfmeshes_tpu_torch.data.helpers import resize_nearest
+        from nerfmeshes_tpu_torch.data.jpeg import write_jpeg
+
+        os.makedirs(output_path, exist_ok=True)
+        for f in range(0, len(self.frames), frame_skip):
+            color = self.color_image(f)
+            if image_size is not None:
+                color = resize_nearest(color, (image_size[0], image_size[1]))
+            write_jpeg(os.path.join(output_path, f"{f}.jpg"), color)
 
     def export_poses(self, output_path, frame_skip=1):
         os.makedirs(output_path, exist_ok=True)

@@ -8,10 +8,15 @@ rounded box and three thin rods) under a high-frequency procedural
 albedo. Rendering runs on the device in chunks of at most 2**24 sample
 points, through the port's own sampling, ray and compositing ops; at
 800^2 x 512 samples an unchunked image would need gigabytes of
-intermediates.
+intermediates. `write_blender_style_dataset` writes a scene to disk in
+the Blender layout, for the file loaders.
 """
 
 from __future__ import annotations
+
+import json
+import os
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -170,3 +175,30 @@ def make_synthetic_dataset(num_images: int = 8, image_size: int = 32, near: floa
         ray_bounds=np.array([near, far], dtype=np.float32),
         target_depth=None if depth is None else fetch(depth.reshape(num_images, H, W)),
     )
+
+
+def write_blender_style_dataset(root: str, splits=("train", "val", "test"), num_images: int = 6,
+                                image_size: int = 24, scene: str = "blobs",
+                                num_samples: int = 256, device=None) -> None:
+    """Write a procedural scene as a Blender-format dataset under `root`:
+    transforms_{split}.json and {split}/r_{i}.png per split (split k drawn
+    with seed k), to drive the real loader path. `num_images` is one count
+    for every split or a dict of counts by split name; the scenes render
+    on `device` (None: the CUDA card)."""
+    from nerfmeshes_tpu_torch.data.blender import write_png
+
+    camera_angle_x = 0.6911
+    for si, split in enumerate(splits):
+        n = num_images[split] if isinstance(num_images, dict) else num_images
+        bundle = make_synthetic_dataset(num_images=n, image_size=image_size, seed=si,
+                                        scene=scene, num_samples=num_samples, device=device)
+        split_dir = Path(root) / split
+        os.makedirs(split_dir, exist_ok=True)
+        frames = []
+        for i in range(n):
+            name = f"./{split}/r_{i}"
+            img = (np.clip(bundle.ray_targets[i], 0, 1) * 255).astype(np.uint8)
+            write_png(Path(root) / f"{name}.png", img)
+            frames.append({"file_path": name, "transform_matrix": bundle.poses[i].tolist()})
+        with open(Path(root) / f"transforms_{split}.json", "w") as fh:
+            json.dump({"camera_angle_x": camera_angle_x, "frames": frames}, fh)

@@ -109,14 +109,21 @@ def forced(device=None, backend: Optional[str] = None) -> DataGroup:
 def from_env(device=None) -> Optional[DataGroup]:
     """The group a `torchrun` launch describes (WORLD_SIZE, RANK,
     LOCAL_RANK, MASTER_ADDR/PORT), joined; None outside torchrun. Rank r
-    runs on cuda:LOCAL_RANK under NCCL, or with `device` "cpu" on the
-    host under gloo."""
+    runs on cuda:LOCAL_RANK under NCCL (`device` None or "cuda"), or with
+    `device` "cpu" on the host under gloo. A card's index in `device`
+    raises in a world above 1: every rank would take that one card."""
     if "WORLD_SIZE" not in os.environ:
         return None
     world = int(os.environ["WORLD_SIZE"])
     rank = int(os.environ["RANK"])
     local = int(os.environ.get("LOCAL_RANK", rank))
-    dev = torch.device(device) if device is not None else torch.device("cuda", local)
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", local)
+    elif dev.type == "cuda" and world > 1:
+        raise ValueError(
+            f"device {dev} under a torchrun world of {world}: NCCL takes one rank per card, "
+            "so rank r runs on cuda:LOCAL_RANK; pass --device cuda (or none)")
     if world == 1:
         return DataGroup(device=resolve_device(dev))
     return init_group(rank, world, dev)
@@ -164,9 +171,16 @@ def launch(fn: Callable, world_size: int, device=None, *, backend: Optional[str]
 def cli_world(device=None, gpus: Optional[int] = None) -> int:
     """The ranks a CLI runs on: every visible card, or `gpus` of them
     (JAX's min(--gpus, devices), nerfmeshes_tpu/cli/train_nerf.py:83); on
-    the host (`device` "cpu"), `gpus` gloo ranks, 1 by default."""
+    the host (`device` "cpu"), `gpus` gloo ranks, 1 by default. One card
+    named by its index ("cuda:3") is one rank on that card, and `gpus`
+    above 1 beside it raises."""
     if device is not None and torch.device(device).type == "cpu":
         return max(1, int(gpus or 1))
+    if device is not None and torch.device(device).index is not None:
+        if gpus and int(gpus) > 1:
+            raise ValueError(f"--device {device} names one card and --gpus {gpus} asks for "
+                             f"{gpus}: pass --device cuda to spread the ranks over the cards")
+        return 1
     visible = default_world()
     return min(int(gpus), visible) if gpus else visible
 

@@ -50,8 +50,9 @@ from nerfmeshes_tpu_torch.train.step import (
     make_train_step,
     render_image,
 )
+from nerfmeshes_tpu_torch.utils.images import cast_to_disparity_image
 from nerfmeshes_tpu_torch.utils.loggers import DepthProjectionLogger
-from nerfmeshes_tpu_torch.utils.logging import MetricsLogger, cast_to_disparity_image
+from nerfmeshes_tpu_torch.utils.logging import MetricsLogger, progress_bar
 
 
 def compute_dtype_from_cfg(cfg) -> torch.dtype:
@@ -290,6 +291,7 @@ class NeRFSystem:
         gather_disp = log_images and self.paths is not None
         log = log_images and self.logger is not None
         losses, fine_losses = [], []
+        vbar = progress_bar(len(indices), desc="val", position=1, show=self.group.is_main)
         for i, idx in enumerate(indices):
             origins, directions = val.image_rays(idx)
             near, far = np.asarray(val._bounds_for(idx)).reshape(-1)[:2]
@@ -318,6 +320,8 @@ class NeRFSystem:
                                       disp[..., None].repeat(3, -1), cur_step)
                 self.logger.log_image(f"validation/img_target/{i}", _rgb_u8(target, H, W),
                                       cur_step)
+            vbar.update(1)
+        vbar.close()
 
         fetched = torch.stack(losses + fine_losses).cpu().tolist()  # the one fetch
         coarse_loss = float(np.mean(fetched[:len(losses)]))
@@ -397,6 +401,10 @@ class NeRFSystem:
         t0 = time.perf_counter()
         rays_done = 0
         step = self.state.step
+        # The bar moves at the print cadence, from the host's step count: no
+        # fetch of its own.
+        pbar = progress_bar(max_steps, desc="train", initial=step, show=self.group.is_main)
+        shown = step
         while step < max_steps:
             self.state, metrics = self._train_fn(self.state, self._data)
             step = self.state.step
@@ -415,6 +423,10 @@ class NeRFSystem:
                         f"(lr={host.get('train/lr')}). Restart from the last checkpoint with "
                         "a lower lr, fewer rays, or sigma noise enabled.")
                 last_metrics = host
+                pbar.update(step - shown)
+                shown = step
+                pbar.set_postfix_str(f"loss={host.get('train/loss', float('nan')):.4g} "
+                                     f"rps={host['train/rays_per_sec']:.3g}", refresh=False)
                 self._report(host, step)
             if validate_every > 0 and (step % validate_every < steps_per_call
                                        or step >= max_steps):
@@ -423,6 +435,8 @@ class NeRFSystem:
                 self._report(val_metrics, step)
                 if self.ckpt is not None:
                     self.save(val_loss=val_metrics["validation/loss"])
+        pbar.update(step - shown)
+        pbar.close()
         return last_metrics
 
     def _report(self, metrics: dict, step: int) -> None:

@@ -2,7 +2,7 @@
 
 An append-only metrics.jsonl (one record per log call: step, time and the
 metrics, the JAX package's keys), the console line with acronymised
-metric names, validation images as PNGs under <events>/images/ through
+metric names, the console progress bars (`progress_bar`), validation images as PNGs under <events>/images/ through
 the port's own PNG writer, and a TensorBoard event file in <events>
 (utils/tb_events.py, written without tensorboard: the GPU host has none)
 that gets the scalars, images and texts where the JAX package's
@@ -13,6 +13,8 @@ SummaryWriter gets them, and that the depth-projection and tree loggers
 from __future__ import annotations
 
 import json
+import os
+import sys
 import time
 from pathlib import Path
 from typing import Dict
@@ -20,6 +22,7 @@ from typing import Dict
 import numpy as np
 
 from nerfmeshes_tpu_torch.data.blender import encode_png
+from nerfmeshes_tpu_torch.utils.images import cast_to_disparity_image  # noqa: F401
 from nerfmeshes_tpu_torch.utils.tb_events import EventWriter
 
 
@@ -34,15 +37,38 @@ def acronym(name: str) -> str:
     return f"{scope[0]}/{short}"
 
 
-def cast_to_disparity_image(disp, white_background: bool = False) -> np.ndarray:
-    """(H, W) disparity -> min-max normalised uint8, holes white on a white
-    background (counterpart of nerfmeshes_tpu/utils/images.py)."""
-    disp = np.asarray(disp)
-    span = max(float(disp.max() - disp.min()), 1e-10)
-    img = (np.clip((disp - disp.min()) / span, 0.0, 1.0) * 255).astype(np.uint8)
-    if white_background:
-        img[img == 0] = 255
-    return img
+def progress_bar(total: int, desc: str, initial: int = 0, position: int = 0, *,
+                 show: bool = True):
+    """A console progress bar (JAX's: the train bar and the validation bar
+    under it). Enabled when stderr is a TTY, or forced by
+    NERFMESHES_PROGRESS (0 or false turns it off, anything else on);
+    `show=False` (a rank other than 0) turns it off too. Returns a tqdm
+    bar, or an inert stub when disabled or without tqdm (the GPU host has
+    none), so call sites never branch."""
+    env = os.environ.get("NERFMESHES_PROGRESS")
+    enabled = sys.stderr.isatty() if env is None else env not in ("0", "false")
+    if enabled and show:
+        try:
+            from tqdm import tqdm
+        except ImportError:
+            pass
+        else:
+            return tqdm(total=total, desc=desc, initial=initial, position=position,
+                        dynamic_ncols=True, leave=position == 0)
+    return _NoopBar()
+
+
+class _NoopBar:
+    """progress_bar's stand-in: every call does nothing."""
+
+    def update(self, n=1):
+        pass
+
+    def set_postfix_str(self, s, refresh=True):
+        pass
+
+    def close(self):
+        pass
 
 
 class MetricsLogger:

@@ -4,7 +4,13 @@ against imageio and the JAX loader.
 - The numpy + zlib PNG reader equals imageio bit for bit on every PNG of
   data/hard_blender, and on RGBA images written here with each of the
   five row filters.
-- Targets and poses equal JAX's load_blender_data on the train split.
+- Targets and poses equal JAX's load_blender_data on the train split, and
+  on the val split at reduced_resolution 3 (a fractional INTER_AREA scale)
+  within 1e-5.
+- `*_normal.png` beside every frame becomes target_normals within 1e-6 of
+  JAX's at reduced_resolution 1, 2 and 3; a partial set gives None in both
+  stacks; each stack reads the other's split npz, normals included.
+- A depth EXR raises: no EXR decoder is on the GPU host.
 """
 
 import json
@@ -20,6 +26,7 @@ import torch
 
 from nerfmeshes_tpu.config import get_default_cfg
 from nerfmeshes_tpu.data.loaders.blender import load_blender_data
+from nerfmeshes_tpu_torch.data.blender import load_blender_data as t_load_blender_data
 from nerfmeshes_tpu_torch.data.blender import (
     load_blender_targets,
     read_pngs,
@@ -128,17 +135,100 @@ def test_white_background_composites_alpha(tmp_path):
 
 
 def test_unported_inputs_raise(tmp_path):
-    """Depth EXRs are not read (no decoder on the GPU host), and a
-    downscale the box mean cannot give exactly raises. reduced_resolution
-    2 is held to cv2 INTER_AREA in tests/test_torch_datasets.py."""
-    with pytest.raises(NotImplementedError, match="integer downscale"):
-        load_blender_targets(SCENE, "val", white_background=False, reduced_resolution=3)
+    """Depth EXRs are not read: no EXR decoder is on the GPU host."""
     scene = tmp_path / "scene"
     shutil.copytree(SCENE / "val", scene / "val")
     shutil.copy(SCENE / "transforms_val.json", scene)
     (scene / "val" / "r_0_depth.exr").write_bytes(b"")
     with pytest.raises(NotImplementedError, match="depth"):
         load_blender_targets(scene, "val", white_background=False)
+
+
+def _cfgs(basedir, **dataset):
+    """The same dataset settings as a JAX and a port config."""
+    from nerfmeshes_tpu_torch.config import get_default_cfg as t_default_cfg
+
+    out = []
+    for cfg in (get_default_cfg(), t_default_cfg()):
+        cfg.dataset.basedir = str(basedir)
+        cfg.dataset.update(dataset)
+        out.append(cfg)
+    return out
+
+
+@pytest.mark.parametrize("white_background", [False, True])
+def test_reduced_resolution_3_matches_jax(white_background):
+    """400^2 -> 133^2: cv2 INTER_AREA at a fractional scale (3.0075)."""
+    j_cfg, t_cfg = _cfgs(SCENE, reduced_resolution=3, white_background=white_background)
+    want = load_blender_data(j_cfg, str(SCENE / "transforms_val.json"))
+    got = t_load_blender_data(t_cfg, "val")
+    assert got.ray_targets.shape == (2, 133, 133, 3) and got.ray_targets.dtype == np.float32
+    np.testing.assert_allclose(got.ray_targets, want.ray_targets, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got.poses, want.poses)
+    np.testing.assert_array_equal(got.hwf, want.hwf)
+
+
+def _scene_with_normals(tmp_path, frames=None) -> Path:
+    """A copy of data/hard_blender's val split with an RGB r_i_normal.png
+    beside each frame (or beside the frames listed)."""
+    scene = tmp_path / "scene"
+    shutil.copytree(SCENE / "val", scene / "val")
+    shutil.copy(SCENE / "transforms_val.json", scene)
+    rng = np.random.default_rng(7)
+    n = len(json.loads((SCENE / "transforms_val.json").read_text())["frames"])
+    for i in range(n) if frames is None else frames:
+        normal = rng.integers(0, 256, (400, 400, 3), dtype=np.uint8)
+        imageio.imwrite(scene / "val" / f"r_{i}_normal.png", normal)
+    return scene
+
+
+@pytest.mark.parametrize("reduced", [1, 2, 3])
+def test_normals_match_jax_loader(tmp_path, reduced):
+    scene = _scene_with_normals(tmp_path)
+    j_cfg, t_cfg = _cfgs(scene, reduced_resolution=reduced)
+    want = load_blender_data(j_cfg, str(scene / "transforms_val.json"))
+    got = t_load_blender_data(t_cfg, "val")
+    side = 400 // reduced
+    assert got.target_normals.shape == (2, side, side, 3)
+    assert got.target_normals.dtype == np.float32
+    np.testing.assert_allclose(got.target_normals, want.target_normals, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got.ray_targets, want.ray_targets, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got.hwf, want.hwf)
+
+
+def test_a_partial_set_of_normals_gives_none(tmp_path):
+    scene = _scene_with_normals(tmp_path, frames=[0])
+    j_cfg, t_cfg = _cfgs(scene)
+    assert load_blender_data(j_cfg, str(scene / "transforms_val.json")).target_normals is None
+    assert t_load_blender_data(t_cfg, "val").target_normals is None
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_normals_cache_read_across_stacks(tmp_path, writer):
+    """Each stack reads the other's split npz, normals included, after
+    testskip strides them."""
+    from nerfmeshes_tpu.data import datasets as j_datasets
+    from nerfmeshes_tpu_torch.data import datasets as t_datasets
+
+    scene = _scene_with_normals(tmp_path)
+    cfgs = _cfgs(scene, reduced_resolution=2, testskip=2)
+    for cfg in cfgs:
+        cfg.dataset.caching.update(use_caching=True, cache_dir=str(tmp_path / "cache"))
+    j_cfg, t_cfg = cfgs
+    cpu = torch.device("cpu")
+    if writer == "port":
+        first = t_datasets.BlenderDataset(t_cfg, t_datasets.DatasetType.VALIDATION, cpu)
+        second = j_datasets.BlenderDataset(j_cfg, j_datasets.DatasetType.VALIDATION)
+    else:
+        first = j_datasets.BlenderDataset(j_cfg, j_datasets.DatasetType.VALIDATION)
+        second = t_datasets.BlenderDataset(t_cfg, t_datasets.DatasetType.VALIDATION, cpu)
+    with np.load(tmp_path / "cache" / "val.npz") as data:
+        assert data["target_normals"].shape == (1, 200, 200, 3)
+    assert second.bundle.target_normals.shape == (1, 200, 200, 3)
+    np.testing.assert_allclose(second.bundle.target_normals, first.bundle.target_normals,
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(second.bundle.ray_targets, first.bundle.ray_targets,
+                               rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("use_ndc", [False, True])

@@ -10,8 +10,13 @@ configs/tiny.yml with --device cpu, against the JAX package's CLIs.
   number in format, and writes the files JAX's eval writes for each
   combination of --save-images and --save-disparity; mesh writes the mesh
   and the phases line;
-- the flags the port refuses (--gpus 2, --synthesis-video) say why, and
-  without --device the CLIs need the card.
+- --synthesis-video writes JAX's 120 frames in JAX's order into a GIF
+  that reads back as JAX's (count, size, 40 ms, loop 0), and a path that
+  is not a GIF exits first, with JAX's message;
+- --device cuda:N is one rank on card N, cuda spreads ranks over the cards
+  (cuda:LOCAL_RANK under torchrun), and one card named beside --gpus 2 or
+  under a torchrun world of 2 is refused, saying why (cards faked);
+- without --device the CLIs need the card.
 """
 
 import json
@@ -124,6 +129,41 @@ def test_eval_writes_the_files_jax_writes(tmp_path, jax_run, port_run, flags):
         assert got == []
 
 
+def test_synthesis_video_writes_jax_frames(tmp_path, jax_run, port_run, capsys):
+    """--synthesis-video renders JAX's 120 orbit views, in JAX's order, into
+    a looping 40 ms GIF that imageio reads as it reads JAX's, and prints
+    JAX's line; with --save-images --save-dir the frames are the PNGs'."""
+    import imageio.v2 as imageio
+
+    from nerfmeshes_tpu_torch.data import gif as t_gif
+
+    j_eval.main(["--log-checkpoint", str(jax_run), "--synthesis-video",
+                 str(tmp_path / "jax" / "orbit.gif")])
+    want_out = capsys.readouterr().out
+    eval_nerf.main(["--log-checkpoint", str(port_run), "--device", "cpu", "--synthesis-video",
+                    str(tmp_path / "port" / "orbit.gif"), "--save-images", "--save-dir",
+                    str(tmp_path / "frames")])
+    got_out = capsys.readouterr().out
+    assert _template(got_out.replace("/port/", "/")) == _template(want_out.replace("/jax/", "/"))
+    assert got_out.strip().splitlines()[-1] == \
+        f"wrote 120-frame animation -> {tmp_path / 'port' / 'orbit.gif'}"
+    got = t_gif.gif_summary((tmp_path / "port" / "orbit.gif").read_bytes())
+    want = t_gif.gif_summary((tmp_path / "jax" / "orbit.gif").read_bytes())
+    for key in ("width", "height", "delays", "loop", "trailer"):
+        assert got[key] == want[key]
+    assert len(got["frames"]) == len(want["frames"]) == 120 and got["delays"] == [4] * 120
+    frames = np.stack([f[..., :3] for f in imageio.mimread(tmp_path / "port" / "orbit.gif",
+                                                            memtest=False)])
+    pngs = np.stack([imageio.imread(tmp_path / "frames" / f"{i:04d}_rgb.png")
+                     for i in range(120)])
+    assert frames.shape == pngs.shape
+    # Frame i is view i: nearest to its own PNG (ties allowed: a 10-step
+    # field renders nearly the same image from every side).
+    err = np.abs(frames.astype(int)[:, None] - pngs.astype(int)[None, :]).mean(axis=(2, 3, 4))
+    np.testing.assert_array_equal(np.diag(err), err.min(axis=1))
+    assert np.diag(err).max() < 2.0
+
+
 def test_refused_flags_say_why(tmp_path, monkeypatch):
     # --gpus above 1 is no longer refused: on the host it asks for that
     # many gloo ranks (tests/test_torch_parallel_cli.py runs them).
@@ -134,12 +174,96 @@ def test_refused_flags_say_why(tmp_path, monkeypatch):
                         lambda fn, world, device, **kw: spawned.append((world, device)))
     assert train_nerf.main(["--config", TINY, "--gpus", "2", "--device", "cpu"]) is None
     assert spawned == [(2, "cpu")]
-    with pytest.raises(SystemExit, match="GIF"):
-        eval_nerf.main(["--log-checkpoint", str(tmp_path), "--synthesis-video", "a.gif"])
+    # A video path that is not a GIF exits before anything is built (the
+    # run directory here holds nothing), with JAX's message.
+    with pytest.raises(SystemExit, match=r"only \.gif is supported .*got a\.mp4"):
+        eval_nerf.main(["--log-checkpoint", str(tmp_path), "--synthesis-video", "a.mp4"])
+    with pytest.raises(SystemExit, match=r"only \.gif is supported .*got a\.mp4"):
+        j_eval.main(["--log-checkpoint", str(tmp_path), "--synthesis-video", "a.mp4"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_nerf.main(["--config", TINY, "--override", "experiment.logdir",
                          str(tmp_path / "logs")])
+
+
+def _fake_cards(monkeypatch, t_mesh, n=8):
+    """A host with `n` CUDA cards, as far as cli_world and run_cli see:
+    spawned launches, joined groups and run bodies are recorded, not run."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
+    monkeypatch.setattr(t_mesh, "launch",
+                        lambda fn, world, device, **kw: calls.append(("launch", world, device)))
+    monkeypatch.setattr(t_mesh, "init_group", lambda rank, world, device, **kw: t_mesh.DataGroup(
+        rank=rank, world=world, device=torch.device(device)))
+    return calls
+
+
+@pytest.mark.parametrize("device,gpus,world,launched,ran_on", [
+    ("cuda", None, 8, None, None),
+    (None, 2, 2, None, None),
+    ("cuda:3", None, 1, None, "cuda:3"),
+    ("cuda:3", 1, 1, None, "cuda:3"),
+    ("cpu", 2, 2, "cpu", None),
+])
+def test_device_flag_picks_the_ranks_and_cards(monkeypatch, device, gpus, world, launched,
+                                               ran_on):
+    """--device cuda:N is one rank on card N; cuda (or none) spreads the
+    ranks over the cards (cuda:r), cpu over gloo ranks on the host."""
+    from types import SimpleNamespace
+
+    from nerfmeshes_tpu_torch.parallel import mesh as t_mesh
+
+    calls = _fake_cards(monkeypatch, t_mesh)
+    for key in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(key, raising=False)
+    assert t_mesh.cli_world(device, gpus) == world
+    groups = []
+    t_mesh.run_cli(lambda args, group: groups.append(group), SimpleNamespace(device=device),
+                   world)
+    if world > 1:
+        want = None if device in (None, "cuda") else device
+        assert calls == [("launch", world, want)] and groups == []
+    else:
+        assert calls == [] and [(g.world, g.device) for g in groups] == [
+            (1, torch.device(ran_on))]
+
+
+def test_device_index_beside_gpus_is_refused(monkeypatch):
+    from nerfmeshes_tpu_torch.parallel import mesh as t_mesh
+
+    _fake_cards(monkeypatch, t_mesh)
+    with pytest.raises(ValueError, match=r"--device cuda:3 .*--gpus 2"):
+        t_mesh.cli_world("cuda:3", 2)
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_torchrun_ranks_take_their_local_card(monkeypatch, device):
+    from nerfmeshes_tpu_torch.parallel import mesh as t_mesh
+
+    _fake_cards(monkeypatch, t_mesh)
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    for rank in range(4):
+        monkeypatch.setenv("RANK", str(rank))
+        monkeypatch.setenv("LOCAL_RANK", str(rank))
+        group = t_mesh.from_env(device)
+        assert (group.rank, group.world, group.device) == (rank, 4, torch.device("cuda", rank))
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    assert t_mesh.from_env(device).device == torch.device("cuda", 0)
+    assert t_mesh.from_env("cuda:5").device == torch.device("cuda", 5)
+
+
+def test_torchrun_refuses_one_card_for_every_rank(monkeypatch):
+    from nerfmeshes_tpu_torch.parallel import mesh as t_mesh
+
+    _fake_cards(monkeypatch, t_mesh)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    with pytest.raises(ValueError, match="NCCL takes one rank per card"):
+        t_mesh.from_env("cuda:0")
 
 
 def test_train_writes_the_description_config_and_scalars_to_the_event_file(port_run):

@@ -12,6 +12,10 @@ package's, on the CPU.
   tests/test_torch_llff.py).
 - The reduced-resolution box mean within 1e-6 of cv2 INTER_AREA, and the
   Blender loader at reduced_resolution 2 within 1e-6 of JAX's loader.
+- INTER_AREA at fractional scales (3.0075, 2.5, 8.006, ...; 1-4 channels)
+  within 1e-5 (f32) and 1 LSB (uint8) of cv2, the share of differing
+  samples printed; unequal integer factors as cv2's box mean; upscaling
+  raises.
 """
 
 from pathlib import Path
@@ -187,6 +191,61 @@ def test_box_mean_matches_cv2_inter_area(factor, channels):
     got = t_helpers.resize_image(img, (h, w))
     assert got.dtype == np.float32 and got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+FRACTIONAL = {  # (H, W) -> (h, w): cv2's scale 1 / (h / H) is not an integer
+    "3.0075": ((400, 400), (133, 133)),
+    "2.5": ((40, 60), (16, 24)),
+    "8.006": ((1297, 969), (162, 121)),
+    "3.077": ((40, 60), (13, 20)),
+    "mixed": ((48, 72), (16, 20)),
+    "to-1x1": ((7, 5), (1, 1)),
+}
+
+
+@pytest.mark.parametrize("case", list(FRACTIONAL))
+@pytest.mark.parametrize("channels", [None, 1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+def test_fractional_area_matches_cv2(case, channels, dtype, capsys):
+    """cv2 INTER_AREA at a fractional scale: f32 within 1e-5, uint8 within 1
+    LSB; the share of samples that differ at all is printed (cv2's own
+    f32 weights and order of sums are reproduced, so it is 0 here)."""
+    (H, W), (h, w) = FRACTIONAL[case]
+    rng = np.random.default_rng(H * W + (channels or 0))
+    shape = (H, W) if channels is None else (H, W, channels)
+    if dtype == "float32":
+        img = rng.uniform(0.0, 1.0, shape).astype(np.float32)
+    else:
+        img = rng.integers(0, 256, shape, dtype=np.uint8)
+    want = cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA)
+    got = t_helpers.resize_image(img, (h, w))
+    assert got.dtype == img.dtype and got.shape == (h, w, *shape[2:])
+    want = want.reshape(got.shape)  # cv2 drops a trailing channel of 1
+    diff = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    assert diff.max() <= (1e-5 if dtype == "float32" else 1)
+    with capsys.disabled():
+        print(f"\nINTER_AREA {H}x{W}->{h}x{w} c={channels} {dtype}: max |diff| "
+              f"{diff.max():.3g}, {100 * (diff > 0).mean():.4f}% of samples differ")
+
+
+@pytest.mark.parametrize("src,dst", [((40, 60), (20, 20)), ((48, 72), (16, 24)),
+                                     ((40, 60), (10, 30))])
+def test_unequal_integer_factors_match_cv2(src, dst):
+    """Integer factors that differ by axis: cv2's fast path, a box mean."""
+    rng = np.random.default_rng(1)
+    for img in (rng.uniform(0, 1, (*src, 3)).astype(np.float32),
+                rng.integers(0, 256, (*src, 3), dtype=np.uint8)):
+        want = cv2.resize(img, dst[::-1], interpolation=cv2.INTER_AREA)
+        got = t_helpers.resize_image(img, dst)
+        assert got.dtype == img.dtype
+        np.testing.assert_allclose(got.astype(np.float64), want, rtol=0, atol=1e-6)
+
+
+def test_upscaling_raises():
+    with pytest.raises(NotImplementedError, match="only a downscale"):
+        t_helpers.resize_image(np.zeros((4, 4, 3), np.float32), (8, 4))
+    with pytest.raises(NotImplementedError, match="only a downscale"):
+        t_helpers.resize_image(np.zeros((4, 4, 3), np.float32), (0, 2))
 
 
 @pytest.mark.parametrize("white_background", [False, True])

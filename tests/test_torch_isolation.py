@@ -2,7 +2,9 @@
 
 - Importing every module of nerfmeshes_tpu_torch, the CLIs included, loads
   no jax (nor flax, optax, orbax), no PyYAML, no tensorboard, no
-  matplotlib and nothing of the JAX package in a fresh interpreter.
+  matplotlib, none of PIL, cv2 and imageio (the GPU host has none of them:
+  the image codecs are the port's own) and nothing of the JAX package in a
+  fresh interpreter. (torch itself imports tqdm where it is installed.)
 - chip_smoke.py on a host without a CUDA card exits non-zero and prints
   no "ok" line.
 """
@@ -51,12 +53,14 @@ def test_every_port_module_imports_without_jax():
     assert {"nerfmeshes_tpu_torch.utils.tb_events", "nerfmeshes_tpu_torch.utils.loggers",
             "nerfmeshes_tpu_torch.cli.import_checkpoint",
             "nerfmeshes_tpu_torch.ops.depth_sampling"} <= set(modules)
+    assert {"nerfmeshes_tpu_torch.utils.images", "nerfmeshes_tpu_torch.data.gif",
+            "nerfmeshes_tpu_torch.utils.gxx"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in ('jax', 'flax', 'optax', 'orbax', 'yaml', 'nerfmeshes_tpu',\n"
-        "                         'tensorboard', 'matplotlib')\n"
+        "                         'tensorboard', 'matplotlib', 'PIL', 'cv2', 'imageio')\n"
         "             if m in sys.modules)\n"
         "assert not bad, bad\n"
         "print('imported', len(sys.modules))\n"

@@ -14,7 +14,16 @@ dtype included: (H, W, 3) uint8 for colour, (H, W) for grey.
   imageio does not apply it); RGB stored without a colour transform (an
   Adobe marker with transform 0); non-interleaved scans.
 - Decoded from bytes and from a path, as imageio reads both.
-- Progressive, lossless, arithmetic-coded, 12-bit and CMYK files raise
+- Progressive files (SOF2: spectral selection, successive approximation,
+  EOB runs) written by PIL (4:2:0, 4:2:2, 4:4:4, grey, restart intervals
+  in blocks and in rows) and by cv2 (with and without restarts), and
+  4:1:1 (cv2's IMWRITE_JPEG_SAMPLING_FACTOR_411, baseline and progressive:
+  libjpeg replicates the 4x1 chroma, no triangle filter), at sizes 1x1 to
+  1297x969; the committed fixtures of tests/data/jpeg/ (made
+  by scripts/torch_jpeg_fixtures.py) against imageio and the SHA-256 of
+  imageio's pixels in their digests.json, which chip_smoke.py holds the
+  card host's build to.
+- Lossless, arithmetic-coded, 12-bit and CMYK files raise
   NotImplementedError naming the file and ROADMAP.md; a truncated or
   foreign file raises ValueError; damaged files decode or raise; a source
   g++ cannot build raises.
@@ -22,16 +31,21 @@ dtype included: (H, W, 3) uint8 for colour, (H, W) for grey.
   host's CPU, not of any card.
 """
 
+import hashlib
 import io
+import json
 import time
+from pathlib import Path
 
 import cv2
 import imageio.v2 as imageio
 import numpy as np
 import pytest
-from PIL import Image
+from PIL import Image, ImageFile
 
 from nerfmeshes_tpu_torch.data import jpeg as t_jpeg
+
+FIXTURES = Path(__file__).resolve().parent / "data" / "jpeg"
 
 SUBSAMPLING = {"4:4:4": 0, "4:2:2": 1, "4:2:0": 2}
 
@@ -190,6 +204,64 @@ def _join_planes(grey: list) -> bytes:
             + b"\xff\xd9")
 
 
+@pytest.fixture
+def big_pil_buffer(monkeypatch):
+    """PIL sizes its progressive encoder's buffer by the pixel count, which
+    noise at a high quality outgrows."""
+    monkeypatch.setattr(ImageFile, "MAXBLOCK", 1 << 24)
+
+
+def _cv2_rgb(img: np.ndarray, *params) -> bytes:
+    return _cv2(np.ascontiguousarray(img[..., ::-1]), *params)
+
+
+PROGRESSIVE = {
+    "pil-420": lambda img: _pil(img, progressive=True, quality=80),
+    "pil-422": lambda img: _pil(img, progressive=True, quality=70, subsampling=1),
+    "pil-444": lambda img: _pil(img, progressive=True, quality=90, subsampling=0),
+    "pil-grey": lambda img: _pil(np.ascontiguousarray(img[..., 0]), progressive=True),
+    "pil-restart-blocks": lambda img: _pil(img, progressive=True, restart_marker_blocks=3),
+    "pil-restart-rows": lambda img: _pil(img, progressive=True, restart_marker_rows=1),
+    "cv2": lambda img: _cv2_rgb(img, cv2.IMWRITE_JPEG_PROGRESSIVE, 1),
+    "cv2-restart": lambda img: _cv2_rgb(img, cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+                                        cv2.IMWRITE_JPEG_RST_INTERVAL, 2),
+}
+
+
+@pytest.mark.parametrize("writer", list(PROGRESSIVE))
+@pytest.mark.parametrize("kind", ["random", "smooth"])
+def test_progressive_matches_imageio(big_pil_buffer, writer, kind):
+    for H, W in [(1, 1), (17, 9), (40, 56), (1297, 969)]:
+        data = PROGRESSIVE[writer](_image(kind, H, W))
+        assert data[data.index(b"\xff\xc2"):][:2] == b"\xff\xc2"  # SOF2
+        _assert_as_imageio(data)
+
+
+@pytest.mark.parametrize("progressive", [False, True])
+@pytest.mark.parametrize("kind", ["random", "smooth"])
+def test_411_from_cv2_matches_imageio(progressive, kind):
+    """Y 4x1, chroma 1x1: libjpeg-turbo replicates each chroma sample 4
+    times (int_upsample); its triangle filter covers 2:1 only."""
+    for H, W in [(1, 1), (9, 17), (37, 53), (968, 1296)]:
+        data = _cv2_rgb(_image(kind, H, W), cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                        cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411, cv2.IMWRITE_JPEG_PROGRESSIVE,
+                        int(progressive))
+        sof = data.index(b"\xff\xc2" if progressive else b"\xff\xc0")
+        assert data[sof + 11] == 0x41 and data[sof + 14] == data[sof + 17] == 0x11
+        _assert_as_imageio(data)
+
+
+def test_committed_fixtures_match_imageio_and_their_digests():
+    digests = json.loads((FIXTURES / "digests.json").read_text())
+    assert len(digests) == 8 and sum(d["frame"] == "SOF2" for d in digests.values()) == 7
+    assert {d["sampling"].split(",")[0] for d in digests.values()} == {"1x1", "2x2", "4x1"}
+    for name, want in digests.items():
+        data = (FIXTURES / name).read_bytes()
+        got = _assert_as_imageio(data)
+        assert list(got.shape) == want["shape"]
+        assert hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"]
+
+
 def test_path_and_read_images_match_imageio(tmp_path):
     from nerfmeshes_tpu_torch.data.blender import read_images
 
@@ -221,7 +293,6 @@ def _unsupported_cases():
     buf = io.BytesIO()
     Image.fromarray(np.dstack([img, img[..., :1]]), "CMYK").save(buf, format="JPEG")
     return {
-        "progressive": (_pil(img, quality=75, progressive=True), "progressive"),
         "lossless": (_patched(base, b"\xff\xc0", b"\xff\xc3"), "lossless"),
         "arithmetic": (_patched(base, b"\xff\xc0", b"\xff\xc9"), "arithmetic"),
         "12-bit": (twelve, "12-bit"),
@@ -229,7 +300,7 @@ def _unsupported_cases():
     }
 
 
-@pytest.mark.parametrize("case", ["progressive", "lossless", "arithmetic", "12-bit", "cmyk"])
+@pytest.mark.parametrize("case", ["lossless", "arithmetic", "12-bit", "cmyk"])
 def test_unsupported_files_raise(case, tmp_path):
     data, what = _unsupported_cases()[case]
     path = tmp_path / "photo.jpg"
@@ -256,6 +327,26 @@ def test_damaged_files_decode_or_raise(subsampling):
     rng = np.random.default_rng(5)
     base = _pil(_image("random", 37, 53), quality=80, subsampling=SUBSAMPLING[subsampling],
                 restart_marker_blocks=2)
+    outcomes = set()
+    for i in range(500):
+        data = bytearray(base)
+        for _ in range(int(rng.integers(1, 6))):
+            data[int(rng.integers(0, len(data)))] = int(rng.integers(0, 256))
+        if i % 7 == 0:
+            data = data[:int(rng.integers(2, len(data)))]
+        try:
+            t_jpeg.decode_jpeg(bytes(data))
+            outcomes.add("decoded")
+        except (ValueError, NotImplementedError):
+            outcomes.add("raised")
+    assert outcomes == {"decoded", "raised"}
+
+
+@pytest.mark.parametrize("writer", ["pil-420", "pil-restart-blocks", "cv2"])
+def test_damaged_progressive_files_decode_or_raise(writer):
+    """As above, through the progressive scans' EOB runs and refinements."""
+    rng = np.random.default_rng(6)
+    base = PROGRESSIVE[writer](_image("random", 37, 53))
     outcomes = set()
     for i in range(500):
         data = bytearray(base)

@@ -7,7 +7,8 @@ the JAX package, on the CPU.
   tracked data/hard_llff: images, poses, bounds and render poses equal
   JAX's bit for bit (the same numpy algebra; images uint8 / 255.0 in
   float64, cast to f32), i_test equal. Each stack minifies its own copy.
-- minify's PNGs within 1 LSB of JAX's cv2 INTER_AREA ones.
+- minify's PNGs within 1 LSB of JAX's cv2 INTER_AREA ones, at factors that
+  divide the photo's size and at one (3) that does not.
 - JPEG originals (the scene's images re-encoded by PIL, 4:2:0):
   load_llff_data at factor 1 and minify's PNGs at factor 2 equal JAX's bit
   for bit (the port's decoder equals imageio's; the box mean at factor 2
@@ -124,7 +125,7 @@ def test_load_llff_data_on_hard_llff_matches_jax():
     assert got[0].shape == (24, 400, 400, 3)
 
 
-@pytest.mark.parametrize("factor", [2, 4])
+@pytest.mark.parametrize("factor", [2, 3, 4])  # 3 divides neither side: a fractional scale
 def test_minify_within_one_lsb_of_cv2(scene, tmp_path, factor):
     got_dir = t_llff.minify(str(_copy(scene, tmp_path, "port")), factor)
     want_dir = j_llff.minify(str(_copy(scene, tmp_path, "jax")), factor)

@@ -19,6 +19,8 @@ targets, near/far and depth of the train batch exactly.
   BuFFSystem pass the dataset's intrinsics to their train steps (the
   sampled rays equal JAX's full-image rays at those pixels), and a dict of
   arrays passes its "intrinsics" entry.
+- export_color_images writes JAX's files byte for byte (names, resize,
+  frame_skip, the JPEG re-encode).
 - JAX's composition test on the port: tiny.yml on the 4-frame stream, 30
   steps, the validation loss falls.
 """
@@ -168,19 +170,30 @@ def test_pose_and_intrinsics_exporters_match_jax(streams, tmp_path):
                     == (tmp_path / "jax" / sub / name).read_bytes())
 
 
-def test_export_color_images_raises(streams, tmp_path):
-    sd = t_scannet.SensorData(str(streams["small"]))
-    with pytest.raises(NotImplementedError, match="JPEG encoder.*ROADMAP"):
-        sd.export_color_images(tmp_path / "color")
+@pytest.mark.parametrize("name", list(STREAMS))
+@pytest.mark.parametrize("image_size,frame_skip", [(None, 1), ((24, 32), 1), ((29, 41), 3)])
+def test_export_color_images_matches_jax(streams, tmp_path, name, image_size, frame_skip):
+    """JAX's file names, and each JPEG byte for byte as JAX's imageio
+    writes it (PIL's default save: quality 75, 4:2:0, JFIF 1.01)."""
+    for mod, out in ((t_scannet, tmp_path / "port"), (j_scannet, tmp_path / "jax")):
+        mod.SensorData(str(streams[name])).export_color_images(str(out), image_size=image_size,
+                                                               frame_skip=frame_skip)
+    names = sorted(p.name for p in (tmp_path / "port").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "jax").iterdir())
+    n = STREAMS[name]["n"]
+    assert names == sorted(f"{f}.jpg" for f in range(0, n, frame_skip))
+    for fname in names:
+        assert (tmp_path / "port" / fname).read_bytes() == (tmp_path / "jax" / fname).read_bytes()
 
 
 def test_cli_writes_what_jax_writes(streams, tmp_path):
-    flags = ["--export_depth_images", "--export_poses", "--export_intrinsics"]
+    flags = ["--export_depth_images", "--export_color_images", "--export_poses",
+             "--export_intrinsics"]
     for mod, out in ((t_scannet, tmp_path / "port"), (j_scannet, tmp_path / "jax")):
         mod.main(["--filename", str(streams["small"]), "--output_path", str(out), *flags])
     files = sorted(p.relative_to(tmp_path / "port") for p in (tmp_path / "port").rglob("*.*"))
     assert files == sorted(p.relative_to(tmp_path / "jax") for p in (tmp_path / "jax").rglob("*.*"))
-    assert len(files) == 4 + 4 + 4
+    assert len(files) == 4 + 4 + 4 + 4
     for rel in files:
         got, want = tmp_path / "port" / rel, tmp_path / "jax" / rel
         if rel.suffix == ".png":
