@@ -90,6 +90,14 @@ and the BuFF ones:
 - H = 128: the forward kernel at 2048 x 64 and 2048 x 128 and the
   backward at 2048 x 128, at the width of configs/hard-llff.yml (8x128),
   held against their plain versions and timed (h128_kernel_phase).
+- the wide fields (wide_phase, last): hard-blender.yml's two 8-layer L
+  10/4 FlexibleNeRFs widened to 384 and 512 (the kernels' 64-point tiles
+  split in N): each kernel's shared-memory plan; the forward at 2048 x 64
+  and 2048 x 192, the backward at both (its legs at 512) and sigma at a
+  262,144-point tile against their plain versions, timed; then setup +
+  fit (3 + 30 steps, 2 + 2 launches a step, the loss falls, grads vs the
+  nn.Module), at 512 two 400x400 views of the trained system, and
+  export_marching_cubes at 128^3 (384) / 256^3 (512) with the colour check.
 - the forward-facing chain (llff_cli): configs/hard-llff.yml as shipped on
   data/hard_llff (21 training views, 3 held out; NDC rays, per-image
   COLMAP bounds, two 8x128 fields through the fused kernels): train 500
@@ -766,15 +774,109 @@ def h128_kernel_phase(card: str, device) -> dict:
     return {"fwd": rows, "bwd": dict(bwd, shape=f"{R}x{S}")}
 
 
-def slice_phase(cfg, card: str, device) -> dict:
-    """Two full views through NeRFSystem.query_rays with the kernel on."""
+# The wide fields (csrc/fused_field.cuh at H > 256: 64-point tiles whose
+# products the two consumer warpgroups split in N): configs/hard-blender.yml's
+# two 8-layer L 10/4 FlexibleNeRFs widened to 384 and 512 (JAX's Pallas
+# kernels take any H % 128 == 0). At 512 the whole chain (train, 2 views, a
+# WIDE_MESH_RES[512]^3 mesh); at 384 the train leg and a smaller mesh.
+WIDE_HIDDEN = (384, 512)
+WIDE_MESH_RES = {384: 128, 512: 256}
+
+
+def wide_cfg(hidden: int):
+    """hard_blender_cfg() with both fields `hidden` wide."""
+    cfg = hard_blender_cfg()
+    _merge(cfg, {"models": {"coarse": {"hidden_size": hidden}, "fine": {"hidden_size": hidden}}})
+    return cfg
+
+
+def wide_phase(card: str, device) -> dict:
+    """Per width of WIDE_HIDDEN: the shared-memory plans of the three
+    kernels (fm.field_plan, as the launches make them) and the weight bytes
+    each 64-point tile reads; the forward at 2048 x 64 and 2048 x 192, the
+    backward at both (timed at 2048 x 192, with its legs at 512) and sigma
+    at a 262,144-point grid tile, each against its plain version and timed
+    beside its bound and library yardstick; then the path through the
+    normal entry points: NeRFSystem.setup + fit (3 + 30 steps, 2 + 2
+    launches a step, the loss falls, one step's grads against the
+    nn.Module path), at 512 two 400x400 views of the trained system through
+    query_rays, and export_marching_cubes at WIDE_MESH_RES^3 (sigma
+    launches per grid tile, 2 forward launches per appearance chunk, the
+    colours against the nn.Module render)."""
+    from nerfmeshes_tpu_torch.models import build_model
+    from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerfmeshes_tpu_torch.train.render import RenderSettings, render_rays
+    from nerfmeshes_tpu_torch.train.system import init_params
+
+    out = {}
+    for H in WIDE_HIDDEN:
+        t0 = time.perf_counter()
+        cfg = wide_cfg(H)
+        model = build_model(cfg.models.fine_type, dict(cfg.models.fine),
+                            compute_dtype=torch.bfloat16)
+        if model.hidden_size != H or not fm.supports_fused(model):
+            raise AssertionError(f"the {H}-wide hard-blender field is not a fused model")
+        init_params(model, None, torch.Generator().manual_seed(SEED))
+        model.to(device).eval()
+        packed = fm.pack_weights(model)
+        spec = packed.spec
+        plans = {k: fm.field_plan(spec, k) for k in ("fwd", "sigma", "bwd")}
+        trunk = int(packed.desc[fm._DESC_FIXED + spec.num_layers])  # bf16 weights before feat
+        print(f"w{H} plans (stages, PE tiles, shared bytes): "
+              + ", ".join(f"{k} {p.stages} {p.pe_slots} {p.bytes}" for k, p in plans.items())
+              + f"; 64-point tiles, weights read from L2 per point: forward "
+              f"{packed.weights.numel() * 2 / 64:.1f} B, sigma {trunk * 2 / 64:.1f} B")
+        rng = np.random.default_rng(SEED)
+        R = int(cfg.nerf.train.num_random_rays)
+        fwd = {}
+        for S in (int(cfg.nerf.train.num_coarse),
+                  int(cfg.nerf.train.num_coarse) + int(cfg.nerf.train.num_fine)):
+            o, d, z = _rays(R, S, rng, device)
+            fwd[S] = dict(max_abs_err=_fwd_check(packed, o, d, z, H), shape=f"{R}x{S}",
+                          **_fwd_times(model, packed, o, d, z, card))
+        del model, packed
+        bwd = bwd_kernel_phase(cfg, card, device)
+        if H == 512:
+            bwd["legs"] = legs_phase(bwd, card)
+        else:
+            bwd.pop("legs_case")
+        sigma = sigma_kernel_phase(cfg, card, device)
+        kernels_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        train = train_phase(card, device, cfg)
+        system = train.pop("system")
+        render = slice_phase(cfg, card, device, system) if H == 512 else None
+        settings = RenderSettings.from_cfg(cfg, train=False)._replace(use_fused_kernel=False)
+
+        def module_rgb(o, d, near, far, system=system, settings=settings):
+            return render_rays(system.coarse, system.fine, o, d, near, far, settings,
+                               train=False)[1].rgb_map
+
+        mesh = export_and_check(system, card, f"w{H} mesh", fwd_per_chunk=2,
+                                chords_per_chunk=0, module_rgb=module_rgb,
+                                res=WIDE_MESH_RES[H])
+        del system, module_rgb
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"w{H}: kernels {kernels_s:.2f} s, chain {time.perf_counter() - t0:.2f} s "
+              f"[{card}]")
+        out[H] = dict(fwd=fwd, bwd=bwd, sigma=sigma, train=train, render=render, mesh=mesh,
+                      plans=plans)
+    return out
+
+
+def slice_phase(cfg, card: str, device, system=None) -> dict:
+    """Two full views through NeRFSystem.query_rays with the kernel on: of
+    `system`, or of a fresh one with the config's random weights."""
     from nerfmeshes_tpu_torch.data.blender_poses import read_blender_poses
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
     from nerfmeshes_tpu_torch.train.render import RenderSettings, render_rays
     from nerfmeshes_tpu_torch.train.step import make_pose_rays
     from nerfmeshes_tpu_torch.train.system import NeRFSystem
 
-    system = NeRFSystem(cfg, device=device).setup_eval()
+    if system is None:
+        system = NeRFSystem(cfg, device=device).setup_eval()
     poses, H, W, focal = read_blender_poses(REPO / "data" / "hard_blender", "test")
     pose_rays = make_pose_rays(H, W, focal, device=device)
     near, far = float(cfg.dataset.near), float(cfg.dataset.far)
@@ -818,15 +920,19 @@ def slice_phase(cfg, card: str, device) -> dict:
           f"{launches} kernel launches (2 per chunk), {seconds:.4f} s, "
           f"{rays_per_s:.6e} rays/s [{card}]")
 
-    # One chunk through the nn.Module path (bf16 layers, no kernel).
+    # One chunk through the nn.Module path (bf16 layers, no kernel); of a
+    # chunk over CHECK_RAYS, its first CHECK_RAYS rays (the module's f32
+    # activations of 65,536 x 192 points at 512 wide outgrow the card).
     settings = RenderSettings.from_cfg(cfg, train=False)
+    n_check = min(chunk, CHECK_RAYS)
     with torch.inference_mode():
-        fused = render_rays(system.coarse, system.fine, o0[:chunk], d0[:chunk], near, far,
+        fused = render_rays(system.coarse, system.fine, o0[:n_check], d0[:n_check], near, far,
                             settings, train=False)[1]
-        plain = render_rays(system.coarse, system.fine, o0[:chunk], d0[:chunk], near, far,
+        plain = render_rays(system.coarse, system.fine, o0[:n_check], d0[:n_check], near, far,
                             settings._replace(use_fused_kernel=False), train=False)[1]
     diff = float((fused.rgb_map - plain.rgb_map).abs().max())
-    print(f"render chunk, fused kernel vs nn.Module path: max abs rgb diff {diff:.3e} (bar {ATOL})")
+    print(f"render chunk, fused kernel vs nn.Module path on {n_check} rays: max abs rgb diff "
+          f"{diff:.3e} (bar {ATOL})")
     # The nn.Module rounds every layer's output to bf16 where the kernel
     # keeps f32 until the next product, and the fine samples follow the
     # coarse weights continuously: both stay within the bf16 bar.
@@ -956,8 +1062,9 @@ def legs_phase(bkern: dict, card: str) -> dict:
                       library_ms=library[leg]) for leg, t in legs.items()}
 
 
-def train_phase(card: str, device) -> dict:
-    """The train path: NeRFSystem.setup + fit at the hard-blender settings."""
+def train_phase(card: str, device, cfg=None) -> dict:
+    """The train path: NeRFSystem.setup + fit at the hard-blender settings,
+    or at `cfg`'s."""
     from nerfmeshes_tpu_torch.data.blender import train_arrays
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
     from nerfmeshes_tpu_torch.train.render import RenderSettings
@@ -970,7 +1077,7 @@ def train_phase(card: str, device) -> dict:
         def on_step(self, step, metrics):
             self.losses.append(metrics["train/loss"])
 
-    cfg = hard_blender_cfg()
+    cfg = hard_blender_cfg() if cfg is None else cfg
     t0 = time.perf_counter()
     data = train_arrays(cfg, device)
     n_img, H, W = (int(v) for v in data["targets"].shape[:3])
@@ -1142,8 +1249,8 @@ def mesh_phase(system, card: str) -> dict:
 
 
 def export_and_check(system, card: str, label: str, *, fwd_per_chunk: int,
-                     chords_per_chunk: int, module_rgb) -> dict:
-    """Mesh `system` at MESH_RES^3 with the mesh CLI's defaults and check
+                     chords_per_chunk: int, module_rgb, res: int = MESH_RES) -> dict:
+    """Mesh `system` at res^3 with the mesh CLI's defaults and check
     the result: one sigma launch per grid tile, `fwd_per_chunk` forward and
     `chords_per_chunk` chord launches per appearance chunk; a non-empty,
     finite mesh with unit normals, colours in [0, 1], triangles inside the
@@ -1159,7 +1266,7 @@ def export_and_check(system, card: str, label: str, *, fwd_per_chunk: int,
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
 
     with tempfile.TemporaryDirectory() as tmp:
-        args = _mesh_args(tmp)
+        args = _mesh_args(tmp, res)
         torch.cuda.synchronize()
         fm.launches = fm.sigma_launches = ch.launches = 0
         t0 = time.perf_counter()
@@ -1171,7 +1278,7 @@ def export_and_check(system, card: str, label: str, *, fwd_per_chunk: int,
         ply = read_ply_binary(str(Path(tmp) / args.mesh_name))
 
     n_v, n_t = len(verts), len(tris)
-    tiles = math.ceil(MESH_RES ** 3 / GRID_TILE)
+    tiles = math.ceil(res ** 3 / GRID_TILE)
     chunks = math.ceil(n_v / args.batch_size)
     if sigma != tiles:
         raise AssertionError(f"{label}: {sigma} sigma launches for {tiles} grid tiles")
@@ -1211,7 +1318,7 @@ def export_and_check(system, card: str, label: str, *, fwd_per_chunk: int,
     phases = {k: timings[k] for k in ("grid_eval_device_s", "grid_transfer_s",
                                       "marching_cubes_s", "appearance_s", "write_s")}
     masked = timings.get("tree_masked_blocks")
-    print(f"{label} {MESH_RES}^3: {n_v} vertices, {n_t} triangles; iso "
+    print(f"{label} {res}^3: {n_v} vertices, {n_t} triangles; iso "
           f"{timings['iso_effective']:.6g} (requested {timings['iso_requested']:g}); "
           f"blocks fetched {timings['sparse_blocks_fetched']} of "
           f"{timings['sparse_blocks_total']} ({timings['transfer_packed_mb']:.3f} MB)"
@@ -1220,7 +1327,7 @@ def export_and_check(system, card: str, label: str, *, fwd_per_chunk: int,
           f"{chords} chord launches ({chunks} chunks of {args.batch_size} rays) [{card}]")
     print(f"{label} phases (s): " + ", ".join(f"{k} {v:.4f}" for k, v in phases.items())
           + f"; total {seconds:.4f} s; grid "
-          f"{MESH_RES ** 3 / timings['grid_eval_device_s']:.4e} points/s [{card}]")
+          f"{res ** 3 / timings['grid_eval_device_s']:.4e} points/s [{card}]")
     return dict(fwd_launches=fwd, sigma_launches=sigma, chords_launches=chords, vertices=n_v,
                 triangles=n_t, seconds=seconds, **phases)
 
@@ -3461,6 +3568,7 @@ def main(argv=None) -> int:
     depth_sampling_phase(card, device)
     zoo_phase(card, device)
     buff_random = buff_random_phase(card, device)
+    wide = wide_phase(card, device)  # last: its 512-wide module runs take the most memory
     new_legs = {f"{name} {leg}": chains[name]["legs"][leg]["seconds"]
                 for name in IMPORT_CHAINS for leg in ("import", "import_eval", "import_mesh")}
     new_legs["tb_phase train"] = chains["tb_phase"]["legs"]["train"]["seconds"]
@@ -3504,6 +3612,30 @@ def main(argv=None) -> int:
                            shape=h128["bwd"]["shape"], hidden=128,
                            max_rel_err=h128["bwd"]["max_rel_err"]))
 
+    # The wide rows (wide_phase): each instantiation with its launches on
+    # its width's path, every train step and appearance chunk (and at 512
+    # every view chunk) one coarse (S = 64) and one fine (S = 192) launch.
+    wide_rows = []
+    for H, w in wide.items():
+        views = {} if w["render"] is None else {"render": w["render"]["launches"]}
+        for S, row in w["fwd"].items():
+            wide_rows.append(entry(
+                f"fused_mlp_fwd H={H} S={S}", "fused_mlp_fwd.cu",
+                "nerfmeshes_tpu/ops/pallas/fused_mlp.py:387", row,
+                {k: v // 2 for k, v in {"train": w["train"]["fwd_launches"], **views,
+                                        "mesh": w["mesh"]["fwd_launches"]}.items()},
+                shape=row["shape"], hidden=H))
+        wide_rows.append(entry(
+            f"fused_mlp_bwd H={H}", "fused_mlp_bwd.cu",
+            "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397", w["bwd"],
+            {"train": w["train"]["bwd_launches"]}, shape="2048x192", hidden=H,
+            max_rel_err=w["bwd"]["max_rel_err"], **({"legs": w["bwd"]["legs"]}
+                                                     if "legs" in w["bwd"] else {})))
+        wide_rows.append(entry(
+            f"fused_sigma H={H}", "fused_sigma.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:675",
+            w["sigma"], {"mesh": w["mesh"]["sigma_launches"]}, shape=f"{GRID_TILE} points",
+            hidden=H))
+
     print(json.dumps({"kernels": [
         entry("fused_mlp_fwd", "fused_mlp_fwd.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:387", kern,
               {"render": render["launches"], "train": train["fwd_launches"],
@@ -3538,6 +3670,7 @@ def main(argv=None) -> int:
               chunk_plain_ms=ckern["chunk_plain_ms"],
               chunk_bound_ms=ckern["chunk_bound_ms"]),
         *h128_rows,
+        *wide_rows,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,8 +1,8 @@
 // The field kernel that the forward (fused_mlp_fwd.cu) and the sigma-only
 // (fused_sigma.cu) entry points share, for Hopper (sm_90a): one persistent
-// CTA per SM walks tiles of TILE_M = 128 points; every layer product is a
-// wgmma on weight slabs that a producer warp streams into shared memory by
-// TMA. Both entry points run the same trunk and alpha head code, so on equal
+// CTA per SM walks tiles of 128 points (64 at H > 256, below); every layer
+// product is a wgmma on weight slabs that a producer warp streams into
+// shared memory by TMA. Both entry points run the same trunk and alpha head code, so on equal
 // points their sigma agrees bit for bit. The backward's tile kernel
 // (fused_mlp_bwd.cu) is built from the same pieces: Producer, Ring,
 // layer_product, and the epilogue and PE builder with their STASH flag,
@@ -14,7 +14,7 @@
 // L 10/4) against ~44 bytes of rays in and field out per point, so the
 // tensor cores set the pace (989 TFLOP/s bf16, reachable only through
 // wgmma), and after them the weights: 1.19 MB of bf16 that no CTA can hold,
-// read from L2 once per tile, ~9.3 KB per point at TILE_M = 128.
+// read from L2 once per tile, ~9.3 KB per point at 128-point tiles.
 //
 // Design, per CTA (3 warpgroups, 384 threads):
 // - Warpgroup 2, the producer (setmaxnreg down to 40 registers): one thread
@@ -51,6 +51,32 @@
 //   launch from the card's limit; a descriptor that leaves fewer than 2
 //   slots is refused (cudaErrorInvalidValue), never launched.
 //
+// Wide models (H = 384, 512; the TPU kernel takes any H % 128 == 0). Four
+// limits stop the design above there: a product's f32 sum over H columns
+// is H/2 registers a thread (the consumers have 232), wgmma's N is at most
+// 256, so is a TMA box's row count, and two 128-row activation tiles plus
+// ring slots of 64 x H outgrow the 227 KB of shared memory. So at H > 256
+// (split_n) the products are chunked in N across the two consumer
+// warpgroups: a tile is 64 points, ONE activation tile and one PE tile
+// that both warpgroups read whole as A, and warpgroup w computes output
+// columns [w H/2, (w + 1) H/2) of every product from its half of each
+// slab's rows (m64 n(H/2) k16; the dir product's H/2 columns likewise
+// m64 n(H/4)): at most 128 f32 a thread, as at H = 256. A slab of N > 256
+// rows comes as two TMA boxes of N/2 rows. The in-place hazard (one
+// warpgroup's epilogue overwriting columns of the A tile that the other's
+// products still read) is solved by a barrier over both warpgroups (256
+// threads) after each product, before either epilogue writes: the sums
+// wait in registers. The alpha and rgb heads are dot products over each
+// warpgroup's columns, summed across the two through a small exchange
+// buffer in one fixed order (warpgroup 0's part, then 1's), so the forward
+// and the sigma kernel still agree bit for bit. The cost of the 64-point
+// tile: the weights (4.6 MB at 8x512) are read from L2 once per 64 points,
+// ~72 KB a point, twice the bytes a point of a 128-point tile. The other
+// way, 128-point tiles with each product's output in a spare buffer, needs
+// 64 KB more at H = 512 beside 128 KB of activations and a ring of two
+// 66 KB slots: it does not fit. H = 128 and 256 keep the code above
+// (`if constexpr` on split_n), bit for bit.
+//
 // Numerics (the TPU kernel's): bf16 operands, f32 sums; bias, ReLU and
 // sigmoid in f32; an activation is rounded to bf16 only as the next
 // product's (or head's) operand. sinf/cosf with full range reduction.
@@ -64,19 +90,38 @@
 
 namespace {
 
-constexpr int TILE_M = 128;                    // points per tile
 constexpr int WG_THREADS = 128;                // one warpgroup
 constexpr int FIELD_THREADS = 3 * WG_THREADS;  // consumers 0, 1; producer 2
 constexpr int SLAB_K = 64;                     // bf16 K-columns per 128 B swizzle atom
 constexpr int ATOM_BYTES = 64 * 128;           // 64 rows x 64 bf16 of an A tile
 constexpr int MAX_STAGES = 8;
-constexpr int PARAM_BYTES = 2048;  // per ring slot: a product's bias (<= 1 KB), head weights
-constexpr int HEAD_OFF = 1024;     // the head weights' offset in a slot's params
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
+constexpr int MAX_BOX_ROWS = 256;  // TMA's limit on a box dimension
+// The wide models' head exchange: per warpgroup, 64 rows of 4 partial dot
+// products (rgb, alpha), read across the two warpgroups.
+constexpr int XCH_BYTES = 2 * 4 * 64 * (int)sizeof(float);
+
+// Whether a width-H model's products are chunked in N across the two
+// consumer warpgroups on 64-point tiles (see the top of the file).
+__host__ __device__ constexpr bool split_n(int H) { return H > 256; }
+// Points per tile.
+__host__ __device__ constexpr int tile_rows(int H) { return split_n(H) ? 64 : 128; }
+// Per ring slot after the slab: a product's bias (4 N bytes), then its
+// head weights: the alpha head's (2H bytes) after the trunk's last bias at
+// alpha_off, the rgb head's (3H bytes) after the dir bias (N = H/2) at
+// rgb_off; a multiple of 1 KB, so the slabs stay on the 128 B swizzle's
+// 1024 B period.
+__host__ __device__ constexpr int param_bytes(int H) {
+  return H <= 256 ? 2048 : (6 * H + 1023) / 1024 * 1024;
+}
+__host__ __device__ constexpr int alpha_off(int H) { return H <= 256 ? 1024 : 4 * H; }
+__host__ __device__ constexpr int rgb_off(int H) { return H <= 256 ? 1024 : 2 * H; }
+// Rows of a TMA box of a slab of N rows: all of them, or half of N > 256.
+__host__ __device__ constexpr int slab_box_rows(int N) { return N <= MAX_BOX_ROWS ? N : N / 2; }
 
 struct FieldMaps {
-  CUtensorMap w[MAX_GEMMS];  // one per product, box 64 x N, 128 B swizzle
+  CUtensorMap w[MAX_GEMMS];  // one per product, box 64 x slab_box_rows(N), 128 B swizzle
 };
 
 // Byte offsets into the dynamic shared memory, and the ring's depth.
@@ -85,7 +130,7 @@ struct FieldLayout {
   int pe_cols;    // PE columns of a tile: [PE(xyz) | PE(dir)] (sigma: PE(xyz))
   int pe_slots;   // tiles of PE a warpgroup's arena holds: 2 lets it build ahead
   int pe_blocks;  // 64-column atoms of a warpgroup's PE arena
-  int act_off, pe_off, extra_off, bar_off, tab_off, desc_off, bytes;
+  int act_off, pe_off, extra_off, xch_off, bar_off, tab_off, desc_off, bytes;
 };
 
 __host__ __device__ __forceinline__ int round64(int x) { return (x + 63) / 64 * 64; }
@@ -157,6 +202,17 @@ __device__ __forceinline__ void wg_barrier(int wg) {
   asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(WG_THREADS) : "memory");
 }
 
+// The consumers' barrier around a tile's products: their own warpgroup's,
+// or with SPLIT (split_n) both consumer warpgroups' 256 threads (id 3),
+// which share the tile.
+template <bool SPLIT>
+__device__ __forceinline__ void tile_barrier(int wg) {
+  if constexpr (SPLIT)
+    asm volatile("bar.sync 3, %0;" ::"n"(2 * WG_THREADS) : "memory");
+  else
+    wg_barrier(wg);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -222,6 +278,52 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[128], uint64_t a, uint64_t
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
         "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
         "+f"(d[127])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[96], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[48], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "l"(a), "l"(b), "r"(acc));
 }
 
@@ -330,9 +432,9 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 }
 
 // The consumers' view of the weight ring: slot `stage` of `stages`, and the
-// parity its full barrier is at. A slot holds one slab, then PARAM_BYTES in
-// which the last slab of a product also brings the product's bias and, for
-// the alpha and rgb heads, their weights.
+// parity its full barrier is at. A slot holds one slab, then param_bytes(H)
+// in which the last slab of a product also brings the product's bias and,
+// for the alpha and rgb heads, their weights.
 struct Ring {
   uint64_t* full;
   uint64_t* empty;
@@ -364,13 +466,15 @@ __device__ __forceinline__ uint32_t col_addr(int c) {
 // acc = [A1 | A2] @ W^T over K = k1 + k2, W the product's slabs as they come
 // through the ring. A1 is columns [0, k1) of the warpgroup's tile at shared
 // address a1 (k1 a multiple of 64), A2 columns [c2, c2 + k2) of the tile at
-// a2 (multiples of 16). work() runs while each slab's products do. Ends
-// with every product done (wait_group 0) and returns the product's last
-// slot, still held: its params are the epilogue's, which releases it.
+// a2 (multiples of 16). The product's 2R columns are the slab's rows from
+// byte b_off on (128 B a row: the warpgroup's half of the rows under
+// split_n, else 0). work() runs while each slab's products do. Ends with
+// every product done (wait_group 0) and returns the product's last slot,
+// still held: its params are the epilogue's, which releases it.
 template <int R, class Work>
 __device__ __forceinline__ int layer_product(float (&acc)[R], Ring& ring, uint32_t a1, int k1,
                                              uint32_t a2, int c2, int k2, int lane,
-                                             Work&& work) {
+                                             Work&& work, uint32_t b_off = 0) {
   const int K = k1 + k2;
   const uint32_t base = smem_u32(ring.base);
   int prev = -1;
@@ -378,7 +482,7 @@ __device__ __forceinline__ int layer_product(float (&acc)[R], Ring& ring, uint32
   wgmma_fence();
   for (int k0 = 0; k0 < K; k0 += SLAB_K) {
     mbar_wait(&ring.full[ring.stage], ring.phase);
-    const uint32_t b = base + ring.stage * ring.slot_bytes;
+    const uint32_t b = base + ring.stage * ring.slot_bytes + b_off;
     // Whole slabs, no branch between the products (a branch makes ptxas
     // fence and serialize them). Past K the slab holds TMA's zeros, so any
     // finite A columns add exact zeros there: the last valid k16 step's.
@@ -426,7 +530,8 @@ __device__ __forceinline__ float2 bf16x2_at(const bf16* p) {
 // loop-invariant addresses (their spills go to L2, round trips of ~1 us).
 //
 // STASH (the backward's recompute): the same bf16 values also go to rows r
-// and r + 8 of `stash`, a row-major array of N columns, straight from the
+// and r + 8 of `stash`, a row-major array of rows `ld` elements apart (N,
+// or H for a warpgroup's N = H/2 columns under split_n), straight from the
 // registers; and, where `bits` is given, whether each is > 0 (the ReLU
 // mask the backward applies) as R bits, bit k for acc[k], in R/32 words,
 // word w at bits[w * WG_THREADS] (a warp's stores of a word are
@@ -435,7 +540,7 @@ template <int R, bool STASH = false>
 __device__ __forceinline__ void epilogue(const float (&acc)[R], const float* bias, bool relu,
                                          unsigned char* act, int r, int q, const bf16* wa,
                                          float& s0, float& s1, bf16* stash = nullptr,
-                                         uint32_t* bits = nullptr) {
+                                         uint32_t* bits = nullptr, int ld = 2 * R) {
 #pragma unroll
   for (int n0 = 0; n0 < R / 4; n0 += 8) {
     uint32_t mb = 0;  // STASH: this group's word of mask bits
@@ -453,8 +558,8 @@ __device__ __forceinline__ void epilogue(const float (&acc)[R], const float* bia
       *reinterpret_cast<uint32_t*>(act + swz(r, col)) = lo;
       *reinterpret_cast<uint32_t*>(act + swz(r + 8, col)) = hi;
       if constexpr (STASH) {
-        *reinterpret_cast<uint32_t*>(stash + r * 2 * R + col) = lo;
-        *reinterpret_cast<uint32_t*>(stash + (r + 8) * 2 * R + col) = hi;
+        *reinterpret_cast<uint32_t*>(stash + r * ld + col) = lo;
+        *reinterpret_cast<uint32_t*>(stash + (r + 8) * ld + col) = hi;
         const float2 x0 = bf16x2_at(reinterpret_cast<const bf16*>(&lo));
         const float2 x1 = bf16x2_at(reinterpret_cast<const bf16*>(&hi));
         mb |= ((uint32_t)(x0.x > 0.f) | (uint32_t)(x0.y > 0.f) << 1 |
@@ -511,7 +616,9 @@ __device__ __forceinline__ PeCol pe_col(const Desc& d, int c, bool fwd) {
 // the columns of `tab`, [PE(xyz) | PE(dir)] (PE(dir) only for the forward),
 // from column `base` of the warpgroup's PE arena on, in the swizzled layout.
 // Thread t owns row t % 64, whose point start() reads once, and the
-// 8-column chunks t / 64, t / 64 + 2, ...; step() computes the next two
+// 8-column chunks t / 64, t / 64 + STRIDE, ... (STRIDE 2: the 128 threads
+// of one warpgroup build its tile; 4: the 256 of both build the tile they
+// share under split_n); step() computes the next two
 // columns and stores a chunk (16 B) once it is whole, so that a tile's PE
 // can be built a little at a time between the products of the tile before
 // without holding up their issue. Rows past n_pts read the point 0.
@@ -519,7 +626,7 @@ __device__ __forceinline__ PeCol pe_col(const Desc& d, int c, bool fwd) {
 // version; sigma: `src` holds the (N, 3) points. STASH (the backward): each
 // whole chunk also goes to the point's row of a row-major array of the
 // tab's columns (stash_row), tail rows included.
-template <bool FWD, bool STASH = false>
+template <bool FWD, bool STASH = false, int STRIDE = 2>
 struct PeBuild {
   float x0, x1, x2, v0, v1, v2;
   uint32_t w0, w1, w2, w3;  // the chunk's column pairs so far, newest last
@@ -584,7 +691,7 @@ struct PeBuild {
       if constexpr (STASH)
         *reinterpret_cast<uint4*>(row_out + 8 * chunk) = make_uint4(w0, w1, w2, w3);
       pair = 0;
-      chunk += 2;
+      chunk += STRIDE;
     }
   }
 
@@ -594,9 +701,10 @@ struct PeBuild {
 };
 
 // The producer's side of the ring: one thread streams a product's K-slabs,
-// the boxes (k0, row) of `map` for k0 < K, N rows each, into the slots in
-// turn; the last slab also brings `bias` (N floats, when given) and
-// `head_bytes` of `head` (when given) into the slot's params.
+// the boxes (k0, row) of `map` for k0 < K, N rows each (two boxes of N/2
+// rows for N > 256), into the slots in turn; the last slab also brings
+// `bias` (N floats, when given) and `head_bytes` of `head` (when given, at
+// byte head_at) into the slot's params.
 struct Producer {
   int stage;
   uint32_t phase;
@@ -604,7 +712,7 @@ struct Producer {
                                           uint64_t* full, uint64_t* empty,
                                           const CUtensorMap* map, int row, int K, int N,
                                           const float* bias, const bf16* head,
-                                          uint32_t head_bytes) {
+                                          uint32_t head_bytes, int head_at) {
     for (int k0 = 0; k0 < K; k0 += SLAB_K) {
       const bool last = k0 + SLAB_K >= K;
       uint32_t bytes = SLAB_K * N * sizeof(bf16);
@@ -613,11 +721,13 @@ struct Producer {
       mbar_wait(&empty[stage], phase ^ 1);
       mbar_arrive_expect_tx(&full[stage], bytes);
       unsigned char* slot = smem + stage * lay.slot_bytes;
-      tma_load_2d(slot, map, k0, row, &full[stage]);
+      const int box = slab_box_rows(N);
+      for (int b = 0; b < N; b += box)  // 128 B a slab row
+        tma_load_2d(slot + b * 128, map, k0, row + b, &full[stage]);
       if (last) {
         unsigned char* params = slot + lay.slab_bytes;
         if (bias != nullptr) bulk_load(params, bias, N * sizeof(float), &full[stage]);
-        if (head != nullptr) bulk_load(params + HEAD_OFF, head, head_bytes, &full[stage]);
+        if (head != nullptr) bulk_load(params + head_at, head, head_bytes, &full[stage]);
       }
       if (++stage == lay.stages) {
         stage = 0;
@@ -627,12 +737,14 @@ struct Producer {
   }
 };
 
-// The bias and head weights product g of a field brings with its last slab:
-// the alpha head with the trunk's last product, the rgb head with dir.
+// The head weights product g of a field brings with its last slab, their
+// bytes and their offset in the slot's params: the alpha head with the
+// trunk's last product, the rgb head with dir.
 __device__ __forceinline__ const bf16* product_head(const Desc& d, const bf16* W, int g,
-                                                    uint32_t* bytes) {
+                                                    uint32_t* bytes, int* at) {
   const int L = d.num_layers;
   *bytes = g == L - 1 ? 2 * d.hidden : 3 * d.hidden;
+  *at = g == L - 1 ? alpha_off(d.hidden) : rgb_off(d.hidden);
   return g == L - 1 ? W + d.wa_off : (g == L + 1 ? W + d.wr_off : nullptr);
 }
 
@@ -675,6 +787,13 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
                                            int samples, const bf16* __restrict__ W,
                                            const float* __restrict__ B, float* __restrict__ out,
                                            int channels_first) {
+  // SPLIT: one 64-point tile that both consumer warpgroups share, each
+  // computing NW of an H-wide product's columns and ND of the dir
+  // product's; else a warpgroup's own 64 points, every column.
+  constexpr bool SPLIT = split_n(H);
+  constexpr int ROWS = tile_rows(H);
+  constexpr int NW = SPLIT ? H / 2 : H;
+  constexpr int ND = NW / 2;
   extern __shared__ __align__(1024) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
   uint64_t* empty = full + MAX_STAGES;
@@ -682,7 +801,7 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
   const Desc& d = field_setup(smem, desc, lay, FWD);
   const int tid = threadIdx.x;
 
-  const long long n_tiles = (n_pts + TILE_M - 1) / TILE_M;
+  const long long n_tiles = (n_pts + ROWS - 1) / ROWS;
   const int L = d.num_layers;
   const int wg = tid / WG_THREADS;
 
@@ -696,9 +815,10 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
       for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
         for (int g = 0; g < n_gemms; ++g) {
           uint32_t head_bytes;
-          const bf16* head = product_head(d, W, g, &head_bytes);
+          int head_at;
+          const bf16* head = product_head(d, W, g, &head_bytes, &head_at);
           prod.product(smem, lay, full, empty, &maps.w[g], 0, gemm_k(d, g), gemm_n(d, g),
-                       B + d.b_off[g], head, head_bytes);
+                       B + d.b_off[g], head, head_bytes, head_at);
         }
       }
     }
@@ -706,57 +826,86 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
     const int t = tid % WG_THREADS, warp = t / 32, lane = t % 32;
     const int r = warp * 16 + lane / 4, q = lane % 4;  // fragment rows r, r + 8
-    unsigned char* act = smem + lay.act_off + wg * (H / 64) * ATOM_BYTES;
-    unsigned char* pe = smem + lay.pe_off + wg * lay.pe_blocks * ATOM_BYTES;
+    const int tile_row = SPLIT ? 0 : wg * 64;         // the warpgroup's first row of a tile
+    const int col0 = SPLIT ? wg * NW : 0, cd0 = SPLIT ? wg * ND : 0;  // its first columns
+    const uint32_t b_w = col0 * 128, b_d = cd0 * 128;  // their slab rows (128 B a row)
+    unsigned char* act = smem + lay.act_off + (SPLIT ? 0 : wg * (H / 64) * ATOM_BYTES);
+    unsigned char* pe = smem + lay.pe_off + (SPLIT ? 0 : wg * lay.pe_blocks * ATOM_BYTES);
+    unsigned char* act_w = act + col0 / 64 * ATOM_BYTES;  // its output columns
+    float* xch = reinterpret_cast<float*>(smem + lay.xch_off);  // SPLIT: [wg][rgb, alpha][64]
     const uint32_t act_a = smem_u32(act), pe_a = smem_u32(pe);
     Ring ring{full, empty, smem, lay.slot_bytes, lay.slab_bytes, lay.stages, 0, 0};
 
     const int chunks = lay.pe_cols / 8;
-    PeBuild<FWD> pb;  // the first tile's PE, then each next tile's
-    pb.start(src, dirs, z, n_pts, samples, (long long)blockIdx.x * TILE_M + wg * 64, 0, t);
-    pb.finish(tab, chunks, pe, t);
+    const int pt = SPLIT ? tid : t;  // the PE builder's thread
+    PeBuild<FWD, false, SPLIT ? 4 : 2> pb;  // the first tile's PE, then each next tile's
+    pb.start(src, dirs, z, n_pts, samples, (long long)blockIdx.x * ROWS + tile_row, 0, pt);
+    pb.finish(tab, chunks, pe, pt);
 
     for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      const long long row0 = tile * TILE_M + wg * 64;
+      const long long row0 = tile * ROWS + tile_row;
       const long long next = tile + gridDim.x;
       const int pe_base = pb.base;  // this tile's first PE column
       const float ba = B[d.ba_off];
       fence_proxy_async();  // this tile's PE, built by every thread, to the products
-      wg_barrier(wg);
+      tile_barrier<SPLIT>(wg);
       // With two PE slots the next tile's PE is built in the other one,
       // a chunk per slab, while this tile's products run.
       const bool ahead = lay.pe_slots == 2 && next < n_tiles;
       if (ahead)
-        pb.start(src, dirs, z, n_pts, samples, next * TILE_M + wg * 64, lay.pe_cols - pe_base, t);
+        pb.start(src, dirs, z, n_pts, samples, next * ROWS + tile_row, lay.pe_cols - pe_base, pt);
       auto work = [&] {
-        if (ahead) pb.step(tab, chunks, pe, t);
+        if (ahead) pb.step(tab, chunks, pe, pt);
       };
 
       // layer1 (no activation), then the ReLU trunk; the alpha head off the
       // trunk's output. The sigma entry point runs exactly this. Declared
       // per tile, so the trunk's accumulator is dead while the dir layer's
       // is live; the first product of a layer overwrites it.
-      float acc[H / 2];
+      float acc[NW / 2];
 #pragma unroll
-      for (int i = 0; i < H / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
       float s0 = 0.f, s1 = 0.f;
       for (int g = 0; g < L; ++g) {
         const bool skip = g > 0 && ((d.skip_mask >> (g - 1)) & 1);
         const int slot = layer_product(acc, ring, act_a, g == 0 ? 0 : H, pe_a, pe_base,
-                                       g == 0 || skip ? d.pxp : 0, lane, work);
-        wg_barrier(wg);  // every warp's products have read the tile
+                                       g == 0 || skip ? d.pxp : 0, lane, work, b_w);
+        tile_barrier<SPLIT>(wg);  // every warp's products have read the tile
         const unsigned char* params = ring.params(slot);
-        epilogue(acc, reinterpret_cast<const float*>(params), g > 0, act, r, q,
-                 g == L - 1 ? reinterpret_cast<const bf16*>(params + HEAD_OFF) : nullptr, s0, s1);
+        epilogue(acc, reinterpret_cast<const float*>(params) + col0, g > 0, act_w, r, q,
+                 g == L - 1 ? reinterpret_cast<const bf16*>(params + alpha_off(H)) + col0
+                            : nullptr,
+                 s0, s1);
         ring.release(slot, lane);
         fence_proxy_async();
-        wg_barrier(wg);
+        tile_barrier<SPLIT>(wg);
       }
-      const float alpha0 = quad_sum(s0) + ba, alpha1 = quad_sum(s1) + ba;
+      // SPLIT: each warpgroup's part of a head's dot products of rows r and
+      // r + 8 goes to xch (channel c); the sums read them after a barrier,
+      // warpgroup 0's part first.
+      auto put = [&](int c, float p0, float p1) {
+        if (q == 0) {
+          xch[(wg * 4 + c) * 64 + r] = p0;
+          xch[(wg * 4 + c) * 64 + r + 8] = p1;
+        }
+      };
+      auto sum = [&](int c, int row) { return xch[c * 64 + row] + xch[(4 + c) * 64 + row]; };
+      float alpha0 = 0.f, alpha1 = 0.f;
+      if constexpr (SPLIT) {
+        put(3, quad_sum(s0), quad_sum(s1));
+      } else {
+        alpha0 = quad_sum(s0) + ba;
+        alpha1 = quad_sum(s1) + ba;
+      }
       const long long g0 = row0 + r, g1 = g0 + 8;
 
       if constexpr (!FWD) {
-        if (q == 0) {
+        if constexpr (SPLIT) {
+          tile_barrier<SPLIT>(wg);
+          alpha0 = sum(3, r) + ba;
+          alpha1 = sum(3, r + 8) + ba;
+        }
+        if (q == 0 && (!SPLIT || wg == 0)) {
           if (g0 < n_pts) out[g0] = alpha0;
           if (g1 < n_pts) out[g1] = alpha1;
         }
@@ -765,26 +914,27 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
 #pragma unroll
         for (int c = 0; c < 3; ++c) br[c] = B[d.br_off + c];
         // feat, in place.
-        int slot = layer_product(acc, ring, act_a, H, 0, 0, 0, lane, work);
-        wg_barrier(wg);
+        int slot = layer_product(acc, ring, act_a, H, 0, 0, 0, lane, work, b_w);
+        tile_barrier<SPLIT>(wg);
         float unused0 = 0.f, unused1 = 0.f;
-        epilogue(acc, reinterpret_cast<const float*>(ring.params(slot)), true, act, r, q,
-                 nullptr, unused0, unused1);
+        epilogue(acc, reinterpret_cast<const float*>(ring.params(slot)) + col0, true, act_w, r,
+                 q, nullptr, unused0, unused1);
         ring.release(slot, lane);
         fence_proxy_async();
-        wg_barrier(wg);
+        tile_barrier<SPLIT>(wg);
 
         // dir on [feat | PE(dir)] -> H/2, then the rgb head in registers.
-        float acc_d[H / 4];
+        float acc_d[ND / 2];
 #pragma unroll
-        for (int i = 0; i < H / 4; ++i) acc_d[i] = 0.f;
-        slot = layer_product(acc_d, ring, act_a, H, pe_a, pe_base + d.pxp, d.pdp, lane, work);
-        wg_barrier(wg);
-        const float* bd = reinterpret_cast<const float*>(ring.params(slot));
-        const bf16* wr = reinterpret_cast<const bf16*>(ring.params(slot) + HEAD_OFF);
+        for (int i = 0; i < ND / 2; ++i) acc_d[i] = 0.f;
+        slot = layer_product(acc_d, ring, act_a, H, pe_a, pe_base + d.pxp, d.pdp, lane, work,
+                             b_d);
+        tile_barrier<SPLIT>(wg);
+        const float* bd = reinterpret_cast<const float*>(ring.params(slot)) + cd0;
+        const bf16* wr = reinterpret_cast<const bf16*>(ring.params(slot) + rgb_off(H)) + cd0;
         float c0[3] = {0.f, 0.f, 0.f}, c1[3] = {0.f, 0.f, 0.f};
 #pragma unroll
-        for (int n = 0; n < H / 16; ++n) {
+        for (int n = 0; n < ND / 8; ++n) {
           if (n % 8 == 0) asm volatile("" ::: "memory");  // as in epilogue()
           const int col = 8 * n + 2 * q;
           const float2 b = *reinterpret_cast<const float2*>(bd + col);
@@ -800,25 +950,36 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
           }
         }
         ring.release(slot, lane);
+        if constexpr (SPLIT) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) put(c, quad_sum(c0[c]), quad_sum(c1[c]));
+          tile_barrier<SPLIT>(wg);
+          alpha0 = sum(3, r) + ba;
+          alpha1 = sum(3, r + 8) + ba;
+        }
         float v0 = alpha0, v1 = alpha1;  // lane q writes channel q
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          const float rgb0 = 1.f / (1.f + expf(-(quad_sum(c0[c]) + br[c])));
-          const float rgb1 = 1.f / (1.f + expf(-(quad_sum(c1[c]) + br[c])));
+          const float x0 = SPLIT ? sum(c, r) : quad_sum(c0[c]);
+          const float x1 = SPLIT ? sum(c, r + 8) : quad_sum(c1[c]);
+          const float rgb0 = 1.f / (1.f + expf(-(x0 + br[c])));
+          const float rgb1 = 1.f / (1.f + expf(-(x1 + br[c])));
           if (q == c) {
             v0 = rgb0;
             v1 = rgb1;
           }
         }
-        if (g0 < n_pts) out[channels_first ? (long long)q * n_pts + g0 : g0 * 4 + q] = v0;
-        if (g1 < n_pts) out[channels_first ? (long long)q * n_pts + g1 : g1 * 4 + q] = v1;
+        if (!SPLIT || wg == 0) {
+          if (g0 < n_pts) out[channels_first ? (long long)q * n_pts + g0 : g0 * 4 + q] = v0;
+          if (g1 < n_pts) out[channels_first ? (long long)q * n_pts + g1 : g1 * 4 + q] = v1;
+        }
       }
       // The next tile's PE: what is left of it, or all of it with one slot
       // (this tile's products are done with the slot: a barrier followed
       // the last product that read it).
       if (next < n_tiles) {
-        if (!ahead) pb.start(src, dirs, z, n_pts, samples, next * TILE_M + wg * 64, 0, t);
-        pb.finish(tab, chunks, pe, t);
+        if (!ahead) pb.start(src, dirs, z, n_pts, samples, next * ROWS + tile_row, 0, pt);
+        pb.finish(tab, chunks, pe, pt);
       }
     }
   }
@@ -887,7 +1048,7 @@ int field_prepare(const Desc& d, const bf16* W, const float* B, int n_gemms, int
   if (err != cudaSuccess) return (int)err;
   for (int g = 0; g < n_gemms; ++g) {
     const int rc = encode_slab_map(&maps->w[g], W + d.w_off[g], gemm_k(d, g), gemm_n(d, g),
-                                   gemm_n(d, g));
+                                   slab_box_rows(gemm_n(d, g)));
     if (rc != 0) return rc;
   }
   return 0;
@@ -896,28 +1057,35 @@ int field_prepare(const Desc& d, const bf16* W, const float* B, int n_gemms, int
 // The shared-memory plan of a launch: two PE slots where they leave the ring
 // at least 3 stages, else one; cudaErrorInvalidValue when even one slot
 // leaves fewer than 2 stages. `extra_bytes` (a multiple of 16) of the
-// kernel's own follow the PE arena at extra_off.
+// kernel's own follow the PE arena at extra_off, then (split_n) the head
+// exchange at xch_off. Activation and PE tiles are one per consumer
+// warpgroup, or under split_n one that both share. Mirrored in Python by
+// nerfmeshes_tpu_torch/ops/kernels/fused_mlp.py:field_plan, which the
+// gate supports_fused reads: keep the two alike.
 int field_layout(const Desc& d, bool fwd, int smem_limit, FieldLayout* out,
                  int extra_bytes = 0) {
   FieldLayout lay = {};
   const int H = d.hidden;
+  const int tiles = split_n(H) ? 1 : 2;  // 64-row activation and PE tiles
   lay.slab_bytes = SLAB_K * H * (int)sizeof(bf16);
-  lay.slot_bytes = lay.slab_bytes + PARAM_BYTES;
+  lay.slot_bytes = lay.slab_bytes + param_bytes(H);
   lay.pe_cols = d.pxp + (fwd ? d.pdp : 0);
-  const int act_bytes = 2 * (H / 64) * ATOM_BYTES;
+  const int act_bytes = tiles * (H / 64) * ATOM_BYTES;
+  const int xch_bytes = split_n(H) ? XCH_BYTES : 0;
   const int bar_bytes = 2 * MAX_STAGES * (int)sizeof(uint64_t);
   const int tab_bytes = lay.pe_cols * (int)sizeof(PeCol);
-  const int aux = bar_bytes + tab_bytes + (int)sizeof(Desc);
+  const int aux = xch_bytes + bar_bytes + tab_bytes + (int)sizeof(Desc);
   for (lay.pe_slots = 2; lay.pe_slots >= 1; --lay.pe_slots) {
     lay.pe_blocks = round64(lay.pe_slots * lay.pe_cols) / 64;
-    const int pe_bytes = 2 * lay.pe_blocks * ATOM_BYTES;
+    const int pe_bytes = tiles * lay.pe_blocks * ATOM_BYTES;
     const int stages = (smem_limit - act_bytes - pe_bytes - extra_bytes - aux) / lay.slot_bytes;
     if (stages < lay.pe_slots + 1) continue;
     lay.stages = stages < MAX_STAGES ? stages : MAX_STAGES;
     lay.act_off = lay.stages * lay.slot_bytes;
     lay.pe_off = lay.act_off + act_bytes;
     lay.extra_off = lay.pe_off + pe_bytes;
-    lay.bar_off = lay.extra_off + extra_bytes;
+    lay.xch_off = lay.extra_off + extra_bytes;
+    lay.bar_off = lay.xch_off + xch_bytes;
     lay.tab_off = lay.bar_off + bar_bytes;
     lay.desc_off = lay.tab_off + tab_bytes;
     lay.bytes = lay.desc_off + (int)sizeof(Desc);
@@ -957,7 +1125,7 @@ int field_launch(FieldKernel kernel, const Desc& d, const float* src, const floa
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
   if (err != cudaSuccess) return (int)err;
-  const long long tiles = (n_pts + TILE_M - 1) / TILE_M;
+  const long long tiles = (n_pts + tile_rows(H) - 1) / tile_rows(H);
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
   kernel<<<grid, FIELD_THREADS, lay.bytes, stream>>>(maps, d, lay, src, dirs, z, n_pts, samples,
                                                      W, B, out, channels_first);

@@ -33,7 +33,9 @@
 //   (b) bwd_tile_kernel, the forward's machinery (fused_field.cuh: one
 //       persistent CTA per SM, a producer streaming weight slabs by TMA into
 //       a ring, two consumer warpgroups of 64 points running wgmma) on
-//       128-point tiles: it recomputes the forward, each epilogue also
+//       128-point tiles (64-point tiles at H > 256, each product split in N
+//       across the two consumer warpgroups, as the forward's: see
+//       fused_field.cuh): it recomputes the forward, each epilogue also
 //       storing its bf16 activation from the registers into the stash; the
 //       rgb and alpha heads' cotangents and the dir layer's in the dir
 //       product's epilogue, in registers; then the dX chain, L + 1 wgmma
@@ -52,7 +54,8 @@
 //       operands (the points are the stash's rows). The two row blocks of a
 //       matrix over the same points run side by side and share X through
 //       L2; at most DW_RANGES ranges, so the f32 partials stay ~58 MB at
-//       lego width.
+//       lego width (~221 MB at 8x512, whose matrices of 384 or 512 columns
+//       are jobs of 256 columns and the rest).
 //   (d) reduce_rows_kernel: the partials summed in a fixed order (ranges for
 //       dW; warpgroup rows in two levels for the biases).
 // The stash costs device-memory traffic (~20 KB per point written and read)
@@ -122,7 +125,8 @@ wt_transpose_kernel(const Desc d, const bf16* __restrict__ W, bf16* __restrict__
 }
 
 // Tensor maps of the tile kernel: the forward's products, then the
-// transposed copy wt, (L + 1) H rows of H columns, read in H-row boxes.
+// transposed copy wt, (L + 1) H rows of H columns, read in boxes of
+// slab_box_rows(H) rows.
 struct BwdMaps {
   FieldMaps fwd;
   CUtensorMap wt;
@@ -145,20 +149,25 @@ struct BwdArgs {
   int samples, nb_ld;
 };
 
+// A consumer warpgroup's columns of an H-wide product: all of them, or its
+// half under split_n (fused_field.cuh).
+__host__ __device__ constexpr int wg_cols(int H) { return split_n(H) ? H / 2 : H; }
+
 // The ReLU masks of forward product g's output (g = 1..L), as the recompute
-// epilogue stores them: per (g, tile, warpgroup), H/64 words per thread,
-// word w of thread t at w * WG_THREADS + t, bit k for its accumulator k.
-// A dX epilogue reads them back with loads issued before its product, so
-// the mask costs 4 registers, not the 64 that its bf16 values would (the
-// kernel has 168 a thread).
+// epilogue stores them: per (g, tile, warpgroup), wg_cols(H)/64 words per
+// thread, word w of thread t at w * WG_THREADS + t, bit k for its
+// accumulator k. A dX epilogue reads them back with loads issued before its
+// product, so the mask costs 4 registers, not the 64 that its bf16 values
+// would (the kernel has 168 a thread).
 __host__ __device__ __forceinline__ size_t mask_words(int H, long long n_tiles, int g,
                                                       long long tile, int wg, int t) {
-  return (((size_t)g * n_tiles + tile) * 2 + wg) * WG_THREADS * (H / 64) + t;
+  return (((size_t)g * n_tiles + tile) * 2 + wg) * WG_THREADS * (wg_cols(H) / 64) + t;
 }
 
 // Per-warp column partials the tile kernel keeps in shared memory: 4 warps
-// x (H + 4) floats per warpgroup (the dir epilogue's 4 extra: rgb, alpha).
-__host__ __device__ __forceinline__ int part_ld(int H) { return H + 4; }
+// x (wg_cols(H) + 4) floats per warpgroup (the dir epilogue's 4 extra: rgb,
+// alpha).
+__host__ __device__ __forceinline__ int part_ld(int H) { return wg_cols(H) + 4; }
 int part_bytes(int H) { return 2 * 4 * part_ld(H) * (int)sizeof(float); }
 
 // One step of colsum8: lanes that differ in `bit` swap halves of their
@@ -200,14 +209,14 @@ __device__ __forceinline__ void flush_colsum(const float* part, int ld, int n, f
 // fragment): v = acc (+ bf16(dalpha) wa[col] for the trunk output), zeroed
 // where bit k of mw is clear (masked: the forward's bf16 output of that
 // product was not > 0; layer1 has no ReLU); bf16(v) to the stash's dY rows
-// and in place into the warpgroup's A tile; v's column sums over the
-// warp's 16 rows into `part`.
+// (`ld` elements apart) and in place into the warpgroup's A tile; v's
+// column sums over the warp's 16 rows into `part`.
 template <int R>
 __device__ __forceinline__ void dx_epilogue(const float (&acc)[R], unsigned char* act, int r,
                                             int q, int lane, bool masked,
                                             const uint32_t (&mw)[R / 32], const bf16* wa,
-                                            float a0, float a1, bf16* dy, float* part) {
-  constexpr int N = 2 * R;
+                                            float a0, float a1, bf16* dy, float* part,
+                                            int ld = 2 * R) {
 #pragma unroll
   for (int n0 = 0; n0 < R / 4; n0 += 4) {
     float cs[8];
@@ -230,8 +239,8 @@ __device__ __forceinline__ void dx_epilogue(const float (&acc)[R], unsigned char
       const uint32_t lo = pack_bf16(v[0], v[1]), hi = pack_bf16(v[2], v[3]);
       *reinterpret_cast<uint32_t*>(act + swz(r, col)) = lo;
       *reinterpret_cast<uint32_t*>(act + swz(r + 8, col)) = hi;
-      *reinterpret_cast<uint32_t*>(dy + r * N + col) = lo;
-      *reinterpret_cast<uint32_t*>(dy + (r + 8) * N + col) = hi;
+      *reinterpret_cast<uint32_t*>(dy + r * ld + col) = lo;
+      *reinterpret_cast<uint32_t*>(dy + (r + 8) * ld + col) = hi;
       cs[2 * (n - n0)] = v[0] + v[2];
       cs[2 * (n - n0) + 1] = v[1] + v[3];
     }
@@ -251,11 +260,21 @@ __device__ __forceinline__ void load_mask(uint32_t (&mw)[W], const uint32_t* p) 
 // producer, ring and forward recompute, then the heads and the dX chain.
 // Rows past n_pts read the point 0 and a zero cotangent, so the stash's
 // tail rows hold finite activations and zero cotangents, as the dW
-// products over n_pad rows need.
+// products over n_pad rows need. Under split_n (H > 256) it runs
+// field_body's wide design: a 64-point tile shared by both consumer
+// warpgroups, each taking half the columns of every product, the dX
+// chain's included, with a barrier over both before an epilogue writes in
+// place; the rgb head's dot products are summed across them through the
+// exchange buffer, and warpgroup 0 alone writes the heads' cotangents and
+// bias sums.
 template <int H>
 __global__ void __launch_bounds__(FIELD_THREADS, 1)
 bwd_tile_kernel(const __grid_constant__ BwdMaps maps, const Desc desc, const FieldLayout lay,
                 const BwdArgs a) {
+  constexpr bool SPLIT = split_n(H);
+  constexpr int ROWS = tile_rows(H);
+  constexpr int NW = wg_cols(H);  // a warpgroup's columns of an H-wide product
+  constexpr int ND = NW / 2;      // of the dir product
   extern __shared__ __align__(1024) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
   uint64_t* empty = full + MAX_STAGES;
@@ -274,90 +293,99 @@ bwd_tile_kernel(const __grid_constant__ BwdMaps maps, const Desc desc, const Fie
       for (long long t = blockIdx.x; t < a.n_tiles; t += gridDim.x) {
         for (int g = 0; g < L + 2; ++g) {
           uint32_t head_bytes;
-          const bf16* head = product_head(d, a.W, g, &head_bytes);
+          int head_at;
+          const bf16* head = product_head(d, a.W, g, &head_bytes, &head_at);
           prod.product(smem, lay, full, empty, &maps.fwd.w[g], 0, gemm_k(d, g), gemm_n(d, g),
-                       a.B + d.b_off[g], head, head_bytes);
+                       a.B + d.b_off[g], head, head_bytes, head_at);
         }
         for (int j = 0; j <= L; ++j)
           prod.product(smem, lay, full, empty, &maps.wt, j * H, j == 0 ? H / 2 : H, H, nullptr,
-                       j == 1 ? a.W + d.wa_off : nullptr, 2 * H);
+                       j == 1 ? a.W + d.wa_off : nullptr, 2 * H, alpha_off(H));
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
     const int t = tid % WG_THREADS, warp = t / 32, lane = t % 32;
     const int r = warp * 16 + lane / 4, q = lane % 4;  // fragment rows r, r + 8
-    unsigned char* act = smem + lay.act_off + wg * (H / 64) * ATOM_BYTES;
-    unsigned char* pe = smem + lay.pe_off + wg * lay.pe_blocks * ATOM_BYTES;
+    const int tile_row = SPLIT ? 0 : wg * 64;         // the warpgroup's first row of a tile
+    const int col0 = SPLIT ? wg * NW : 0, cd0 = SPLIT ? wg * ND : 0;  // its first columns
+    const uint32_t b_w = col0 * 128, b_d = cd0 * 128;  // their slab rows (128 B a row)
+    unsigned char* act = smem + lay.act_off + (SPLIT ? 0 : wg * (H / 64) * ATOM_BYTES);
+    unsigned char* pe = smem + lay.pe_off + (SPLIT ? 0 : wg * lay.pe_blocks * ATOM_BYTES);
+    unsigned char* act_w = act + col0 / 64 * ATOM_BYTES;  // its output columns
     float* part = reinterpret_cast<float*>(smem + lay.extra_off) + wg * 4 * part_ld(H);
+    float* xch = reinterpret_cast<float*>(smem + lay.xch_off);  // SPLIT: [wg][rgb][64]
     const uint32_t act_a = smem_u32(act), pe_a = smem_u32(pe);
     Ring ring{full, empty, smem, lay.slot_bytes, lay.slab_bytes, lay.stages, 0, 0};
 
     const int chunks = lay.pe_cols / 8;
-    PeBuild<true, true> pb;  // the first tile's PE, then each next tile's
-    pb.start(a.origins, a.dirs, a.z, a.n_pts, a.samples, (long long)blockIdx.x * TILE_M + wg * 64,
-             0, t);
-    pb.stash_row(a.stash + a.st.pe, lay.pe_cols, (long long)blockIdx.x * TILE_M + wg * 64, t);
-    pb.finish(tab, chunks, pe, t);
+    const int pt = SPLIT ? tid : t;  // the PE builder's thread
+    PeBuild<true, true, SPLIT ? 4 : 2> pb;  // the first tile's PE, then each next tile's
+    pb.start(a.origins, a.dirs, a.z, a.n_pts, a.samples,
+             (long long)blockIdx.x * ROWS + tile_row, 0, pt);
+    pb.stash_row(a.stash + a.st.pe, lay.pe_cols, (long long)blockIdx.x * ROWS + tile_row, pt);
+    pb.finish(tab, chunks, pe, pt);
 
     for (long long tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
-      const long long row0 = tile * TILE_M + wg * 64;
+      const long long row0 = tile * ROWS + tile_row;
       const long long next = tile + gridDim.x;
       const int pe_base = pb.base;  // this tile's first PE column
       fence_proxy_async();  // this tile's PE, built by every thread, to the products
-      wg_barrier(wg);
+      tile_barrier<SPLIT>(wg);
       // With two PE slots the next tile's PE is built in the other one, a
       // chunk per slab of the forward's products; with one, after the dX
       // chain. Either way the builder's registers are free for the dX
       // chain's epilogues.
       const bool ahead = lay.pe_slots == 2 && next < a.n_tiles;
       auto begin_next = [&] {
-        const long long next0 = next * TILE_M + wg * 64;
+        const long long next0 = next * ROWS + tile_row;
         pb.start(a.origins, a.dirs, a.z, a.n_pts, a.samples, next0,
-                 lay.pe_slots == 2 ? lay.pe_cols - pe_base : 0, t);
-        pb.stash_row(a.stash + a.st.pe, lay.pe_cols, next0, t);
+                 lay.pe_slots == 2 ? lay.pe_cols - pe_base : 0, pt);
+        pb.stash_row(a.stash + a.st.pe, lay.pe_cols, next0, pt);
       };
       if (ahead) begin_next();
       auto work = [&] {
-        if (ahead) pb.step(tab, chunks, pe, t);
+        if (ahead) pb.step(tab, chunks, pe, pt);
       };
       auto no_work = [] {};
 
       // ---- the forward, as field_body<H, true>, stashing every output
       // (and the ReLU masks of products 1..L) ----
-      float acc[H / 2];
+      float acc[NW / 2];
 #pragma unroll
-      for (int i = 0; i < H / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
       float unused0 = 0.f, unused1 = 0.f;
       for (int g = 0; g <= L; ++g) {  // layer1, the trunk, feat
         const bool skip = g > 0 && g < L && ((d.skip_mask >> (g - 1)) & 1);
         const int slot = layer_product(acc, ring, act_a, g == 0 ? 0 : H, pe_a, pe_base,
-                                       g == 0 || skip ? d.pxp : 0, lane, work);
-        wg_barrier(wg);  // every warp's products have read the tile
-        bf16* const out =
-            a.stash + (g < L ? a.st.act + (size_t)g * a.n_pad * H : a.st.feat) + row0 * H;
-        epilogue<H / 2, true>(acc, reinterpret_cast<const float*>(ring.params(slot)), g > 0, act,
-                              r, q, nullptr, unused0, unused1, out,
-                              g > 0 ? a.bits + mask_words(H, a.n_tiles, g, tile, wg, t)
-                                    : nullptr);
+                                       g == 0 || skip ? d.pxp : 0, lane, work, b_w);
+        tile_barrier<SPLIT>(wg);  // every warp's products have read the tile
+        bf16* const out = a.stash + (g < L ? a.st.act + (size_t)g * a.n_pad * H : a.st.feat) +
+                          row0 * H + col0;
+        epilogue<NW / 2, true>(acc, reinterpret_cast<const float*>(ring.params(slot)) + col0,
+                               g > 0, act_w, r, q, nullptr, unused0, unused1, out,
+                               g > 0 ? a.bits + mask_words(H, a.n_tiles, g, tile, wg, t)
+                                     : nullptr,
+                               H);
         ring.release(slot, lane);
         fence_proxy_async();
-        wg_barrier(wg);
+        tile_barrier<SPLIT>(wg);
       }
 
       // dir on [feat | PE(dir)] -> H/2, then the heads in registers.
-      float acc_d[H / 4];
+      float acc_d[ND / 2];
 #pragma unroll
-      for (int i = 0; i < H / 4; ++i) acc_d[i] = 0.f;
-      int slot = layer_product(acc_d, ring, act_a, H, pe_a, pe_base + d.pxp, d.pdp, lane, work);
-      wg_barrier(wg);
-      if (ahead) pb.finish(tab, chunks, pe, t);
-      const float* bd = reinterpret_cast<const float*>(ring.params(slot));
-      const bf16* wr = reinterpret_cast<const bf16*>(ring.params(slot) + HEAD_OFF);
-      bf16* const h_out = a.stash + a.st.h + row0 * (H / 2);
+      for (int i = 0; i < ND / 2; ++i) acc_d[i] = 0.f;
+      int slot = layer_product(acc_d, ring, act_a, H, pe_a, pe_base + d.pxp, d.pdp, lane, work,
+                               b_d);
+      tile_barrier<SPLIT>(wg);
+      if (ahead) pb.finish(tab, chunks, pe, pt);
+      const float* bd = reinterpret_cast<const float*>(ring.params(slot)) + cd0;
+      const bf16* wr = reinterpret_cast<const bf16*>(ring.params(slot) + rgb_off(H)) + cd0;
+      bf16* const h_out = a.stash + a.st.h + row0 * (H / 2) + cd0;
       float c0[3] = {0.f, 0.f, 0.f}, c1[3] = {0.f, 0.f, 0.f};
 #pragma unroll
-      for (int n = 0; n < H / 16; ++n) {
+      for (int n = 0; n < ND / 8; ++n) {
         if (n % 8 == 0) asm volatile("" ::: "memory");  // as in epilogue()
         const int col = 8 * n + 2 * q;
         const float2 b = *reinterpret_cast<const float2*>(bd + col);
@@ -376,6 +404,32 @@ bwd_tile_kernel(const __grid_constant__ BwdMaps maps, const Desc desc, const Fie
           c1[c] += h1.x * w.x + h1.y * w.y;
         }
       }
+      // The rgb head's sums of rows r, r + 8: the quad's, or under SPLIT
+      // both warpgroups' parts, warpgroup 0's first (every thread of both
+      // then holds the same sums).
+      float sr0[3], sr1[3];
+      if constexpr (SPLIT) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float p0 = quad_sum(c0[c]), p1 = quad_sum(c1[c]);
+          if (q == 0) {
+            xch[(wg * 4 + c) * 64 + r] = p0;
+            xch[(wg * 4 + c) * 64 + r + 8] = p1;
+          }
+        }
+        tile_barrier<SPLIT>(wg);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          sr0[c] = xch[c * 64 + r] + xch[(4 + c) * 64 + r];
+          sr1[c] = xch[c * 64 + r + 8] + xch[(4 + c) * 64 + r + 8];
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          sr0[c] = quad_sum(c0[c]);
+          sr1[c] = quad_sum(c1[c]);
+        }
+      }
       // rgb, its cotangent through the sigmoid, and alpha's, rows r, r + 8
       // (every lane of a quad holds them); tail rows take a zero cotangent.
       const long long g0 = row0 + r, g1 = g0 + 8;
@@ -383,14 +437,14 @@ bwd_tile_kernel(const __grid_constant__ BwdMaps maps, const Desc desc, const Fie
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         const float br = a.B[d.br_off + c];
-        const float rgb0 = 1.f / (1.f + expf(-(quad_sum(c0[c]) + br)));
-        const float rgb1 = 1.f / (1.f + expf(-(quad_sum(c1[c]) + br)));
+        const float rgb0 = 1.f / (1.f + expf(-(sr0[c] + br)));
+        const float rgb1 = 1.f / (1.f + expf(-(sr1[c] + br)));
         dr0[c] = (g0 < a.n_pts ? a.grad[c * a.n_pts + g0] : 0.f) * rgb0 * (1.f - rgb0);
         dr1[c] = (g1 < a.n_pts ? a.grad[c * a.n_pts + g1] : 0.f) * rgb1 * (1.f - rgb1);
       }
       const float da0 = g0 < a.n_pts ? a.grad[3 * a.n_pts + g0] : 0.f;
       const float da1 = g1 < a.n_pts ? a.grad[3 * a.n_pts + g1] : 0.f;
-      {
+      if (!SPLIT || wg == 0) {
         // dy_rgb, dy_a: lane q writes columns 4q..4q+3 of both rows.
         const uint2 zero = make_uint2(0u, 0u);
         bf16* const yr = a.stash + a.st.dy_rgb + (size_t)row0 * HEAD_LD + 4 * q;
@@ -414,10 +468,10 @@ bwd_tile_kernel(const __grid_constant__ BwdMaps maps, const Desc desc, const Fie
           rb0[c] = bf16_round(dr0[c]);
           rb1[c] = bf16_round(dr1[c]);
         }
-        bf16* const dh_out = a.stash + a.st.dy_dir + row0 * (H / 2);
+        bf16* const dh_out = a.stash + a.st.dy_dir + row0 * (H / 2) + cd0;
         float* const my_part = part + warp * part_ld(H);
 #pragma unroll
-        for (int n0 = 0; n0 < H / 16; n0 += 4) {
+        for (int n0 = 0; n0 < ND / 8; n0 += 4) {
           float cs[8];
 #pragma unroll
           for (int n = n0; n < n0 + 4; ++n) {
@@ -441,8 +495,8 @@ bwd_tile_kernel(const __grid_constant__ BwdMaps maps, const Desc desc, const Fie
             if (!(h1.x > 0.f)) v[2] = 0.f;
             if (!(h1.y > 0.f)) v[3] = 0.f;
             const uint32_t lo = pack_bf16(v[0], v[1]), hi = pack_bf16(v[2], v[3]);
-            *reinterpret_cast<uint32_t*>(act + swz(r, col)) = lo;
-            *reinterpret_cast<uint32_t*>(act + swz(r + 8, col)) = hi;
+            *reinterpret_cast<uint32_t*>(act + swz(r, cd0 + col)) = lo;
+            *reinterpret_cast<uint32_t*>(act + swz(r + 8, cd0 + col)) = hi;
             *reinterpret_cast<uint32_t*>(dh_out + r * (H / 2) + col) = lo;
             *reinterpret_cast<uint32_t*>(dh_out + (r + 8) * (H / 2) + col) = hi;
             cs[2 * (n - n0)] = v[0] + v[2];
@@ -459,16 +513,16 @@ bwd_tile_kernel(const __grid_constant__ BwdMaps maps, const Desc desc, const Fie
         }
         if (lane == 0) {
 #pragma unroll
-          for (int k = 0; k < 4; ++k) my_part[H / 2 + k] = hs[k];
+          for (int k = 0; k < 4; ++k) my_part[ND + k] = hs[k];
         }
       }
       ring.release(slot, lane);
       fence_proxy_async();
-      wg_barrier(wg);
-      float* const db = a.dbpart + (2 * tile + wg) * a.nb_ld;
-      flush_colsum(part, part_ld(H), H / 2, db + d.b_off[L + 1], t);
-      if (t < 4) {
-        const int c = H / 2 + t;
+      tile_barrier<SPLIT>(wg);
+      float* const db = a.dbpart + (row0 / 64) * a.nb_ld;  // one row per 64 points
+      flush_colsum(part, part_ld(H), ND, db + d.b_off[L + 1] + cd0, t);
+      if ((!SPLIT || wg == 0) && t < 4) {
+        const int c = ND + t;
         db[t < 3 ? d.br_off + t : d.ba_off] =
             part[c] + part[part_ld(H) + c] + part[2 * part_ld(H) + c] + part[3 * part_ld(H) + c];
       }
@@ -480,28 +534,29 @@ bwd_tile_kernel(const __grid_constant__ BwdMaps maps, const Desc desc, const Fie
       // without this the trunk's sums would stay live (and spill) across
       // the dir product and the heads.
 #pragma unroll
-      for (int i = 0; i < H / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
       for (int j = 0; j <= L; ++j) {
         const int g = L - j;
-        uint32_t mw[H / 64] = {};
+        uint32_t mw[NW / 64] = {};
         if (g > 0) load_mask(mw, a.bits + mask_words(H, a.n_tiles, g, tile, wg, t));
-        slot = layer_product(acc, ring, act_a, j == 0 ? H / 2 : H, 0, 0, 0, lane, no_work);
-        wg_barrier(wg);
+        slot = layer_product(acc, ring, act_a, j == 0 ? H / 2 : H, 0, 0, 0, lane, no_work, b_w);
+        tile_barrier<SPLIT>(wg);
         const bf16* wa =
-            j == 1 ? reinterpret_cast<const bf16*>(ring.params(slot) + HEAD_OFF) : nullptr;
-        dx_epilogue(acc, act, r, q, lane, g > 0, mw, wa, a0, a1,
-                    a.stash + a.st.dy + ((size_t)g * a.n_pad + row0) * H,
-                    part + warp * part_ld(H));
+            j == 1 ? reinterpret_cast<const bf16*>(ring.params(slot) + alpha_off(H)) + col0
+                   : nullptr;
+        dx_epilogue(acc, act_w, r, q, lane, g > 0, mw, wa, a0, a1,
+                    a.stash + a.st.dy + ((size_t)g * a.n_pad + row0) * H + col0,
+                    part + warp * part_ld(H), H);
         ring.release(slot, lane);
         fence_proxy_async();
-        wg_barrier(wg);
-        flush_colsum(part, part_ld(H), H, a.dbpart + (2 * tile + wg) * a.nb_ld + d.b_off[g], t);
+        tile_barrier<SPLIT>(wg);
+        flush_colsum(part, part_ld(H), NW, db + d.b_off[g] + col0, t);
       }
       // With one PE slot, the next tile's PE now (the dir product, the
       // last to read this tile's, is done: barriers followed it).
       if (!ahead && next < a.n_tiles) {
         begin_next();
-        pb.finish(tab, chunks, pe, t);
+        pb.finish(tab, chunks, pe, pt);
       }
     }
   }
@@ -521,7 +576,11 @@ bwd_tile_kernel(const __grid_constant__ BwdMaps maps, const Desc desc, const Fie
 // zeros (the heads' 16-column cotangents, the narrower PE jobs) and rows
 // or columns past the job's are computed and never written.
 
-constexpr int MAX_JOBS = 2 * MAX_GEMMS + 2;
+// Jobs of a descriptor, at most: at H = 512 and 14 layers with a skip at
+// every trunk layer, 2 column blocks for each of the 13 trunk products, feat,
+// dir's feat part and the alpha head, 1 for layer1, the 12 skips' PE parts,
+// dir's PE part and the rgb head: 47.
+constexpr int MAX_JOBS = 56;
 constexpr int DW_A_ATOMS = 2;   // dW rows per unit: 64 per consumer warpgroup
 constexpr int DW_B_ATOMS = 4;   // dW columns per unit: 256
 constexpr int DW_STAGE_BYTES = (DW_A_ATOMS + DW_B_ATOMS) * ATOM_BYTES;  // 48 KB, 64 points
@@ -556,6 +615,7 @@ struct DwArgs {
   float* partial;   // one row of part_ld per point range
   long long part_ld;
 };
+static_assert(sizeof(DwArgs) <= 4096, "dw_kernel's parameters");
 
 // dW partials: one CTA per unit, a producer thread streaming the unit's
 // stages by TMA into a ring of DW_STAGES, two consumer warpgroups each
@@ -700,9 +760,9 @@ struct Workspace {
 
 Workspace workspace_layout(const Desc& d, long long n_pts) {
   Workspace w;
-  w.n_pad = (long long)round_up((size_t)n_pts, TILE_M);
-  w.tiles = (int)(w.n_pad / TILE_M);
-  w.db_rows = 2 * w.tiles;  // one per warpgroup of 64 points
+  w.n_pad = (long long)round_up((size_t)n_pts, 128);
+  w.tiles = (int)(w.n_pad / tile_rows(d.hidden));
+  w.db_rows = (int)(w.n_pad / 64);  // one per 64 points
   w.range_pts = dw_range_pts(w.n_pad);
   w.ranges = (int)((w.n_pad + w.range_pts - 1) / w.range_pts);
   w.groups = (w.db_rows + DB_GROUP - 1) / DB_GROUP;
@@ -721,16 +781,28 @@ Workspace workspace_layout(const Desc& d, long long n_pts) {
   return w;
 }
 
-// Appends a job whose units follow the `units` before it; returns the total.
+// Appends a job, as one job per 256-column block of its X (a unit's width),
+// whose units follow the `units` before it; returns the total, or -1 past
+// MAX_JOBS.
 int add_job(DwArgs* a, int units, int ranges, DwJob jb) {
-  jb.m_blocks = (jb.m + DW_A_ATOMS * 64 - 1) / (DW_A_ATOMS * 64);
-  jb.unit0 = units;
-  a->job[a->count++] = jb;
-  return units + jb.m_blocks * ranges;
+  if (units < 0) return units;
+  for (int c = 0; c < jb.n; c += DW_B_ATOMS * 64) {
+    if (a->count == MAX_JOBS) return -1;
+    DwJob blk = jb;
+    blk.b_col += c;
+    blk.col_off += c;
+    blk.n = jb.n - c < DW_B_ATOMS * 64 ? jb.n - c : DW_B_ATOMS * 64;
+    blk.m_blocks = (jb.m + DW_A_ATOMS * 64 - 1) / (DW_A_ATOMS * 64);
+    blk.unit0 = units;
+    a->job[a->count++] = blk;
+    units += blk.m_blocks * ranges;
+  }
+  return units;
 }
 
 // Every weight matrix of the packed layout as dW = dY^T X jobs over the
-// stash's maps (encode_dw_maps); returns the number of units.
+// stash's maps (encode_dw_maps); returns the number of units (-1: too many
+// jobs).
 int dw_jobs(const Desc& d, int n, int ranges, DwArgs* a) {
   const int H = d.hidden, L = d.num_layers, pxp = d.pxp, pdp = d.pdp;
   int u = 0;
@@ -795,7 +867,7 @@ int launch_tiles(const Desc& d, const Workspace& ws, const float* o, const float
   int rc = field_prepare(d, W, B, d.num_layers + 2, &sms, &smem_limit, &maps.fwd);
   if (rc != 0) return rc;
   bf16* wt = reinterpret_cast<bf16*>(base + ws.wt);
-  rc = encode_slab_map(&maps.wt, wt, H, (d.num_layers + 1) * H, H);
+  rc = encode_slab_map(&maps.wt, wt, H, (d.num_layers + 1) * H, slab_box_rows(H));
   if (rc != 0) return rc;
   FieldLayout lay;
   rc = field_layout(d, true, smem_limit, &lay, part_bytes(H));
@@ -872,6 +944,7 @@ extern "C" int nm_fused_mlp_bwd(const float* origins, const float* dirs, const f
   err = encode_dw_maps(d, reinterpret_cast<const bf16*>(base), (int)ws.n_pad, dw.maps);
   if (err != 0) return err;
   const int units = dw_jobs(d, (int)ws.n_pad, ws.ranges, &dw);
+  if (units < 0) return (int)cudaErrorInvalidValue;
   dw.range_pts = ws.range_pts;
   dw.n_pad = ws.n_pad;
   dw.partial = reinterpret_cast<float*>(base + ws.partial);
@@ -880,11 +953,22 @@ extern "C" int nm_fused_mlp_bwd(const float* origins, const float* dirs, const f
                                   DW_SMEM);
   if (err != 0) return err;
 
-  err = d.hidden == 128
-            ? launch_tiles<128>(d, ws, origins, dirs, z, n_pts, samples, grad, W, biases,
-                                base, s)
-            : launch_tiles<256>(d, ws, origins, dirs, z, n_pts, samples, grad, W, biases,
-                                base, s);
+  switch (d.hidden) {
+    case 128:
+      err = launch_tiles<128>(d, ws, origins, dirs, z, n_pts, samples, grad, W, biases, base, s);
+      break;
+    case 256:
+      err = launch_tiles<256>(d, ws, origins, dirs, z, n_pts, samples, grad, W, biases, base, s);
+      break;
+    case 384:
+      err = launch_tiles<384>(d, ws, origins, dirs, z, n_pts, samples, grad, W, biases, base, s);
+      break;
+    case 512:
+      err = launch_tiles<512>(d, ws, origins, dirs, z, n_pts, samples, grad, W, biases, base, s);
+      break;
+    default:
+      err = (int)cudaErrorInvalidValue;
+  }
   if (err != 0) return err;
   err = launch_dw(dw, units, ws.ranges, ws.n_weights, dW, s);
   if (err != 0) return err;
@@ -898,14 +982,14 @@ extern "C" int nm_fused_mlp_bwd(const float* origins, const float* dirs, const f
 
 // The dW leg alone on one product, for its tests: out (m, n) f32 = dy^T x
 // over n_pts points, dy (n_pts, ldy) and x (n_pts, ldx) row-major bf16 on
-// 16 B aligned bases (ldy, ldx multiples of 8; m <= ldy, n <= ldx, n <=
-// 256), through dw_kernel and the reduction over its point ranges, as the
-// backward runs them. partial: scratch of partial_floats f32, at least
+// 16 B aligned bases (ldy, ldx multiples of 8; m <= ldy, n <= ldx), through
+// dw_kernel (one job per 256 columns) and the reduction over its point
+// ranges, as the backward runs them. partial: scratch of partial_floats f32, at least
 // DW_RANGES x round_up(m n, 64). Returns a cudaError_t code; 0 on success.
 extern "C" int nm_dw_product(const void* dy, int ldy, int m, const void* x, int ldx, int n,
                              long long n_pts, float* partial, long long partial_floats,
                              float* out, void* stream) {
-  if (m <= 0 || n <= 0 || n > DW_B_ATOMS * 64 || m > ldy || n > ldx || ldy % 8 != 0 ||
+  if (m <= 0 || n <= 0 || m > ldy || n > ldx || ldy % 8 != 0 ||
       ldx % 8 != 0 || n_pts <= 0 || n_pts > INT_MAX - SLAB_K)
     return (int)cudaErrorInvalidValue;
   const long long n_pad = (long long)round_up((size_t)n_pts, SLAB_K);
@@ -925,5 +1009,6 @@ extern "C" int nm_dw_product(const void* dy, int ldy, int m, const void* x, int 
                                     DW_SMEM);
   if (err != 0) return err;
   const int units = add_job(&a, 0, ranges, {0, 0, 0, 1, 0, 0, m, m, n, 0, n, 0});
+  if (units < 0) return (int)cudaErrorInvalidValue;
   return launch_dw(a, units, ranges, m * n, out, static_cast<cudaStream_t>(stream));
 }

@@ -21,7 +21,9 @@
 // shared-memory slots, two consumer warpgroups of 64 points running
 // wgmma.mma_async on them with the sums in registers, epilogues and the
 // alpha and rgb heads in registers). The sigma kernel (fused_sigma.cu) runs
-// the same code up to the alpha head.
+// the same code up to the alpha head. Instantiated at H = 128, 256, 384 and
+// 512, the last two on 64-point tiles whose products the two consumer
+// warpgroups split in N (fused_field.cuh).
 
 #include "fused_field.cuh"
 
@@ -57,6 +59,12 @@ extern "C" int nm_fused_mlp_fwd(const float* origins, const float* dirs,
                                      samples, W, biases, out, channels_first, s);
     case 256:
       return field_launch<256, true>(fused_mlp_fwd_kernel<256>, d, origins, dirs, z, n_pts,
+                                     samples, W, biases, out, channels_first, s);
+    case 384:
+      return field_launch<384, true>(fused_mlp_fwd_kernel<384>, d, origins, dirs, z, n_pts,
+                                     samples, W, biases, out, channels_first, s);
+    case 512:
+      return field_launch<512, true>(fused_mlp_fwd_kernel<512>, d, origins, dirs, z, n_pts,
                                      samples, W, biases, out, channels_first, s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -22,7 +22,8 @@
 // tiles hold PE(xyz) only. It reads the same packed weights and descriptor
 // as the forward kernel (the TPU kernel's separate sigma weight list and its
 // (8, N) input with zero direction rows are TPU layouts, not carried over):
-// points are (N, 3) f32, the output (N,) f32.
+// points are (N, 3) f32, the output (N,) f32. H = 128, 256, 384 and 512, as
+// the forward kernel.
 
 #include "fused_field.cuh"
 
@@ -54,6 +55,12 @@ extern "C" int nm_fused_sigma(const float* points, long long n_pts, const void* 
                                       n_pts, 1, W, biases, out, 0, s);
     case 256:
       return field_launch<256, false>(fused_sigma_kernel<256>, d, points, nullptr, nullptr,
+                                      n_pts, 1, W, biases, out, 0, s);
+    case 384:
+      return field_launch<384, false>(fused_sigma_kernel<384>, d, points, nullptr, nullptr,
+                                      n_pts, 1, W, biases, out, 0, s);
+    case 512:
+      return field_launch<512, false>(fused_sigma_kernel<512>, d, points, nullptr, nullptr,
                                       n_pts, 1, W, biases, out, 0, s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -23,7 +23,8 @@ and sigma kernels share one design (csrc/fused_field.cuh): one persistent
 block per SM walks 128-point tiles; a producer warp streams every layer's
 weights by TMA, in 64-column K-slabs of the packed layout, into a ring in
 shared memory; two warpgroups of 64 points run each layer as wgmma on
-those slabs with the sums in registers, keep PE and activations in shared
+those slabs with the sums in registers (at H = 384 and 512 both share a
+64-point tile, each with half the columns), keep PE and activations in shared
 memory and the epilogues and heads in registers. No points, PE or
 activation tensor is ever written to device memory. The backward
 contracts the weight grads over all points, which needs a stash of each
@@ -74,10 +75,13 @@ launches = 0  # forward kernel
 bwd_launches = 0  # backward kernel
 sigma_launches = 0  # sigma-only kernel
 
-# What the CUDA kernel takes (csrc/fused_mlp_fwd.cu): a hidden width it is
-# instantiated for, at most MAX_BANDS PE bands per encoding and
-# MAX_LAYERS trunk layers (its descriptor holds MAX_LAYERS + 2 products).
-HIDDEN_SIZES = (128, 256)
+# What the CUDA kernels take (csrc/fused_mlp_{fwd,bwd}.cu, fused_sigma.cu):
+# a hidden width they are instantiated for (JAX's Pallas kernels take any
+# H % 128 == 0; 384 and 512 run on 64-point tiles split in N, see
+# csrc/fused_field.cuh), at most MAX_BANDS PE bands per encoding and
+# MAX_LAYERS trunk layers (the descriptor holds MAX_LAYERS + 2 products),
+# and a shared-memory plan (field_plan) for each of the three kernels.
+HIDDEN_SIZES = (128, 256, 384, 512)
 MAX_BANDS = 24
 MAX_LAYERS = 14
 # Descriptor: 13 fixed ints (N_DESC_FIXED in the .cu), then the weight
@@ -148,18 +152,69 @@ def spec_from_model(model: FlexibleNeRFModel) -> MLPSpec:
     )
 
 
+# field_layout's constants (csrc/fused_field.cuh, fused_mlp_bwd.cu), in
+# bytes: the shared memory a block of an H100 may opt into, a swizzled
+# 64-row x 64-column bf16 atom, a ring slab's K-columns, the ring's most
+# stages, the wide models' head exchange, a PeCol and a Desc.
+SMEM_LIMIT = 232448
+_ATOM = 64 * 128
+_SLAB_K = 64
+_MAX_STAGES = 8
+_XCH = 2 * 4 * 64 * 4
+_PE_COL = 8
+_DESC = 4 * (13 + 2 * 16 + 2 * 24)
+
+
+class FieldPlan(NamedTuple):
+    """A kernel's shared-memory plan: ring stages, PE tiles a warpgroup's
+    arena holds, dynamic shared bytes."""
+
+    stages: int
+    pe_slots: int
+    bytes: int
+
+
+def field_plan(spec: MLPSpec, kernel: str, smem_limit: int = SMEM_LIMIT) -> FieldPlan | None:
+    """The plan csrc/fused_field.cuh:field_layout makes at launch for
+    `kernel` ("fwd", "sigma" or "bwd", whose tile kernel adds its column
+    partials), or None where it refuses: fewer than 2 ring stages. A
+    mirror of the C++ (keep the two alike), so that the gate never admits
+    what a launch would refuse."""
+    H = spec.hidden
+    split = H > 256  # split_n: one 64-row tile that both consumer warpgroups share
+    tiles = 1 if split else 2
+    slot = _SLAB_K * H * 2 + (2048 if H <= 256 else _round_up(6 * H, 1024))
+    pe_cols = spec.pxp + (spec.pdp if kernel != "sigma" else 0)
+    act = tiles * (H // 64) * _ATOM
+    extra = 2 * 4 * ((H // 2 if split else H) + 4) * 4 if kernel == "bwd" else 0
+    aux = (_XCH if split else 0) + 2 * _MAX_STAGES * 8 + pe_cols * _PE_COL + _DESC
+    for pe_slots in (2, 1):
+        pe = tiles * (_round_up(pe_slots * pe_cols, 64) // 64) * _ATOM
+        stages = (smem_limit - act - pe - extra - aux) // slot
+        if stages >= pe_slots + 1:
+            stages = min(stages, _MAX_STAGES)
+            return FieldPlan(stages, pe_slots, stages * slot + act + pe + extra + aux)
+    return None
+
+
 def supports_fused(model) -> bool:
-    """The kernel covers viewdir FlexibleNeRF models of hidden width 128
-    or 256, 1..MAX_BANDS bands per encoding and 1..MAX_LAYERS layers
-    (lego: 8 x 256, L 10/4). Others run through the nn.Module."""
-    return (
+    """The kernels cover viewdir FlexibleNeRF models of hidden width 128,
+    256, 384 or 512, 1..MAX_BANDS bands per encoding and 1..MAX_LAYERS
+    layers (lego: 8 x 256, L 10/4) whose forward, sigma and backward
+    kernels each have a shared-memory plan (field_plan: at 512 wide, at
+    most 128 PE columns of [PE(xyz) | PE(dir)]). Others run through the
+    nn.Module."""
+    if not (
         isinstance(model, FlexibleNeRFModel)
         and model.use_viewdirs
         and model.hidden_size in HIDDEN_SIZES
         and 1 <= model.num_encoding_fn_xyz <= MAX_BANDS
         and 1 <= model.num_encoding_fn_dir <= MAX_BANDS
         and 1 <= model.num_layers <= MAX_LAYERS
-    )
+    ):
+        return False
+    spec = spec_from_model(model)
+    return all(field_plan(spec, kernel) is not None for kernel in ("fwd", "sigma", "bwd"))
 
 
 class PackedMLP(NamedTuple):

@@ -52,7 +52,14 @@ ARCHS = [
     # the edge of supports_fused: most layers and bands the kernel takes
     dict(LEGO, num_layers=fm.MAX_LAYERS, num_encoding_fn_xyz=fm.MAX_BANDS,
          num_encoding_fn_dir=fm.MAX_BANDS),
+    # the wide widths, on 64-point tiles split in N across the warpgroups
+    dict(LEGO, hidden_size=384),
+    dict(LEGO, hidden_size=512),
+    # the widest edge the gate admits at 512: most layers, 128 PE columns
+    dict(LEGO, hidden_size=512, num_layers=fm.MAX_LAYERS, num_encoding_fn_xyz=15),
 ]
+ARCH_IDS = ["lego", "small", "deep-linear", "linear-11", "edge", "w384", "w512", "w512-edge"]
+WIDE = ARCHS[5:]
 
 
 @pytest.fixture
@@ -71,7 +78,7 @@ def _rays(R, S, device, seed=0):
     return [torch.from_numpy(a.astype(np.float32)).to(device) for a in (o, d, z)]
 
 
-@pytest.mark.parametrize("kw", ARCHS)
+@pytest.mark.parametrize("kw", ARCHS, ids=ARCH_IDS)
 @pytest.mark.parametrize("R,S,channels_first", [(2048, 64, True), (37, 5, False)])
 def test_kernel_matches_plain(cuda, kw, R, S, channels_first):
     torch.manual_seed(0)
@@ -87,12 +94,13 @@ def test_kernel_matches_plain(cuda, kw, R, S, channels_first):
     torch.testing.assert_close(got, ref, atol=2e-2, rtol=2e-2)
 
 
-# Ragged edges of the 128-point tiles the persistent CTAs walk, and more
-# tiles than two waves of one CTA per SM (132 SMs x 128 x 2 = 33,792).
+# Ragged edges of the 128-point tiles the persistent CTAs walk (64-point
+# at H > 256), and more tiles than two waves of one CTA per SM (132 SMs x
+# 128 x 2 = 33,792).
 RAGGED = [1, 63, 65, 127, 128, 129, 257, 40000]
 
 
-@pytest.mark.parametrize("kw", ARCHS, ids=["lego", "small", "deep-linear", "linear-11", "edge"])
+@pytest.mark.parametrize("kw", ARCHS, ids=ARCH_IDS)
 @pytest.mark.parametrize("n", RAGGED)
 def test_kernel_tile_edges(cuda, kw, n):
     """n points as n rays of one sample: tail rows of the last tile must
@@ -200,6 +208,33 @@ def test_bwd_kernel_matches_plain(cuda, kw, R, S):
     assert worst < GRAD_BAR, f"worst grad rel err {worst}"
 
 
+# The wide backward's points: at fewer, its worst relative error against
+# plain is rounding noise of the order of the bar. At 7000 points and 512
+# wide it read 0.027-0.060 over three seeds (256 wide: 0.013-0.018;
+# scripts/torch_bwd_stash_diff.py on an H100): every
+# difference of the stashed activations a bf16 ulp or a ReLU mask flipped
+# at |x| < 3e-4, evenly over both warpgroups' columns; a wider product sums
+# more terms in another order and has more units near zero.
+WIDE_BWD_SHAPES = [(2048, 64), (2048, 192), (2049, 63)]
+
+
+@pytest.mark.parametrize("kw", WIDE, ids=ARCH_IDS[5:])
+@pytest.mark.parametrize("R,S", WIDE_BWD_SHAPES)
+def test_wide_bwd_kernel_matches_plain(cuda, kw, R, S):
+    """384 and 512 wide and the 14-layer edge at 512, at the train shapes
+    and at 129,087 points: the last 64-point tile 63 rows short and one more
+    of tail rows only (n_pad 129,152), over 24 of the dW leg's ranges."""
+    packed, args = _grad_case(kw, R, S, cuda)
+    before = fm.bwd_launches
+    got = fm.fused_mlp_bwd(packed, *args)
+    torch.cuda.synchronize()
+    assert fm.bwd_launches == before + 1
+    want = fm.fused_mlp_bwd_plain(packed, *args)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    worst = _worst_rel(packed, got, want)
+    assert worst < GRAD_BAR, f"worst grad rel err {worst}"
+
+
 def test_bwd_kernel_is_deterministic(cuda):
     """No float atomics: two launches on the same inputs agree bit for bit."""
     packed, args = _grad_case(LEGO, 2048, 64, cuda)
@@ -235,6 +270,8 @@ def _dw_product(dy, x, m, n):
     (2047, 128, 128, 96, 96),     # under one point range
     (2048 + 64, 256, 256, 256, 256),  # one range and one stage
     (49280, 128, 128, 64, 96),    # 24 ranges of 2112 points, the last 704
+    (4097, 512, 512, 384, 384),   # H = 384's columns: a 256-column job and a 128
+    (6144, 512, 512, 512, 512),   # H = 512: 4 row blocks x 2 column jobs
 ])
 def test_dw_leg_matches_torch_mm(cuda, n_pts, m, ldy, n, ldx):
     """The dW leg's MN-major operands (the stash's rows are the points,
@@ -391,10 +428,11 @@ class _SkipSpec(fm.MLPSpec):
         return self.skips
 
 
-def _pack_with_skips(hidden, num_layers, skips, device, seed=0):
+def _pack_with_skips(hidden, num_layers, skips, device, seed=0, L_x=6, L_d=3):
     """A pack of seeded weights laid out as pack_params lays them out, with
-    PE(xyz) fed into the trunk layers in `skips`."""
-    spec = _SkipSpec(num_layers=num_layers, hidden=hidden, skip_step=1, L_x=6, L_d=3,
+    PE(xyz) fed into the trunk layers in `skips`; L_x and L_d bands (a pack
+    that supports_fused may refuse)."""
+    spec = _SkipSpec(num_layers=num_layers, hidden=hidden, skip_step=1, L_x=L_x, L_d=L_d,
                      include_x=True, include_d=True, log_x=True, log_d=True,
                      skips=tuple(skips))
     rng = np.random.default_rng(seed)
@@ -416,7 +454,7 @@ def _pack_with_skips(hidden, num_layers, skips, device, seed=0):
                         desc, freqs)
 
 
-@pytest.mark.parametrize("hidden", [128, 256])
+@pytest.mark.parametrize("hidden", fm.HIDDEN_SIZES)
 def test_kernels_take_skips_after_layer1_and_the_last_trunk_layer(cuda, hidden):
     """Skips the models never make (trunk layer 0, right after layer1, and
     the last trunk layer) through the forward and the backward."""
@@ -436,15 +474,64 @@ def test_kernels_take_skips_after_layer1_and_the_last_trunk_layer(cuda, hidden):
     assert worst < GRAD_BAR, f"worst grad rel err {worst}"
 
 
-@pytest.mark.parametrize("kw", ARCHS, ids=["lego", "small", "deep-linear", "linear-11", "edge"])
+# (H, L_x, L_d) around the wide kernels' shared-memory edge: PE widths
+# pxp + pdp of 128 (512: every kernel fits), 144 and 192 (512: the backward
+# refused), 320 (512: only sigma fits; 384: every kernel).
+PLAN_EDGE = [(512, 15, 4), (512, 15, 5), (512, 24, 4), (512, 24, 24), (384, 24, 24)]
+
+
+@pytest.mark.parametrize("hidden,L_x,L_d", PLAN_EDGE)
+def test_launches_refuse_exactly_what_the_plan_refuses(cuda, hidden, L_x, L_d):
+    """The gate's mirror of the shared-memory plan (fm.field_plan) against
+    the launches themselves: each of the three kernels runs (and matches
+    its plain version) where the mirror has a plan, and is refused without
+    a launch where it has none; supports_fused admits the architecture
+    only where all three run."""
+    packed = _pack_with_skips(hidden, fm.MAX_LAYERS, (4, 8), cuda, L_x=L_x, L_d=L_d)
+    spec = packed.spec
+    R, S = WIDE_BWD_SHAPES[-1]
+    o, d, z = _rays(R, S, cuda, seed=7)
+    cot = torch.from_numpy(np.random.default_rng(8).standard_normal((4, R, S))
+                           .astype(np.float32)).to(cuda)
+    pts = (o[:, None] + d[:, None] * z[..., None]).reshape(-1, 3)
+    cases = {
+        "fwd": (lambda: fm.fused_mlp_cuda(packed, o, d, z),
+                lambda: fm.fused_mlp_plain(packed, o, d, z), "launches"),
+        "sigma": (lambda: fm.fused_sigma_cuda(packed, pts),
+                  lambda: fm.fused_sigma_plain(packed, pts), "sigma_launches"),
+        "bwd": (lambda: fm.fused_mlp_bwd_cuda(packed, o, d, z, cot),
+                lambda: fm.fused_mlp_bwd_plain(packed, o, d, z, cot), "bwd_launches"),
+    }
+    model = FlexibleNeRFModel(num_layers=fm.MAX_LAYERS, hidden_size=hidden,
+                              num_encoding_fn_xyz=L_x, num_encoding_fn_dir=L_d)
+    assert fm.supports_fused(model) == all(fm.field_plan(spec, k) is not None for k in cases)
+    for kernel, (run, plain, counter) in cases.items():
+        before = getattr(fm, counter)
+        if fm.field_plan(spec, kernel) is None:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                run()
+            assert getattr(fm, counter) == before, kernel
+            continue
+        got = run()
+        torch.cuda.synchronize()
+        want = plain()
+        if kernel == "bwd":
+            assert _worst_rel(packed, got, want) < GRAD_BAR
+        else:
+            torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("kw", ARCHS, ids=ARCH_IDS)
 def test_bwd_kernel_every_architecture(cuda, kw):
     """Every architecture of the forward's tests, 1000 rays x 7 samples: H =
-    128 and 256, no include_input, the 24-band 14-layer edge (one PE tile,
-    two ring slots). Fewer points make the worst relative error a matter of
-    which bf16 roundings fall the other way: at 129 x 3 the lego and edge
-    grads of this kernel and of its wmma predecessor both miss the bar
-    against plain, by the same amount."""
-    packed, args = _grad_case(kw, 1000, 7, cuda)
+    128, 256, 384 and 512, no include_input, the 24-band 14-layer edge (one
+    PE tile, two ring slots) and the 14-layer edge at 512. Fewer points
+    make the worst relative error a matter of which bf16 roundings fall the
+    other way: at 129 x 3 the lego and edge grads of this kernel and of its
+    wmma predecessor both miss the bar against plain, by the same amount;
+    the wide ones are held at WIDE_BWD_SHAPES' ragged count."""
+    R, S = (1000, 7) if kw["hidden_size"] <= 256 else WIDE_BWD_SHAPES[-1]
+    packed, args = _grad_case(kw, R, S, cuda)
     got = fm.fused_mlp_bwd_cuda(packed, *args)
     torch.cuda.synchronize()
     want = fm.fused_mlp_bwd_plain(packed, *args)

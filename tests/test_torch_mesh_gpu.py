@@ -43,7 +43,12 @@ ARCHS = [
     dict(LEGO, num_layers=fm.MAX_LAYERS, num_encoding_fn_xyz=fm.MAX_BANDS,
          num_encoding_fn_dir=fm.MAX_BANDS),
     dict(LEGO, hidden_size=128, num_layers=1, num_encoding_fn_xyz=1, num_encoding_fn_dir=1),
+    # the wide widths (64-point tiles split in N), and the widest edge at 512
+    dict(LEGO, hidden_size=384),
+    dict(LEGO, hidden_size=512),
+    dict(LEGO, hidden_size=512, num_layers=fm.MAX_LAYERS, num_encoding_fn_xyz=15),
 ]
+ARCH_IDS = ["lego", "small", "deep-linear", "edge", "one-layer", "w384", "w512", "w512-edge"]
 
 
 @pytest.fixture
@@ -63,7 +68,7 @@ def _model(kw, device):
     return FlexibleNeRFModel(**kw, compute_dtype=torch.bfloat16, device=device)
 
 
-@pytest.mark.parametrize("kw", ARCHS, ids=["lego", "small", "deep-linear", "edge", "one-layer"])
+@pytest.mark.parametrize("kw", ARCHS, ids=ARCH_IDS)
 # Ragged edges of the 128-point tiles, more tiles than two persistent waves
 # (40,000 points), and one grid tile of the mesh path (262,144).
 @pytest.mark.parametrize("n", [0, 1, 63, 65, 127, 128, 129, 257, 40000, 262144])
@@ -80,7 +85,7 @@ def test_sigma_kernel_matches_plain(cuda, kw, n):
     torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
 
 
-@pytest.mark.parametrize("kw", ARCHS, ids=["lego", "small", "deep-linear", "edge", "one-layer"])
+@pytest.mark.parametrize("kw", ARCHS, ids=ARCH_IDS)
 def test_sigma_kernel_is_forward_channel3(cuda, kw):
     packed = fm.pack_weights(_model(kw, cuda))
     pts = _points(4099, cuda, seed=1)
