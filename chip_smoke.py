@@ -91,13 +91,16 @@ and the BuFF ones:
   backward at 2048 x 128, at the width of configs/hard-llff.yml (8x128),
   held against their plain versions and timed (h128_kernel_phase).
 - the wide fields (wide_phase, last): hard-blender.yml's two 8-layer L
-  10/4 FlexibleNeRFs widened to 384 and 512 (the kernels' 64-point tiles
-  split in N): each kernel's shared-memory plan; the forward at 2048 x 64
-  and 2048 x 192, the backward at both (its legs at 512) and sigma at a
-  262,144-point tile against their plain versions, timed; then setup +
-  fit (3 + 30 steps, 2 + 2 launches a step, the loss falls, grads vs the
-  nn.Module), at 512 two 400x400 views of the trained system, and
-  export_marching_cubes at 128^3 (384) / 256^3 (512) with the colour check.
+  10/4 FlexibleNeRFs widened to 384-1024 (the kernels' 64-point tiles
+  split in N; from 640 on across a 2-CTA cluster as well): each kernel's
+  shared-memory plan; the forward at 2048 x 64 and 2048 x 192, the
+  backward at both (its legs at 512 and 1024) and sigma at a
+  262,144-point tile against their plain versions, timed (640-896 at
+  2048 x 64); from 640 on sigma bit for bit the forward's channel 3 and
+  repeat launches bitwise; then setup + fit (3 + 30 steps, 2 + 2 launches
+  a step, the loss falls, grads vs the nn.Module), at 512 and 1024 two
+  400x400 views of the trained system, and export_marching_cubes
+  (WIDE_MESH_RES) with the colour check.
 - the forward-facing chain (llff_cli): configs/hard-llff.yml as shipped on
   data/hard_llff (21 training views, 3 held out; NDC rays, per-image
   COLMAP bounds, two 8x128 fields through the fused kernels): train 500
@@ -669,7 +672,41 @@ def kernel_phase(cfg, card: str, device) -> dict:
     chunk_bound_ms, chunk_bound_by = _fwd_bound(model, packed, R, S)
     _rate("fused_mlp_fwd", big_ms, _field_flops(model) * R * S, chunk_bound_ms, chunk_bound_by,
           f"{R}x{S} (appearance chunk)", card)
-    return dict(max_abs_err=worst, **times, chunk_ms=big_ms, chunk_bound_ms=chunk_bound_ms)
+    chunk_library_ms, chunk_plain_ms = _chunk_yardsticks(model, packed, o, d, z, card)
+    return dict(max_abs_err=worst, **times, chunk_ms=big_ms, chunk_bound_ms=chunk_bound_ms,
+                chunk_library_ms=chunk_library_ms, chunk_plain_ms=chunk_plain_ms)
+
+
+def _chunk_yardsticks(model, packed, o, d, z, card: str) -> tuple[float, float | None]:
+    """The appearance chunk's library yardstick (the nn.Module at its
+    points under bf16 autocast) and its plain version's time where the
+    card holds the plain version's f32 activations: their peak on a
+    CHECK_RAYS slice, scaled to the chunk, against the free memory (else
+    None, and the gigabytes it would need are printed)."""
+    from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+
+    R, S = z.shape
+    pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
+    dirs = d[:, None, :].expand(R, S, 3).reshape(-1, 3)
+    with torch.inference_mode():
+        library_ms = _median_ms(_autocast(lambda: model(pts, dirs)), runs=3, warmup=1)
+    del pts, dirs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fm.fused_mlp_plain(packed, o[:CHECK_RAYS], d[:CHECK_RAYS], z[:CHECK_RAYS])
+    need = (torch.cuda.max_memory_allocated() - base) * (R / CHECK_RAYS)
+    free = torch.cuda.mem_get_info()[0]
+    plain_ms = None
+    if need < 0.9 * free:
+        plain_ms = _median_ms(lambda: fm.fused_mlp_plain(packed, o, d, z), runs=3, warmup=1)
+    plain = (f"{plain_ms:.4f} ms" if plain_ms is not None else
+             f"not measured (needs ~{need / 2 ** 30:.1f} GiB, {free / 2 ** 30:.1f} GiB free)")
+    print(f"fused_mlp_fwd at {R}x{S} (appearance chunk): nn.Module bf16 autocast "
+          f"{library_ms:.4f} ms, plain {plain} (medians of 3; plain's peak on {CHECK_RAYS} "
+          f"rays x {R // CHECK_RAYS}: {need / 2 ** 30:.2f} GiB) [{card}]")
+    return library_ms, plain_ms
 
 
 def _fwd_check(packed, o, d, z, hidden: int) -> float:
@@ -775,12 +812,18 @@ def h128_kernel_phase(card: str, device) -> dict:
 
 
 # The wide fields (csrc/fused_field.cuh at H > 256: 64-point tiles whose
-# products the two consumer warpgroups split in N): configs/hard-blender.yml's
-# two 8-layer L 10/4 FlexibleNeRFs widened to 384 and 512 (JAX's Pallas
-# kernels take any H % 128 == 0). At 512 the whole chain (train, 2 views, a
-# WIDE_MESH_RES[512]^3 mesh); at 384 the train leg and a smaller mesh.
-WIDE_HIDDEN = (384, 512)
-WIDE_MESH_RES = {384: 128, 512: 256}
+# products the two consumer warpgroups split in N; at H > 512 split across
+# a 2-CTA cluster as well): configs/hard-blender.yml's two 8-layer L 10/4
+# FlexibleNeRFs widened to 384-1024 (JAX's Pallas kernels take any
+# H % 128 == 0; 1024 is mip-NeRF 360's NeRF-MLP width). At 512 and 1024
+# the whole chain (train, 2 views, a WIDE_MESH_RES^3 mesh); at the others
+# the train leg and a 128^3 mesh.
+WIDE_HIDDEN = (384, 512, 640, 768, 896, 1024)
+WIDE_MESH_RES = {384: 128, 512: 256, 640: 64, 768: 64, 896: 64, 1024: 128}
+WIDE_VIEWS = (512, 1024)
+# Widths whose kernels are timed at the coarse shape alone (2048 x 64),
+# checked at both: the smoke's time stays near its budget.
+WIDE_COARSE_TIMES = (640, 768, 896)
 
 
 def wide_cfg(hidden: int):
@@ -792,17 +835,21 @@ def wide_cfg(hidden: int):
 
 def wide_phase(card: str, device) -> dict:
     """Per width of WIDE_HIDDEN: the shared-memory plans of the three
-    kernels (fm.field_plan, as the launches make them) and the weight bytes
-    each 64-point tile reads; the forward at 2048 x 64 and 2048 x 192, the
-    backward at both (timed at 2048 x 192, with its legs at 512) and sigma
-    at a 262,144-point grid tile, each against its plain version and timed
-    beside its bound and library yardstick; then the path through the
-    normal entry points: NeRFSystem.setup + fit (3 + 30 steps, 2 + 2
-    launches a step, the loss falls, one step's grads against the
-    nn.Module path), at 512 two 400x400 views of the trained system through
-    query_rays, and export_marching_cubes at WIDE_MESH_RES^3 (sigma
-    launches per grid tile, 2 forward launches per appearance chunk, the
-    colours against the nn.Module render)."""
+    kernels (fm.field_plan, as the launches make them: ring stages, PE
+    tiles, slab K-columns, CTAs per tile, bytes) and the weight bytes each
+    64-point tile reads; the forward at 2048 x 64 and 2048 x 192, the
+    backward at both (timed at 2048 x 192, with its legs at 512 and 1024;
+    at WIDE_COARSE_TIMES the forward and backward timed at 2048 x 64 only)
+    and sigma at a 262,144-point grid tile, each against its plain version
+    and timed beside its bound and library yardstick; from 640 on, sigma
+    bit for bit the forward's channel 3 and a repeat forward launch bit
+    for bit the first; then the path through the normal entry points:
+    NeRFSystem.setup + fit (3 + 30 steps, 2 + 2 launches a step, the loss
+    falls, one step's grads against the nn.Module path), at WIDE_VIEWS two
+    400x400 views of the trained system through query_rays, and
+    export_marching_cubes at WIDE_MESH_RES^3 (sigma launches per grid tile,
+    2 forward launches per appearance chunk, the colours against the
+    nn.Module render)."""
     from nerfmeshes_tpu_torch.models import build_model
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
     from nerfmeshes_tpu_torch.train.render import RenderSettings, render_rays
@@ -822,31 +869,46 @@ def wide_phase(card: str, device) -> dict:
         spec = packed.spec
         plans = {k: fm.field_plan(spec, k) for k in ("fwd", "sigma", "bwd")}
         trunk = int(packed.desc[fm._DESC_FIXED + spec.num_layers])  # bf16 weights before feat
-        print(f"w{H} plans (stages, PE tiles, shared bytes): "
-              + ", ".join(f"{k} {p.stages} {p.pe_slots} {p.bytes}" for k, p in plans.items())
+        print(f"w{H} plans (stages, PE tiles, slab K, CTAs per tile, shared bytes per CTA): "
+              + ", ".join(f"{k} {p.stages} {p.pe_slots} {p.slab_k} {p.cluster} {p.bytes}"
+                          for k, p in plans.items())
               + f"; 64-point tiles, weights read from L2 per point: forward "
               f"{packed.weights.numel() * 2 / 64:.1f} B, sigma {trunk * 2 / 64:.1f} B")
         rng = np.random.default_rng(SEED)
         R = int(cfg.nerf.train.num_random_rays)
-        fwd = {}
-        for S in (int(cfg.nerf.train.num_coarse),
-                  int(cfg.nerf.train.num_coarse) + int(cfg.nerf.train.num_fine)):
+        coarse = int(cfg.nerf.train.num_coarse)
+        fwd, untimed_err = {}, 0.0
+        for S in (coarse, coarse + int(cfg.nerf.train.num_fine)):
             o, d, z = _rays(R, S, rng, device)
-            fwd[S] = dict(max_abs_err=_fwd_check(packed, o, d, z, H), shape=f"{R}x{S}",
-                          **_fwd_times(model, packed, o, d, z, card))
+            err = _fwd_check(packed, o, d, z, H)
+            if H in WIDE_COARSE_TIMES and S != coarse:
+                untimed_err = err  # checked, not timed: folded into the timed row's error
+            else:
+                fwd[S] = dict(max_abs_err=err, shape=f"{R}x{S}",
+                              **_fwd_times(model, packed, o, d, z, card))
+            if H > 512:
+                again = [fm.fused_mlp_cuda(packed, o, d, z) for _ in range(2)]
+                torch.cuda.synchronize()
+                if not torch.equal(*again):
+                    raise AssertionError(f"w{H}: two forward launches differ at {R}x{S}")
+                print(f"fused_mlp_fwd H={H} {R}x{S}: 2 launches bitwise equal")
+        if H in WIDE_COARSE_TIMES:
+            fwd[coarse]["max_abs_err"] = max(fwd[coarse]["max_abs_err"], untimed_err)
         del model, packed
-        bwd = bwd_kernel_phase(cfg, card, device)
-        if H == 512:
+        bwd = bwd_kernel_phase(cfg, card, device, time_fine=H not in WIDE_COARSE_TIMES)
+        if H in (512, 1024):
             bwd["legs"] = legs_phase(bwd, card)
         else:
             bwd.pop("legs_case")
         sigma = sigma_kernel_phase(cfg, card, device)
+        if H > 512 and not sigma["bitwise"]:
+            raise AssertionError(f"w{H}: sigma is not bit for bit the forward's channel 3")
         kernels_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         train = train_phase(card, device, cfg)
         system = train.pop("system")
-        render = slice_phase(cfg, card, device, system) if H == 512 else None
+        render = slice_phase(cfg, card, device, system) if H in WIDE_VIEWS else None
         settings = RenderSettings.from_cfg(cfg, train=False)._replace(use_fused_kernel=False)
 
         def module_rgb(o, d, near, far, system=system, settings=settings):
@@ -947,10 +1009,11 @@ def _rel_errors(packed, got, want) -> dict:
     return {k: float((g[k] - w[k]).abs().max() / (w[k].abs().max() + 1e-6)) for k in w}
 
 
-def bwd_kernel_phase(cfg, card: str, device) -> dict:
+def bwd_kernel_phase(cfg, card: str, device, time_fine: bool = True) -> dict:
     """Backward kernel against its plain version at the train path's
     coarse (S=64) and fine (S=192) shapes, R = 2048 rays, lego width, a
-    seeded normal cotangent; two launches bitwise equal."""
+    seeded normal cotangent; two launches bitwise equal. Timed at the fine
+    shape, or with time_fine False at the coarse one."""
     from nerfmeshes_tpu_torch.models import build_model
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
     from nerfmeshes_tpu_torch.train.system import init_params
@@ -963,10 +1026,13 @@ def bwd_kernel_phase(cfg, card: str, device) -> dict:
     rng = np.random.default_rng(SEED)
     R = int(cfg.nerf.train.num_random_rays)
     worst_rel = worst_abs = 0.0
+    timed = None
     for S in (int(cfg.nerf.train.num_coarse),
               int(cfg.nerf.train.num_coarse) + int(cfg.nerf.train.num_fine)):
         o, d, z = _rays(R, S, rng, device)
         cot = torch.from_numpy(rng.standard_normal((4, R, S)).astype(np.float32)).to(device)
+        if timed is None or time_fine:
+            timed = (S, o, d, z, cot)
         before = fm.bwd_launches
         got = fm.fused_mlp_bwd_cuda(packed, o, d, z, cot)
         again = fm.fused_mlp_bwd_cuda(packed, o, d, z, cot)
@@ -989,7 +1055,8 @@ def bwd_kernel_phase(cfg, card: str, device) -> dict:
         worst_rel = max(worst_rel, rel[name])
         worst_abs = max(worst_abs, abs_err)
 
-    # Times at the fine shape (the last one checked above).
+    # Times at the fine shape (the last one checked above), or the coarse.
+    S, o, d, z, cot = timed
     ms = _median_ms(lambda: fm.fused_mlp_bwd_cuda(packed, o, d, z, cot))
     plain_ms = _median_ms(lambda: fm.fused_mlp_bwd_plain(packed, o, d, z, cot))
     # Library yardstick: the nn.Module's forward and autograd backward for
@@ -1036,7 +1103,7 @@ def bwd_kernel_phase(cfg, card: str, device) -> dict:
                         stash + (n_w + packed.biases.numel()) * 4, PEAK_BF16),
     }
     return dict(max_abs_err=worst_abs, max_rel_err=worst_rel, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, shape=f"{R}x{S}",
                 legs_case=(packed, (o, d, z, cot), leg_bounds, f"{R}x{S}"))
 
 
@@ -1172,7 +1239,7 @@ def sigma_kernel_phase(cfg, card: str, device) -> dict:
         "random": torch.from_numpy(rng.uniform(-MESH_LIMIT, MESH_LIMIT, (GRID_TILE, 3))
                                    .astype(np.float32)).to(device),
     }
-    worst = 0.0
+    worst, bitwise = 0.0, True
     for name, pts in sets.items():
         before = fm.sigma_launches
         got = fm.fused_sigma_cuda(packed, pts)
@@ -1195,6 +1262,7 @@ def sigma_kernel_phase(cfg, card: str, device) -> dict:
         if err_fwd > SIGMA_FWD_BAR:
             raise AssertionError(f"sigma kernel disagrees with forward channel 3 ({name})")
         worst = max(worst, err)
+        bitwise = bitwise and bool(torch.equal(got, full))
 
     pts = sets["grid tile"]
     ms = _median_ms(lambda: fm.fused_sigma_cuda(packed, pts))
@@ -1216,7 +1284,7 @@ def sigma_kernel_phase(cfg, card: str, device) -> dict:
     _rate("fused_sigma", ms, _field_flops(model, heads=False) * GRID_TILE, bound_ms, bound_by,
           f"{GRID_TILE} points", card)
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, bitwise=bitwise)
 
 
 def _mesh_args(save_dir: str, res: int = MESH_RES):
@@ -2384,12 +2452,112 @@ def worst_grad_error(cpu, card) -> tuple[float, str]:
                for (key, a), b in zip(cpu.named_parameters(), card.parameters()))
 
 
-def _zoo_points(device):
+def _zoo_points(device, seed: int = SEED + 7):
     """(points, directions) (ZOO_RAYS, ZOO_SAMPLES, 3) along the scene's
     camera rays at sorted depths in [2, 6], on `device`."""
-    o, d, z = _rays(ZOO_RAYS, ZOO_SAMPLES, np.random.default_rng(SEED + 7), device)
+    o, d, z = _rays(ZOO_RAYS, ZOO_SAMPLES, np.random.default_rng(seed), device)
     pts = o[:, None] + d[:, None] * z[..., None]
     return pts, d[:, None].expand(pts.shape).contiguous()
+
+
+# f32's rounding of a K-term dot product, whatever order its sums take:
+# |fl(z) - z| <= K u (|W| |x| + |b|), u = 2^-24 the unit roundoff.
+F32_UNIT = 2.0 ** -24
+
+
+def relu_margins(model, pts, dirs, detail: bool = False):
+    """A float64 run of `model` (a zoo module in f32, on the CPU) at (pts,
+    dirs): (field, near, margins). field: the model's output; near (N,)
+    bool: points where some ReLU's pre-activation z lies within f32's
+    rounding of 0, |z| <= K u (|W| |x| + |b|) in float64, K the layer's
+    fan-in; margins (with `detail`): {module: (z, bound)} of every ReLU
+    layer, (N, units) each. The ReLUs are the SimpleModules with
+    torch.relu; every other layer runs in float64 too."""
+    import copy
+    import functools
+
+    import torch.nn.functional as F
+
+    from nerfmeshes_tpu_torch.models import layers
+    from nerfmeshes_tpu_torch.models.nerf_models import field_of
+
+    m64 = copy.deepcopy(model).double()
+    near = torch.zeros(pts.reshape(-1, 3).shape[0], dtype=torch.bool)
+    margins, handles = {}, []
+
+    def hook(mod, inp, out, name):
+        x = inp[0].reshape(-1, inp[0].shape[-1])
+        lin = mod.linear
+        z = F.linear(x, lin.weight, lin.bias)
+        bound = lin.in_features * F32_UNIT * F.linear(x.abs(), lin.weight.abs(),
+                                                      lin.bias.abs())
+        near.logical_or_((z.abs() <= bound).any(-1))
+        if detail:
+            margins[name] = (z, bound)
+
+    for name, mod in m64.named_modules():
+        if isinstance(mod, layers.SimpleModule) and mod.activation is torch.relu:
+            handles.append(mod.register_forward_hook(functools.partial(hook, name=name)))
+    forward = layers.TorchLinear.forward
+    layers.TorchLinear.forward = lambda self, x: F.linear(x.double(), self.weight, self.bias)
+    try:
+        with torch.no_grad():
+            field = field_of(m64(pts.double(), dirs.double()))
+    finally:
+        layers.TorchLinear.forward = forward
+        for h in handles:
+            h.remove()
+    return field.reshape(-1, field.shape[-1]), near, margins
+
+
+def leaf_taps(model, rows):
+    """Forward hooks recording every leaf module's output at the flat rows
+    `rows` (a tensor on the module's device): (records {name: float64 CPU
+    tensor}, handles to remove)."""
+    records, handles = {}, []
+    for name, mod in model.named_modules():
+        if next(mod.children(), None) is not None:
+            continue
+
+        def hook(mod, inp, out, name=name):
+            if isinstance(out, torch.Tensor) and out.dim() >= 2:
+                records[name] = out.reshape(-1, out.shape[-1])[rows].detach().double().cpu()
+
+        handles.append(mod.register_forward_hook(hook))
+    return records, handles
+
+
+def zoo_excursion(cpu, card_model, pts, dirs, got, want) -> None:
+    """What a zoo field past its f32 bar looks like at its worst point:
+    the field on the card, on the CPU and in float64 (relu_margins); every
+    leaf module's largest |card - CPU| there; each ReLU layer's unit
+    nearest 0 in float64 beside f32's rounding bound, and how many units
+    the card and the CPU put on different sides of 0. Printed before
+    zoo_phase fails, so that a rare excursion leaves its reads."""
+    got, want = (t.reshape(-1, t.shape[-1]).float().cpu() for t in (got, want))
+    worst = int(((got - want).abs() / (1.0 + want.abs())).amax(-1).argmax())
+    rows = torch.tensor([worst])
+    rec_cpu, h_cpu = leaf_taps(cpu, rows)
+    rec_card, h_card = leaf_taps(card_model, rows.to(pts.device))
+    with torch.no_grad():
+        cpu(pts.cpu(), dirs.cpu())
+        card_model(pts, dirs)
+    for h in h_cpu + h_card:
+        h.remove()
+    f64, near, margins = relu_margins(cpu, pts.reshape(-1, 3)[worst:worst + 1].cpu(),
+                                      dirs.reshape(-1, 3)[worst:worst + 1].cpu(), detail=True)
+    print(f"  excursion at point {worst}: card {got[worst].tolist()}, cpu {want[worst].tolist()}, "
+          f"float64 {f64[0].tolist()}; a ReLU within f32 rounding of 0 there: {bool(near[0])}")
+    for name in rec_cpu:
+        if name in rec_card:
+            diff = float((rec_card[name] - rec_cpu[name]).abs().max())
+            print(f"  {name}: max |card - cpu| {diff:.3e}")
+    for name, (z, bound) in margins.items():
+        u = int(z[0].abs().argmin())
+        z_cpu, z_card = rec_cpu[f"{name}.linear"][0], rec_card[f"{name}.linear"][0]
+        flips = int(((z_cpu > 0) != (z_card > 0)).sum())
+        print(f"  {name}: unit {u} nearest 0, float64 {float(z[0, u]):.3e}, f32 rounding bound "
+              f"{float(bound[0, u]):.3e}; {flips} units on other sides of 0 on card and cpu")
 
 
 def _zoo_step(model, pts, dirs, **kw):
@@ -2445,6 +2613,8 @@ def zoo_phase(card: str, device) -> dict:
                   f"err {field_err:.3e} (bar {ZOO_FIELD_TOL[dtype]}), grads worst rel err "
                   f"{grad_err:.3e} at {worst} (bar {ZOO_GRAD_TOL[dtype]}) [{card}]")
             if not (field_ok and grad_err < ZOO_GRAD_TOL[dtype]):
+                if not field_ok:
+                    zoo_excursion(cpu, card_model, pts, dirs, got, want)
                 raise AssertionError(f"zoo {name} {dtype}: the card's run differs from the CPU's")
             out[f"{name}_{dtype}"] = dict(ms=ms, field_err=field_err, grad_err=grad_err,
                                           params=params)
@@ -3499,6 +3669,7 @@ def main(argv=None) -> int:
     from nerfmeshes_tpu_torch.mesh import native
     from nerfmeshes_tpu_torch.ops.kernels import build
 
+    t_start = time.perf_counter()
     card = _run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     card = card.splitlines()[0]
     print(card)
@@ -3513,7 +3684,7 @@ def main(argv=None) -> int:
     build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {path.name}")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or line.startswith("nvcc "):
             print("  ptxas:", line.strip())
     t0 = time.perf_counter()
     native.get_lib()
@@ -3568,7 +3739,9 @@ def main(argv=None) -> int:
     depth_sampling_phase(card, device)
     zoo_phase(card, device)
     buff_random = buff_random_phase(card, device)
-    wide = wide_phase(card, device)  # last: its 512-wide module runs take the most memory
+    t0 = time.perf_counter()
+    wide = wide_phase(card, device)  # last: its wide module runs take the most memory
+    wide_s = time.perf_counter() - t0
     new_legs = {f"{name} {leg}": chains[name]["legs"][leg]["seconds"]
                 for name in IMPORT_CHAINS for leg in ("import", "import_eval", "import_mesh")}
     new_legs["tb_phase train"] = chains["tb_phase"]["legs"]["train"]["seconds"]
@@ -3628,7 +3801,7 @@ def main(argv=None) -> int:
         wide_rows.append(entry(
             f"fused_mlp_bwd H={H}", "fused_mlp_bwd.cu",
             "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397", w["bwd"],
-            {"train": w["train"]["bwd_launches"]}, shape="2048x192", hidden=H,
+            {"train": w["train"]["bwd_launches"]}, shape=w["bwd"]["shape"], hidden=H,
             max_rel_err=w["bwd"]["max_rel_err"], **({"legs": w["bwd"]["legs"]}
                                                      if "legs" in w["bwd"] else {})))
         wide_rows.append(entry(
@@ -3636,6 +3809,8 @@ def main(argv=None) -> int:
             w["sigma"], {"mesh": w["mesh"]["sigma_launches"]}, shape=f"{GRID_TILE} points",
             hidden=H))
 
+    print(f"smoke total: {time.perf_counter() - t_start:.2f} s, the wide phase "
+          f"{wide_s:.2f} s of it [{card}]")
     print(json.dumps({"kernels": [
         entry("fused_mlp_fwd", "fused_mlp_fwd.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:387", kern,
               {"render": render["launches"], "train": train["fwd_launches"],
@@ -3644,6 +3819,7 @@ def main(argv=None) -> int:
                **cli["fwd"], "buff_random_train": buff_random["train"]["fwd"],
                "buff_random_view": buff_random["view"]["fwd"], **dist["launches"]["fwd"]},
               chunk_ms=kern["chunk_ms"], chunk_bound_ms=kern["chunk_bound_ms"],
+              chunk_library_ms=kern["chunk_library_ms"], chunk_plain_ms=kern["chunk_plain_ms"],
               shape="2048x192", hidden=256, per_rank={
                   k: v for k, v in dist["per_rank"].items() if k.startswith("fused_mlp_fwd")}),
         entry("fused_mlp_bwd", "fused_mlp_bwd.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397", bkern,

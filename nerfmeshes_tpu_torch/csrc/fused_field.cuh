@@ -77,6 +77,41 @@
 // 66 KB slots: it does not fit. H = 128 and 256 keep the code above
 // (`if constexpr` on split_n), bit for bit.
 //
+// Wider still (H = 640, 768, 896, 1024; pair_n): one 64-row activation tile
+// of H bf16 (80-128 KB) and two ring slots of 64 x H (80-128 KB each)
+// outgrow the block, and a warpgroup's H/2 columns pass wgmma's N of 256
+// and 128 f32 a thread. So a tile goes to a PAIR of CTAs, a cluster of two
+// on neighbouring SMs that walks the tiles by its cluster index: each CTA
+// holds the whole 64 x H activation tile and its own PE tile, streams only
+// its H/2 rows of every slab (its output columns), and each of its two
+// consumer warpgroups computes H/4 of the product's columns (m64 n(H/4)
+// k16, n(H/8) for dir: N <= 256 and at most 128 f32 a thread up to 1024).
+// After a product's wgmma both CTAs meet at a pair barrier (an mbarrier in
+// each CTA that both CTAs' leaders arrive on, release / acquire at cluster
+// scope) before any epilogue writes in place: the in-place hazard of the
+// split design, now across CTAs. Each epilogue writes its bf16 columns into
+// its own tile and, through distributed shared memory (mapa +
+// st.shared::cluster), into its peer's; a proxy fence at cluster scope and
+// a second pair barrier come before the next product reads. The heads are
+// sums over four warpgroups in two CTAs, through the exchange buffer of
+// each CTA (every partial written to both), in one fixed order: CTA 0's
+// warpgroups 0, 1, then CTA 1's. The forward, sigma and backward kernels
+// of one model take the same pair and order, so sigma stays bit for bit
+// the forward's channel 3. The slabs are 32 K-columns deep (64 B rows, 64 B
+// swizzle in TMA and in the wgmma descriptor, sw64_desc), so that two slots
+// fit beside the tile. Per CTA at 8x1024, L 10/4 (PE 64 + 32 columns):
+//   activation tile 64 x 1024 bf16             131,072 B
+//   PE tile (one; 128 columns)                  16,384 B
+//   slot: slab 32 x 512 bf16 + params 6 KB      38,912 B  x 2 = 77,824 B
+//   exchange 4 x 4 x 64 f32, 18 barriers, PE table, descriptor  5,380 B
+//   forward, sigma (8 KB PE tile): 230,660 / 222,212 B of 232,448.
+// The backward's column partials (2 x 4 x (256 + 4) f32 = 8,320 B) would
+// miss by 6.5 KB; with one PE tile they live in the PE arena instead,
+// which no product reads between the tile's dir product and the next
+// tile's PE build. 640 and 768 keep two PE tiles (4 and 3 stages); 896
+// and 1024 one (2 stages). The cost: both CTAs build the same PE, and each
+// product's output crosses between the SMs once (64 x H/2 bf16 each way).
+//
 // Numerics (the TPU kernel's): bf16 operands, f32 sums; bias, ReLU and
 // sigmoid in f32; an activation is rounded to bf16 only as the next
 // product's (or head's) operand. sinf/cosf with full range reduction.
@@ -98,15 +133,22 @@ constexpr int MAX_STAGES = 8;
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
 constexpr int MAX_BOX_ROWS = 256;  // TMA's limit on a box dimension
-// The wide models' head exchange: per warpgroup, 64 rows of 4 partial dot
-// products (rgb, alpha), read across the two warpgroups.
-constexpr int XCH_BYTES = 2 * 4 * 64 * (int)sizeof(float);
 
 // Whether a width-H model's products are chunked in N across the two
 // consumer warpgroups on 64-point tiles (see the top of the file).
 __host__ __device__ constexpr bool split_n(int H) { return H > 256; }
+// Whether they are chunked across a pair of CTAs as well (the top of the
+// file), the CTAs of a cluster, and the K-columns of a ring slab.
+__host__ __device__ constexpr bool pair_n(int H) { return H > 512; }
+__host__ __device__ constexpr int cluster_ctas(int H) { return pair_n(H) ? 2 : 1; }
+__host__ __device__ constexpr int slab_k(int H) { return pair_n(H) ? 32 : SLAB_K; }
 // Points per tile.
 __host__ __device__ constexpr int tile_rows(int H) { return split_n(H) ? 64 : 128; }
+// The wide models' head exchange: per warpgroup that shares a tile (2, or
+// 4 in a pair), 64 rows of 4 partial dot products (rgb, alpha).
+__host__ __device__ constexpr int xch_bytes(int H) {
+  return split_n(H) ? 2 * cluster_ctas(H) * 4 * 64 * (int)sizeof(float) : 0;
+}
 // Per ring slot after the slab: a product's bias (4 N bytes), then its
 // head weights: the alpha head's (2H bytes) after the trunk's last bias at
 // alpha_off, the rgb head's (3H bytes) after the dir bias (N = H/2) at
@@ -119,13 +161,18 @@ __host__ __device__ constexpr int alpha_off(int H) { return H <= 256 ? 1024 : 4 
 __host__ __device__ constexpr int rgb_off(int H) { return H <= 256 ? 1024 : 2 * H; }
 // Rows of a TMA box of a slab of N rows: all of them, or half of N > 256.
 __host__ __device__ constexpr int slab_box_rows(int N) { return N <= MAX_BOX_ROWS ? N : N / 2; }
+// Rows of an N-row product's slab that one CTA of a width-H model streams.
+__host__ __device__ constexpr int cta_rows(int H, int N) { return N / cluster_ctas(H); }
 
 struct FieldMaps {
-  CUtensorMap w[MAX_GEMMS];  // one per product, box 64 x slab_box_rows(N), 128 B swizzle
+  // one per product, box slab_k(H) x slab_box_rows(cta_rows(H, N)), 128 B
+  // swizzle (64 B at 32-column slabs)
+  CUtensorMap w[MAX_GEMMS];
 };
 
 // Byte offsets into the dynamic shared memory, and the ring's depth.
 struct FieldLayout {
+  int cluster;  // CTAs a tile is split across
   int stages, slab_bytes, slot_bytes;
   int pe_cols;    // PE columns of a tile: [PE(xyz) | PE(dir)] (sigma: PE(xyz))
   int pe_slots;   // tiles of PE a warpgroup's arena holds: 2 lets it build ahead
@@ -213,6 +260,87 @@ __device__ __forceinline__ void tile_barrier(int wg) {
     wg_barrier(wg);
 }
 
+// ---- the pair (H > 512): a cluster of two CTAs that share each tile ----
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+// The cluster's index in the grid, and the clusters of the grid.
+__device__ __forceinline__ uint32_t cluster_index() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
+  return r;
+}
+
+// The address in CTA `rank`'s shared memory (the cluster's window) of the
+// local shared address `addr`.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_peer(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+
+// Every thread of both CTAs (the producers' too, or exited): at set-up,
+// before a peer's barrier may be arrived on, and before a CTA exits, while
+// its peer may still reach into its shared memory.
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;" ::: "memory");
+}
+
+// The consumers' barrier across the pair: bar[i] (i = 0 after a product's
+// reads, 1 after its epilogue's writes) of each CTA completes when both
+// CTAs' leaders have arrived on it, after their own 256 consumer threads
+// met (bar.sync 3). Release / acquire at cluster scope carries each CTA's
+// writes to the other; two barriers used in turn keep a CTA that runs ahead
+// from arriving twice on one phase.
+struct Pair {
+  uint64_t* bar;      // this CTA's two barriers
+  uint32_t peer_bar;  // the peer's, in the cluster's window
+  uint32_t phase;     // bit i: the parity bar[i] is at
+
+  __device__ __forceinline__ void sync(int i) {
+    asm volatile("bar.sync 3, %0;" ::"n"(2 * WG_THREADS) : "memory");
+    if (threadIdx.x == 0) {
+      asm volatile("mbarrier.arrive.release.cluster.shared::cta.b64 _, [%0];" ::"r"(
+                       smem_u32(bar + i))
+                   : "memory");
+      asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(
+                       peer_bar + 8 * i)
+                   : "memory");
+    }
+    const uint32_t a = smem_u32(bar + i), parity = (phase >> i) & 1u;
+    uint32_t done;
+    do {
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(a), "r"(parity)
+          : "memory");
+    } while (!done);
+    phase ^= 1u << i;
+  }
+  // After this thread's writes to both CTAs' tiles or exchange buffers:
+  // they reach the products (the async proxy) and the other threads of
+  // both CTAs before either CTA goes on.
+  __device__ __forceinline__ void writes_done() {
+    asm volatile("fence.proxy.async.shared::cluster;" ::: "memory");
+    sync(1);
+  }
+};
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -238,6 +366,14 @@ __device__ __forceinline__ void fence_regs(float (&acc)[R]) {
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// The same in the 64 B swizzled layout of the pair design's 32-column slabs:
+// rows of 64 B, 8-row groups 512 B apart (SBO), layout type 2. Stepping k16
+// within the row adds 32 B.
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (static_cast<uint64_t>(2) << 62);
 }
 
 // D(64 x N, f32) (+)= A(64 x 16) B(16 x N), bf16, A and B K-major in shared
@@ -366,6 +502,104 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t a, uint64_t 
       : "l"(a), "l"(b), "r"(acc));
 }
 
+// The pair design's shapes (H > 512): a warpgroup's H/4 columns of an
+// H-wide product at H = 640 and 896 (n160, n224), its H/8 of the dir
+// product (n80, n112).
+__device__ __forceinline__ void wgmma_bf16(float (&d)[40], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[56], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55}, "
+      "%56, %57, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[80], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "%80, %81, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[112], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %114, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111}, "
+      "%112, %113, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
 // wgmma shared-memory descriptor of an MN-major operand in the 128 B
 // swizzled layout, as TMA writes a box of 64 columns (M or N) x rows (K):
 // one 128 B row per k, 8-row groups 1024 B apart (SBO), 64-column atoms
@@ -463,15 +697,16 @@ __device__ __forceinline__ uint32_t col_addr(int c) {
   return (c >> 6) * ATOM_BYTES + (c & 63) * 2;
 }
 
-// acc = [A1 | A2] @ W^T over K = k1 + k2, W the product's slabs as they come
-// through the ring. A1 is columns [0, k1) of the warpgroup's tile at shared
-// address a1 (k1 a multiple of 64), A2 columns [c2, c2 + k2) of the tile at
-// a2 (multiples of 16). The product's 2R columns are the slab's rows from
-// byte b_off on (128 B a row: the warpgroup's half of the rows under
-// split_n, else 0). work() runs while each slab's products do. Ends with
-// every product done (wait_group 0) and returns the product's last slot,
-// still held: its params are the epilogue's, which releases it.
-template <int R, class Work>
+// acc = [A1 | A2] @ W^T over K = k1 + k2, W the product's slabs of SK
+// K-columns as they come through the ring. A1 is columns [0, k1) of the
+// warpgroup's tile at shared address a1 (k1 a multiple of 64), A2 columns
+// [c2, c2 + k2) of the tile at a2 (multiples of 16). The product's 2R
+// columns are the slab's rows from byte b_off on (2 SK bytes a row: the
+// warpgroup's part of the rows under split_n, else 0). work() runs while
+// each slab's products do. Ends with every product done (wait_group 0) and
+// returns the product's last slot, still held: its params are the
+// epilogue's, which releases it.
+template <int SK = SLAB_K, int R, class Work>
 __device__ __forceinline__ int layer_product(float (&acc)[R], Ring& ring, uint32_t a1, int k1,
                                              uint32_t a2, int c2, int k2, int lane,
                                              Work&& work, uint32_t b_off = 0) {
@@ -480,17 +715,18 @@ __device__ __forceinline__ int layer_product(float (&acc)[R], Ring& ring, uint32
   int prev = -1;
   fence_regs(acc);
   wgmma_fence();
-  for (int k0 = 0; k0 < K; k0 += SLAB_K) {
+  for (int k0 = 0; k0 < K; k0 += SK) {
     mbar_wait(&ring.full[ring.stage], ring.phase);
     const uint32_t b = base + ring.stage * ring.slot_bytes + b_off;
     // Whole slabs, no branch between the products (a branch makes ptxas
     // fence and serialize them). Past K the slab holds TMA's zeros, so any
     // finite A columns add exact zeros there: the last valid k16 step's.
 #pragma unroll
-    for (int k = 0; k < SLAB_K / 16; ++k) {
+    for (int k = 0; k < SK / 16; ++k) {
       const int kw = min(k0 + 16 * k, K - 16);
       const uint32_t a = kw < k1 ? a1 + col_addr(kw) : a2 + col_addr(c2 + kw - k1);
-      wgmma_bf16(acc, sw128_desc(a), sw128_desc(b + 32 * k), k0 + k);
+      const uint64_t bd = SK == SLAB_K ? sw128_desc(b + 32 * k) : sw64_desc(b + 32 * k);
+      wgmma_bf16(acc, sw128_desc(a), bd, k0 + k);
     }
     wgmma_commit();
     work();
@@ -535,17 +771,24 @@ __device__ __forceinline__ float2 bf16x2_at(const bf16* p) {
 // registers; and, where `bits` is given, whether each is > 0 (the ReLU
 // mask the backward applies) as R bits, bit k for acc[k], in R/32 words,
 // word w at bits[w * WG_THREADS] (a warp's stores of a word are
-// contiguous).
-template <int R, bool STASH = false>
+// contiguous; the last group of R/4 chunks not a multiple of 8 fills part
+// of its word).
+//
+// PAIR (pair_n): act is the tile's base and c0 the warpgroup's first column
+// in it; each value also goes to the peer CTA's tile, at `peer` (the tile's
+// base in the cluster's window).
+template <int R, bool STASH = false, bool PAIR = false>
 __device__ __forceinline__ void epilogue(const float (&acc)[R], const float* bias, bool relu,
                                          unsigned char* act, int r, int q, const bf16* wa,
                                          float& s0, float& s1, bf16* stash = nullptr,
-                                         uint32_t* bits = nullptr, int ld = 2 * R) {
+                                         uint32_t* bits = nullptr, int ld = 2 * R, int c0 = 0,
+                                         uint32_t peer = 0) {
+  constexpr int CHUNKS = R / 4;  // of 8 columns
 #pragma unroll
-  for (int n0 = 0; n0 < R / 4; n0 += 8) {
+  for (int n0 = 0; n0 < CHUNKS; n0 += 8) {
     uint32_t mb = 0;  // STASH: this group's word of mask bits
 #pragma unroll
-    for (int n = n0; n < n0 + 8; ++n) {
+    for (int n = n0; n < n0 + 8 && n < CHUNKS; ++n) {
       const int col = 8 * n + 2 * q;
       const float2 b = *reinterpret_cast<const float2*>(bias + col);
       float v[4] = {acc[4 * n] + b.x, acc[4 * n + 1] + b.y, acc[4 * n + 2] + b.x,
@@ -555,8 +798,12 @@ __device__ __forceinline__ void epilogue(const float (&acc)[R], const float* bia
         for (int i = 0; i < 4; ++i) v[i] = fmaxf(v[i], 0.f);
       }
       const uint32_t lo = pack_bf16(v[0], v[1]), hi = pack_bf16(v[2], v[3]);
-      *reinterpret_cast<uint32_t*>(act + swz(r, col)) = lo;
-      *reinterpret_cast<uint32_t*>(act + swz(r + 8, col)) = hi;
+      *reinterpret_cast<uint32_t*>(act + swz(r, c0 + col)) = lo;
+      *reinterpret_cast<uint32_t*>(act + swz(r + 8, c0 + col)) = hi;
+      if constexpr (PAIR) {
+        st_peer(peer + swz(r, c0 + col), lo);
+        st_peer(peer + swz(r + 8, c0 + col), hi);
+      }
       if constexpr (STASH) {
         *reinterpret_cast<uint32_t*>(stash + r * ld + col) = lo;
         *reinterpret_cast<uint32_t*>(stash + (r + 8) * ld + col) = hi;
@@ -700,30 +947,32 @@ struct PeBuild {
   }
 };
 
-// The producer's side of the ring: one thread streams a product's K-slabs,
-// the boxes (k0, row) of `map` for k0 < K, N rows each (two boxes of N/2
-// rows for N > 256), into the slots in turn; the last slab also brings
-// `bias` (N floats, when given) and `head_bytes` of `head` (when given, at
-// byte head_at) into the slot's params.
+// The producer's side of the ring: one thread streams a product's K-slabs
+// of SK columns, the boxes (k0, row) of `map` for k0 < K, `rows` rows of
+// the product's N (all of them, or this CTA's N/2 in a pair; as two boxes
+// of rows/2 for rows > 256), into the slots in turn; the last slab also
+// brings `bias` (N floats, when given) and `head_bytes` of `head` (when
+// given, at byte head_at) into the slot's params.
 struct Producer {
   int stage;
   uint32_t phase;
+  template <int SK>
   __device__ __forceinline__ void product(unsigned char* smem, const FieldLayout& lay,
                                           uint64_t* full, uint64_t* empty,
                                           const CUtensorMap* map, int row, int K, int N,
-                                          const float* bias, const bf16* head,
+                                          int rows, const float* bias, const bf16* head,
                                           uint32_t head_bytes, int head_at) {
-    for (int k0 = 0; k0 < K; k0 += SLAB_K) {
-      const bool last = k0 + SLAB_K >= K;
-      uint32_t bytes = SLAB_K * N * sizeof(bf16);
+    for (int k0 = 0; k0 < K; k0 += SK) {
+      const bool last = k0 + SK >= K;
+      uint32_t bytes = SK * rows * sizeof(bf16);
       if (last)
         bytes += (bias != nullptr ? N * sizeof(float) : 0) + (head != nullptr ? head_bytes : 0);
       mbar_wait(&empty[stage], phase ^ 1);
       mbar_arrive_expect_tx(&full[stage], bytes);
       unsigned char* slot = smem + stage * lay.slot_bytes;
-      const int box = slab_box_rows(N);
-      for (int b = 0; b < N; b += box)  // 128 B a slab row
-        tma_load_2d(slot + b * 128, map, k0, row + b, &full[stage]);
+      const int box = slab_box_rows(rows);
+      for (int b = 0; b < rows; b += box)  // 2 SK bytes a slab row
+        tma_load_2d(slot + b * SK * (int)sizeof(bf16), map, k0, row + b, &full[stage]);
       if (last) {
         unsigned char* params = slot + lay.slab_bytes;
         if (bias != nullptr) bulk_load(params, bias, N * sizeof(float), &full[stage]);
@@ -749,8 +998,9 @@ __device__ __forceinline__ const bf16* product_head(const Desc& d, const bf16* W
 }
 
 // Shared-memory set-up of a kernel on the ring: the descriptor's copy (its
-// arrays are indexed at run time), the ring's barriers, the PE column table
-// (pe_col with `fwd`). Ends with a block barrier.
+// arrays are indexed at run time), the ring's barriers (and a pair's two
+// after them, Pair), the PE column table (pe_col with `fwd`). Ends with a
+// block barrier, or a cluster barrier in a pair.
 __device__ __forceinline__ Desc& field_setup(unsigned char* smem, const Desc& desc,
                                              const FieldLayout& lay, bool fwd) {
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
@@ -763,12 +1013,81 @@ __device__ __forceinline__ Desc& field_setup(unsigned char* smem, const Desc& de
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2 * WG_THREADS / 32);  // every consumer warp releases
     }
+    if (lay.cluster > 1)  // the pair's barriers: both CTAs' leaders arrive
+      for (int i = 0; i < 2; ++i) mbar_init(&empty[MAX_STAGES + i], lay.cluster);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
   for (int c = threadIdx.x; c < lay.pe_cols; c += FIELD_THREADS) tab[c] = pe_col(d, c, fwd);
-  __syncthreads();
+  if (lay.cluster > 1)
+    cluster_sync_all();  // the peer's barriers are ready before any arrive on them
+  else
+    __syncthreads();
   return d;
+}
+
+// The consumers' synchronisation on a tile of a width-H model: the barrier
+// after a product (every warp has read the tile) and after its epilogue
+// (its writes are there for the next product): the warpgroup's own, both
+// warpgroups' (split_n), or both CTAs' of a pair (pair_n, through Pair);
+// and the heads' exchange (split_n): warpgroup u's part of a head's dot
+// products of rows r, r + 8 goes to channel c of xch (in a pair, of both
+// CTAs' xch), and sum() adds the parts in the order of u once exchanged()
+// has passed.
+template <int H>
+struct TileSync {
+  static constexpr bool SPLIT = split_n(H), PAIR = pair_n(H);
+  Pair pair;
+  float* xch;
+  uint32_t xch_peer;  // the peer's xch in the cluster's window
+  int wg, u;
+
+  __device__ __forceinline__ void products_done() {
+    if constexpr (PAIR)
+      pair.sync(0);
+    else
+      tile_barrier<SPLIT>(wg);
+  }
+  __device__ __forceinline__ void writes_done() {
+    if constexpr (PAIR) {
+      pair.writes_done();
+    } else {
+      fence_proxy_async();
+      tile_barrier<SPLIT>(wg);
+    }
+  }
+  __device__ __forceinline__ void exchanged() {
+    if constexpr (PAIR)
+      pair.writes_done();
+    else
+      tile_barrier<SPLIT>(wg);
+  }
+  __device__ __forceinline__ void put(int c, int r, float p0, float p1) {
+    const int i = (u * 4 + c) * 64 + r;
+    xch[i] = p0;
+    xch[i + 8] = p1;
+    if constexpr (PAIR) {
+      st_peer(xch_peer + 4 * i, __float_as_uint(p0));
+      st_peer(xch_peer + 4 * (i + 8), __float_as_uint(p1));
+    }
+  }
+  __device__ __forceinline__ float sum(int c, int row) const {
+    float v = xch[c * 64 + row] + xch[(4 + c) * 64 + row];
+    if constexpr (PAIR) v = v + xch[(8 + c) * 64 + row] + xch[(12 + c) * 64 + row];
+    return v;
+  }
+};
+
+// A consumer warpgroup's TileSync: the pair's barriers follow the ring's.
+template <int H>
+__device__ __forceinline__ TileSync<H> tile_sync(unsigned char* smem, const FieldLayout& lay,
+                                                 int rank, int wg) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bar_off) + 2 * MAX_STAGES;
+  float* xch = reinterpret_cast<float*>(smem + lay.xch_off);
+  const uint32_t peer = rank ^ 1;
+  const bool pair = pair_n(H);
+  return {{bars, pair ? peer_addr(smem_u32(bars), peer) : 0u, 0u},
+          xch, pair ? peer_addr(smem_u32(xch), peer) : 0u, wg, rank * 2 + wg};
 }
 
 // ------------------------------------------------------------- kernel ----
@@ -789,10 +1108,14 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
                                            int channels_first) {
   // SPLIT: one 64-point tile that both consumer warpgroups share, each
   // computing NW of an H-wide product's columns and ND of the dir
-  // product's; else a warpgroup's own 64 points, every column.
+  // product's; else a warpgroup's own 64 points, every column. PAIR: the
+  // tile is shared by the two CTAs of a cluster as well, NW = H/4.
   constexpr bool SPLIT = split_n(H);
+  constexpr bool PAIR = pair_n(H);
+  constexpr int C = cluster_ctas(H);
+  constexpr int SK = slab_k(H);
   constexpr int ROWS = tile_rows(H);
-  constexpr int NW = SPLIT ? H / 2 : H;
+  constexpr int NW = SPLIT ? H / (2 * C) : H;
   constexpr int ND = NW / 2;
   extern __shared__ __align__(1024) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
@@ -800,6 +1123,11 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
   const PeCol* tab = reinterpret_cast<const PeCol*>(smem + lay.tab_off);
   const Desc& d = field_setup(smem, desc, lay, FWD);
   const int tid = threadIdx.x;
+  // A pair walks the tiles by its cluster's index; its CTAs take the two
+  // halves of every product's columns.
+  const int rank = PAIR ? (int)cluster_rank() : 0;
+  const long long first = PAIR ? cluster_index() : blockIdx.x;
+  const long long stride = PAIR ? cluster_count() : gridDim.x;
 
   const long long n_tiles = (n_pts + ROWS - 1) / ROWS;
   const int L = d.num_layers;
@@ -812,13 +1140,14 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
     if (tid == 2 * WG_THREADS) {
       const int n_gemms = FWD ? L + 2 : L;
       Producer prod{0, 0};
-      for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      for (long long t = first; t < n_tiles; t += stride) {
         for (int g = 0; g < n_gemms; ++g) {
           uint32_t head_bytes;
           int head_at;
           const bf16* head = product_head(d, W, g, &head_bytes, &head_at);
-          prod.product(smem, lay, full, empty, &maps.w[g], 0, gemm_k(d, g), gemm_n(d, g),
-                       B + d.b_off[g], head, head_bytes, head_at);
+          const int N = gemm_n(d, g), rows = cta_rows(H, N);
+          prod.product<SK>(smem, lay, full, empty, &maps.w[g], rank * rows, gemm_k(d, g), N,
+                           rows, B + d.b_off[g], head, head_bytes, head_at);
         }
       }
     }
@@ -827,24 +1156,29 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
     const int t = tid % WG_THREADS, warp = t / 32, lane = t % 32;
     const int r = warp * 16 + lane / 4, q = lane % 4;  // fragment rows r, r + 8
     const int tile_row = SPLIT ? 0 : wg * 64;         // the warpgroup's first row of a tile
-    const int col0 = SPLIT ? wg * NW : 0, cd0 = SPLIT ? wg * ND : 0;  // its first columns
-    const uint32_t b_w = col0 * 128, b_d = cd0 * 128;  // their slab rows (128 B a row)
+    const int u = rank * 2 + wg;  // SPLIT: the warpgroup's part of the tile's columns
+    const int col0 = SPLIT ? u * NW : 0, cd0 = SPLIT ? u * ND : 0;  // its first columns
+    // their rows of this CTA's slabs (2 SK bytes a row)
+    const uint32_t b_w = SPLIT ? wg * NW * SK * 2 : 0, b_d = SPLIT ? wg * ND * SK * 2 : 0;
     unsigned char* act = smem + lay.act_off + (SPLIT ? 0 : wg * (H / 64) * ATOM_BYTES);
     unsigned char* pe = smem + lay.pe_off + (SPLIT ? 0 : wg * lay.pe_blocks * ATOM_BYTES);
-    unsigned char* act_w = act + col0 / 64 * ATOM_BYTES;  // its output columns
-    float* xch = reinterpret_cast<float*>(smem + lay.xch_off);  // SPLIT: [wg][rgb, alpha][64]
+    // its output columns: PAIR passes the tile and col0 to the epilogue
+    unsigned char* act_w = PAIR ? act : act + col0 / 64 * ATOM_BYTES;
+    const int c_w = PAIR ? col0 : 0;
     const uint32_t act_a = smem_u32(act), pe_a = smem_u32(pe);
+    const uint32_t act_p = PAIR ? peer_addr(act_a, rank ^ 1) : 0;  // the peer CTA's tile
     Ring ring{full, empty, smem, lay.slot_bytes, lay.slab_bytes, lay.stages, 0, 0};
+    TileSync<H> tsync = tile_sync<H>(smem, lay, rank, wg);
 
     const int chunks = lay.pe_cols / 8;
     const int pt = SPLIT ? tid : t;  // the PE builder's thread
     PeBuild<FWD, false, SPLIT ? 4 : 2> pb;  // the first tile's PE, then each next tile's
-    pb.start(src, dirs, z, n_pts, samples, (long long)blockIdx.x * ROWS + tile_row, 0, pt);
+    pb.start(src, dirs, z, n_pts, samples, first * ROWS + tile_row, 0, pt);
     pb.finish(tab, chunks, pe, pt);
 
-    for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    for (long long tile = first; tile < n_tiles; tile += stride) {
       const long long row0 = tile * ROWS + tile_row;
-      const long long next = tile + gridDim.x;
+      const long long next = tile + stride;
       const int pe_base = pb.base;  // this tile's first PE column
       const float ba = B[d.ba_off];
       fence_proxy_async();  // this tile's PE, built by every thread, to the products
@@ -868,44 +1202,36 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
       float s0 = 0.f, s1 = 0.f;
       for (int g = 0; g < L; ++g) {
         const bool skip = g > 0 && ((d.skip_mask >> (g - 1)) & 1);
-        const int slot = layer_product(acc, ring, act_a, g == 0 ? 0 : H, pe_a, pe_base,
-                                       g == 0 || skip ? d.pxp : 0, lane, work, b_w);
-        tile_barrier<SPLIT>(wg);  // every warp's products have read the tile
+        const int slot = layer_product<SK>(acc, ring, act_a, g == 0 ? 0 : H, pe_a, pe_base,
+                                           g == 0 || skip ? d.pxp : 0, lane, work, b_w);
+        tsync.products_done();
         const unsigned char* params = ring.params(slot);
-        epilogue(acc, reinterpret_cast<const float*>(params) + col0, g > 0, act_w, r, q,
-                 g == L - 1 ? reinterpret_cast<const bf16*>(params + alpha_off(H)) + col0
-                            : nullptr,
-                 s0, s1);
+        epilogue<NW / 2, false, PAIR>(
+            acc, reinterpret_cast<const float*>(params) + col0, g > 0, act_w, r, q,
+            g == L - 1 ? reinterpret_cast<const bf16*>(params + alpha_off(H)) + col0 : nullptr,
+            s0, s1, nullptr, nullptr, NW, c_w, act_p);
         ring.release(slot, lane);
-        fence_proxy_async();
-        tile_barrier<SPLIT>(wg);
+        tsync.writes_done();
       }
-      // SPLIT: each warpgroup's part of a head's dot products of rows r and
-      // r + 8 goes to xch (channel c); the sums read them after a barrier,
-      // warpgroup 0's part first.
-      auto put = [&](int c, float p0, float p1) {
-        if (q == 0) {
-          xch[(wg * 4 + c) * 64 + r] = p0;
-          xch[(wg * 4 + c) * 64 + r + 8] = p1;
-        }
-      };
-      auto sum = [&](int c, int row) { return xch[c * 64 + row] + xch[(4 + c) * 64 + row]; };
+      // SPLIT: the heads' dot products go through the exchange (TileSync).
       float alpha0 = 0.f, alpha1 = 0.f;
       if constexpr (SPLIT) {
-        put(3, quad_sum(s0), quad_sum(s1));
+        const float p0 = quad_sum(s0), p1 = quad_sum(s1);
+        if (q == 0) tsync.put(3, r, p0, p1);
       } else {
         alpha0 = quad_sum(s0) + ba;
         alpha1 = quad_sum(s1) + ba;
       }
       const long long g0 = row0 + r, g1 = g0 + 8;
+      const bool writer = !SPLIT || u == 0;  // who writes a shared tile's output
 
       if constexpr (!FWD) {
         if constexpr (SPLIT) {
-          tile_barrier<SPLIT>(wg);
-          alpha0 = sum(3, r) + ba;
-          alpha1 = sum(3, r + 8) + ba;
+          tsync.exchanged();
+          alpha0 = tsync.sum(3, r) + ba;
+          alpha1 = tsync.sum(3, r + 8) + ba;
         }
-        if (q == 0 && (!SPLIT || wg == 0)) {
+        if (q == 0 && writer) {
           if (g0 < n_pts) out[g0] = alpha0;
           if (g1 < n_pts) out[g1] = alpha1;
         }
@@ -914,22 +1240,22 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
 #pragma unroll
         for (int c = 0; c < 3; ++c) br[c] = B[d.br_off + c];
         // feat, in place.
-        int slot = layer_product(acc, ring, act_a, H, 0, 0, 0, lane, work, b_w);
-        tile_barrier<SPLIT>(wg);
+        int slot = layer_product<SK>(acc, ring, act_a, H, 0, 0, 0, lane, work, b_w);
+        tsync.products_done();
         float unused0 = 0.f, unused1 = 0.f;
-        epilogue(acc, reinterpret_cast<const float*>(ring.params(slot)) + col0, true, act_w, r,
-                 q, nullptr, unused0, unused1);
+        epilogue<NW / 2, false, PAIR>(acc, reinterpret_cast<const float*>(ring.params(slot)) + col0,
+                                      true, act_w, r, q, nullptr, unused0, unused1, nullptr,
+                                      nullptr, NW, c_w, act_p);
         ring.release(slot, lane);
-        fence_proxy_async();
-        tile_barrier<SPLIT>(wg);
+        tsync.writes_done();
 
         // dir on [feat | PE(dir)] -> H/2, then the rgb head in registers.
         float acc_d[ND / 2];
 #pragma unroll
         for (int i = 0; i < ND / 2; ++i) acc_d[i] = 0.f;
-        slot = layer_product(acc_d, ring, act_a, H, pe_a, pe_base + d.pxp, d.pdp, lane, work,
-                             b_d);
-        tile_barrier<SPLIT>(wg);
+        slot = layer_product<SK>(acc_d, ring, act_a, H, pe_a, pe_base + d.pxp, d.pdp, lane,
+                                 work, b_d);
+        tsync.products_done();
         const float* bd = reinterpret_cast<const float*>(ring.params(slot)) + cd0;
         const bf16* wr = reinterpret_cast<const bf16*>(ring.params(slot) + rgb_off(H)) + cd0;
         float c0[3] = {0.f, 0.f, 0.f}, c1[3] = {0.f, 0.f, 0.f};
@@ -952,16 +1278,19 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
         ring.release(slot, lane);
         if constexpr (SPLIT) {
 #pragma unroll
-          for (int c = 0; c < 3; ++c) put(c, quad_sum(c0[c]), quad_sum(c1[c]));
-          tile_barrier<SPLIT>(wg);
-          alpha0 = sum(3, r) + ba;
-          alpha1 = sum(3, r + 8) + ba;
+          for (int c = 0; c < 3; ++c) {
+            const float p0 = quad_sum(c0[c]), p1 = quad_sum(c1[c]);
+            if (q == 0) tsync.put(c, r, p0, p1);
+          }
+          tsync.exchanged();
+          alpha0 = tsync.sum(3, r) + ba;
+          alpha1 = tsync.sum(3, r + 8) + ba;
         }
         float v0 = alpha0, v1 = alpha1;  // lane q writes channel q
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          const float x0 = SPLIT ? sum(c, r) : quad_sum(c0[c]);
-          const float x1 = SPLIT ? sum(c, r + 8) : quad_sum(c1[c]);
+          const float x0 = SPLIT ? tsync.sum(c, r) : quad_sum(c0[c]);
+          const float x1 = SPLIT ? tsync.sum(c, r + 8) : quad_sum(c1[c]);
           const float rgb0 = 1.f / (1.f + expf(-(x0 + br[c])));
           const float rgb1 = 1.f / (1.f + expf(-(x1 + br[c])));
           if (q == c) {
@@ -969,7 +1298,7 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
             v1 = rgb1;
           }
         }
-        if (!SPLIT || wg == 0) {
+        if (writer) {
           if (g0 < n_pts) out[channels_first ? (long long)q * n_pts + g0 : g0 * 4 + q] = v0;
           if (g1 < n_pts) out[channels_first ? (long long)q * n_pts + g1 : g1 * 4 + q] = v1;
         }
@@ -983,6 +1312,7 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
       }
     }
   }
+  if constexpr (PAIR) cluster_sync_all();  // no CTA leaves while its peer may reach into it
 }
 
 // ---------------------------------------------------------------- host ----
@@ -1013,17 +1343,21 @@ EncodeTiledFn encode_tiled() {
 }
 
 // A tensor map over a (rows, K) row-major bf16 matrix at `base`, read in
-// boxes of SLAB_K columns x box_rows rows, 128 B swizzled, zeros past K.
-int encode_slab_map(CUtensorMap* map, const bf16* base, int K, int rows, int box_rows) {
+// boxes of box_k columns (SLAB_K: 128 B swizzled; 32: 64 B) x box_rows
+// rows, zeros past K.
+int encode_slab_map(CUtensorMap* map, const bf16* base, int K, int rows, int box_rows,
+                    int box_k = SLAB_K) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {dims[0] * sizeof(bf16)};
-  const cuuint32_t box[2] = {SLAB_K, (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {(cuuint32_t)box_k, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(base),
                               dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              box_k == SLAB_K ? CU_TENSOR_MAP_SWIZZLE_128B
+                                              : CU_TENSOR_MAP_SWIZZLE_64B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
@@ -1032,7 +1366,7 @@ int encode_slab_map(CUtensorMap* map, const bf16* base, int K, int rows, int box
 // bulk copies' 16 B aligned sources (the weights' and biases' bases, the
 // heads' offsets, every product's bias offset), the SM count and the
 // card's shared-memory limit per block; then one tensor map per product
-// (the first n_gemms) of the packed weights.
+// (the first n_gemms) of the packed weights, boxes of one CTA's rows.
 int field_prepare(const Desc& d, const bf16* W, const float* B, int n_gemms, int* sms,
                   int* smem_limit, FieldMaps* maps) {
   if (reinterpret_cast<uintptr_t>(W) % 16 != 0 || reinterpret_cast<uintptr_t>(B) % 16 != 0 ||
@@ -1046,9 +1380,10 @@ int field_prepare(const Desc& d, const bf16* W, const float* B, int n_gemms, int
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
+  const int H = d.hidden;
   for (int g = 0; g < n_gemms; ++g) {
     const int rc = encode_slab_map(&maps->w[g], W + d.w_off[g], gemm_k(d, g), gemm_n(d, g),
-                                   slab_box_rows(gemm_n(d, g)));
+                                   slab_box_rows(cta_rows(H, gemm_n(d, g))), slab_k(H));
     if (rc != 0) return rc;
   }
   return 0;
@@ -1058,7 +1393,9 @@ int field_prepare(const Desc& d, const bf16* W, const float* B, int n_gemms, int
 // at least 3 stages, else one; cudaErrorInvalidValue when even one slot
 // leaves fewer than 2 stages. `extra_bytes` (a multiple of 16) of the
 // kernel's own follow the PE arena at extra_off, then (split_n) the head
-// exchange at xch_off. Activation and PE tiles are one per consumer
+// exchange at xch_off; in a pair with one PE slot they lie in the PE arena
+// instead where it holds them (the kernel keeps them out of the PE's way:
+// extra_off == pe_off). Activation and PE tiles are one per consumer
 // warpgroup, or under split_n one that both share. Mirrored in Python by
 // nerfmeshes_tpu_torch/ops/kernels/fused_mlp.py:field_plan, which the
 // gate supports_fused reads: keep the two alike.
@@ -1066,26 +1403,31 @@ int field_layout(const Desc& d, bool fwd, int smem_limit, FieldLayout* out,
                  int extra_bytes = 0) {
   FieldLayout lay = {};
   const int H = d.hidden;
+  const bool pair = pair_n(H);
   const int tiles = split_n(H) ? 1 : 2;  // 64-row activation and PE tiles
-  lay.slab_bytes = SLAB_K * H * (int)sizeof(bf16);
+  lay.cluster = cluster_ctas(H);
+  lay.slab_bytes = slab_k(H) * cta_rows(H, H) * (int)sizeof(bf16);
   lay.slot_bytes = lay.slab_bytes + param_bytes(H);
   lay.pe_cols = d.pxp + (fwd ? d.pdp : 0);
   const int act_bytes = tiles * (H / 64) * ATOM_BYTES;
-  const int xch_bytes = split_n(H) ? XCH_BYTES : 0;
-  const int bar_bytes = 2 * MAX_STAGES * (int)sizeof(uint64_t);
+  const int xch = xch_bytes(H);
+  // the ring's full and empty barriers, then a pair's two
+  const int bar_bytes = (2 * MAX_STAGES + (pair ? 2 : 0)) * (int)sizeof(uint64_t);
   const int tab_bytes = lay.pe_cols * (int)sizeof(PeCol);
-  const int aux = xch_bytes + bar_bytes + tab_bytes + (int)sizeof(Desc);
+  const int aux = xch + bar_bytes + tab_bytes + (int)sizeof(Desc);
   for (lay.pe_slots = 2; lay.pe_slots >= 1; --lay.pe_slots) {
     lay.pe_blocks = round64(lay.pe_slots * lay.pe_cols) / 64;
     const int pe_bytes = tiles * lay.pe_blocks * ATOM_BYTES;
-    const int stages = (smem_limit - act_bytes - pe_bytes - extra_bytes - aux) / lay.slot_bytes;
+    const bool in_pe = pair && lay.pe_slots == 1 && extra_bytes > 0 && extra_bytes <= pe_bytes;
+    const int extra = in_pe ? 0 : extra_bytes;
+    const int stages = (smem_limit - act_bytes - pe_bytes - extra - aux) / lay.slot_bytes;
     if (stages < lay.pe_slots + 1) continue;
     lay.stages = stages < MAX_STAGES ? stages : MAX_STAGES;
     lay.act_off = lay.stages * lay.slot_bytes;
     lay.pe_off = lay.act_off + act_bytes;
-    lay.extra_off = lay.pe_off + pe_bytes;
-    lay.xch_off = lay.extra_off + extra_bytes;
-    lay.bar_off = lay.xch_off + xch_bytes;
+    lay.extra_off = in_pe ? lay.pe_off : lay.pe_off + pe_bytes;
+    lay.xch_off = lay.pe_off + pe_bytes + extra;
+    lay.bar_off = lay.xch_off + xch;
     lay.tab_off = lay.bar_off + bar_bytes;
     lay.desc_off = lay.tab_off + tab_bytes;
     lay.bytes = lay.desc_off + (int)sizeof(Desc);
@@ -1093,6 +1435,42 @@ int field_layout(const Desc& d, bool fwd, int smem_limit, FieldLayout* out,
     return 0;
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// One persistent launch of a kernel on the ring: a CTA per SM, or with
+// `cluster` 2 a pair of CTAs per two SMs (cudaLaunchKernelEx with the
+// cluster dimension; as many pairs as the card can hold at once, which
+// cudaOccupancyMaxActiveClusters tells at this shared memory), never more
+// CTAs than `units` (tiles) take.
+template <class Kernel, class... Args>
+int ring_launch(Kernel kernel, int cluster, long long units, int sms, int smem_bytes,
+                cudaStream_t stream, const Args&... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (cluster == 1) {
+    const unsigned grid = (unsigned)(units < sms ? units : sms);
+    kernel<<<grid, FIELD_THREADS, smem_bytes, stream>>>(args...);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(FIELD_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(kernel), &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return (int)cudaErrorInvalidValue;
+  cfg.gridDim = dim3((unsigned)(cluster * (units < clusters ? units : clusters)), 1, 1);
+  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 // The parameters of a kernel that runs field_body.
@@ -1107,8 +1485,8 @@ typedef void (*FieldKernel)(FieldMaps, Desc, FieldLayout, const float*, const fl
                             const float*, long long, int, const bf16*, const float*, float*, int);
 
 // One launch of `kernel` (field_body<H, FWD>) on `stream`: the tensor maps of
-// every product it reads, the shared-memory plan, one CTA per SM (or per
-// tile).
+// every product it reads, the shared-memory plan, one CTA (or pair) per SM
+// (or per tile).
 template <int H, bool FWD>
 int field_launch(FieldKernel kernel, const Desc& d, const float* src, const float* dirs,
                  const float* z, long long n_pts, int samples, const bf16* W, const float* B,
@@ -1121,15 +1499,9 @@ int field_launch(FieldKernel kernel, const Desc& d, const float* src, const floa
   FieldLayout lay;
   rc = field_layout(d, FWD, smem_limit, &lay);
   if (rc != 0) return rc;
-
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
-  if (err != cudaSuccess) return (int)err;
   const long long tiles = (n_pts + tile_rows(H) - 1) / tile_rows(H);
-  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
-  kernel<<<grid, FIELD_THREADS, lay.bytes, stream>>>(maps, d, lay, src, dirs, z, n_pts, samples,
-                                                     W, B, out, channels_first);
-  return (int)cudaGetLastError();
+  return ring_launch(kernel, cluster_ctas(H), tiles, sms, lay.bytes, stream, maps, d, lay, src,
+                     dirs, z, n_pts, samples, W, B, out, channels_first);
 }
 
 }  // namespace

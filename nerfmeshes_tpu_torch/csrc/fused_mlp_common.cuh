@@ -65,7 +65,7 @@ int parse_desc(const int* desc_i, int n_desc_i, const float* freqs, int n_freqs,
       n_desc_i != N_DESC_FIXED + 2 * n_gemms || d.lx < 0 || d.lx > MAX_L ||
       d.ld < 0 || d.ld > MAX_L || n_freqs != d.lx + d.ld || d.pxp % 16 != 0 ||
       d.pdp % 16 != 0 || d.pxp <= 0 || d.pdp <= 0 ||
-      d.hidden % 128 != 0 || d.hidden < 128 || d.hidden > 512)
+      d.hidden % 128 != 0 || d.hidden < 128 || d.hidden > 1024)
     return (int)cudaErrorInvalidValue;
   for (int g = 0; g < n_gemms; ++g) {
     d.w_off[g] = desc_i[N_DESC_FIXED + g];

@@ -21,9 +21,10 @@
 // shared-memory slots, two consumer warpgroups of 64 points running
 // wgmma.mma_async on them with the sums in registers, epilogues and the
 // alpha and rgb heads in registers). The sigma kernel (fused_sigma.cu) runs
-// the same code up to the alpha head. Instantiated at H = 128, 256, 384 and
-// 512, the last two on 64-point tiles whose products the two consumer
-// warpgroups split in N (fused_field.cuh).
+// the same code up to the alpha head. Instantiated at H = 128 to 1024 in
+// steps of 128: from 384 on 64-point tiles whose products the two consumer
+// warpgroups split in N, from 640 on split across a 2-CTA cluster as well,
+// launched as clusters (fused_field.cuh).
 
 #include "fused_field.cuh"
 
@@ -66,6 +67,18 @@ extern "C" int nm_fused_mlp_fwd(const float* origins, const float* dirs,
     case 512:
       return field_launch<512, true>(fused_mlp_fwd_kernel<512>, d, origins, dirs, z, n_pts,
                                      samples, W, biases, out, channels_first, s);
+    case 640:
+      return field_launch<640, true>(fused_mlp_fwd_kernel<640>, d, origins, dirs, z, n_pts,
+                                     samples, W, biases, out, channels_first, s);
+    case 768:
+      return field_launch<768, true>(fused_mlp_fwd_kernel<768>, d, origins, dirs, z, n_pts,
+                                     samples, W, biases, out, channels_first, s);
+    case 896:
+      return field_launch<896, true>(fused_mlp_fwd_kernel<896>, d, origins, dirs, z, n_pts,
+                                     samples, W, biases, out, channels_first, s);
+    case 1024:
+      return field_launch<1024, true>(fused_mlp_fwd_kernel<1024>, d, origins, dirs, z, n_pts,
+                                      samples, W, biases, out, channels_first, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -22,8 +22,9 @@
 // tiles hold PE(xyz) only. It reads the same packed weights and descriptor
 // as the forward kernel (the TPU kernel's separate sigma weight list and its
 // (8, N) input with zero direction rows are TPU layouts, not carried over):
-// points are (N, 3) f32, the output (N,) f32. H = 128, 256, 384 and 512, as
-// the forward kernel.
+// points are (N, 3) f32, the output (N,) f32. H = 128 to 1024 in steps of
+// 128, as the forward kernel, with the same tiles, CTA pairs and head-sum
+// order.
 
 #include "fused_field.cuh"
 
@@ -62,6 +63,18 @@ extern "C" int nm_fused_sigma(const float* points, long long n_pts, const void* 
     case 512:
       return field_launch<512, false>(fused_sigma_kernel<512>, d, points, nullptr, nullptr,
                                       n_pts, 1, W, biases, out, 0, s);
+    case 640:
+      return field_launch<640, false>(fused_sigma_kernel<640>, d, points, nullptr, nullptr,
+                                      n_pts, 1, W, biases, out, 0, s);
+    case 768:
+      return field_launch<768, false>(fused_sigma_kernel<768>, d, points, nullptr, nullptr,
+                                      n_pts, 1, W, biases, out, 0, s);
+    case 896:
+      return field_launch<896, false>(fused_sigma_kernel<896>, d, points, nullptr, nullptr,
+                                      n_pts, 1, W, biases, out, 0, s);
+    case 1024:
+      return field_launch<1024, false>(fused_sigma_kernel<1024>, d, points, nullptr, nullptr,
+                                       n_pts, 1, W, biases, out, 0, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

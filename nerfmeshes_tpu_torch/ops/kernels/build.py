@@ -25,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
@@ -105,6 +106,7 @@ def build_library() -> tuple[Path, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     tag = f"{out.stem}.{os.getpid()}"
+    start = time.monotonic()
     jobs = []
     for src in (p for p in _sources() if p.suffix == ".cu"):
         obj = BUILD_DIR / f"{src.stem}.{tag}.o"
@@ -116,6 +118,8 @@ def build_library() -> tuple[Path, str]:
     for cmd, _, proc in jobs:
         text, _ = proc.communicate()
         log.append(text)
+        log.append(f"nvcc {Path(cmd[-1]).name}: finished by {time.monotonic() - start:.1f} s "
+                   "into the build\n")
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{text}")
     objs = [obj for _, obj, _ in jobs]

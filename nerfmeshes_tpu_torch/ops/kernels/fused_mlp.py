@@ -24,7 +24,9 @@ block per SM walks 128-point tiles; a producer warp streams every layer's
 weights by TMA, in 64-column K-slabs of the packed layout, into a ring in
 shared memory; two warpgroups of 64 points run each layer as wgmma on
 those slabs with the sums in registers (at H = 384 and 512 both share a
-64-point tile, each with half the columns), keep PE and activations in shared
+64-point tile, each with half the columns; at H = 640 to 1024 a cluster of
+two blocks shares it, each warpgroup with a quarter of the columns, on
+32-column slabs), keep PE and activations in shared
 memory and the epilogues and heads in registers. No points, PE or
 activation tensor is ever written to device memory. The backward
 contracts the weight grads over all points, which needs a stash of each
@@ -77,11 +79,12 @@ sigma_launches = 0  # sigma-only kernel
 
 # What the CUDA kernels take (csrc/fused_mlp_{fwd,bwd}.cu, fused_sigma.cu):
 # a hidden width they are instantiated for (JAX's Pallas kernels take any
-# H % 128 == 0; 384 and 512 run on 64-point tiles split in N, see
+# H % 128 == 0; 384 and 512 run on 64-point tiles split in N, 640 to 1024
+# on 64-point tiles split across a pair of blocks as well, see
 # csrc/fused_field.cuh), at most MAX_BANDS PE bands per encoding and
 # MAX_LAYERS trunk layers (the descriptor holds MAX_LAYERS + 2 products),
 # and a shared-memory plan (field_plan) for each of the three kernels.
-HIDDEN_SIZES = (128, 256, 384, 512)
+HIDDEN_SIZES = (128, 256, 384, 512, 640, 768, 896, 1024)
 MAX_BANDS = 24
 MAX_LAYERS = 14
 # Descriptor: 13 fixed ints (N_DESC_FIXED in the .cu), then the weight
@@ -155,23 +158,27 @@ def spec_from_model(model: FlexibleNeRFModel) -> MLPSpec:
 # field_layout's constants (csrc/fused_field.cuh, fused_mlp_bwd.cu), in
 # bytes: the shared memory a block of an H100 may opt into, a swizzled
 # 64-row x 64-column bf16 atom, a ring slab's K-columns, the ring's most
-# stages, the wide models' head exchange, a PeCol and a Desc.
+# stages, one warpgroup's part of the wide models' head exchange, a PeCol
+# and a Desc.
 SMEM_LIMIT = 232448
 _ATOM = 64 * 128
 _SLAB_K = 64
 _MAX_STAGES = 8
-_XCH = 2 * 4 * 64 * 4
+_XCH_WG = 4 * 64 * 4
 _PE_COL = 8
 _DESC = 4 * (13 + 2 * 16 + 2 * 24)
 
 
 class FieldPlan(NamedTuple):
     """A kernel's shared-memory plan: ring stages, PE tiles a warpgroup's
-    arena holds, dynamic shared bytes."""
+    arena holds, dynamic shared bytes (per block), the K-columns of a ring
+    slab, and the blocks (a cluster) that share each tile."""
 
     stages: int
     pe_slots: int
     bytes: int
+    slab_k: int = _SLAB_K
+    cluster: int = 1
 
 
 def field_plan(spec: MLPSpec, kernel: str, smem_limit: int = SMEM_LIMIT) -> FieldPlan | None:
@@ -182,28 +189,36 @@ def field_plan(spec: MLPSpec, kernel: str, smem_limit: int = SMEM_LIMIT) -> Fiel
     what a launch would refuse."""
     H = spec.hidden
     split = H > 256  # split_n: one 64-row tile that both consumer warpgroups share
+    pair = H > 512  # pair_n: ... and both blocks of a cluster
+    cluster, slab_k = (2, 32) if pair else (1, _SLAB_K)
     tiles = 1 if split else 2
-    slot = _SLAB_K * H * 2 + (2048 if H <= 256 else _round_up(6 * H, 1024))
+    slot = slab_k * (H // cluster) * 2 + (2048 if H <= 256 else _round_up(6 * H, 1024))
     pe_cols = spec.pxp + (spec.pdp if kernel != "sigma" else 0)
     act = tiles * (H // 64) * _ATOM
-    extra = 2 * 4 * ((H // 2 if split else H) + 4) * 4 if kernel == "bwd" else 0
-    aux = (_XCH if split else 0) + 2 * _MAX_STAGES * 8 + pe_cols * _PE_COL + _DESC
+    wg_cols = H // (2 * cluster) if split else H
+    extra = 2 * 4 * (wg_cols + 4) * 4 if kernel == "bwd" else 0
+    xch = 2 * cluster * _XCH_WG if split else 0
+    bars = (2 * _MAX_STAGES + (2 if pair else 0)) * 8
+    aux = xch + bars + pe_cols * _PE_COL + _DESC
     for pe_slots in (2, 1):
         pe = tiles * (_round_up(pe_slots * pe_cols, 64) // 64) * _ATOM
-        stages = (smem_limit - act - pe - extra - aux) // slot
+        # a pair with one PE tile keeps the backward's column partials in it
+        own = 0 if pair and pe_slots == 1 and 0 < extra <= pe else extra
+        stages = (smem_limit - act - pe - own - aux) // slot
         if stages >= pe_slots + 1:
             stages = min(stages, _MAX_STAGES)
-            return FieldPlan(stages, pe_slots, stages * slot + act + pe + extra + aux)
+            return FieldPlan(stages, pe_slots, stages * slot + act + pe + own + aux, slab_k,
+                             cluster)
     return None
 
 
 def supports_fused(model) -> bool:
-    """The kernels cover viewdir FlexibleNeRF models of hidden width 128,
-    256, 384 or 512, 1..MAX_BANDS bands per encoding and 1..MAX_LAYERS
-    layers (lego: 8 x 256, L 10/4) whose forward, sigma and backward
-    kernels each have a shared-memory plan (field_plan: at 512 wide, at
-    most 128 PE columns of [PE(xyz) | PE(dir)]). Others run through the
-    nn.Module."""
+    """The kernels cover viewdir FlexibleNeRF models of hidden width 128
+    to 1024 in steps of 128 (HIDDEN_SIZES), 1..MAX_BANDS bands per
+    encoding and 1..MAX_LAYERS layers (lego: 8 x 256, L 10/4) whose
+    forward, sigma and backward kernels each have a shared-memory plan
+    (field_plan: at 512 and 1024 wide, at most 128 PE columns of [PE(xyz)
+    | PE(dir)]; at 896, 256). Others run through the nn.Module."""
     if not (
         isinstance(model, FlexibleNeRFModel)
         and model.use_viewdirs

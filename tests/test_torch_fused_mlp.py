@@ -137,10 +137,11 @@ def test_supports_fused_bound():
                 num_encoding_fn_dir=4)
     assert fm.supports_fused(FlexibleNeRFModel(**lego))
     assert fm.supports_fused(FlexibleNeRFModel(**dict(lego, hidden_size=128)))
-    # 384 and 512 are admitted: JAX's Pallas kernels take any H % 128 == 0.
-    assert fm.supports_fused(FlexibleNeRFModel(**dict(lego, hidden_size=384)))
-    assert fm.supports_fused(FlexibleNeRFModel(**dict(lego, hidden_size=512)))
-    for bad in (dict(hidden_size=640), dict(hidden_size=100),
+    # 384 to 1024 are admitted: JAX's Pallas kernels take any H % 128 == 0.
+    for hidden in (384, 512, 640, 768, 896, 1024):
+        assert fm.supports_fused(FlexibleNeRFModel(**dict(lego, hidden_size=hidden)))
+    # Past 1024 JAX's kernels still run; the port's have no instantiation.
+    for bad in (dict(hidden_size=1152), dict(hidden_size=100),
                 dict(use_viewdirs=False), dict(num_encoding_fn_xyz=0),
                 dict(num_encoding_fn_dir=0), dict(num_encoding_fn_xyz=fm.MAX_BANDS + 1),
                 dict(num_layers=fm.MAX_LAYERS + 1)):
@@ -296,8 +297,11 @@ def test_backward_dispatch_never_falls_back(rng):
 
 
 # The supports_fused grid: every hidden width, the fewest and most layers
-# and bands, skips on and off, include-input on and off. At 512 wide the
-# most bands (PE 320 columns) are refused: no shared-memory plan holds them.
+# and bands, skips on and off, include-input on and off. At 512, 896 and
+# 1024 wide the most bands (PE 320 columns; 288 without the raw inputs at
+# 512 and 1024) are refused: no shared-memory plan holds them. PE_LIMIT:
+# the most PE columns of the grid's models that the plans hold there.
+PE_LIMIT = {512: 128, 896: 288, 1024: 128}
 PACK_GRID = [
     dict(hidden_size=h, num_layers=n, skip_step=s, num_encoding_fn_xyz=lx,
          num_encoding_fn_dir=ld, include_input_xyz=inc, include_input_dir=inc)
@@ -319,7 +323,8 @@ def test_packing_feeds_the_asynchronous_copies(kw):
     model = FlexibleNeRFModel(**kw, compute_dtype=torch.bfloat16)
     if not fm.supports_fused(model):
         spec = fm.spec_from_model(model)
-        assert kw["hidden_size"] == 512 and spec.pxp + spec.pdp > 128
+        hidden = kw["hidden_size"]
+        assert hidden in PE_LIMIT and spec.pxp + spec.pdp > PE_LIMIT[hidden]
         assert any(fm.field_plan(spec, k) is None for k in ("fwd", "sigma", "bwd"))
         with pytest.raises(ValueError, match="supports_fused"):
             fm.pack_weights(model)
@@ -354,14 +359,15 @@ def test_gate_admits_only_what_the_plans_hold(kw):
     """supports_fused against the mirror of the kernels' shared-memory plan
     (fm.field_plan, csrc/fused_field.cuh:field_layout): an admitted model
     has a plan of at least 2 ring stages for each of its kernels, within
-    the card's limit; 512 wide with the most layers and bands is refused."""
+    the card's limit; 512, 896 and 1024 wide with the most layers and bands
+    are refused."""
     model = FlexibleNeRFModel(**kw)
     spec = fm.spec_from_model(model)
     plans = {k: fm.field_plan(spec, k) for k in ("fwd", "sigma", "bwd")}
-    if kw["hidden_size"] < 512:  # every layer and band count fits up to 384 wide
+    hidden = kw["hidden_size"]
+    if hidden not in PE_LIMIT:  # every layer and band count fits at these widths
         assert fm.supports_fused(model)
-    if (kw["hidden_size"], kw["num_encoding_fn_xyz"], kw["num_encoding_fn_dir"]) == (
-            512, fm.MAX_BANDS, fm.MAX_BANDS):
+    elif spec.pxp + spec.pdp > PE_LIMIT[hidden]:
         assert not fm.supports_fused(model) and plans["fwd"] is None and plans["bwd"] is None
     if fm.supports_fused(model):
         for kernel, plan in plans.items():
@@ -388,13 +394,48 @@ def test_plans_of_the_lego_and_wide_fields():
     assert plan[512]["bwd"].bytes == 230772 <= fm.SMEM_LIMIT
 
 
-# 4 layers, skip 2, L 4/2 at the wide widths: JAX runs them through its
-# Pallas kernels (nerfmeshes_tpu/ops/pallas/fused_mlp.py:750-761), the port
-# through the kernels' plain versions here.
-WIDE_ARCHS = [dict(BASE, hidden_size=384), dict(BASE, hidden_size=512)]
+# The plans of csrc/fused_field.cuh:field_layout for 8 layers at L 10/4
+# (PE 64 + 32 columns) from 640 to 1024 wide: (stages, PE tiles, bytes,
+# slab K-columns, CTAs a tile is split across), as the header's arithmetic
+# gives them. At 1024: a 64 x 1024 bf16 activation tile (131,072 B), one
+# PE tile (16,384 B; sigma's 64 columns 8,192 B), slots of a 32 x 512 bf16
+# slab and 6,144 B of params (38,912 B, two of them), the exchange (4
+# warpgroups x 4 x 64 f32 = 4,096 B), 18 barriers (144 B), the PE table (8 B
+# a column) and the descriptor (372 B). The backward's column partials,
+# 2 x 4 x (256 + 4) f32 = 8,320 B, lie in the PE tile where one is all
+# the plan holds.
+PAIRED_PLANS = {
+    640: {"fwd": (4, 2, 210180), "sigma": (5, 2, 226308), "bwd": (4, 2, 215428)},
+    768: {"fwd": (3, 2, 217348), "sigma": (3, 2, 208900), "bwd": (3, 2, 223620)},
+    896: {"fwd": (2, 1, 206084), "sigma": (2, 1, 197636), "bwd": (2, 1, 206084)},
+    1024: {"fwd": (2, 1, 230660), "sigma": (2, 1, 222212), "bwd": (2, 1, 230660)},
+}
 
 
-@pytest.mark.parametrize("kw", WIDE_ARCHS, ids=["w384", "w512"])
+@pytest.mark.parametrize("hidden", sorted(PAIRED_PLANS))
+def test_plans_of_the_paired_fields(hidden):
+    """field_plan at 640 to 1024 wide equals the C plan: 32-column slabs,
+    tiles split across a 2-CTA cluster, the forward's, sigma's and the
+    backward's stages, PE tiles and bytes, all under the card's 232,448 B
+    (the backward at 1024 at 230,660 B)."""
+    lego = dict(num_layers=8, skip_step=4, num_encoding_fn_xyz=10, num_encoding_fn_dir=4)
+    spec = fm.spec_from_model(FlexibleNeRFModel(**lego, hidden_size=hidden))
+    for kernel, want in PAIRED_PLANS[hidden].items():
+        plan = fm.field_plan(spec, kernel)
+        assert plan == fm.FieldPlan(*want, slab_k=32, cluster=2), (kernel, plan)
+        assert plan.bytes <= fm.SMEM_LIMIT
+
+
+# 4 layers, skip 2, L 4/2 at the wide widths (2 layers from 640 on): JAX
+# runs them through its Pallas kernels
+# (nerfmeshes_tpu/ops/pallas/fused_mlp.py:750-761), the port through the
+# kernels' plain versions here.
+WIDE_ARCHS = [dict(BASE, hidden_size=384), dict(BASE, hidden_size=512),
+              *(dict(BASE, num_layers=2, hidden_size=h) for h in (640, 768, 896, 1024))]
+WIDE_IDS = [f"w{kw['hidden_size']}" for kw in WIDE_ARCHS]
+
+
+@pytest.mark.parametrize("kw", WIDE_ARCHS, ids=WIDE_IDS)
 def test_wide_forward_and_sigma_match_jax_kernel(rng, kw):
     """The forward at 33 points and the sigma field at 40 points against
     JAX's Pallas forward and sigma kernels (interpret mode); the plain
@@ -419,7 +460,7 @@ def test_wide_forward_and_sigma_match_jax_kernel(rng, kw):
     assert torch.equal(sigma, full[3, :, 0])
 
 
-@pytest.mark.parametrize("kw", WIDE_ARCHS, ids=["w384", "w512"])
+@pytest.mark.parametrize("kw", WIDE_ARCHS, ids=WIDE_IDS)
 def test_wide_backward_matches_jax_kernel(rng, kw):
     """The training Function's grads (plain forward and backward) against
     jax.grad through JAX's fused path, whose backward is the Pallas
@@ -445,11 +486,12 @@ def test_wide_backward_matches_jax_kernel(rng, kw):
         f"port vs JAX's Pallas path: worst grad rel err {err_kernel} (Pallas vs model {gap})")
 
 
-def test_wide_slice_renders_through_the_fused_route(rng, monkeypatch):
-    """The slice end to end at 384 wide: render_rays of a 2-layer coarse and
-    fine pair with use_fused_kernel, against JAX's render_rays on its Pallas
-    kernel, at the forward's bar; both passes take the port's fused route
-    (fused_flexible_apply_rays), none the nn.Module."""
+@pytest.mark.parametrize("hidden", [384, 1024])
+def test_wide_slice_renders_through_the_fused_route(rng, monkeypatch, hidden):
+    """The slice end to end at 384 and 1024 wide: render_rays of a 2-layer
+    coarse and fine pair with use_fused_kernel, against JAX's render_rays
+    on its Pallas kernel, at the forward's bar; both passes take the port's
+    fused route (fused_flexible_apply_rays), none the nn.Module."""
     from nerfmeshes_tpu.config import get_default_cfg as j_cfg
     from nerfmeshes_tpu.train import render as j_render
     from nerfmeshes_tpu.train import system as j_system
@@ -457,7 +499,7 @@ def test_wide_slice_renders_through_the_fused_route(rng, monkeypatch):
     from nerfmeshes_tpu_torch.train import render as t_render
     from nerfmeshes_tpu_torch.train import system as t_system
 
-    arch = dict(num_layers=2, hidden_size=384, skip_step=4, num_encoding_fn_xyz=4,
+    arch = dict(num_layers=2, hidden_size=hidden, skip_step=4, num_encoding_fn_xyz=4,
                 num_encoding_fn_dir=2)
     cfgs = []
     for get in (j_cfg, t_cfg):
@@ -489,7 +531,7 @@ def test_wide_slice_renders_through_the_fused_route(rng, monkeypatch):
         got = t_render.render_rays(tc, tf, torch.from_numpy(o), torch.from_numpy(d), 2.0, 6.0,
                                    t_render.RenderSettings.from_cfg(cfgs[1], train=False),
                                    train=False)
-    assert calls == [384, 384], "both passes must take the fused route"
+    assert calls == [hidden, hidden], "both passes must take the fused route"
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.rgb_map.numpy(), np.asarray(w.rgb_map), **TOL)
         np.testing.assert_allclose(g.acc_map.numpy(), np.asarray(w.acc_map), **TOL)

@@ -18,8 +18,11 @@ not need.) Tolerances: forward atol = rtol = 2e-2, the bf16 bar of
 tests/test_fused_mlp.py:37; backward worst relative error per weight or
 bias < 5e-2, the bar of tests/test_fused_mlp.py:65. Kernel and plain
 version share numerics but sum in other orders, so a bf16 rounding of a
-cotangent can fall the other way. The dW leg alone: bf16 products are
-exact in f32, so it differs from an f32 torch.mm of the same operands
+cotangent can fall the other way; where the 14-layer packs from 640 wide
+on miss the bar against plain (two plain runs already differ by up to
+0.061 there), they are held to a float64 truth instead (`_hold_grads`).
+The dW leg alone: bf16 products are exact in f32, so it differs from an
+f32 torch.mm of the same operands
 only by the order of its f32 sums, within 1e-4 of the sum of the
 products' magnitudes (a wrong operand layout misses by O(1)).
 """
@@ -57,9 +60,19 @@ ARCHS = [
     dict(LEGO, hidden_size=512),
     # the widest edge the gate admits at 512: most layers, 128 PE columns
     dict(LEGO, hidden_size=512, num_layers=fm.MAX_LAYERS, num_encoding_fn_xyz=15),
+    # 640 to 1024 wide, each tile split across a pair of CTAs as well
+    dict(LEGO, hidden_size=640),
+    dict(LEGO, hidden_size=768),
+    dict(LEGO, hidden_size=896),
+    dict(LEGO, hidden_size=1024),
+    # the widest edge the gate admits at 1024: most layers, 128 PE columns
+    dict(LEGO, hidden_size=1024, num_layers=fm.MAX_LAYERS, num_encoding_fn_xyz=15),
 ]
-ARCH_IDS = ["lego", "small", "deep-linear", "linear-11", "edge", "w384", "w512", "w512-edge"]
+ARCH_IDS = ["lego", "small", "deep-linear", "linear-11", "edge", "w384", "w512", "w512-edge",
+            "w640", "w768", "w896", "w1024", "w1024-edge"]
 WIDE = ARCHS[5:]
+PAIRED = [kw for kw in ARCHS if kw["hidden_size"] > 512]
+PAIRED_IDS = [i for kw, i in zip(ARCHS, ARCH_IDS) if kw["hidden_size"] > 512]
 
 
 @pytest.fixture
@@ -95,9 +108,11 @@ def test_kernel_matches_plain(cuda, kw, R, S, channels_first):
 
 
 # Ragged edges of the 128-point tiles the persistent CTAs walk (64-point
-# at H > 256), and more tiles than two waves of one CTA per SM (132 SMs x
-# 128 x 2 = 33,792).
-RAGGED = [1, 63, 65, 127, 128, 129, 257, 40000]
+# at H > 256), more tiles than two waves of one CTA per SM (132 SMs x
+# 128 x 2 = 33,792), and 8513 points: 134 tiles of 64, so that at H > 512
+# two of the (at most 66) pairs walk a third tile, the last one 63 rows
+# short, while the others stop after two.
+RAGGED = [1, 63, 65, 127, 128, 129, 257, 8513, 40000]
 
 
 @pytest.mark.parametrize("kw", ARCHS, ids=ARCH_IDS)
@@ -187,6 +202,58 @@ def _worst_rel(packed, got, want):
     return max(float((g[k] - w[k]).abs().max() / (w[k].abs().max() + 1e-6)) for k in w)
 
 
+def _truth_grads(packed, o, d, z, cot):
+    """Float64 grads of sum(field * cot) in the packed layout: the field of
+    the packed weights (skips as the spec says) in float64 with no bf16
+    rounding, through autograd."""
+    spec = packed.spec
+    H, L = spec.hidden, spec.num_layers
+    w = packed.weights.double().requires_grad_()
+    b = packed.biases.double().requires_grad_()
+    pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3).double()
+    dirs = d[:, None, :].expand(z.shape[0], z.shape[1], 3).reshape(-1, 3).double()
+    pe_x = fm._padded_pe(pts, spec.L_x, spec.include_x, spec.log_x, spec.pxp).double()
+    pe_d = fm._padded_pe(dirs, spec.L_d, spec.include_d, spec.log_d, spec.pdp).double()
+
+    def layer(g, a, n):
+        wg, bg = packed.gemm(g, n, a.shape[1], w, b)
+        return torch.nn.functional.linear(a, wg, bg)
+
+    x = layer(0, pe_x, H)
+    for i in range(L - 1):
+        x = torch.relu(layer(1 + i, torch.cat([x, pe_x], 1) if i in spec.skip_layers else x, H))
+    wa, ba, wr, br = packed.heads(w, b)
+    alpha = torch.nn.functional.linear(x, wa, ba)
+    feat = torch.relu(layer(L, x, H))
+    h = torch.relu(layer(L + 1, torch.cat([feat, pe_d], 1), H // 2))
+    rgb = torch.sigmoid(torch.nn.functional.linear(h, wr, br))
+    out = torch.cat([rgb, alpha], 1).t()
+    (out * cot.reshape(4, -1).double()).sum().backward()
+    return w.grad.float(), b.grad.float()
+
+
+def _hold_grads(packed, args, got, want):
+    """The backward kernel's grads against its plain version's: worst
+    relative error per weight or bias under GRAD_BAR. Only the deepest
+    packs from 640 wide on (MAX_LAYERS layers) may miss it, because there
+    two plain runs that differ only in the order of their f32 sums (the
+    card's and the host CPU's) already differ by up to 0.061 at 129,087
+    points (scripts/torch_bwd_noise_floor.py, evenly over the pair's four
+    column quarters); those are judged as tests/test_fused_mlp.py:127-166
+    judges its edge cases: against a float64 truth of the same weights, no
+    worse than twice the plain version or within GRAD_BAR."""
+    worst = _worst_rel(packed, got, want)
+    if worst < GRAD_BAR:
+        return
+    spec = packed.spec
+    assert spec.hidden > 512 and spec.num_layers == fm.MAX_LAYERS, (
+        f"worst grad rel err {worst}")
+    truth = _truth_grads(packed, *args)
+    err_kernel, err_plain = _worst_rel(packed, got, truth), _worst_rel(packed, want, truth)
+    assert err_kernel < max(2.0 * err_plain, GRAD_BAR), (
+        f"worst grad rel err {worst} vs plain; vs float64 {err_kernel} (plain {err_plain})")
+
+
 @pytest.mark.parametrize("kw", [LEGO, ARCHS[4]], ids=["lego", "edge"])
 @pytest.mark.parametrize("R,S", [(2048, 64), (2048, 192), (37, 5), (1000, 7)])
 def test_bwd_kernel_matches_plain(cuda, kw, R, S):
@@ -221,9 +288,10 @@ WIDE_BWD_SHAPES = [(2048, 64), (2048, 192), (2049, 63)]
 @pytest.mark.parametrize("kw", WIDE, ids=ARCH_IDS[5:])
 @pytest.mark.parametrize("R,S", WIDE_BWD_SHAPES)
 def test_wide_bwd_kernel_matches_plain(cuda, kw, R, S):
-    """384 and 512 wide and the 14-layer edge at 512, at the train shapes
-    and at 129,087 points: the last 64-point tile 63 rows short and one more
-    of tail rows only (n_pad 129,152), over 24 of the dW leg's ranges."""
+    """384 to 1024 wide and the 14-layer edges at 512 and 1024, at the
+    train shapes and at 129,087 points: the last 64-point tile 63 rows
+    short and one more of tail rows only (n_pad 129,152), over 24 of the dW
+    leg's ranges."""
     packed, args = _grad_case(kw, R, S, cuda)
     before = fm.bwd_launches
     got = fm.fused_mlp_bwd(packed, *args)
@@ -231,13 +299,15 @@ def test_wide_bwd_kernel_matches_plain(cuda, kw, R, S):
     assert fm.bwd_launches == before + 1
     want = fm.fused_mlp_bwd_plain(packed, *args)
     assert all(bool(torch.isfinite(g).all()) for g in got)
-    worst = _worst_rel(packed, got, want)
-    assert worst < GRAD_BAR, f"worst grad rel err {worst}"
+    _hold_grads(packed, args, got, want)
 
 
-def test_bwd_kernel_is_deterministic(cuda):
-    """No float atomics: two launches on the same inputs agree bit for bit."""
-    packed, args = _grad_case(LEGO, 2048, 64, cuda)
+@pytest.mark.parametrize("kw", [LEGO, *PAIRED[:4]], ids=["lego", *PAIRED_IDS[:4]])
+def test_bwd_kernel_is_deterministic(cuda, kw):
+    """No float atomics: two launches on the same inputs agree bit for bit
+    (at H > 512 too, where a pair of CTAs exchanges its columns and head
+    sums)."""
+    packed, args = _grad_case(kw, 2048, 64, cuda)
     first = fm.fused_mlp_bwd_cuda(packed, *args)
     second = fm.fused_mlp_bwd_cuda(packed, *args)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
@@ -475,9 +545,13 @@ def test_kernels_take_skips_after_layer1_and_the_last_trunk_layer(cuda, hidden):
 
 
 # (H, L_x, L_d) around the wide kernels' shared-memory edge: PE widths
-# pxp + pdp of 128 (512: every kernel fits), 144 and 192 (512: the backward
-# refused), 320 (512: only sigma fits; 384: every kernel).
-PLAN_EDGE = [(512, 15, 4), (512, 15, 5), (512, 24, 4), (512, 24, 24), (384, 24, 24)]
+# pxp + pdp of 128 (512 and 1024: every kernel fits), 144 (512: the
+# backward refused; 1024: the forward and the backward), 192 (512: the
+# backward; 1024: all three, sigma's 160 columns too), 320 (512 and 896:
+# only sigma fits; 384, 640 and 768: every kernel).
+PLAN_EDGE = [(512, 15, 4), (512, 15, 5), (512, 24, 4), (512, 24, 24), (384, 24, 24),
+             (640, 24, 24), (768, 24, 24), (896, 24, 24), (1024, 15, 4), (1024, 15, 5),
+             (1024, 24, 4)]
 
 
 @pytest.mark.parametrize("hidden,L_x,L_d", PLAN_EDGE)
@@ -516,7 +590,7 @@ def test_launches_refuse_exactly_what_the_plan_refuses(cuda, hidden, L_x, L_d):
         torch.cuda.synchronize()
         want = plain()
         if kernel == "bwd":
-            assert _worst_rel(packed, got, want) < GRAD_BAR
+            _hold_grads(packed, (o, d, z, cot), got, want)
         else:
             torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
 
@@ -524,8 +598,8 @@ def test_launches_refuse_exactly_what_the_plan_refuses(cuda, hidden, L_x, L_d):
 @pytest.mark.parametrize("kw", ARCHS, ids=ARCH_IDS)
 def test_bwd_kernel_every_architecture(cuda, kw):
     """Every architecture of the forward's tests, 1000 rays x 7 samples: H =
-    128, 256, 384 and 512, no include_input, the 24-band 14-layer edge (one
-    PE tile, two ring slots) and the 14-layer edge at 512. Fewer points
+    128 to 1024, no include_input, the 24-band 14-layer edge (one PE tile,
+    two ring slots) and the 14-layer edges at 512 and 1024. Fewer points
     make the worst relative error a matter of which bf16 roundings fall the
     other way: at 129 x 3 the lego and edge grads of this kernel and of its
     wmma predecessor both miss the bar against plain, by the same amount;
@@ -536,8 +610,7 @@ def test_bwd_kernel_every_architecture(cuda, kw):
     torch.cuda.synchronize()
     want = fm.fused_mlp_bwd_plain(packed, *args)
     assert all(bool(torch.isfinite(g).all()) for g in got)
-    worst = _worst_rel(packed, got, want)
-    assert worst < GRAD_BAR, f"worst grad rel err {worst}"
+    _hold_grads(packed, args, got, want)
 
 
 def test_bwd_kernel_refuses_what_its_shared_memory_cannot_hold(cuda):
