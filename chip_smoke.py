@@ -101,6 +101,15 @@ and the BuFF ones:
   a step, the loss falls, grads vs the nn.Module), at 512 and 1024 two
   400x400 views of the trained system, and export_marching_cubes
   (WIDE_MESH_RES) with the colour check.
+- the layer route (layers_phase, after wide_phase): the fields the fused
+  plans refuse (csrc/field_layers.cu): 8 layers at 1024 wide with 16
+  position bands, at 1152 and 2048 wide, 16 layers and 32 bands at 256
+  wide: forward, backward and sigma against their plain versions and
+  timed, sigma bit for bit the route's forward channel 3, the backward
+  bitwise repeatable; its PE bit for bit the fused kernels'; the chains
+  at 1024 L 16/4 (3 + 30 steps, 2 views, a 128^3 mesh) and 2048 (3 + 30
+  steps, a 64^3 mesh), every launch the layer route's; the route beside
+  the pair kernels at 8x1024 L 10/4.
 - the forward-facing chain (llff_cli): configs/hard-llff.yml as shipped on
   data/hard_llff (21 training views, 3 held out; NDC rays, per-image
   COLMAP bounds, two 8x128 fields through the fused kernels): train 500
@@ -182,6 +191,7 @@ is no CPU path.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import functools
 import gc
 import json
@@ -441,6 +451,43 @@ def _rate(name: str, ms: float, flops: float, bound_ms: float, bound_by: str, sh
     """One kernel time beside its bound: TFLOP/s and the bound's share."""
     print(f"{name} kernel at {shape}: {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s, bound "
           f"{bound_ms:.4f} ms ({bound_by}), {100.0 * bound_ms / ms:.1f}% of the bound [{card}]")
+
+
+def _route(route: str):
+    """(launch counters, forward, backward, sigma, name prefix) of a field
+    route: the fused kernels (ops/kernels/fused_mlp.py) or the layer route
+    (ops/kernels/field_layers.py); both modules count `launches`,
+    `bwd_launches` and `sigma_launches`."""
+    from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl
+    from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+
+    if route == "fused":
+        return fm, fm.fused_mlp_cuda, fm.fused_mlp_bwd_cuda, fm.fused_sigma_cuda, "fused_mlp"
+    return fl, fl.layers_mlp_cuda, fl.layers_bwd_cuda, fl.layers_sigma_cuda, "field_layers"
+
+
+def _yardsticks(route: str, plain, module, library) -> tuple:
+    """(plain ms, f32 nn.Module ms, library ms) of a kernel's yardsticks:
+    medians of 7 on the fused route; on the layer route, whose fields run
+    to 2048 wide, medians of 3 and no f32 nn.Module call (None), which is
+    no part of the kernels line and takes seconds there."""
+    if route == "fused":
+        return _median_ms(plain), _median_ms(module), _median_ms(library)
+    return _median_ms(plain, runs=3, warmup=1), None, _median_ms(library, runs=3, warmup=1)
+
+
+def _ms_text(t: float | None) -> str:
+    return "not timed" if t is None else f"{t:.4f} ms"
+
+
+def _zero_field_counts() -> None:
+    """Both routes' launch counts, and the layer route's per kernel, to 0."""
+    from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl
+    from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+
+    for mod in (fm, fl):
+        mod.launches = mod.bwd_launches = mod.sigma_launches = 0
+    fl.kernel_launches.update(dict.fromkeys(fl.KERNELS, 0))
 
 
 def rank_kernels(kern, bkern, skern, ckern, render, train, mesh, buff, buff_render, buff_mesh,
@@ -709,24 +756,25 @@ def _chunk_yardsticks(model, packed, o, d, z, card: str) -> tuple[float, float |
     return library_ms, plain_ms
 
 
-def _fwd_check(packed, o, d, z, hidden: int) -> float:
-    """One launch of the forward kernel at rays (o, d, z), counted once,
+def _fwd_check(packed, o, d, z, hidden: int, route: str = "fused") -> float:
+    """One launch of the route's forward at rays (o, d, z), counted once,
     finite, of shape (4, R, S) and within atol = rtol = 2e-2 of the plain
     version; returns the max abs error."""
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
 
+    counts, fwd, _, _, name = _route(route)
     R, S = z.shape
-    before = fm.launches
-    got = fm.fused_mlp_cuda(packed, o, d, z)
+    before = counts.launches
+    got = fwd(packed, o, d, z)
     torch.cuda.synchronize()
-    if fm.launches != before + 1:
-        raise AssertionError(f"launch counter moved {fm.launches - before}, expected 1")
+    if counts.launches != before + 1:
+        raise AssertionError(f"launch counter moved {counts.launches - before}, expected 1")
     ref = fm.fused_mlp_plain(packed, o, d, z)
     if got.shape != (4, R, S) or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"kernel output shape {tuple(got.shape)} or non-finite values")
     err_rgb = float((got[:3] - ref[:3]).abs().max())
     err_sigma = float((got[3] - ref[3]).abs().max())
-    print(f"fused_mlp_fwd H={hidden} R={R} S={S}: max abs err rgb {err_rgb:.3e} sigma "
+    print(f"{name}_fwd H={hidden} R={R} S={S}: max abs err rgb {err_rgb:.3e} sigma "
           f"{err_sigma:.3e} (bar atol=rtol={ATOL})")
     if not torch.allclose(got, ref, atol=ATOL, rtol=RTOL):
         raise AssertionError(f"kernel disagrees with the plain version at H={hidden} S={S}")
@@ -752,28 +800,30 @@ def _bwd_bound(model, packed, R: int, S: int) -> tuple[float, str]:
     return _bound_ms(3 * _field_flops(model) * n_pts, nbytes, PEAK_BF16)
 
 
-def _fwd_times(model, packed, o, d, z, card: str) -> dict:
-    """The forward kernel at rays (o, d, z), timed beside its plain version,
-    the library yardstick (the nn.Module at the same points under bf16
-    autocast: cuBLAS tensor-core products layer by layer; the module as it
-    is beside it, f32 products of bf16-rounded operands; the port calls
-    neither for a fused-eligible model) and its bound."""
+def _fwd_times(model, packed, o, d, z, card: str, route: str = "fused") -> dict:
+    """The route's forward at rays (o, d, z), timed beside its plain
+    version, the library yardstick (the nn.Module at the same points under
+    bf16 autocast: cuBLAS tensor-core products layer by layer; the module
+    as it is beside it, f32 products of bf16-rounded operands; the port
+    calls neither for a fused-eligible model) and its bound."""
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
 
+    _, fwd, _, _, name = _route(route)
     R, S = z.shape
-    ms = _median_ms(lambda: fm.fused_mlp_cuda(packed, o, d, z))
-    plain_ms = _median_ms(lambda: fm.fused_mlp_plain(packed, o, d, z))
+    ms = _median_ms(lambda: fwd(packed, o, d, z))
     pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
     dirs = d[:, None, :].expand(R, S, 3).reshape(-1, 3)
     with torch.inference_mode():
-        module_ms = _median_ms(lambda: model(pts, dirs))
-        library_ms = _median_ms(_autocast(lambda: model(pts, dirs)))
+        plain_ms, module_ms, library_ms = _yardsticks(
+            route, lambda: fm.fused_mlp_plain(packed, o, d, z), lambda: model(pts, dirs),
+            _autocast(lambda: model(pts, dirs)))
     bound_ms, bound_by = _fwd_bound(model, packed, R, S)
-    for name, t in (("kernel", ms), ("plain", plain_ms), ("nn.Module", module_ms),
+    for what, t in (("kernel", ms), ("plain", plain_ms), ("nn.Module", module_ms),
                     ("nn.Module bf16 autocast", library_ms), ("bound", bound_ms)):
-        print(f"fused_mlp_fwd {name}: {t:.4f} ms, {R * S / t * 1e3:.4e} points/s "
+        rate = "" if t is None else f", {R * S / t * 1e3:.4e} points/s"
+        print(f"{name}_fwd {what}: {_ms_text(t)}{rate} "
               f"at {R}x{S} points, H={model.hidden_size} [{card}]")
-    _rate("fused_mlp_fwd", ms, _field_flops(model) * R * S, bound_ms, bound_by,
+    _rate(f"{name}_fwd", ms, _field_flops(model) * R * S, bound_ms, bound_by,
           f"{R}x{S}, H={model.hidden_size}", card)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
@@ -928,9 +978,249 @@ def wide_phase(card: str, device) -> dict:
     return out
 
 
-def slice_phase(cfg, card: str, device, system=None) -> dict:
+# The layer route (csrc/field_layers.cu): the FlexibleNeRF fields that JAX's
+# Pallas kernels take and the fused plans refuse. configs/hard-blender.yml's
+# two 8-layer fields at 1024 wide with mip-NeRF's 16 position bands
+# (max_deg_point; the fused plans hold 15), at 1152 and 2048 wide; and at
+# its own 256 wide with 16 layers or 32 position bands, checked and timed at
+# 2048 x 64 only. The whole path at w1024-L16 (3 + 30 steps, 2 views, a
+# 128^3 mesh with its colour check) and at 2048 wide with L 10/4 (3 + 30
+# steps, a 64^3 mesh: over 10 steps its loss's batch noise hides the fall,
+# 0.1186 in the first 5 steps' mean, 0.1240 in the last 5's).
+LAYER_CASES = {
+    "w1024-L16": {"hidden_size": 1024, "num_encoding_fn_xyz": 16},
+    "w1152": {"hidden_size": 1152},
+    "w2048": {"hidden_size": 2048},
+    "deep16": {"num_layers": 16},
+    "bands32": {"num_encoding_fn_xyz": 32},
+}
+LAYER_COARSE_ONLY = ("deep16", "bands32")
+LAYER_CHAINS = {"w1024-L16": dict(steps=30, views=True, res=128, grad_rays=None),
+                "w2048": dict(steps=30, views=False, res=64, grad_rays=512)}
+# The route's kernels by name, as torch.profiler traces them
+# (tests/test_torch_fused_mlp.py holds every name to a __global__ of csrc/).
+LAYER_KERNELS = {"pe": ("layer_pe_kernel",), "product": ("layer_product_kernel",),
+                 "heads": ("layer_heads_kernel",), "dw": ("dw_kernel",),
+                 "reduce": ("reduce_rows_kernel",)}
+
+
+def layer_cfg(case: str):
+    """hard_blender_cfg() with both fields changed as LAYER_CASES[case]."""
+    cfg = hard_blender_cfg()
+    _merge(cfg, {"models": {"coarse": LAYER_CASES[case], "fine": LAYER_CASES[case]}})
+    return cfg
+
+
+def _device_ms_per_call(fn, groups: dict, runs: int = 3) -> dict:
+    """(device ms, launches) per call of fn(), a layer-route call, of each
+    of the route's kernels (groups keyed as fl.KERNELS): the launches one
+    call makes by fl.kernel_launches, times torch.profiler's mean device
+    time a traced launch of the kernel (a trace of a long run may drop
+    events, so the trace's own count is not used)."""
+    from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl
+
+    before = dict(fl.kernel_launches)
+    fn()
+    torch.cuda.synchronize()
+    per_call = {k: fl.kernel_launches[k] - before[k] for k in groups}
+    kernels = _traced_kernels(fn, runs, warmup=0)
+    out = {}
+    for group, keys in groups.items():
+        times = [t for name, t in kernels if any(k in name for k in keys)]
+        out[group] = ((statistics.mean(times) if times else 0.0) * per_call[group],
+                      per_call[group])
+    return out
+
+
+def _layer_pe_check(card: str, device) -> None:
+    """The layer route's PE kernel bit for bit what the fused kernels feed
+    their first product, on a model both could take (lego, 2048 x 64
+    rays): the PE the fused backward's tile kernel builds and stashes (the
+    workspace's first rows, [PE(xyz) | PE(dir)]); and within the bf16 bar
+    of its plain version."""
+    from nerfmeshes_tpu_torch.models import FlexibleNeRFModel
+    from nerfmeshes_tpu_torch.ops.kernels import build
+    from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl
+    from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+
+    torch.manual_seed(SEED)
+    model = FlexibleNeRFModel(**_FLEX, compute_dtype=torch.bfloat16, device=device)
+    packed = fm.pack_weights(model)
+    spec = packed.spec
+    R, S = 2048, 64
+    o, d, z = _rays(R, S, np.random.default_rng(SEED), device)
+    cot = torch.zeros((4, R, S), device=device)
+    lib = build.load_library()
+    nbytes = ctypes.c_longlong(0)
+    build.check(lib, lib.nm_fused_mlp_bwd_workspace(
+        packed.desc.ctypes.data, packed.desc.size, packed.freqs.ctypes.data, packed.freqs.size,
+        R * S, ctypes.byref(nbytes)), "fused_mlp_bwd workspace")
+    workspace = torch.zeros(nbytes.value, dtype=torch.uint8, device=device)
+    dW = torch.zeros(packed.weights.shape, device=device)
+    dB = torch.zeros(packed.biases.shape, device=device)
+    build.check(lib, lib.nm_fused_mlp_bwd(
+        o.data_ptr(), d.data_ptr(), z.data_ptr(), R, S, cot.data_ptr(),
+        packed.weights.data_ptr(), packed.biases.data_ptr(), packed.desc.ctypes.data,
+        packed.desc.size, packed.freqs.ctypes.data, packed.freqs.size, workspace.data_ptr(),
+        nbytes.value, dW.data_ptr(), dB.data_ptr(), torch.cuda.current_stream().cuda_stream),
+        "fused_mlp_bwd launch")
+    cols = spec.pxp + spec.pdp
+    stash = workspace[:R * S * cols * 2].view(torch.bfloat16).view(R * S, cols)
+    pe_x, pe_d = fl.layers_pe_cuda(packed, o, d, z)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(pe_x, stash[:, :spec.pxp]) and torch.equal(pe_d, stash[:, spec.pxp:])
+    want_x, want_d = fl.layers_pe_plain(packed, o, d, z)
+    err = max(float((pe_x.float() - want_x.float()).abs().max()),
+              float((pe_d.float() - want_d.float()).abs().max()))
+    print(f"field_layers PE at {R}x{S} (lego L 10/4): bit for bit the fused backward's "
+          f"stashed PE: {bitwise}; max abs err vs plain {err:.3e} (bar {ATOL}) [{card}]")
+    if not bitwise or err > ATOL:
+        raise AssertionError("the layer route's PE is not the fused kernels' PE")
+
+
+def _layers_vs_pair(card: str, device) -> dict:
+    """8x1024 at L 10/4 (a fused pair-kernel model): the layer route's
+    forward and backward at 2048 x 192 timed beside the pair kernels', in
+    turns (pair, layers, layers, pair; medians of 7 each), the layer
+    route's output held to the pair kernels' at the forward's bar."""
+    from nerfmeshes_tpu_torch.models import build_model
+    from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl
+    from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerfmeshes_tpu_torch.train.system import init_params
+
+    cfg = wide_cfg(1024)
+    model = build_model(cfg.models.fine_type, dict(cfg.models.fine),
+                        compute_dtype=torch.bfloat16)
+    init_params(model, None, torch.Generator().manual_seed(SEED))
+    model.to(device).eval()
+    packed = fm.pack_weights(model)
+    if fm.field_route(packed.spec) != "fused":
+        raise AssertionError("8x1024 at L 10/4 is not a fused model")
+    rng = np.random.default_rng(SEED)
+    R, S = 2048, 192
+    o, d, z = _rays(R, S, rng, device)
+    cot = torch.from_numpy(rng.standard_normal((4, R, S)).astype(np.float32)).to(device)
+    err = float((fl.layers_mlp_cuda(packed, o, d, z) - fm.fused_mlp_cuda(packed, o, d, z))
+                .abs().max())
+    if err > ATOL:
+        raise AssertionError(f"layer route and pair kernels differ by {err} at 8x1024")
+    calls = {"fwd": (lambda: fm.fused_mlp_cuda(packed, o, d, z),
+                     lambda: fl.layers_mlp_cuda(packed, o, d, z)),
+             "bwd": (lambda: fm.fused_mlp_bwd_cuda(packed, o, d, z, cot),
+                     lambda: fl.layers_bwd_cuda(packed, o, d, z, cot))}
+    out = {}
+    for what, (pair, layers) in calls.items():
+        t = [_median_ms(f) for f in (pair, layers, layers, pair)]
+        out[what] = dict(pair_ms=[t[0], t[3]], layers_ms=[t[1], t[2]])
+        print(f"8x1024 L 10/4 {what} at {R}x{S}: pair kernels {t[0]:.4f}, {t[3]:.4f} ms; layer "
+              f"route {t[1]:.4f}, {t[2]:.4f} ms (in turns, medians of 7) [{card}]")
+    print(f"8x1024 L 10/4: layer route vs pair kernels, max abs forward diff {err:.3e}")
+    return out
+
+
+def layers_phase(card: str, device) -> dict:
+    """The layer route, per case of LAYER_CASES: the forward at 2048 x 64
+    and 2048 x 192 (LAYER_COARSE_ONLY: x 64), the backward at the last of
+    them, sigma at a 262,144-point grid tile, each against its plain
+    version (forward and sigma atol = rtol = 2e-2, grads 5e-2 or the
+    float64 truth), sigma bit for bit the route's forward channel 3, two
+    backward calls bitwise equal, each timed beside its bound and the
+    nn.Module's call; at 2048 wide each kernel's device time in a forward
+    and a backward call. Then the chains of LAYER_CHAINS through the normal
+    entry points (NeRFSystem.setup + fit, query_rays, export_marching_cubes),
+    every launch the layer route's; the PE check (_layer_pe_check) and
+    the layer route beside the pair kernels at 8x1024 L 10/4."""
+    from nerfmeshes_tpu_torch.models import build_model
+    from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl
+    from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerfmeshes_tpu_torch.train.render import RenderSettings, render_rays
+    from nerfmeshes_tpu_torch.train.system import init_params
+
+    _layer_pe_check(card, device)
+    out = {"cases": {}, "chains": {}}
+    for case in LAYER_CASES:
+        t0 = time.perf_counter()
+        cfg = layer_cfg(case)
+        model = build_model(cfg.models.fine_type, dict(cfg.models.fine),
+                            compute_dtype=torch.bfloat16)
+        init_params(model, None, torch.Generator().manual_seed(SEED))
+        model.to(device).eval()
+        packed = fm.pack_weights(model)
+        if not fm.supports_fused(model) or fm.field_route(packed.spec) != "layers":
+            raise AssertionError(f"{case}: not a model of the layer route")
+        spec = packed.spec
+        print(f"{case}: {spec.num_layers}x{spec.hidden}, L {spec.L_x}/{spec.L_d}, PE "
+              f"{spec.pxp} + {spec.pdp} columns; slabs of 2048x192 points: fwd "
+              f"{fl.slab_points(spec, 'fwd', 2048 * 192)}, bwd "
+              f"{fl.slab_points(spec, 'bwd', 2048 * 192)} (workspace bound "
+              f"{fl.LAYER_WORKSPACE_BOUND / 2 ** 30:g} GiB)")
+        rng = np.random.default_rng(SEED)
+        R = int(cfg.nerf.train.num_random_rays)
+        coarse = int(cfg.nerf.train.num_coarse)
+        shapes = (coarse,) if case in LAYER_COARSE_ONLY else (
+            coarse, coarse + int(cfg.nerf.train.num_fine))
+        fwd = {}
+        for S in shapes:
+            o, d, z = _rays(R, S, rng, device)
+            fwd[S] = dict(max_abs_err=_fwd_check(packed, o, d, z, spec.hidden, "layers"),
+                          shape=f"{R}x{S}",
+                          **_fwd_times(model, packed, o, d, z, card, "layers"))
+        legs = {}
+        if spec.hidden == 2048:
+            legs["fwd"] = _device_ms_per_call(lambda: fl.layers_mlp_cuda(packed, o, d, z),
+                                              LAYER_KERNELS)
+        del model, packed
+        bwd = bwd_kernel_phase(cfg, card, device, route="layers", samples=shapes[-1:])
+        bcase = bwd.pop("legs_case")
+        if spec.hidden == 2048:
+            bpacked, args = bcase[0], bcase[1]
+            legs["bwd"] = _device_ms_per_call(lambda: fl.layers_bwd_cuda(bpacked, *args),
+                                              LAYER_KERNELS)
+            del bpacked, args
+        del bcase
+        for what, groups in legs.items():
+            print(f"{case} {what} at 2048x{shapes[-1]}, device ms and launches per call by "
+                  "kernel (torch.profiler's ms a launch over 3 calls x launches a call): "
+                  + ", ".join(f"{k} {ms:.4f} ms / {n:g}" for k, (ms, n) in groups.items())
+                  + f" [{card}]")
+        sigma = sigma_kernel_phase(cfg, card, device, route="layers")
+        if not sigma["bitwise"]:
+            raise AssertionError(f"{case}: sigma is not bit for bit the forward's channel 3")
+        out["cases"][case] = dict(fwd=fwd, bwd=bwd, sigma=sigma, legs=legs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"{case}: kernels {time.perf_counter() - t0:.2f} s [{card}]")
+
+    for case, chain in LAYER_CHAINS.items():
+        t0 = time.perf_counter()
+        cfg = layer_cfg(case)
+        train = train_phase(card, device, cfg, route="layers", steps=chain["steps"],
+                            grad_rays=chain["grad_rays"])
+        system = train.pop("system")
+        render = slice_phase(cfg, card, device, system, route="layers") if chain["views"] \
+            else None
+        settings = RenderSettings.from_cfg(cfg, train=False)._replace(use_fused_kernel=False)
+
+        def module_rgb(o, d, near, far, system=system, settings=settings):
+            return render_rays(system.coarse, system.fine, o, d, near, far, settings,
+                               train=False)[1].rgb_map
+
+        mesh = export_and_check(system, card, f"{case} mesh", fwd_per_chunk=2,
+                                chords_per_chunk=0, module_rgb=module_rgb, res=chain["res"],
+                                route="layers")
+        del system, module_rgb
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"{case} chain: {time.perf_counter() - t0:.2f} s [{card}]")
+        out["chains"][case] = dict(train=train, render=render, mesh=mesh)
+    out["vs_pair"] = _layers_vs_pair(card, device)
+    return out
+
+
+def slice_phase(cfg, card: str, device, system=None, route: str = "fused") -> dict:
     """Two full views through NeRFSystem.query_rays with the kernel on: of
-    `system`, or of a fresh one with the config's random weights."""
+    `system`, or of a fresh one with the config's random weights; the
+    route's forward launches counted."""
     from nerfmeshes_tpu_torch.data.blender_poses import read_blender_poses
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
     from nerfmeshes_tpu_torch.train.render import RenderSettings, render_rays
@@ -951,7 +1241,8 @@ def slice_phase(cfg, card: str, device, system=None) -> dict:
     torch.cuda.synchronize()
 
     views = 2
-    fm.launches = 0
+    counts = _route(route)[0]
+    _zero_field_counts()
     t0 = time.perf_counter()
     outs = []
     for v in range(views):
@@ -959,7 +1250,9 @@ def slice_phase(cfg, card: str, device, system=None) -> dict:
         outs.append(system.query_rays(o, d, near, far, fields=fields, as_numpy=False))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = fm.launches
+    launches = counts.launches
+    if route == "layers" and fm.launches:
+        raise AssertionError(f"{fm.launches} fused forward launches on the layer route")
 
     n = H * W
     chunks = math.ceil(n / chunk)
@@ -1009,15 +1302,59 @@ def _rel_errors(packed, got, want) -> dict:
     return {k: float((g[k] - w[k]).abs().max() / (w[k].abs().max() + 1e-6)) for k in w}
 
 
-def bwd_kernel_phase(cfg, card: str, device, time_fine: bool = True) -> dict:
-    """Backward kernel against its plain version at the train path's
-    coarse (S=64) and fine (S=192) shapes, R = 2048 rays, lego width, a
-    seeded normal cotangent; two launches bitwise equal. Timed at the fine
-    shape, or with time_fine False at the coarse one."""
+def _truth_grads(packed, o, d, z, cot) -> tuple[torch.Tensor, torch.Tensor]:
+    """Float64 grads of sum(field * cot) in the packed layout: the field of
+    the packed weights in float64 with no bf16 rounding, through autograd,
+    summed over chunks of at most 16,384 points (as the GPU tests'
+    _truth_grads)."""
+    from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+
+    spec = packed.spec
+    H, L = spec.hidden, spec.num_layers
+    w = packed.weights.double().requires_grad_()
+    b = packed.biases.double().requires_grad_()
+    R, S = z.shape
+    step = max(1, 16384 // S)
+
+    def layer(g, a, n):
+        wg, bg = packed.gemm(g, n, a.shape[1], w, b)
+        return torch.nn.functional.linear(a, wg, bg)
+
+    for r0 in range(0, R, step):
+        rays = slice(r0, r0 + step)
+        oo, dd, zz = o[rays].double(), d[rays].double(), z[rays].double()
+        pts = (oo[:, None, :] + dd[:, None, :] * zz[..., None]).reshape(-1, 3)
+        dirs = dd[:, None, :].expand(zz.shape[0], S, 3).reshape(-1, 3)
+        pe_x = fm._padded_pe(pts, spec.L_x, spec.include_x, spec.log_x, spec.pxp)
+        pe_d = fm._padded_pe(dirs, spec.L_d, spec.include_d, spec.log_d, spec.pdp)
+        x = layer(0, pe_x, H)
+        for i in range(L - 1):
+            x = torch.relu(layer(1 + i, torch.cat([x, pe_x], 1) if i in spec.skip_layers
+                                 else x, H))
+        wa, ba, wr, br = packed.heads(w, b)
+        alpha = torch.nn.functional.linear(x, wa, ba)
+        feat = torch.relu(layer(L, x, H))
+        h = torch.relu(layer(L + 1, torch.cat([feat, pe_d], 1), H // 2))
+        rgb = torch.sigmoid(torch.nn.functional.linear(h, wr, br))
+        out = torch.cat([rgb, alpha], 1).t()
+        (out * cot[:, rays].reshape(4, -1).double()).sum().backward()
+    return w.grad.float(), b.grad.float()
+
+
+def bwd_kernel_phase(cfg, card: str, device, time_fine: bool = True, route: str = "fused",
+                     samples: tuple | None = None) -> dict:
+    """The route's backward against its plain version at the train path's
+    coarse (S=64) and fine (S=192) shapes (or `samples`), R = 2048 rays,
+    the config's fine field, a seeded normal cotangent; two launches
+    bitwise equal. Timed at the fine shape (the last of `samples`), or with
+    time_fine False at the coarse one. On the layer route a worst relative
+    error past the bar is judged, as the GPU tests' _hold_layer_grads, by a
+    float64 truth: no worse than twice the plain version's."""
     from nerfmeshes_tpu_torch.models import build_model
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
     from nerfmeshes_tpu_torch.train.system import init_params
 
+    counts, _, bwd, _, prefix = _route(route)
     model = build_model(cfg.models.fine_type, dict(cfg.models.fine),
                         compute_dtype=torch.bfloat16)
     init_params(model, None, torch.Generator().manual_seed(SEED))
@@ -1027,18 +1364,20 @@ def bwd_kernel_phase(cfg, card: str, device, time_fine: bool = True) -> dict:
     R = int(cfg.nerf.train.num_random_rays)
     worst_rel = worst_abs = 0.0
     timed = None
-    for S in (int(cfg.nerf.train.num_coarse),
-              int(cfg.nerf.train.num_coarse) + int(cfg.nerf.train.num_fine)):
+    if samples is None:
+        samples = (int(cfg.nerf.train.num_coarse),
+                   int(cfg.nerf.train.num_coarse) + int(cfg.nerf.train.num_fine))
+    for S in samples:
         o, d, z = _rays(R, S, rng, device)
         cot = torch.from_numpy(rng.standard_normal((4, R, S)).astype(np.float32)).to(device)
         if timed is None or time_fine:
             timed = (S, o, d, z, cot)
-        before = fm.bwd_launches
-        got = fm.fused_mlp_bwd_cuda(packed, o, d, z, cot)
-        again = fm.fused_mlp_bwd_cuda(packed, o, d, z, cot)
+        before = counts.bwd_launches
+        got = bwd(packed, o, d, z, cot)
+        again = bwd(packed, o, d, z, cot)
         torch.cuda.synchronize()
-        if fm.bwd_launches != before + 2:
-            raise AssertionError(f"bwd launch counter moved {fm.bwd_launches - before}, "
+        if counts.bwd_launches != before + 2:
+            raise AssertionError(f"bwd launch counter moved {counts.bwd_launches - before}, "
                                  "expected 2")
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"two backward launches differ at S={S}")
@@ -1048,17 +1387,26 @@ def bwd_kernel_phase(cfg, card: str, device, time_fine: bool = True) -> dict:
         rel = _rel_errors(packed, got, want)
         name = max(rel, key=rel.get)
         abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        print(f"fused_mlp_bwd R={R} S={S}: worst rel grad err {rel[name]:.3e} ({name}), "
-              f"max abs err {abs_err:.3e} (bar rel {GRAD_BAR}); 2 launches bitwise equal")
-        if rel[name] >= GRAD_BAR:
+        print(f"{prefix}_bwd H={model.hidden_size} R={R} S={S}: worst rel grad err "
+              f"{rel[name]:.3e} ({name}), max abs err {abs_err:.3e} (bar rel {GRAD_BAR}); "
+              "2 launches bitwise equal")
+        if rel[name] >= GRAD_BAR and route == "layers":
+            truth = _truth_grads(packed, o, d, z, cot)
+            err_kernel = max(_rel_errors(packed, got, truth).values())
+            err_plain = max(_rel_errors(packed, want, truth).values())
+            print(f"{prefix}_bwd H={model.hidden_size} S={S}: against a float64 truth, kernel "
+                  f"{err_kernel:.3e}, plain {err_plain:.3e} (bar: under twice plain's or "
+                  f"{GRAD_BAR})")
+            if err_kernel >= max(2.0 * err_plain, GRAD_BAR):
+                raise AssertionError(f"backward disagrees with the float64 truth at S={S}")
+        elif rel[name] >= GRAD_BAR:
             raise AssertionError(f"backward kernel disagrees with the plain version at S={S}")
         worst_rel = max(worst_rel, rel[name])
         worst_abs = max(worst_abs, abs_err)
 
     # Times at the fine shape (the last one checked above), or the coarse.
     S, o, d, z, cot = timed
-    ms = _median_ms(lambda: fm.fused_mlp_bwd_cuda(packed, o, d, z, cot))
-    plain_ms = _median_ms(lambda: fm.fused_mlp_bwd_plain(packed, o, d, z, cot))
+    ms = _median_ms(lambda: bwd(packed, o, d, z, cot))
     # Library yardstick: the nn.Module's forward and autograd backward for
     # the same cotangent under bf16 autocast (the kernel recomputes the
     # forward too), beside the module as it is.
@@ -1071,17 +1419,19 @@ def bwd_kernel_phase(cfg, card: str, device, time_fine: bool = True) -> dict:
             p.grad = None
         model(pts, dirs).float().backward(cot_points)
 
-    module_ms = _median_ms(module_grads)
-    library_ms = _median_ms(_autocast(module_grads))
+    plain_ms, module_ms, library_ms = _yardsticks(
+        route, lambda: fm.fused_mlp_bwd_plain(packed, o, d, z, cot), module_grads,
+        _autocast(module_grads))
     for p in model.parameters():
         p.grad = None
     n_pts, n_w = R * S, packed.weights.numel()
     bound_ms, bound_by = _bwd_bound(model, packed, R, S)
     for name, t in (("kernel", ms), ("plain", plain_ms), ("nn.Module + autograd", module_ms),
                     ("nn.Module + autograd, bf16 autocast", library_ms), ("bound", bound_ms)):
-        print(f"fused_mlp_bwd {name}: {t:.4f} ms, {n_pts / t * 1e3:.4e} points/s "
+        rate = "" if t is None else f", {n_pts / t * 1e3:.4e} points/s"
+        print(f"{prefix}_bwd {name}: {_ms_text(t)}{rate} "
               f"at {R}x{S} points, H={model.hidden_size} [{card}]")
-    _rate("fused_mlp_bwd", ms, 3 * _field_flops(model) * n_pts, bound_ms, bound_by,
+    _rate(f"{prefix}_bwd", ms, 3 * _field_flops(model) * n_pts, bound_ms, bound_by,
           f"{R}x{S}, H={model.hidden_size}", card)
 
     # Its legs, by kernel name, each beside its bound under the stash design.
@@ -1129,9 +1479,15 @@ def legs_phase(bkern: dict, card: str) -> dict:
                       library_ms=library[leg]) for leg, t in legs.items()}
 
 
-def train_phase(card: str, device, cfg=None) -> dict:
+def train_phase(card: str, device, cfg=None, route: str = "fused",
+                steps: int = TRAIN_STEPS, grad_rays: int | None = None) -> dict:
     """The train path: NeRFSystem.setup + fit at the hard-blender settings,
-    or at `cfg`'s."""
+    or at `cfg`'s, `steps` timed steps through the route's kernels (on the
+    layer route none of the fused kernels', and its kernels' launches a
+    step printed); one step's grads against the nn.Module path's on a batch
+    of the config's rays, or of `grad_rays` (the module's autograd at 2048
+    wide holds ~64 GB for 2048 rays)."""
+    from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl
     from nerfmeshes_tpu_torch.data.blender import train_arrays
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
     from nerfmeshes_tpu_torch.train.render import RenderSettings
@@ -1156,19 +1512,27 @@ def train_phase(card: str, device, cfg=None) -> dict:
     torch.cuda.synchronize()
 
     system.losses = []
-    fm.launches = fm.bwd_launches = 0
+    counts = _route(route)[0]
+    _zero_field_counts()
     t0 = time.perf_counter()
-    metrics = system.fit(WARMUP_STEPS + TRAIN_STEPS)
+    metrics = system.fit(WARMUP_STEPS + steps)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    fwd, bwd = fm.launches, fm.bwd_launches
+    fwd, bwd = counts.launches, counts.bwd_launches
+    others = (fm.launches + fm.bwd_launches if route == "layers"
+              else fl.launches + fl.bwd_launches)
+    per_kernel = dict(fl.kernel_launches)
     losses = torch.stack(system.losses).cpu().tolist()  # the one fetch of the run
 
-    if system.state.step != WARMUP_STEPS + TRAIN_STEPS or len(losses) != TRAIN_STEPS:
+    if system.state.step != WARMUP_STEPS + steps or len(losses) != steps:
         raise AssertionError(f"step {system.state.step}, {len(losses)} losses recorded")
-    if fwd != 2 * TRAIN_STEPS or bwd != 2 * TRAIN_STEPS:
+    if fwd != 2 * steps or bwd != 2 * steps or others:
         raise AssertionError(f"{fwd} forward and {bwd} backward launches for "
-                             f"{TRAIN_STEPS} steps; expected 2 each per step")
+                             f"{steps} steps; expected 2 each per step (and {others} of "
+                             "the other route's, expected 0)")
+    if route == "layers":
+        print(f"train {route} kernels a step: "
+              + ", ".join(f"{k} {v / steps:g}" for k, v in per_kernel.items()))
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite loss: {losses}")
     first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
@@ -1184,7 +1548,8 @@ def train_phase(card: str, device, cfg=None) -> dict:
         perturb=False, radiance_field_noise_std=0.0)
     batch = _sample_ray_batch(data, torch.Generator(device).manual_seed(SEED), H=H, W=W,
                               focal=float(data["hwf"][2]),
-                              num_rays=int(cfg.nerf.train.num_random_rays), use_ndc=False)
+                              num_rays=grad_rays or int(cfg.nerf.train.num_random_rays),
+                              use_ndc=False)
     named = [(f"{tag}.{n}", p) for tag, m in (("coarse", system.coarse), ("fine", system.fine))
              for n, p in m.named_parameters()]
 
@@ -1208,22 +1573,24 @@ def train_phase(card: str, device, cfg=None) -> dict:
     if rel[name] >= GRAD_BAR:
         raise AssertionError("fused and nn.Module train grads disagree")
 
-    rays_per_s = TRAIN_STEPS * int(cfg.nerf.train.num_random_rays) / seconds
-    print(f"train: {TRAIN_STEPS} steps of {cfg.nerf.train.num_random_rays} rays in "
-          f"{seconds:.4f} s, {fwd} forward + {bwd} backward kernel launches "
+    rays_per_s = steps * int(cfg.nerf.train.num_random_rays) / seconds
+    print(f"train: {steps} steps of {cfg.nerf.train.num_random_rays} rays in "
+          f"{seconds:.4f} s, {fwd} forward + {bwd} backward {route} launches "
           f"(2 + 2 per step), {rays_per_s:.6e} rays/s [{card}]")
     return dict(fwd_launches=fwd, bwd_launches=bwd, rays_per_s=rays_per_s, seconds=seconds,
-                grad_rel_err=rel[name], system=system)
+                grad_rel_err=rel[name], system=system, kernel_launches=per_kernel)
 
 
-def sigma_kernel_phase(cfg, card: str, device) -> dict:
-    """Sigma kernel against its plain version and against the forward
-    kernel's channel 3, on the lego fine model, at one grid tile of the
-    480^3 mesh grid (limit 1.2) and at random points."""
+def sigma_kernel_phase(cfg, card: str, device, route: str = "fused") -> dict:
+    """The route's sigma against its plain version and against the route's
+    forward's channel 3, on the config's fine model, at one grid tile of
+    the 480^3 mesh grid (limit 1.2) and at random points."""
     from nerfmeshes_tpu_torch.mesh.extract import grid_points
     from nerfmeshes_tpu_torch.models import build_model
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
     from nerfmeshes_tpu_torch.train.system import init_params
+
+    counts, fwd, _, sigma_fn, prefix = _route(route)
 
     model = build_model(cfg.models.fine_type, dict(cfg.models.fine),
                         compute_dtype=torch.bfloat16)
@@ -1241,20 +1608,20 @@ def sigma_kernel_phase(cfg, card: str, device) -> dict:
     }
     worst, bitwise = 0.0, True
     for name, pts in sets.items():
-        before = fm.sigma_launches
-        got = fm.fused_sigma_cuda(packed, pts)
+        before = counts.sigma_launches
+        got = sigma_fn(packed, pts)
         torch.cuda.synchronize()
-        if fm.sigma_launches != before + 1:
-            raise AssertionError(f"sigma launch counter moved {fm.sigma_launches - before}, "
+        if counts.sigma_launches != before + 1:
+            raise AssertionError(f"sigma launch counter moved {counts.sigma_launches - before}, "
                                  "expected 1")
         if got.shape != (GRID_TILE,) or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"sigma kernel output shape {tuple(got.shape)} or non-finite")
         ref = fm.fused_sigma_plain(packed, pts)
         err = float((got - ref).abs().max())
         zeros = torch.zeros_like(pts)
-        full = fm.fused_mlp_cuda(packed, pts, zeros, zeros[:, :1])[3, :, 0]
+        full = fwd(packed, pts, zeros, zeros[:, :1])[3, :, 0]
         err_fwd = float((got - full).abs().max())
-        print(f"fused_sigma {name}, {GRID_TILE} points: max abs err vs plain {err:.3e} "
+        print(f"{prefix}_sigma {name}, {GRID_TILE} points: max abs err vs plain {err:.3e} "
               f"(bar atol=rtol={ATOL}); vs forward kernel channel 3 {err_fwd:.3e} "
               f"(bar {SIGMA_FWD_BAR}; bitwise equal: {bool(torch.equal(got, full))})")
         if not torch.allclose(got, ref, atol=ATOL, rtol=RTOL):
@@ -1265,24 +1632,25 @@ def sigma_kernel_phase(cfg, card: str, device) -> dict:
         bitwise = bitwise and bool(torch.equal(got, full))
 
     pts = sets["grid tile"]
-    ms = _median_ms(lambda: fm.fused_sigma_cuda(packed, pts))
-    plain_ms = _median_ms(lambda: fm.fused_sigma_plain(packed, pts))
+    ms = _median_ms(lambda: sigma_fn(packed, pts))
     # Library yardstick: the nn.Module at the same points under bf16
     # autocast, beside the module as it is (all four channels: no PyTorch
     # call computes sigma alone).
     zeros = torch.zeros_like(pts)
     with torch.inference_mode():
-        module_ms = _median_ms(lambda: model(pts, zeros))
-        library_ms = _median_ms(_autocast(lambda: model(pts, zeros)))
+        plain_ms, module_ms, library_ms = _yardsticks(
+            route, lambda: fm.fused_sigma_plain(packed, pts), lambda: model(pts, zeros),
+            _autocast(lambda: model(pts, zeros)))
     nbytes = GRID_TILE * 16 + packed.weights.numel() * 2 + packed.biases.numel() * 4
     bound_ms, bound_by = _bound_ms(_field_flops(model, heads=False) * GRID_TILE, nbytes,
                                    PEAK_BF16)
     for name, t in (("kernel", ms), ("plain", plain_ms), ("nn.Module", module_ms),
                     ("nn.Module bf16 autocast", library_ms), ("bound", bound_ms)):
-        print(f"fused_sigma {name}: {t:.4f} ms, {GRID_TILE / t * 1e3:.4e} points/s "
-              f"at {GRID_TILE} points [{card}]")
-    _rate("fused_sigma", ms, _field_flops(model, heads=False) * GRID_TILE, bound_ms, bound_by,
-          f"{GRID_TILE} points", card)
+        rate = "" if t is None else f", {GRID_TILE / t * 1e3:.4e} points/s"
+        print(f"{prefix}_sigma {name}: {_ms_text(t)}{rate} "
+              f"at {GRID_TILE} points, H={model.hidden_size} [{card}]")
+    _rate(f"{prefix}_sigma", ms, _field_flops(model, heads=False) * GRID_TILE, bound_ms,
+          bound_by, f"{GRID_TILE} points, H={model.hidden_size}", card)
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by, bitwise=bitwise)
 
@@ -1317,7 +1685,8 @@ def mesh_phase(system, card: str) -> dict:
 
 
 def export_and_check(system, card: str, label: str, *, fwd_per_chunk: int,
-                     chords_per_chunk: int, module_rgb, res: int = MESH_RES) -> dict:
+                     chords_per_chunk: int, module_rgb, res: int = MESH_RES,
+                     route: str = "fused") -> dict:
     """Mesh `system` at res^3 with the mesh CLI's defaults and check
     the result: one sigma launch per grid tile, `fwd_per_chunk` forward and
     `chords_per_chunk` chord launches per appearance chunk; a non-empty,
@@ -1333,15 +1702,19 @@ def export_and_check(system, card: str, label: str, *, fwd_per_chunk: int,
     from nerfmeshes_tpu_torch.ops.kernels import chords as ch
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
 
+    counts = _route(route)[0]
     with tempfile.TemporaryDirectory() as tmp:
         args = _mesh_args(tmp, res)
         torch.cuda.synchronize()
-        fm.launches = fm.sigma_launches = ch.launches = 0
+        _zero_field_counts()
+        ch.launches = 0
         t0 = time.perf_counter()
         verts, tris, colors, normals = export_marching_cubes(system, args)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        fwd, sigma, chords = fm.launches, fm.sigma_launches, ch.launches
+        fwd, sigma, chords = counts.launches, counts.sigma_launches, ch.launches
+        if route == "layers" and fm.launches + fm.sigma_launches:
+            raise AssertionError(f"{label}: fused launches on the layer route")
         timings = dict(LAST_TIMINGS)
         ply = read_ply_binary(str(Path(tmp) / args.mesh_name))
 
@@ -3741,6 +4114,7 @@ def main(argv=None) -> int:
     buff_random = buff_random_phase(card, device)
     t0 = time.perf_counter()
     wide = wide_phase(card, device)  # last: its wide module runs take the most memory
+    layers = layers_phase(card, device)
     wide_s = time.perf_counter() - t0
     new_legs = {f"{name} {leg}": chains[name]["legs"][leg]["seconds"]
                 for name in IMPORT_CHAINS for leg in ("import", "import_eval", "import_mesh")}
@@ -3809,8 +4183,50 @@ def main(argv=None) -> int:
             w["sigma"], {"mesh": w["mesh"]["sigma_launches"]}, shape=f"{GRID_TILE} points",
             hidden=H))
 
-    print(f"smoke total: {time.perf_counter() - t_start:.2f} s, the wide phase "
-          f"{wide_s:.2f} s of it [{card}]")
+    # The layer route's rows (layers_phase): 8x2048's shapes in the row
+    # itself, every case's in "cases"; launches on the chains' paths, and
+    # each of its kernels' in their train legs.
+    chains = layers["chains"]
+    by_path = {"fwd": {}, "bwd": {}, "sigma": {}}
+    kernel_launches = {}
+    for case, chain in chains.items():
+        by_path["fwd"][f"{case} train"] = chain["train"]["fwd_launches"]
+        by_path["bwd"][f"{case} train"] = chain["train"]["bwd_launches"]
+        if chain["render"] is not None:
+            by_path["fwd"][f"{case} render"] = chain["render"]["launches"]
+        by_path["fwd"][f"{case} mesh"] = chain["mesh"]["fwd_launches"]
+        by_path["sigma"][f"{case} mesh"] = chain["mesh"]["sigma_launches"]
+        kernel_launches[f"{case} train"] = chain["train"]["kernel_launches"]
+    cases = layers["cases"]
+    head = cases["w2048"]
+
+    def case_rows(what):
+        rows = {}
+        for case, c in cases.items():
+            got = c[what]
+            for S, row in (got.items() if what == "fwd" else [(None, got)]):
+                rows[case if S is None else f"{case} S={S}"] = {
+                    k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms") if k in row}
+        return rows
+
+    layer_rows = [
+        entry("field_layers_fwd", "field_layers.cu",
+              "nerfmeshes_tpu/ops/pallas/fused_mlp.py:387", head["fwd"][192], by_path["fwd"],
+              shape="2048x192", hidden=2048, cases=case_rows("fwd"),
+              kernel_launches=kernel_launches, legs=head["legs"].get("fwd"),
+              vs_pair=layers["vs_pair"]["fwd"]),
+        entry("field_layers_bwd", "field_layers.cu",
+              "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397", head["bwd"], by_path["bwd"],
+              shape=head["bwd"]["shape"], hidden=2048, max_rel_err=head["bwd"]["max_rel_err"],
+              cases=case_rows("bwd"), legs=head["legs"].get("bwd"),
+              vs_pair=layers["vs_pair"]["bwd"]),
+        entry("field_layers_sigma", "field_layers.cu",
+              "nerfmeshes_tpu/ops/pallas/fused_mlp.py:675", head["sigma"], by_path["sigma"],
+              shape=f"{GRID_TILE} points", hidden=2048, cases=case_rows("sigma")),
+    ]
+    print(f"smoke total: {time.perf_counter() - t_start:.2f} s, the wide phase and the "
+          f"layer route {wide_s:.2f} s of it [{card}]")
     print(json.dumps({"kernels": [
         entry("fused_mlp_fwd", "fused_mlp_fwd.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:387", kern,
               {"render": render["launches"], "train": train["fwd_launches"],
@@ -3847,6 +4263,7 @@ def main(argv=None) -> int:
               chunk_bound_ms=ckern["chunk_bound_ms"]),
         *h128_rows,
         *wide_rows,
+        *layer_rows,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

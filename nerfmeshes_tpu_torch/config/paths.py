@@ -14,6 +14,7 @@ so the JAX package's load_hparams reads a port run's config too.
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Optional
@@ -43,8 +44,18 @@ class ExperimentPaths:
 
 
 def save_hparams(cfg, paths: ExperimentPaths) -> None:
-    with open(paths.hparams_path, "w") as fh:
-        fh.write(yaml_lite.dump(flatten_dict(cfg.to_dict())))
+    """The run's flat hparams.yaml, written whole: into a file of its own
+    in the run directory, then moved over the old one (os.replace), so
+    that a reader beside it (an eval or mesh CLI on a run that resumes)
+    sees the old file or the new one, never an empty or partial one."""
+    path = Path(paths.hparams_path)
+    tmp = path.with_name(f".{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    try:
+        with open(tmp, "w") as fh:
+            fh.write(yaml_lite.dump(flatten_dict(cfg.to_dict())))
+        os.replace(tmp, path)
+    finally:
+        tmp.unlink(missing_ok=True)
 
 
 def load_hparams(log_dir) -> CfgNode:

@@ -1342,15 +1342,15 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A tensor map over a (rows, K) row-major bf16 matrix at `base`, read in
-// boxes of box_k columns (SLAB_K: 128 B swizzled; 32: 64 B) x box_rows
-// rows, zeros past K.
+// A tensor map over a (rows, K) row-major bf16 matrix at `base`, rows `ld`
+// elements apart (0: K), read in boxes of box_k columns (SLAB_K: 128 B
+// swizzled; 32: 64 B) x box_rows rows, zeros past K and past the rows.
 int encode_slab_map(CUtensorMap* map, const bf16* base, int K, int rows, int box_rows,
-                    int box_k = SLAB_K) {
+                    int box_k = SLAB_K, long long ld = 0) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {dims[0] * sizeof(bf16)};
+  const cuuint64_t strides[1] = {(cuuint64_t)(ld > 0 ? ld : K) * sizeof(bf16)};
   const cuuint32_t box[2] = {(cuuint32_t)box_k, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(base),

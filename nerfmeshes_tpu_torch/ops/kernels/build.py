@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Every `nerfmeshes_tpu_torch/csrc/*.cu` (the fused MLP forward and
-backward, the sigma-only field, the chord compaction) is compiled on
+backward, the sigma-only field, the field's layer route, the chord
+compaction) is compiled on
 first use, one nvcc
 per source, all started together, and the objects are linked into one
 shared library with a plain C interface (no PyTorch headers, so a build
@@ -65,6 +66,23 @@ SIGNATURES = {
     "nm_fused_sigma": (
         _I,
         [_P, _LL, _P, _P, _P, _I, _P, _I, _P, _P],
+    ),
+    "nm_field_layers_workspace": (
+        _I,
+        [_I, _P, _I, _P, _I, _LL, ctypes.POINTER(_LL)],
+    ),
+    "nm_field_layers": (
+        _I,
+        [_I, _P, _P, _P, _LL, _I, _P, _P, _P, _P, _I, _P, _I, _P, _LL, _LL, _P, _I, _P, _P, _P,
+         _P],
+    ),
+    "nm_field_layers_pe": (
+        _I,
+        [_P, _P, _P, _LL, _I, _P, _I, _P, _I, _P, _P, _P, _P],
+    ),
+    "nm_field_layers_product": (
+        _I,
+        [_P, _I, _P, _I, _LL, _P, _LL, _I, _I, _P, _I, _P, _P, _P, _P],
     ),
     "nm_cuda_error_string": (ctypes.c_char_p, [_I]),
 }

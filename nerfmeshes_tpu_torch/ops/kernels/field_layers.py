@@ -1,0 +1,348 @@
+"""The FlexibleNeRF field a layer at a time: the route the card takes for
+every model that supports_fused admits and the fused kernels' plans
+refuse (fused_mlp.field_route: hidden widths past 1024, more than 128 PE
+columns at 512 and 1024 wide, more than 24 bands, more than 14 layers).
+JAX runs such models through its Pallas kernels `_fwd_kernel`
+(nerfmeshes_tpu/ops/pallas/fused_mlp.py:387), `_sigma_kernel` (:675) and
+`_bwd_kernel` (:397); this module's wrappers launch their counterparts,
+csrc/field_layers.cu (CUDA C++ for sm_90a, bound through ctypes): a PE
+kernel, one product kernel launch per layer (wgmma on TMA-staged tiles,
+bias / ReLU / mask epilogues), a heads kernel, and for the backward the
+fused backward's dW leg and fixed-order reductions (csrc/dw_leg.cuh).
+
+What bounds it on an H100: each product moves its bf16 activations
+through device memory, H/2 FLOP per byte, above the card's ~295 FLOP/B
+from H ~ 600 on, so the tensor cores can still set the pace where the
+fused design's 64 x H activation tile no longer fits a block.
+
+Points go through in slabs (`slab_points`) whose workspace stays under
+LAYER_WORKSPACE_BOUND (`workspace_bytes`, a mirror of the C layout: keep
+the two alike), whatever R x S is: at 2048 wide a mesh appearance chunk
+of 65,536 x 192 points would need 51.5 GB for one activation buffer.
+
+The plain versions are fused_mlp's (`fused_mlp_plain`, `fused_sigma_plain`,
+`fused_mlp_bwd_plain`): the same packed weights and numerics. The
+wrappers here take CUDA tensors only and raise on others; fused_mlp's
+dispatch sends CPU tensors to the plain versions. `launches`,
+`sigma_launches` and `bwd_launches` count calls of the route's forward,
+sigma and backward; `kernel_launches` each of its kernels' launches in
+those calls. The PE and product kernels alone (`layers_pe_cuda`,
+`layers_product_cuda`) are for their checks, beside their plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from nerfmeshes_tpu_torch.models.layers import matmul_f32_acc
+from nerfmeshes_tpu_torch.ops.kernels import build
+from nerfmeshes_tpu_torch.ops.kernels.fused_mlp import (
+    MLPSpec,
+    PackedMLP,
+    _check_grad,
+    _check_points,
+    _check_rays,
+    _padded_pe,
+)
+
+# Calls of the route's forward, sigma and backward since the last reset
+# (callers may set them to 0), and each kernel's launches in those calls.
+launches = 0
+sigma_launches = 0
+bwd_launches = 0
+KERNELS = ("pe", "product", "heads", "dw", "reduce")
+kernel_launches = dict.fromkeys(KERNELS, 0)
+
+# The workspace a call may take: its slabs of points are planned under it.
+LAYER_WORKSPACE_BOUND = 2 << 30
+KINDS = {"fwd": 0, "sigma": 1, "bwd": 2}
+
+# csrc/field_layers.cu's constants: points per product tile (the slab's
+# step), points per heads block, the heads' cotangent rows, a PE column's
+# table entry, the dW units a weight matrix's launch aims at and its most
+# point ranges (csrc/fused_mlp_bwd.cuh:DW_RANGES).
+_ROWS = 128
+_HEAD_ROWS = 64
+_HEAD_LD = 16
+_PE_COL = 8
+_DW_UNITS = 264
+_DW_RANGES = 24
+_MAX_SLAB = 65535 * _ROWS  # the product kernel's grid rows
+
+
+def _blocks(x: int, b: int) -> int:
+    return -(-x // b)
+
+
+def _round_up(x: int, m: int) -> int:
+    return _blocks(x, m) * m
+
+
+def _job_units(m: int, n: int) -> int:
+    """dw_kernel's blocks for one point range of an m x n weight matrix."""
+    return _blocks(m, 128) * _blocks(n, 256)
+
+
+def _ranges_for(units: int) -> int:
+    return max(1, min(_DW_RANGES, _blocks(_DW_UNITS, units)))
+
+
+def dw_groups(spec: MLPSpec) -> list[tuple[int, int]]:
+    """The backward's dW launches (field_layers.cu:dw_groups): per weight
+    matrix (layer1, trunk and feat products, then dir with the heads),
+    (grads it writes, point ranges)."""
+    H, pxp, pdp = spec.hidden, spec.pxp, spec.pdp
+    ks = [k for _, k in spec.gemm_shapes()]
+    out = [(H * pxp, _ranges_for(_job_units(H, pxp)))]
+    for g in range(1, spec.num_layers + 1):
+        units = _job_units(H, H) + (_job_units(H, pxp) if ks[g] > H else 0)
+        out.append((H * ks[g], _ranges_for(units)))
+    out.append(((H // 2) * (H + pdp) + H + 3 * (H // 2),
+                _ranges_for(_job_units(H // 2, H) + _job_units(H // 2, pdp)
+                            + _job_units(_HEAD_LD, H) + _job_units(_HEAD_LD, H // 2))))
+    return out
+
+
+def workspace_bytes(spec: MLPSpec, kind: str, slab: int) -> int:
+    """Bytes of workspace a call of `kind` ("fwd", "sigma", "bwd") takes in
+    slabs of `slab` points: field_layers.cu:layers_layout, region by
+    region, each on a 256 B boundary."""
+    H, L, pxp, pdp, P = spec.hidden, spec.num_layers, spec.pxp, spec.pdp, slab
+    regions = [(pxp + pdp) * _PE_COL, P * pxp * 2]
+    if kind != "sigma":
+        regions.append(P * pdp * 2)
+    if kind == "bwd":
+        regions += [L * P * H * 2, P * H * 2, P * (H // 2) * 2, P * _HEAD_LD * 2,
+                    P * _HEAD_LD * 2, P * (H // 2) * 2, P * H * 2, P * H * 2,
+                    P // _ROWS * H * 4, P // _HEAD_ROWS * (H // 2 + 4) * 4,
+                    max(r * _round_up(c, 64) for c, r in dw_groups(spec)) * 4]
+    else:
+        regions += [P * H * 2, P * H * 2] + ([P * (H // 2) * 2] if kind == "fwd" else [])
+    return sum(_round_up(b, 256) for b in regions)
+
+
+def slab_points(spec: MLPSpec, kind: str, n_pts: int,
+                bound: int = LAYER_WORKSPACE_BOUND) -> int:
+    """Points per slab for n_pts points: all of them (rounded up to the
+    128-point tile, at most 65,535 tiles) where their workspace fits
+    `bound`, else the most whole tiles that fit (at least one)."""
+    whole = min(_round_up(max(n_pts, 1), _ROWS), _MAX_SLAB)
+    if workspace_bytes(spec, kind, whole) <= bound:
+        return whole
+    fixed = workspace_bytes(spec, kind, 0)
+    step = 1024 * _ROWS
+    per_point = (workspace_bytes(spec, kind, step) - fixed) / step
+    slab = max(_ROWS, int((bound - fixed) // per_point) // _ROWS * _ROWS)
+    while slab > _ROWS and workspace_bytes(spec, kind, slab) > bound:
+        slab -= _ROWS
+    return slab
+
+
+def _check_packed(packed: PackedMLP, device: torch.device, what: str) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"{what} needs CUDA tensors, got {device}")
+    for name, t in (("weights", packed.weights), ("biases", packed.biases)):
+        if t.device != device:
+            raise ValueError(f"packed {name} on {t.device}, inputs on {device}")
+    if packed.weights.dtype != torch.bfloat16:
+        raise ValueError(f"packed weights must be bf16, got {packed.weights.dtype}")
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _run(kind: str, packed: PackedMLP, src: torch.Tensor, dirs: torch.Tensor | None,
+         z: torch.Tensor | None, n_rays: int, samples: int, *, grad=None, out=None,
+         channels_first: bool = True, dW=None, dB=None) -> None:
+    """One call of nm_field_layers on the current stream of src's device."""
+    device = src.device
+    spec = packed.spec
+    slab = slab_points(spec, kind, n_rays * samples, LAYER_WORKSPACE_BOUND)
+    nbytes = workspace_bytes(spec, kind, slab)
+    workspace = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    counts = (ctypes.c_int * len(KERNELS))()
+    lib = build.load_library()
+    with torch.cuda.device(device):
+        rc = lib.nm_field_layers(
+            KINDS[kind], src.data_ptr(), _ptr(dirs), _ptr(z), n_rays, samples, _ptr(grad),
+            packed.weights.data_ptr(), packed.biases.data_ptr(),
+            packed.desc.ctypes.data, packed.desc.size, packed.freqs.ctypes.data,
+            packed.freqs.size, workspace.data_ptr(), nbytes, slab, _ptr(out),
+            int(channels_first), _ptr(dW), _ptr(dB), ctypes.addressof(counts),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    build.check(lib, rc, f"field_layers {kind} launch")
+    for name, n in zip(KERNELS, counts):
+        kernel_launches[name] += n
+
+
+def layers_mlp_cuda(packed: PackedMLP, origins: torch.Tensor, directions: torch.Tensor,
+                    z_vals: torch.Tensor, *, channels_first: bool = True) -> torch.Tensor:
+    """The forward on the layer route. o, d (R, 3), z (R, S) f32 on one
+    CUDA device -> (4, R, S) or (R, S, 4) f32, as fused_mlp_cuda."""
+    global launches
+    _check_rays(origins, directions, z_vals)
+    _check_packed(packed, z_vals.device, "layers_mlp_cuda")
+    R, S = z_vals.shape
+    out = torch.empty((4, R, S) if channels_first else (R, S, 4), dtype=torch.float32,
+                      device=z_vals.device)
+    if R * S == 0:
+        return out
+    _run("fwd", packed, origins.float().contiguous(), directions.float().contiguous(),
+         z_vals.float().contiguous(), R, S, out=out, channels_first=channels_first)
+    launches += 1
+    return out
+
+
+def layers_sigma_cuda(packed: PackedMLP, points: torch.Tensor) -> torch.Tensor:
+    """Sigma on the layer route: the forward's PE, trunk and alpha head
+    kernels. (N, 3) f32 on one CUDA device -> (N,) f32 raw sigma."""
+    global sigma_launches
+    _check_points(points)
+    _check_packed(packed, points.device, "layers_sigma_cuda")
+    p = points.float().contiguous()
+    out = torch.empty(p.shape[0], dtype=torch.float32, device=p.device)
+    if p.shape[0] == 0:
+        return out
+    _run("sigma", packed, p, None, None, p.shape[0], 1, out=out)
+    sigma_launches += 1
+    return out
+
+
+def layers_bwd_cuda(packed: PackedMLP, origins: torch.Tensor, directions: torch.Tensor,
+                    z_vals: torch.Tensor, grad: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward on the layer route: o, d (R, 3), z (R, S), grad
+    (4, R, S) f32 on one CUDA device -> f32 (dW, dB) in the packed layout,
+    as fused_mlp_bwd_cuda."""
+    global bwd_launches
+    _check_rays(origins, directions, z_vals)
+    _check_grad(grad, z_vals)
+    _check_packed(packed, z_vals.device, "layers_bwd_cuda")
+    R, S = z_vals.shape
+    device = z_vals.device
+    dW = torch.zeros(packed.weights.shape, dtype=torch.float32, device=device)
+    dB = torch.zeros(packed.biases.shape, dtype=torch.float32, device=device)
+    if R * S == 0:
+        return dW, dB
+    _run("bwd", packed, origins.float().contiguous(), directions.float().contiguous(),
+         z_vals.float().contiguous(), R, S, grad=grad.float().contiguous(), dW=dW, dB=dB)
+    bwd_launches += 1
+    return dW, dB
+
+
+def layers_pe_plain(packed: PackedMLP, src: torch.Tensor, directions: torch.Tensor | None = None,
+                    z_vals: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Plain version of the PE kernel: bf16 PE(xyz) (N, pxp) and PE(dir)
+    (N, pdp) of the rays (src origins, directions, z (R, S)), or PE(xyz)
+    and None of the points src (N, 3)."""
+    spec = packed.spec
+    if directions is None:
+        pts, dirs = src.float(), None
+    else:
+        R, S = z_vals.shape
+        o, d, z = src.float(), directions.float(), z_vals.float()
+        pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
+        dirs = d[:, None, :].expand(R, S, 3).reshape(-1, 3)
+    pe_x = _padded_pe(pts, spec.L_x, spec.include_x, spec.log_x, spec.pxp).to(torch.bfloat16)
+    pe_d = (None if dirs is None else
+            _padded_pe(dirs, spec.L_d, spec.include_d, spec.log_d, spec.pdp).to(torch.bfloat16))
+    return pe_x, pe_d
+
+
+def layers_pe_cuda(packed: PackedMLP, src: torch.Tensor, directions: torch.Tensor | None = None,
+                   z_vals: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The PE kernel alone (nm_field_layers_pe), as layers_pe_plain."""
+    device = src.device
+    if device.type != "cuda":
+        raise ValueError(f"layers_pe_cuda needs CUDA tensors, got {device}")
+    spec = packed.spec
+    if directions is None:
+        _check_points(src)
+        n_rays, samples = src.shape[0], 1
+    else:
+        _check_rays(src, directions, z_vals)
+        n_rays, samples = z_vals.shape
+    n = n_rays * samples
+    pe_x = torch.empty((n, spec.pxp), dtype=torch.bfloat16, device=device)
+    pe_d = (None if directions is None else
+            torch.empty((n, spec.pdp), dtype=torch.bfloat16, device=device))
+    table = torch.empty((spec.pxp + spec.pdp) * _PE_COL, dtype=torch.uint8, device=device)
+    src = src.float().contiguous()
+    dirs = None if directions is None else directions.float().contiguous()
+    z = None if z_vals is None else z_vals.float().contiguous()
+    lib = build.load_library()
+    with torch.cuda.device(device):
+        rc = lib.nm_field_layers_pe(
+            src.data_ptr(), _ptr(dirs), _ptr(z), n_rays, samples,
+            packed.desc.ctypes.data, packed.desc.size, packed.freqs.ctypes.data,
+            packed.freqs.size, table.data_ptr(), pe_x.data_ptr(), _ptr(pe_d),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    build.check(lib, rc, "field_layers PE launch")
+    return pe_x, pe_d
+
+
+def layers_product_plain(a1: torch.Tensor, a2: torch.Tensor | None, w: torch.Tensor, n: int, *,
+                         nn: bool = False, bias: torch.Tensor | None = None,
+                         relu: bool = False, mask: torch.Tensor | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the product kernel: (bf16 (m, n) epilogue([a1 |
+    a2] B + bias), f32 (ceil(m / 128), n) column sums per 128 rows of the
+    f32 values), B = w^T for w (n, K) (nn False), w[:, :n] for w (K, ldw)
+    (nn True)."""
+    a = a1 if a2 is None else torch.cat([a1, a2], dim=1)
+    k = a.shape[1]
+    b = w[:k, :n].t() if nn else w[:n, :k]
+    y = matmul_f32_acc(a, b, torch.bfloat16)
+    if bias is not None:
+        y = y + bias
+    if relu:
+        y = y.clamp_min(0.0)
+    if mask is not None:
+        y = torch.where(mask.float() > 0, y, torch.zeros_like(y))
+    m = y.shape[0]
+    rows = torch.nn.functional.pad(y, (0, 0, 0, _round_up(m, _ROWS) - m))
+    return y.to(torch.bfloat16), rows.view(-1, _ROWS, n).sum(dim=1)
+
+
+def layers_product_cuda(a1: torch.Tensor, a2: torch.Tensor | None, w: torch.Tensor, n: int, *,
+                        nn: bool = False, bias: torch.Tensor | None = None,
+                        relu: bool = False, mask: torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The product kernel alone (nm_field_layers_product), as
+    layers_product_plain, on contiguous bf16 CUDA tensors."""
+    device = a1.device
+    if device.type != "cuda":
+        raise ValueError(f"layers_product_cuda needs CUDA tensors, got {device}")
+    m, k1 = a1.shape
+    k2 = 0 if a2 is None else a2.shape[1]
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=device)
+    colsum = torch.empty((_blocks(m, _ROWS), n), dtype=torch.float32, device=device)
+    lib = build.load_library()
+    with torch.cuda.device(device):
+        rc = lib.nm_field_layers_product(
+            a1.data_ptr(), k1, _ptr(a2), k2, m, w.data_ptr(), w.shape[1], n, int(nn),
+            _ptr(bias), int(relu), _ptr(mask), out.data_ptr(), colsum.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    build.check(lib, rc, "field_layers product launch")
+    return out, colsum
+
+
+def layers_workspace_c(packed: PackedMLP, kind: str, slab: int) -> int:
+    """nm_field_layers_workspace: the C layout's bytes, which
+    workspace_bytes mirrors (its checks compare the two on the card)."""
+    lib = build.load_library()
+    nbytes = ctypes.c_longlong(0)
+    rc = lib.nm_field_layers_workspace(KINDS[kind], packed.desc.ctypes.data, packed.desc.size,
+                                       packed.freqs.ctypes.data, packed.freqs.size, slab,
+                                       ctypes.byref(nbytes))
+    build.check(lib, rc, "field_layers workspace")
+    return int(nbytes.value)
+

@@ -41,10 +41,18 @@ only as the next product's operand (the TPU kernel's numerics). The
 backward stashes activations in bf16, takes ReLU masks from the stash,
 multiplies bf16 cotangents, and sums bias grads in f32.
 
+Two routes on the card (`field_route`): the fused kernels above where
+their shared-memory plans hold the model ("fused": H = 128 to 1024,
+at most MAX_BANDS bands and MAX_LAYERS layers, a field_plan for each
+kernel), else the layer route ("layers": ops/kernels/field_layers.py,
+csrc/field_layers.cu, one product kernel launch a layer over slabs of
+points), which takes every model supports_fused admits, as JAX's Pallas
+kernels do.
+
 Dispatch: CPU tensors take `fused_mlp_plain` / `fused_mlp_bwd_plain` /
-`fused_sigma_plain`; CUDA tensors launch the kernels or raise.
-`launches`, `bwd_launches` and `sigma_launches` count kernel launches and
-nothing else.
+`fused_sigma_plain`, the plain versions of both routes; CUDA tensors
+launch the route's kernels or raise. `launches`, `bwd_launches` and
+`sigma_launches` count the fused kernels' launches and nothing else.
 
 Training: `FusedMLPTrain` takes the f32 packed weights and biases, built
 from the model's parameters by differentiable cat/pad (`pack_params`), and
@@ -60,6 +68,7 @@ columns, and the kernels read rays directly.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -77,13 +86,14 @@ launches = 0  # forward kernel
 bwd_launches = 0  # backward kernel
 sigma_launches = 0  # sigma-only kernel
 
-# What the CUDA kernels take (csrc/fused_mlp_{fwd,bwd}.cu, fused_sigma.cu):
-# a hidden width they are instantiated for (JAX's Pallas kernels take any
-# H % 128 == 0; 384 and 512 run on 64-point tiles split in N, 640 to 1024
-# on 64-point tiles split across a pair of blocks as well, see
-# csrc/fused_field.cuh), at most MAX_BANDS PE bands per encoding and
-# MAX_LAYERS trunk layers (the descriptor holds MAX_LAYERS + 2 products),
-# and a shared-memory plan (field_plan) for each of the three kernels.
+# What the fused route's kernels take (csrc/fused_mlp_{fwd,bwd}.cu,
+# fused_sigma.cu): a hidden width they are instantiated for (384 and 512
+# run on 64-point tiles split in N, 640 to 1024 on 64-point tiles split
+# across a pair of blocks as well, see csrc/fused_field.cuh), at most
+# MAX_BANDS PE bands per encoding and MAX_LAYERS trunk layers (the
+# descriptor holds MAX_LAYERS + 2 products), and a shared-memory plan
+# (field_plan) for each of the three kernels. The layer route takes the
+# rest (field_route).
 HIDDEN_SIZES = (128, 256, 384, 512, 640, 768, 896, 1024)
 MAX_BANDS = 24
 MAX_LAYERS = 14
@@ -213,23 +223,32 @@ def field_plan(spec: MLPSpec, kernel: str, smem_limit: int = SMEM_LIMIT) -> Fiel
 
 
 def supports_fused(model) -> bool:
-    """The kernels cover viewdir FlexibleNeRF models of hidden width 128
-    to 1024 in steps of 128 (HIDDEN_SIZES), 1..MAX_BANDS bands per
-    encoding and 1..MAX_LAYERS layers (lego: 8 x 256, L 10/4) whose
-    forward, sigma and backward kernels each have a shared-memory plan
-    (field_plan: at 512 and 1024 wide, at most 128 PE columns of [PE(xyz)
-    | PE(dir)]; at 896, 256). Others run through the nn.Module."""
-    if not (
+    """JAX's predicate (nerfmeshes_tpu/ops/pallas/fused_mlp.py:750-761):
+    the viewdir FlexibleNeRF models of a hidden width that is a multiple
+    of 128 with at least one PE band per encoding. The card runs each
+    through hand-written kernels, fused or a layer at a time
+    (field_route); other models run through the nn.Module."""
+    return (
         isinstance(model, FlexibleNeRFModel)
         and model.use_viewdirs
-        and model.hidden_size in HIDDEN_SIZES
-        and 1 <= model.num_encoding_fn_xyz <= MAX_BANDS
-        and 1 <= model.num_encoding_fn_dir <= MAX_BANDS
-        and 1 <= model.num_layers <= MAX_LAYERS
-    ):
-        return False
-    spec = spec_from_model(model)
-    return all(field_plan(spec, kernel) is not None for kernel in ("fwd", "sigma", "bwd"))
+        and model.hidden_size % 128 == 0
+        and model.num_encoding_fn_xyz > 0
+        and model.num_encoding_fn_dir > 0
+    )
+
+
+@functools.cache
+def field_route(spec: MLPSpec) -> str:
+    """"fused" where the fused kernels take the model (a width of
+    HIDDEN_SIZES, at most MAX_BANDS bands per encoding and MAX_LAYERS
+    layers, and a shared-memory plan for each of the forward, sigma and
+    backward kernels: at 512 and 1024 wide at most 128 PE columns of
+    [PE(xyz) | PE(dir)], at 896 288), else "layers" (csrc/field_layers.cu)."""
+    if (spec.hidden in HIDDEN_SIZES and spec.L_x <= MAX_BANDS and spec.L_d <= MAX_BANDS
+            and spec.num_layers <= MAX_LAYERS
+            and all(field_plan(spec, k) is not None for k in ("fwd", "sigma", "bwd"))):
+        return "fused"
+    return "layers"
 
 
 class PackedMLP(NamedTuple):
@@ -288,9 +307,9 @@ def _pad_cols(w: torch.Tensor, width: int) -> torch.Tensor:
 
 def pack_params(model: FlexibleNeRFModel) -> PackedMLP:
     """Pack an eligible model's nn.Linear parameters into the kernel
-    layout, in f32 and on the model's device. Built by cat/pad, so under
-    autograd the packed buffers' grads flow back to the parameters (the
-    padding columns' grads are dropped)."""
+    layout (both routes read it), in f32 and on the model's device. Built
+    by cat/pad, so under autograd the packed buffers' grads flow back to
+    the parameters (the padding columns' grads are dropped)."""
     if not supports_fused(model):
         raise ValueError("model is outside the fused kernel's bound (supports_fused)")
     spec = spec_from_model(model)
@@ -318,7 +337,9 @@ def pack_params(model: FlexibleNeRFModel) -> PackedMLP:
         + [model.fc_alpha.weight.reshape(-1), model.fc_rgb.weight.reshape(-1)]
     ).float()
     biases = torch.cat(vecs + [model.fc_alpha.bias, model.fc_rgb.bias]).float()
-    skip_mask = sum(1 << i for i in spec.skip_layers)
+    # The fused kernels' skip bits (at most MAX_LAYERS layers); the layer
+    # route reads each product's K off the offsets instead.
+    skip_mask = sum(1 << i for i in spec.skip_layers if i < 31)
     desc = np.asarray(
         [spec.num_layers, H, skip_mask, spec.L_x, spec.L_d, int(spec.include_x),
          int(spec.include_d), spec.pxp, spec.pdp, wa_off, ba_off, wr_off, br_off]
@@ -441,17 +462,25 @@ def fused_mlp_cuda(packed: PackedMLP, origins: torch.Tensor, directions: torch.T
     return out
 
 
+def _layers():
+    # The layer route's module imports this one.
+    from nerfmeshes_tpu_torch.ops.kernels import field_layers
+
+    return field_layers
+
+
 def fused_mlp_rays(packed: PackedMLP, origins: torch.Tensor, directions: torch.Tensor,
                    z_vals: torch.Tensor, *, channels_first: bool = True) -> torch.Tensor:
     """The field of the packed MLP at o + d*z: CPU tensors take the plain
-    version, CUDA tensors the kernel."""
+    version, CUDA tensors the kernels of the model's route."""
     kind = z_vals.device.type
     if kind == "cpu":
         return fused_mlp_plain(packed, origins, directions, z_vals,
                                channels_first=channels_first)
     if kind == "cuda":
-        return fused_mlp_cuda(packed, origins, directions, z_vals,
-                              channels_first=channels_first)
+        launch = (fused_mlp_cuda if field_route(packed.spec) == "fused"
+                  else _layers().layers_mlp_cuda)
+        return launch(packed, origins, directions, z_vals, channels_first=channels_first)
     raise ValueError(f"no fused MLP for {kind} tensors")
 
 
@@ -506,7 +535,7 @@ def fused_sigma_points(packed_or_model: PackedMLP | FlexibleNeRFModel,
     """Raw sigma of the field at (..., 3) points -> (...,) f32, the
     counterpart of JAX's fused_sigma_points (inference only: JAX stops the
     gradient, here no graph is built). CPU tensors take the plain version,
-    CUDA tensors the kernel."""
+    CUDA tensors the kernels of the model's route."""
     packed = (packed_or_model if isinstance(packed_or_model, PackedMLP)
               else pack_weights(packed_or_model))
     flat = points.reshape(-1, 3)
@@ -514,7 +543,9 @@ def fused_sigma_points(packed_or_model: PackedMLP | FlexibleNeRFModel,
     if kind == "cpu":
         out = fused_sigma_plain(packed, flat)
     elif kind == "cuda":
-        out = fused_sigma_cuda(packed, flat)
+        launch = (fused_sigma_cuda if field_route(packed.spec) == "fused"
+                  else _layers().layers_sigma_cuda)
+        out = launch(packed, flat)
     else:
         raise ValueError(f"no fused sigma for {kind} tensors")
     return out.reshape(points.shape[:-1])
@@ -658,20 +689,23 @@ def fused_mlp_bwd(packed: PackedMLP, origins: torch.Tensor, directions: torch.Te
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Weight and bias grads of the packed MLP's field at o + d*z for the
     cotangent `grad`: CPU tensors take the plain version, CUDA tensors the
-    kernel."""
+    kernels of the model's route."""
     kind = z_vals.device.type
     if kind == "cpu":
         return fused_mlp_bwd_plain(packed, origins, directions, z_vals, grad)
     if kind == "cuda":
-        return fused_mlp_bwd_cuda(packed, origins, directions, z_vals, grad)
+        launch = (fused_mlp_bwd_cuda if field_route(packed.spec) == "fused"
+                  else _layers().layers_bwd_cuda)
+        return launch(packed, origins, directions, z_vals, grad)
     raise ValueError(f"no fused MLP backward for {kind} tensors")
 
 
 class FusedMLPTrain(torch.autograd.Function):
-    """The training field: forward through the forward kernel, backward
-    through the backward kernel (the counterpart of JAX's custom-vjp
-    `fused_mlp_train`). Differentiable in the f32 packed weights and
-    biases only; rays get no grad (samples are detached upstream)."""
+    """The training field: forward through the forward kernels, backward
+    through the backward kernels of the model's route (the counterpart of
+    JAX's custom-vjp `fused_mlp_train`). Differentiable in the f32 packed
+    weights and biases only; rays get no grad (samples are detached
+    upstream)."""
 
     @staticmethod
     def forward(ctx, weights, biases, meta, origins, directions, z_vals):

@@ -13,6 +13,7 @@ All comparisons are exact.
 """
 
 import math
+import threading
 from pathlib import Path
 
 import pytest
@@ -212,3 +213,35 @@ def test_resolve_paths_layout_matches_jax(tmp_path):
     assert cfg.experiment.train_iters == 30
     assert t_paths.load_hparams(runs[0]).experiment.train_iters == 30
     assert j_paths.load_hparams(str(runs[0])).experiment.train_iters == 30
+
+
+def test_hparams_are_never_read_half_written(tmp_path):
+    """save_hparams replaces hparams.yaml whole: a reader looping beside a
+    few hundred saves (an eval CLI beside a run that resumes) reads the old
+    config or the new one, never an empty or partial file, and no
+    temporary file stays behind."""
+    paths = t_paths.ExperimentPaths(tmp_path).create()
+    cfgs = [get_default_cfg(), get_default_cfg()]
+    cfgs[1].experiment.randomseed = 7
+    t_paths.save_hparams(cfgs[0], paths)
+    texts = {paths.hparams_path.read_text()}
+    t_paths.save_hparams(cfgs[1], paths)
+    texts.add(paths.hparams_path.read_text())
+    assert len(texts) == 2
+    seen, done = [], threading.Event()
+
+    def read():
+        while not done.is_set():
+            seen.append(paths.hparams_path.read_text())
+
+    reader = threading.Thread(target=read)
+    reader.start()
+    try:
+        for i in range(300):
+            t_paths.save_hparams(cfgs[i % 2], paths)
+    finally:
+        done.set()
+        reader.join()
+    assert seen and all(text in texts for text in seen)
+    assert t_paths.load_hparams(tmp_path).experiment.randomseed == 7
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["checkpoints", "events", "hparams.yaml"]

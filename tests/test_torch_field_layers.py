@@ -1,0 +1,342 @@
+"""The layer route's gate, route, slab planner and plain versions on the
+CPU (nerfmeshes_tpu_torch/ops/kernels/field_layers.py,
+csrc/field_layers.cu: every model supports_fused admits that the fused
+kernels' plans refuse).
+
+- The port's supports_fused is JAX's (nerfmeshes_tpu/ops/pallas/
+  fused_mlp.py:750-761) on a grid of widths, band counts, depths and
+  viewdirs on and off.
+- field_route is "fused" exactly where the fused kernels' plans hold
+  (fm.field_plan), 412 of the 576 band pairs at 512 and at 1024 wide
+  refused among them.
+- The slab planner keeps a call's workspace under its bound at the mesh
+  appearance chunk of a 2048-wide field, and plans whole tiles.
+- The plain forward, sigma and backward, which the route's kernels are
+  held to on the card, against JAX's Pallas kernels in interpret mode
+  (fused_flexible_apply, fused_sigma_points, jax.grad through
+  fused_flexible_apply_rays) at the shapes only the layer route takes on
+  the card: 3 x 1152, 3 x 2048, 8 x 1024 at mip-NeRF's 16 position bands,
+  16 layers and 32 bands at 128 wide; 64 points each.
+
+Tolerances are those of tests/test_torch_fused_mlp.py: forward atol = rtol
+= 2e-2 (bf16 operands rounded at other points, a polynomial sine on the
+TPU side); grads worst relative error < 5e-2, or, where a ReLU mask within
+~1e-5 of zero flips between the two stacks' sines, against a float64
+truth no worse than twice JAX's fused path.
+"""
+
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerfmeshes_tpu.models import FlexibleNeRFModel as JaxFlexible
+from nerfmeshes_tpu.ops.pallas import fused_mlp as j_fused
+from nerfmeshes_tpu_torch.models import FlexibleNeRFModel
+from nerfmeshes_tpu_torch.models.transplant import state_dict_from_flax
+from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl
+from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+
+torch.set_num_threads(1)
+
+TOL = dict(atol=2e-2, rtol=2e-2)
+GRAD_BAR = 5e-2
+LEGO = dict(num_layers=8, hidden_size=256, skip_step=4, num_encoding_fn_xyz=10,
+            num_encoding_fn_dir=4)
+
+# The supports_fused grid: one case per width, each over bands, depths and
+# viewdirs.
+GATE_WIDTHS = [100, 128, 512, 1024, 1152, 1536, 2048]
+GATE_BANDS = [0, 1, 24, 25, 32]
+GATE_LAYERS = [1, 14, 16]
+
+
+@pytest.mark.parametrize("hidden", GATE_WIDTHS)
+def test_supports_fused_is_jax_predicate(hidden):
+    for lx, ld, layers, viewdirs in itertools.product(GATE_BANDS, GATE_BANDS, GATE_LAYERS,
+                                                      (True, False)):
+        kw = dict(num_layers=layers, hidden_size=hidden, skip_step=4, num_encoding_fn_xyz=lx,
+                  num_encoding_fn_dir=ld, use_viewdirs=viewdirs)
+        got = fm.supports_fused(FlexibleNeRFModel(**kw, device="meta"))
+        assert got == j_fused.supports_fused(JaxFlexible(**kw)), kw
+        assert got == (hidden % 128 == 0 and lx > 0 and ld > 0 and viewdirs), kw
+
+
+# 8-layer fields over L_x, L_d in 1..24: the band pairs whose model the
+# fused plans refuse at each width (the rest of HIDDEN_SIZES: none).
+REFUSED = {512: 412, 896: 1, 1024: 412}
+
+
+@pytest.mark.parametrize("hidden", [*fm.HIDDEN_SIZES, 1152])
+def test_route_is_fused_exactly_where_the_plans_hold(hidden):
+    refused = 0
+    for lx, ld in itertools.product(range(1, 25), repeat=2):
+        model = FlexibleNeRFModel(**dict(LEGO, hidden_size=hidden, num_encoding_fn_xyz=lx,
+                                         num_encoding_fn_dir=ld), device="meta")
+        spec = fm.spec_from_model(model)
+        plans = all(fm.field_plan(spec, k) is not None for k in ("fwd", "sigma", "bwd"))
+        fused = hidden in fm.HIDDEN_SIZES and plans
+        assert fm.field_route(spec) == ("fused" if fused else "layers"), (lx, ld)
+        refused += not fused
+    assert refused == (576 if hidden not in fm.HIDDEN_SIZES else REFUSED.get(hidden, 0))
+    # mip-NeRF's 16 position bands: refused at 512 and 1024 wide, 15 fit
+    mip = fm.spec_from_model(FlexibleNeRFModel(**dict(LEGO, hidden_size=hidden,
+                                                      num_encoding_fn_xyz=16), device="meta"))
+    assert (fm.field_route(mip) == "layers") == (hidden in (512, 1024, 1152))
+
+
+@pytest.mark.parametrize("overrides", [dict(num_layers=15), dict(num_layers=40, skip_step=3),
+                                       dict(num_encoding_fn_dir=25)],
+                         ids=["15-layers", "40-layers", "25-bands"])
+def test_route_takes_depths_and_bands_past_the_fused_limits(overrides):
+    """Past MAX_LAYERS and MAX_BANDS every width takes the layer route,
+    and the pack holds each product's K, which the route reads off the
+    offsets (40 layers: skips past the descriptor's 31 mask bits)."""
+    model = FlexibleNeRFModel(**dict(LEGO, **overrides), device="meta")
+    spec = fm.spec_from_model(model)
+    assert fm.supports_fused(model) and fm.field_route(spec) == "layers"
+    packed = fm.pack_weights(FlexibleNeRFModel(**dict(LEGO, **dict(overrides, hidden_size=128))))
+    spec = packed.spec
+    offs = packed.desc[fm._DESC_FIXED:fm._DESC_FIXED + spec.num_layers + 2].tolist()
+    ends = offs[1:] + [int(packed.desc[9])]
+    assert [(e - o) // n for o, e, (n, _) in zip(offs, ends, spec.gemm_shapes())] == \
+        [k for _, k in spec.gemm_shapes()]
+
+
+@pytest.mark.parametrize("kind", ["fwd", "sigma", "bwd"])
+@pytest.mark.parametrize("hidden,L_x", [(2048, 10), (1024, 16), (1152, 10)])
+def test_slab_planner_keeps_the_workspace_under_its_bound(kind, hidden, L_x):
+    """At the mesh appearance chunk (65,536 rays x 192 samples): the slab
+    is whole 128-point tiles, its workspace at most the bound, one more
+    tile's over it; one activation buffer of the whole chunk alone would
+    be 51.5 GB at 2048 wide. A small call takes one slab of all its
+    points."""
+    spec = fm.spec_from_model(FlexibleNeRFModel(**dict(LEGO, hidden_size=hidden,
+                                                       num_encoding_fn_xyz=L_x), device="meta"))
+    n = 65536 * 192
+    assert n * hidden * 2 / 1e9 > 25
+    slab = fl.slab_points(spec, kind, n)
+    assert slab % 128 == 0 and 128 <= slab < n
+    assert fl.workspace_bytes(spec, kind, slab) <= fl.LAYER_WORKSPACE_BOUND
+    assert fl.workspace_bytes(spec, kind, slab + 128) > fl.LAYER_WORKSPACE_BOUND
+    assert fl.slab_points(spec, kind, 1000) == 1024
+    # the planner's workspace grows with the slab, tile by tile
+    assert fl.workspace_bytes(spec, kind, 256) > fl.workspace_bytes(spec, kind, 128)
+
+
+def test_dw_groups_cover_every_weight():
+    """The backward's dW launches write every packed weight's grad once:
+    their grads add up to the pack's weights."""
+    for kw in (dict(LEGO, hidden_size=1152), dict(LEGO, num_layers=16),
+               dict(LEGO, num_encoding_fn_xyz=32)):
+        packed = fm.pack_weights(FlexibleNeRFModel(**dict(kw, hidden_size=128)))
+        assert sum(c for c, _ in fl.dw_groups(packed.spec)) == packed.weights.numel()
+        assert all(1 <= r <= 24 for _, r in fl.dw_groups(packed.spec))
+
+
+# The plain versions against JAX's Pallas kernels (interpret mode).
+ARCHS = [
+    dict(LEGO, num_layers=3, hidden_size=1152),
+    dict(LEGO, num_layers=3, hidden_size=2048),
+    dict(LEGO, hidden_size=1024, num_encoding_fn_xyz=16),
+    dict(LEGO, num_layers=16, hidden_size=128),
+    dict(LEGO, hidden_size=128, num_encoding_fn_xyz=32, num_encoding_fn_dir=32),
+]
+IDS = ["3x1152", "3x2048", "8x1024-L16", "16x128", "bands32"]
+R, S = 8, 8
+
+
+def _pair(kw, seed=0):
+    jm = JaxFlexible(**kw, dtype=jnp.bfloat16)
+    pts = jnp.zeros((2, 3), jnp.float32)
+    params = jm.init(jax.random.key(seed), pts, pts)
+    tm = FlexibleNeRFModel(**kw, compute_dtype=torch.bfloat16)
+    tm.load_state_dict(state_dict_from_flax(jax.tree_util.tree_map(np.asarray, params), kw))
+    assert j_fused.supports_fused(jm) and fm.supports_fused(tm)
+    assert fm.field_route(fm.spec_from_model(tm)) == "layers"
+    return jm, params, tm
+
+
+def _rays(rng):
+    o = rng.uniform(-1.5, 1.5, (R, 3)).astype(np.float32)
+    d = rng.standard_normal((R, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    z = np.sort(rng.uniform(0.0, 2.0, (R, S)), axis=1).astype(np.float32)
+    return o, d, z
+
+
+def _hold(got, pallas, model):
+    """The port within TOL of JAX's model, and of JAX's Pallas kernel
+    unless that kernel itself misses JAX's model by more than TOL: past
+    ~24 bands its sine (a polynomial of the phase in turns, x f / 2 pi
+    rounded to f32) and the models' (sin of x f rounded to f32) are sines
+    of two roundings of one product whose f32 spacing reaches radians (at
+    32 bands, JAX's kernel against its model: 0.074)."""
+    np.testing.assert_allclose(got, model, **TOL)
+    gap = float(np.abs(pallas - model).max())
+    if np.allclose(pallas, model, **TOL):
+        np.testing.assert_allclose(got, pallas, **TOL)
+    else:
+        print(f"JAX's Pallas kernel misses JAX's model by {gap:.4f}; the port "
+              f"{float(np.abs(got - model).max()):.4f}")
+
+
+def _worst_rel(want: dict, got: dict) -> float:
+    return max(float((got[k] - want[k]).abs().max() / (want[k].abs().max() + 1e-6))
+               for k in want)
+
+
+@pytest.mark.parametrize("kw", ARCHS, ids=IDS)
+def test_plain_forward_and_sigma_match_jax_kernels(rng, kw):
+    """The forward at 64 points and sigma at 64 grid points against JAX's
+    Pallas forward and sigma kernels and JAX's model (_hold); no kernel
+    launched on CPU tensors; the plain sigma bit for bit the plain
+    forward's channel 3."""
+    jm, params, tm = _pair(kw)
+    pts = rng.standard_normal((R * S, 3)).astype(np.float32)
+    dirs = rng.standard_normal((R * S, 3)).astype(np.float32)
+
+    def model(p, d):
+        return np.asarray(jm.apply(params, jnp.asarray(p), jnp.asarray(d)).astype(jnp.float32))
+
+    want = j_fused.fused_flexible_apply(jm, params, jnp.asarray(pts), jnp.asarray(dirs),
+                                        inference=True)
+    before = (fl.launches, fl.sigma_launches, fm.launches, fm.sigma_launches)
+    got = fm.fused_flexible_apply(tm, torch.from_numpy(pts), torch.from_numpy(dirs))
+    _hold(got.numpy(), np.asarray(want), model(pts, dirs))
+    grid = rng.uniform(-1.2, 1.2, (R * S, 3)).astype(np.float32)
+    want = j_fused.fused_sigma_points(jm, params, jnp.asarray(grid))
+    sigma = fm.fused_sigma_points(tm, torch.from_numpy(grid))
+    assert (fl.launches, fl.sigma_launches, fm.launches, fm.sigma_launches) == before
+    _hold(sigma.numpy(), np.asarray(want), model(grid, dirs)[:, 3])
+    packed = fm.pack_weights(tm)
+    zeros = torch.zeros((R * S, 3))
+    full = fm.fused_mlp_plain(packed, torch.from_numpy(grid), zeros, zeros[:, :1])
+    assert torch.equal(sigma, full[3, :, 0])
+
+
+@pytest.mark.parametrize("kw", ARCHS, ids=IDS)
+def test_plain_backward_matches_jax_kernel(rng, kw):
+    """The training Function's grads (plain forward and backward on the
+    CPU) against jax.grad through JAX's fused path, whose backward is the
+    Pallas _bwd_kernel in interpret mode: within 5e-2, or against the
+    float64 truth (the f64 flax model on the same weights and points) no
+    worse than twice JAX's fused path."""
+    jm, params, tm = _pair(kw)
+    o, d, z = _rays(rng)
+    cot = rng.standard_normal((4, R, S)).astype(np.float32)
+
+    def loss(p):
+        out = j_fused.fused_flexible_apply_rays(jm, p, jnp.asarray(o), jnp.asarray(d),
+                                                jnp.asarray(z), inference=False)
+        return jnp.sum(out * jnp.asarray(cot))
+
+    g = jax.grad(loss)(params)
+    want = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, g), kw)
+    before = (fl.launches, fl.bwd_launches, fm.launches, fm.bwd_launches)
+    out = fm.fused_flexible_apply_rays(tm, *(torch.from_numpy(a) for a in (o, d, z)))
+    (out * torch.from_numpy(cot)).sum().backward()
+    assert (fl.launches, fl.bwd_launches, fm.launches, fm.bwd_launches) == before
+    got = {k: p.grad for k, p in tm.named_parameters()}
+    assert set(got) == set(want)
+    worst = _worst_rel(want, got)
+    if worst < GRAD_BAR:
+        return
+    m64 = JaxFlexible(**kw, dtype=jnp.float64)
+    pts = (o[:, None] + d[:, None] * z[..., None]).reshape(-1, 3)
+    dirs = np.repeat(d, S, axis=0)
+    with jax.enable_x64(True):
+        p64 = jax.tree_util.tree_map(lambda x: jnp.asarray(np.asarray(x), jnp.float64), params)
+        cot64 = jnp.asarray(cot.reshape(4, -1).T, jnp.float64)
+        g64 = jax.grad(lambda q: jnp.sum(m64.apply(q, jnp.asarray(pts, jnp.float64),
+                                                   jnp.asarray(dirs, jnp.float64)) * cot64))(p64)
+        g64 = jax.tree_util.tree_map(lambda x: np.asarray(x, np.float64), g64)
+    truth = {k: v.double() for k, v in state_dict_from_flax(g64, kw).items()}
+    err_jax = _worst_rel(truth, {k: v.double() for k, v in want.items()})
+    err_port = _worst_rel(truth, {k: v.double() for k, v in got.items()})
+    assert err_port < max(2.0 * err_jax, GRAD_BAR), (
+        f"port grads ({err_port:.4f} vs f64; {worst:.4f} vs JAX) worse than JAX's fused path "
+        f"({err_jax:.4f})")
+
+
+def test_pe_plain_is_the_plain_forward_s_pe(rng):
+    """The PE kernel's plain version is the PE the plain forward feeds its
+    first product (rounded to bf16), at rays and at points."""
+    packed = fm.pack_weights(FlexibleNeRFModel(**ARCHS[4]))
+    o, d, z = (torch.from_numpy(a) for a in _rays(rng))
+    pe_x, pe_d = fl.layers_pe_plain(packed, o, d, z)
+    spec = packed.spec
+    assert pe_x.shape == (R * S, spec.pxp) and pe_d.shape == (R * S, spec.pdp)
+    pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
+    assert torch.equal(fl.layers_pe_plain(packed, pts)[0], pe_x)
+    assert torch.equal(pe_x, fm._padded_pe(pts, spec.L_x, spec.include_x, spec.log_x,
+                                           spec.pxp).to(torch.bfloat16))
+
+
+def test_product_plain_and_wrappers_refuse_cpu_tensors(rng):
+    """The product kernel's plain version: [a1 | a2] W^T + bias with ReLU,
+    or A W's first n columns under a mask, and its column sums per 128
+    rows; the CUDA wrappers raise on CPU tensors rather than fall back."""
+    a1 = torch.from_numpy(rng.standard_normal((200, 64)).astype(np.float32)).bfloat16()
+    a2 = torch.from_numpy(rng.standard_normal((200, 16)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(rng.standard_normal((64, 80)).astype(np.float32)).bfloat16()
+    bias = torch.from_numpy(rng.standard_normal(64).astype(np.float32))
+    y, cs = fl.layers_product_plain(a1, a2, w, 64, bias=bias, relu=True)
+    ref = torch.cat([a1, a2], 1).float() @ w.float().t() + bias
+    torch.testing.assert_close(y.float(), ref.clamp_min(0).bfloat16().float())
+    torch.testing.assert_close(cs, torch.stack([ref.clamp_min(0)[:128].sum(0),
+                                                ref.clamp_min(0)[128:].sum(0)]))
+    wt = torch.from_numpy(rng.standard_normal((64, 96)).astype(np.float32)).bfloat16()
+    mask = a1.clone()
+    y, _ = fl.layers_product_plain(a1, None, wt, 64, nn=True, mask=mask)
+    ref = a1.float() @ wt.float()[:, :64]
+    torch.testing.assert_close(y.float(), torch.where(mask > 0, ref, 0.0).bfloat16().float())
+    packed = fm.pack_weights(FlexibleNeRFModel(**ARCHS[3]))
+    o, d, z = (torch.from_numpy(a) for a in _rays(rng))
+    for call in (lambda: fl.layers_mlp_cuda(packed, o, d, z),
+                 lambda: fl.layers_sigma_cuda(packed, o),
+                 lambda: fl.layers_bwd_cuda(packed, o, d, z, torch.zeros((4, R, S))),
+                 lambda: fl.layers_pe_cuda(packed, o, d, z),
+                 lambda: fl.layers_product_cuda(a1, a2, w, 64)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_chip_smoke_cases_take_the_layer_route():
+    """chip_smoke.py's layer-route cases (hard-blender.yml's fields changed
+    as LAYER_CASES says) are models the fused plans refuse and JAX's Pallas
+    kernels take, both fields; its chains are among them; every kernel
+    name it groups a trace by is a __global__ of csrc/."""
+    import re
+    from pathlib import Path
+
+    from nerfmeshes_tpu_torch.models import build_model
+
+    smoke = _chip_smoke()
+    assert set(smoke.LAYER_CHAINS) <= set(smoke.LAYER_CASES)
+    for case in smoke.LAYER_CASES:
+        cfg = smoke.layer_cfg(case)
+        for node, kind in ((cfg.models.coarse, cfg.models.coarse_type),
+                           (cfg.models.fine, cfg.models.fine_type)):
+            model = build_model(kind, dict(node), device="meta")
+            assert fm.supports_fused(model), case
+            assert fm.field_route(fm.spec_from_model(model)) == "layers", case
+    csrc = Path(fm.__file__).resolve().parents[2] / "csrc"
+    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
+    defined = {name for src in csrc.glob("*.cu*") for name in pattern.findall(src.read_text())}
+    names = {k for keys in smoke.LAYER_KERNELS.values() for k in keys}
+    assert names <= defined, sorted(names - defined)

@@ -140,16 +140,23 @@ def test_supports_fused_bound():
     # 384 to 1024 are admitted: JAX's Pallas kernels take any H % 128 == 0.
     for hidden in (384, 512, 640, 768, 896, 1024):
         assert fm.supports_fused(FlexibleNeRFModel(**dict(lego, hidden_size=hidden)))
-    # Past 1024 JAX's kernels still run; the port's have no instantiation.
-    for bad in (dict(hidden_size=1152), dict(hidden_size=100),
-                dict(use_viewdirs=False), dict(num_encoding_fn_xyz=0),
-                dict(num_encoding_fn_dir=0), dict(num_encoding_fn_xyz=fm.MAX_BANDS + 1),
-                dict(num_layers=fm.MAX_LAYERS + 1)):
+    # Past 1024 wide, 24 bands and 14 layers JAX's kernels still run; the
+    # fused kernels have no instantiation there, so the layer route takes
+    # them, on the same packing.
+    for past in (dict(hidden_size=1152), dict(num_encoding_fn_xyz=fm.MAX_BANDS + 1),
+                 dict(num_layers=fm.MAX_LAYERS + 1)):
+        model = FlexibleNeRFModel(**dict(lego, **past))
+        assert fm.supports_fused(model), past
+        assert fm.field_route(fm.spec_from_model(model)) == "layers", past
+        assert fm.pack_weights(model).spec == fm.spec_from_model(model)
+    for bad in (dict(hidden_size=100), dict(use_viewdirs=False),
+                dict(num_encoding_fn_xyz=0), dict(num_encoding_fn_dir=0)):
         model = FlexibleNeRFModel(**dict(lego, **bad))
         assert not fm.supports_fused(model), bad
         with pytest.raises(ValueError):
             fm.pack_weights(model)
-    assert fm.supports_fused(FlexibleNeRFModel(**dict(lego, num_layers=fm.MAX_LAYERS)))
+    edge = FlexibleNeRFModel(**dict(lego, num_layers=fm.MAX_LAYERS))
+    assert fm.supports_fused(edge) and fm.field_route(fm.spec_from_model(edge)) == "fused"
     assert not fm.supports_fused(torch.nn.Linear(3, 4))
 
 
@@ -299,8 +306,9 @@ def test_backward_dispatch_never_falls_back(rng):
 # The supports_fused grid: every hidden width, the fewest and most layers
 # and bands, skips on and off, include-input on and off. At 512, 896 and
 # 1024 wide the most bands (PE 320 columns; 288 without the raw inputs at
-# 512 and 1024) are refused: no shared-memory plan holds them. PE_LIMIT:
-# the most PE columns of the grid's models that the plans hold there.
+# 512 and 1024) take the layer route: no shared-memory plan holds them.
+# PE_LIMIT: the most PE columns of the grid's models that the plans hold
+# there.
 PE_LIMIT = {512: 128, 896: 288, 1024: 128}
 PACK_GRID = [
     dict(hidden_size=h, num_layers=n, skip_step=s, num_encoding_fn_xyz=lx,
@@ -318,17 +326,16 @@ def test_packing_feeds_the_asynchronous_copies(kw):
     heads need of pack_weights: every product's matrix starts on a 16-byte
     boundary of the bf16 buffer and its rows are a multiple of 16 bytes
     long; the alpha and rgb rows start on 16-byte boundaries; every bias
-    vector starts on an even f32 index (read two at a time). A model the
-    gate refuses (no plan holds one of its kernels) is never packed."""
+    vector starts on an even f32 index (read two at a time). A model whose
+    kernels no plan holds takes the layer route, which reads the same
+    packing (its product kernel's TMA copies too)."""
     model = FlexibleNeRFModel(**kw, compute_dtype=torch.bfloat16)
-    if not fm.supports_fused(model):
+    assert fm.supports_fused(model)
+    if fm.field_route(fm.spec_from_model(model)) == "layers":
         spec = fm.spec_from_model(model)
         hidden = kw["hidden_size"]
         assert hidden in PE_LIMIT and spec.pxp + spec.pdp > PE_LIMIT[hidden]
         assert any(fm.field_plan(spec, k) is None for k in ("fwd", "sigma", "bwd"))
-        with pytest.raises(ValueError, match="supports_fused"):
-            fm.pack_weights(model)
-        return
     packed = fm.pack_weights(model)
     spec, desc = packed.spec, packed.desc
     n_gemms = spec.num_layers + 2
@@ -356,20 +363,22 @@ W512_EDGE = dict(hidden_size=512, num_layers=fm.MAX_LAYERS, skip_step=3, num_enc
                                      num_encoding_fn_dir=fm.MAX_BANDS)],
                          ids=lambda kw: "-".join(map(str, kw.values())))
 def test_gate_admits_only_what_the_plans_hold(kw):
-    """supports_fused against the mirror of the kernels' shared-memory plan
-    (fm.field_plan, csrc/fused_field.cuh:field_layout): an admitted model
-    has a plan of at least 2 ring stages for each of its kernels, within
-    the card's limit; 512, 896 and 1024 wide with the most layers and bands
-    are refused."""
+    """field_route against the mirror of the kernels' shared-memory plan
+    (fm.field_plan, csrc/fused_field.cuh:field_layout): a model on the
+    fused route has a plan of at least 2 ring stages for each of its
+    kernels, within the card's limit; 512, 896 and 1024 wide with the most
+    layers and bands take the layer route. supports_fused admits all."""
     model = FlexibleNeRFModel(**kw)
     spec = fm.spec_from_model(model)
     plans = {k: fm.field_plan(spec, k) for k in ("fwd", "sigma", "bwd")}
     hidden = kw["hidden_size"]
+    assert fm.supports_fused(model)
     if hidden not in PE_LIMIT:  # every layer and band count fits at these widths
-        assert fm.supports_fused(model)
+        assert fm.field_route(spec) == "fused"
     elif spec.pxp + spec.pdp > PE_LIMIT[hidden]:
-        assert not fm.supports_fused(model) and plans["fwd"] is None and plans["bwd"] is None
-    if fm.supports_fused(model):
+        assert (fm.field_route(spec) == "layers" and plans["fwd"] is None
+                and plans["bwd"] is None)
+    if fm.field_route(spec) == "fused":
         for kernel, plan in plans.items():
             assert plan is not None and 2 <= plan.stages <= 8, kernel
             assert plan.pe_slots in (1, 2) and plan.bytes <= fm.SMEM_LIMIT, kernel

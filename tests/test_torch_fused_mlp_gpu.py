@@ -39,6 +39,7 @@ import torch
 from nerfmeshes_tpu_torch.models import FlexibleNeRFModel
 from nerfmeshes_tpu_torch.ops.encoding import frequency_bands
 from nerfmeshes_tpu_torch.ops.kernels import build
+from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl
 from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
 
 pytestmark = pytest.mark.gpu
@@ -556,11 +557,12 @@ PLAN_EDGE = [(512, 15, 4), (512, 15, 5), (512, 24, 4), (512, 24, 24), (384, 24, 
 
 @pytest.mark.parametrize("hidden,L_x,L_d", PLAN_EDGE)
 def test_launches_refuse_exactly_what_the_plan_refuses(cuda, hidden, L_x, L_d):
-    """The gate's mirror of the shared-memory plan (fm.field_plan) against
-    the launches themselves: each of the three kernels runs (and matches
-    its plain version) where the mirror has a plan, and is refused without
-    a launch where it has none; supports_fused admits the architecture
-    only where all three run."""
+    """The route's mirror of the shared-memory plan (fm.field_plan) against
+    the launches themselves: each of the three fused kernels runs (and
+    matches its plain version) where the mirror has a plan, and is refused
+    without a launch where it has none; field_route sends the architecture
+    to the fused kernels only where all three run (supports_fused admits
+    it either way)."""
     packed = _pack_with_skips(hidden, fm.MAX_LAYERS, (4, 8), cuda, L_x=L_x, L_d=L_d)
     spec = packed.spec
     R, S = WIDE_BWD_SHAPES[-1]
@@ -578,7 +580,9 @@ def test_launches_refuse_exactly_what_the_plan_refuses(cuda, hidden, L_x, L_d):
     }
     model = FlexibleNeRFModel(num_layers=fm.MAX_LAYERS, hidden_size=hidden,
                               num_encoding_fn_xyz=L_x, num_encoding_fn_dir=L_d)
-    assert fm.supports_fused(model) == all(fm.field_plan(spec, k) is not None for k in cases)
+    assert fm.supports_fused(model)
+    fused = all(fm.field_plan(spec, k) is not None for k in cases)
+    assert fm.field_route(fm.spec_from_model(model)) == ("fused" if fused else "layers")
     for kernel, (run, plain, counter) in cases.items():
         before = getattr(fm, counter)
         if fm.field_plan(spec, kernel) is None:
@@ -661,3 +665,253 @@ def test_backward_keeps_its_bias_grad_bits(field_digests):
     """The bias grads come from the tile kernel and the reductions alone:
     they stay bit for bit what they were when the dW leg changed."""
     assert field_digests["bwd_dB"] == BWD_DB_DIGEST
+
+
+# ---- the layer route (csrc/field_layers.cu): every model supports_fused
+# admits that the fused plans refuse. The chip smoke's shapes scaled down:
+# 8 layers at 1024 wide with mip-NeRF's 16 position bands, past 1024
+# (1152, 2048), 16 layers, 32 bands; and a deep narrow field without the
+# raw inputs. Tolerances as above; where plain against plain already
+# misses the grad bar by rounding noise, the float64 truth decides
+# (_hold_layer_grads).
+LAYER_ARCHS = [
+    dict(LEGO, hidden_size=1024, num_encoding_fn_xyz=16),
+    dict(LEGO, hidden_size=1152),
+    dict(LEGO, hidden_size=2048),
+    dict(LEGO, num_layers=16),
+    dict(LEGO, num_encoding_fn_xyz=32),
+    dict(num_layers=16, hidden_size=128, skip_step=3, num_encoding_fn_xyz=25,
+         num_encoding_fn_dir=25, include_input_xyz=False, include_input_dir=False),
+]
+LAYER_IDS = ["w1024-L16", "w1152", "w2048", "deep16", "bands32", "narrow"]
+
+
+def _layer_model(kw, device, seed=0):
+    torch.manual_seed(seed)
+    model = FlexibleNeRFModel(**kw, compute_dtype=torch.bfloat16, device=device)
+    packed = fm.pack_weights(model)
+    assert fm.supports_fused(model) and fm.field_route(packed.spec) == "layers"
+    return packed
+
+
+def _hold_layer_grads(packed, args, got, want):
+    """The layer route's grads against plain's: worst relative error under
+    GRAD_BAR, or, where the two miss it, against a float64 truth no worse
+    than twice the plain version (as _hold_grads' deepest packs)."""
+    worst = _worst_rel(packed, got, want)
+    if worst < GRAD_BAR:
+        return
+    truth = _truth_grads(packed, *args)
+    err_kernel, err_plain = _worst_rel(packed, got, truth), _worst_rel(packed, want, truth)
+    assert err_kernel < max(2.0 * err_plain, GRAD_BAR), (
+        f"worst grad rel err {worst} vs plain; vs float64 {err_kernel} (plain {err_plain})")
+
+
+# (m, k1, k2, n, nn): a trunk product, a skip ([x | PE]), dir's narrow N
+# with its PE part, ragged rows, the dX chain's untransposed weights
+PRODUCTS = [(256, 256, 0, 256, False), (300, 256, 80, 256, False), (129, 1152, 32, 576, False),
+            (1, 64, 0, 64, False), (4097, 208, 0, 1024, False), (300, 256, 0, 512, True),
+            (129, 576, 0, 1152, True), (1000, 128, 0, 2048, True)]
+
+
+@pytest.mark.parametrize("m,k1,k2,n,nn", PRODUCTS)
+def test_layer_product_matches_plain(cuda, m, k1, k2, n, nn):
+    """The product kernel alone against its plain version: bf16 outputs
+    within 1e-2 of each other's magnitude (the sums' order differs, so a
+    bf16 rounding may fall the other way), column sums within 1e-4 of the
+    sum of magnitudes; with bias and ReLU, and with the backward's mask."""
+    g = torch.Generator(cuda).manual_seed(m + n)
+    a1 = torch.randn((m, k1), generator=g, device=cuda).to(torch.bfloat16)
+    a2 = None if k2 == 0 else torch.randn((m, k2), generator=g, device=cuda).to(torch.bfloat16)
+    k = k1 + k2
+    w = (torch.randn((k, n + 64) if nn else (n, k), generator=g, device=cuda) / k ** 0.5
+         ).to(torch.bfloat16)
+    bias = None if nn else torch.randn(n, generator=g, device=cuda)
+    mask = (torch.randn((m, n), generator=g, device=cuda).to(torch.bfloat16) if nn else None)
+    kw = dict(nn=nn, bias=bias, relu=not nn, mask=mask)
+    got, got_cs = fl.layers_product_cuda(a1, a2, w, n, **kw)
+    torch.cuda.synchronize()
+    want, want_cs = fl.layers_product_plain(a1, a2, w, n, **kw)
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= 1e-2 * want.float().abs() + 1e-2 * float(want.float().abs().max())).all())
+    mag = fl.layers_product_plain(a1.abs(), None if a2 is None else a2.abs(), w.abs(), n,
+                                  nn=nn)[1]
+    assert bool(((got_cs - want_cs).abs() <= 1e-4 * mag + 1e-2).all())
+
+
+@pytest.mark.parametrize("kw", LAYER_ARCHS, ids=LAYER_IDS)
+@pytest.mark.parametrize("R,S", [(256, 16), (37, 5)])
+def test_layer_route_matches_plain(cuda, kw, R, S):
+    """Forward, sigma and backward on the layer route against the plain
+    versions; sigma bit for bit the forward's channel 3; two backward
+    calls bit for bit equal; one route call each, counted, and no launch
+    of the fused kernels."""
+    packed = _layer_model(kw, cuda)
+    o, d, z = _rays(R, S, cuda)
+    before = (fm.launches, fm.sigma_launches, fm.bwd_launches)
+    counts = (fl.launches, fl.sigma_launches, fl.bwd_launches)
+    got = fm.fused_mlp_rays(packed, o, d, z)
+    pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
+    sigma = fm.fused_sigma_points(packed, pts)
+    zeros = torch.zeros_like(pts)
+    full = fl.layers_mlp_cuda(packed, pts, zeros, zeros[:, :1])
+    cot = torch.from_numpy(np.random.default_rng(1).standard_normal((4, R, S))
+                           .astype(np.float32)).to(cuda)
+    grads = fm.fused_mlp_bwd(packed, o, d, z, cot)
+    again = fl.layers_bwd_cuda(packed, o, d, z, cot)
+    torch.cuda.synchronize()
+    assert (fm.launches, fm.sigma_launches, fm.bwd_launches) == before
+    assert (fl.launches, fl.sigma_launches, fl.bwd_launches) == (
+        counts[0] + 2, counts[1] + 1, counts[2] + 2)
+    torch.testing.assert_close(got, fm.fused_mlp_plain(packed, o, d, z), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(sigma, fm.fused_sigma_plain(packed, pts), atol=2e-2, rtol=2e-2)
+    assert torch.equal(sigma, full[3, :, 0])
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    _hold_layer_grads(packed, (o, d, z, cot), grads,
+                      fm.fused_mlp_bwd_plain(packed, o, d, z, cot))
+
+
+@pytest.mark.parametrize("kw", [LAYER_ARCHS[1], LAYER_ARCHS[3]], ids=["w1152", "deep16"])
+def test_layer_route_in_slabs(cuda, kw, monkeypatch):
+    """A workspace bound that holds 384 points at a time: 4097 points go
+    through in 11 slabs, the last one 257 short; each slab's grads added
+    to the running ones. Against plain as above."""
+    packed = _layer_model(kw, cuda, seed=2)
+    o, d, z = _rays(4097, 1, cuda, seed=2)
+    cot = torch.from_numpy(np.random.default_rng(3).standard_normal((4, 4097, 1))
+                           .astype(np.float32)).to(cuda)
+    for kind in ("fwd", "sigma", "bwd"):
+        assert fl.slab_points(packed.spec, kind, 4097,
+                              fl.workspace_bytes(packed.spec, kind, 384)) == 384
+    launched = fl.kernel_launches["pe"]
+    calls = {"fwd": lambda: fl.layers_mlp_cuda(packed, o, d, z),
+             "sigma": lambda: fl.layers_sigma_cuda(packed, o),
+             "bwd": lambda: fl.layers_bwd_cuda(packed, o, d, z, cot)}
+    out = {}
+    for kind, call in calls.items():
+        monkeypatch.setattr(fl, "LAYER_WORKSPACE_BOUND",
+                            fl.workspace_bytes(packed.spec, kind, 384))
+        out[kind] = call()
+    torch.cuda.synchronize()
+    assert fl.kernel_launches["pe"] - launched == 3 * 11  # a PE launch a slab
+    got, sigma, grads = out["fwd"], out["sigma"], out["bwd"]
+    torch.testing.assert_close(got, fm.fused_mlp_plain(packed, o, d, z), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(sigma, fm.fused_sigma_plain(packed, o), atol=2e-2, rtol=2e-2)
+    _hold_layer_grads(packed, (o, d, z, cot), grads,
+                      fm.fused_mlp_bwd_plain(packed, o, d, z, cot))
+
+
+def test_layer_pe_is_the_fused_pe(cuda):
+    """On a model both routes could take (lego, 1000 x 7 rays), the layer
+    route's PE kernel gives bit for bit the PE the fused backward's tile
+    kernel builds for its first product (and stashes: the first
+    pxp + pdp columns of each of the workspace's first rows); at points,
+    the fused sigma kernel's PE(xyz) alike."""
+    packed, args = _grad_case(LEGO, 1000, 7, cuda, seed=4)
+    spec = packed.spec
+    lib = build.load_library()
+    nbytes = ctypes.c_longlong(0)
+    rc = lib.nm_fused_mlp_bwd_workspace(packed.desc.ctypes.data, packed.desc.size,
+                                        packed.freqs.ctypes.data, packed.freqs.size, 7000,
+                                        ctypes.byref(nbytes))
+    build.check(lib, rc, "fused_mlp_bwd workspace")
+    workspace = torch.zeros(nbytes.value, dtype=torch.uint8, device=cuda)
+    _bwd_into(packed, args, workspace)
+    cols = spec.pxp + spec.pdp
+    stash = workspace[:7000 * cols * 2].view(torch.bfloat16).view(7000, cols)
+    pe_x, pe_d = fl.layers_pe_cuda(packed, *args[:3])
+    torch.cuda.synchronize()
+    assert torch.equal(pe_x, stash[:, :spec.pxp]) and torch.equal(pe_d, stash[:, spec.pxp:])
+    want_x, want_d = fl.layers_pe_plain(packed, *args[:3])
+    torch.testing.assert_close(pe_x.float(), want_x.float(), atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(pe_d.float(), want_d.float(), atol=1e-2, rtol=1e-2)
+    # at points (the sigma kernel's input), PE(xyz) of the rays' points
+    pts = args[0][:, None, :] + args[1][:, None, :] * args[2][..., None]
+    zeros = torch.zeros((7000, 3), device=cuda)
+    at_points = fl.layers_pe_cuda(packed, pts.reshape(-1, 3))[0]
+    assert torch.equal(at_points, fl.layers_pe_cuda(packed, pts.reshape(-1, 3), zeros,
+                                                    zeros[:, :1])[0])
+
+
+@pytest.mark.parametrize("kw", LAYER_ARCHS, ids=LAYER_IDS)
+def test_layer_workspace_is_the_c_layout(cuda, kw):
+    """workspace_bytes (which plans the slabs) equals the C layout's bytes
+    for each kind at a few slabs."""
+    packed = _layer_model(kw, cuda)
+    for kind in ("fwd", "sigma", "bwd"):
+        for slab in (128, 384, 65536):
+            assert fl.workspace_bytes(packed.spec, kind, slab) == \
+                fl.layers_workspace_c(packed, kind, slab), (kind, slab)
+
+
+def test_layer_route_writes_every_row_it_reads(cuda):
+    """A workspace full of NaN, two slabs, the second ragged: every region
+    the route reads (activations, cotangents, partials) is written first."""
+    packed = _layer_model(LAYER_ARCHS[1], cuda, seed=6)
+    o, d, z = _rays(300, 1, cuda, seed=6)
+    cot = torch.from_numpy(np.random.default_rng(7).standard_normal((4, 300, 1))
+                           .astype(np.float32)).to(cuda)
+    lib = build.load_library()
+    out = torch.empty((4, 300, 1), device=cuda)
+    dW = torch.zeros(packed.weights.shape, device=cuda)
+    dB = torch.zeros(packed.biases.shape, device=cuda)
+    counts = (ctypes.c_int * len(fl.KERNELS))()
+    for kind in ("fwd", "bwd"):
+        nbytes = fl.workspace_bytes(packed.spec, kind, 256)
+        workspace = torch.full((nbytes // 4,), float("nan"), device=cuda).view(torch.uint8)
+        rc = lib.nm_field_layers(
+            fl.KINDS[kind], o.data_ptr(), d.data_ptr(), z.data_ptr(), 300, 1, cot.data_ptr(),
+            packed.weights.data_ptr(), packed.biases.data_ptr(), packed.desc.ctypes.data,
+            packed.desc.size, packed.freqs.ctypes.data, packed.freqs.size,
+            workspace.data_ptr(), nbytes, 256, out.data_ptr(), 1, dW.data_ptr(), dB.data_ptr(),
+            ctypes.addressof(counts), torch.cuda.current_stream().cuda_stream)
+        build.check(lib, rc, f"field_layers {kind}")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(dW).all())
+    assert bool(torch.isfinite(dB).all())
+    torch.testing.assert_close(out, fm.fused_mlp_plain(packed, o, d, z), atol=2e-2, rtol=2e-2)
+    _hold_layer_grads(packed, (o, d, z, cot), (dW, dB),
+                      fm.fused_mlp_bwd_plain(packed, o, d, z, cot))
+
+
+def test_training_function_takes_the_layer_route(cuda):
+    """fused_flexible_apply_rays on a 1152-wide model: the forward and
+    backward of the training Function launch the layer route's kernels,
+    never the fused ones, and its grads reach the parameters."""
+    torch.manual_seed(0)
+    model = FlexibleNeRFModel(**LAYER_ARCHS[1], compute_dtype=torch.bfloat16, device=cuda)
+    o, d, z = _rays(64, 8, cuda)
+    before = (fm.launches, fm.bwd_launches, fl.launches, fl.bwd_launches)
+    fm.fused_flexible_apply_rays(model, o, d, z).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (fm.launches, fm.bwd_launches, fl.launches, fl.bwd_launches) == (
+        before[0], before[1], before[2] + 1, before[3] + 1)
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in model.parameters())
+
+
+def test_layer_route_points_entry_and_empty_input(cuda):
+    """fused_flexible_apply (points, channels-last (N, 4) output) on a
+    1152-wide model takes the layer route and matches the plain version;
+    no points launch nothing."""
+    torch.manual_seed(0)
+    model = FlexibleNeRFModel(**LAYER_ARCHS[1], compute_dtype=torch.bfloat16, device=cuda)
+    g = torch.Generator(cuda).manual_seed(9)
+    pts = torch.rand((37, 5, 3), generator=g, device=cuda) * 2 - 1
+    dirs = torch.nn.functional.normalize(torch.randn((37, 3), generator=g, device=cuda), dim=-1)
+    before = fl.launches
+    got = fm.fused_flexible_apply(model, pts, dirs)
+    torch.cuda.synchronize()
+    assert fl.launches == before + 1 and got.shape == (37, 5, 4)
+    packed = fm.pack_weights(model)
+    flat = pts.reshape(-1, 3)
+    zeros = torch.zeros((flat.shape[0], 1), device=cuda)
+    want = fm.fused_mlp_plain(packed, flat, dirs[:, None, :].expand(37, 5, 3).reshape(-1, 3),
+                              zeros, channels_first=False)
+    torch.testing.assert_close(got.reshape(-1, 4), want.reshape(-1, 4), atol=2e-2, rtol=2e-2)
+    empty = torch.zeros((0, 3), device=cuda)
+    assert fl.layers_mlp_cuda(packed, empty, empty, torch.zeros((0, 4), device=cuda)).shape == \
+        (4, 0, 4)
+    assert fl.layers_sigma_cuda(packed, empty).shape == (0,)
+    assert fl.launches == before + 1
