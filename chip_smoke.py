@@ -1004,6 +1004,81 @@ LAYER_KERNELS = {"pe": ("layer_pe_kernel",), "product": ("layer_product_kernel",
                  "reduce": ("reduce_rows_kernel",)}
 
 
+# The product kernel's timed shapes, (points M, K, N): an 8x1024 product
+# at 2048 x 192 points, an 8x2048 backward slab (42,240 points), and a
+# 256-wide product at 2048 x 192 points.
+PRODUCT_SHAPES = ((393216, 1024, 1024), (42240, 2048, 2048), (393216, 256, 256))
+
+
+def product_operands(M: int, K: int, N: int, nn: bool, device):
+    """Seeded operands of one product, ((a1, None, w, N), keywords of
+    fl.layers_product_cuda): as the forward runs it (nn False: bias, ReLU)
+    or as the backward's dX chain does (nn True: the mask and the column
+    sums)."""
+    g = torch.Generator(device).manual_seed(SEED + M + K + N)
+    a = torch.randn((M, K), generator=g, device=device).to(torch.bfloat16)
+    w = (torch.randn((K, N) if nn else (N, K), generator=g, device=device) / K ** 0.5
+         ).to(torch.bfloat16)
+    bias = None if nn else torch.randn(N, generator=g, device=device)
+    mask = torch.randn((M, N), generator=g, device=device).to(torch.bfloat16) if nn else None
+    return (a, None, w, N), dict(nn=nn, bias=bias, relu=not nn, mask=mask, colsum=nn)
+
+
+def _product_bound(M: int, K: int, N: int, nn: bool) -> tuple[float, str]:
+    """The least time of one product: 2 M K N bf16 operations, or its bytes
+    read and written once (A, W, the output; the bias, or the mask and the
+    column sums)."""
+    nbytes = 2 * (M * K + K * N + M * N) + (2 * M * N + -(-M // 128) * N * 4 if nn else 4 * N)
+    return _bound_ms(2 * M * K * N, nbytes, PEAK_BF16)
+
+
+def product_phase(card: str, device) -> dict:
+    """The layer route's product kernel alone (fl.layers_product_cuda) at
+    PRODUCT_SHAPES, NN 0 and NN 1 (product_operands): against its plain
+    version (bf16 outputs within 1e-2 of their magnitude plus 1e-2 of the
+    largest, column sums within 1e-4 of the sum of magnitudes: the GPU
+    tests' bars), timed (CUDA events, median of 7) beside its bound and one
+    bf16 torch.mm of the same product (cuBLAS, f32 sums, bf16 out; never
+    called by the port); the plain version's median of 3."""
+    from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl
+
+    rows = {}
+    for M, K, N in PRODUCT_SHAPES:
+        for nn in (False, True):
+            (a, _, w, n), kw = product_operands(M, K, N, nn, device)
+            got, got_cs = fl.layers_product_cuda(a, None, w, n, **kw)
+            want, want_cs = fl.layers_product_plain(a, None, w, n, **kw)
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            ok = bool((diff <= 1e-2 * want.float().abs()
+                       + 1e-2 * float(want.float().abs().max())).all())
+            del got, want, diff
+            if nn:
+                mag = fl.layers_product_plain(a.abs(), None, w.abs(), n, nn=True)[1]
+                ok = ok and bool(((got_cs - want_cs).abs() <= 1e-4 * mag + 1e-2).all())
+                del mag
+            name = f"M={M} K={K} N={N} NN {int(nn)}"
+            if not ok:
+                raise AssertionError(f"product kernel at {name} differs from plain ({err})")
+            b = w if nn else w.t()
+            ms = _median_ms(lambda: fl.layers_product_cuda(a, None, w, n, **kw))
+            library_ms = _median_ms(lambda: torch.mm(a, b))
+            plain_ms = _median_ms(lambda: fl.layers_product_plain(a, None, w, n, **kw), runs=3,
+                                  warmup=1)
+            bound_ms, bound_by = _product_bound(M, K, N, nn)
+            rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=bound_by, library_ms=library_ms)
+            print(f"field_layers product kernel at {name}: {ms:.4f} ms, "
+                  f"{2 * M * K * N / ms / 1e9:.1f} TFLOP/s, bound {bound_ms:.4f} ms "
+                  f"({bound_by}), {100.0 * bound_ms / ms:.1f}% of the bound; one bf16 torch.mm "
+                  f"{library_ms:.4f} ms; plain {plain_ms:.4f} ms; max abs err vs plain "
+                  f"{err:.3e} [{card}]")
+            del a, w, b, kw, got_cs, want_cs
+            gc.collect()
+            torch.cuda.empty_cache()
+    return rows
+
+
 def layer_cfg(case: str):
     """hard_blender_cfg() with both fields changed as LAYER_CASES[case]."""
     cfg = hard_blender_cfg()
@@ -1030,6 +1105,70 @@ def _device_ms_per_call(fn, groups: dict, runs: int = 3) -> dict:
         out[group] = ((statistics.mean(times) if times else 0.0) * per_call[group],
                       per_call[group])
     return out
+
+
+def _layer_leg_yardsticks(spec, kind: str, n_pts: int, device) -> dict:
+    """Per kernel of a layer-route call of `kind` ("fwd" or "bwd") over
+    n_pts points (fl.KERNELS): (bound ms, what bounds it, library ms or
+    None). The bound sums each launch's (_bound_ms at the shapes the call
+    gives it: each input read once, each output written once; products
+    and dW in bf16 operations, the heads' dot products in f32). Library:
+    one bf16 torch.mm per product (fl.route_products) and, in the
+    backward, per weight matrix's dW = dY^T X (median of 7 on seeded
+    operands of each distinct shape, times its launches); None for the
+    PE, heads and reductions, which no one PyTorch call computes."""
+    from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl
+
+    H, pxp, pdp = spec.hidden, spec.pxp, spec.pdp
+    slab = fl.slab_points(spec, kind, n_pts)
+    bound = dict.fromkeys(fl.KERNELS, 0.0)
+    bound_by = {k: set() for k in fl.KERNELS}
+    mm, dw = {}, {}  # shape -> launches
+
+    def add(kernel, flops, nbytes, peak=PEAK_BF16):
+        t, by = _bound_ms(flops, nbytes, peak)
+        bound[kernel] += t
+        bound_by[kernel].add(by)
+
+    for row0 in range(0, n_pts, slab):
+        m = min(slab, n_pts - row0)
+        mt = -(-m // 128)
+        add("pe", 0, m * 4 + m * (pxp + pdp) * 2)  # z in (a ray's o, d shared), PE out
+        for k1, k2, n, nn in fl.route_products(spec, kind):
+            k = k1 + k2
+            add("product", 2 * m * k * n, 2 * (m * k + k * n + m * n)
+                + (2 * m * n + mt * n * 4 if nn else 4 * n))
+            mm[(m, k, n)] = mm.get((m, k, n), 0) + 1
+        if kind == "fwd":  # trunk and h in, (4, m) out
+            add("heads", 2 * m * (H + 3 * H // 2), m * (H + H // 2) * 2 + m * 16, PEAK_F32)
+            continue
+        # heads: h and the cotangent in; dy_rgb, dy_a, dy_dir and partials out
+        add("heads", 2 * m * 3 * H // 2, m * (H // 2) * 4 + m * 16 + m * 64
+            + -(-m // 64) * (H // 2 + 4) * 4, PEAK_F32)
+        reduce_bytes = 2 * (-(-m // 64) * (H // 2 + 4) * 4) + (spec.num_layers + 1) * mt * H * 4
+        for (n_g, k_g), (cols, ranges) in zip(spec.gemm_shapes(), fl.dw_groups(spec)):
+            add("dw", 2 * m * cols, 2 * m * (n_g + k_g) + 4 * ranges * cols)
+            dw[(m, n_g, k_g)] = dw.get((m, n_g, k_g), 0) + 1
+            reduce_bytes += 4 * ranges * cols + 8 * cols
+        add("reduce", 0, reduce_bytes)
+    g = torch.Generator(device).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+
+    library = {k: None for k in fl.KERNELS}
+    library["product"] = 0.0
+    for (m, k, n), count in mm.items():
+        a, b = randn(m, k), randn(k, n)
+        library["product"] += count * _median_ms(lambda: torch.mm(a, b))
+    if dw:
+        library["dw"] = 0.0
+    for (m, n_g, k_g), count in dw.items():
+        dy, x = randn(m, n_g), randn(m, k_g)
+        library["dw"] += count * _median_ms(lambda: torch.mm(dy.t(), x))
+    torch.cuda.empty_cache()
+    return {k: (bound[k], "/".join(sorted(bound_by[k])) or "-", library[k])
+            for k in fl.KERNELS}
 
 
 def _layer_pe_check(card: str, device) -> None:
@@ -1137,7 +1276,7 @@ def layers_phase(card: str, device) -> dict:
     from nerfmeshes_tpu_torch.train.system import init_params
 
     _layer_pe_check(card, device)
-    out = {"cases": {}, "chains": {}}
+    out = {"cases": {}, "chains": {}, "products": product_phase(card, device)}
     for case in LAYER_CASES:
         t0 = time.perf_counter()
         cfg = layer_cfg(case)
@@ -1179,9 +1318,17 @@ def layers_phase(card: str, device) -> dict:
             del bpacked, args
         del bcase
         for what, groups in legs.items():
-            print(f"{case} {what} at 2048x{shapes[-1]}, device ms and launches per call by "
-                  "kernel (torch.profiler's ms a launch over 3 calls x launches a call): "
-                  + ", ".join(f"{k} {ms:.4f} ms / {n:g}" for k, (ms, n) in groups.items())
+            sticks = _layer_leg_yardsticks(spec, what, R * shapes[-1], device)
+            legs[what] = {k: dict(ms=ms, launches=n, bound_ms=sticks[k][0],
+                                  bound_by=sticks[k][1], library_ms=sticks[k][2])
+                          for k, (ms, n) in groups.items()}
+            print(f"{case} {what} at 2048x{shapes[-1]}, per call by kernel: device ms "
+                  "(torch.profiler's ms a launch over 3 calls x launches a call) / launches / "
+                  "bound ms / library ms (bf16 torch.mm per product or dW product): "
+                  + ", ".join(f"{k} {v['ms']:.4f} / {v['launches']:g} / {v['bound_ms']:.4f} "
+                              f"({v['bound_by']}) / "
+                              + ("none" if v["library_ms"] is None else f"{v['library_ms']:.4f}")
+                              for k, v in legs[what].items())
                   + f" [{card}]")
         sigma = sigma_kernel_phase(cfg, card, device, route="layers")
         if not sigma["bitwise"]:
@@ -4022,6 +4169,26 @@ def profile_mesh(card: str, device, steps: list[int]) -> None:
                       f"{100.0 * (1.0 - busy / span):.2f}% [{card}]")
 
 
+def _print_ptxas(log: str) -> None:
+    """nvcc's build log as the smoke prints it: each kernel's ptxas lines
+    (registers, spills) under its entry's name, each nvcc's finish, and
+    every C7519 note (ptxas serialising a kernel's wgmma) with its count
+    per kernel."""
+    notes = {}
+    for line in log.splitlines():
+        if "C7519" in line:  # before "registers": the note's text names them
+            name = line.rsplit("function", 1)[-1].strip(" '")
+            notes[name] = notes.get(name, 0) + 1
+            if notes[name] == 1:
+                print("  ptxas:", line.strip())
+        elif "Compiling entry function" in line:
+            print("  ptxas: entry", line.split("'")[1] if "'" in line else line)
+        elif "registers" in line or "spill" in line or line.startswith("nvcc "):
+            print("  ptxas:", line.strip())
+    print("  ptxas C7519 notes per kernel: "
+          + (", ".join(f"{k} {v}" for k, v in notes.items()) or "none"))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile-mesh", type=int, nargs="*", metavar="STEPS",
@@ -4056,9 +4223,7 @@ def main(argv=None) -> int:
     path, log = build.build_library()
     build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {path.name}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("nvcc "):
-            print("  ptxas:", line.strip())
+    _print_ptxas(log)
     t0 = time.perf_counter()
     native.get_lib()
     print(f"native mesh library (g++): {time.perf_counter() - t0:.2f} s -> "
@@ -4225,6 +4390,20 @@ def main(argv=None) -> int:
               "nerfmeshes_tpu/ops/pallas/fused_mlp.py:675", head["sigma"], by_path["sigma"],
               shape=f"{GRID_TILE} points", hidden=2048, cases=case_rows("sigma")),
     ]
+    # The product kernel alone (product_phase): the forward's shape at
+    # 8x1024 in the row, every timed shape in "shapes"; its launches those
+    # of the chains' train legs.
+    products = layers["products"]
+    if not all(counts["product"] for counts in kernel_launches.values()):
+        raise AssertionError(f"a layer chain launched no product kernel: {kernel_launches}")
+    product_row = entry(
+        "field_layers_product", "field_layers.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:387",
+        products[f"M={PRODUCT_SHAPES[0][0]} K={PRODUCT_SHAPES[0][1]} N={PRODUCT_SHAPES[0][2]} "
+                 "NN 0"],
+        {path: counts["product"] for path, counts in kernel_launches.items()},
+        shape="M=393216 K=1024 N=1024 NN 0", shapes=products,
+        also_replaces=["nerfmeshes_tpu/ops/pallas/fused_mlp.py:397",
+                       "nerfmeshes_tpu/ops/pallas/fused_mlp.py:675"])
     print(f"smoke total: {time.perf_counter() - t_start:.2f} s, the wide phase and the "
           f"layer route {wide_s:.2f} s of it [{card}]")
     print(json.dumps({"kernels": [
@@ -4264,6 +4443,7 @@ def main(argv=None) -> int:
         *h128_rows,
         *wide_rows,
         *layer_rows,
+        product_row,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

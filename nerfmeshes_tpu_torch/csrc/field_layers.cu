@@ -22,21 +22,47 @@
 //       row-major arrays, each 8-column chunk by one thread, with the fused
 //       kernels' PE arithmetic (fused_field.cuh:PeBuild): on equal points
 //       the same bits.
-//   (2) layer_product_kernel<NN>: Y = epilogue(A W^T + b), A the
-//       K-concatenation of one or two bf16 row-major arrays ([x | PE(xyz)]
-//       at skips, [feat | PE(dir)] at dir), W the packed (N, K) matrix (NN
-//       0), or for the backward's dX chain A W with W's (K, N) x part read
-//       untransposed (NN 1). A CTA per 128 x 256 output tile: a producer
-//       thread streams 64-column K-slabs of A (one 128-row box) and W (one
-//       256-row box, or four 64 x 64 MN-major boxes) by TMA into a ring of
-//       4 stages of 48 KB; two consumer warpgroups run wgmma m64n256k16 on
-//       them with the sums in registers (dw_kernel's shape, dw_leg.cuh).
-//       Epilogue in registers: + bias, then ReLU or the backward's mask
-//       (zero where the forward's bf16 output is not > 0), the feat dX's
-//       rank-1 alpha term, bf16 stores, and with `colsum` the f32 column
-//       sums over the tile's rows (the bias grads) in a fixed order. The
-//       grid walks N fastest, so the tiles of one row block run side by
-//       side and share A through L2.
+//   (2) layer_product_kernel<NN, BN, FULL>: Y = epilogue(A W^T + b), A
+//       the K-concatenation of one or two bf16 row-major arrays ([x |
+//       PE(xyz)] at skips, [feat | PE(dir)] at dir), W the packed (N, K)
+//       matrix (NN 0), or for the backward's dX chain A W with W's (K, N) x
+//       part read untransposed (NN 1). Output tiles of 128 rows x BN
+//       columns, BN chosen per product from n (product_bn: 256, 192, 128 or
+//       64, so that 576- or 64-column products compute no empty columns).
+//       Persistent: one CTA per SM walks tiles blockIdx.x, + gridDim.x, ...
+//       in row blocks with N fastest, so a row block's column tiles run side
+//       by side and share its A panel through L2 (W, at most 8 MB, stays
+//       there). Warp-specialised: a producer thread streams 64-column
+//       K-slabs of A (one 128-row box) and W (one BN-row box, or BN / 64
+//       MN-major 64 x 64 boxes) by TMA into a ring of slots (product_plan:
+//       3 at BN 256, up to 8), running ahead across tile boundaries, so the
+//       ring never drains between tiles; two consumer warpgroups (64 rows
+//       each) run wgmma m64nBNk16 on them, a wgmma.fence, the slab's four
+//       products and a commit per slab, nothing else between (no branch or
+//       register write inside a group, which would make ptxas serialise
+//       them). The epilogue runs in registers, + bias, then ReLU or the
+//       backward's mask (zero where the forward's bf16 output is not > 0),
+//       the feat dX's rank-1 alpha term, the f32 column sums over the tile's
+//       rows in a fixed order with `colsum` (the bias grads); its bf16
+//       values go by stmatrix into the warpgroup's half of a staging tile
+//       (128 B swizzled, 64 x 64 atoms) and leave by TMA stores that drain
+//       under the next tile's products, while the producer has already
+//       filled the ring for it. The mask tile arrives by TMA into the same
+//       staging tile with the tile's last K-slab (once the previous tile's
+//       stores have read it: out_free) and is read back by ldmatrix in the
+//       accumulators' layout. The forward's products run a lean
+//       instantiation (FULL false: bias and ReLU only, half the code of the
+//       whole epilogue's, which did not stay in the instruction cache from
+//       one tile's epilogue to the next: 8-13% faster on an H100). The
+//       choice of this cooperative shape over a ping-pong of two
+//       warpgroups on separate tiles: a 64-row tile per warpgroup would
+//       load each W slab once per 64 rows instead of 128 (1.67x the bytes
+//       from L2 per product) and split the column sums' per-128-row order.
+//       A 2-CTA cluster sharing each W slab by TMA multicast, timed on an
+//       H100, gave nothing: the slabs' traffic from L2 does not bound it.
+//       Each output element takes the same K-slabs in the same order
+//       through k16 steps as the one-tile-per-CTA design before it, and the
+//       epilogue the same arithmetic: the same bits.
 //   (3) layer_heads_kernel<MODE>: the alpha (H -> 1) and rgb (H/2 -> 3,
 //       sigmoid) heads, a warp per point, dot products in a fixed order:
 //       the forward's (4, N) or (N, 4) output, sigma's (N,), or for the
@@ -62,15 +88,12 @@
 
 namespace {
 
-constexpr int LP_ROWS = 128;  // points per product tile: 64 per consumer warpgroup
-constexpr int LP_COLS = 256;  // output columns per product tile
-constexpr int LP_STAGES = 4;
+constexpr int LP_ROWS = 128;      // points per product tile: 64 per consumer warpgroup
+constexpr int LP_MAX_COLS = 256;  // output columns per product tile, at most (wgmma's N)
+constexpr int LP_MAX_STAGES = 8;
 constexpr int LP_A_BYTES = LP_ROWS * SLAB_K * (int)sizeof(bf16);  // 16 KB
-constexpr int LP_B_BYTES = LP_COLS * SLAB_K * (int)sizeof(bf16);  // 32 KB
-constexpr int LP_STAGE_BYTES = LP_A_BYTES + LP_B_BYTES;
-constexpr int LP_PART_BYTES = 8 * LP_COLS * (int)sizeof(float);  // a row per consumer warp
-constexpr int LP_SMEM = LP_STAGES * LP_STAGE_BYTES + LP_PART_BYTES +
-                        2 * LP_STAGES * (int)sizeof(uint64_t);
+// the ring's full and empty barriers, then the staging tile's out_free
+constexpr int LP_BAR_BYTES = (2 * LP_MAX_STAGES + 1) * (int)sizeof(uint64_t);
 constexpr int PE_THREADS = 256;
 constexpr int HEAD_ROWS = 64;  // points per heads block
 constexpr int HEAD_THREADS = 256;
@@ -144,78 +167,259 @@ __global__ void __launch_bounds__(PE_THREADS) layer_pe_kernel(const PeArgs a) {
 
 // ----------------------------------------------------------- (2) product --
 
-// D(64 x 256, f32) (+)= A(64 x 16) B(16 x 256), bf16, A K-major in shared
-// memory, B K-major (TB 0, sw128_desc) or MN-major (TB 1, sw128_mn_desc,
-// wgmma's transpose immediate); D's fragment as wgmma_bf16's
-// (fused_field.cuh).
+// D(64 x N, f32) (+)= A(64 x 16) B(16 x N), bf16, N = 64, 128, 192 or 256:
+// A K-major in shared memory (sw128_desc), B K-major (TB 0, sw128_desc) or
+// MN-major (TB 1, sw128_mn_desc, wgmma's transpose immediate); D's fragment
+// as wgmma_bf16's (fused_field.cuh): d[4j + 2i + e] is row 16 warp + lane/4
+// + 8i, column 8j + 2(lane % 4) + e.
+template <int TB>
+__device__ __forceinline__ void wgmma_tb(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_tb(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_tb(float (&d)[96], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, %99;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
+        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
+        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
+        "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(a), "l"(b), "r"(acc), "n"(TB));
+}
+
 template <int TB>
 __device__ __forceinline__ void wgmma_tb(float (&d)[128], uint64_t a, uint64_t b, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, %131;\n}\n"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
-        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
-        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
-        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]),
-        "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
+        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
+        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
+        "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),
+        "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),
+        "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]),
+        "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
+        "+f"(d[127])
       : "l"(a), "l"(b), "r"(acc), "n"(TB));
+}
+
+// Shared-memory plan of a product launch (mirrored in Python by
+// ops/kernels/field_layers.py:product_plan; keep the two alike): the ring
+// of `stages` slots, each a 64-column K-slab of A (128 rows) and of B (bn
+// rows or columns), from byte 0; the output staging tile (128 x bn bf16, a
+// half of 64 rows per consumer warpgroup, each half bn / 64 swizzled atoms
+// of 64 rows x 64 columns) at out_off; the consumer warps' column-sum
+// partials (8 x bn f32) at part_off; the barriers at bar_off.
+struct ProductPlan {
+  int bn, stages, col_tiles;
+  int out_off, part_off, bar_off, bytes;
+};
+
+__host__ __device__ constexpr int lp_stage_bytes(int bn) { return LP_A_BYTES + bn * SLAB_K * 2; }
+
+// The tile width for n output columns: of 256, 192, 128 and 64 (wgmma's N,
+// in whole 64-column atoms), the one with the least tiles x (width + 64):
+// the columns computed, each tile charged a 64-column share of its A
+// panel's loads and its epilogue; a tie to the wider.
+int product_bn(int n) {
+  int best = 0;
+  long long cost = 0;
+  for (int bn = LP_MAX_COLS; bn >= 64; bn -= 64) {
+    const long long c = (long long)((n + bn - 1) / bn) * (bn + 64);
+    if (best == 0 || c < cost) {
+      best = bn;
+      cost = c;
+    }
+  }
+  return best;
+}
+
+// cudaErrorInvalidValue where fewer than 2 ring slots fit `smem_limit`.
+int product_plan(int n, int smem_limit, ProductPlan* out) {
+  ProductPlan p = {};
+  p.bn = product_bn(n);
+  p.col_tiles = (n + p.bn - 1) / p.bn;
+  const int stage = lp_stage_bytes(p.bn), out_bytes = LP_ROWS * p.bn * 2,
+            part_bytes = 8 * p.bn * (int)sizeof(float);
+  const int stages = (smem_limit - out_bytes - part_bytes - LP_BAR_BYTES) / stage;
+  if (stages < 2) return (int)cudaErrorInvalidValue;
+  p.stages = stages < LP_MAX_STAGES ? stages : LP_MAX_STAGES;
+  p.out_off = p.stages * stage;
+  p.part_off = p.out_off + out_bytes;
+  p.bar_off = p.part_off + part_bytes;
+  p.bytes = p.bar_off + LP_BAR_BYTES;
+  *out = p;
+  return 0;
 }
 
 // A product's arguments, in the parameter space.
 struct ProductArgs {
   CUtensorMap a1, a2;  // A's parts, (m, k1) and (m, k2), boxes 64 x 128
-  CUtensorMap b;       // W: (N, K) boxes 64 x 256 (NN 0); its x part (K, n) boxes 64 x 64 (NN 1)
+  CUtensorMap b;       // W: (N, K) boxes 64 x bn (NN 0); its x part (K, n) boxes 64 x 64 (NN 1)
+  CUtensorMap out;     // Y (m, n), boxes 64 x 64 (TMA stores from the staging tile)
+  CUtensorMap mask;    // (m, n), boxes 64 x 64 (TMA loads into the staging tile)
+  ProductPlan plan;
   int k1, k2, n;       // K = k1 + k2 (k1 a multiple of 64 where k2 > 0), output columns
   long long m;         // rows (points)
+  long long tiles;     // 128-row blocks x plan.col_tiles
   const float* bias;   // n floats, or none
   int relu;
-  const bf16* mask;    // (m, n): zero where mask <= 0, or none
+  int has_mask;        // zero where mask <= 0
   const bf16* r1_a;    // the rank-1 term r1_a[row * 16] * r1_w[col], or none
   const bf16* r1_w;
-  bf16* out;           // (m, n)
   float* colsum;       // (row blocks, n): column sums of the tile's rows, or none
 };
 
-// One 128 x 256 tile of Y = epilogue(A B + bias): see the top of the file.
-template <bool NN>
+// TMA store of the box at (c0 = column, c1 = row) of `map` from src, in
+// the issuing thread's bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(smem_u32(src))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// The issuing thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+// ... and written global memory.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// Four 8 x 8 bf16 matrices between the mma fragment and shared memory: lane
+// l gives the address of row l % 8 of matrix l / 8; register i holds row
+// lane / 4, columns 2 (lane % 4) and + 1 of matrix i.
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+
+// Y = epilogue(A B + bias) over every 128 x BN tile: see the top of the
+// file. A persistent CTA walks tiles blockIdx.x, + gridDim.x, ... (N
+// fastest: a row block's column tiles side by side, sharing its A panel
+// through L2); its producer runs ahead across tiles. FULL compiles the
+// whole epilogue (the mask, the rank-1 term, the column sums); without it
+// only the forward's bias and ReLU, whose shorter code stays in the
+// instruction cache.
+template <bool NN, int BN, bool FULL>
 __global__ void __launch_bounds__(FIELD_THREADS, 1)
     layer_product_kernel(const __grid_constant__ ProductArgs a) {
+  constexpr int STAGE_BYTES = lp_stage_bytes(BN);
+  constexpr int ATOMS = BN / 64;
   extern __shared__ __align__(1024) unsigned char smem[];
-  float* part = reinterpret_cast<float*>(smem + LP_STAGES * LP_STAGE_BYTES);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + LP_STAGES * LP_STAGE_BYTES + LP_PART_BYTES);
-  uint64_t* empty = full + LP_STAGES;
+  unsigned char* staging = smem + a.plan.out_off;
+  float* part = reinterpret_cast<float*>(smem + a.plan.part_off);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + a.plan.bar_off);
+  uint64_t* empty = full + LP_MAX_STAGES;
+  uint64_t* out_free = empty + LP_MAX_STAGES;  // the staging tile's stores have read it
   const int tid = threadIdx.x, wg = tid / WG_THREADS;
-  const int n0 = blockIdx.x * LP_COLS;
-  const long long m0 = (long long)blockIdx.y * LP_ROWS;
+  const int stages = a.plan.stages, ct = a.plan.col_tiles;
   const int slabs = (a.k1 + a.k2 + SLAB_K - 1) / SLAB_K;
+  const bool has_mask = FULL && a.has_mask;
   if (tid == 0) {
-    for (int s = 0; s < LP_STAGES; ++s) {
+    for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2 * WG_THREADS / 32);  // every consumer warp releases
     }
+    mbar_init(out_free, 2);  // each consumer warpgroup's storing thread
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -224,26 +428,44 @@ __global__ void __launch_bounds__(FIELD_THREADS, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
     if (tid == 2 * WG_THREADS) {
       int stage = 0;
-      uint32_t phase = 0;
-      for (int s = 0; s < slabs; ++s) {
-        const int k0 = s * SLAB_K;
-        mbar_wait(&empty[stage], phase ^ 1);
-        mbar_arrive_expect_tx(&full[stage], LP_STAGE_BYTES);
-        unsigned char* dst = smem + stage * LP_STAGE_BYTES;
-        if (k0 < a.k1)
-          tma_load_2d(dst, &a.a1, k0, (int)m0, &full[stage]);
-        else
-          tma_load_2d(dst, &a.a2, k0 - a.k1, (int)m0, &full[stage]);
-        if constexpr (NN) {
+      uint32_t phase = 0, free_phase = 0;
+      for (long long u = blockIdx.x; u < a.tiles; u += gridDim.x) {
+        const int m0 = (int)(u / ct) * LP_ROWS, n0 = (int)(u % ct) * BN;
+        for (int s = 0; s < slabs; ++s) {
+          const int k0 = s * SLAB_K;
+          // the backward's mask rides with the tile's last slab, into the
+          // staging tile once the previous tile's stores have read it
+          const bool mask = has_mask && s == slabs - 1;
+          mbar_wait(&empty[stage], phase ^ 1);
+          if (mask) {
+            mbar_wait(out_free, free_phase);
+            free_phase ^= 1;
+          }
+          mbar_arrive_expect_tx(&full[stage], STAGE_BYTES + (mask ? LP_ROWS * BN * 2 : 0));
+          unsigned char* dst = smem + stage * STAGE_BYTES;
+          if (k0 < a.k1)
+            tma_load_2d(dst, &a.a1, k0, m0, &full[stage]);
+          else
+            tma_load_2d(dst, &a.a2, k0 - a.k1, m0, &full[stage]);
+          if constexpr (NN) {
 #pragma unroll
-          for (int i = 0; i < LP_COLS / 64; ++i)
-            tma_load_2d(dst + LP_A_BYTES + i * ATOM_BYTES, &a.b, n0 + 64 * i, k0, &full[stage]);
-        } else {
-          tma_load_2d(dst + LP_A_BYTES, &a.b, k0, n0, &full[stage]);
-        }
-        if (++stage == LP_STAGES) {
-          stage = 0;
-          phase ^= 1;
+            for (int i = 0; i < ATOMS; ++i)
+              tma_load_2d(dst + LP_A_BYTES + i * ATOM_BYTES, &a.b, n0 + 64 * i, k0, &full[stage]);
+          } else {
+            tma_load_2d(dst + LP_A_BYTES, &a.b, k0, n0, &full[stage]);
+          }
+          if (mask) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int i = 0; i < ATOMS; ++i)
+                tma_load_2d(staging + (h * ATOMS + i) * ATOM_BYTES, &a.mask, n0 + 64 * i,
+                            m0 + 64 * h, &full[stage]);
+          }
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
       }
     }
@@ -251,103 +473,142 @@ __global__ void __launch_bounds__(FIELD_THREADS, 1)
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
   const int t = tid % WG_THREADS, warp = t / 32, lane = t % 32, q = lane % 4;
-  Ring ring{full, empty, smem, LP_STAGE_BYTES, LP_STAGE_BYTES, LP_STAGES, 0, 0};
+  const bool storer = t == 0;  // issues the warpgroup's stores
+  Ring ring{full, empty, smem, STAGE_BYTES, STAGE_BYTES, stages, 0, 0};
   const uint32_t base = smem_u32(smem);
-  float acc[128];
+  unsigned char* half = staging + wg * ATOMS * ATOM_BYTES;  // this warpgroup's 64 rows
+  // ldmatrix / stmatrix: this lane's row and column offset in a 16 x 16 block
+  const int mrow = warp * 16 + (lane >> 3 & 1) * 8 + (lane & 7), mcol = (lane >> 4) * 8;
+  float* wpart = part + (wg * 4 + warp) * BN;
+  const int free_at = slabs > 1 ? 1 : 0;  // the slab before which out_free is signalled
+  float acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-  int prev = -1;
-  fence_regs(acc);
-  wgmma_fence();
-  for (int s = 0; s < slabs; ++s) {
-    mbar_wait(&ring.full[ring.stage], ring.phase);
-    const uint32_t st = base + ring.stage * LP_STAGE_BYTES;
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (long long u = blockIdx.x; u < a.tiles; u += gridDim.x) {
+    const long long rb = u / ct;
+    const long long m0 = rb * LP_ROWS;
+    const int n0 = (int)(u % ct) * BN;
+    // The mainloop: a wgmma.fence, the slab's four k16 products and a
+    // commit per slab, the previous slab released once its products are
+    // done; no branch or register write inside a slab's group.
+    int prev = -1;
+    for (int s = 0; s < slabs; ++s) {
+      if (has_mask && s == free_at && storer) {
+        bulk_wait_read();
+        mbar_arrive(out_free);
+      }
+      mbar_wait(&ring.full[ring.stage], ring.phase);
+      const uint32_t st = base + ring.stage * STAGE_BYTES;
+      fence_regs(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < SLAB_K / 16; ++k) {
-      const uint64_t ad = sw128_desc(st + wg * ATOM_BYTES + 32 * k);
-      const uint64_t bd = NN ? sw128_mn_desc(st + LP_A_BYTES + 2048 * k)
-                             : sw128_desc(st + LP_A_BYTES + 32 * k);
-      wgmma_tb<NN ? 1 : 0>(acc, ad, bd, s + k);
+      for (int k = 0; k < SLAB_K / 16; ++k) {
+        const uint64_t ad = sw128_desc(st + wg * ATOM_BYTES + 32 * k);
+        const uint64_t bd = NN ? sw128_mn_desc(st + LP_A_BYTES + 2048 * k)
+                               : sw128_desc(st + LP_A_BYTES + 32 * k);
+        wgmma_tb<NN ? 1 : 0>(acc, ad, bd, s + k);
+      }
+      wgmma_commit();
+      if (prev >= 0) {
+        wgmma_wait<1>();  // the previous slab's products are done: release it
+        fence_regs(acc);
+        ring.release(prev, lane);
+      }
+      prev = ring.stage;
+      ring.advance();
     }
-    wgmma_commit();
-    if (prev >= 0) {
-      wgmma_wait<1>();  // the previous stage's products are done: release it
-      ring.release(prev, lane);
-    }
-    prev = ring.stage;
-    ring.advance();
-  }
-  wgmma_wait<0>();
-  fence_regs(acc);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    ring.release(prev, lane);
 
-  // acc[4j + 2i + e] is row r0 + 8i, column n0 + 8j + 2q + e.
-  const long long r0 = m0 + wg * 64 + warp * 16 + lane / 4;
-  const bool in0 = r0 < a.m, in1 = r0 + 8 < a.m;
-  float a0 = 0.f, a1 = 0.f;  // the rank-1 term's row values
-  if (a.r1_a != nullptr) {
-    if (in0) a0 = __bfloat162float(a.r1_a[r0 * HEAD_LD]);
-    if (in1) a1 = __bfloat162float(a.r1_a[(r0 + 8) * HEAD_LD]);
-  }
-  float* wpart = part + (wg * 4 + warp) * LP_COLS;
+    // The epilogue, in registers, into this warpgroup's half of the staging
+    // tile (the mask's values read from it where the mask came with the last
+    // slab), then its TMA stores, which run under the next tile's products.
+    // acc[4j + 2i + e] is row r0 + 8i, column n0 + 8j + 2q + e.
+    const long long r0 = m0 + wg * 64 + warp * 16 + lane / 4;
+    const bool in0 = r0 < a.m, in1 = r0 + 8 < a.m;
+    float a0 = 0.f, a1 = 0.f;  // the rank-1 term's row values
+    if (FULL && a.r1_a != nullptr) {
+      if (in0) a0 = __bfloat162float(a.r1_a[r0 * HEAD_LD]);
+      if (in1) a1 = __bfloat162float(a.r1_a[(r0 + 8) * HEAD_LD]);
+    }
+    if (!has_mask) {  // the previous tile's stores have read the half
+      if (storer) bulk_wait_read();
+      wg_barrier(wg);
+    }
+    const uint32_t half_u32 = smem_u32(half);
 #pragma unroll
-  for (int j0 = 0; j0 < 32; j0 += 8) {
+    for (int j0 = 0; j0 < BN / 8; j0 += 2) {
+      const uint32_t addr = half_u32 + swz(mrow, 8 * j0 + mcol);
+      uint32_t mk[4] = {0u, 0u, 0u, 0u}, y[4];
+      if (has_mask) ldmatrix_x4(addr, mk);
 #pragma unroll
-    for (int j = j0; j < j0 + 8; ++j) {
-      const int c = n0 + 8 * j + 2 * q;
-      if (c >= a.n) continue;  // n is a multiple of 64: c and c + 1 alike
-      float v[4] = {acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]};
-      if (a.bias != nullptr) {
-        const float2 b = *reinterpret_cast<const float2*>(a.bias + c);
-        v[0] += b.x;
-        v[1] += b.y;
-        v[2] += b.x;
-        v[3] += b.y;
-      }
-      if (a.r1_a != nullptr) {
-        const float2 w = bf16x2_at(a.r1_w + c);
-        v[0] += a0 * w.x;
-        v[1] += a0 * w.y;
-        v[2] += a1 * w.x;
-        v[3] += a1 * w.y;
-      }
-      if (a.relu) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) v[i] = fmaxf(v[i], 0.f);
-      }
-      if (a.mask != nullptr) {
-        const float2 k0 = in0 ? bf16x2_at(a.mask + r0 * a.n + c) : make_float2(0.f, 0.f);
-        const float2 k1 = in1 ? bf16x2_at(a.mask + (r0 + 8) * a.n + c) : make_float2(0.f, 0.f);
-        if (!(k0.x > 0.f)) v[0] = 0.f;
-        if (!(k0.y > 0.f)) v[1] = 0.f;
-        if (!(k1.x > 0.f)) v[2] = 0.f;
-        if (!(k1.y > 0.f)) v[3] = 0.f;
-      }
-      if (in0) *reinterpret_cast<uint32_t*>(a.out + r0 * a.n + c) = pack_bf16(v[0], v[1]);
-      if (in1) *reinterpret_cast<uint32_t*>(a.out + (r0 + 8) * a.n + c) = pack_bf16(v[2], v[3]);
-      if (a.colsum != nullptr) {
-        // the two rows, then the warp's 8 row pairs of this column (lanes
-        // of equal q) by a butterfly: every lane ends with the same sum
-        float s0 = (in0 ? v[0] : 0.f) + (in1 ? v[2] : 0.f);
-        float s1 = (in0 ? v[1] : 0.f) + (in1 ? v[3] : 0.f);
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1) {
-          s0 += __shfl_xor_sync(0xffffffffu, s0, o);
-          s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      for (int h = 0; h < 2; ++h) {
+        const int j = j0 + h;
+        const int c = n0 + 8 * j + 2 * q;
+        const bool live = c < a.n;  // n is a multiple of 64: c and c + 1 alike
+        float v[4] = {acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]};
+        if (a.bias != nullptr && live) {
+          const float2 b = *reinterpret_cast<const float2*>(a.bias + c);
+          v[0] += b.x;
+          v[1] += b.y;
+          v[2] += b.x;
+          v[3] += b.y;
         }
-        if (lane < 4) *reinterpret_cast<float2*>(wpart + 8 * j + 2 * q) = make_float2(s0, s1);
-      }
-    }
-    asm volatile("" ::: "memory");
-  }
-  if (a.colsum != nullptr) {
-    asm volatile("bar.sync 1, %0;" ::"n"(2 * WG_THREADS) : "memory");
-    for (int c = t + wg * WG_THREADS; c < LP_COLS && n0 + c < a.n; c += 2 * WG_THREADS) {
-      float s = 0.f;
+        if (FULL && a.r1_a != nullptr && live) {
+          const float2 w = bf16x2_at(a.r1_w + c);
+          v[0] += a0 * w.x;
+          v[1] += a0 * w.y;
+          v[2] += a1 * w.x;
+          v[3] += a1 * w.y;
+        }
+        if (a.relu) {
 #pragma unroll
-      for (int w = 0; w < 8; ++w) s += part[w * LP_COLS + c];  // the tile's rows in order
-      a.colsum[(size_t)blockIdx.y * a.n + n0 + c] = s;
+          for (int i = 0; i < 4; ++i) v[i] = fmaxf(v[i], 0.f);
+        }
+        if (has_mask) {
+          const float2 k0 = unpack_bf16(mk[2 * h]), k1 = unpack_bf16(mk[2 * h + 1]);
+          if (!(k0.x > 0.f)) v[0] = 0.f;
+          if (!(k0.y > 0.f)) v[1] = 0.f;
+          if (!(k1.x > 0.f)) v[2] = 0.f;
+          if (!(k1.y > 0.f)) v[3] = 0.f;
+        }
+        y[2 * h] = pack_bf16(v[0], v[1]);
+        y[2 * h + 1] = pack_bf16(v[2], v[3]);
+        if (FULL && a.colsum != nullptr) {
+          // the two rows, then the warp's 8 row pairs of this column (lanes
+          // of equal q) by a butterfly: every lane ends with the same sum
+          float s0 = (in0 ? v[0] : 0.f) + (in1 ? v[2] : 0.f);
+          float s1 = (in0 ? v[1] : 0.f) + (in1 ? v[3] : 0.f);
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) {
+            s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+            s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+          }
+          if (lane < 4) *reinterpret_cast<float2*>(wpart + 8 * j + 2 * q) = make_float2(s0, s1);
+        }
+      }
+      stmatrix_x4(addr, y);
+    }
+    fence_proxy_async();  // the staging writes, before the TMA's reads
+    wg_barrier(wg);
+    if (storer && m0 + wg * 64 < a.m) {
+      for (int i = 0; i < ATOMS && n0 + 64 * i < a.n; ++i)
+        tma_store_2d(&a.out, half + i * ATOM_BYTES, n0 + 64 * i, (int)(m0 + wg * 64));
+      bulk_commit();
+    }
+    if (FULL && a.colsum != nullptr) {
+      asm volatile("bar.sync 3, %0;" ::"n"(2 * WG_THREADS) : "memory");
+      for (int c = t + wg * WG_THREADS; c < BN && n0 + c < a.n; c += 2 * WG_THREADS) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < 8; ++w) s += part[w * BN + c];  // the tile's rows in order
+        a.colsum[(size_t)rb * a.n + n0 + c] = s;
+      }
+      asm volatile("bar.sync 3, %0;" ::"n"(2 * WG_THREADS) : "memory");  // partials read
     }
   }
+  if (storer) bulk_wait();
 }
 
 // ------------------------------------------------------------- (3) heads --
@@ -627,14 +888,109 @@ LLayout layers_layout(const LDesc& d, int kind, long long slab) {
   return w;
 }
 
+// The card a call runs on: its SMs and the shared memory a block may opt in to.
+struct Card {
+  int sms, smem_limit;
+};
+
+int query_card(Card* c) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&c->sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&c->smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (int)err;
+}
+
+// Every product instantiation may take the card's whole shared memory (a
+// launch asks for its plan's bytes).
+template <bool NN, bool FULL>
+int product_attributes(int smem_limit) {
+  const void* kernels[4] = {reinterpret_cast<const void*>(layer_product_kernel<NN, 64, FULL>),
+                            reinterpret_cast<const void*>(layer_product_kernel<NN, 128, FULL>),
+                            reinterpret_cast<const void*>(layer_product_kernel<NN, 192, FULL>),
+                            reinterpret_cast<const void*>(layer_product_kernel<NN, 256, FULL>)};
+  for (const void* k : kernels) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_limit);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// ... every instantiation a launch may pick (launch_product).
+int product_attributes(int smem_limit) {
+  int rc = product_attributes<false, false>(smem_limit);
+  if (rc == 0) rc = product_attributes<false, true>(smem_limit);
+  if (rc == 0) rc = product_attributes<true, true>(smem_limit);
+  return rc;
+}
+
+// The map of a product's W as the kernel reads it: NN 0, (n, K) in boxes
+// of 64 K-columns x product_bn(n) rows; NN 1, W's x part (K = n_g rows of
+// ld elements, n columns) in boxes of 64 columns x 64 K rows.
+int encode_w_map(CUtensorMap* map, const bf16* W, bool nn, int K, int n, long long ld) {
+  return nn ? encode_slab_map(map, W, n, K, SLAB_K, SLAB_K, ld)
+            : encode_slab_map(map, W, K, n, product_bn(n), SLAB_K, ld);
+}
+
+// A product's epilogue: + bias (n floats, or none), ReLU, zero where mask
+// (m, n) is not > 0 (or none), the rank-1 term r1_a[row * 16] r1_w[col]
+// (or none), bf16 into out (m, n), and with colsum its column sums per 128
+// rows.
+struct Epilogue {
+  const float* bias;
+  int relu;
+  const bf16* mask;
+  bf16* out;
+  float* colsum;
+  const bf16* r1_a;
+  const bf16* r1_w;
+};
+
+Epilogue epilogue_args(const float* bias, int relu, const bf16* mask, bf16* out,
+                       float* colsum = nullptr, const bf16* r1_a = nullptr,
+                       const bf16* r1_w = nullptr) {
+  return {bias, relu, mask, out, colsum, r1_a, r1_w};
+}
+
+// A persistent launch: a CTA per SM (the plan's shared memory holds one),
+// at most one per tile.
+template <bool NN, int BN, bool FULL>
+int launch_bn(const ProductArgs& pa, int sms, cudaStream_t s) {
+  const unsigned grid = (unsigned)(pa.tiles < sms ? pa.tiles : sms);
+  layer_product_kernel<NN, BN, FULL><<<grid, FIELD_THREADS, pa.plan.bytes, s>>>(pa);
+  return (int)cudaGetLastError();
+}
+
+template <bool NN, bool FULL>
+int launch_plan(const ProductArgs& pa, int sms, cudaStream_t s) {
+  switch (pa.plan.bn) {
+    case 64:
+      return launch_bn<NN, 64, FULL>(pa, sms, s);
+    case 128:
+      return launch_bn<NN, 128, FULL>(pa, sms, s);
+    case 192:
+      return launch_bn<NN, 192, FULL>(pa, sms, s);
+    default:
+      return launch_bn<NN, 256, FULL>(pa, sms, s);
+  }
+}
+
 // One product launch on the stream: A = [a1 (m, k1) | a2 (m, k2)] row-major
-// arrays, b the weight map (NN: of the x part), the epilogue's operands in
-// `pa` (bias ... colsum) already set.
+// arrays, b the weight map (encode_w_map), persistent CTAs (launch_bn).
 template <bool NN>
-int launch_product(ProductArgs pa, const bf16* a1, int k1, const bf16* a2, int k2, long long m,
-                   int n, const CUtensorMap& b, cudaStream_t s, int* launches) {
-  int rc = encode_slab_map(&pa.a1, a1, k1, (int)m, LP_ROWS);
+int launch_product(const Epilogue& e, const bf16* a1, int k1, const bf16* a2, int k2,
+                   long long m, int n, const CUtensorMap& b, const Card& card, cudaStream_t s,
+                   int* launches) {
+  ProductArgs pa;
+  memset(&pa, 0, sizeof(pa));
+  int rc = product_plan(n, card.smem_limit, &pa.plan);
+  if (rc == 0) rc = encode_slab_map(&pa.a1, a1, k1, (int)m, LP_ROWS);
   if (rc == 0 && k2 > 0) rc = encode_slab_map(&pa.a2, a2, k2, (int)m, LP_ROWS);
+  if (rc == 0) rc = encode_slab_map(&pa.out, e.out, n, (int)m, 64);
+  if (rc == 0 && e.mask != nullptr) rc = encode_slab_map(&pa.mask, e.mask, n, (int)m, 64);
   if (rc != 0) return rc;
   if (k2 == 0) pa.a2 = pa.a1;
   pa.b = b;
@@ -642,25 +998,20 @@ int launch_product(ProductArgs pa, const bf16* a1, int k1, const bf16* a2, int k
   pa.k2 = k2;
   pa.n = n;
   pa.m = m;
-  const dim3 grid((unsigned)blocks(n, LP_COLS), (unsigned)blocks(m, LP_ROWS));
-  layer_product_kernel<NN><<<grid, FIELD_THREADS, LP_SMEM, s>>>(pa);
+  pa.tiles = blocks(m, LP_ROWS) * pa.plan.col_tiles;
+  pa.bias = e.bias;
+  pa.relu = e.relu;
+  pa.has_mask = e.mask != nullptr;
+  pa.r1_a = e.r1_a;
+  pa.r1_w = e.r1_w;
+  pa.colsum = e.colsum;
+  // the forward's bias and ReLU alone on the lean instantiation
+  if (NN || e.mask != nullptr || e.colsum != nullptr || e.r1_a != nullptr)
+    rc = launch_plan<NN, true>(pa, card.sms, s);
+  else
+    rc = launch_plan<false, false>(pa, card.sms, s);
   launches[CNT_PRODUCT] += 1;
-  return (int)cudaGetLastError();
-}
-
-ProductArgs epilogue_args(const float* bias, int relu, const bf16* mask, bf16* out,
-                          float* colsum = nullptr, const bf16* r1_a = nullptr,
-                          const bf16* r1_w = nullptr) {
-  ProductArgs pa;
-  memset(&pa, 0, sizeof(pa));
-  pa.bias = bias;
-  pa.relu = relu;
-  pa.mask = mask;
-  pa.out = out;
-  pa.colsum = colsum;
-  pa.r1_a = r1_a;
-  pa.r1_w = r1_w;
-  return pa;
+  return rc;
 }
 
 // One dW launch over a slab of m points: jobs over `maps` (row-major bf16
@@ -704,30 +1055,33 @@ int launch_pe(const LDesc& d, const PeCol* tab, const float* src, const float* d
   return (int)cudaGetLastError();
 }
 
-// Every check before the first launch: the weights' maps (as (N, K) for the
-// forward products, and for the backward the x parts as (K, H)), the
-// kernels' shared memory, the PE table copied to the workspace.
+// Every check before the first launch: the card, the weights' maps (as
+// (N, K) for the forward products, and for the backward the x parts as
+// (K, H)), the kernels' shared memory, the PE table copied to the workspace.
 int prepare(const LDesc& d, int kind, const bf16* W, const float* B, unsigned char* ws,
             const LLayout& lay, std::vector<CUtensorMap>* nt, std::vector<CUtensorMap>* nn,
-            cudaStream_t s) {
+            Card* card, cudaStream_t s) {
   if (reinterpret_cast<uintptr_t>(W) % 16 != 0 || reinterpret_cast<uintptr_t>(B) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(ws) % 256 != 0)
     return (int)cudaErrorInvalidValue;
+  int rc = query_card(card);
+  if (rc != 0) return rc;
   const int G = d.L + 2;
   nt->resize(G);
   nn->resize(G);
   for (int g = 0; g < G; ++g) {
-    int rc = encode_slab_map(&(*nt)[g], W + d.w_off[g], (int)d.k[g], (int)d.n(g), LP_COLS);
+    ProductPlan plan;
+    rc = product_plan((int)d.n(g), card->smem_limit, &plan);
+    if (rc == 0)
+      rc = encode_w_map(&(*nt)[g], W + d.w_off[g], false, (int)d.k[g], (int)d.n(g), 0);
     if (rc == 0 && kind == KIND_BWD && g > 0)
-      rc = encode_slab_map(&(*nn)[g], W + d.w_off[g], d.H, (int)d.n(g), 64, SLAB_K, d.k[g]);
+      rc = encode_w_map(&(*nn)[g], W + d.w_off[g], true, (int)d.n(g), d.H, d.k[g]);
     if (rc != 0) return rc;
   }
-  cudaError_t err = cudaFuncSetAttribute(layer_product_kernel<false>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, LP_SMEM);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(layer_product_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, LP_SMEM);
-  if (err == cudaSuccess && kind == KIND_BWD)
+  rc = product_attributes(card->smem_limit);
+  if (rc != 0) return rc;
+  cudaError_t err = cudaSuccess;
+  if (kind == KIND_BWD)
     err = cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DW_SMEM);
   if (err == cudaSuccess)  // pageable source: staged at once, no wait on the device
     err = cudaMemcpyAsync(ws + lay.tab, d.tab.data(), d.tab.size() * sizeof(PeCol),
@@ -783,7 +1137,8 @@ extern "C" int nm_field_layers(int kind, const float* src, const float* dirs, co
   unsigned char* ws = static_cast<unsigned char*>(workspace);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   std::vector<CUtensorMap> nt, nn;
-  err = prepare(d, kind, W, biases, ws, lay, &nt, &nn, s);
+  Card card;
+  err = prepare(d, kind, W, biases, ws, lay, &nt, &nn, &card, s);
   if (err != 0) return err;
 
   const int L = d.L, H = d.H;
@@ -807,12 +1162,12 @@ extern "C" int nm_field_layers(int kind, const float* src, const float* dirs, co
     auto act = [&](int g) { return at(lay.act) + (size_t)g * slab * H; };
     bf16* x = kind == KIND_BWD ? act(0) : at(lay.buf0);
     err = launch_product<false>(epilogue_args(biases + d.b_off[0], 0, nullptr, x), pe_x, d.pxp,
-                                nullptr, 0, m, H, nt[0], s, launches);
+                                nullptr, 0, m, H, nt[0], card, s, launches);
     for (int g = 1; g < L && err == 0; ++g) {
       bf16* y = kind == KIND_BWD ? act(g) : (x == at(lay.buf0) ? at(lay.buf1) : at(lay.buf0));
       const bool skip = d.k[g] > H;
       err = launch_product<false>(epilogue_args(biases + d.b_off[g], 1, nullptr, y), x, H,
-                                  pe_x, skip ? d.pxp : 0, m, H, nt[g], s, launches);
+                                  pe_x, skip ? d.pxp : 0, m, H, nt[g], card, s, launches);
       x = y;
     }
     if (err != 0) return err;
@@ -830,10 +1185,10 @@ extern "C" int nm_field_layers(int kind, const float* src, const float* dirs, co
     bf16* feat = kind == KIND_BWD ? at(lay.feat) : (x == at(lay.buf0) ? at(lay.buf1) : at(lay.buf0));
     bf16* h = at(lay.h);
     err = launch_product<false>(epilogue_args(biases + d.b_off[L], 1, nullptr, feat), trunk, H,
-                                nullptr, 0, m, H, nt[L], s, launches);
+                                nullptr, 0, m, H, nt[L], card, s, launches);
     if (err == 0)
       err = launch_product<false>(epilogue_args(biases + d.b_off[L + 1], 1, nullptr, h), feat,
-                                  H, pe_d, d.pdp, m, H / 2, nt[L + 1], s, launches);
+                                  H, pe_d, d.pdp, m, H / 2, nt[L + 1], card, s, launches);
     if (err != 0) return err;
     ha.h = h;
     if (kind == KIND_FWD) {
@@ -883,7 +1238,7 @@ extern "C" int nm_field_layers(int kind, const float* src, const float* dirs, co
     const int mt = (int)blocks(m, LP_ROWS);
     bf16* dy = at(lay.dy0);
     err = launch_product<true>(epilogue_args(nullptr, 0, feat, dy, colsum), dy_dir, H / 2,
-                               nullptr, 0, m, H, nn[L + 1], s, launches);
+                               nullptr, 0, m, H, nn[L + 1], card, s, launches);
     if (err == 0)
       err = reduce_rows(colsum, H, mt, H, mt, dB + d.b_off[L], 0, s, 1);
     launches[CNT_REDUCE] += 1;
@@ -901,7 +1256,7 @@ extern "C" int nm_field_layers(int kind, const float* src, const float* dirs, co
       err = launch_product<true>(
           epilogue_args(nullptr, 0, mask, next, colsum, g == L ? dy_a : nullptr,
                         g == L ? wa : nullptr),
-          dy, H, nullptr, 0, m, H, nn[g], s, launches);
+          dy, H, nullptr, 0, m, H, nn[g], card, s, launches);
       if (err == 0) err = reduce_rows(colsum, H, mt, H, mt, dB + d.b_off[g - 1], 0, s, 1);
       launches[CNT_REDUCE] += 1;
       dy = next;
@@ -939,6 +1294,23 @@ extern "C" int nm_field_layers_pe(const float* src, const float* dirs, const flo
                    launches);
 }
 
+// The product kernel's plan for n output columns on the current card
+// (product_plan): out[4] = tile columns, ring stages, column tiles, shared
+// bytes. Returns a cudaError_t code; 0 on success.
+extern "C" int nm_field_layers_product_plan(int n, int* out) {
+  if (n <= 0 || n % 64 != 0) return (int)cudaErrorInvalidValue;
+  Card card;
+  ProductPlan p;
+  int rc = query_card(&card);
+  if (rc == 0) rc = product_plan(n, card.smem_limit, &p);
+  if (rc != 0) return rc;
+  out[0] = p.bn;
+  out[1] = p.stages;
+  out[2] = p.col_tiles;
+  out[3] = p.bytes;
+  return 0;
+}
+
 // The product kernel alone, for its checks: out (m, n) bf16 =
 // epilogue([a1 | a2] B + bias), a1 (m, k1), a2 (m, k2) row-major bf16 (k1 a
 // multiple of 64 where k2 > 0); B = w^T, w (n, k1 + k2) row-major (nn 0),
@@ -952,21 +1324,20 @@ extern "C" int nm_field_layers_product(const void* a1, int k1, const void* a2, i
   if (m <= 0 || m > INT_MAX || k1 <= 0 || k1 % 8 != 0 || k2 < 0 || k2 % 8 != 0 ||
       (k2 > 0 && k1 % SLAB_K != 0) || n <= 0 || n % 64 != 0 || ldw % 8 != 0)
     return (int)cudaErrorInvalidValue;
+  Card card;
+  int rc = query_card(&card);
+  if (rc == 0) rc = product_attributes(card.smem_limit);
+  if (rc != 0) return rc;
   const bf16* W = static_cast<const bf16*>(w);
   CUtensorMap b;
-  int rc = nn ? encode_slab_map(&b, W, n, k1 + k2, 64, SLAB_K, ldw)
-              : encode_slab_map(&b, W, k1 + k2, n, LP_COLS, SLAB_K, ldw);
+  rc = encode_w_map(&b, W, nn != 0, k1 + k2, n, ldw);
   if (rc != 0) return rc;
-  cudaError_t err = cudaFuncSetAttribute(
-      nn ? layer_product_kernel<true> : layer_product_kernel<false>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, LP_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const ProductArgs pa = epilogue_args(bias, relu, static_cast<const bf16*>(mask),
-                                       static_cast<bf16*>(out), colsum);
+  const Epilogue e = epilogue_args(bias, relu, static_cast<const bf16*>(mask),
+                                   static_cast<bf16*>(out), colsum);
   int launches[N_COUNTERS] = {};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* A1 = static_cast<const bf16*>(a1);
   const bf16* A2 = static_cast<const bf16*>(a2);
-  return nn ? launch_product<true>(pa, A1, k1, A2, k2, m, n, b, s, launches)
-            : launch_product<false>(pa, A1, k1, A2, k2, m, n, b, s, launches);
+  return nn ? launch_product<true>(e, A1, k1, A2, k2, m, n, b, card, s, launches)
+            : launch_product<false>(e, A1, k1, A2, k2, m, n, b, card, s, launches);
 }

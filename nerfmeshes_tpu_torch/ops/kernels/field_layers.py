@@ -6,8 +6,10 @@ JAX runs such models through its Pallas kernels `_fwd_kernel`
 (nerfmeshes_tpu/ops/pallas/fused_mlp.py:387), `_sigma_kernel` (:675) and
 `_bwd_kernel` (:397); this module's wrappers launch their counterparts,
 csrc/field_layers.cu (CUDA C++ for sm_90a, bound through ctypes): a PE
-kernel, one product kernel launch per layer (wgmma on TMA-staged tiles,
-bias / ReLU / mask epilogues), a heads kernel, and for the backward the
+kernel, one product kernel launch per layer (persistent, warp-specialised
+wgmma on TMA-staged tiles, bias / ReLU / mask epilogues staged in shared
+memory and stored by TMA; `product_plan` mirrors its shared-memory plan,
+`product_tiles` its tile walk), a heads kernel, and for the backward the
 fused backward's dW leg and fixed-order reductions (csrc/dw_leg.cuh).
 
 What bounds it on an H100: each product moves its bf16 activations
@@ -33,12 +35,14 @@ those calls. The PE and product kernels alone (`layers_pe_cuda`,
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from nerfmeshes_tpu_torch.models.layers import matmul_f32_acc
 from nerfmeshes_tpu_torch.ops.kernels import build
 from nerfmeshes_tpu_torch.ops.kernels.fused_mlp import (
+    SMEM_LIMIT,
     MLPSpec,
     PackedMLP,
     _check_grad,
@@ -69,7 +73,7 @@ _HEAD_LD = 16
 _PE_COL = 8
 _DW_UNITS = 264
 _DW_RANGES = 24
-_MAX_SLAB = 65535 * _ROWS  # the product kernel's grid rows
+_MAX_SLAB = 65535 * _ROWS  # nm_field_layers' largest slab, in 128-point tiles
 
 
 def _blocks(x: int, b: int) -> int:
@@ -102,6 +106,74 @@ def dw_groups(spec: MLPSpec) -> list[tuple[int, int]]:
     out.append(((H // 2) * (H + pdp) + H + 3 * (H // 2),
                 _ranges_for(_job_units(H // 2, H) + _job_units(H // 2, pdp)
                             + _job_units(_HEAD_LD, H) + _job_units(_HEAD_LD, H // 2))))
+    return out
+
+
+# csrc/field_layers.cu's product plan: a slab's A bytes (128 rows x 64
+# bf16), the ring's most stages, the barriers' bytes (full and empty per
+# stage, out_free), the tile widths it picks from.
+_LP_A_BYTES = _ROWS * 64 * 2
+_LP_MAX_STAGES = 8
+_LP_BAR_BYTES = (2 * _LP_MAX_STAGES + 1) * 8
+_LP_WIDTHS = (256, 192, 128, 64)
+
+
+class ProductPlan(NamedTuple):
+    """A product launch's shared-memory plan: the tile's columns, the
+    ring's stages, column tiles, and the dynamic shared bytes per block."""
+
+    bn: int
+    stages: int
+    col_tiles: int
+    bytes: int
+
+
+def product_bn(n: int) -> int:
+    """field_layers.cu:product_bn: the tile width for n output columns,
+    of 256, 192, 128 and 64 the one with the least tiles x (width + 64),
+    a tie to the wider."""
+    return min(_LP_WIDTHS, key=lambda bn: _blocks(n, bn) * (bn + 64))
+
+
+def product_plan(n: int, smem_limit: int = SMEM_LIMIT) -> ProductPlan | None:
+    """The plan csrc/field_layers.cu:product_plan makes at launch for a
+    product into n columns (whatever its K: every slab is 64 columns of A
+    and W), or None where it refuses: fewer than 2 ring stages. A mirror
+    of the C++: keep the two alike."""
+    bn = product_bn(n)
+    stage = _LP_A_BYTES + bn * 64 * 2
+    fixed = _ROWS * bn * 2 + 8 * bn * 4 + _LP_BAR_BYTES  # staging, partials, barriers
+    stages = (smem_limit - fixed) // stage
+    if stages < 2:
+        return None
+    stages = min(stages, _LP_MAX_STAGES)
+    return ProductPlan(bn, stages, _blocks(n, bn), stages * stage + fixed)
+
+
+def product_tiles(m: int, n: int, sms: int) -> list[list[tuple[int, int]]]:
+    """The product kernel's tile walk: per CTA (one per SM, at most one
+    per tile), the (first row, first column) of each 128 x bn output tile
+    it computes, in order: tiles u = cta, cta + ctas, ... with N fastest."""
+    bn = product_bn(n)
+    ct = _blocks(n, bn)
+    tiles = _blocks(m, _ROWS) * ct
+    ctas = min(tiles, sms)
+    return [[(u // ct * _ROWS, u % ct * bn) for u in range(cta, tiles, ctas)]
+            for cta in range(ctas)]
+
+
+def route_products(spec: MLPSpec, kind: str) -> list[tuple[int, int, int, bool]]:
+    """(k1, k2, n, nn) of each product launch a slab of `kind` ("fwd",
+    "sigma", "bwd") makes, in order, as nm_field_layers issues them."""
+    H, L = spec.hidden, spec.num_layers
+    ks = [k for _, k in spec.gemm_shapes()]
+    out = [(spec.pxp, 0, H, False)]
+    out += [(H, ks[g] - H, H, False) for g in range(1, L)]
+    if kind == "sigma":
+        return out
+    out += [(H, 0, H, False), (H, spec.pdp, H // 2, False)]
+    if kind == "bwd":
+        out += [(H // 2, 0, H, True)] + [(H, 0, H, True)] * L
     return out
 
 
@@ -156,15 +228,16 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 def _run(kind: str, packed: PackedMLP, src: torch.Tensor, dirs: torch.Tensor | None,
          z: torch.Tensor | None, n_rays: int, samples: int, *, grad=None, out=None,
-         channels_first: bool = True, dW=None, dB=None) -> None:
-    """One call of nm_field_layers on the current stream of src's device."""
+         channels_first: bool = True, dW=None, dB=None, lib=None) -> None:
+    """One call of nm_field_layers (of `lib`, default this tree's build) on
+    the current stream of src's device."""
     device = src.device
     spec = packed.spec
     slab = slab_points(spec, kind, n_rays * samples, LAYER_WORKSPACE_BOUND)
     nbytes = workspace_bytes(spec, kind, slab)
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=device)
     counts = (ctypes.c_int * len(KERNELS))()
-    lib = build.load_library()
+    lib = lib or build.load_library()
     with torch.cuda.device(device):
         rc = lib.nm_field_layers(
             KINDS[kind], src.data_ptr(), _ptr(dirs), _ptr(z), n_rays, samples, _ptr(grad),
@@ -174,15 +247,18 @@ def _run(kind: str, packed: PackedMLP, src: torch.Tensor, dirs: torch.Tensor | N
             int(channels_first), _ptr(dW), _ptr(dB), ctypes.addressof(counts),
             torch.cuda.current_stream(device).cuda_stream,
         )
-    build.check(lib, rc, f"field_layers {kind} launch")
+    build.check(build.load_library(), rc, f"field_layers {kind} launch")
     for name, n in zip(KERNELS, counts):
         kernel_launches[name] += n
 
 
 def layers_mlp_cuda(packed: PackedMLP, origins: torch.Tensor, directions: torch.Tensor,
-                    z_vals: torch.Tensor, *, channels_first: bool = True) -> torch.Tensor:
+                    z_vals: torch.Tensor, *, channels_first: bool = True,
+                    lib=None) -> torch.Tensor:
     """The forward on the layer route. o, d (R, 3), z (R, S) f32 on one
-    CUDA device -> (4, R, S) or (R, S, 4) f32, as fused_mlp_cuda."""
+    CUDA device -> (4, R, S) or (R, S, 4) f32, as fused_mlp_cuda. `lib`:
+    another build of csrc/ to launch (scripts/torch_layer_product_ab.py),
+    default this tree's."""
     global launches
     _check_rays(origins, directions, z_vals)
     _check_packed(packed, z_vals.device, "layers_mlp_cuda")
@@ -192,7 +268,7 @@ def layers_mlp_cuda(packed: PackedMLP, origins: torch.Tensor, directions: torch.
     if R * S == 0:
         return out
     _run("fwd", packed, origins.float().contiguous(), directions.float().contiguous(),
-         z_vals.float().contiguous(), R, S, out=out, channels_first=channels_first)
+         z_vals.float().contiguous(), R, S, out=out, channels_first=channels_first, lib=lib)
     launches += 1
     return out
 
@@ -213,7 +289,7 @@ def layers_sigma_cuda(packed: PackedMLP, points: torch.Tensor) -> torch.Tensor:
 
 
 def layers_bwd_cuda(packed: PackedMLP, origins: torch.Tensor, directions: torch.Tensor,
-                    z_vals: torch.Tensor, grad: torch.Tensor
+                    z_vals: torch.Tensor, grad: torch.Tensor, *, lib=None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """The backward on the layer route: o, d (R, 3), z (R, S), grad
     (4, R, S) f32 on one CUDA device -> f32 (dW, dB) in the packed layout,
@@ -229,7 +305,8 @@ def layers_bwd_cuda(packed: PackedMLP, origins: torch.Tensor, directions: torch.
     if R * S == 0:
         return dW, dB
     _run("bwd", packed, origins.float().contiguous(), directions.float().contiguous(),
-         z_vals.float().contiguous(), R, S, grad=grad.float().contiguous(), dW=dW, dB=dB)
+         z_vals.float().contiguous(), R, S, grad=grad.float().contiguous(), dW=dW, dB=dB,
+         lib=lib)
     bwd_launches += 1
     return dW, dB
 
@@ -290,12 +367,13 @@ def layers_pe_cuda(packed: PackedMLP, src: torch.Tensor, directions: torch.Tenso
 
 def layers_product_plain(a1: torch.Tensor, a2: torch.Tensor | None, w: torch.Tensor, n: int, *,
                          nn: bool = False, bias: torch.Tensor | None = None,
-                         relu: bool = False, mask: torch.Tensor | None = None
-                         ) -> tuple[torch.Tensor, torch.Tensor]:
+                         relu: bool = False, mask: torch.Tensor | None = None,
+                         colsum: bool = True
+                         ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Plain version of the product kernel: (bf16 (m, n) epilogue([a1 |
     a2] B + bias), f32 (ceil(m / 128), n) column sums per 128 rows of the
-    f32 values), B = w^T for w (n, K) (nn False), w[:, :n] for w (K, ldw)
-    (nn True)."""
+    f32 values, or None without `colsum`), B = w^T for w (n, K) (nn
+    False), w[:, :n] for w (K, ldw) (nn True)."""
     a = a1 if a2 is None else torch.cat([a1, a2], dim=1)
     k = a.shape[1]
     b = w[:k, :n].t() if nn else w[:n, :k]
@@ -306,6 +384,8 @@ def layers_product_plain(a1: torch.Tensor, a2: torch.Tensor | None, w: torch.Ten
         y = y.clamp_min(0.0)
     if mask is not None:
         y = torch.where(mask.float() > 0, y, torch.zeros_like(y))
+    if not colsum:
+        return y.to(torch.bfloat16), None
     m = y.shape[0]
     rows = torch.nn.functional.pad(y, (0, 0, 0, _round_up(m, _ROWS) - m))
     return y.to(torch.bfloat16), rows.view(-1, _ROWS, n).sum(dim=1)
@@ -313,26 +393,29 @@ def layers_product_plain(a1: torch.Tensor, a2: torch.Tensor | None, w: torch.Ten
 
 def layers_product_cuda(a1: torch.Tensor, a2: torch.Tensor | None, w: torch.Tensor, n: int, *,
                         nn: bool = False, bias: torch.Tensor | None = None,
-                        relu: bool = False, mask: torch.Tensor | None = None
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The product kernel alone (nm_field_layers_product), as
-    layers_product_plain, on contiguous bf16 CUDA tensors."""
+                        relu: bool = False, mask: torch.Tensor | None = None,
+                        colsum: bool = True, lib=None
+                        ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The product kernel alone (nm_field_layers_product, of `lib`, default
+    this tree's build), as layers_product_plain, on contiguous bf16 CUDA
+    tensors."""
     device = a1.device
     if device.type != "cuda":
         raise ValueError(f"layers_product_cuda needs CUDA tensors, got {device}")
     m, k1 = a1.shape
     k2 = 0 if a2 is None else a2.shape[1]
     out = torch.empty((m, n), dtype=torch.bfloat16, device=device)
-    colsum = torch.empty((_blocks(m, _ROWS), n), dtype=torch.float32, device=device)
-    lib = build.load_library()
+    sums = (torch.empty((_blocks(m, _ROWS), n), dtype=torch.float32, device=device)
+            if colsum else None)
+    lib = lib or build.load_library()
     with torch.cuda.device(device):
         rc = lib.nm_field_layers_product(
             a1.data_ptr(), k1, _ptr(a2), k2, m, w.data_ptr(), w.shape[1], n, int(nn),
-            _ptr(bias), int(relu), _ptr(mask), out.data_ptr(), colsum.data_ptr(),
+            _ptr(bias), int(relu), _ptr(mask), out.data_ptr(), _ptr(sums),
             torch.cuda.current_stream(device).cuda_stream,
         )
-    build.check(lib, rc, "field_layers product launch")
-    return out, colsum
+    build.check(build.load_library(), rc, "field_layers product launch")
+    return out, sums
 
 
 def layers_workspace_c(packed: PackedMLP, kind: str, slab: int) -> int:
@@ -345,4 +428,14 @@ def layers_workspace_c(packed: PackedMLP, kind: str, slab: int) -> int:
                                        ctypes.byref(nbytes))
     build.check(lib, rc, "field_layers workspace")
     return int(nbytes.value)
+
+
+def layers_product_plan_c(n: int) -> ProductPlan:
+    """nm_field_layers_product_plan: the C plan on the current card, which
+    product_plan mirrors (its checks compare the two on the card)."""
+    lib = build.load_library()
+    out = (ctypes.c_int * 4)()
+    build.check(lib, lib.nm_field_layers_product_plan(n, ctypes.addressof(out)),
+                "field_layers product plan")
+    return ProductPlan(*out)
 

@@ -5,11 +5,14 @@ printed as one JSON line: the check that a change to a kernel leaves the
 bits it does not mean to change as they were (the forward and sigma
 kernels share nerfmeshes_tpu_torch/csrc/fused_field.cuh with the
 backward's tile kernel; the backward's dB comes from the tile kernel
-alone, its dW also from the dW leg). tests/test_torch_fused_mlp_gpu.py
-holds the kernels to the digests this script printed before such a
-change.
+alone, its dW also from the dW leg). With --layers, the same four of the
+layer route (csrc/field_layers.cu) on a seeded 8x1024 field at mip-NeRF's
+16 position bands, a model only that route takes: the check that a change
+to its product kernel keeps the route's bits.
+tests/test_torch_fused_mlp_gpu.py holds the kernels to the digests this
+script printed before such a change.
 
-    python scripts/torch_field_digest.py      # needs a CUDA card
+    python scripts/torch_field_digest.py [--layers]     # needs a CUDA card
 
 The weights and inputs come from numpy's generator seeded 0, so the case
 does not depend on torch's random streams.
@@ -28,40 +31,62 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from nerfmeshes_tpu_torch.models import FlexibleNeRFModel  # noqa: E402
+from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl  # noqa: E402
 from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm  # noqa: E402
 
 R, S, POINTS = 2048, 64, 65536
+LAYER_R = 512  # rays of the layer route's case (x S samples)
 
 
 def _sha(t: torch.Tensor) -> str:
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
 
 
-def digests(device) -> dict:
-    """{"fwd": digest of the (4, R, S) forward, "sigma": of the (POINTS,)
-    sigma kernel's output, "bwd_dB" / "bwd_dW": of the backward's f32
-    grads for a seeded (4, R, S) cotangent}, all launched on `device`."""
-    rng = np.random.default_rng(0)
-    model = FlexibleNeRFModel(num_layers=8, hidden_size=256, skip_step=4,
-                              num_encoding_fn_xyz=10, num_encoding_fn_dir=4,
-                              compute_dtype=torch.bfloat16)
+def _seeded_case(rng, device, rays: int, **arch):
+    """A bf16 FlexibleNeRF field of `arch` with weights from rng, packed on
+    device, and (rays, S) camera-like rays and POINTS grid points."""
+    model = FlexibleNeRFModel(**arch, compute_dtype=torch.bfloat16)
     with torch.no_grad():
         for p in model.parameters():
             w = rng.standard_normal(tuple(p.shape)) / np.sqrt(p.shape[-1])
             p.copy_(torch.from_numpy(w.astype(np.float32)))
     packed = fm.pack_weights(model.to(device))
-    o = rng.standard_normal((R, 3))
+    o = rng.standard_normal((rays, 3))
     o = 4.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
-    d = -o + rng.uniform(-1.0, 1.0, (R, 3))
+    d = -o + rng.uniform(-1.0, 1.0, (rays, 3))
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    z = np.sort(rng.uniform(2.0, 6.0, (R, S)), axis=1)
+    z = np.sort(rng.uniform(2.0, 6.0, (rays, S)), axis=1)
     pts = rng.uniform(-1.2, 1.2, (POINTS, 3))
     o, d, z, pts = (torch.from_numpy(a.astype(np.float32)).to(device) for a in (o, d, z, pts))
+    cot = np.random.default_rng(1).standard_normal((4, rays, S))
+    return packed, o, d, z, pts, torch.from_numpy(cot.astype(np.float32)).to(device)
+
+
+def digests(device) -> dict:
+    """{"fwd": digest of the (4, R, S) forward, "sigma": of the (POINTS,)
+    sigma kernel's output, "bwd_dB" / "bwd_dW": of the backward's f32
+    grads for a seeded (4, R, S) cotangent}, all launched on `device`."""
+    packed, o, d, z, pts, cot = _seeded_case(
+        np.random.default_rng(0), device, R, num_layers=8, hidden_size=256, skip_step=4,
+        num_encoding_fn_xyz=10, num_encoding_fn_dir=4)
     fwd = fm.fused_mlp_cuda(packed, o, d, z)
     sigma = fm.fused_sigma_cuda(packed, pts)
-    cot = np.random.default_rng(1).standard_normal((4, R, S))
-    cot = torch.from_numpy(cot.astype(np.float32)).to(device)
     dW, dB = fm.fused_mlp_bwd_cuda(packed, o, d, z, cot)
+    torch.cuda.synchronize()
+    return {"fwd": _sha(fwd), "sigma": _sha(sigma), "bwd_dB": _sha(dB), "bwd_dW": _sha(dW)}
+
+
+def layer_digests(device) -> dict:
+    """The same four digests of the layer route on an 8x1024 field at L
+    16/4 (LAYER_R x S rays, POINTS sigma points), launched on `device`."""
+    packed, o, d, z, pts, cot = _seeded_case(
+        np.random.default_rng(0), device, LAYER_R, num_layers=8, hidden_size=1024,
+        skip_step=4, num_encoding_fn_xyz=16, num_encoding_fn_dir=4)
+    if fm.field_route(packed.spec) != "layers":
+        raise AssertionError("8x1024 at L 16/4 is not a model of the layer route")
+    fwd = fl.layers_mlp_cuda(packed, o, d, z)
+    sigma = fl.layers_sigma_cuda(packed, pts)
+    dW, dB = fl.layers_bwd_cuda(packed, o, d, z, cot)
     torch.cuda.synchronize()
     return {"fwd": _sha(fwd), "sigma": _sha(sigma), "bwd_dB": _sha(dB), "bwd_dW": _sha(dW)}
 
@@ -69,4 +94,5 @@ def digests(device) -> dict:
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    print(json.dumps(digests(torch.device("cuda"))))
+    run = layer_digests if "--layers" in sys.argv[1:] else digests
+    print(json.dumps(run(torch.device("cuda"))))

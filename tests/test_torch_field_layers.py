@@ -340,3 +340,74 @@ def test_chip_smoke_cases_take_the_layer_route():
     defined = {name for src in csrc.glob("*.cu*") for name in pattern.findall(src.read_text())}
     names = {k for keys in smoke.LAYER_KERNELS.values() for k in keys}
     assert names <= defined, sorted(names - defined)
+
+
+def _layer_specs():
+    """(id, MLPSpec) of every layer-route field the tests and the chip
+    smoke run: ARCHS, and both fields of chip_smoke.py's LAYER_CASES."""
+    from nerfmeshes_tpu_torch.models import build_model
+
+    specs = [(i, fm.spec_from_model(FlexibleNeRFModel(**kw, device="meta")))
+             for i, kw in zip(IDS, ARCHS)]
+    smoke = _chip_smoke()
+    for case in smoke.LAYER_CASES:
+        cfg = smoke.layer_cfg(case)
+        for tag, node, kind in (("coarse", cfg.models.coarse, cfg.models.coarse_type),
+                                ("fine", cfg.models.fine, cfg.models.fine_type)):
+            specs.append((f"{case}-{tag}",
+                          fm.spec_from_model(build_model(kind, dict(node), device="meta"))))
+    return specs
+
+
+LAYER_SPECS = _layer_specs()
+# Row counts of the walk: one row, a ragged tile, whole tiles, a 2048-wide
+# backward slab of the smoke (42,240 points) and its ragged neighbour.
+WALK_ROWS = [1, 127, 128, 129, 4097, 42240, 42241]
+
+
+@pytest.mark.parametrize("spec", [s for _, s in LAYER_SPECS], ids=[i for i, _ in LAYER_SPECS])
+def test_product_plans_fit_and_the_walk_covers_every_tile_once(spec):
+    """Every product the route issues for this field (forward, sigma and
+    backward, field_layers.route_products) gets a plan within the H100's
+    232,448 B of shared memory with at least 2 ring stages and a tile width
+    wgmma takes, the one of least tiles x (width + 64), the columns computed
+    with each tile's share of A loads and epilogue; and the persistent
+    kernel's tile walk (product_tiles, 132 CTAs) computes each 128 x bn
+    output tile of the product exactly once, row blocks in order with N
+    fastest."""
+    seen = set()
+    for kind in ("fwd", "sigma", "bwd"):
+        products = fl.route_products(spec, kind)
+        assert len(products) == spec.num_layers + {"fwd": 2, "sigma": 0,
+                                                   "bwd": 3 + spec.num_layers}[kind]
+        for k1, k2, n, nn in products:
+            assert k1 > 0 and k2 >= 0 and n % 64 == 0 and (k2 == 0 or k1 % 64 == 0)
+            plan = fl.product_plan(n)
+            assert plan is not None and plan.bytes <= fm.SMEM_LIMIT and plan.stages >= 2
+            assert plan.bn in (64, 128, 192, 256) and plan.col_tiles * plan.bn >= n
+            cost = [-(-n // bn) * (bn + 64) for bn in (64, 128, 192, 256)]
+            assert plan.col_tiles * (plan.bn + 64) == min(cost)
+            seen.add(n)
+    for n in seen:
+        bn = fl.product_bn(n)
+        for m in WALK_ROWS:
+            walk = fl.product_tiles(m, n, 132)
+            tiles = [t for cta in walk for t in cta]
+            want = {(r, c) for r in range(0, m, 128) for c in range(0, n, bn)}
+            assert len(walk) == min(132, len(want))
+            assert len(tiles) == len(want) and set(tiles) == want
+            assert all(cta == sorted(cta) for cta in walk)
+            assert max(map(len, walk)) - min(map(len, walk)) <= 1  # waves, the last ragged
+
+
+def test_product_tile_widths_fit_n():
+    """The tile width per product: no empty columns where a width divides
+    n with as few tiles (576 and 1152 -> 192, 64 -> 64, 128 -> 128, 1024 and
+    2048 -> 256), and 1088 on 192-wide tiles (64 empty columns, not 192);
+    the plan's bytes and stages are field_layers.cu's layout."""
+    assert {n: fl.product_bn(n) for n in (64, 128, 576, 1024, 1088, 1152, 2048)} == {
+        64: 64, 128: 128, 576: 192, 1024: 256, 1088: 192, 1152: 192, 2048: 256}
+    assert fl.product_plan(1024) == fl.ProductPlan(256, 3, 4, 221320)
+    assert fl.product_plan(576) == fl.ProductPlan(192, 4, 3, 219272)
+    assert fl.product_plan(64) == fl.ProductPlan(64, 8, 1, 215176)
+    assert fl.product_plan(64, smem_limit=16384 + 24576 * 2 + 2048 + 136 - 1) is None

@@ -667,6 +667,25 @@ def test_backward_keeps_its_bias_grad_bits(field_digests):
     assert field_digests["bwd_dB"] == BWD_DB_DIGEST
 
 
+# SHA-256 of the layer route's forward (4, 512, 64) and sigma (65,536,)
+# outputs and the backward's f32 dB and dW on scripts/torch_field_digest.py's
+# seeded 8x1024 field at L 16/4 (`--layers`), as the product kernel of one
+# 128 x 256 tile a CTA gave them before it became persistent (the script's
+# output on the card, NVIDIA H100 80GB HBM3): the redesign keeps each
+# output element's K order and epilogue, so the route keeps its bits.
+LAYER_DIGESTS = {
+    "fwd": "5a841151a7b33035f3e3f57781824c0c852b1fabeceb6542b8177d5046bc4280",
+    "sigma": "8562954caa85199bd33c584b0f863c88b6ff52f4a0d994050a1c7d7aeaa0a7e6",
+    "bwd_dB": "1c748276694c8926d79759aad0b143882801d373457fdaeaeeb52dd40367aa22",
+    "bwd_dW": "9f051d06c3855c9fc4f6e4c84f74e4d6a1bb85829fd6fbf5abd75771eb524a7a"}
+
+
+def test_layer_route_keeps_its_bits(cuda):
+    """The layer route's forward, sigma and grads stay bit for bit what
+    they were before its product kernel's redesign."""
+    assert _digest_script().layer_digests(cuda) == LAYER_DIGESTS
+
+
 # ---- the layer route (csrc/field_layers.cu): every model supports_fused
 # admits that the fused plans refuse. The chip smoke's shapes scaled down:
 # 8 layers at 1024 wide with mip-NeRF's 16 position bands, past 1024
@@ -708,10 +727,32 @@ def _hold_layer_grads(packed, args, got, want):
 
 
 # (m, k1, k2, n, nn): a trunk product, a skip ([x | PE]), dir's narrow N
-# with its PE part, ragged rows, the dX chain's untransposed weights
+# with its PE part, ragged rows, the dX chain's untransposed weights; then
+# what only the persistent kernel can get wrong: more tiles than CTAs
+# (42,240 rows: 2,640 128 x 256 tiles, 20 a CTA on 132 SMs; 42,241: a
+# ragged last wave), fewer tiles than SMs (one row), n a multiple of 64
+# but not of 256 (tiles 192 or 64 wide, 1088 on 192 with 64 empty
+# columns), with and without k2, and the mask and column sums (nn)
 PRODUCTS = [(256, 256, 0, 256, False), (300, 256, 80, 256, False), (129, 1152, 32, 576, False),
             (1, 64, 0, 64, False), (4097, 208, 0, 1024, False), (300, 256, 0, 512, True),
-            (129, 576, 0, 1152, True), (1000, 128, 0, 2048, True)]
+            (129, 576, 0, 1152, True), (1000, 128, 0, 2048, True),
+            (42240, 2048, 0, 2048, False), (42241, 2048, 0, 2048, True), (1, 64, 0, 64, True),
+            (300, 256, 0, 320, False), (300, 256, 48, 320, False), (513, 512, 0, 576, False),
+            (513, 512, 64, 576, False), (257, 1024, 0, 1088, False),
+            (257, 1024, 32, 1088, False), (300, 320, 0, 576, True), (1000, 576, 0, 1088, True)]
+
+
+def _product_case(m, k1, k2, n, nn, device):
+    """A product's operands and epilogue, seeded by its shape."""
+    g = torch.Generator(device).manual_seed(m + n)
+    a1 = torch.randn((m, k1), generator=g, device=device).to(torch.bfloat16)
+    a2 = None if k2 == 0 else torch.randn((m, k2), generator=g, device=device).to(torch.bfloat16)
+    k = k1 + k2
+    w = (torch.randn((k, n + 64) if nn else (n, k), generator=g, device=device) / k ** 0.5
+         ).to(torch.bfloat16)
+    bias = None if nn else torch.randn(n, generator=g, device=device)
+    mask = (torch.randn((m, n), generator=g, device=device).to(torch.bfloat16) if nn else None)
+    return (a1, a2, w, n), dict(nn=nn, bias=bias, relu=not nn, mask=mask)
 
 
 @pytest.mark.parametrize("m,k1,k2,n,nn", PRODUCTS)
@@ -720,15 +761,7 @@ def test_layer_product_matches_plain(cuda, m, k1, k2, n, nn):
     within 1e-2 of each other's magnitude (the sums' order differs, so a
     bf16 rounding may fall the other way), column sums within 1e-4 of the
     sum of magnitudes; with bias and ReLU, and with the backward's mask."""
-    g = torch.Generator(cuda).manual_seed(m + n)
-    a1 = torch.randn((m, k1), generator=g, device=cuda).to(torch.bfloat16)
-    a2 = None if k2 == 0 else torch.randn((m, k2), generator=g, device=cuda).to(torch.bfloat16)
-    k = k1 + k2
-    w = (torch.randn((k, n + 64) if nn else (n, k), generator=g, device=cuda) / k ** 0.5
-         ).to(torch.bfloat16)
-    bias = None if nn else torch.randn(n, generator=g, device=cuda)
-    mask = (torch.randn((m, n), generator=g, device=cuda).to(torch.bfloat16) if nn else None)
-    kw = dict(nn=nn, bias=bias, relu=not nn, mask=mask)
+    (a1, a2, w, n), kw = _product_case(m, k1, k2, n, nn, cuda)
     got, got_cs = fl.layers_product_cuda(a1, a2, w, n, **kw)
     torch.cuda.synchronize()
     want, want_cs = fl.layers_product_plain(a1, a2, w, n, **kw)
@@ -737,6 +770,38 @@ def test_layer_product_matches_plain(cuda, m, k1, k2, n, nn):
     mag = fl.layers_product_plain(a1.abs(), None if a2 is None else a2.abs(), w.abs(), n,
                                   nn=nn)[1]
     assert bool(((got_cs - want_cs).abs() <= 1e-4 * mag + 1e-2).all())
+
+
+@pytest.mark.parametrize("m,k1,k2,n,nn", [PRODUCTS[i] for i in (2, 4, 9, 14, 18)])
+def test_layer_product_is_deterministic(cuda, m, k1, k2, n, nn):
+    """Two calls of the persistent product kernel give the same bits, out
+    and column sums (no float atomics; each tile's sums in a fixed order
+    whichever CTA computes it)."""
+    args, kw = _product_case(m, k1, k2, n, nn, cuda)
+    first = fl.layers_product_cuda(*args, **kw)
+    again = fl.layers_product_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+def test_layer_product_plan_is_the_c_plan(cuda):
+    """product_plan (the Python mirror the CPU tests check) is the plan
+    the C launches with on this card, at every tile width and at the
+    route's widths; a route call launches the product kernel once per
+    product route_products lists."""
+    limit = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    for n in (64, 128, 192, 256, 320, 576, 640, 1024, 1088, 1152, 2048, 4096):
+        assert fl.layers_product_plan_c(n) == fl.product_plan(n, smem_limit=limit), n
+    packed = _layer_model(LAYER_ARCHS[1], cuda)
+    o, d, z = _rays(64, 4, cuda)
+    cot = torch.zeros((4, 64, 4), device=cuda)
+    for kind, call in (("fwd", lambda: fl.layers_mlp_cuda(packed, o, d, z)),
+                       ("sigma", lambda: fl.layers_sigma_cuda(packed, o)),
+                       ("bwd", lambda: fl.layers_bwd_cuda(packed, o, d, z, cot))):
+        before = fl.kernel_launches["product"]
+        call()
+        assert fl.kernel_launches["product"] - before == len(fl.route_products(packed.spec, kind))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("kw", LAYER_ARCHS, ids=LAYER_IDS)
