@@ -91,25 +91,32 @@ and the BuFF ones:
   backward at 2048 x 128, at the width of configs/hard-llff.yml (8x128),
   held against their plain versions and timed (h128_kernel_phase).
 - the wide fields (wide_phase, last): hard-blender.yml's two 8-layer L
-  10/4 FlexibleNeRFs widened to 384-1024 (the kernels' 64-point tiles
-  split in N; from 640 on across a 2-CTA cluster as well): each kernel's
-  shared-memory plan; the forward at 2048 x 64 and 2048 x 192, the
-  backward at both (its legs at 512 and 1024) and sigma at a
-  262,144-point tile against their plain versions, timed (640-896 at
-  2048 x 64); from 640 on sigma bit for bit the forward's channel 3 and
-  repeat launches bitwise; then setup + fit (3 + 30 steps, 2 + 2 launches
-  a step, the loss falls, grads vs the nn.Module), at 512 and 1024 two
-  400x400 views of the trained system, and export_marching_cubes
-  (WIDE_MESH_RES) with the colour check.
-- the layer route (layers_phase, after wide_phase): the fields the fused
-  plans refuse (csrc/field_layers.cu): 8 layers at 1024 wide with 16
+  10/4 FlexibleNeRFs widened to 384-1024, the fused kernels called
+  directly (64-point tiles split in N; from 640 on across a 2-CTA
+  cluster as well): each kernel's shared-memory plan; the forward at
+  2048 x 64 and 2048 x 192, the backward at both (its legs at 512 and
+  1024) and sigma at a 262,144-point tile against their plain versions,
+  timed (640-896 at 2048 x 64); from 640 on sigma bit for bit the
+  forward's channel 3 and repeat launches bitwise; then, through the
+  normal entry points on the width's route (fused at 384, the layer route
+  from 512 on, whose kernels' launches are held to fl.call_launches),
+  setup + fit (3 + 30 steps, 2 + 2 calls a step, the loss falls, grads vs
+  the nn.Module), at 512 and 1024 two 400x400 views of the trained
+  system, and export_marching_cubes (WIDE_MESH_RES) with the colour check.
+- the layer route (layers_phase, after wide_phase; csrc/field_layers.cu):
+  its backward's heads kernel and bias-grad reduction alone at an 8x2048
+  and an 8x1024 slab against their plain versions, timed beside their
+  bounds and a torch.sum per bias vector; the fields fm.field_route sends
+  there: 8 layers at 512 and 1024 wide (L 10/4), at 1024 wide with 16
   position bands, at 1152 and 2048 wide, 16 layers and 32 bands at 256
   wide: forward, backward and sigma against their plain versions and
   timed, sigma bit for bit the route's forward channel 3, the backward
-  bitwise repeatable; its PE bit for bit the fused kernels'; the chains
-  at 1024 L 16/4 (3 + 30 steps, 2 views, a 128^3 mesh) and 2048 (3 + 30
-  steps, a 64^3 mesh), every launch the layer route's; the route beside
-  the pair kernels at 8x1024 L 10/4.
+  bitwise repeatable, each kernel's device time per forward and backward
+  call at 512, 1024 (L 10/4 and 16/4) and 2048 wide; its PE bit for bit
+  the fused kernels'; the chains at 1024 L 16/4 (3 + 30 steps, 2 views, a
+  128^3 mesh) and 2048 (3 + 30 steps, a 64^3 mesh), every launch the
+  layer route's, each kernel's launches those fl.call_launches predicts;
+  the route beside the pair kernels at 8x1024 L 10/4.
 - the forward-facing chain (llff_cli): configs/hard-llff.yml as shipped on
   data/hard_llff (21 training views, 3 held out; NDC rays, per-image
   COLMAP bounds, two 8x128 fields through the fused kernels): train 500
@@ -179,9 +186,10 @@ and the BuFF ones:
 Prints, on lines of their own: the card's name and power limit as
 nvidia-smi reports them, the build time, per-kernel error, times, bound
 and library yardstick, render and train rays/s of both systems, the mesh
-phases' times, last the backward's legs (its transpose, tile kernel and
-dW products) by kernel name, each beside its bound, and the dW leg beside
-its torch.mm yardstick, then a JSON line of
+phases' times, the backward's legs (its transpose, tile kernel and dW
+products) by kernel name, each beside its bound, and the dW leg beside
+its torch.mm yardstick (these breakdowns, and the layer route's, from a
+process of their own: breakdowns_process), then a JSON line of
 the kernels, and last {"ok": true,
 "device": {...}}. Any failed check
 raises, so the exit code is non-zero and no "ok" line is printed. There
@@ -314,7 +322,7 @@ PEAK_F32 = 67e12
 # subtractions, 6 multiplies, 6 selects, 8 comparisons, 4 max/min, 6
 # logical ands (csrc/chords.cu).
 CHORD_TEST_OPS = 36
-# The backward's legs by kernel name (csrc/fused_mlp_bwd.cu), as legs_phase
+# The backward's legs by kernel name (csrc/fused_mlp_bwd.cu), as fused_legs
 # and the step profiles group a trace (reduce_rows_kernel sums the dW
 # partials and, twice, the bias partials); tests/test_torch_fused_mlp.py
 # holds every name to a __global__ of the csrc/ sources.
@@ -481,13 +489,35 @@ def _ms_text(t: float | None) -> str:
 
 
 def _zero_field_counts() -> None:
-    """Both routes' launch counts, and the layer route's per kernel, to 0."""
+    """Both routes' launch counts, and the layer route's per kernel, to 0;
+    the layer route's calls logged from here (_hold_layer_counts)."""
     from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
 
     for mod in (fm, fl):
         mod.launches = mod.bwd_launches = mod.sigma_launches = 0
     fl.kernel_launches.update(dict.fromkeys(fl.KERNELS, 0))
+    fl.call_log = []
+
+
+def _hold_layer_counts(label: str, card: str) -> None:
+    """Each layer-route kernel's launches since _zero_field_counts held to
+    the ones fl.call_launches predicts for the calls logged (a slab's PE,
+    products, heads, dW launches, their range reductions and one bias-grad
+    reduction); the log stops."""
+    from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl
+
+    calls, fl.call_log = fl.call_log or [], None
+    want = dict.fromkeys(fl.KERNELS, 0)
+    for spec, kind, n_pts in calls:
+        for k, v in fl.call_launches(spec, kind, n_pts).items():
+            want[k] += v
+    got = dict(fl.kernel_launches)
+    print(f"{label}: {len(calls)} layer-route calls, kernel launches "
+          + ", ".join(f"{k} {v}" for k, v in got.items()) + " (as fl.call_launches predicts: "
+          + ("yes" if got == want else f"no, {want}") + f") [{card}]")
+    if got != want:
+        raise AssertionError(f"{label}: layer-route launches {got}, predicted {want}")
 
 
 def rank_kernels(kern, bkern, skern, ckern, render, train, mesh, buff, buff_render, buff_mesh,
@@ -558,7 +588,13 @@ def _traced_kernels(fn, runs: int = 7, warmup: int = 2) -> list:
     that fall within its window, and places them on the host's clock with
     an error of up to ~0.2 ms (kernels that start before their launch in
     scripts/torch_trace_probe.py's traces), so a short run's events could
-    otherwise fall outside it."""
+    otherwise fall outside it. A trace in a process that was running while
+    another process used the card can lack kernel records altogether,
+    whatever the sleep (scripts/torch_trace_after_child.py): late in the
+    smoke's process 3 of 36 launches were traced, and after the breakdowns'
+    process none of 7. So the smoke's process traces only before it starts
+    another CUDA process, and every later trace runs in a fresh process
+    (breakdowns_process)."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -590,15 +626,19 @@ def _kernel_device_ms(fn, key: str, runs: int = 7) -> float:
 
 def _device_ms_by_group(fn, groups: dict, runs: int = 7) -> dict:
     """Device time in ms per call of fn() of each group of kernels (name
-    substrings): the group's time over the launches traced of its first
-    name, which fn() launches once per call."""
+    substrings): the group's traced time over `runs` calls. Each group's
+    first name is launched once a call and every other name a fixed number
+    of times; a trace that lacks a launch of any name (its count not a
+    positive multiple of runs, the first's not runs) fails."""
     kernels = _traced_kernels(fn, runs)
     out = {}
     for group, keys in groups.items():
-        first = sum(1 for name, _ in kernels if keys[0] in name)
-        if not 0 < first <= runs:
-            raise AssertionError(f"{first} {keys[0]} launches traced for {runs} calls")
-        out[group] = sum(t for name, t in kernels if any(k in name for k in keys)) / first
+        for i, key in enumerate(keys):
+            n = sum(1 for name, _ in kernels if key in name)
+            if n == 0 or n % runs or (i == 0 and n != runs):
+                raise AssertionError(f"{n} {key} launches traced for {runs} calls "
+                                     f"({len(kernels)} kernels traced)")
+        out[group] = sum(t for name, t in kernels if any(k in name for k in keys)) / runs
     return out
 
 
@@ -857,7 +897,6 @@ def h128_kernel_phase(card: str, device) -> dict:
         rows[S] = dict(max_abs_err=_fwd_check(packed, o, d, z, model.hidden_size),
                        shape=f"{R}x{S}", **_fwd_times(model, packed, o, d, z, card))
     bwd = bwd_kernel_phase(cfg, card, device)
-    bwd.pop("legs_case")
     return {"fwd": rows, "bwd": dict(bwd, shape=f"{R}x{S}")}
 
 
@@ -865,9 +904,12 @@ def h128_kernel_phase(card: str, device) -> dict:
 # products the two consumer warpgroups split in N; at H > 512 split across
 # a 2-CTA cluster as well): configs/hard-blender.yml's two 8-layer L 10/4
 # FlexibleNeRFs widened to 384-1024 (JAX's Pallas kernels take any
-# H % 128 == 0; 1024 is mip-NeRF 360's NeRF-MLP width). At 512 and 1024
-# the whole chain (train, 2 views, a WIDE_MESH_RES^3 mesh); at the others
-# the train leg and a 128^3 mesh.
+# H % 128 == 0; 1024 is mip-NeRF 360's NeRF-MLP width). The fused kernels
+# are called directly at every width; the chain goes through the normal
+# entry points, whose route (fm.field_route) is the fused kernels at 384
+# and the layer route from 512 on. At 512 and 1024 the whole chain (train,
+# 2 views, a WIDE_MESH_RES^3 mesh); at the others the train leg and a
+# mesh.
 WIDE_HIDDEN = (384, 512, 640, 768, 896, 1024)
 WIDE_MESH_RES = {384: 128, 512: 256, 640: 64, 768: 64, 896: 64, 1024: 128}
 WIDE_VIEWS = (512, 1024)
@@ -883,23 +925,27 @@ def wide_cfg(hidden: int):
     return cfg
 
 
-def wide_phase(card: str, device) -> dict:
-    """Per width of WIDE_HIDDEN: the shared-memory plans of the three
-    kernels (fm.field_plan, as the launches make them: ring stages, PE
-    tiles, slab K-columns, CTAs per tile, bytes) and the weight bytes each
-    64-point tile reads; the forward at 2048 x 64 and 2048 x 192, the
-    backward at both (timed at 2048 x 192, with its legs at 512 and 1024;
-    at WIDE_COARSE_TIMES the forward and backward timed at 2048 x 64 only)
-    and sigma at a 262,144-point grid tile, each against its plain version
-    and timed beside its bound and library yardstick; from 640 on, sigma
-    bit for bit the forward's channel 3 and a repeat forward launch bit
-    for bit the first; then the path through the normal entry points:
-    NeRFSystem.setup + fit (3 + 30 steps, 2 + 2 launches a step, the loss
-    falls, one step's grads against the nn.Module path), at WIDE_VIEWS two
-    400x400 views of the trained system through query_rays, and
-    export_marching_cubes at WIDE_MESH_RES^3 (sigma launches per grid tile,
-    2 forward launches per appearance chunk, the colours against the
-    nn.Module render)."""
+def wide_phase(card: str, device, legs: dict) -> dict:
+    """Per width of WIDE_HIDDEN, the fused kernels called directly: the
+    shared-memory plans of the three kernels (fm.field_plan, as the
+    launches make them: ring stages, PE tiles, slab K-columns, CTAs per
+    tile, bytes) and the weight bytes each 64-point tile reads; the forward
+    at 2048 x 64 and 2048 x 192, the backward at both (timed at 2048 x 192,
+    with its legs at 512 and 1024 from `legs`, breakdowns_process's "fused"
+    part, keyed "w512" and "w1024"; at WIDE_COARSE_TIMES the forward and
+    backward timed at 2048 x 64 only) and sigma at a 262,144-point grid
+    tile, each against its plain version and timed beside its bound and
+    library yardstick; from 640 on, sigma bit for bit the forward's channel
+    3 and a repeat forward launch bit for bit the first. Then the path
+    through the normal entry points on the width's route (fm.field_route:
+    the fused kernels at 384, the layer route from 512 on, every launch its
+    kernels' and on the layer route each kernel's launches those
+    fl.call_launches predicts): NeRFSystem.setup + fit (3 + 30 steps, 2 + 2
+    calls a step, the loss falls, one step's grads against the nn.Module
+    path), at WIDE_VIEWS two 400x400 views of the trained system through
+    query_rays, and export_marching_cubes at WIDE_MESH_RES^3 (sigma calls
+    per grid tile, 2 forward calls per appearance chunk, the colours
+    against the nn.Module render)."""
     from nerfmeshes_tpu_torch.models import build_model
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
     from nerfmeshes_tpu_torch.train.render import RenderSettings, render_rays
@@ -911,13 +957,15 @@ def wide_phase(card: str, device) -> dict:
         cfg = wide_cfg(H)
         model = build_model(cfg.models.fine_type, dict(cfg.models.fine),
                             compute_dtype=torch.bfloat16)
-        if model.hidden_size != H or not fm.supports_fused(model):
-            raise AssertionError(f"the {H}-wide hard-blender field is not a fused model")
         init_params(model, None, torch.Generator().manual_seed(SEED))
         model.to(device).eval()
         packed = fm.pack_weights(model)
         spec = packed.spec
         plans = {k: fm.field_plan(spec, k) for k in ("fwd", "sigma", "bwd")}
+        route = fm.field_route(spec)
+        if (model.hidden_size != H or not fm.supports_fused(model) or None in plans.values()
+                or route != ("fused" if H in fm.FUSED_WIDTHS else "layers")):
+            raise AssertionError(f"the {H}-wide hard-blender field: route {route}, plans {plans}")
         trunk = int(packed.desc[fm._DESC_FIXED + spec.num_layers])  # bf16 weights before feat
         print(f"w{H} plans (stages, PE tiles, slab K, CTAs per tile, shared bytes per CTA): "
               + ", ".join(f"{k} {p.stages} {p.pe_slots} {p.slab_k} {p.cluster} {p.bytes}"
@@ -946,19 +994,18 @@ def wide_phase(card: str, device) -> dict:
             fwd[coarse]["max_abs_err"] = max(fwd[coarse]["max_abs_err"], untimed_err)
         del model, packed
         bwd = bwd_kernel_phase(cfg, card, device, time_fine=H not in WIDE_COARSE_TIMES)
-        if H in (512, 1024):
-            bwd["legs"] = legs_phase(bwd, card)
-        else:
-            bwd.pop("legs_case")
+        if f"w{H}" in legs:
+            bwd["legs"] = legs[f"w{H}"]
         sigma = sigma_kernel_phase(cfg, card, device)
         if H > 512 and not sigma["bitwise"]:
             raise AssertionError(f"w{H}: sigma is not bit for bit the forward's channel 3")
         kernels_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        train = train_phase(card, device, cfg)
+        train = train_phase(card, device, cfg, route=route)
         system = train.pop("system")
-        render = slice_phase(cfg, card, device, system) if H in WIDE_VIEWS else None
+        render = (slice_phase(cfg, card, device, system, route=route) if H in WIDE_VIEWS
+                  else None)
         settings = RenderSettings.from_cfg(cfg, train=False)._replace(use_fused_kernel=False)
 
         def module_rgb(o, d, near, far, system=system, settings=settings):
@@ -967,27 +1014,31 @@ def wide_phase(card: str, device) -> dict:
 
         mesh = export_and_check(system, card, f"w{H} mesh", fwd_per_chunk=2,
                                 chords_per_chunk=0, module_rgb=module_rgb,
-                                res=WIDE_MESH_RES[H])
+                                res=WIDE_MESH_RES[H], route=route)
         del system, module_rgb
         gc.collect()
         torch.cuda.empty_cache()
-        print(f"w{H}: kernels {kernels_s:.2f} s, chain {time.perf_counter() - t0:.2f} s "
-              f"[{card}]")
+        print(f"w{H}: kernels {kernels_s:.2f} s, chain on the {route} route "
+              f"{time.perf_counter() - t0:.2f} s [{card}]")
         out[H] = dict(fwd=fwd, bwd=bwd, sigma=sigma, train=train, render=render, mesh=mesh,
-                      plans=plans)
+                      plans=plans, route=route)
     return out
 
 
 # The layer route (csrc/field_layers.cu): the FlexibleNeRF fields that JAX's
-# Pallas kernels take and the fused plans refuse. configs/hard-blender.yml's
-# two 8-layer fields at 1024 wide with mip-NeRF's 16 position bands
-# (max_deg_point; the fused plans hold 15), at 1152 and 2048 wide; and at
-# its own 256 wide with 16 layers or 32 position bands, checked and timed at
-# 2048 x 64 only. The whole path at w1024-L16 (3 + 30 steps, 2 views, a
-# 128^3 mesh with its colour check) and at 2048 wide with L 10/4 (3 + 30
-# steps, a 64^3 mesh: over 10 steps its loss's batch noise hides the fall,
-# 0.1186 in the first 5 steps' mean, 0.1240 in the last 5's).
+# Pallas kernels take and fm.field_route does not send to the fused
+# kernels. configs/hard-blender.yml's two 8-layer fields at 512 and 1024
+# wide (L 10/4: the fused plans hold them, the route beat them), at 1024
+# wide with mip-NeRF's 16 position bands (max_deg_point; the fused plans
+# hold 15), at 1152 and 2048 wide; and at its own 256 wide with 16 layers
+# or 32 position bands, checked and timed at 2048 x 64 only. The whole path
+# at w1024-L16 (3 + 30 steps, 2 views, a 128^3 mesh with its colour check)
+# and at 2048 wide with L 10/4 (3 + 30 steps, a 64^3 mesh: over 10 steps
+# its loss's batch noise hides the fall, 0.1186 in the first 5 steps' mean,
+# 0.1240 in the last 5's); at 512 and 1024 with L 10/4 wide_phase runs it.
 LAYER_CASES = {
+    "w512": {"hidden_size": 512},
+    "w1024": {"hidden_size": 1024},
     "w1024-L16": {"hidden_size": 1024, "num_encoding_fn_xyz": 16},
     "w1152": {"hidden_size": 1152},
     "w2048": {"hidden_size": 2048},
@@ -995,13 +1046,16 @@ LAYER_CASES = {
     "bands32": {"num_encoding_fn_xyz": 32},
 }
 LAYER_COARSE_ONLY = ("deep16", "bands32")
+# The cases whose forward and backward calls are broken down by kernel.
+LAYER_LEG_CASES = ("w512", "w1024", "w1024-L16", "w2048")
 LAYER_CHAINS = {"w1024-L16": dict(steps=30, views=True, res=128, grad_rays=None),
                 "w2048": dict(steps=30, views=False, res=64, grad_rays=512)}
 # The route's kernels by name, as torch.profiler traces them
 # (tests/test_torch_fused_mlp.py holds every name to a __global__ of csrc/).
 LAYER_KERNELS = {"pe": ("layer_pe_kernel",), "product": ("layer_product_kernel",),
                  "heads": ("layer_heads_kernel",), "dw": ("dw_kernel",),
-                 "reduce": ("reduce_rows_kernel",)}
+                 "reduce": ("reduce_rows_kernel",), "bias": ("bias_grads_kernel",),
+                 "heads_bwd": ("layer_heads_bwd_kernel",)}
 
 
 # The product kernel's timed shapes, (points M, K, N): an 8x1024 product
@@ -1079,6 +1133,89 @@ def product_phase(card: str, device) -> dict:
     return rows
 
 
+def leg_kernel_phase(card: str, device) -> dict:
+    """The backward's heads kernel and the bias-grad reduction alone
+    (fl.layers_heads_bwd_cuda, fl.layers_bias_cuda) at the shapes of a
+    backward slab of the 8x2048 and 8x1024 (L 10/4) fields at 2048 x 192
+    points (LAYER_CASES' fine fields, their weights from SEED; h a ReLU
+    output and seeded cotangents and partials): against their plain
+    versions (heads outputs within 1e-2 of each other's magnitude plus 1e-2
+    of the largest, the product kernel's bar; bias grads within 1e-5 of the
+    sums of magnitudes), timed by CUDA events over 20 launches back to back
+    behind a spin of the card (_back_to_back_ms: a trace late in the smoke
+    may miss kernels this short) beside their bounds (bytes: each input
+    read once, each output written once), the plain versions (CUDA events,
+    median of 3) and, for the reduction, one torch.sum(partials, dim=0) per
+    bias vector, timed alike and never called by the port."""
+    from nerfmeshes_tpu_torch.models import build_model
+    from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl
+    from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerfmeshes_tpu_torch.train.system import init_params
+
+    rows = {}
+    for case in ("w2048", "w1024"):
+        cfg = layer_cfg(case)
+        model = build_model(cfg.models.fine_type, dict(cfg.models.fine),
+                            compute_dtype=torch.bfloat16)
+        init_params(model, None, torch.Generator().manual_seed(SEED))
+        packed = fm.pack_weights(model.to(device))
+        del model
+        spec = packed.spec
+        H2 = spec.hidden // 2
+        m = fl.slab_points(spec, "bwd", 2048 * 192)
+        g = torch.Generator(device).manual_seed(SEED + m)
+        h = torch.randn((m, H2), generator=g, device=device).clamp_min(0.0).to(torch.bfloat16)
+        grad = torch.randn((4, m), generator=g, device=device)
+        got = fl.layers_heads_bwd_cuda(packed, h, grad)
+        want = fl.layers_heads_bwd_plain(packed, h, grad)
+        err, ok = 0.0, True
+        for a, b in zip(got, want):
+            diff = (a.float() - b.float()).abs()
+            err = max(err, float(diff.max()))
+            ok = ok and bool((diff <= 1e-2 * b.float().abs()
+                              + 1e-2 * float(b.float().abs().max())).all())
+        if not ok:
+            raise AssertionError(f"{case}: the backward heads kernel differs from plain ({err})")
+        nbytes = m * H2 * 4 + m * 16 + m * 64 + -(-m // 64) * (H2 + 4) * 4
+        bound_ms, bound_by = _bound_ms(2 * m * 3 * H2 + 5 * m * H2, nbytes, PEAK_F32)
+        rows[f"heads {case} m={m}"] = dict(
+            max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            ms=_back_to_back_ms(lambda: fl.layers_heads_bwd_cuda(packed, h, grad)),
+            plain_ms=_median_ms(lambda: fl.layers_heads_bwd_plain(packed, h, grad), runs=3,
+                                warmup=1))
+        del got, want, h, grad
+
+        segs = fl.bias_segments(spec, m)
+        parts = [torch.randn(shape, generator=g, device=device) for shape in segs]
+        outs = [torch.randn(shape[1], generator=g, device=device) for shape in segs]
+        got = fl.layers_bias_cuda(parts, outs)
+        want = fl.layers_bias_plain(parts, outs)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        if not all(bool(((a - b).abs() <= 1e-5 * (o.abs() + p.abs().sum(0)) + 1e-6).all())
+                   for a, b, o, p in zip(got, want, outs, parts)):
+            raise AssertionError(f"{case}: the bias-grad reduction differs from plain ({err})")
+        nbytes = sum(4 * r * c + 8 * c for r, c in segs)
+        bound_ms, bound_by = _bound_ms(sum(r * c for r, c in segs), nbytes, PEAK_F32)
+        rows[f"bias {case} m={m}"] = dict(
+            max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+            ms=_back_to_back_ms(fl.layers_bias_launcher(parts, [o.clone() for o in outs])),
+            plain_ms=_median_ms(lambda: fl.layers_bias_plain(parts, outs), runs=3, warmup=1),
+            library_ms=_back_to_back_ms(lambda: [torch.sum(p, dim=0) for p in parts]))
+        del got, want, parts, outs, packed
+        torch.cuda.empty_cache()
+    for name, row in rows.items():
+        kernel = "layer_heads_bwd_kernel" if name.startswith("heads") else "bias_grads_kernel"
+        print(f"field_layers {name} ({kernel} alone): {row['ms']:.4f} ms (CUDA events, 20 "
+              "launches back to back), "
+              f"bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), {100 * row['bound_ms'] / row['ms']:.1f}% of it; plain "
+              f"{row['plain_ms']:.4f} ms; library "
+              + ("none" if row["library_ms"] is None else
+                 f"{row['library_ms']:.4f} ms (torch.sum(partials, dim=0) per bias vector)")
+              + f"; max abs err vs plain {row['max_abs_err']:.3e} [{card}]")
+    return rows
+
+
 def layer_cfg(case: str):
     """hard_blender_cfg() with both fields changed as LAYER_CASES[case]."""
     cfg = hard_blender_cfg()
@@ -1091,7 +1228,8 @@ def _device_ms_per_call(fn, groups: dict, runs: int = 3) -> dict:
     of the route's kernels (groups keyed as fl.KERNELS): the launches one
     call makes by fl.kernel_launches, times torch.profiler's mean device
     time a traced launch of the kernel (a trace of a long run may drop
-    events, so the trace's own count is not used)."""
+    events, so the trace's own count is not used; a kernel the call
+    launches and the trace lacks fails)."""
     from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl
 
     before = dict(fl.kernel_launches)
@@ -1102,6 +1240,9 @@ def _device_ms_per_call(fn, groups: dict, runs: int = 3) -> dict:
     out = {}
     for group, keys in groups.items():
         times = [t for name, t in kernels if any(k in name for k in keys)]
+        if per_call[group] and not times:
+            raise AssertionError(f"the trace holds none of {per_call[group]} {group} launches "
+                                 f"a call ({len(kernels)} kernels traced)")
         out[group] = ((statistics.mean(times) if times else 0.0) * per_call[group],
                       per_call[group])
     return out
@@ -1114,9 +1255,11 @@ def _layer_leg_yardsticks(spec, kind: str, n_pts: int, device) -> dict:
     gives it: each input read once, each output written once; products
     and dW in bf16 operations, the heads' dot products in f32). Library:
     one bf16 torch.mm per product (fl.route_products) and, in the
-    backward, per weight matrix's dW = dY^T X (median of 7 on seeded
-    operands of each distinct shape, times its launches); None for the
-    PE, heads and reductions, which no one PyTorch call computes."""
+    backward, per weight matrix's dW = dY^T X; one torch.sum(partials,
+    dim=0) per reduction of the same f32 partials (dW's point ranges, each
+    bias vector's rows: fl.bias_segments); medians of 7 on seeded operands
+    of each distinct shape, times its launches. None for the PE and heads,
+    which no one PyTorch call computes."""
     from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl
 
     H, pxp, pdp = spec.hidden, spec.pxp, spec.pdp
@@ -1124,6 +1267,7 @@ def _layer_leg_yardsticks(spec, kind: str, n_pts: int, device) -> dict:
     bound = dict.fromkeys(fl.KERNELS, 0.0)
     bound_by = {k: set() for k in fl.KERNELS}
     mm, dw = {}, {}  # shape -> launches
+    sums = {"reduce": {}, "bias": {}}  # kernel -> partials' shape -> reductions
 
     def add(kernel, flops, nbytes, peak=PEAK_BF16):
         t, by = _bound_ms(flops, nbytes, peak)
@@ -1143,14 +1287,19 @@ def _layer_leg_yardsticks(spec, kind: str, n_pts: int, device) -> dict:
             add("heads", 2 * m * (H + 3 * H // 2), m * (H + H // 2) * 2 + m * 16, PEAK_F32)
             continue
         # heads: h and the cotangent in; dy_rgb, dy_a, dy_dir and partials out
-        add("heads", 2 * m * 3 * H // 2, m * (H // 2) * 4 + m * 16 + m * 64
+        add("heads_bwd", 2 * m * 3 * H // 2, m * (H // 2) * 4 + m * 16 + m * 64
             + -(-m // 64) * (H // 2 + 4) * 4, PEAK_F32)
-        reduce_bytes = 2 * (-(-m // 64) * (H // 2 + 4) * 4) + (spec.num_layers + 1) * mt * H * 4
+        reduce_bytes = bias_bytes = 0
         for (n_g, k_g), (cols, ranges) in zip(spec.gemm_shapes(), fl.dw_groups(spec)):
             add("dw", 2 * m * cols, 2 * m * (n_g + k_g) + 4 * ranges * cols)
             dw[(m, n_g, k_g)] = dw.get((m, n_g, k_g), 0) + 1
-            reduce_bytes += 4 * ranges * cols + 8 * cols
+            reduce_bytes += 4 * ranges * cols + 8 * cols  # partials in; grads in and out
+            sums["reduce"][(ranges, cols)] = sums["reduce"].get((ranges, cols), 0) + 1
+        for rows, cols in fl.bias_segments(spec, m):
+            bias_bytes += 4 * rows * cols + 8 * cols
+            sums["bias"][(rows, cols)] = sums["bias"].get((rows, cols), 0) + 1
         add("reduce", 0, reduce_bytes)
+        add("bias", 0, bias_bytes)
     g = torch.Generator(device).manual_seed(SEED)
 
     def randn(*shape):
@@ -1166,9 +1315,117 @@ def _layer_leg_yardsticks(spec, kind: str, n_pts: int, device) -> dict:
     for (m, n_g, k_g), count in dw.items():
         dy, x = randn(m, n_g), randn(m, k_g)
         library["dw"] += count * _median_ms(lambda: torch.mm(dy.t(), x))
+    for kernel, shapes in sums.items():
+        for shape, count in shapes.items():
+            part = torch.randn(shape, generator=g, device=device)
+            library[kernel] = (library[kernel] or 0.0) + count * _median_ms(
+                lambda: torch.sum(part, dim=0))
+            del part
     torch.cuda.empty_cache()
     return {k: (bound[k], "/".join(sorted(bound_by[k])) or "-", library[k])
             for k in fl.KERNELS}
+
+
+def layer_legs(card: str, device) -> dict:
+    """Each of the route's kernels' device time in one forward and one
+    backward call at 2048 x 192 points (_device_ms_per_call: torch.profiler
+    over 3 calls) beside its bound and library yardstick
+    (_layer_leg_yardsticks), for the fine fields of LAYER_LEG_CASES (weights
+    from SEED, seeded rays and cotangent); printed, and returned as
+    {case: {"fwd" | "bwd": {kernel: {ms, launches, bound_ms, bound_by,
+    library_ms}}}}."""
+    from nerfmeshes_tpu_torch.models import build_model
+    from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl
+    from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerfmeshes_tpu_torch.train.system import init_params
+
+    out = {}
+    for case in LAYER_LEG_CASES:
+        cfg = layer_cfg(case)
+        model = build_model(cfg.models.fine_type, dict(cfg.models.fine),
+                            compute_dtype=torch.bfloat16)
+        init_params(model, None, torch.Generator().manual_seed(SEED))
+        packed = fm.pack_weights(model.to(device).eval())
+        del model
+        spec = packed.spec
+        rng = np.random.default_rng(SEED)
+        R = int(cfg.nerf.train.num_random_rays)
+        S = int(cfg.nerf.train.num_coarse) + int(cfg.nerf.train.num_fine)
+        o, d, z = _rays(R, S, rng, device)
+        cot = torch.from_numpy(rng.standard_normal((4, R, S)).astype(np.float32)).to(device)
+        calls = {"fwd": lambda: fl.layers_mlp_cuda(packed, o, d, z),
+                 "bwd": lambda: fl.layers_bwd_cuda(packed, o, d, z, cot)}
+        out[case] = {}
+        for what, call in calls.items():
+            groups = _device_ms_per_call(call, LAYER_KERNELS)
+            sticks = _layer_leg_yardsticks(spec, what, R * S, device)
+            legs = {k: dict(ms=ms, launches=n, bound_ms=sticks[k][0], bound_by=sticks[k][1],
+                            library_ms=sticks[k][2]) for k, (ms, n) in groups.items()}
+            out[case][what] = legs
+            print(f"{case} {what} at {R}x{S}, per call by kernel: device ms "
+                  "(torch.profiler's ms a launch over 3 calls x launches a call) / launches / "
+                  "bound ms / library ms (bf16 torch.mm per product or dW product, "
+                  "torch.sum(partials, dim=0) per reduction): "
+                  + ", ".join(f"{k} {v['ms']:.4f} / {v['launches']:g} / {v['bound_ms']:.4f} "
+                              f"({v['bound_by']}) / "
+                              + ("none" if v["library_ms"] is None else f"{v['library_ms']:.4f}")
+                              for k, v in legs.items())
+                  + f" [{card}]")
+            if what == "bwd":
+                red = {k: legs[k] for k in ("reduce", "bias")}
+                ms = sum(v["ms"] for v in red.values())
+                bound_ms = sum(v["bound_ms"] for v in red.values())
+                launches = red["reduce"]["launches"] + red["bias"]["launches"]
+                print(f"{case} bwd reductions (dW range partials + bias grads): {ms:.4f} ms in "
+                      f"{red['reduce']['launches']} + {red['bias']['launches']} launches "
+                      f"({launches / legs['pe']['launches']:g} a slab), bound {bound_ms:.4f} ms "
+                      f"(bytes), {100 * bound_ms / ms:.1f}% of it; torch.sum yardstick "
+                      f"{sum(v['library_ms'] for v in red.values()):.4f} ms [{card}]")
+        del packed, o, d, z, cot, calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# The widths whose fused backward's legs are broken down (wide_phase).
+WIDE_LEG_WIDTHS = (512, 1024)
+
+
+def breakdowns(card: str, device) -> dict:
+    """The device times by torch.profiler that the smoke takes once other
+    CUDA processes have run (a trace in a process that outlived another
+    process's use of the card can lack kernels): the fused backward's legs
+    (fused_legs) on the lego field and at WIDE_LEG_WIDTHS, the layer
+    route's kernels at LAYER_LEG_CASES (layer_legs), the chord kernel at
+    the per-rank shape (per_rank_chords_ms). {"fused": {"lego" | "w512" |
+    "w1024": legs}, "layers": layer_legs' result, "per_rank_chords": ms}."""
+    fused = {"lego": fused_legs(_lego_bf16_cfg(), card, device)}
+    for H in WIDE_LEG_WIDTHS:
+        fused[f"w{H}"] = fused_legs(wide_cfg(H), card, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"fused": fused, "layers": layer_legs(card, device),
+            "per_rank_chords": per_rank_chords_ms(device)}
+
+
+def breakdowns_process(card: str) -> dict:
+    """breakdowns in a process of its own (`chip_smoke.py --breakdowns`,
+    its output printed here): a fresh process's traces hold every kernel,
+    the smoke's own lose kernels once other CUDA processes have run
+    (_traced_kernels), and a breakdown needs every kernel. After it the
+    smoke's process traces nothing. Returns its result."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--breakdowns"],
+                          capture_output=True, text=True, cwd=REPO, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]))
+    if proc.returncode != 0:
+        raise AssertionError(f"chip_smoke.py --breakdowns failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    print(f"breakdowns (a process of their own): {time.perf_counter() - t0:.2f} s [{card}]")
+    return json.loads(lines[-1])
 
 
 def _layer_pe_check(card: str, device) -> None:
@@ -1218,10 +1475,11 @@ def _layer_pe_check(card: str, device) -> None:
 
 
 def _layers_vs_pair(card: str, device) -> dict:
-    """8x1024 at L 10/4 (a fused pair-kernel model): the layer route's
-    forward and backward at 2048 x 192 timed beside the pair kernels', in
-    turns (pair, layers, layers, pair; medians of 7 each), the layer
-    route's output held to the pair kernels' at the forward's bar."""
+    """8x1024 at L 10/4 (a model of the layer route that the pair kernels'
+    plans hold): the layer route's forward and backward at 2048 x 192 timed
+    beside the pair kernels' (called directly), in turns (pair, layers,
+    layers, pair; medians of 7 each), the layer route's output held to the
+    pair kernels' at the forward's bar."""
     from nerfmeshes_tpu_torch.models import build_model
     from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
@@ -1233,8 +1491,8 @@ def _layers_vs_pair(card: str, device) -> dict:
     init_params(model, None, torch.Generator().manual_seed(SEED))
     model.to(device).eval()
     packed = fm.pack_weights(model)
-    if fm.field_route(packed.spec) != "fused":
-        raise AssertionError("8x1024 at L 10/4 is not a fused model")
+    if any(fm.field_plan(packed.spec, k) is None for k in ("fwd", "sigma", "bwd")):
+        raise AssertionError("the pair kernels' plans refuse 8x1024 at L 10/4")
     rng = np.random.default_rng(SEED)
     R, S = 2048, 192
     o, d, z = _rays(R, S, rng, device)
@@ -1257,18 +1515,21 @@ def _layers_vs_pair(card: str, device) -> dict:
     return out
 
 
-def layers_phase(card: str, device) -> dict:
+def layers_phase(card: str, device, legs: dict) -> dict:
     """The layer route, per case of LAYER_CASES: the forward at 2048 x 64
     and 2048 x 192 (LAYER_COARSE_ONLY: x 64), the backward at the last of
     them, sigma at a 262,144-point grid tile, each against its plain
     version (forward and sigma atol = rtol = 2e-2, grads 5e-2 or the
     float64 truth), sigma bit for bit the route's forward channel 3, two
     backward calls bitwise equal, each timed beside its bound and the
-    nn.Module's call; at 2048 wide each kernel's device time in a forward
-    and a backward call. Then the chains of LAYER_CHAINS through the normal
-    entry points (NeRFSystem.setup + fit, query_rays, export_marching_cubes),
-    every launch the layer route's; the PE check (_layer_pe_check) and
-    the layer route beside the pair kernels at 8x1024 L 10/4."""
+    nn.Module's call; at LAYER_LEG_CASES each kernel's device time in a
+    forward and a backward call beside its bound and library yardstick
+    (`legs`, breakdowns_process's "layers" part). Before them the PE check (_layer_pe_check), the product kernel alone
+    (product_phase), the backward's heads kernel and bias-grad reduction
+    alone (leg_kernel_phase); then the chains of LAYER_CHAINS through the
+    normal entry points (NeRFSystem.setup + fit, query_rays,
+    export_marching_cubes), every launch the layer route's, and the layer
+    route beside the pair kernels at 8x1024 L 10/4."""
     from nerfmeshes_tpu_torch.models import build_model
     from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
@@ -1276,7 +1537,8 @@ def layers_phase(card: str, device) -> dict:
     from nerfmeshes_tpu_torch.train.system import init_params
 
     _layer_pe_check(card, device)
-    out = {"cases": {}, "chains": {}, "products": product_phase(card, device)}
+    out = {"cases": {}, "chains": {}, "products": product_phase(card, device),
+           "leg_kernels": leg_kernel_phase(card, device)}
     for case in LAYER_CASES:
         t0 = time.perf_counter()
         cfg = layer_cfg(case)
@@ -1304,36 +1566,12 @@ def layers_phase(card: str, device) -> dict:
             fwd[S] = dict(max_abs_err=_fwd_check(packed, o, d, z, spec.hidden, "layers"),
                           shape=f"{R}x{S}",
                           **_fwd_times(model, packed, o, d, z, card, "layers"))
-        legs = {}
-        if spec.hidden == 2048:
-            legs["fwd"] = _device_ms_per_call(lambda: fl.layers_mlp_cuda(packed, o, d, z),
-                                              LAYER_KERNELS)
         del model, packed
         bwd = bwd_kernel_phase(cfg, card, device, route="layers", samples=shapes[-1:])
-        bcase = bwd.pop("legs_case")
-        if spec.hidden == 2048:
-            bpacked, args = bcase[0], bcase[1]
-            legs["bwd"] = _device_ms_per_call(lambda: fl.layers_bwd_cuda(bpacked, *args),
-                                              LAYER_KERNELS)
-            del bpacked, args
-        del bcase
-        for what, groups in legs.items():
-            sticks = _layer_leg_yardsticks(spec, what, R * shapes[-1], device)
-            legs[what] = {k: dict(ms=ms, launches=n, bound_ms=sticks[k][0],
-                                  bound_by=sticks[k][1], library_ms=sticks[k][2])
-                          for k, (ms, n) in groups.items()}
-            print(f"{case} {what} at 2048x{shapes[-1]}, per call by kernel: device ms "
-                  "(torch.profiler's ms a launch over 3 calls x launches a call) / launches / "
-                  "bound ms / library ms (bf16 torch.mm per product or dW product): "
-                  + ", ".join(f"{k} {v['ms']:.4f} / {v['launches']:g} / {v['bound_ms']:.4f} "
-                              f"({v['bound_by']}) / "
-                              + ("none" if v["library_ms"] is None else f"{v['library_ms']:.4f}")
-                              for k, v in legs[what].items())
-                  + f" [{card}]")
         sigma = sigma_kernel_phase(cfg, card, device, route="layers")
         if not sigma["bitwise"]:
             raise AssertionError(f"{case}: sigma is not bit for bit the forward's channel 3")
-        out["cases"][case] = dict(fwd=fwd, bwd=bwd, sigma=sigma, legs=legs)
+        out["cases"][case] = dict(fwd=fwd, bwd=bwd, sigma=sigma, legs=legs.get(case, {}))
         gc.collect()
         torch.cuda.empty_cache()
         print(f"{case}: kernels {time.perf_counter() - t0:.2f} s [{card}]")
@@ -1400,6 +1638,8 @@ def slice_phase(cfg, card: str, device, system=None, route: str = "fused") -> di
     launches = counts.launches
     if route == "layers" and fm.launches:
         raise AssertionError(f"{fm.launches} fused forward launches on the layer route")
+    if route == "layers":
+        _hold_layer_counts(f"render ({views} views)", card)
 
     n = H * W
     chunks = math.ceil(n / chunk)
@@ -1581,17 +1821,23 @@ def bwd_kernel_phase(cfg, card: str, device, time_fine: bool = True, route: str 
     _rate(f"{prefix}_bwd", ms, 3 * _field_flops(model) * n_pts, bound_ms, bound_by,
           f"{R}x{S}, H={model.hidden_size}", card)
 
-    # Its legs, by kernel name, each beside its bound under the stash design.
-    # The transpose: the x parts of the dX chain's matrices read and written.
-    # The tile kernel: the recomputed forward and the dX chain; rays, the
-    # cotangent and the weights read, the stash and the bias partials
-    # written. The dW leg: the dW products; the stash read, the grads
-    # written. Timed by legs_phase, after the other phases.
+    return dict(max_abs_err=worst_abs, max_rel_err=worst_rel, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, shape=f"{R}x{S}")
+
+
+def _bwd_leg_bounds(model, packed, R: int, S: int) -> dict:
+    """The fused backward's legs' bounds (_bound_ms) at R x S points under
+    the stash design. The transpose: the x parts of the dX chain's
+    matrices read and written. The tile kernel: the recomputed forward and
+    the dX chain; rays, the cotangent and the weights read, the stash and
+    the bias partials written. The dW leg: the dW products; the stash
+    read, the grads written."""
     H, L = model.hidden_size, model.num_layers
+    n_pts, n_w = R * S, packed.weights.numel()
     stash = _stash_bytes(packed, n_pts)
     wt_bytes = 2 * (L + 1) * H * H
     db_rows = 2 * (-(-n_pts // 128))
-    leg_bounds = {
+    return {
         "transpose": _bound_ms(0.0, 2 * wt_bytes, PEAK_BF16),
         "tile": _bound_ms((_field_flops(model) + _dx_flops(model)) * n_pts,
                           R * 24 + n_pts * 20 + n_w * 2 + wt_bytes + stash
@@ -1599,19 +1845,31 @@ def bwd_kernel_phase(cfg, card: str, device, time_fine: bool = True, route: str 
         "dw": _bound_ms(_field_flops(model) * n_pts,
                         stash + (n_w + packed.biases.numel()) * 4, PEAK_BF16),
     }
-    return dict(max_abs_err=worst_abs, max_rel_err=worst_rel, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, shape=f"{R}x{S}",
-                legs_case=(packed, (o, d, z, cot), leg_bounds, f"{R}x{S}"))
 
 
-def legs_phase(bkern: dict, card: str) -> dict:
-    """The backward's legs at bwd_kernel_phase's fine shape, by kernel name
-    from torch.profiler (7 calls), each beside its bound and, for the dW
+def fused_legs(cfg, card: str, device) -> dict:
+    """The fused backward's legs, by kernel name from torch.profiler (7
+    calls, _device_ms_by_group), at bwd_kernel_phase's fine shape on the
+    config's fine field (weights from SEED, the same seeded rays and
+    cotangent), each beside its bound (_bwd_leg_bounds) and, for the dW
     leg, its library yardstick: {leg: {ms, bound_ms, bound_by,
     library_ms}}."""
+    from nerfmeshes_tpu_torch.models import build_model
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+    from nerfmeshes_tpu_torch.train.system import init_params
 
-    packed, args, leg_bounds, shape = bkern.pop("legs_case")
+    model = build_model(cfg.models.fine_type, dict(cfg.models.fine),
+                        compute_dtype=torch.bfloat16)
+    init_params(model, None, torch.Generator().manual_seed(SEED))
+    model.to(device)
+    packed = fm.pack_weights(model)
+    rng = np.random.default_rng(SEED)
+    R, coarse = int(cfg.nerf.train.num_random_rays), int(cfg.nerf.train.num_coarse)
+    for S in (coarse, coarse + int(cfg.nerf.train.num_fine)):  # bwd_kernel_phase's draws
+        o, d, z = _rays(R, S, rng, device)
+        cot = torch.from_numpy(rng.standard_normal((4, R, S)).astype(np.float32)).to(device)
+    args, shape = (o, d, z, cot), f"{R}x{S}"
+    leg_bounds = _bwd_leg_bounds(model, packed, R, S)
     legs = _device_ms_by_group(lambda: fm.fused_mlp_bwd_cuda(packed, *args), BWD_LEGS)
     library = {leg: None for leg in legs}
     library["dw"] = _dw_library_ms(packed.spec, args[2].numel(), args[2].device)
@@ -1619,7 +1877,8 @@ def legs_phase(bkern: dict, card: str) -> dict:
         b, by = leg_bounds[leg]
         lib = ("none: no one PyTorch call" if library[leg] is None else
                f"{library[leg]:.4f} ms (torch.mm per product, median of 7, summed)")
-        print(f"fused_mlp_bwd leg {leg} ({' + '.join(BWD_LEGS[leg])}): {t:.4f} ms of device "
+        print(f"fused_mlp_bwd H={model.hidden_size} leg {leg} ({' + '.join(BWD_LEGS[leg])}): "
+              f"{t:.4f} ms of device "
               f"time per call (torch.profiler, mean over 7 calls) at {shape}, bound {b:.4f} ms "
               f"({by}), {100.0 * b / t:.1f}% of the bound; library {lib} [{card}]")
     return {leg: dict(ms=t, bound_ms=leg_bounds[leg][0], bound_by=leg_bounds[leg][1],
@@ -1678,6 +1937,7 @@ def train_phase(card: str, device, cfg=None, route: str = "fused",
                              f"{steps} steps; expected 2 each per step (and {others} of "
                              "the other route's, expected 0)")
     if route == "layers":
+        _hold_layer_counts(f"train ({steps} steps)", card)
         print(f"train {route} kernels a step: "
               + ", ".join(f"{k} {v / steps:g}" for k, v in per_kernel.items()))
     if not all(math.isfinite(v) for v in losses):
@@ -1862,6 +2122,8 @@ def export_and_check(system, card: str, label: str, *, fwd_per_chunk: int,
         fwd, sigma, chords = counts.launches, counts.sigma_launches, ch.launches
         if route == "layers" and fm.launches + fm.sigma_launches:
             raise AssertionError(f"{label}: fused launches on the layer route")
+        if route == "layers":
+            _hold_layer_counts(label, card)
         timings = dict(LAST_TIMINGS)
         ply = read_ply_binary(str(Path(tmp) / args.mesh_name))
 
@@ -3802,16 +4064,30 @@ def _dist_rank(group, out_dir: str) -> None:
     Path(out_dir, f"rank{group.rank}.json").write_text(json.dumps(out))
 
 
-def _per_rank_kernel_rows(card: str, device, rows_2048: dict) -> dict:
+def per_rank_chords_ms(device) -> float:
+    """The chord kernel's device ms (torch.profiler, _kernel_device_ms) at
+    the shape one of DIST_WORLD ranks gives it: 2048 // DIST_WORLD BuFF
+    rays of _chord_inputs on the initial tree, K = 64."""
+    from nerfmeshes_tpu_torch.ops.kernels import chords as ch
+
+    inputs = _chord_inputs(device)
+    initial = inputs["initial"]
+    R = 2048 // DIST_WORLD
+    o1, d1 = inputs["o"][:R].contiguous(), inputs["d"][:R].contiguous()
+    return _kernel_device_ms(lambda: ch.compact_chords_cuda(initial.voxels, initial.active, o1,
+                                                            d1, 2.0, 6.0, K=64), "chords")
+
+
+def _per_rank_kernel_rows(card: str, device, rows_2048: dict, chords_ms: float) -> dict:
     """Each kernel alone on the card at the shape one of DIST_WORLD ranks
     gives it (1024 x 64 and 1024 x 192 forward, 1024 x 192 backward, 1024
     BuFF rays of chords, 131,072 grid points of sigma), timed by CUDA
-    events (median of 7), beside its bound, its library yardstick (the
+    events (median of 7; chords: `chords_ms`, per_rank_chords_ms in the
+    breakdowns' process), beside its bound, its library yardstick (the
     nn.Module under bf16 autocast, as the one-rank rows time it; none for
     chords) and the one-rank row of this call at 2048 rays or 262,144
     points."""
     from nerfmeshes_tpu_torch.models import build_model
-    from nerfmeshes_tpu_torch.ops.kernels import chords as ch
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
     from nerfmeshes_tpu_torch.train.system import init_params
 
@@ -3863,14 +4139,9 @@ def _per_rank_kernel_rows(card: str, device, rows_2048: dict) -> dict:
         library = _median_ms(_autocast(lambda: model(pts, zeros)))
     rows[f"fused_sigma {n}"] = (ms, *_bound_ms(_field_flops(model, heads=False) * n, nbytes,
                                                PEAK_BF16), library)
-    inputs = _chord_inputs(device)
-    initial = inputs["initial"]
-    o1, d1 = inputs["o"][:R].contiguous(), inputs["d"][:R].contiguous()
-    K = 64
-    ms = _kernel_device_ms(lambda: ch.compact_chords_cuda(initial.voxels, initial.active, o1,
-                                                          d1, 2.0, 6.0, K=K), "chords")
-    rows[f"fused_chords {R} rays"] = (ms, *_chord_bound(R, initial.voxels.shape[0],
-                                                        int(initial.active.sum()), K), None)
+    initial = _chord_inputs(device)["initial"]
+    rows[f"fused_chords {R} rays"] = (chords_ms, *_chord_bound(
+        R, initial.voxels.shape[0], int(initial.active.sum()), 64), None)
     for name, (ms, bound, by, library) in rows.items():
         kernel = name.split()[0]
         whole = rows_2048.get(kernel)
@@ -3930,7 +4201,7 @@ def check_dist_ranks(ranks: list, card: str, device) -> dict:
     return want
 
 
-def dist_phase(card: str, device, rows_2048: dict) -> dict:
+def dist_phase(card: str, device, rows_2048: dict, chords_ms: float) -> dict:
     """Data parallelism on the card (parallel/mesh.py): the forced NCCL
     one-rank phase (dist_forced_phase), then DIST_WORLD ranks sharing the
     card under gloo (_dist_rank), each on its half of the same injected
@@ -3939,7 +4210,8 @@ def dist_phase(card: str, device, rows_2048: dict) -> dict:
     BuFF memm (within DIST_MEMM_BAR), a 400x400 view through the sharded
     render and the 480^3 sharded sigma grid against one rank's (bit for
     bit), each rank's launches against the code's count; then the kernels
-    alone at the per-rank shapes. Returns rank 0's launches by path and
+    alone at the per-rank shapes (the chord kernel's time `chords_ms`,
+    traced in the breakdowns' process). Returns rank 0's launches by path and
     the numbers printed."""
     from nerfmeshes_tpu_torch.parallel.mesh import launch
 
@@ -3962,7 +4234,7 @@ def dist_phase(card: str, device, rows_2048: dict) -> dict:
     want = check_dist_ranks(ranks, card, device)
     print(f"dist: {DIST_WORLD} gloo ranks on one card, spawned, checked and joined in "
           f"{seconds:.2f} s [{card}]")
-    per_rank = _per_rank_kernel_rows(card, device, rows_2048)
+    per_rank = _per_rank_kernel_rows(card, device, rows_2048, chords_ms)
     launches = {k: {f"dist_{path}": ranks[0][f"{path}_launches"][k] for path in want
                     if ranks[0][f"{path}_launches"][k]} for k in KERNELS}
     return dict(forced=forced, per_rank=per_rank, launches=launches, seconds=seconds)
@@ -4169,6 +4441,138 @@ def profile_mesh(card: str, device, steps: list[int]) -> None:
                       f"{100.0 * (1.0 - busy / span):.2f}% [{card}]")
 
 
+def _kernel_entry(name, source, replaces, phase, by_path, **extra) -> dict:
+    """A kernel's entry of the kernels line: its launches by path and
+    summed, and the phase's error, times, bound and library time."""
+    return {"name": name, "route": "cuda", "source": f"nerfmeshes_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": phase["max_abs_err"],
+            "ms": phase["ms"], "plain_ms": phase["plain_ms"], "bound_ms": phase["bound_ms"],
+            "bound_by": phase["bound_by"], "library_ms": phase["library_ms"], **extra}
+
+
+def wide_and_layer_rows(wide: dict, layers: dict) -> tuple[list, dict, list]:
+    """The kernels line's entries of wide_phase and layers_phase: (the
+    fused rows at the widths whose chain takes the fused route, the fused
+    instantiations called directly off the path by kernel ("fwd", "bwd",
+    "sigma"), the layer route's rows: its calls, its product kernel, its
+    backward heads kernel and bias-grad reduction)."""
+    # The wide rows (wide_phase): at 384, on the fused route, each
+    # instantiation with its launches on its width's path, every train step
+    # and appearance chunk one coarse (S = 64) and one fine (S = 192)
+    # launch. From 512 on the chains take the layer route (its rows below)
+    # and the fused instantiations, called directly and held against plain,
+    # go into the lego rows' "direct" (no launch on a path).
+    wide_rows = []
+    direct = {"fwd": {}, "bwd": {}, "sigma": {}}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    for H, w in wide.items():
+        if w["route"] != "fused":
+            for S, row in w["fwd"].items():
+                direct["fwd"][f"H={H} S={S}"] = {k: row[k] for k in keys}
+            direct["bwd"][f"H={H}"] = dict({k: w["bwd"][k] for k in keys},
+                                           max_rel_err=w["bwd"]["max_rel_err"],
+                                           **({"legs": w["bwd"]["legs"]}
+                                              if "legs" in w["bwd"] else {}))
+            direct["sigma"][f"H={H}"] = {k: w["sigma"][k] for k in keys if k in w["sigma"]}
+            continue
+        views = {} if w["render"] is None else {"render": w["render"]["launches"]}
+        for S, row in w["fwd"].items():
+            wide_rows.append(_kernel_entry(
+                f"fused_mlp_fwd H={H} S={S}", "fused_mlp_fwd.cu",
+                "nerfmeshes_tpu/ops/pallas/fused_mlp.py:387", row,
+                {k: v // 2 for k, v in {"train": w["train"]["fwd_launches"], **views,
+                                        "mesh": w["mesh"]["fwd_launches"]}.items()},
+                shape=row["shape"], hidden=H))
+        wide_rows.append(_kernel_entry(
+            f"fused_mlp_bwd H={H}", "fused_mlp_bwd.cu",
+            "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397", w["bwd"],
+            {"train": w["train"]["bwd_launches"]}, shape=w["bwd"]["shape"], hidden=H,
+            max_rel_err=w["bwd"]["max_rel_err"], **({"legs": w["bwd"]["legs"]}
+                                                     if "legs" in w["bwd"] else {})))
+        wide_rows.append(_kernel_entry(
+            f"fused_sigma H={H}", "fused_sigma.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:675",
+            w["sigma"], {"mesh": w["mesh"]["sigma_launches"]}, shape=f"{GRID_TILE} points",
+            hidden=H))
+
+    # The layer route's rows (layers_phase): 8x2048's shapes in the row
+    # itself, every case's in "cases"; launches on the chains' paths (its
+    # own and wide_phase's from 512 on), and each of its kernels' in their
+    # train legs, as the kernels' counters read them.
+    chains = dict(layers["chains"])
+    chains.update({f"w{H}": w for H, w in wide.items() if w["route"] == "layers"})
+    by_path = {"fwd": {}, "bwd": {}, "sigma": {}}
+    kernel_launches = {}
+    for case, chain in chains.items():
+        by_path["fwd"][f"{case} train"] = chain["train"]["fwd_launches"]
+        by_path["bwd"][f"{case} train"] = chain["train"]["bwd_launches"]
+        if chain["render"] is not None:
+            by_path["fwd"][f"{case} render"] = chain["render"]["launches"]
+        by_path["fwd"][f"{case} mesh"] = chain["mesh"]["fwd_launches"]
+        by_path["sigma"][f"{case} mesh"] = chain["mesh"]["sigma_launches"]
+        kernel_launches[f"{case} train"] = chain["train"]["kernel_launches"]
+    cases = layers["cases"]
+    head = cases["w2048"]
+
+    def case_rows(what):
+        rows = {}
+        for case, c in cases.items():
+            got = c[what]
+            for S, row in (got.items() if what == "fwd" else [(None, got)]):
+                rows[case if S is None else f"{case} S={S}"] = {
+                    k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                        "library_ms") if k in row}
+        return rows
+
+    layer_rows = [
+        _kernel_entry("field_layers_fwd", "field_layers.cu",
+              "nerfmeshes_tpu/ops/pallas/fused_mlp.py:387", head["fwd"][192], by_path["fwd"],
+              shape="2048x192", hidden=2048, cases=case_rows("fwd"),
+              kernel_launches=kernel_launches, legs=head["legs"].get("fwd"),
+              vs_pair=layers["vs_pair"]["fwd"]),
+        _kernel_entry("field_layers_bwd", "field_layers.cu",
+              "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397", head["bwd"], by_path["bwd"],
+              shape=head["bwd"]["shape"], hidden=2048, max_rel_err=head["bwd"]["max_rel_err"],
+              cases=case_rows("bwd"), legs=head["legs"].get("bwd"),
+              vs_pair=layers["vs_pair"]["bwd"]),
+        _kernel_entry("field_layers_sigma", "field_layers.cu",
+              "nerfmeshes_tpu/ops/pallas/fused_mlp.py:675", head["sigma"], by_path["sigma"],
+              shape=f"{GRID_TILE} points", hidden=2048, cases=case_rows("sigma")),
+    ]
+    # The product kernel alone (product_phase): the forward's shape at
+    # 8x1024 in the row, every timed shape in "shapes"; its launches those
+    # of the chains' train legs.
+    products = layers["products"]
+    if not all(counts["product"] for counts in kernel_launches.values()):
+        raise AssertionError(f"a layer chain launched no product kernel: {kernel_launches}")
+    product_row = _kernel_entry(
+        "field_layers_product", "field_layers.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:387",
+        products[f"M={PRODUCT_SHAPES[0][0]} K={PRODUCT_SHAPES[0][1]} N={PRODUCT_SHAPES[0][2]} "
+                 "NN 0"],
+        {path: counts["product"] for path, counts in kernel_launches.items()},
+        shape="M=393216 K=1024 N=1024 NN 0", shapes=products,
+        also_replaces=["nerfmeshes_tpu/ops/pallas/fused_mlp.py:397",
+                       "nerfmeshes_tpu/ops/pallas/fused_mlp.py:675"])
+    # The backward's heads kernel and the bias-grad reduction alone
+    # (leg_kernel_phase): an 8x2048 slab's shapes in the row, 8x1024's in
+    # "shapes"; their launches those their counters read in the chains'
+    # train legs (only the backward launches them).
+    legs_alone = layers["leg_kernels"]
+    if not all(c["heads_bwd"] and c["bias"] for c in kernel_launches.values()):
+        raise AssertionError(f"a layer chain's backward launched no heads or bias kernel: "
+                             f"{kernel_launches}")
+    leg_rows = []
+    for name, key, counter in (("field_layers_heads_bwd", "heads", "heads_bwd"),
+                               ("field_layers_bias", "bias", "bias")):
+        shapes = {k: v for k, v in legs_alone.items() if k.startswith(key)}
+        first = next(k for k in shapes if "w2048" in k)
+        leg_rows.append(_kernel_entry(
+            name, "field_layers.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397",
+            shapes[first], {path: c[counter] for path, c in kernel_launches.items()},
+            shape=first, shapes=shapes))
+    return wide_rows, direct, [*layer_rows, product_row, *leg_rows]
+
+
 def _print_ptxas(log: str) -> None:
     """nvcc's build log as the smoke prints it: each kernel's ptxas lines
     (registers, spills) under its entry's name, each nvcc's finish, and
@@ -4198,13 +4602,16 @@ def main(argv=None) -> int:
                         help="instead of the smoke, profile 5 hierarchical train steps")
     parser.add_argument("--profile-render", action="store_true",
                         help="instead of the smoke, profile 2 hierarchical 400x400 views")
+    parser.add_argument("--breakdowns", action="store_true",
+                        help="instead of the smoke, the device time per call of each kernel of "
+                             "the fused backward (lego, 512, 1024 wide) and of the layer route "
+                             "(LAYER_LEG_CASES), as one JSON line last (breakdowns)")
     parser.add_argument("--profile-buff", action="store_true",
                         help="instead of the smoke, profile 5 BuFF train steps past the first "
                              "consolidation")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
-    from nerfmeshes_tpu_torch.config import get_default_cfg
     from nerfmeshes_tpu_torch.data import gif, jpeg
     from nerfmeshes_tpu_torch.mesh import native
     from nerfmeshes_tpu_torch.ops.kernels import build
@@ -4224,6 +4631,9 @@ def main(argv=None) -> int:
     build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {path.name}")
     _print_ptxas(log)
+    if opts.breakdowns:
+        print(json.dumps(breakdowns(card, device)))
+        return 0
     t0 = time.perf_counter()
     native.get_lib()
     print(f"native mesh library (g++): {time.perf_counter() - t0:.2f} s -> "
@@ -4249,9 +4659,7 @@ def main(argv=None) -> int:
         profile_render(card, device)
         return 0
 
-    cfg = get_default_cfg()
-    cfg.experiment.compute_dtype = "bfloat16"
-    cfg.experiment.use_fused_kernel = True
+    cfg = _lego_bf16_cfg()
     kern = kernel_phase(cfg, card, device)
     render = slice_phase(cfg, card, device)
     bkern = bwd_kernel_phase(cfg, card, device)
@@ -4264,10 +4672,12 @@ def main(argv=None) -> int:
     buff_render = buff_render_phase(buff_system, card, device)
     buff_mesh = buff_mesh_phase(buff_system, card)
     del buff_system
-    bkern["legs"] = legs_phase(bkern, card)
+    legs = breakdowns_process(card)
+    bkern["legs"] = legs["fused"]["lego"]
     h128 = h128_kernel_phase(card, device)
     dist = dist_phase(card, device, {"fused_mlp_fwd": kern, "fused_mlp_bwd": bkern,
-                                     "fused_sigma": skern, "fused_chords": ckern})
+                                     "fused_sigma": skern, "fused_chords": ckern},
+                      legs["per_rank_chords"])
     jpeg_phase(card)
     chains = {name: cli_chain(name, card) for name in CLI_RUNS}
     chains["normals"] = normals_chain(card)
@@ -4278,8 +4688,8 @@ def main(argv=None) -> int:
     zoo_phase(card, device)
     buff_random = buff_random_phase(card, device)
     t0 = time.perf_counter()
-    wide = wide_phase(card, device)  # last: its wide module runs take the most memory
-    layers = layers_phase(card, device)
+    wide = wide_phase(card, device, legs["fused"])  # last: its wide runs take the most memory
+    layers = layers_phase(card, device, legs["layers"])
     wide_s = time.perf_counter() - t0
     new_legs = {f"{name} {leg}": chains[name]["legs"][leg]["seconds"]
                 for name in IMPORT_CHAINS for leg in ("import", "import_eval", "import_mesh")}
@@ -4300,12 +4710,7 @@ def main(argv=None) -> int:
     rank_kernels(kern, bkern, skern, ckern, render, train, mesh, buff, buff_render, buff_mesh,
                  card)
 
-    def entry(name, source, replaces, phase, by_path, **extra):
-        return {"name": name, "route": "cuda", "source": f"nerfmeshes_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": sum(by_path.values()),
-                "launches_by_path": by_path, "max_abs_err": phase["max_abs_err"],
-                "ms": phase["ms"], "plain_ms": phase["plain_ms"], "bound_ms": phase["bound_ms"],
-                "bound_by": phase["bound_by"], "library_ms": phase["library_ms"], **extra}
+    entry = _kernel_entry
 
     # The H = 128 rows: the same kernels at hard-llff.yml's width; their
     # launches are the llff chain's, every train step and render chunk one
@@ -4324,86 +4729,7 @@ def main(argv=None) -> int:
                            shape=h128["bwd"]["shape"], hidden=128,
                            max_rel_err=h128["bwd"]["max_rel_err"]))
 
-    # The wide rows (wide_phase): each instantiation with its launches on
-    # its width's path, every train step and appearance chunk (and at 512
-    # every view chunk) one coarse (S = 64) and one fine (S = 192) launch.
-    wide_rows = []
-    for H, w in wide.items():
-        views = {} if w["render"] is None else {"render": w["render"]["launches"]}
-        for S, row in w["fwd"].items():
-            wide_rows.append(entry(
-                f"fused_mlp_fwd H={H} S={S}", "fused_mlp_fwd.cu",
-                "nerfmeshes_tpu/ops/pallas/fused_mlp.py:387", row,
-                {k: v // 2 for k, v in {"train": w["train"]["fwd_launches"], **views,
-                                        "mesh": w["mesh"]["fwd_launches"]}.items()},
-                shape=row["shape"], hidden=H))
-        wide_rows.append(entry(
-            f"fused_mlp_bwd H={H}", "fused_mlp_bwd.cu",
-            "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397", w["bwd"],
-            {"train": w["train"]["bwd_launches"]}, shape=w["bwd"]["shape"], hidden=H,
-            max_rel_err=w["bwd"]["max_rel_err"], **({"legs": w["bwd"]["legs"]}
-                                                     if "legs" in w["bwd"] else {})))
-        wide_rows.append(entry(
-            f"fused_sigma H={H}", "fused_sigma.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:675",
-            w["sigma"], {"mesh": w["mesh"]["sigma_launches"]}, shape=f"{GRID_TILE} points",
-            hidden=H))
-
-    # The layer route's rows (layers_phase): 8x2048's shapes in the row
-    # itself, every case's in "cases"; launches on the chains' paths, and
-    # each of its kernels' in their train legs.
-    chains = layers["chains"]
-    by_path = {"fwd": {}, "bwd": {}, "sigma": {}}
-    kernel_launches = {}
-    for case, chain in chains.items():
-        by_path["fwd"][f"{case} train"] = chain["train"]["fwd_launches"]
-        by_path["bwd"][f"{case} train"] = chain["train"]["bwd_launches"]
-        if chain["render"] is not None:
-            by_path["fwd"][f"{case} render"] = chain["render"]["launches"]
-        by_path["fwd"][f"{case} mesh"] = chain["mesh"]["fwd_launches"]
-        by_path["sigma"][f"{case} mesh"] = chain["mesh"]["sigma_launches"]
-        kernel_launches[f"{case} train"] = chain["train"]["kernel_launches"]
-    cases = layers["cases"]
-    head = cases["w2048"]
-
-    def case_rows(what):
-        rows = {}
-        for case, c in cases.items():
-            got = c[what]
-            for S, row in (got.items() if what == "fwd" else [(None, got)]):
-                rows[case if S is None else f"{case} S={S}"] = {
-                    k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                        "library_ms") if k in row}
-        return rows
-
-    layer_rows = [
-        entry("field_layers_fwd", "field_layers.cu",
-              "nerfmeshes_tpu/ops/pallas/fused_mlp.py:387", head["fwd"][192], by_path["fwd"],
-              shape="2048x192", hidden=2048, cases=case_rows("fwd"),
-              kernel_launches=kernel_launches, legs=head["legs"].get("fwd"),
-              vs_pair=layers["vs_pair"]["fwd"]),
-        entry("field_layers_bwd", "field_layers.cu",
-              "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397", head["bwd"], by_path["bwd"],
-              shape=head["bwd"]["shape"], hidden=2048, max_rel_err=head["bwd"]["max_rel_err"],
-              cases=case_rows("bwd"), legs=head["legs"].get("bwd"),
-              vs_pair=layers["vs_pair"]["bwd"]),
-        entry("field_layers_sigma", "field_layers.cu",
-              "nerfmeshes_tpu/ops/pallas/fused_mlp.py:675", head["sigma"], by_path["sigma"],
-              shape=f"{GRID_TILE} points", hidden=2048, cases=case_rows("sigma")),
-    ]
-    # The product kernel alone (product_phase): the forward's shape at
-    # 8x1024 in the row, every timed shape in "shapes"; its launches those
-    # of the chains' train legs.
-    products = layers["products"]
-    if not all(counts["product"] for counts in kernel_launches.values()):
-        raise AssertionError(f"a layer chain launched no product kernel: {kernel_launches}")
-    product_row = entry(
-        "field_layers_product", "field_layers.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:387",
-        products[f"M={PRODUCT_SHAPES[0][0]} K={PRODUCT_SHAPES[0][1]} N={PRODUCT_SHAPES[0][2]} "
-                 "NN 0"],
-        {path: counts["product"] for path, counts in kernel_launches.items()},
-        shape="M=393216 K=1024 N=1024 NN 0", shapes=products,
-        also_replaces=["nerfmeshes_tpu/ops/pallas/fused_mlp.py:397",
-                       "nerfmeshes_tpu/ops/pallas/fused_mlp.py:675"])
+    wide_rows, direct, layer_rows = wide_and_layer_rows(wide, layers)
     print(f"smoke total: {time.perf_counter() - t_start:.2f} s, the wide phase and the "
           f"layer route {wide_s:.2f} s of it [{card}]")
     print(json.dumps({"kernels": [
@@ -4415,19 +4741,19 @@ def main(argv=None) -> int:
                "buff_random_view": buff_random["view"]["fwd"], **dist["launches"]["fwd"]},
               chunk_ms=kern["chunk_ms"], chunk_bound_ms=kern["chunk_bound_ms"],
               chunk_library_ms=kern["chunk_library_ms"], chunk_plain_ms=kern["chunk_plain_ms"],
-              shape="2048x192", hidden=256, per_rank={
+              shape="2048x192", hidden=256, direct=direct["fwd"], per_rank={
                   k: v for k, v in dist["per_rank"].items() if k.startswith("fused_mlp_fwd")}),
         entry("fused_mlp_bwd", "fused_mlp_bwd.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397", bkern,
               {"train": train["bwd_launches"], "buff_train": buff["bwd_launches"], **cli["bwd"],
                "buff_random_train": buff_random["train"]["bwd"], **dist["launches"]["bwd"]},
               max_rel_err=bkern["max_rel_err"], legs=bkern["legs"], shape="2048x192",
-              hidden=256, per_rank={k: v for k, v in dist["per_rank"].items()
-                                    if k.startswith("fused_mlp_bwd")}),
+              hidden=256, direct=direct["bwd"], per_rank={
+                  k: v for k, v in dist["per_rank"].items() if k.startswith("fused_mlp_bwd")}),
         entry("fused_sigma", "fused_sigma.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:675", skern,
               {"mesh": mesh["sigma_launches"], "buff_mesh": buff_mesh["sigma_launches"],
                **cli["sigma"], **dist["launches"]["sigma"]},
-              per_rank={k: v for k, v in dist["per_rank"].items()
-                        if k.startswith("fused_sigma")}),
+              direct=direct["sigma"], per_rank={k: v for k, v in dist["per_rank"].items()
+                                                if k.startswith("fused_sigma")}),
         entry("fused_chords", "chords.cu", "nerfmeshes_tpu/ops/pallas/chords.py:98",
               dict(ckern, library_ms=None),
               {"train": buff["chords_launches"], "render": buff_render["chords_launches"],
@@ -4443,7 +4769,6 @@ def main(argv=None) -> int:
         *h128_rows,
         *wide_rows,
         *layer_rows,
-        product_row,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

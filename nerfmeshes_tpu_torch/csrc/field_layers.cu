@@ -1,8 +1,9 @@
 // The FlexibleNeRF field layer at a time, for Hopper (sm_90a): the route
-// for every model the fused kernels' shared-memory plans refuse (hidden
-// widths past 1024, more than 128 PE columns at 512 and 1024 wide, more
-// than 24 bands, more than 14 layers), which JAX still runs through its
-// Pallas kernels: forward, sigma-only and backward, replacing
+// for every model the fused kernels do not take (ops/kernels/fused_mlp.py:
+// field_route: hidden widths from 512 on, where this route beat the fused
+// plans in turns on an H100; more than 24 bands, more than 14 layers, or
+// a 128-384-wide field whose fused plans refuse it), which JAX still runs
+// through its Pallas kernels: forward, sigma-only and backward, replacing
 // nerfmeshes_tpu/ops/pallas/fused_mlp.py's _fwd_kernel (:387), _sigma_kernel
 // (:675) and _bwd_kernel (:397) at those shapes. Same contract as the fused
 // entry points (fused_mlp_fwd.cu, fused_sigma.cu, fused_mlp_bwd.cu), the same
@@ -16,7 +17,7 @@
 // tensor cores can still set the pace (512 FLOP/B at 1024, 1024 at 2048),
 // where the fused design's 64 x H activation tile no longer fits a block.
 //
-// Design, three kernels of its own beside the backward's dW leg and
+// Design, five kernels of its own beside the backward's dW leg and its
 // reductions (dw_leg.cuh):
 //   (1) layer_pe_kernel: PE(xyz) and PE(dir) of a slab of points into bf16
 //       row-major arrays, each 8-column chunk by one thread, with the fused
@@ -65,17 +66,29 @@
 //       epilogue the same arithmetic: the same bits.
 //   (3) layer_heads_kernel<MODE>: the alpha (H -> 1) and rgb (H/2 -> 3,
 //       sigmoid) heads, a warp per point, dot products in a fixed order:
-//       the forward's (4, N) or (N, 4) output, sigma's (N,), or for the
-//       backward the heads' cotangents (rgb through the sigmoid, alpha),
-//       the dir layer's cotangent (through the rgb weights and the ReLU
-//       mask) and their f32 bias-grad partials per 64 points.
+//       the forward's (4, N) or (N, 4) output, or sigma's (N,). For the
+//       backward, layer_heads_bwd_kernel<CH>: the heads' cotangents (rgb
+//       through the sigmoid, alpha), the dir layer's cotangent dy_dir
+//       (through the rgb weights and the ReLU mask) and their f32
+//       bias-grad partials per 64 points. It moves h in and dy_dir out, 4
+//       bytes a column a point against 6 f32 operations: bytes bound, so it
+//       reads each h row once, 16 bytes a lane, keeps it in registers for
+//       the three rgb dots and dy_dir, stores dy_dir 16 bytes a lane, and
+//       sums the partials in registers and shared memory.
+//   (4) bias_grads_kernel: every bias grad of a backward slab in one
+//       launch. Each dX product writes its column sums per 128 points into
+//       a region of its own, the heads their partials into theirs, so no
+//       product waits on a reduction; the launch spreads row groups of
+//       every segment over the card (a block per 64 rows x 128 columns),
+//       and the last block of a column chunk adds the groups in order.
 // Points go through in slabs whose activations (every layer's, for the
 // backward) fit the workspace the caller sizes (ops/kernels/field_layers.py
 // plans them under a bound); each slab's weight grads come from dw_kernel,
 // one launch per weight matrix, and are added to the running grads by the
-// fixed-order reduction, as are the bias grads: no float atomics, so two
-// calls give the same bits. Sigma runs the forward's PE, trunk and alpha
-// head kernels with the forward's arguments: bit for bit its channel 3.
+// fixed-order reduction of dw_leg.cuh, the bias grads by (4): no float
+// atomics, so two calls give the same bits. Sigma runs the forward's PE,
+// trunk and alpha head kernels with the forward's arguments: bit for bit
+// its channel 3.
 //
 // Bands and per-product offsets of any count reach it through the
 // descriptor and frequency arrays on the host (each product's K is read off
@@ -97,13 +110,24 @@ constexpr int LP_BAR_BYTES = (2 * LP_MAX_STAGES + 1) * (int)sizeof(uint64_t);
 constexpr int PE_THREADS = 256;
 constexpr int HEAD_ROWS = 64;  // points per heads block
 constexpr int HEAD_THREADS = 256;
+constexpr int HEAD_WARPS = HEAD_THREADS / 32;
+// The bias-grad reduction's units: BIAS_GROUP partial rows x BIAS_COLS
+// columns (32 lanes x 4) a block of BIAS_LANES row lanes; its launch's
+// most segments (bias vectors) in the parameter space.
+constexpr int BIAS_THREADS = 256;
+constexpr int BIAS_LANES = BIAS_THREADS / 32;
+constexpr int BIAS_COLS = 128;
+constexpr int BIAS_GROUP = 64;
+constexpr int MAX_BIAS_SEGS = 32;
 // dW units (dw_kernel blocks) a weight matrix's launch aims at: two waves of
 // the H100's 132 SMs; its point ranges follow (at most DW_RANGES).
 constexpr int DW_UNITS = 264;
 
 enum Kind { KIND_FWD = 0, KIND_SIGMA = 1, KIND_BWD = 2 };
-enum HeadMode { HEAD_FWD = 0, HEAD_SIGMA = 1, HEAD_BWD = 2 };
-enum Counter { CNT_PE, CNT_PRODUCT, CNT_HEADS, CNT_DW, CNT_REDUCE, N_COUNTERS };
+enum HeadMode { HEAD_FWD = 0, HEAD_SIGMA = 1 };
+enum Counter {
+  CNT_PE, CNT_PRODUCT, CNT_HEADS, CNT_DW, CNT_REDUCE, CNT_BIAS, CNT_HEADS_BWD, N_COUNTERS
+};
 
 // ---------------------------------------------------------------- (1) PE --
 
@@ -651,20 +675,16 @@ __device__ __forceinline__ float warp_dot(const bf16* x, const bf16* w, int n, i
   return s;
 }
 
+// The forward's and sigma's heads, a warp per point.
 template <int MODE>
 __global__ void __launch_bounds__(HEAD_THREADS) layer_heads_kernel(const HeadArgs a) {
-  __shared__ float sd[HEAD_ROWS][4];  // bwd: drgb, dalpha of the block's points
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long long b0 = (long long)blockIdx.x * HEAD_ROWS;
   const int H2 = a.H / 2;
-  for (int i = warp; i < HEAD_ROWS; i += HEAD_THREADS / 32) {
+  for (int i = warp; i < HEAD_ROWS; i += HEAD_WARPS) {
     const long long r = b0 + i, g = a.row0 + r;
-    if (r >= a.m) {
-      if (MODE == HEAD_BWD && lane == 0) sd[i][0] = sd[i][1] = sd[i][2] = sd[i][3] = 0.f;
-      continue;
-    }
-    float alpha = 0.f;
-    if constexpr (MODE != HEAD_BWD) alpha = warp_dot(a.x + r * a.H, a.wa, a.H, lane) + a.ba[0];
+    if (r >= a.m) continue;
+    const float alpha = warp_dot(a.x + r * a.H, a.wa, a.H, lane) + a.ba[0];
     if constexpr (MODE == HEAD_SIGMA) {
       if (lane == 0) a.out[g] = alpha;
       continue;
@@ -674,58 +694,348 @@ __global__ void __launch_bounds__(HEAD_THREADS) layer_heads_kernel(const HeadArg
     for (int c = 0; c < 3; ++c)
       rgb[c] = 1.f / (1.f + expf(-(warp_dot(a.h + r * H2, a.wr + c * H2, H2, lane) + a.br[c])));
     if (lane != 0) continue;
-    if constexpr (MODE == HEAD_FWD) {
-      const float v[4] = {rgb[0], rgb[1], rgb[2], alpha};
+    const float v[4] = {rgb[0], rgb[1], rgb[2], alpha};
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (a.channels_first)
-          a.out[c * a.n_total + g] = v[c];
-        else
-          a.out[g * 4 + c] = v[c];
+    for (int c = 0; c < 4; ++c) {
+      if (a.channels_first)
+        a.out[c * a.n_total + g] = v[c];
+      else
+        a.out[g * 4 + c] = v[c];
+    }
+  }
+}
+
+// The lane's CH 16-byte chunks of h columns [w0, w0 + 256 CH) of row r:
+// chunk j at column w0 + 8 (lane + 32 j), warp_dot's chunks; zeros past H/2.
+template <int CH>
+__device__ __forceinline__ void load_h_window(uint4 (&v)[CH], const bf16* row, int w0, int H2,
+                                              int lane) {
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    const int k = w0 + 8 * (lane + 32 * j);
+    v[j] = k < H2 ? __ldg(reinterpret_cast<const uint4*>(row + k)) : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// The three rgb dots' lane partials over those chunks, warp_dot's order:
+// chunk by chunk, 8 fmas each.
+template <int CH>
+__device__ __forceinline__ void dot_window(float (&s)[3], const uint4 (&v)[CH], const bf16* swr,
+                                           int w0, int H2, int lane) {
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    const int k = w0 + 8 * (lane + 32 * j);
+    if (k >= H2) continue;
+    const bf16* xs = reinterpret_cast<const bf16*>(&v[j]);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const uint4 wv = *reinterpret_cast<const uint4*>(swr + c * H2 + k);
+      const bf16* ws = reinterpret_cast<const bf16*>(&wv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        s[c] = __fmaf_rn(__bfloat162float(xs[e]), __bfloat162float(ws[e]), s[c]);
+    }
+  }
+}
+
+// A point's cotangents from its rgb dots (summed over the warp by
+// warp_dot's butterfly: the same bits in every lane): d[0..2] through the
+// sigmoid, d[3] the grad's alpha channel; lane 0 stores them in sd and the
+// padded dy_rgb and dy_a rows.
+__device__ __forceinline__ void head_cotangents(float (&d)[4], float (&s)[3], const HeadArgs& a,
+                                                long long r, float (&sd)[4], int lane) {
+  const long long g = a.row0 + r;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s[c] += __shfl_xor_sync(0xffffffffu, s[c], o);
+    const float rgb = 1.f / (1.f + expf(-(s[c] + a.br[c])));
+    d[c] = a.grad[c * a.n_total + g] * rgb * (1.f - rgb);
+  }
+  d[3] = a.grad[3 * a.n_total + g];
+  if (lane != 0) return;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) sd[c] = d[c];
+  uint4* rgb_row = reinterpret_cast<uint4*>(a.dy_rgb + r * HEAD_LD);
+  uint4* a_row = reinterpret_cast<uint4*>(a.dy_a + r * HEAD_LD);
+  rgb_row[0] = make_uint4(pack_bf16(d[0], d[1]), pack_bf16(d[2], 0.f), 0u, 0u);
+  rgb_row[1] = make_uint4(0u, 0u, 0u, 0u);
+  a_row[0] = make_uint4(pack_bf16(d[3], 0.f), 0u, 0u, 0u);
+  a_row[1] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// The backward's heads over HEAD_ROWS points a block, in one pass over h:
+// each warp takes HEAD_ROWS / HEAD_WARPS consecutive points, each lane CH
+// 16-byte chunks of a point's h row (warp_dot's chunks, the next point's
+// loaded under this one's arithmetic); the three rgb dots come from those
+// registers (dot_window, head_cotangents), and so does dy_dir = (bf16(drgb)
+// wr) masked by h > 0, stored 16 bytes a lane, its f32 values summed per
+// column over the warp's points in order, then over the warps in order: the
+// block's row of dir bias-grad partials, and of [alpha, r, g, b] over its
+// points in order. The rgb weights sit in shared memory. Past a window of
+// 256 CH columns (H/2 > 1024) a first pass takes the dots window by window
+// and the second reads h again. The dots sum in warp_dot's order and each
+// dy_dir element adds its three terms in a fixed order, so dy_dir, and
+// every dW taken from it, has the bits of a warp_dot per channel whatever
+// the block's shape.
+template <int CH>
+__global__ void __launch_bounds__(HEAD_THREADS) layer_heads_bwd_kernel(const HeadArgs a) {
+  constexpr int WIN = 256 * CH;
+  constexpr int PTS = HEAD_ROWS / HEAD_WARPS;
+  extern __shared__ __align__(16) unsigned char head_smem[];
+  __shared__ float sd[HEAD_ROWS][4];  // drgb, dalpha of the block's points
+  const int H2 = a.H / 2;
+  const int nwin = (H2 + WIN - 1) / WIN, win = H2 < WIN ? H2 : WIN;
+  bf16* swr = reinterpret_cast<bf16*>(head_smem);                          // (3, H/2)
+  float* wsum = reinterpret_cast<float*>(head_smem + 6 * (size_t)H2);      // (HEAD_WARPS, win)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long b0 = (long long)blockIdx.x * HEAD_ROWS;
+  const int rows = (int)(a.m - b0 < HEAD_ROWS ? a.m - b0 : HEAD_ROWS);
+  const int i0 = warp * PTS;
+  const int pts = rows - i0 < 0 ? 0 : (rows - i0 < PTS ? rows - i0 : PTS);
+  for (int i = threadIdx.x; i < 3 * H2 / 8; i += HEAD_THREADS)
+    reinterpret_cast<uint4*>(swr)[i] = reinterpret_cast<const uint4*>(a.wr)[i];
+  __syncthreads();
+  if (nwin > 1) {  // the dots first, window by window
+    for (int t = 0; t < pts; ++t) {
+      const long long r = b0 + i0 + t;
+      float s[3] = {0.f, 0.f, 0.f}, d[4];
+      for (int w = 0; w < nwin; ++w) {
+        uint4 v[CH];
+        load_h_window(v, a.h + r * H2, w * WIN, H2, lane);
+        dot_window(s, v, swr, w * WIN, H2, lane);
       }
-    } else {
+      head_cotangents(d, s, a, r, sd[i0 + t], lane);
+    }
+    __syncwarp();
+  }
+  float* const prow = a.part + (size_t)blockIdx.x * a.ld_part;
+  for (int w = 0; w < nwin; ++w) {
+    const int w0 = w * WIN;
+    float p[CH * 8];
+#pragma unroll
+    for (int e = 0; e < CH * 8; ++e) p[e] = 0.f;
+    uint4 next[CH];
+    if (pts > 0) load_h_window(next, a.h + (b0 + i0) * H2, w0, H2, lane);
+    for (int t = 0; t < pts; ++t) {
+      const long long r = b0 + i0 + t;
+      uint4 v[CH];
+#pragma unroll
+      for (int j = 0; j < CH; ++j) v[j] = next[j];
+      if (t + 1 < pts) load_h_window(next, a.h + (r + 1) * H2, w0, H2, lane);
       float d[4];
+      if (nwin == 1) {
+        float s[3] = {0.f, 0.f, 0.f};
+        dot_window(s, v, swr, 0, H2, lane);
+        head_cotangents(d, s, a, r, sd[i0 + t], lane);
+      } else {
 #pragma unroll
-      for (int c = 0; c < 3; ++c) d[c] = a.grad[c * a.n_total + g] * rgb[c] * (1.f - rgb[c]);
-      d[3] = a.grad[3 * a.n_total + g];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) sd[i][c] = d[c];
-      uint4* rgb_row = reinterpret_cast<uint4*>(a.dy_rgb + r * HEAD_LD);
-      uint4* a_row = reinterpret_cast<uint4*>(a.dy_a + r * HEAD_LD);
-      rgb_row[0] = make_uint4(pack_bf16(d[0], d[1]), pack_bf16(d[2], 0.f), 0u, 0u);
-      rgb_row[1] = make_uint4(0u, 0u, 0u, 0u);
-      a_row[0] = make_uint4(pack_bf16(d[3], 0.f), 0u, 0u, 0u);
-      a_row[1] = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-  if constexpr (MODE == HEAD_BWD) {
-    __syncthreads();
-    const int rows = (int)(a.m - b0 < HEAD_ROWS ? a.m - b0 : HEAD_ROWS);
-    float* prow = a.part + (size_t)blockIdx.x * a.ld_part;
-    // dh = (bf16(drgb) wr) masked by h > 0: the dir layer's cotangent, and
-    // its column sums over the block's points in order
-    for (int k = threadIdx.x; k < H2; k += HEAD_THREADS) {
-      const float w0 = __bfloat162float(a.wr[k]), w1 = __bfloat162float(a.wr[H2 + k]),
-                  w2 = __bfloat162float(a.wr[2 * H2 + k]);
-      float s = 0.f;
-      for (int i = 0; i < rows; ++i) {
-        const long long r = b0 + i;
-        float v = __fadd_rn(__fadd_rn(__fmul_rn(bf16_round(sd[i][0]), w0),
-                                      __fmul_rn(bf16_round(sd[i][1]), w1)),
-                            __fmul_rn(bf16_round(sd[i][2]), w2));
-        if (!(__bfloat162float(a.h[r * H2 + k]) > 0.f)) v = 0.f;
-        a.dy_dir[r * H2 + k] = __float2bfloat16(v);
-        s += v;
+        for (int c = 0; c < 4; ++c) d[c] = sd[i0 + t][c];
       }
-      prow[k] = s;
+      const float d0 = bf16_round(d[0]), d1 = bf16_round(d[1]), d2 = bf16_round(d[2]);
+#pragma unroll
+      for (int j = 0; j < CH; ++j) {
+        const int k = w0 + 8 * (lane + 32 * j);
+        if (k >= H2) continue;
+        const bf16* xs = reinterpret_cast<const bf16*>(&v[j]);
+        const uint4 w0v = *reinterpret_cast<const uint4*>(swr + k);
+        const uint4 w1v = *reinterpret_cast<const uint4*>(swr + H2 + k);
+        const uint4 w2v = *reinterpret_cast<const uint4*>(swr + 2 * H2 + k);
+        const bf16* ws0 = reinterpret_cast<const bf16*>(&w0v);
+        const bf16* ws1 = reinterpret_cast<const bf16*>(&w1v);
+        const bf16* ws2 = reinterpret_cast<const bf16*>(&w2v);
+        float o[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          float val = __fadd_rn(__fadd_rn(__fmul_rn(d0, __bfloat162float(ws0[e])),
+                                          __fmul_rn(d1, __bfloat162float(ws1[e]))),
+                                __fmul_rn(d2, __bfloat162float(ws2[e])));
+          if (!(__bfloat162float(xs[e]) > 0.f)) val = 0.f;
+          o[e] = val;
+          p[8 * j + e] += val;
+        }
+        *reinterpret_cast<uint4*>(a.dy_dir + r * H2 + k) =
+            make_uint4(pack_bf16(o[0], o[1]), pack_bf16(o[2], o[3]), pack_bf16(o[4], o[5]),
+                       pack_bf16(o[6], o[7]));
+      }
     }
-    if (threadIdx.x < 4) {  // [alpha, r, g, b], as the biases lie from ba_off
-      const int c = threadIdx.x == 0 ? 3 : threadIdx.x - 1;
+    // the warps' column sums, then the block's: the warps in order
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const int k = 8 * (lane + 32 * j);
+      if (w0 + k >= H2) continue;
+      float4* dst = reinterpret_cast<float4*>(wsum + warp * win + k);
+      dst[0] = make_float4(p[8 * j], p[8 * j + 1], p[8 * j + 2], p[8 * j + 3]);
+      dst[1] = make_float4(p[8 * j + 4], p[8 * j + 5], p[8 * j + 6], p[8 * j + 7]);
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k < win && w0 + k < H2; k += HEAD_THREADS) {
       float s = 0.f;
-      for (int i = 0; i < rows; ++i) s += sd[i][c];
-      prow[H2 + threadIdx.x] = s;
+#pragma unroll
+      for (int v = 0; v < HEAD_WARPS; ++v) s += wsum[v * win + k];
+      prow[w0 + k] = s;
+    }
+    __syncthreads();  // wsum read, sd written
+  }
+  if (threadIdx.x < 4) {  // [alpha, r, g, b], as the biases lie from ba_off
+    const int c = threadIdx.x == 0 ? 3 : threadIdx.x - 1;
+    float s = 0.f;
+    for (int i = 0; i < rows; ++i) s += sd[i][c];
+    prow[H2 + threadIdx.x] = s;
+  }
+}
+
+// Its h columns a lane holds (CH chunks of 8) and shared memory: the rgb
+// weights and every warp's column sums of a window.
+int heads_bwd_chunks(int H) { return H / 2 <= 256 ? 1 : (H / 2 <= 512 ? 2 : 4); }
+
+size_t heads_bwd_smem(int H) {
+  const int H2 = H / 2, win = 256 * heads_bwd_chunks(H);
+  return 6 * (size_t)H2 + HEAD_WARPS * (size_t)(H2 < win ? H2 : win) * sizeof(float);
+}
+
+template <int CH>
+int launch_heads_bwd_ch(const HeadArgs& ha, cudaStream_t s) {
+  const size_t smem = heads_bwd_smem(ha.H);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(reinterpret_cast<const void*>(layer_heads_bwd_kernel<CH>),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  layer_heads_bwd_kernel<CH><<<(unsigned)((ha.m + HEAD_ROWS - 1) / HEAD_ROWS), HEAD_THREADS,
+                               smem, s>>>(ha);
+  return (int)cudaGetLastError();
+}
+
+int launch_heads_bwd(const HeadArgs& ha, cudaStream_t s, int* launches) {
+  launches[CNT_HEADS_BWD] += 1;
+  switch (heads_bwd_chunks(ha.H)) {
+    case 1:
+      return launch_heads_bwd_ch<1>(ha, s);
+    case 2:
+      return launch_heads_bwd_ch<2>(ha, s);
+    default:
+      return launch_heads_bwd_ch<4>(ha, s);
+  }
+}
+
+// -------------------------------------------------------- (4) bias grads --
+//
+// Every bias grad of a backward slab, from the column partials its kernels
+// wrote into regions of their own (each dX product's per 128 points, the
+// heads' per HEAD_ROWS), in one launch spread over the card. A segment is
+// one bias vector's partials; a unit (block) sums BIAS_GROUP rows of one
+// segment over BIAS_COLS columns, float4 loads, eight row lanes each over
+// every eighth row in order, then the lanes in order, into the segment's
+// level-1 row of that group; the last unit of a column chunk to finish (an
+// integer counter per chunk, reset by that unit) adds the groups in order
+// to the running grads. No float atomics: the same sums in the same order
+// on every launch, whichever unit ends last.
+struct BiasSeg {
+  const float* src;  // (rows, cols) partials, rows ld floats apart
+  float* dst;        // cols grads, added to
+  float* level1;     // (groups, cols)
+  unsigned* count;   // one per column chunk, 0 between launches
+  long long ld;
+  int rows, cols, groups, chunks, unit0;
+};
+
+struct BiasArgs {
+  BiasSeg seg[MAX_BIAS_SEGS];
+  int count;
+};
+
+__global__ void __launch_bounds__(BIAS_THREADS)
+    bias_grads_kernel(const __grid_constant__ BiasArgs a) {
+  __shared__ float4 lanes[BIAS_LANES][BIAS_COLS / 4];
+  __shared__ int last;
+  int s = 0;
+  while (s + 1 < a.count && (int)blockIdx.x >= a.seg[s + 1].unit0) ++s;
+  const BiasSeg& sg = a.seg[s];
+  const int local = (int)blockIdx.x - sg.unit0;
+  const int chunk = local / sg.groups, group = local % sg.groups;
+  const int q = threadIdx.x % 32, lane = threadIdx.x / 32;
+  const int c4 = chunk * BIAS_COLS + 4 * q;
+  const int r1 = (group + 1) * BIAS_GROUP < sg.rows ? (group + 1) * BIAS_GROUP : sg.rows;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (c4 < sg.cols) {
+#pragma unroll 8
+    for (int r = group * BIAS_GROUP + lane; r < r1; r += BIAS_LANES) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(sg.src + (size_t)r * sg.ld + c4));
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
     }
   }
+  lanes[lane][q] = acc;
+  __syncthreads();
+  const int t = threadIdx.x, col = chunk * BIAS_COLS + t;
+  if (t < BIAS_COLS && col < sg.cols) {
+    const float* lf = reinterpret_cast<const float*>(&lanes[0][0]);
+    float v = 0.f;
+#pragma unroll
+    for (int l = 0; l < BIAS_LANES; ++l) v += lf[l * BIAS_COLS + t];
+    sg.level1[(size_t)group * sg.cols + col] = v;
+  }
+  __threadfence();  // the group's row, before the count that publishes it
+  __syncthreads();
+  if (t == 0) last = atomicAdd(&sg.count[chunk], 1u) == (unsigned)(sg.groups - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (t < BIAS_COLS && col < sg.cols) {
+    float v = sg.dst[col];
+    for (int g = 0; g < sg.groups; ++g) v += __ldcg(sg.level1 + (size_t)g * sg.cols + col);
+    sg.dst[col] = v;
+  }
+  if (t == 0) sg.count[chunk] = 0u;
+}
+
+// One bias vector's partials to reduce: src (rows, cols), row stride ld,
+// added to dst.
+struct BiasSpec {
+  const float* src;
+  long long ld;
+  int rows, cols;
+  float* dst;
+};
+
+int bias_groups(long long rows) { return (int)((rows + BIAS_GROUP - 1) / BIAS_GROUP); }
+int bias_chunks(long long cols) { return (int)((cols + BIAS_COLS - 1) / BIAS_COLS); }
+
+// bias_grads_kernel over n segments, MAX_BIAS_SEGS a launch: level-1 rows
+// from `level1` and counters from `count` (zero), segment after segment.
+int launch_bias(const BiasSpec* segs, int n, float* level1, unsigned* count, cudaStream_t s,
+                int* launches) {
+  for (int first = 0; first < n; first += MAX_BIAS_SEGS) {
+    BiasArgs a;
+    memset(&a, 0, sizeof(a));
+    int units = 0;
+    for (int i = first; i < n && i < first + MAX_BIAS_SEGS; ++i) {
+      const BiasSpec& b = segs[i];
+      BiasSeg& g = a.seg[a.count++];
+      g.src = b.src;
+      g.dst = b.dst;
+      g.ld = b.ld;
+      g.rows = b.rows;
+      g.cols = b.cols;
+      g.groups = bias_groups(b.rows);
+      g.chunks = bias_chunks(b.cols);
+      g.level1 = level1;
+      g.count = count;
+      g.unit0 = units;
+      level1 += (size_t)g.groups * g.cols;
+      count += g.chunks;
+      units += g.groups * g.chunks;
+    }
+    bias_grads_kernel<<<units, BIAS_THREADS, 0, s>>>(a);
+    launches[CNT_BIAS] += 1;
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 // ------------------------------------------------------------------ host --
@@ -844,7 +1154,7 @@ std::vector<DwGroup> dw_groups(const LDesc& d) {
 struct LLayout {
   long long slab;
   size_t tab, pe_x, pe_d, buf0, buf1, h, act, feat, dy_rgb, dy_a, dy_dir, dy0, dy1;
-  size_t colsum, hpart, dwpart, total;
+  size_t colsum, hpart, bpart, bcount, dwpart, total;
   int hpart_ld;
 };
 
@@ -874,9 +1184,17 @@ LLayout layers_layout(const LDesc& d, int kind, long long slab) {
     w.dy_dir = take(P * (H / 2) * e);
     w.dy0 = take(P * H * e);
     w.dy1 = take(P * H * e);
-    w.colsum = take(P / LP_ROWS * H * sizeof(float));
+    // every dX product's column sums (L + 1 regions), the heads' partials,
+    // then the bias-grad reduction's level-1 rows and counters (launch_bias,
+    // for the slab's segments: the products', the heads' dir and 4 columns)
+    w.colsum = take((d.L + 1) * (P / LP_ROWS) * H * sizeof(float));
     w.hpart_ld = (int)(H / 2 + 4);
     w.hpart = take(P / HEAD_ROWS * w.hpart_ld * sizeof(float));
+    const long long mt = slab / LP_ROWS, hb = slab / HEAD_ROWS;
+    w.bpart = take(((size_t)(d.L + 1) * bias_groups(mt) * H +
+                    (size_t)bias_groups(hb) * (H / 2 + 4)) * sizeof(float));
+    w.bcount = take(((size_t)(d.L + 1) * bias_chunks(H) + bias_chunks(H / 2) + bias_chunks(4)) *
+                    sizeof(unsigned));
     size_t floats = 0;
     for (const DwGroup& g : dw_groups(d)) {
       const size_t f = (size_t)g.ranges * round_up((size_t)g.cols, 64);
@@ -1083,6 +1401,8 @@ int prepare(const LDesc& d, int kind, const bf16* W, const float* B, unsigned ch
   cudaError_t err = cudaSuccess;
   if (kind == KIND_BWD)
     err = cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DW_SMEM);
+  if (err == cudaSuccess && kind == KIND_BWD)  // the bias reduction's counters start at 0
+    err = cudaMemsetAsync(ws + lay.bcount, 0, lay.dwpart - lay.bcount, s);
   if (err == cudaSuccess)  // pageable source: staged at once, no wait on the device
     err = cudaMemcpyAsync(ws + lay.tab, d.tab.data(), d.tab.size() * sizeof(PeCol),
                           cudaMemcpyHostToDevice, s);
@@ -1113,8 +1433,10 @@ extern "C" int nm_field_layers_workspace(int kind, const int* desc_i, int n_desc
 //     cotangent -> dW, dB (the packed layout; zeroed by the caller: the
 //     grads are added to them).
 // workspace: nm_field_layers_workspace's bytes for this kind and slab.
-// launches[5] gets each kernel's launches added: PE, product, heads, dW,
-// reductions. Returns a cudaError_t code; 0 on success.
+// launches[7] gets each kernel's launches added: PE, product, the forward's
+// and sigma's heads, dW, the dW partials' reductions, the bias-grad
+// reductions, the backward's heads. Returns a cudaError_t code; 0 on
+// success.
 extern "C" int nm_field_layers(int kind, const float* src, const float* dirs, const float* z,
                                long long n_rays, int samples, const float* grad,
                                const void* weights, const float* biases, const int* desc_i,
@@ -1152,6 +1474,11 @@ extern "C" int nm_field_layers(int kind, const float* src, const float* dirs, co
   float* dwpart = reinterpret_cast<float*>(ws + lay.dwpart);
   float* colsum = reinterpret_cast<float*>(ws + lay.colsum);
   float* hpart = reinterpret_cast<float*>(ws + lay.hpart);
+  float* bpart = reinterpret_cast<float*>(ws + lay.bpart);
+  unsigned* bcount = reinterpret_cast<unsigned*>(ws + lay.bcount);
+  // dX product j's column sums (j = 0 dir's, then the feat and trunk
+  // products' down to layer1's): their own region each
+  auto colsum_of = [&](int j) { return colsum + (size_t)j * (slab / LP_ROWS) * H; };
 
   for (long long row0 = 0; row0 < n_pts; row0 += slab) {
     const long long m = n_pts - row0 < slab ? n_pts - row0 : slab;
@@ -1200,23 +1527,14 @@ extern "C" int nm_field_layers(int kind, const float* src, const float* dirs, co
     }
 
     // The backward: the heads' and the dir layer's cotangents and their
-    // bias grads, then dW of dir and the heads.
+    // bias-grad partials, then dW of dir and the heads.
     bf16 *dy_rgb = at(lay.dy_rgb), *dy_a = at(lay.dy_a), *dy_dir = at(lay.dy_dir);
     ha.dy_rgb = dy_rgb;
     ha.dy_a = dy_a;
     ha.dy_dir = dy_dir;
     ha.part = hpart;
     ha.ld_part = lay.hpart_ld;
-    layer_heads_kernel<HEAD_BWD><<<head_blocks, HEAD_THREADS, 0, s>>>(ha);
-    launches[CNT_HEADS] += 1;
-    err = (int)cudaGetLastError();
-    if (err == 0)
-      err = reduce_rows(hpart, lay.hpart_ld, (int)head_blocks, H / 2, (int)head_blocks,
-                        dB + d.b_off[L + 1], 0, s, 1);
-    if (err == 0)
-      err = reduce_rows(hpart + H / 2, lay.hpart_ld, (int)head_blocks, 4, (int)head_blocks,
-                        dB + d.ba_off, 0, s, 1);
-    launches[CNT_REDUCE] += 2;
+    err = launch_heads_bwd(ha, s, launches);
     if (err != 0) return err;
     const long long dir0 = d.w_off[L + 1];
     {
@@ -1234,14 +1552,11 @@ extern "C" int nm_field_layers(int kind, const float* src, const float* dirs, co
     // The dX chain: dy[g - 1] = (dy[g] W_g's x part) masked by the forward's
     // output of product g - 1 (layer1 has no ReLU), from dir's down to
     // layer1's; each product's bias grads are its output's column sums,
-    // each weight matrix's dW follows its cotangent.
-    const int mt = (int)blocks(m, LP_ROWS);
+    // each into its own region, each weight matrix's dW follows its
+    // cotangent.
     bf16* dy = at(lay.dy0);
-    err = launch_product<true>(epilogue_args(nullptr, 0, feat, dy, colsum), dy_dir, H / 2,
+    err = launch_product<true>(epilogue_args(nullptr, 0, feat, dy, colsum_of(0)), dy_dir, H / 2,
                                nullptr, 0, m, H, nn[L + 1], card, s, launches);
-    if (err == 0)
-      err = reduce_rows(colsum, H, mt, H, mt, dB + d.b_off[L], 0, s, 1);
-    launches[CNT_REDUCE] += 1;
     for (int g = L; g >= 1 && err == 0; --g) {
       const bool skip = d.k[g] > H;
       const bf16* xin = act(g - 1);  // product g's input: [act[g - 1] | PE(xyz)]
@@ -1254,17 +1569,26 @@ extern "C" int nm_field_layers(int kind, const float* src, const float* dirs, co
       bf16* next = dy == at(lay.dy0) ? at(lay.dy1) : at(lay.dy0);
       const bf16* mask = g - 1 > 0 ? act(g - 1) : nullptr;
       err = launch_product<true>(
-          epilogue_args(nullptr, 0, mask, next, colsum, g == L ? dy_a : nullptr,
+          epilogue_args(nullptr, 0, mask, next, colsum_of(L + 1 - g), g == L ? dy_a : nullptr,
                         g == L ? wa : nullptr),
           dy, H, nullptr, 0, m, H, nn[g], card, s, launches);
-      if (err == 0) err = reduce_rows(colsum, H, mt, H, mt, dB + d.b_off[g - 1], 0, s, 1);
-      launches[CNT_REDUCE] += 1;
       dy = next;
     }
     if (err != 0) return err;
     const DwMapSpec maps[2] = {{dy, H}, {pe_x, d.pxp}};
     const DwJob job = {0, 0, 0, 1, 0, 0, H, H, d.pxp, 0, d.pxp, 0};
     err = launch_group(groups[0], maps, 2, &job, 1, m, dwpart, dW + d.w_off[0], s, launches);
+    if (err != 0) return err;
+    // Every bias grad of the slab in one reduction: the L + 1 products'
+    // column sums, the heads' dir and [alpha, r, g, b] partials.
+    const int mt = (int)blocks(m, LP_ROWS), hb = (int)blocks(m, HEAD_ROWS);
+    std::vector<BiasSpec> segs;
+    segs.push_back({colsum_of(0), H, mt, H, dB + d.b_off[L]});
+    for (int g = L; g >= 1; --g)
+      segs.push_back({colsum_of(L + 1 - g), H, mt, H, dB + d.b_off[g - 1]});
+    segs.push_back({hpart, lay.hpart_ld, hb, H / 2, dB + d.b_off[L + 1]});
+    segs.push_back({hpart + H / 2, lay.hpart_ld, hb, 4, dB + d.ba_off});
+    err = launch_bias(segs.data(), (int)segs.size(), bpart, bcount, s, launches);
     if (err != 0) return err;
   }
   return 0;
@@ -1340,4 +1664,52 @@ extern "C" int nm_field_layers_product(const void* a1, int k1, const void* a2, i
   const bf16* A2 = static_cast<const bf16*>(a2);
   return nn ? launch_product<true>(e, A1, k1, A2, k2, m, n, b, card, s, launches)
             : launch_product<false>(e, A1, k1, A2, k2, m, n, b, card, s, launches);
+}
+
+// The backward's heads kernel alone, for its checks: h (m, H/2) bf16, the
+// (4, m) f32 cotangent, the rgb head's weights wr (3, H/2) bf16 and biases
+// br (3) -> dy_rgb, dy_a (m, 16) bf16, dy_dir (m, H/2) bf16 and part
+// (ceil(m / 64), H/2 + 4) f32: per 64 points the column sums of dy_dir's
+// f32 values and of [dalpha, dr, dg, db]. Returns a cudaError_t code.
+extern "C" int nm_field_layers_heads_bwd(const void* h, const float* grad, long long m, int H,
+                                         const void* wr, const float* br, void* dy_rgb,
+                                         void* dy_a, void* dy_dir, float* part, void* stream) {
+  const void* ptrs[5] = {h, wr, dy_rgb, dy_a, dy_dir};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return (int)cudaErrorInvalidValue;
+  if (m <= 0 || H < 128 || H % 128 != 0) return (int)cudaErrorInvalidValue;
+  HeadArgs ha = {nullptr, static_cast<const bf16*>(h), nullptr, static_cast<const bf16*>(wr),
+                 nullptr, br, H, m, 0, m, nullptr, 0, grad, static_cast<bf16*>(dy_rgb),
+                 static_cast<bf16*>(dy_a), static_cast<bf16*>(dy_dir), part, H / 2 + 4};
+  int launches[N_COUNTERS] = {};
+  return launch_heads_bwd(ha, static_cast<cudaStream_t>(stream), &launches[0]);
+}
+
+// The bias-grad reduction alone, for its checks: dst[i][c] += the sum over
+// r of src[i][r * ld[i] + c], r < rows[i], c < cols[i], for n segments
+// (host arrays of device pointers and sizes; cols and ld multiples of 4,
+// src 16-byte aligned). scratch: device memory of the level-1 rows and
+// counters, sum over segments of ceil(rows / 64) * cols floats, then of
+// ceil(cols / 128) 32-bit counters, which must hold zeros (and hold zeros
+// again after the launch). Returns a cudaError_t code.
+extern "C" int nm_field_layers_bias(int n, const long long* src, const long long* ld,
+                                    const int* rows, const int* cols, const long long* dst,
+                                    void* scratch, long long scratch_bytes, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  std::vector<BiasSpec> segs;
+  size_t floats = 0, counters = 0;
+  for (int i = 0; i < n; ++i) {
+    if (rows[i] <= 0 || cols[i] <= 0 || cols[i] % 4 != 0 || ld[i] < cols[i] || ld[i] % 4 != 0 ||
+        src[i] % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    segs.push_back({reinterpret_cast<const float*>(src[i]), ld[i], rows[i], cols[i],
+                    reinterpret_cast<float*>(dst[i])});
+    floats += (size_t)bias_groups(rows[i]) * cols[i];
+    counters += bias_chunks(cols[i]);
+  }
+  if (scratch_bytes < (long long)((floats + counters) * 4)) return (int)cudaErrorInvalidValue;
+  float* level1 = static_cast<float*>(scratch);
+  int launches[N_COUNTERS] = {};
+  return launch_bias(segs.data(), n, level1, reinterpret_cast<unsigned*>(level1 + floats),
+                     static_cast<cudaStream_t>(stream), launches);
 }

@@ -1,26 +1,33 @@
 """The FlexibleNeRF field a layer at a time: the route the card takes for
-every model that supports_fused admits and the fused kernels' plans
-refuse (fused_mlp.field_route: hidden widths past 1024, more than 128 PE
-columns at 512 and 1024 wide, more than 24 bands, more than 14 layers).
-JAX runs such models through its Pallas kernels `_fwd_kernel`
+every model that supports_fused admits and fused_mlp.field_route does not
+send to the fused kernels (hidden widths from 512 on, where this route
+beat the fused plans in turns on an H100; more than 24 bands, more than 14
+layers; a 128-384-wide field whose fused plans refuse it). JAX runs such
+models through its Pallas kernels `_fwd_kernel`
 (nerfmeshes_tpu/ops/pallas/fused_mlp.py:387), `_sigma_kernel` (:675) and
 `_bwd_kernel` (:397); this module's wrappers launch their counterparts,
 csrc/field_layers.cu (CUDA C++ for sm_90a, bound through ctypes): a PE
 kernel, one product kernel launch per layer (persistent, warp-specialised
 wgmma on TMA-staged tiles, bias / ReLU / mask epilogues staged in shared
 memory and stored by TMA; `product_plan` mirrors its shared-memory plan,
-`product_tiles` its tile walk), a heads kernel, and for the backward the
-fused backward's dW leg and fixed-order reductions (csrc/dw_leg.cuh).
+`product_tiles` its tile walk), a heads kernel, and for the backward its
+own heads kernel (one pass over h a block of points), the fused
+backward's dW leg with its fixed-order reductions (csrc/dw_leg.cuh), and
+one reduction of every bias grad a slab (`bias_segments`,
+`bias_scratch`).
 
 What bounds it on an H100: each product moves its bf16 activations
 through device memory, H/2 FLOP per byte, above the card's ~295 FLOP/B
 from H ~ 600 on, so the tensor cores can still set the pace where the
-fused design's 64 x H activation tile no longer fits a block.
+fused design's 64 x H activation tile no longer fits a block; the heads
+and the reductions move bytes and do next to no arithmetic.
 
 Points go through in slabs (`slab_points`) whose workspace stays under
-LAYER_WORKSPACE_BOUND (`workspace_bytes`, a mirror of the C layout: keep
-the two alike), whatever R x S is: at 2048 wide a mesh appearance chunk
-of 65,536 x 192 points would need 51.5 GB for one activation buffer.
+LAYER_WORKSPACE_BOUND (`workspace_layout` / `workspace_bytes`, a mirror
+of the C layout: keep the two alike), whatever R x S is: at 2048 wide a
+mesh appearance chunk of 65,536 x 192 points would need 51.5 GB for one
+activation buffer. `slab_launches` / `call_launches` mirror the launches
+a slab and a call make, kernel by kernel.
 
 The plain versions are fused_mlp's (`fused_mlp_plain`, `fused_sigma_plain`,
 `fused_mlp_bwd_plain`): the same packed weights and numerics. The
@@ -28,8 +35,12 @@ wrappers here take CUDA tensors only and raise on others; fused_mlp's
 dispatch sends CPU tensors to the plain versions. `launches`,
 `sigma_launches` and `bwd_launches` count calls of the route's forward,
 sigma and backward; `kernel_launches` each of its kernels' launches in
-those calls. The PE and product kernels alone (`layers_pe_cuda`,
-`layers_product_cuda`) are for their checks, beside their plain versions.
+those calls; a list put in `call_log` records each call's spec, kind and
+points (against which `call_launches` predicts kernel_launches). The PE,
+product, backward heads and bias-grad kernels alone (`layers_pe_cuda`,
+`layers_product_cuda`, `layers_heads_bwd_cuda`, `layers_bias_cuda`) are
+for their checks, beside their plain versions (`layers_bias_launcher`: the
+reduction's launch alone, to time it).
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from nerfmeshes_tpu_torch.models.layers import matmul_f32_acc
@@ -56,8 +68,12 @@ from nerfmeshes_tpu_torch.ops.kernels.fused_mlp import (
 launches = 0
 sigma_launches = 0
 bwd_launches = 0
-KERNELS = ("pe", "product", "heads", "dw", "reduce")
+# "heads" is the forward's and sigma's heads kernel, "heads_bwd" the
+# backward's (csrc/field_layers.cu:Counter, in its order).
+KERNELS = ("pe", "product", "heads", "dw", "reduce", "bias", "heads_bwd")
 kernel_launches = dict.fromkeys(KERNELS, 0)
+# A list to record (spec, kind, points) of every route call in, or None.
+call_log = None
 
 # The workspace a call may take: its slabs of points are planned under it.
 LAYER_WORKSPACE_BOUND = 2 << 30
@@ -177,22 +193,95 @@ def route_products(spec: MLPSpec, kind: str) -> list[tuple[int, int, int, bool]]
     return out
 
 
-def workspace_bytes(spec: MLPSpec, kind: str, slab: int) -> int:
-    """Bytes of workspace a call of `kind` ("fwd", "sigma", "bwd") takes in
-    slabs of `slab` points: field_layers.cu:layers_layout, region by
-    region, each on a 256 B boundary."""
+# csrc/field_layers.cu's bias-grad reduction (bias_grads_kernel): partial
+# rows and columns a unit sums, and the most segments (bias vectors) a
+# launch takes.
+_BIAS_GROUP = 64
+_BIAS_COLS = 128
+_MAX_BIAS_SEGS = 32
+
+
+def bias_segments(spec: MLPSpec, m: int) -> list[tuple[int, int]]:
+    """(partial rows, columns) of each bias vector a backward slab of m
+    points reduces, in field_layers.cu's order: the L + 1 dX products'
+    column sums per 128 points (dir's, then the feat and trunk products'
+    down to layer1's), then the heads' per 64 points: the dir layer's H/2
+    and [alpha, r, g, b]."""
+    H, mt, hb = spec.hidden, _blocks(m, _ROWS), _blocks(m, _HEAD_ROWS)
+    return [(mt, H)] * (spec.num_layers + 1) + [(hb, H // 2), (hb, 4)]
+
+
+def bias_scratch(segments: list[tuple[int, int]]) -> tuple[int, int]:
+    """(level-1 floats, counters) the bias-grad reduction takes for these
+    (rows, columns) segments: a row per 64-row group, a counter per
+    128-column chunk (field_layers.cu:launch_bias)."""
+    return (sum(_blocks(r, _BIAS_GROUP) * c for r, c in segments),
+            sum(_blocks(c, _BIAS_COLS) for _, c in segments))
+
+
+def workspace_layout(spec: MLPSpec, kind: str, slab: int) -> dict[str, tuple[int, int]]:
+    """The workspace of a call of `kind` ("fwd", "sigma", "bwd") in slabs of
+    `slab` points, region by region as field_layers.cu:layers_layout lays
+    it out: name -> (byte offset, bytes), each on a 256 B boundary; "total"
+    -> (bytes of the whole, 0)."""
     H, L, pxp, pdp, P = spec.hidden, spec.num_layers, spec.pxp, spec.pdp, slab
-    regions = [(pxp + pdp) * _PE_COL, P * pxp * 2]
+    regions = [("tab", (pxp + pdp) * _PE_COL), ("pe_x", P * pxp * 2)]
     if kind != "sigma":
-        regions.append(P * pdp * 2)
+        regions.append(("pe_d", P * pdp * 2))
     if kind == "bwd":
-        regions += [L * P * H * 2, P * H * 2, P * (H // 2) * 2, P * _HEAD_LD * 2,
-                    P * _HEAD_LD * 2, P * (H // 2) * 2, P * H * 2, P * H * 2,
-                    P // _ROWS * H * 4, P // _HEAD_ROWS * (H // 2 + 4) * 4,
-                    max(r * _round_up(c, 64) for c, r in dw_groups(spec)) * 4]
+        level1, counters = bias_scratch(bias_segments(spec, P))
+        regions += [("act", L * P * H * 2), ("feat", P * H * 2), ("h", P * (H // 2) * 2),
+                    ("dy_rgb", P * _HEAD_LD * 2), ("dy_a", P * _HEAD_LD * 2),
+                    ("dy_dir", P * (H // 2) * 2), ("dy0", P * H * 2), ("dy1", P * H * 2),
+                    ("colsum", (L + 1) * (P // _ROWS) * H * 4),
+                    ("hpart", P // _HEAD_ROWS * (H // 2 + 4) * 4), ("bpart", level1 * 4),
+                    ("bcount", counters * 4),
+                    ("dwpart", max(r * _round_up(c, 64) for c, r in dw_groups(spec)) * 4)]
     else:
-        regions += [P * H * 2, P * H * 2] + ([P * (H // 2) * 2] if kind == "fwd" else [])
-    return sum(_round_up(b, 256) for b in regions)
+        regions += [("buf0", P * H * 2), ("buf1", P * H * 2)]
+        regions += [("h", P * (H // 2) * 2)] if kind == "fwd" else []
+    out, off = {}, 0
+    for name, nbytes in regions:
+        out[name] = (off, nbytes)
+        off += _round_up(nbytes, 256)
+    out["total"] = (off, 0)
+    return out
+
+
+def workspace_bytes(spec: MLPSpec, kind: str, slab: int) -> int:
+    """Bytes of workspace a call of `kind` takes in slabs of `slab` points
+    (workspace_layout's total)."""
+    return workspace_layout(spec, kind, slab)["total"][0]
+
+
+def slab_launches(spec: MLPSpec, kind: str, m: int) -> dict[str, int]:
+    """Each kernel's launches (KERNELS) in one slab of m points of a call of
+    `kind`, as nm_field_layers launches them: a PE, the route's products
+    (route_products), a heads launch (the forward's and sigma's heads
+    kernel, or the backward's); in the backward a dW launch and a
+    reduction of its range partials per weight matrix (dw_groups) and the
+    slab's bias grads in a launch per 32 bias vectors."""
+    out = dict.fromkeys(KERNELS, 0)
+    out.update(pe=1, product=len(route_products(spec, kind)))
+    if kind == "bwd":
+        out.update(heads_bwd=1, dw=len(dw_groups(spec)), reduce=len(dw_groups(spec)),
+                   bias=_blocks(len(bias_segments(spec, m)), _MAX_BIAS_SEGS))
+    else:
+        out.update(heads=1)
+    return out
+
+
+def call_launches(spec: MLPSpec, kind: str, n_pts: int) -> dict[str, int]:
+    """Each kernel's launches in one call of `kind` over n_pts points: its
+    slabs' (slab_points under LAYER_WORKSPACE_BOUND), none for no points."""
+    out = dict.fromkeys(KERNELS, 0)
+    if n_pts <= 0:
+        return out
+    slab = slab_points(spec, kind, n_pts, LAYER_WORKSPACE_BOUND)
+    for row0 in range(0, n_pts, slab):
+        for k, v in slab_launches(spec, kind, min(slab, n_pts - row0)).items():
+            out[k] += v
+    return out
 
 
 def slab_points(spec: MLPSpec, kind: str, n_pts: int,
@@ -250,6 +339,8 @@ def _run(kind: str, packed: PackedMLP, src: torch.Tensor, dirs: torch.Tensor | N
     build.check(build.load_library(), rc, f"field_layers {kind} launch")
     for name, n in zip(KERNELS, counts):
         kernel_launches[name] += n
+    if call_log is not None:
+        call_log.append((spec, kind, n_rays * samples))
 
 
 def layers_mlp_cuda(packed: PackedMLP, origins: torch.Tensor, directions: torch.Tensor,
@@ -273,9 +364,10 @@ def layers_mlp_cuda(packed: PackedMLP, origins: torch.Tensor, directions: torch.
     return out
 
 
-def layers_sigma_cuda(packed: PackedMLP, points: torch.Tensor) -> torch.Tensor:
+def layers_sigma_cuda(packed: PackedMLP, points: torch.Tensor, *, lib=None) -> torch.Tensor:
     """Sigma on the layer route: the forward's PE, trunk and alpha head
-    kernels. (N, 3) f32 on one CUDA device -> (N,) f32 raw sigma."""
+    kernels. (N, 3) f32 on one CUDA device -> (N,) f32 raw sigma. `lib`:
+    another build of csrc/ to launch, default this tree's."""
     global sigma_launches
     _check_points(points)
     _check_packed(packed, points.device, "layers_sigma_cuda")
@@ -283,7 +375,7 @@ def layers_sigma_cuda(packed: PackedMLP, points: torch.Tensor) -> torch.Tensor:
     out = torch.empty(p.shape[0], dtype=torch.float32, device=p.device)
     if p.shape[0] == 0:
         return out
-    _run("sigma", packed, p, None, None, p.shape[0], 1, out=out)
+    _run("sigma", packed, p, None, None, p.shape[0], 1, out=out, lib=lib)
     sigma_launches += 1
     return out
 
@@ -416,6 +508,105 @@ def layers_product_cuda(a1: torch.Tensor, a2: torch.Tensor | None, w: torch.Tens
         )
     build.check(build.load_library(), rc, "field_layers product launch")
     return out, sums
+
+
+def layers_heads_bwd_plain(packed: PackedMLP, h: torch.Tensor, grad: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward's heads kernel, for h (m, H/2) bf16
+    (the dir layer's output) and its points' cotangent grad (4, m) f32:
+    (dy_rgb (m, 16) bf16, drgb through the rgb head's sigmoid in columns
+    0-2; dy_a (m, 16) bf16, grad's alpha channel in column 0; dy_dir (m,
+    H/2) bf16 = (bf16(drgb) wr) where h > 0; part (ceil(m / 64), H/2 + 4)
+    f32, per 64 points the column sums of dy_dir's f32 values, then of
+    [dalpha, dr, dg, db])."""
+    H2 = packed.spec.hidden // 2
+    _, _, wr, br = packed.heads()
+    m = h.shape[0]
+    rgb = torch.sigmoid(matmul_f32_acc(h, wr, torch.bfloat16) + br)
+    g = grad.float()
+    drgb = g[:3].t() * rgb * (1.0 - rgb)
+    dalpha = g[3]
+    dy_rgb = torch.zeros((m, _HEAD_LD), dtype=torch.bfloat16, device=h.device)
+    dy_a = torch.zeros_like(dy_rgb)
+    dy_rgb[:, :3] = drgb.to(torch.bfloat16)
+    dy_a[:, 0] = dalpha.to(torch.bfloat16)
+    v = drgb.to(torch.bfloat16).float() @ wr.float()
+    v = torch.where(h.float() > 0, v, torch.zeros_like(v))
+    cols = torch.cat([v, dalpha[:, None], drgb], dim=1)
+    pad = _round_up(m, _HEAD_ROWS) - m
+    part = torch.nn.functional.pad(cols, (0, 0, 0, pad)).view(-1, _HEAD_ROWS, H2 + 4).sum(dim=1)
+    return dy_rgb, dy_a, v.to(torch.bfloat16), part
+
+
+def layers_heads_bwd_cuda(packed: PackedMLP, h: torch.Tensor, grad: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward's heads kernel alone (nm_field_layers_heads_bwd), as
+    layers_heads_bwd_plain, on CUDA tensors."""
+    device = h.device
+    if device.type != "cuda":
+        raise ValueError(f"layers_heads_bwd_cuda needs CUDA tensors, got {device}")
+    H2 = packed.spec.hidden // 2
+    m = h.shape[0]
+    if m == 0 or tuple(h.shape) != (m, H2) or tuple(grad.shape) != (4, m):
+        raise ValueError(f"h must be (m, {H2}) and grad (4, m), m > 0, got "
+                         f"{tuple(h.shape)}, {tuple(grad.shape)}")
+    _, _, wr, br = packed.heads()
+    h = h.to(torch.bfloat16).contiguous()
+    g = grad.float().contiguous()
+    dy_rgb = torch.empty((m, _HEAD_LD), dtype=torch.bfloat16, device=device)
+    dy_a = torch.empty_like(dy_rgb)
+    dy_dir = torch.empty((m, H2), dtype=torch.bfloat16, device=device)
+    part = torch.empty((_blocks(m, _HEAD_ROWS), H2 + 4), dtype=torch.float32, device=device)
+    lib = build.load_library()
+    with torch.cuda.device(device):
+        rc = lib.nm_field_layers_heads_bwd(
+            h.data_ptr(), g.data_ptr(), m, packed.spec.hidden, wr.data_ptr(), br.data_ptr(),
+            dy_rgb.data_ptr(), dy_a.data_ptr(), dy_dir.data_ptr(), part.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    build.check(lib, rc, "field_layers heads backward launch")
+    return dy_rgb, dy_a, dy_dir, part
+
+
+def layers_bias_plain(parts: list[torch.Tensor], outs: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Plain version of the bias-grad reduction: out + parts' column sums
+    (f32), per (rows, cols) partials and (cols,) running grads."""
+    return [out + part.float().sum(dim=0) for part, out in zip(parts, outs)]
+
+
+def layers_bias_launcher(parts: list[torch.Tensor], outs: list[torch.Tensor]):
+    """A launch of the bias-grad reduction alone (nm_field_layers_bias) on
+    f32 contiguous CUDA partials (rows, cols), cols a multiple of 4, adding
+    their column sums into the f32 (cols,) tensors outs in place: its host
+    arrays and scratch made once, so the returned function launches the
+    kernel and nothing else (the scratch's counters come back to zero)."""
+    device = parts[0].device
+    if device.type != "cuda":
+        raise ValueError(f"layers_bias_cuda needs CUDA tensors, got {device}")
+    scratch = torch.zeros(sum(bias_scratch([tuple(p.shape) for p in parts])),
+                          dtype=torch.float32, device=device)
+    arr = [np.asarray(v, dtype=dtype) for v, dtype in (
+        ([p.data_ptr() for p in parts], np.int64), ([p.shape[1] for p in parts], np.int64),
+        ([p.shape[0] for p in parts], np.int32), ([p.shape[1] for p in parts], np.int32),
+        ([o.data_ptr() for o in outs], np.int64))]
+    lib = build.load_library()
+
+    def launch() -> None:
+        with torch.cuda.device(device):
+            rc = lib.nm_field_layers_bias(len(parts), *(a.ctypes.data for a in arr),
+                                          scratch.data_ptr(), scratch.numel() * 4,
+                                          torch.cuda.current_stream(device).cuda_stream)
+        build.check(lib, rc, "field_layers bias launch")
+    return launch
+
+
+def layers_bias_cuda(parts: list[torch.Tensor], outs: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The bias-grad reduction alone (nm_field_layers_bias), as
+    layers_bias_plain: f32 CUDA partials (rows, cols), cols a multiple of
+    4; the sums added to copies of outs."""
+    parts = [p.float().contiguous() for p in parts]
+    outs = [o.float().clone() for o in outs]
+    layers_bias_launcher(parts, outs)()
+    return outs
 
 
 def layers_workspace_c(packed: PackedMLP, kind: str, slab: int) -> int:

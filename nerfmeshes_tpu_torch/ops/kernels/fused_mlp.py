@@ -41,13 +41,17 @@ only as the next product's operand (the TPU kernel's numerics). The
 backward stashes activations in bf16, takes ReLU masks from the stash,
 multiplies bf16 cotangents, and sums bias grads in f32.
 
-Two routes on the card (`field_route`): the fused kernels above where
-their shared-memory plans hold the model ("fused": H = 128 to 1024,
-at most MAX_BANDS bands and MAX_LAYERS layers, a field_plan for each
-kernel), else the layer route ("layers": ops/kernels/field_layers.py,
-csrc/field_layers.cu, one product kernel launch a layer over slabs of
-points), which takes every model supports_fused admits, as JAX's Pallas
-kernels do.
+Two routes on the card (`field_route`): the fused kernels above at the
+widths of FUSED_WIDTHS (128, 256, 384) where their shared-memory plans
+hold the model ("fused": at most MAX_BANDS bands and MAX_LAYERS layers, a
+field_plan for each kernel), else the layer route ("layers":
+ops/kernels/field_layers.py, csrc/field_layers.cu, one product kernel
+launch a layer over slabs of points), which takes every model
+supports_fused admits, as JAX's Pallas kernels do. The fused kernels are
+instantiated at every width of HIDDEN_SIZES (up to 1024, the 2-CTA pair
+plan from 640) and still take 512 to 1024 when called directly; the
+route sends those widths to the layer route, which beat both plans there
+(see field_route).
 
 Dispatch: CPU tensors take `fused_mlp_plain` / `fused_mlp_bwd_plain` /
 `fused_sigma_plain`, the plain versions of both routes; CUDA tensors
@@ -86,15 +90,18 @@ launches = 0  # forward kernel
 bwd_launches = 0  # backward kernel
 sigma_launches = 0  # sigma-only kernel
 
-# What the fused route's kernels take (csrc/fused_mlp_{fwd,bwd}.cu,
+# What the fused kernels take (csrc/fused_mlp_{fwd,bwd}.cu,
 # fused_sigma.cu): a hidden width they are instantiated for (384 and 512
 # run on 64-point tiles split in N, 640 to 1024 on 64-point tiles split
 # across a pair of blocks as well, see csrc/fused_field.cuh), at most
 # MAX_BANDS PE bands per encoding and MAX_LAYERS trunk layers (the
 # descriptor holds MAX_LAYERS + 2 products), and a shared-memory plan
-# (field_plan) for each of the three kernels. The layer route takes the
-# rest (field_route).
+# (field_plan) for each of the three kernels. The route takes them at
+# FUSED_WIDTHS; the layer route takes the rest (field_route).
 HIDDEN_SIZES = (128, 256, 384, 512, 640, 768, 896, 1024)
+# The widths field_route sends to the fused kernels: the rest of
+# HIDDEN_SIZES ran faster on the layer route in every read (field_route).
+FUSED_WIDTHS = (128, 256, 384)
 MAX_BANDS = 24
 MAX_LAYERS = 14
 # Descriptor: 13 fixed ints (N_DESC_FIXED in the .cu), then the weight
@@ -239,12 +246,24 @@ def supports_fused(model) -> bool:
 
 @functools.cache
 def field_route(spec: MLPSpec) -> str:
-    """"fused" where the fused kernels take the model (a width of
-    HIDDEN_SIZES, at most MAX_BANDS bands per encoding and MAX_LAYERS
-    layers, and a shared-memory plan for each of the forward, sigma and
-    backward kernels: at 512 and 1024 wide at most 128 PE columns of
-    [PE(xyz) | PE(dir)], at 896 288), else "layers" (csrc/field_layers.cu)."""
-    if (spec.hidden in HIDDEN_SIZES and spec.L_x <= MAX_BANDS and spec.L_d <= MAX_BANDS
+    """"fused" where the fused kernels take the model and beat the layer
+    route (a width of FUSED_WIDTHS, at most MAX_BANDS bands per encoding
+    and MAX_LAYERS layers, and a shared-memory plan for each of the
+    forward, sigma and backward kernels), else "layers"
+    (csrc/field_layers.cu).
+
+    Why 512 to 1024 go to the layer route although the fused kernels take
+    them: timed in turns on one card (scripts/torch_route_compare.py, 8
+    layers at L 10/4; NVIDIA H100 80GB HBM3, 700.00 W), the layer route
+    was faster in every read, the forward at 2048 x 64 and 2048 x 192, the
+    backward at 2048 x 192 and sigma at 262,144 points: 1.12-1.32x the
+    split plan at 512, 1.46-1.57x the pair plan at 640, 1.68-1.93x at 768,
+    1.92-2.47x at 896 and 2.04-2.51x at 1024. At 384 the split plan won
+    the forward (1.22-1.29x) and sigma (1.19x), the layer route only the
+    backward (1.10x), so 384 stays fused (there a layer's product moves
+    its activations through device memory at H/2 = 192 FLOP a byte, under
+    the card's ~295: bytes bound)."""
+    if (spec.hidden in FUSED_WIDTHS and spec.L_x <= MAX_BANDS and spec.L_d <= MAX_BANDS
             and spec.num_layers <= MAX_LAYERS
             and all(field_plan(spec, k) is not None for k in ("fwd", "sigma", "bwd"))):
         return "fused"

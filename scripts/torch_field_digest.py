@@ -7,12 +7,15 @@ kernels share nerfmeshes_tpu_torch/csrc/fused_field.cuh with the
 backward's tile kernel; the backward's dB comes from the tile kernel
 alone, its dW also from the dW leg). With --layers, the same four of the
 layer route (csrc/field_layers.cu) on a seeded 8x1024 field at mip-NeRF's
-16 position bands, a model only that route takes: the check that a change
-to its product kernel keeps the route's bits.
+16 position bands, and the digest of the dir layer's cotangent dy_dir
+that its backward heads kernel leaves in the workspace: the check that a
+change to the route's kernels keeps its bits. With --tree ROOT, the layer
+route's digests through another checkout's field_layers.cu (compiled
+alone, as scripts/torch_layer_product_ab.py does).
 tests/test_torch_fused_mlp_gpu.py holds the kernels to the digests this
 script printed before such a change.
 
-    python scripts/torch_field_digest.py [--layers]     # needs a CUDA card
+    python scripts/torch_field_digest.py [--layers [--tree ROOT]]   # needs a CUDA card
 
 The weights and inputs come from numpy's generator seeded 0, so the case
 does not depend on torch's random streams.
@@ -29,8 +32,10 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from nerfmeshes_tpu_torch.models import FlexibleNeRFModel  # noqa: E402
+from nerfmeshes_tpu_torch.ops.kernels import build  # noqa: E402
 from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl  # noqa: E402
 from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm  # noqa: E402
 
@@ -39,7 +44,10 @@ LAYER_R = 512  # rays of the layer route's case (x S samples)
 
 
 def _sha(t: torch.Tensor) -> str:
-    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+    t = t.contiguous()
+    if t.dtype == torch.bfloat16:  # numpy has no bf16: the same bytes as int16
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
 
 
 def _seeded_case(rng, device, rays: int, **arch):
@@ -76,23 +84,37 @@ def digests(device) -> dict:
     return {"fwd": _sha(fwd), "sigma": _sha(sigma), "bwd_dB": _sha(dB), "bwd_dW": _sha(dW)}
 
 
-def layer_digests(device) -> dict:
+def layer_digests(device, lib=None) -> dict:
     """The same four digests of the layer route on an 8x1024 field at L
-    16/4 (LAYER_R x S rays, POINTS sigma points), launched on `device`."""
+    16/4 (LAYER_R x S rays, POINTS sigma points), launched on `device`
+    through `lib` (default this tree's build), and "bwd_dy_dir", of the
+    backward's dy_dir (one slab: every point's)."""
+    from torch_layer_legs_ab import bwd_with_dy_dir
+
     packed, o, d, z, pts, cot = _seeded_case(
         np.random.default_rng(0), device, LAYER_R, num_layers=8, hidden_size=1024,
         skip_step=4, num_encoding_fn_xyz=16, num_encoding_fn_dir=4)
     if fm.field_route(packed.spec) != "layers":
         raise AssertionError("8x1024 at L 16/4 is not a model of the layer route")
-    fwd = fl.layers_mlp_cuda(packed, o, d, z)
-    sigma = fl.layers_sigma_cuda(packed, pts)
-    dW, dB = fl.layers_bwd_cuda(packed, o, d, z, cot)
+    if fl.slab_points(packed.spec, "bwd", LAYER_R * S) < LAYER_R * S:
+        raise AssertionError("the digest case's backward is not one slab")
+    fwd = fl.layers_mlp_cuda(packed, o, d, z, lib=lib)
+    sigma = fl.layers_sigma_cuda(packed, pts, lib=lib)
+    dW, dB, dy_dir = bwd_with_dy_dir(packed, o, d, z, cot, lib or build.load_library())
     torch.cuda.synchronize()
-    return {"fwd": _sha(fwd), "sigma": _sha(sigma), "bwd_dB": _sha(dB), "bwd_dW": _sha(dW)}
+    return {"fwd": _sha(fwd), "sigma": _sha(sigma), "bwd_dB": _sha(dB), "bwd_dW": _sha(dW),
+            "bwd_dy_dir": _sha(dy_dir)}
 
 
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    run = layer_digests if "--layers" in sys.argv[1:] else digests
-    print(json.dumps(run(torch.device("cuda"))))
+    args = sys.argv[1:]
+    device = torch.device("cuda")
+    if "--tree" in args:
+        from torch_layer_product_ab import compile_tree, load
+
+        tree = Path(args[args.index("--tree") + 1]).resolve()
+        print(json.dumps(layer_digests(device, load(compile_tree(tree)))))
+    else:
+        print(json.dumps((layer_digests if "--layers" in args else digests)(device)))

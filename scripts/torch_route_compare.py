@@ -6,10 +6,12 @@ route question (which widths `fm.field_route` should send where).
     python3 scripts/torch_route_compare.py [--hidden 384 512 ...]
 
 Per width, chip_smoke.py's wide field (hard-blender.yml's fine field at
-that width, L 10/4, random weights from the smoke's seed), which
-`fm.field_route` sends to the fused kernels (the split plan at 384 and
-512, the 2-CTA pair plan from 640), is run through both routes on the
-same inputs: the forward at 2048 x 64 and 2048 x 192 points, the backward
+that width, L 10/4, random weights from the smoke's seed), which the
+fused kernels' plans hold (the split plan at 384 and 512, the 2-CTA pair
+plan from 640) and `fm.field_route` sends to the fused kernels at 384 and
+to the layer route from 512 on, is run through both routes' kernels,
+called directly, on the same inputs: the forward at 2048 x 64 and 2048 x
+192 points, the backward
 at 2048 x 192 and sigma at a 262,144-point grid tile. Each read is timed
 in turns, fused, layers, layers, fused (median of 7 calls each by CUDA
 events, chip_smoke._median_ms), and the two routes' outputs are held to
@@ -93,9 +95,10 @@ def main(argv=None) -> int:
         init_params(model, None, torch.Generator().manual_seed(chip_smoke.SEED))
         packed = fm.pack_weights(model.to(device).eval())
         del model
-        if fm.field_route(packed.spec) != "fused":
-            raise AssertionError(f"H = {H} is not a model of the fused kernels")
+        if any(fm.field_plan(packed.spec, k) is None for k in ("fwd", "sigma", "bwd")):
+            raise AssertionError(f"the fused kernels' plans refuse H = {H}")
         plan = "pair" if H > 512 else "split"
+        print(f"H {H}: fm.field_route takes the {fm.field_route(packed.spec)} route")
         for what, (fused, layers) in reads(packed, device).items():
             check = compare(what, fused(), layers())
             t = [chip_smoke._median_ms(f) for f in (fused, layers, layers, fused)]

@@ -7,8 +7,13 @@ kernels' plans refuse).
   fused_mlp.py:750-761) on a grid of widths, band counts, depths and
   viewdirs on and off.
 - field_route is "fused" exactly where the fused kernels' plans hold
-  (fm.field_plan), 412 of the 576 band pairs at 512 and at 1024 wide
-  refused among them.
+  (fm.field_plan) at the widths of fm.FUSED_WIDTHS (128-384), and "layers"
+  at every other width for every band pair: at 512 and 1024 wide the
+  plans themselves refuse 412 of the 576.
+- The workspace's regions (workspace_layout), the bias-grad reduction's
+  segments and scratch, and the launches a slab and a call make
+  (slab_launches, call_launches), which the chip smoke holds the route's
+  kernel counts to.
 - The slab planner keeps a call's workspace under its bound at the mesh
   appearance chunk of a 2048-wide field, and plans whole tiles.
 - The plain forward, sigma and backward, which the route's kernels are
@@ -72,20 +77,28 @@ REFUSED = {512: 412, 896: 1, 1024: 412}
 
 @pytest.mark.parametrize("hidden", [*fm.HIDDEN_SIZES, 1152])
 def test_route_is_fused_exactly_where_the_plans_hold(hidden):
-    refused = 0
+    """At FUSED_WIDTHS the route is "fused" exactly where the plans hold;
+    at 512-1024 (the plans hold all but REFUSED of the band pairs) and past
+    1024 it is "layers" for all 576."""
+    refused = layers = 0
     for lx, ld in itertools.product(range(1, 25), repeat=2):
         model = FlexibleNeRFModel(**dict(LEGO, hidden_size=hidden, num_encoding_fn_xyz=lx,
                                          num_encoding_fn_dir=ld), device="meta")
         spec = fm.spec_from_model(model)
         plans = all(fm.field_plan(spec, k) is not None for k in ("fwd", "sigma", "bwd"))
-        fused = hidden in fm.HIDDEN_SIZES and plans
+        fused = hidden in fm.FUSED_WIDTHS and plans
         assert fm.field_route(spec) == ("fused" if fused else "layers"), (lx, ld)
-        refused += not fused
+        refused += not (hidden in fm.HIDDEN_SIZES and plans)
+        layers += not fused
     assert refused == (576 if hidden not in fm.HIDDEN_SIZES else REFUSED.get(hidden, 0))
-    # mip-NeRF's 16 position bands: refused at 512 and 1024 wide, 15 fit
+    assert layers == (0 if hidden in fm.FUSED_WIDTHS else 576)
+    # mip-NeRF's 16 position bands: the plans refuse them at 512 and 1024
+    # wide (15 fit); the route takes every width from 512 on
     mip = fm.spec_from_model(FlexibleNeRFModel(**dict(LEGO, hidden_size=hidden,
                                                       num_encoding_fn_xyz=16), device="meta"))
-    assert (fm.field_route(mip) == "layers") == (hidden in (512, 1024, 1152))
+    refused = any(fm.field_plan(mip, k) is None for k in ("fwd", "sigma", "bwd"))
+    assert refused == (hidden in (512, 1024)) or hidden not in fm.HIDDEN_SIZES
+    assert (fm.field_route(mip) == "layers") == (hidden not in fm.FUSED_WIDTHS)
 
 
 @pytest.mark.parametrize("overrides", [dict(num_layers=15), dict(num_layers=40, skip_step=3),
@@ -296,11 +309,14 @@ def test_product_plain_and_wrappers_refuse_cpu_tensors(rng):
     torch.testing.assert_close(y.float(), torch.where(mask > 0, ref, 0.0).bfloat16().float())
     packed = fm.pack_weights(FlexibleNeRFModel(**ARCHS[3]))
     o, d, z = (torch.from_numpy(a) for a in _rays(rng))
+    h = torch.zeros((R * S, packed.spec.hidden // 2), dtype=torch.bfloat16)
     for call in (lambda: fl.layers_mlp_cuda(packed, o, d, z),
                  lambda: fl.layers_sigma_cuda(packed, o),
                  lambda: fl.layers_bwd_cuda(packed, o, d, z, torch.zeros((4, R, S))),
                  lambda: fl.layers_pe_cuda(packed, o, d, z),
-                 lambda: fl.layers_product_cuda(a1, a2, w, 64)):
+                 lambda: fl.layers_product_cuda(a1, a2, w, 64),
+                 lambda: fl.layers_heads_bwd_cuda(packed, h, torch.zeros((4, R * S))),
+                 lambda: fl.layers_bias_cuda([torch.zeros((3, 4))], [torch.zeros(4)])):
         with pytest.raises(ValueError, match="CUDA"):
             call()
 
@@ -318,9 +334,13 @@ def _chip_smoke():
 
 def test_chip_smoke_cases_take_the_layer_route():
     """chip_smoke.py's layer-route cases (hard-blender.yml's fields changed
-    as LAYER_CASES says) are models the fused plans refuse and JAX's Pallas
-    kernels take, both fields; its chains are among them; every kernel
-    name it groups a trace by is a __global__ of csrc/."""
+    as LAYER_CASES says) are models JAX's Pallas kernels take and
+    fm.field_route sends to the layer route, both fields; its chains and
+    its cases broken down by kernel are among them; the wide chains
+    (wide_cfg) take the fused route at 384 and the layer route from 512 on,
+    on fields every fused plan holds (wide_phase calls those kernels
+    directly); every kernel name it groups a trace by is a __global__ of
+    csrc/."""
     import re
     from pathlib import Path
 
@@ -328,13 +348,21 @@ def test_chip_smoke_cases_take_the_layer_route():
 
     smoke = _chip_smoke()
     assert set(smoke.LAYER_CHAINS) <= set(smoke.LAYER_CASES)
-    for case in smoke.LAYER_CASES:
-        cfg = smoke.layer_cfg(case)
+    assert set(smoke.LAYER_LEG_CASES) <= set(smoke.LAYER_CASES)
+    configs = [(case, smoke.layer_cfg(case), "layers") for case in smoke.LAYER_CASES]
+    configs += [(f"w{H}", smoke.wide_cfg(H), "fused" if H in fm.FUSED_WIDTHS else "layers")
+                for H in smoke.WIDE_HIDDEN]
+    assert [H for H in smoke.WIDE_HIDDEN if H not in fm.FUSED_WIDTHS] == [
+        512, 640, 768, 896, 1024]
+    for case, cfg, route in configs:
         for node, kind in ((cfg.models.coarse, cfg.models.coarse_type),
                            (cfg.models.fine, cfg.models.fine_type)):
             model = build_model(kind, dict(node), device="meta")
+            spec = fm.spec_from_model(model)
             assert fm.supports_fused(model), case
-            assert fm.field_route(fm.spec_from_model(model)) == "layers", case
+            assert fm.field_route(spec) == route, case
+            if case in [f"w{H}" for H in smoke.WIDE_HIDDEN]:
+                assert all(fm.field_plan(spec, k) for k in ("fwd", "sigma", "bwd")), case
     csrc = Path(fm.__file__).resolve().parents[2] / "csrc"
     pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
     defined = {name for src in csrc.glob("*.cu*") for name in pattern.findall(src.read_text())}
@@ -411,3 +439,137 @@ def test_product_tile_widths_fit_n():
     assert fl.product_plan(576) == fl.ProductPlan(192, 4, 3, 219272)
     assert fl.product_plan(64) == fl.ProductPlan(64, 8, 1, 215176)
     assert fl.product_plan(64, smem_limit=16384 + 24576 * 2 + 2048 + 136 - 1) is None
+
+
+# Backward slabs of the workspace tests: one tile, ragged-free multiples of
+# 128 (every slab is), an 8x2048 slab of the smoke (41,856 points at 2048 x
+# 192) and the largest the C entry takes.
+LAYOUT_SLABS = [128, 384, 41856, 65535 * 128]
+
+
+@pytest.mark.parametrize("spec", [s for _, s in LAYER_SPECS], ids=[i for i, _ in LAYER_SPECS])
+def test_workspace_regions_follow_one_another(spec):
+    """workspace_layout's regions (the C layers_layout's, in its order)
+    for every kind: each on a 256 B boundary right after the one before,
+    the total workspace_bytes; in the backward every dX product's column
+    sums a region of their own (L + 1 of slab / 128 rows x H f32), the
+    heads' partials (slab / 64 rows x H/2 + 4), and the bias-grad
+    reduction's level-1 rows and counters, bias_scratch of the slab's
+    bias_segments; the regions the dir layer's cotangent and everything
+    before it lie in are where they were before these (a backward call's
+    dy_dir offset is the one its parent layout gave)."""
+    H, L = spec.hidden, spec.num_layers
+    for kind in ("fwd", "sigma", "bwd"):
+        for slab in LAYOUT_SLABS:
+            layout = fl.workspace_layout(spec, kind, slab)
+            off = 0
+            for name, (at, nbytes) in layout.items():
+                if name == "total":
+                    assert at == off == fl.workspace_bytes(spec, kind, slab)
+                    continue
+                assert at == off and at % 256 == 0, (kind, slab, name)
+                off = at + -(-nbytes // 256) * 256
+            if kind != "bwd":
+                assert "colsum" not in layout and "bpart" not in layout
+                continue
+            assert list(layout)[-7:] == ["dy1", "colsum", "hpart", "bpart", "bcount", "dwpart",
+                                         "total"]
+            assert layout["colsum"][1] == (L + 1) * (slab // 128) * H * 4
+            assert layout["hpart"][1] == slab // 64 * (H // 2 + 4) * 4
+            level1, counters = fl.bias_scratch(fl.bias_segments(spec, slab))
+            assert (layout["bpart"][1], layout["bcount"][1]) == (4 * level1, 4 * counters)
+            before = sum(-(-b // 256) * 256 for b in (
+                (spec.pxp + spec.pdp) * 8, slab * spec.pxp * 2, slab * spec.pdp * 2,
+                L * slab * H * 2, slab * H * 2, slab * H, slab * 32, slab * 32))
+            assert layout["dy_dir"][0] == before
+
+
+@pytest.mark.parametrize("spec", [s for _, s in LAYER_SPECS], ids=[i for i, _ in LAYER_SPECS])
+def test_backward_slabs_fit_the_bound(spec):
+    """At the smoke's train shape (2048 x 192) and its mesh appearance
+    chunk (65,536 x 192), the backward's slabs, the new regions included,
+    keep the workspace under LAYER_WORKSPACE_BOUND, one tile more over it
+    or all the points in one slab."""
+    for n in (2048 * 192, 65536 * 192):
+        slab = fl.slab_points(spec, "bwd", n)
+        assert fl.workspace_bytes(spec, "bwd", slab) <= fl.LAYER_WORKSPACE_BOUND
+        assert slab >= n or fl.workspace_bytes(spec, "bwd", slab + 128) > \
+            fl.LAYER_WORKSPACE_BOUND
+
+
+def test_bias_segments_and_scratch():
+    """A backward slab's bias vectors, in field_layers.cu's order: the L + 1
+    dX products' column sums per 128 points (ragged: ceil), then the heads'
+    per 64 (H/2 and 4 columns); the reduction's level-1 rows (one per 64
+    partial rows) and counters (one per 128 columns)."""
+    spec = fm.spec_from_model(FlexibleNeRFModel(**dict(LEGO, hidden_size=2048), device="meta"))
+    assert fl.bias_segments(spec, 41856) == [(327, 2048)] * 9 + [(654, 1024), (654, 4)]
+    assert fl.bias_segments(spec, 300) == [(3, 2048)] * 9 + [(5, 1024), (5, 4)]
+    assert fl.bias_scratch([(327, 2048), (654, 4), (65, 576)]) == (
+        6 * 2048 + 11 * 4 + 2 * 576, 16 + 1 + 5)
+
+
+# (architecture, backward slabs at 2048 x 192 points) of the smoke's chains
+# on the layer route: 8x512 and 8x1024 at L 10/4, 8x1024 at L 16/4, 8x2048.
+CHAIN_SLABS = [(dict(LEGO, hidden_size=512), 3), (dict(LEGO, hidden_size=1024), 5),
+               (dict(LEGO, hidden_size=1024, num_encoding_fn_xyz=16), 5),
+               (dict(LEGO, hidden_size=2048), 10)]
+
+
+@pytest.mark.parametrize("kw,slabs", CHAIN_SLABS, ids=["w512", "w1024", "w1024-L16", "w2048"])
+def test_launch_mirror_of_a_call(kw, slabs):
+    """The launches the chip smoke holds the route's counts to: per slab a
+    PE, the route's products, a heads launch (the backward's heads kernel
+    counted apart from the forward's and sigma's); in the backward, per
+    weight matrix a dW launch and a reduction of its range partials, and
+    one bias-grad launch: 11 reduction launches a slab at 8 layers (21
+    before the bias grads shared one launch); per call the slabs'."""
+    spec = fm.spec_from_model(FlexibleNeRFModel(**kw, device="meta"))
+    per_slab = fl.slab_launches(spec, "bwd", 128)
+    assert per_slab == {"pe": 1, "product": 2 * 8 + 3, "heads": 0, "dw": 10, "reduce": 10,
+                        "bias": 1, "heads_bwd": 1}
+    assert per_slab["reduce"] + per_slab["bias"] == 11
+    assert fl.slab_launches(spec, "fwd", 128) == {"pe": 1, "product": 10, "heads": 1, "dw": 0,
+                                                  "reduce": 0, "bias": 0, "heads_bwd": 0}
+    assert fl.slab_launches(spec, "sigma", 128)["product"] == 8
+    n = 2048 * 192
+    assert -(-n // fl.slab_points(spec, "bwd", n)) == slabs
+    assert fl.call_launches(spec, "bwd", n) == {k: v * slabs for k, v in per_slab.items()}
+    assert fl.call_launches(spec, "fwd", 0) == dict.fromkeys(fl.KERNELS, 0)
+    # past 29 layers the bias vectors take two launches a slab
+    deep = fm.spec_from_model(FlexibleNeRFModel(**dict(LEGO, num_layers=40, skip_step=3),
+                                                device="meta"))
+    assert fl.slab_launches(deep, "bwd", 128)["bias"] == 2
+
+
+@pytest.mark.parametrize("kw", [ARCHS[0], ARCHS[3]], ids=["3x1152", "16x128"])
+def test_heads_and_bias_plain_are_the_plain_backward_s(rng, kw):
+    """The backward heads kernel's plain version, on the h and cotangent of
+    a plain backward (fm.fused_mlp_bwd_plain, held to JAX's Pallas kernel
+    above), gives that backward's heads bias grads and the dir layer's bias
+    grad once its partials are summed (layers_bias_plain); its dy_dir is
+    the backward's bf16 cotangent of the dir layer's output."""
+    _, _, tm = _pair(kw)
+    packed = fm.pack_weights(tm)
+    spec = packed.spec
+    H, L = spec.hidden, spec.num_layers
+    o, d, z = (torch.from_numpy(a) for a in _rays(rng))
+    cot = torch.from_numpy(rng.standard_normal((4, R, S)).astype(np.float32))
+    pe_x, pe_d = fl.layers_pe_plain(packed, o, d, z)
+    x = fm._layer(packed, pe_x.float(), 0, H, relu=False).bfloat16().float()
+    for i in range(L - 1):
+        a = torch.cat([x, pe_x.float()], 1) if i in spec.skip_layers else x
+        x = fm._layer(packed, a, 1 + i, H, relu=True).bfloat16().float()
+    feat = fm._layer(packed, x, L, H, relu=True).bfloat16().float()
+    h = fm._layer(packed, torch.cat([feat, pe_d.float()], 1), L + 1, H // 2,
+                  relu=True).bfloat16()
+    dy_rgb, dy_a, dy_dir, part = fl.layers_heads_bwd_plain(packed, h, cot.reshape(4, -1))
+    _, dB = fm.fused_mlp_bwd_plain(packed, o, d, z, cot)
+    segs = packed.segments(biases=dB)
+    heads, dir_b = fl.layers_bias_plain([part[:, H // 2:], part[:, :H // 2]],
+                                        [torch.zeros(4), torch.zeros(H // 2)])
+    torch.testing.assert_close(heads, torch.cat([segs["ba"], segs["br"]]), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(dir_b, segs[f"b{L + 1}"], rtol=1e-5, atol=1e-5)
+    assert torch.equal(dy_a[:, 0], cot[3].reshape(-1).bfloat16())
+    assert not dy_rgb[:, 3:].float().any() and not dy_a[:, 1:].float().any()
+    assert dy_dir.dtype == torch.bfloat16 and dy_dir.shape == (R * S, H // 2)

@@ -327,15 +327,18 @@ def test_packing_feeds_the_asynchronous_copies(kw):
     boundary of the bf16 buffer and its rows are a multiple of 16 bytes
     long; the alpha and rgb rows start on 16-byte boundaries; every bias
     vector starts on an even f32 index (read two at a time). A model whose
-    kernels no plan holds takes the layer route, which reads the same
-    packing (its product kernel's TMA copies too)."""
+    kernels no plan holds, or of a width past FUSED_WIDTHS, takes the layer
+    route, which reads the same packing (its product kernel's TMA copies
+    too)."""
     model = FlexibleNeRFModel(**kw, compute_dtype=torch.bfloat16)
     assert fm.supports_fused(model)
-    if fm.field_route(fm.spec_from_model(model)) == "layers":
-        spec = fm.spec_from_model(model)
-        hidden = kw["hidden_size"]
+    spec = fm.spec_from_model(model)
+    hidden = kw["hidden_size"]
+    if any(fm.field_plan(spec, k) is None for k in ("fwd", "sigma", "bwd")):
         assert hidden in PE_LIMIT and spec.pxp + spec.pdp > PE_LIMIT[hidden]
-        assert any(fm.field_plan(spec, k) is None for k in ("fwd", "sigma", "bwd"))
+        assert fm.field_route(spec) == "layers"
+    elif hidden not in fm.FUSED_WIDTHS:
+        assert fm.field_route(spec) == "layers"
     packed = fm.pack_weights(model)
     spec, desc = packed.spec, packed.desc
     n_gemms = spec.num_layers + 2
@@ -364,28 +367,28 @@ W512_EDGE = dict(hidden_size=512, num_layers=fm.MAX_LAYERS, skip_step=3, num_enc
                          ids=lambda kw: "-".join(map(str, kw.values())))
 def test_gate_admits_only_what_the_plans_hold(kw):
     """field_route against the mirror of the kernels' shared-memory plan
-    (fm.field_plan, csrc/fused_field.cuh:field_layout): a model on the
-    fused route has a plan of at least 2 ring stages for each of its
-    kernels, within the card's limit; 512, 896 and 1024 wide with the most
-    layers and bands take the layer route. supports_fused admits all."""
+    (fm.field_plan, csrc/fused_field.cuh:field_layout): a model the plans
+    hold has a plan of at least 2 ring stages for each of its kernels,
+    within the card's limit, and takes the fused route at FUSED_WIDTHS
+    (the layer route past them); 512, 896 and 1024 wide with the most
+    layers and bands the plans refuse. supports_fused admits all."""
     model = FlexibleNeRFModel(**kw)
     spec = fm.spec_from_model(model)
     plans = {k: fm.field_plan(spec, k) for k in ("fwd", "sigma", "bwd")}
+    hold = all(plan is not None for plan in plans.values())
     hidden = kw["hidden_size"]
     assert fm.supports_fused(model)
     if hidden not in PE_LIMIT:  # every layer and band count fits at these widths
-        assert fm.field_route(spec) == "fused"
+        assert hold
     elif spec.pxp + spec.pdp > PE_LIMIT[hidden]:
-        assert (fm.field_route(spec) == "layers" and plans["fwd"] is None
-                and plans["bwd"] is None)
-    if fm.field_route(spec) == "fused":
+        assert plans["fwd"] is None and plans["bwd"] is None
+    assert fm.field_route(spec) == ("fused" if hold and hidden in fm.FUSED_WIDTHS else "layers")
+    if hold:
         for kernel, plan in plans.items():
-            assert plan is not None and 2 <= plan.stages <= 8, kernel
+            assert 2 <= plan.stages <= 8, kernel
             assert plan.pe_slots in (1, 2) and plan.bytes <= fm.SMEM_LIMIT, kernel
             # two PE tiles only where they leave the ring 3 stages
             assert plan.pe_slots == 1 or plan.stages >= 3, kernel
-    else:
-        assert any(plan is None for plan in plans.values())
 
 
 def test_plans_of_the_lego_and_wide_fields():

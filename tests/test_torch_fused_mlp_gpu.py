@@ -4,9 +4,13 @@ versions, on the card: every architecture at the ragged edges of the
 make (after layer1, after the last trunk layer), a backward workspace
 full of NaN, bitwise repeats, launches refused for their shared memory,
 the forward's and sigma kernel's output bits and the backward's bias
-grad bits on a seeded case; and the backward's dW leg alone
+grad bits on a seeded case; the backward's dW leg alone
 (nm_dw_product) against torch.mm: one MN-major wgmma product, then the
-edges of its 64-point stages, 128-row blocks and point ranges.
+edges of its 64-point stages, 128-row blocks and point ranges; and the
+layer route (csrc/field_layers.cu): its product kernel, its backward's
+heads kernel and bias-grad reduction alone, and the route's forward,
+sigma and backward at every shape field_route sends it (512-1024 wide
+among them), in slabs, with its bits.
 
 A CUDA kernel has no CPU mode, so these tests carry the `gpu` marker and
 skip without a card. On a GPU host:
@@ -100,7 +104,7 @@ def test_kernel_matches_plain(cuda, kw, R, S, channels_first):
     packed = fm.pack_weights(model)
     o, d, z = _rays(R, S, cuda)
     before = fm.launches
-    got = fm.fused_mlp_rays(packed, o, d, z, channels_first=channels_first)
+    got = fm.fused_mlp_cuda(packed, o, d, z, channels_first=channels_first)
     torch.cuda.synchronize()
     assert fm.launches == before + 1
     ref = fm.fused_mlp_plain(packed, o, d, z, channels_first=channels_first)
@@ -295,7 +299,7 @@ def test_wide_bwd_kernel_matches_plain(cuda, kw, R, S):
     leg's ranges."""
     packed, args = _grad_case(kw, R, S, cuda)
     before = fm.bwd_launches
-    got = fm.fused_mlp_bwd(packed, *args)
+    got = fm.fused_mlp_bwd_cuda(packed, *args)
     torch.cuda.synchronize()
     assert fm.bwd_launches == before + 1
     want = fm.fused_mlp_bwd_plain(packed, *args)
@@ -561,8 +565,8 @@ def test_launches_refuse_exactly_what_the_plan_refuses(cuda, hidden, L_x, L_d):
     the launches themselves: each of the three fused kernels runs (and
     matches its plain version) where the mirror has a plan, and is refused
     without a launch where it has none; field_route sends the architecture
-    to the fused kernels only where all three run (supports_fused admits
-    it either way)."""
+    to the fused kernels only at FUSED_WIDTHS and where all three run
+    (supports_fused admits it either way)."""
     packed = _pack_with_skips(hidden, fm.MAX_LAYERS, (4, 8), cuda, L_x=L_x, L_d=L_d)
     spec = packed.spec
     R, S = WIDE_BWD_SHAPES[-1]
@@ -582,7 +586,8 @@ def test_launches_refuse_exactly_what_the_plan_refuses(cuda, hidden, L_x, L_d):
                               num_encoding_fn_xyz=L_x, num_encoding_fn_dir=L_d)
     assert fm.supports_fused(model)
     fused = all(fm.field_plan(spec, k) is not None for k in cases)
-    assert fm.field_route(fm.spec_from_model(model)) == ("fused" if fused else "layers")
+    assert fm.field_route(fm.spec_from_model(model)) == (
+        "fused" if fused and hidden in fm.FUSED_WIDTHS else "layers")
     for kernel, (run, plain, counter) in cases.items():
         before = getattr(fm, counter)
         if fm.field_plan(spec, kernel) is None:
@@ -668,31 +673,39 @@ def test_backward_keeps_its_bias_grad_bits(field_digests):
 
 
 # SHA-256 of the layer route's forward (4, 512, 64) and sigma (65,536,)
-# outputs and the backward's f32 dB and dW on scripts/torch_field_digest.py's
-# seeded 8x1024 field at L 16/4 (`--layers`), as the product kernel of one
-# 128 x 256 tile a CTA gave them before it became persistent (the script's
-# output on the card, NVIDIA H100 80GB HBM3): the redesign keeps each
-# output element's K order and epilogue, so the route keeps its bits.
+# outputs, the backward's f32 dW and the dir layer's bf16 cotangent dy_dir
+# on scripts/torch_field_digest.py's seeded 8x1024 field at L 16/4
+# (`--layers`), as the product kernel of one 128 x 256 tile a CTA and the
+# warp-per-point heads kernel gave them (the script's output on the card,
+# NVIDIA H100 80GB HBM3; dy_dir through `--tree` on the tree before the
+# heads kernel's redesign): the product kernel's redesign keeps each output
+# element's K order and epilogue, the heads kernel's each element's
+# arithmetic, so the route keeps those bits. The f32 dB, whose sums the
+# one bias-grad reduction a slab takes in another order (row groups
+# across blocks, then the groups in order), as that reduction gives it.
 LAYER_DIGESTS = {
     "fwd": "5a841151a7b33035f3e3f57781824c0c852b1fabeceb6542b8177d5046bc4280",
     "sigma": "8562954caa85199bd33c584b0f863c88b6ff52f4a0d994050a1c7d7aeaa0a7e6",
-    "bwd_dB": "1c748276694c8926d79759aad0b143882801d373457fdaeaeeb52dd40367aa22",
-    "bwd_dW": "9f051d06c3855c9fc4f6e4c84f74e4d6a1bb85829fd6fbf5abd75771eb524a7a"}
+    "bwd_dB": "6e88af5513eb5570a20904a366de45b4544db9ef0cb0227babeb96b7823daeeb",
+    "bwd_dW": "9f051d06c3855c9fc4f6e4c84f74e4d6a1bb85829fd6fbf5abd75771eb524a7a",
+    "bwd_dy_dir": "017c61831bd4d7cde02d8f64950dc10cfac0ea001b8c4d003c2fcf741ccd676c"}
 
 
 def test_layer_route_keeps_its_bits(cuda):
-    """The layer route's forward, sigma and grads stay bit for bit what
-    they were before its product kernel's redesign."""
+    """The layer route's forward, sigma, dW and dy_dir stay bit for bit
+    what they were before its product and backward heads kernels'
+    redesigns; dB is the bias-grad reduction's."""
     assert _digest_script().layer_digests(cuda) == LAYER_DIGESTS
 
 
 # ---- the layer route (csrc/field_layers.cu): every model supports_fused
-# admits that the fused plans refuse. The chip smoke's shapes scaled down:
-# 8 layers at 1024 wide with mip-NeRF's 16 position bands, past 1024
-# (1152, 2048), 16 layers, 32 bands; and a deep narrow field without the
-# raw inputs. Tolerances as above; where plain against plain already
-# misses the grad bar by rounding noise, the float64 truth decides
-# (_hold_layer_grads).
+# admits that field_route does not send to the fused kernels. The chip
+# smoke's shapes scaled down: 8 layers at 1024 wide with mip-NeRF's 16
+# position bands, past 1024 (1152, 2048), 16 layers, 32 bands; a deep
+# narrow field without the raw inputs; and 8 layers at 512 and 1024 wide
+# (L 10/4), which the fused plans hold and the route sends here.
+# Tolerances as above; where plain against plain already misses the grad
+# bar by rounding noise, the float64 truth decides (_hold_layer_grads).
 LAYER_ARCHS = [
     dict(LEGO, hidden_size=1024, num_encoding_fn_xyz=16),
     dict(LEGO, hidden_size=1152),
@@ -701,8 +714,10 @@ LAYER_ARCHS = [
     dict(LEGO, num_encoding_fn_xyz=32),
     dict(num_layers=16, hidden_size=128, skip_step=3, num_encoding_fn_xyz=25,
          num_encoding_fn_dir=25, include_input_xyz=False, include_input_dir=False),
+    dict(LEGO, hidden_size=512),
+    dict(LEGO, hidden_size=1024),
 ]
-LAYER_IDS = ["w1024-L16", "w1152", "w2048", "deep16", "bands32", "narrow"]
+LAYER_IDS = ["w1024-L16", "w1152", "w2048", "deep16", "bands32", "narrow", "w512", "w1024"]
 
 
 def _layer_model(kw, device, seed=0):
@@ -860,6 +875,15 @@ def test_layer_route_in_slabs(cuda, kw, monkeypatch):
         out[kind] = call()
     torch.cuda.synchronize()
     assert fl.kernel_launches["pe"] - launched == 3 * 11  # a PE launch a slab
+    for kind in calls:  # every kernel's launches, as call_launches predicts them
+        monkeypatch.setattr(fl, "LAYER_WORKSPACE_BOUND",
+                            fl.workspace_bytes(packed.spec, kind, 384))
+        before = dict(fl.kernel_launches)
+        calls[kind]()
+        want = fl.call_launches(packed.spec, kind, 4097)
+        assert {k: fl.kernel_launches[k] - before[k] for k in fl.KERNELS} == want, kind
+        assert want["pe"] == 11 and want["bias"] == want["heads_bwd"] == (
+            11 if kind == "bwd" else 0)
     got, sigma, grads = out["fwd"], out["sigma"], out["bwd"]
     torch.testing.assert_close(got, fm.fused_mlp_plain(packed, o, d, z), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(sigma, fm.fused_sigma_plain(packed, o), atol=2e-2, rtol=2e-2)
@@ -980,3 +1004,65 @@ def test_layer_route_points_entry_and_empty_input(cuda):
         (4, 0, 4)
     assert fl.layers_sigma_cuda(packed, empty).shape == (0,)
     assert fl.launches == before + 1
+
+
+# The backward's heads kernel alone (the route launches it once a slab):
+# (H, points) at ragged counts (not multiples of 64 or 128), H/2 of 64 (a
+# lane's one chunk, most lanes idle), 256 and 512 (512 and 1024 wide),
+# 576 (1152 wide: not a multiple of 256, 8 lanes with a third chunk),
+# 1024 (2048 wide: a slab's 41,857 points) and 2048 (4096 wide: two
+# windows, the dots in a pass of their own).
+HEAD_CASES = [(128, 65), (512, 41857), (1024, 20001), (1152, 777), (2048, 41857), (4096, 300)]
+
+
+@pytest.mark.parametrize("H,m", HEAD_CASES)
+def test_layer_heads_bwd_matches_plain(cuda, H, m):
+    """dy_rgb, dy_a, dy_dir and the partials against the plain version
+    within 1e-2 of each other's magnitude plus 1e-2 of the largest (the
+    product kernel's bar: the rgb dots sum in another order, so a bf16
+    rounding of a cotangent may fall the other way); two launches bitwise
+    equal."""
+    torch.manual_seed(0)
+    packed = fm.pack_weights(FlexibleNeRFModel(
+        num_layers=2, hidden_size=H, skip_step=4, num_encoding_fn_xyz=4, num_encoding_fn_dir=2,
+        compute_dtype=torch.bfloat16, device=cuda))
+    g = torch.Generator(cuda).manual_seed(H + m)
+    h = torch.randn((m, H // 2), generator=g, device=cuda).clamp_min(0.0).to(torch.bfloat16)
+    grad = torch.randn((4, m), generator=g, device=cuda)
+    got = fl.layers_heads_bwd_cuda(packed, h, grad)
+    again = fl.layers_heads_bwd_cuda(packed, h, grad)
+    torch.cuda.synchronize()
+    want = fl.layers_heads_bwd_plain(packed, h, grad)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        diff = (a.float() - b.float()).abs()
+        assert bool((diff <= 1e-2 * b.float().abs() + 1e-2 * float(b.float().abs().max())).all())
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# The bias-grad reduction alone: an 8x2048 slab's segments (9 products'
+# column sums per 128 of 41,856 points, the heads' per 64), ragged rows
+# (1, 65, 129, 3000: groups of 64 and a short last one), 576 columns
+# (1152 wide's H/2: a short column chunk), and 40 segments (two launches).
+BIAS_CASES = [[(327, 2048)] * 9 + [(654, 1024), (654, 4)],
+              [(1, 512), (65, 576), (129, 4), (3000, 1152)], [(70, 256)] * 40]
+
+
+@pytest.mark.parametrize("segs", BIAS_CASES, ids=["w2048-slab", "ragged", "two-launches"])
+def test_layer_bias_matches_plain(cuda, segs):
+    """Each bias vector's partials summed into its running grads, against
+    the plain version within 1e-5 of the sums of magnitudes (another order
+    of f32 sums); two launches bitwise equal (the order is fixed,
+    whichever block ends last). The route reuses the counters slab after
+    slab (test_layer_route_in_slabs)."""
+    g = torch.Generator(cuda).manual_seed(len(segs))
+    parts = [torch.randn(shape, generator=g, device=cuda) for shape in segs]
+    outs = [torch.randn(shape[1], generator=g, device=cuda) for shape in segs]
+    got = fl.layers_bias_cuda(parts, outs)
+    again = fl.layers_bias_cuda(parts, outs)
+    torch.cuda.synchronize()
+    want = fl.layers_bias_plain(parts, outs)
+    for a, b, o, p in zip(got, want, outs, parts):
+        assert bool(((a - b).abs() <= 1e-5 * (o.abs() + p.abs().sum(0)) + 1e-6).all())
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+

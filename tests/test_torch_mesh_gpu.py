@@ -76,7 +76,7 @@ def test_sigma_kernel_matches_plain(cuda, kw, n):
     packed = fm.pack_weights(_model(kw, cuda))
     pts = _points(n, cuda)
     before = fm.sigma_launches
-    got = fm.fused_sigma_points(packed, pts)
+    got = fm.fused_sigma_cuda(packed, pts)
     torch.cuda.synchronize()
     assert fm.sigma_launches == before + (1 if n else 0)
     want = fm.fused_sigma_plain(packed, pts)
