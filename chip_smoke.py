@@ -1053,7 +1053,7 @@ LAYER_CHAINS = {"w1024-L16": dict(steps=30, views=True, res=128, grad_rays=None)
 # The route's kernels by name, as torch.profiler traces them
 # (tests/test_torch_fused_mlp.py holds every name to a __global__ of csrc/).
 LAYER_KERNELS = {"pe": ("layer_pe_kernel",), "product": ("layer_product_kernel",),
-                 "heads": ("layer_heads_kernel",), "dw": ("dw_kernel",),
+                 "heads": ("layer_heads_kernel",), "dw": ("layer_dw_kernel",),
                  "reduce": ("reduce_rows_kernel",), "bias": ("bias_grads_kernel",),
                  "heads_bwd": ("layer_heads_bwd_kernel",)}
 
@@ -1134,19 +1134,23 @@ def product_phase(card: str, device) -> dict:
 
 
 def leg_kernel_phase(card: str, device) -> dict:
-    """The backward's heads kernel and the bias-grad reduction alone
-    (fl.layers_heads_bwd_cuda, fl.layers_bias_cuda) at the shapes of a
-    backward slab of the 8x2048 and 8x1024 (L 10/4) fields at 2048 x 192
-    points (LAYER_CASES' fine fields, their weights from SEED; h a ReLU
-    output and seeded cotangents and partials): against their plain
+    """The backward's heads kernel, the bias-grad reduction and the dW leg
+    alone (fl.layers_heads_bwd_cuda, fl.layers_bias_cuda,
+    fl.layers_dw_cuda) at the shapes of a backward slab of the 8x2048 and
+    8x1024 (L 10/4) fields at 2048 x 192 points (LAYER_CASES' fine fields,
+    their weights from SEED; h a ReLU output and seeded cotangents,
+    partials and dW operands; the dW leg on a trunk matrix, the skip's [x |
+    PE] and dir's with the heads, fl.route_dw_jobs): against their plain
     versions (heads outputs within 1e-2 of each other's magnitude plus 1e-2
     of the largest, the product kernel's bar; bias grads within 1e-5 of the
-    sums of magnitudes), timed by CUDA events over 20 launches back to back
+    sums of magnitudes; dW within 1e-4 of the sums of the products'
+    magnitudes), timed by CUDA events over 20 launches back to back
     behind a spin of the card (_back_to_back_ms: a trace late in the smoke
-    may miss kernels this short) beside their bounds (bytes: each input
-    read once, each output written once), the plain versions (CUDA events,
+    may miss kernels this short) beside their bounds (each input read
+    once, each output written once), the plain versions (CUDA events,
     median of 3) and, for the reduction, one torch.sum(partials, dim=0) per
-    bias vector, timed alike and never called by the port."""
+    bias vector, for the dW leg one bf16 torch.mm per product, timed alike
+    and never called by the port. Then the PE kernel (_layer_pe_rows)."""
     from nerfmeshes_tpu_torch.models import build_model
     from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
@@ -1201,9 +1205,13 @@ def leg_kernel_phase(card: str, device) -> dict:
             ms=_back_to_back_ms(fl.layers_bias_launcher(parts, [o.clone() for o in outs])),
             plain_ms=_median_ms(lambda: fl.layers_bias_plain(parts, outs), runs=3, warmup=1),
             library_ms=_back_to_back_ms(lambda: [torch.sum(p, dim=0) for p in parts]))
-        del got, want, parts, outs, packed
+        del got, want, parts, outs
+        rows.update(_dw_alone_rows(case, packed, m, g, card, device))
+        del packed
         torch.cuda.empty_cache()
     for name, row in rows.items():
+        if name.startswith("dw"):
+            continue
         kernel = "layer_heads_bwd_kernel" if name.startswith("heads") else "bias_grads_kernel"
         print(f"field_layers {name} ({kernel} alone): {row['ms']:.4f} ms (CUDA events, 20 "
               "launches back to back), "
@@ -1213,6 +1221,78 @@ def leg_kernel_phase(card: str, device) -> dict:
               + ("none" if row["library_ms"] is None else
                  f"{row['library_ms']:.4f} ms (torch.sum(partials, dim=0) per bias vector)")
               + f"; max abs err vs plain {row['max_abs_err']:.3e} [{card}]")
+    rows.update(_layer_pe_rows(card, device))
+    return rows
+
+
+def _dw_alone_rows(case: str, packed, m: int, g: torch.Generator, card: str, device) -> dict:
+    """The route's dW leg alone (fl.layers_dw_cuda: layer_dw_kernel and its
+    range reduction) on a backward slab of m points of `case`'s field: a
+    trunk matrix, the first skip's [x | PE] and dir's with the heads, on
+    seeded operands (fl.route_dw_jobs), each against its plain version at
+    the ranges the kernel plans and an f32 torch.mm of the same bf16
+    operands (within 1e-4 of the sums of the products' magnitudes), two
+    launches bitwise equal, and bit for bit the fused backward's dw_kernel
+    on the same ranges; timed (_back_to_back_ms) beside its bound (bf16
+    operations, or the operands read once and the grads read and written
+    once), the plain version and one bf16 torch.mm per product."""
+    from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl
+
+    spec = packed.spec
+    H, L = spec.hidden, spec.num_layers
+    skip = next(k for k in range(1, L + 1) if spec.gemm_shapes()[k][1] > H)
+    rows = {}
+    for what, k in (("trunk", 1), ("skip", skip), ("dir+heads", L + 1)):
+        n, kk = spec.gemm_shapes()[k]
+
+        def randn(cols):
+            return torch.randn((m, cols), generator=g, device=device).to(torch.bfloat16)
+
+        heads = (randn(16), randn(H), randn(16), randn(H // 2)) if k == L + 1 else None
+        pe = randn(kk - H) if kk > H else None
+        jobs, _, cols = fl.route_dw_jobs(packed, k, randn(n), randn(H), pe, heads)
+        out = torch.randn(cols, generator=g, device=device)
+        got = fl.layers_dw_cuda(jobs, out)
+        again = fl.layers_dw_cuda(jobs, out)
+        fused = fl.layers_dw_cuda(jobs, out, variant="fused")  # dw_kernel, the same ranges
+        scratch = out.clone()
+        launch = fl.layers_dw_launcher(jobs, scratch)
+        ranges, units, kernels, pieces = launch()
+        want = fl.layers_dw_plain(jobs, out, ranges=ranges)
+        mag = fl.layers_dw_plain([j._replace(dy=j.dy.abs(), x=j.x.abs()) for j in jobs],
+                                 out.abs(), ranges=1)
+        mm = out.clone()
+        for j in jobs:
+            block = j.dy.float().t() @ j.x.float()
+            mm.as_strided(block.shape, (j.ldw, 1), j.w_off + j.col_off).add_(block)
+        err = float((got - want).abs().max())
+        ok = torch.equal(got, again) and torch.equal(got, fused) and all(
+            bool(((got - ref).abs() <= 1e-4 * mag + 1e-6).all()) for ref in (want, mm))
+        if not ok:
+            raise AssertionError(f"{case} {what}: the dW leg differs from plain or torch.mm, or "
+                                 f"from dw_kernel's bits, or two launches differ ({err})")
+        flops = sum(2 * m * j.dy.shape[1] * j.x.shape[1] for j in jobs)
+        operands = {(j.dy.data_ptr(), j.dy.shape[1]) for j in jobs} | {
+            (j.x.data_ptr(), j.x.shape[1]) for j in jobs}
+        bound_ms, bound_by = _bound_ms(flops, 2 * m * sum(c for _, c in operands) + 8 * cols,
+                                       PEAK_BF16)
+        rows[f"dw {case} {what} m={m}"] = dict(
+            max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by, ranges=ranges, units=units,
+            kernels=kernels, pieces=pieces, ms=_back_to_back_ms(launch),
+            plain_ms=_median_ms(lambda: fl.layers_dw_plain(jobs, out, ranges=ranges), runs=3,
+                                warmup=1),
+            library_ms=_back_to_back_ms(lambda: [torch.mm(j.dy.t(), j.x) for j in jobs]))
+        del jobs, got, again, fused, want, mag, mm, out, scratch, launch
+        torch.cuda.empty_cache()
+    for name, row in rows.items():
+        print(f"field_layers {name} (layer_dw_kernel + its range reduction alone, "
+              f"{row['ranges']} ranges, {row['units']} units, {row['kernels']} launches, the "
+              f"last wave in {256 // row['pieces']}-column pieces): "
+              f"{row['ms']:.4f} ms (CUDA events, 20 launches back to back), bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"{100 * row['bound_ms'] / row['ms']:.1f}% of it; plain {row['plain_ms']:.4f} ms; "
+              f"library {row['library_ms']:.4f} ms (a bf16 torch.mm per product); max abs err "
+              f"vs plain {row['max_abs_err']:.3e} [{card}]")
     return rows
 
 
@@ -1291,10 +1371,13 @@ def _layer_leg_yardsticks(spec, kind: str, n_pts: int, device) -> dict:
             + -(-m // 64) * (H // 2 + 4) * 4, PEAK_F32)
         reduce_bytes = bias_bytes = 0
         for (n_g, k_g), (cols, ranges) in zip(spec.gemm_shapes(), fl.dw_groups(spec)):
-            add("dw", 2 * m * cols, 2 * m * (n_g + k_g) + 4 * ranges * cols)
+            used = fl._range_split(m, ranges)[1]
+            # operands in; the range partials out, or at one range the grads in and out
+            add("dw", 2 * m * cols, 2 * m * (n_g + k_g) + (4 * used if used > 1 else 8) * cols)
             dw[(m, n_g, k_g)] = dw.get((m, n_g, k_g), 0) + 1
-            reduce_bytes += 4 * ranges * cols + 8 * cols  # partials in; grads in and out
-            sums["reduce"][(ranges, cols)] = sums["reduce"].get((ranges, cols), 0) + 1
+            if used > 1:
+                reduce_bytes += 4 * used * cols + 8 * cols  # partials in; grads in and out
+                sums["reduce"][(used, cols)] = sums["reduce"].get((used, cols), 0) + 1
         for rows, cols in fl.bias_segments(spec, m):
             bias_bytes += 4 * rows * cols + 8 * cols
             sums["bias"][(rows, cols)] = sums["bias"].get((rows, cols), 0) + 1
@@ -1428,50 +1511,78 @@ def breakdowns_process(card: str) -> dict:
     return json.loads(lines[-1])
 
 
-def _layer_pe_check(card: str, device) -> None:
+# The PE kernel's checks: position bands of the lego field (8x256, dir 4
+# bands) at 2048 x 192 rays, L 10 and mip-NeRF's 16 (the fused kernels
+# take both, so their PE is the bitwise reference).
+PE_BANDS = (10, 16)
+
+
+def _layer_pe_rows(card: str, device) -> dict:
     """The layer route's PE kernel bit for bit what the fused kernels feed
-    their first product, on a model both could take (lego, 2048 x 64
-    rays): the PE the fused backward's tile kernel builds and stashes (the
-    workspace's first rows, [PE(xyz) | PE(dir)]); and within the bf16 bar
-    of its plain version."""
+    their first product, on lego fields both could take at PE_BANDS (2048
+    x 192 rays): the PE the fused backward's tile kernel builds and stashes
+    (the workspace's first rows, [PE(xyz) | PE(dir)]); and within the bf16
+    bar of its plain version; timed (_back_to_back_ms of fl.layers_pe_cuda,
+    its column table's copy to the card included) beside its bound (bytes:
+    z in, each ray's o and d once, the bf16 PE out) and the plain version.
+    No one PyTorch call computes it."""
     from nerfmeshes_tpu_torch.models import FlexibleNeRFModel
     from nerfmeshes_tpu_torch.ops.kernels import build
     from nerfmeshes_tpu_torch.ops.kernels import field_layers as fl
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
 
-    torch.manual_seed(SEED)
-    model = FlexibleNeRFModel(**_FLEX, compute_dtype=torch.bfloat16, device=device)
-    packed = fm.pack_weights(model)
-    spec = packed.spec
-    R, S = 2048, 64
+    rows = {}
+    R, S = 2048, 192
     o, d, z = _rays(R, S, np.random.default_rng(SEED), device)
     cot = torch.zeros((4, R, S), device=device)
     lib = build.load_library()
-    nbytes = ctypes.c_longlong(0)
-    build.check(lib, lib.nm_fused_mlp_bwd_workspace(
-        packed.desc.ctypes.data, packed.desc.size, packed.freqs.ctypes.data, packed.freqs.size,
-        R * S, ctypes.byref(nbytes)), "fused_mlp_bwd workspace")
-    workspace = torch.zeros(nbytes.value, dtype=torch.uint8, device=device)
-    dW = torch.zeros(packed.weights.shape, device=device)
-    dB = torch.zeros(packed.biases.shape, device=device)
-    build.check(lib, lib.nm_fused_mlp_bwd(
-        o.data_ptr(), d.data_ptr(), z.data_ptr(), R, S, cot.data_ptr(),
-        packed.weights.data_ptr(), packed.biases.data_ptr(), packed.desc.ctypes.data,
-        packed.desc.size, packed.freqs.ctypes.data, packed.freqs.size, workspace.data_ptr(),
-        nbytes.value, dW.data_ptr(), dB.data_ptr(), torch.cuda.current_stream().cuda_stream),
-        "fused_mlp_bwd launch")
-    cols = spec.pxp + spec.pdp
-    stash = workspace[:R * S * cols * 2].view(torch.bfloat16).view(R * S, cols)
-    pe_x, pe_d = fl.layers_pe_cuda(packed, o, d, z)
-    torch.cuda.synchronize()
-    bitwise = torch.equal(pe_x, stash[:, :spec.pxp]) and torch.equal(pe_d, stash[:, spec.pxp:])
-    want_x, want_d = fl.layers_pe_plain(packed, o, d, z)
-    err = max(float((pe_x.float() - want_x.float()).abs().max()),
-              float((pe_d.float() - want_d.float()).abs().max()))
-    print(f"field_layers PE at {R}x{S} (lego L 10/4): bit for bit the fused backward's "
-          f"stashed PE: {bitwise}; max abs err vs plain {err:.3e} (bar {ATOL}) [{card}]")
-    if not bitwise or err > ATOL:
-        raise AssertionError("the layer route's PE is not the fused kernels' PE")
+    for L_x in PE_BANDS:
+        torch.manual_seed(SEED)
+        model = FlexibleNeRFModel(**dict(_FLEX, num_encoding_fn_xyz=L_x),
+                                  compute_dtype=torch.bfloat16, device=device)
+        packed = fm.pack_weights(model)
+        del model
+        spec = packed.spec
+        nbytes = ctypes.c_longlong(0)
+        build.check(lib, lib.nm_fused_mlp_bwd_workspace(
+            packed.desc.ctypes.data, packed.desc.size, packed.freqs.ctypes.data,
+            packed.freqs.size, R * S, ctypes.byref(nbytes)), "fused_mlp_bwd workspace")
+        workspace = torch.zeros(nbytes.value, dtype=torch.uint8, device=device)
+        dW = torch.zeros(packed.weights.shape, device=device)
+        dB = torch.zeros(packed.biases.shape, device=device)
+        build.check(lib, lib.nm_fused_mlp_bwd(
+            o.data_ptr(), d.data_ptr(), z.data_ptr(), R, S, cot.data_ptr(),
+            packed.weights.data_ptr(), packed.biases.data_ptr(), packed.desc.ctypes.data,
+            packed.desc.size, packed.freqs.ctypes.data, packed.freqs.size,
+            workspace.data_ptr(), nbytes.value, dW.data_ptr(), dB.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "fused_mlp_bwd launch")
+        cols = spec.pxp + spec.pdp
+        stash = workspace[:R * S * cols * 2].view(torch.bfloat16).view(R * S, cols)
+        pe_x, pe_d = fl.layers_pe_cuda(packed, o, d, z)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(pe_x, stash[:, :spec.pxp]) and torch.equal(pe_d,
+                                                                          stash[:, spec.pxp:])
+        del workspace, stash, dW, dB
+        want_x, want_d = fl.layers_pe_plain(packed, o, d, z)
+        err = max(float((pe_x.float() - want_x.float()).abs().max()),
+                  float((pe_d.float() - want_d.float()).abs().max()))
+        print(f"field_layers PE at {R}x{S} (lego L {L_x}/4): bit for bit the fused backward's "
+              f"stashed PE: {bitwise}; max abs err vs plain {err:.3e} (bar {ATOL}) [{card}]")
+        if not bitwise or err > ATOL:
+            raise AssertionError("the layer route's PE is not the fused kernels' PE")
+        bound_ms, bound_by = _bound_ms(0, R * S * (4 + 2 * cols) + R * 24, PEAK_F32)
+        rows[f"pe L {L_x}/4 {R}x{S}"] = dict(
+            max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            bitwise=bitwise, ms=_back_to_back_ms(lambda: fl.layers_pe_cuda(packed, o, d, z)),
+            plain_ms=_median_ms(lambda: fl.layers_pe_plain(packed, o, d, z), runs=3, warmup=1))
+        del packed, pe_x, pe_d, want_x, want_d
+        torch.cuda.empty_cache()
+    for name, row in rows.items():
+        print(f"field_layers {name} (layer_pe_kernel alone): {row['ms']:.4f} ms (CUDA events, 20 "
+              f"launches back to back, the table's copy included), bound {row['bound_ms']:.4f} "
+              f"ms ({row['bound_by']}), {100 * row['bound_ms'] / row['ms']:.1f}% of it; plain "
+              f"{row['plain_ms']:.4f} ms; library none [{card}]")
+    return rows
 
 
 def _layers_vs_pair(card: str, device) -> dict:
@@ -1524,9 +1635,10 @@ def layers_phase(card: str, device, legs: dict) -> dict:
     backward calls bitwise equal, each timed beside its bound and the
     nn.Module's call; at LAYER_LEG_CASES each kernel's device time in a
     forward and a backward call beside its bound and library yardstick
-    (`legs`, breakdowns_process's "layers" part). Before them the PE check (_layer_pe_check), the product kernel alone
-    (product_phase), the backward's heads kernel and bias-grad reduction
-    alone (leg_kernel_phase); then the chains of LAYER_CHAINS through the
+    (`legs`, breakdowns_process's "layers" part). Before them the product
+    kernel alone (product_phase), the backward's heads kernel, bias-grad
+    reduction and dW leg and the PE kernel alone (leg_kernel_phase); then
+    the chains of LAYER_CHAINS through the
     normal entry points (NeRFSystem.setup + fit, query_rays,
     export_marching_cubes), every launch the layer route's, and the layer
     route beside the pair kernels at 8x1024 L 10/4."""
@@ -1536,7 +1648,6 @@ def layers_phase(card: str, device, legs: dict) -> dict:
     from nerfmeshes_tpu_torch.train.render import RenderSettings, render_rays
     from nerfmeshes_tpu_torch.train.system import init_params
 
-    _layer_pe_check(card, device)
     out = {"cases": {}, "chains": {}, "products": product_phase(card, device),
            "leg_kernels": leg_kernel_phase(card, device)}
     for case in LAYER_CASES:
@@ -4456,7 +4567,8 @@ def wide_and_layer_rows(wide: dict, layers: dict) -> tuple[list, dict, list]:
     fused rows at the widths whose chain takes the fused route, the fused
     instantiations called directly off the path by kernel ("fwd", "bwd",
     "sigma"), the layer route's rows: its calls, its product kernel, its
-    backward heads kernel and bias-grad reduction)."""
+    backward heads kernel, bias-grad reduction and dW leg, its PE
+    kernel)."""
     # The wide rows (wide_phase): at 384, on the fused route, each
     # instantiation with its launches on its width's path, every train step
     # and appearance chunk one coarse (S = 64) and one fine (S = 192)
@@ -4557,17 +4669,22 @@ def wide_and_layer_rows(wide: dict, layers: dict) -> tuple[list, dict, list]:
     # (leg_kernel_phase): an 8x2048 slab's shapes in the row, 8x1024's in
     # "shapes"; their launches those their counters read in the chains'
     # train legs (only the backward launches them).
+    # The dW leg (an 8x2048 trunk matrix's in the row) and the PE kernel
+    # (lego L 10/4 at 2048 x 192) alike, their launches their counters'.
     legs_alone = layers["leg_kernels"]
-    if not all(c["heads_bwd"] and c["bias"] for c in kernel_launches.values()):
-        raise AssertionError(f"a layer chain's backward launched no heads or bias kernel: "
-                             f"{kernel_launches}")
+    if not all(c["heads_bwd"] and c["bias"] and c["dw"] and c["pe"]
+               for c in kernel_launches.values()):
+        raise AssertionError(f"a layer chain's backward launched no heads, bias, dW or PE "
+                             f"kernel: {kernel_launches}")
     leg_rows = []
-    for name, key, counter in (("field_layers_heads_bwd", "heads", "heads_bwd"),
-                               ("field_layers_bias", "bias", "bias")):
+    for name, key, counter, line in (("field_layers_heads_bwd", "heads", "heads_bwd", 397),
+                                     ("field_layers_bias", "bias", "bias", 397),
+                                     ("field_layers_dw", "dw", "dw", 397),
+                                     ("field_layers_pe", "pe ", "pe", 387)):
         shapes = {k: v for k, v in legs_alone.items() if k.startswith(key)}
-        first = next(k for k in shapes if "w2048" in k)
+        first = next(k for k in shapes if "w2048" in k or key == "pe ")
         leg_rows.append(_kernel_entry(
-            name, "field_layers.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397",
+            name, "field_layers.cu", f"nerfmeshes_tpu/ops/pallas/fused_mlp.py:{line}",
             shapes[first], {path: c[counter] for path, c in kernel_launches.items()},
             shape=first, shapes=shapes))
     return wide_rows, direct, [*layer_rows, product_row, *leg_rows]

@@ -1,10 +1,11 @@
 // The backward's dW leg, dW = dY^T X contracted over points, and the
 // fixed-order row reductions: dw_kernel (TMA-staged MN-major operands,
 // wgmma), reduce_rows_kernel and their launches. The fused backward
-// (fused_mlp_bwd.cu) runs them over its stash; the layer route
-// (field_layers.cu) over each slab of points' activations, one launch per
-// weight matrix, adding each slab's grads to the running ones. fused_mlp_bwd.cu
-// describes the leg's design.
+// (fused_mlp_bwd.cu) runs them over its stash; fused_mlp_bwd.cu describes
+// the leg's design. The layer route (field_layers.cu) runs its own
+// persistent layer_dw_kernel on these jobs, operands and products over
+// each slab of points' activations, and reduce_rows_kernel to add a
+// slab's point ranges to the running grads.
 //
 // Everything here has internal linkage: each .cu file gets its own copy.
 

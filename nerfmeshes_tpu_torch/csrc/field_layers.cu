@@ -17,10 +17,12 @@
 // tensor cores can still set the pace (512 FLOP/B at 1024, 1024 at 2048),
 // where the fused design's 64 x H activation tile no longer fits a block.
 //
-// Design, five kernels of its own beside the backward's dW leg and its
-// reductions (dw_leg.cuh):
+// Design, six kernels of its own beside the fused backward's range
+// reduction (dw_leg.cuh:reduce_rows_kernel):
 //   (1) layer_pe_kernel: PE(xyz) and PE(dir) of a slab of points into bf16
-//       row-major arrays, each 8-column chunk by one thread, with the fused
+//       row-major arrays, a thread per point taking both values of each
+//       argument from one range reduction, PE(dir) once per ray, the rows
+//       staged in shared memory and stored 16 B a lane, with the fused
 //       kernels' PE arithmetic (fused_field.cuh:PeBuild): on equal points
 //       the same bits.
 //   (2) layer_product_kernel<NN, BN, FULL>: Y = epilogue(A W^T + b), A
@@ -81,11 +83,16 @@
 //       product waits on a reduction; the launch spreads row groups of
 //       every segment over the card (a block per 64 rows x 128 columns),
 //       and the last block of a column chunk adds the groups in order.
+//   (5) layer_dw_kernel<BN>: dW = dY^T X of a weight matrix over a slab,
+//       persistent on dw_leg.cuh's operands and products, its units in
+//       point-range order, whole waves at 256 columns and the last wave in
+//       128- or 64-column pieces (section (5)).
 // Points go through in slabs whose activations (every layer's, for the
 // backward) fit the workspace the caller sizes (ops/kernels/field_layers.py
-// plans them under a bound); each slab's weight grads come from dw_kernel,
-// one launch per weight matrix, and are added to the running grads by the
-// fixed-order reduction of dw_leg.cuh, the bias grads by (4): no float
+// plans them under a bound); each slab's weight grads come from (5), one
+// launch per weight matrix, added to the running grads by the unit itself
+// at one point range, else by the fixed-order reduction of dw_leg.cuh, the
+// bias grads by (4): no float
 // atomics, so two calls give the same bits. Sigma runs the forward's PE,
 // trunk and alpha head kernels with the forward's arguments: bit for bit
 // its channel 3.
@@ -107,7 +114,9 @@ constexpr int LP_MAX_STAGES = 8;
 constexpr int LP_A_BYTES = LP_ROWS * SLAB_K * (int)sizeof(bf16);  // 16 KB
 // the ring's full and empty barriers, then the staging tile's out_free
 constexpr int LP_BAR_BYTES = (2 * LP_MAX_STAGES + 1) * (int)sizeof(uint64_t);
-constexpr int PE_THREADS = 256;
+constexpr int PE_THREADS = 128;
+constexpr int PE_MAX_PTS = 128;            // points per PE block, at most
+constexpr int PE_SMEM_AIM = 96 * 1024;     // a PE block's shared memory, at most where it can
 constexpr int HEAD_ROWS = 64;  // points per heads block
 constexpr int HEAD_THREADS = 256;
 constexpr int HEAD_WARPS = HEAD_THREADS / 32;
@@ -119,9 +128,15 @@ constexpr int BIAS_LANES = BIAS_THREADS / 32;
 constexpr int BIAS_COLS = 128;
 constexpr int BIAS_GROUP = 64;
 constexpr int MAX_BIAS_SEGS = 32;
-// dW units (dw_kernel blocks) a weight matrix's launch aims at: two waves of
-// the H100's 132 SMs; its point ranges follow (at most DW_RANGES).
+// dW units (128 x 256 blocks over a point range) a weight matrix's point
+// ranges aim at, two waves of the H100's 132 SMs, with at most DW_RANGES
+// ranges (ranges_for): the split of the points the route had before its
+// dW kernel was persistent, kept so that each weight's sum over the points
+// keeps its order, and its bits; the kernel fills the card's SMs itself
+// (section (5)).
 constexpr int DW_UNITS = 264;
+// The dW leg's narrowest piece of a unit in its last wave (section (5)).
+constexpr int DW_MIN_PIECE = 64;
 
 enum Kind { KIND_FWD = 0, KIND_SIGMA = 1, KIND_BWD = 2 };
 enum HeadMode { HEAD_FWD = 0, HEAD_SIGMA = 1 };
@@ -137,56 +152,116 @@ struct PeArgs {
   const float* z;
   long long row0, m;  // the slab's first point and its points
   int samples, fwd, pxp, pdp;
+  int lx, ld, inc_x, inc_d;  // bands and raw coordinates of PE(xyz), PE(dir)
+  int pts;           // points a block (pe_points)
   const PeCol* tab;  // what each column computes (fused_field.cuh:pe_col)
   bf16* pe_x;        // (m, pxp)
   bf16* pe_d;        // (m, pdp), fwd only
 };
 
-__global__ void __launch_bounds__(PE_THREADS) layer_pe_kernel(const PeArgs a) {
-  const int chunks = (a.pxp + (a.fwd ? a.pdp : 0)) / 8;
-  const long long i = (long long)blockIdx.x * PE_THREADS + threadIdx.x;
-  const long long r = i / chunks;
-  if (r >= a.m) return;
-  const int ch = (int)(i % chunks);
-  const long long g = a.row0 + r;
-  float x0, x1, x2, v0 = 0.f, v1 = 0.f, v2 = 0.f;
-  if (a.fwd) {  // o + d*z of the point's ray, unfused, as PeBuild::start
-    const long long ray = g / a.samples;
-    const float zt = a.z[g];
-    v0 = a.dirs[3 * ray];
-    v1 = a.dirs[3 * ray + 1];
-    v2 = a.dirs[3 * ray + 2];
-    x0 = __fadd_rn(a.src[3 * ray], __fmul_rn(v0, zt));
-    x1 = __fadd_rn(a.src[3 * ray + 1], __fmul_rn(v1, zt));
-    x2 = __fadd_rn(a.src[3 * ray + 2], __fmul_rn(v2, zt));
-  } else {
-    x0 = a.src[3 * g];
-    x1 = a.src[3 * g + 1];
-    x2 = a.src[3 * g + 2];
-  }
-  uint32_t w[4];
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {  // PeBuild::step's arithmetic, two columns at a time
-    float e[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const PeCol col = a.tab[8 * ch + 2 * p + h];
-      const int comp = (col.code >> 2) & 3, kind = col.code & 3;
-      const bool dir = col.code & 16;
-      const float x = comp == 0 ? (dir ? v0 : x0)
-                                : (comp == 1 ? (dir ? v1 : x1) : (dir ? v2 : x2));
-      if (kind == 2)
-        e[h] = sinf(x * col.f);
-      else if (kind == 3)
-        e[h] = cosf(x * col.f);
-      else
-        e[h] = kind == 1 ? x : 0.f;
+// One row of PE into `row` (bf16, shared memory) from its coordinates v:
+// the raw coordinates and the zero padding by the row's first thread
+// (sub 0), then of the 3 L (component, band) arguments every subs-th from
+// sub on, each argument's sin and cos from one range reduction (sincosf:
+// the same bits as sinf and cosf apart, whose reduction it shares) into
+// its sin column (s0 + j) and cos column (s0 + 3 L + j). PeBuild::step's
+// arithmetic: arg = coordinate * f as one f32 product, bf16 round to
+// nearest even.
+__device__ __forceinline__ void pe_row(bf16* row, const PeCol* tab, float v0, float v1, float v2,
+                                       int L, int inc, int width, int sub, int subs) {
+  const int s0 = inc ? 3 : 0;
+  if (sub == 0) {
+    if (inc) {
+      row[0] = __float2bfloat16_rn(v0);
+      row[1] = __float2bfloat16_rn(v1);
+      row[2] = __float2bfloat16_rn(v2);
     }
-    w[p] = pack_bf16(e[0], e[1]);
+    for (int c = s0 + 6 * L; c < width; ++c) row[c] = __float2bfloat16_rn(0.f);
   }
-  const int c = 8 * ch;
-  bf16* dst = c < a.pxp ? a.pe_x + r * a.pxp + c : a.pe_d + r * a.pdp + (c - a.pxp);
-  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  for (int j = sub; j < 3 * L; j += subs) {
+    const float v = j < L ? v0 : (j < 2 * L ? v1 : v2);
+    float sn, cs;
+    sincosf(__fmul_rn(v, tab[s0 + j].f), &sn, &cs);
+    row[s0 + j] = __float2bfloat16_rn(sn);
+    row[s0 + 3 * L + j] = __float2bfloat16_rn(cs);
+  }
+}
+
+// PE(xyz) and, for the forward, PE(dir) of `pts` points a block: the
+// column table in shared memory; PE_THREADS / pts threads a point, each
+// taking every (PE_THREADS / pts)-th of its arguments (one thread a point
+// at pts = 128); PE(dir) once per ray of the block's points, not per
+// sample; the rows staged in shared memory (rows an odd number of 32-bit
+// words apart: the threads' 2-byte stores of one column fall in distinct
+// banks), then stored as the block's contiguous run of rows, 16 B a lane
+// on consecutive addresses. Bytes bound: each point reads z (its ray's o
+// and d shared) and writes (pxp + pdp) bf16.
+__global__ void __launch_bounds__(PE_THREADS) layer_pe_kernel(const PeArgs a) {
+  extern __shared__ __align__(16) unsigned char pe_smem[];
+  const int cols = a.pxp + (a.fwd ? a.pdp : 0);
+  const int xs = a.pxp / 2 + 1, ds = a.pdp / 2 + 1;  // row strides, 32-bit words
+  PeCol* tab = reinterpret_cast<PeCol*>(pe_smem);
+  uint32_t* xt = reinterpret_cast<uint32_t*>(pe_smem + (cols * (int)sizeof(PeCol) + 15) / 16 * 16);
+  uint32_t* dt = xt + a.pts * xs;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < cols; i += PE_THREADS) tab[i] = a.tab[i];
+  const long long b0 = (long long)blockIdx.x * a.pts;
+  const int rows = (int)(a.m - b0 < a.pts ? a.m - b0 : a.pts);
+  const int p = tid % a.pts, sub = tid / a.pts, subs = PE_THREADS / a.pts;
+  const long long g0 = a.row0 + b0;  // the block's first point of the call
+  // its rays: the block's first point's to its last point's
+  const long long ray0 = a.fwd ? g0 / a.samples : 0;
+  const int rays = a.fwd ? (int)((g0 + rows - 1) / a.samples - ray0 + 1) : 0;
+  float x0 = 0.f, x1 = 0.f, x2 = 0.f;
+  if (p < rows) {
+    const long long g = g0 + p;
+    if (a.fwd) {  // o + d*z of the point's ray, unfused, as PeBuild::start
+      const long long ray = g / a.samples;
+      const float zt = a.z[g];
+      x0 = __fadd_rn(a.src[3 * ray], __fmul_rn(a.dirs[3 * ray], zt));
+      x1 = __fadd_rn(a.src[3 * ray + 1], __fmul_rn(a.dirs[3 * ray + 1], zt));
+      x2 = __fadd_rn(a.src[3 * ray + 2], __fmul_rn(a.dirs[3 * ray + 2], zt));
+    } else {
+      x0 = a.src[3 * g];
+      x1 = a.src[3 * g + 1];
+      x2 = a.src[3 * g + 2];
+    }
+  }
+  __syncthreads();  // the table
+  if (p < rows)
+    pe_row(reinterpret_cast<bf16*>(xt + p * xs), tab, x0, x1, x2, a.lx, a.inc_x, a.pxp, sub,
+           subs);
+  if (p < rays) {
+    const long long ray = ray0 + p;
+    pe_row(reinterpret_cast<bf16*>(dt + p * ds), tab + a.pxp, a.dirs[3 * ray],
+           a.dirs[3 * ray + 1], a.dirs[3 * ray + 2], a.ld, a.inc_d, a.pdp, sub, subs);
+  }
+  __syncthreads();
+  const int xch = a.pxp / 8;  // 16 B chunks a row
+  uint4* gx = reinterpret_cast<uint4*>(a.pe_x + b0 * a.pxp);
+  for (int i = tid; i < rows * xch; i += PE_THREADS) {
+    const uint32_t* w = xt + (i / xch) * xs + 4 * (i % xch);
+    gx[i] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  if (!a.fwd) return;
+  const int dch = a.pdp / 8;
+  uint4* gd = reinterpret_cast<uint4*>(a.pe_d + b0 * a.pdp);
+  for (int i = tid; i < rows * dch; i += PE_THREADS) {
+    const int r = i / dch;
+    const uint32_t* w = dt + (int)((g0 + r) / a.samples - ray0) * ds + 4 * (i % dch);
+    gd[i] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// A PE launch's points a block and shared bytes: PE_MAX_PTS points, halved
+// (down to 1) while the table and the staged rows pass PE_SMEM_AIM.
+int pe_points(int pxp, int pdp, bool fwd, size_t* smem) {
+  const size_t tab = round_up((size_t)(pxp + pdp) * sizeof(PeCol), 16);
+  const size_t row = 4 * ((size_t)(pxp / 2 + 1) + (fwd ? pdp / 2 + 1 : 0));
+  int pts = PE_MAX_PTS;
+  while (pts > 1 && tab + pts * row > (size_t)PE_SMEM_AIM) pts /= 2;
+  *smem = tab + pts * row;
+  return pts;
 }
 
 // ----------------------------------------------------------- (2) product --
@@ -1038,6 +1113,240 @@ int launch_bias(const BiasSpec* segs, int n, float* level1, unsigned* count, cud
   return 0;
 }
 
+// ---------------------------------------------------------------- (5) dW --
+//
+// dW = dY^T X of one weight matrix (with the heads' for dir's) over a slab
+// of points, added to the running grads. dw_leg.cuh's operands, jobs and
+// products (a unit: one 128 x 256 block of a job over one point range, two
+// consumer warpgroups of f32 accumulators on MN-major 128 B swizzled TMA
+// boxes of 64 points), the point ranges of ranges_for, laid out for the
+// card:
+//   - whole waves, then a wide last one: the units that fill whole waves
+//     of the card's SMs run 256 columns a CTA; the units left over (the
+//     last wave, part full, where dw_kernel left SMs idle: at 1024 wide
+//     its third wave held 24 units on 132 SMs) run as 128- or 64-column
+//     pieces, as many as the SMs take, in a second launch. Columns are
+//     independent sums: each dW element adds the same products in the same
+//     order (m64nNk16 per 16 points, the range's points in order) whatever
+//     a piece's width, so dW keeps the bits of the fused backward's
+//     dw_kernel on the same ranges. Persistent: a CTA per SM (at most one
+//     a unit or piece) walks them blockIdx.x, + gridDim.x, ...; its
+//     producer thread runs the ring across units, so a unit's partial
+//     stores drain under the next unit's first loads.
+//   - raster: units go range by range, within a range job by job, row
+//     block by row block, and a wave's units start together: the units of
+//     a range read each 64-point slab of dY and X at about the same time,
+//     from device memory about once and from L2 to the rest (dw_kernel's
+//     order put a column block's units of every range first). Splitting
+//     one unit's points across CTAs instead (stream-K, with an exact f32
+//     carry to keep the bits) was measured 1.8x slower on an H100: its
+//     units start at scattered times and read their slabs from device
+//     memory each.
+//   - loads: only the 64-row and 64-column boxes a unit's job reaches (a
+//     head's 16 cotangent columns, a PE job's columns); the rest of the
+//     slot is never read into a kept row or column.
+//   - at one range a unit adds its block to the running grads itself (no
+//     partials, no reduction launch).
+// What bounds it on an H100: 2 x rows x cols FLOP a point against (rows +
+// cols) bf16 read, at H >= 512 over the card's ~295 FLOP/B: the tensor
+// cores. Ranges are added to the running grads in order by
+// reduce_rows_kernel: two calls give the same bits.
+struct LayerDwArgs {
+  CUtensorMap maps[N_MAPS];
+  DwJob job[MAX_JOBS];  // unit0: the job's first unit within a range
+  int count, per_range;  // jobs; units a range
+  int range_pts;         // points a range (a multiple of 64; the last range shorter)
+  int range_step;        // range r reads from point r x range_step (range_pts; 0: timing only)
+  int pieces;            // column pieces a unit (256 / BN)
+  long long n_pad, first, items;  // units first, first + 1, ... x pieces
+  float* partial;  // ranges > 1: a row of part_ld floats a range
+  long long part_ld;
+  float* out;  // one range: the running grads, each unit's block added in place
+};
+static_assert(sizeof(LayerDwArgs) <= 32764, "layer_dw_kernel's parameters");
+
+// D(64 x N, f32) (+)= A(64 x 16) B(16 x N), bf16, N = 128 or 64, A and B
+// MN-major in shared memory: fused_field.cuh's wgmma_bf16_mn (N = 256) at
+// the narrower widths of the dW leg's last wave (section (5)).
+__device__ __forceinline__ void wgmma_bf16_mn(float (&d)[64], uint64_t a, uint64_t b,
+                                              int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_bf16_mn(float (&d)[32], uint64_t a, uint64_t b,
+                                              int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// Item i of a launch: unit first + i / pieces, its columns [c0, c0 + BN)
+// of the job's 256-column block (none past the block's columns: skipped).
+struct DwItem {
+  int job, mb, c0, range;
+  long long p0;
+  int slabs;
+};
+
+template <int BN>
+__device__ __forceinline__ DwItem dw_item(const LayerDwArgs& a, long long i) {
+  DwItem w;
+  const long long u = a.first + i / a.pieces;
+  w.c0 = (int)(i % a.pieces) * BN;
+  w.range = (int)(u / a.per_range);
+  const int local = (int)(u % a.per_range);
+  int j = 0;
+  while (j + 1 < a.count && local >= a.job[j + 1].unit0) ++j;
+  w.job = j;
+  w.mb = local - a.job[j].unit0;
+  const long long first = (long long)w.range * a.range_pts;
+  const long long len = a.n_pad - first < a.range_pts ? a.n_pad - first : a.range_pts;
+  w.p0 = (long long)w.range * a.range_step;
+  w.slabs = w.c0 < a.job[j].n ? (int)(len / SLAB_K) : 0;
+  return w;
+}
+
+template <int BN>
+__global__ void __launch_bounds__(FIELD_THREADS, 1)
+    layer_dw_kernel(const __grid_constant__ LayerDwArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + DW_STAGES * DW_STAGE_BYTES);
+  uint64_t* empty = full + DW_STAGES;
+  const int tid = threadIdx.x, wg = tid / WG_THREADS;
+  if (tid == 0) {
+    for (int s = 0; s < DW_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * WG_THREADS / 32);  // every consumer warp releases
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if (tid != 2 * WG_THREADS) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (long long i = blockIdx.x; i < a.items; i += gridDim.x) {
+      const DwItem w = dw_item<BN>(a, i);
+      const DwJob& jb = a.job[w.job];
+      const CUtensorMap* am = &a.maps[jb.a_map];
+      const CUtensorMap* bm = &a.maps[jb.b_map];
+      const int a_col = jb.a_col + w.mb * DW_A_ATOMS * 64;
+      const int rows = jb.m - w.mb * DW_A_ATOMS * 64;
+      const int na = rows >= DW_A_ATOMS * 64 ? DW_A_ATOMS : (rows + 63) / 64;
+      const int cols = jb.n - w.c0 < BN ? jb.n - w.c0 : BN;
+      const int nb = (cols + 63) / 64;
+      for (int s = 0; s < w.slabs; ++s) {
+        const int pt = (int)(w.p0 + (long long)s * SLAB_K);
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_arrive_expect_tx(&full[stage], (na + nb) * ATOM_BYTES);
+        unsigned char* dst = smem + stage * DW_STAGE_BYTES;
+        for (int k = 0; k < na; ++k)
+          tma_load_2d(dst + k * ATOM_BYTES, am, a_col + 64 * k, jb.a_row + pt, &full[stage]);
+        for (int k = 0; k < nb; ++k)
+          tma_load_2d(dst + (DW_A_ATOMS + k) * ATOM_BYTES, bm, jb.b_col + w.c0 + 64 * k,
+                      jb.b_row + pt, &full[stage]);
+        if (++stage == DW_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+  const int t = tid % WG_THREADS, warp = t / 32, lane = t % 32;
+  Ring ring{full, empty, smem, DW_STAGE_BYTES, DW_STAGE_BYTES, DW_STAGES, 0, 0};
+  const uint32_t base = smem_u32(smem);
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (long long i = blockIdx.x; i < a.items; i += gridDim.x) {
+    const DwItem w = dw_item<BN>(a, i);
+    if (w.slabs == 0) continue;  // a piece past its block's columns
+    const DwJob& jb = a.job[w.job];
+    // The mainloop: a slab's four k16 products and a commit, the previous
+    // slab released once its products are done; the unit's first product
+    // overwrites the accumulators (scale-d 0).
+    int prev = -1;
+    fence_regs(acc);
+    wgmma_fence();
+    for (int s = 0; s < w.slabs; ++s) {
+      mbar_wait(&ring.full[ring.stage], ring.phase);
+      const uint32_t st = base + ring.stage * DW_STAGE_BYTES;
+#pragma unroll
+      for (int k = 0; k < SLAB_K / 16; ++k)
+        wgmma_bf16_mn(acc, sw128_mn_desc(st + wg * ATOM_BYTES + 2048 * k),
+                      sw128_mn_desc(st + DW_A_ATOMS * ATOM_BYTES + 2048 * k), s + k);
+      wgmma_commit();
+      if (prev >= 0) {
+        wgmma_wait<1>();
+        ring.release(prev, lane);
+      }
+      prev = ring.stage;
+      ring.advance();
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    ring.release(prev, lane);
+
+    // acc[4n + 2r + c] is dW row 16 warp + lane / 4 + 8 r of this
+    // warpgroup's 64, column c0 + 8 n + 2 (lane % 4) + c: into the range's
+    // partial row, or (one range) added to the running grads.
+    const int row0 = w.mb * DW_A_ATOMS * 64 + wg * 64 + warp * 16 + lane / 4;
+    const bool direct = a.out != nullptr;
+    float* const out = (direct ? a.out : a.partial + (size_t)w.range * a.part_ld) + jb.w_off +
+                       jb.col_off + w.c0;
+    const int cols = jb.n - w.c0;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= jb.m_real) continue;
+      float* const dst = out + (size_t)row * jb.ldw;
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n) {
+        const int col = 8 * n + 2 * (lane % 4);
+        if (col >= cols) continue;
+        float2 v = make_float2(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+        if (direct) {  // reduce_rows_kernel's sum at one range: the grads, then the range's
+          const float2 o = *reinterpret_cast<const float2*>(dst + col);
+          v = make_float2(o.x + v.x, o.y + v.y);
+        }
+        *reinterpret_cast<float2*>(dst + col) = v;
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------------ host --
 
 // The descriptor (fused_mlp_common.cuh's layout) of any depth, width and
@@ -1113,16 +1422,17 @@ int parse_layers(const int* di, int n_di, const float* freqs, int n_freqs, LDesc
   return 0;
 }
 
+long long blocks(long long x, long long b) { return (x + b - 1) / b; }
+
+// dW units of one point range of an m x n job (a 128-row block of each
+// 256-column block).
+long long job_units(long long m, long long n) {
+  return blocks(m, DW_A_ATOMS * 64) * blocks(n, DW_B_ATOMS * 64);
+}
+
 int ranges_for(long long units_per_range) {
   const long long r = (DW_UNITS + units_per_range - 1) / units_per_range;
   return (int)(r < 1 ? 1 : (r > DW_RANGES ? DW_RANGES : r));
-}
-
-long long blocks(long long x, long long b) { return (x + b - 1) / b; }
-
-// dW units of one point range of an m x n job (add_job's blocks).
-long long job_units(long long m, long long n) {
-  return blocks(m, DW_A_ATOMS * 64) * blocks(n, DW_B_ATOMS * 64);
 }
 
 // The backward's dW launches, one per weight matrix (the dir launch also
@@ -1333,42 +1643,140 @@ int launch_product(const Epilogue& e, const bf16* a1, int k1, const bf16* a2, in
 }
 
 // One dW launch over a slab of m points: jobs over `maps` (row-major bf16
-// arrays of m rows), their grads added to out[0, cols) (the group's part
-// of the packed dW) through the point ranges' partials.
+// arrays of m rows, ld elements apart, 0: cols), their grads added to
+// out[0, cols) (the group's part of the packed dW): layer_dw_kernel over
+// the group's point ranges, the units of whole waves of the card's SMs at
+// 256 columns, then the rest in pieces of 128 or 64 columns (dw_pieces),
+// and past one range reduce_rows_kernel over its partials. `variant`, for
+// timing probes only: DW_FUSED launches the fused backward's dw_kernel on
+// its job-major units instead (a CTA a unit), DW_SAME_POINTS has every
+// range read the first range's points (wrong grads: a probe of what the
+// leg's bytes cost), DW_PLAIN runs every unit at 256 columns. info, where
+// given: the point ranges, the units, the kernel launches, the last
+// wave's pieces a unit.
+enum DwVariant { DW_ROUTE = 0, DW_FUSED = 1, DW_SAME_POINTS = 2, DW_PLAIN = 3 };
+
 struct DwMapSpec {
   const bf16* base;
   int cols;
+  long long ld = 0;
 };
 
-int launch_group(const DwGroup& grp, const DwMapSpec* maps, int n_maps, const DwJob* jobs,
-                 int n_jobs, long long m, float* partial, float* out, cudaStream_t s,
-                 int* launches) {
-  DwArgs a;
+// Column pieces a unit of the last wave takes: the most of 1, 2 and 4
+// (256, 128, 64 columns) whose pieces the SMs hold at once.
+int dw_pieces(long long left, int sms) {
+  int pieces = 1;
+  while (pieces * DW_MIN_PIECE < DW_B_ATOMS * 64 && left * pieces * 2 <= sms) pieces *= 2;
+  return pieces;
+}
+
+template <int BN>
+int launch_dw_items(LayerDwArgs& a, long long first, long long units, int sms, cudaStream_t s) {
+  a.first = first;
+  a.pieces = DW_B_ATOMS * 64 / BN;
+  a.items = units * a.pieces;
+  const unsigned grid = (unsigned)(a.items < sms ? a.items : sms);
+  layer_dw_kernel<BN><<<grid, FIELD_THREADS, DW_SMEM, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int launch_layer_dw(const DwGroup& grp, const DwMapSpec* maps, int n_maps, const DwJob* jobs,
+                    int n_jobs, long long m, float* partial, float* out, int sms,
+                    cudaStream_t s, int* launches, int variant = DW_ROUTE, int* info = nullptr) {
+  if (n_maps > N_MAPS) return (int)cudaErrorInvalidValue;
+  LayerDwArgs a;
   memset(&a, 0, sizeof(a));
   for (int i = 0; i < n_maps; ++i) {
-    const int rc = encode_slab_map(&a.maps[i], maps[i].base, maps[i].cols, (int)m, SLAB_K);
+    const int rc = encode_slab_map(&a.maps[i], maps[i].base, maps[i].cols, (int)m, SLAB_K,
+                                   SLAB_K, maps[i].ld);
     if (rc != 0) return rc;
   }
   const long long n_pad = (long long)round_up((size_t)m, SLAB_K);
   a.range_pts = (int)round_up((size_t)blocks(n_pad, grp.ranges), SLAB_K);
-  a.n_pad = n_pad;
-  a.partial = partial;
   a.part_ld = (long long)round_up((size_t)grp.cols, 64);
   const int ranges = (int)blocks(n_pad, a.range_pts);
-  int units = 0;
-  for (int j = 0; j < n_jobs; ++j) units = add_job(&a, units, ranges, jobs[j]);
-  if (units < 0) return (int)cudaErrorInvalidValue;
-  launches[CNT_DW] += 1;
+  if (variant == DW_FUSED) {
+    DwArgs b;
+    memset(&b, 0, sizeof(b));
+    memcpy(b.maps, a.maps, sizeof(b.maps));
+    b.range_pts = a.range_pts;
+    b.n_pad = n_pad;
+    b.partial = partial;
+    b.part_ld = a.part_ld;
+    int u = 0;
+    for (int j = 0; j < n_jobs; ++j) u = add_job(&b, u, ranges, jobs[j]);
+    if (u < 0) return (int)cudaErrorInvalidValue;
+    if (info != nullptr) info[0] = ranges, info[1] = u, info[2] = 1, info[3] = 1;
+    launches[CNT_DW] += 1;
+    launches[CNT_REDUCE] += 1;
+    return launch_dw(b, u, ranges, (int)grp.cols, out, s, 1);
+  }
+  for (int j = 0; j < n_jobs; ++j) {  // each job's 256-column blocks, a range's units in turn
+    for (int c = 0; c < jobs[j].n; c += DW_B_ATOMS * 64) {
+      if (a.count == MAX_JOBS) return (int)cudaErrorInvalidValue;
+      DwJob blk = jobs[j];
+      blk.b_col += c;
+      blk.col_off += c;
+      blk.n = jobs[j].n - c < DW_B_ATOMS * 64 ? jobs[j].n - c : DW_B_ATOMS * 64;
+      blk.m_blocks = (int)blocks(blk.m, DW_A_ATOMS * 64);
+      blk.unit0 = a.per_range;
+      a.job[a.count++] = blk;
+      a.per_range += blk.m_blocks;
+    }
+  }
+  a.range_step = variant == DW_SAME_POINTS ? 0 : a.range_pts;
+  a.n_pad = n_pad;
+  a.partial = partial;
+  a.out = ranges == 1 ? out : nullptr;
+  const long long units = (long long)a.per_range * ranges;
+  // whole waves at 256 columns; the last wave's units in pieces
+  const long long whole = variant == DW_PLAIN ? units : units / sms * sms;
+  const int pieces = units > whole ? dw_pieces(units - whole, sms) : 1;
+  int err = 0, kernels = 0;
+  if (whole > 0) {
+    err = launch_dw_items<DW_B_ATOMS * 64>(a, 0, whole, sms, s);
+    ++kernels;
+  }
+  if (err == 0 && units > whole) {
+    err = pieces == 4   ? launch_dw_items<64>(a, whole, units - whole, sms, s)
+          : pieces == 2 ? launch_dw_items<128>(a, whole, units - whole, sms, s)
+                        : launch_dw_items<256>(a, whole, units - whole, sms, s);
+    ++kernels;
+  }
+  launches[CNT_DW] += kernels;
+  if (info != nullptr) info[0] = ranges, info[1] = (int)units, info[2] = kernels, info[3] = pieces;
+  if (err != 0 || ranges == 1) return err;
   launches[CNT_REDUCE] += 1;
-  return launch_dw(a, units, ranges, (int)grp.cols, out, s, 1);
+  return reduce_rows(partial, a.part_ld, ranges, (int)grp.cols, ranges, out, 0, s, 1);
+}
+
+// The dW kernels may take DW_SMEM bytes of shared memory.
+int dw_attributes() {
+  const void* kernels[4] = {reinterpret_cast<const void*>(layer_dw_kernel<64>),
+                            reinterpret_cast<const void*>(layer_dw_kernel<128>),
+                            reinterpret_cast<const void*>(layer_dw_kernel<256>),
+                            reinterpret_cast<const void*>(dw_kernel)};
+  for (const void* k : kernels) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, DW_SMEM);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 int launch_pe(const LDesc& d, const PeCol* tab, const float* src, const float* dirs,
               const float* z, long long row0, long long m, int samples, bool fwd, bf16* pe_x,
               bf16* pe_d, cudaStream_t s, int* launches) {
-  const PeArgs a = {src, dirs, z, row0, m, samples, fwd ? 1 : 0, d.pxp, d.pdp, tab, pe_x, pe_d};
-  const long long threads = m * ((d.pxp + (fwd ? d.pdp : 0)) / 8);
-  layer_pe_kernel<<<(unsigned)blocks(threads, PE_THREADS), PE_THREADS, 0, s>>>(a);
+  size_t smem = 0;
+  const int pts = pe_points(d.pxp, d.pdp, fwd, &smem);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        layer_pe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const PeArgs a = {src,  dirs, z,       row0,    m,       samples, fwd ? 1 : 0, d.pxp, d.pdp,
+                    d.lx, d.ld, d.inc_x, d.inc_d, pts,     tab,     pe_x,        pe_d};
+  layer_pe_kernel<<<(unsigned)blocks(m, pts), PE_THREADS, smem, s>>>(a);
   launches[CNT_PE] += 1;
   return (int)cudaGetLastError();
 }
@@ -1398,9 +1806,7 @@ int prepare(const LDesc& d, int kind, const bf16* W, const float* B, unsigned ch
   }
   rc = product_attributes(card->smem_limit);
   if (rc != 0) return rc;
-  cudaError_t err = cudaSuccess;
-  if (kind == KIND_BWD)
-    err = cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DW_SMEM);
+  cudaError_t err = kind == KIND_BWD ? (cudaError_t)dw_attributes() : cudaSuccess;
   if (err == cudaSuccess && kind == KIND_BWD)  // the bias reduction's counters start at 0
     err = cudaMemsetAsync(ws + lay.bcount, 0, lay.dwpart - lay.bcount, s);
   if (err == cudaSuccess)  // pageable source: staged at once, no wait on the device
@@ -1546,7 +1952,8 @@ extern "C" int nm_field_layers(int kind, const float* src, const float* dirs, co
           {0, 0, 0, 2, 0, 0, H / 2, H / 2, d.pdp, 0, ldir, H},
           {3, 0, 0, 4, 0, 0, HEAD_LD, 1, H, (int)(d.wa_off - dir0), H, 0},
           {5, 0, 0, 6, 0, 0, HEAD_LD, 3, H / 2, (int)(d.wr_off - dir0), H / 2, 0}};
-      err = launch_group(groups[L + 1], maps, 7, jobs, 4, m, dwpart, dW + dir0, s, launches);
+      err = launch_layer_dw(groups[L + 1], maps, 7, jobs, 4, m, dwpart, dW + dir0, card.sms, s,
+                            launches);
       if (err != 0) return err;
     }
     // The dX chain: dy[g - 1] = (dy[g] W_g's x part) masked by the forward's
@@ -1563,8 +1970,8 @@ extern "C" int nm_field_layers(int kind, const float* src, const float* dirs, co
       const DwMapSpec maps[3] = {{dy, H}, {xin, H}, {pe_x, d.pxp}};
       const DwJob jobs[2] = {{0, 0, 0, 1, 0, 0, H, H, H, 0, (int)d.k[g], 0},
                              {0, 0, 0, 2, 0, 0, H, H, d.pxp, 0, (int)d.k[g], H}};
-      err = launch_group(groups[g], maps, 3, jobs, skip ? 2 : 1, m, dwpart, dW + d.w_off[g], s,
-                         launches);
+      err = launch_layer_dw(groups[g], maps, 3, jobs, skip ? 2 : 1, m, dwpart, dW + d.w_off[g],
+                            card.sms, s, launches);
       if (err != 0) return err;
       bf16* next = dy == at(lay.dy0) ? at(lay.dy1) : at(lay.dy0);
       const bf16* mask = g - 1 > 0 ? act(g - 1) : nullptr;
@@ -1577,7 +1984,8 @@ extern "C" int nm_field_layers(int kind, const float* src, const float* dirs, co
     if (err != 0) return err;
     const DwMapSpec maps[2] = {{dy, H}, {pe_x, d.pxp}};
     const DwJob job = {0, 0, 0, 1, 0, 0, H, H, d.pxp, 0, d.pxp, 0};
-    err = launch_group(groups[0], maps, 2, &job, 1, m, dwpart, dW + d.w_off[0], s, launches);
+    err = launch_layer_dw(groups[0], maps, 2, &job, 1, m, dwpart, dW + d.w_off[0], card.sms, s,
+                          launches);
     if (err != 0) return err;
     // Every bias grad of the slab in one reduction: the L + 1 products'
     // column sums, the heads' dir and [alpha, r, g, b] partials.
@@ -1712,4 +2120,59 @@ extern "C" int nm_field_layers_bias(int n, const long long* src, const long long
   int launches[N_COUNTERS] = {};
   return launch_bias(segs.data(), n, level1, reinterpret_cast<unsigned*>(level1 + floats),
                      static_cast<cudaStream_t>(stream), launches);
+}
+
+// The dW leg alone, for its checks and timing: out[0, out_cols) f32 += the
+// grads of n_jobs products dY^T X over m points, as the route launches
+// them (launch_layer_dw). maps: n_maps bf16 row-major arrays of m rows
+// (device addresses, 16 B aligned; columns; row pitches in elements, a
+// multiple of 8). jobs: 10 ints each, a_map, a_col, b_map, b_col, rows
+// computed, rows kept, columns, w_off, ldw, col_off: the (rows, columns)
+// grads of dY's columns [a_col, a_col + rows) of map a_map against X's
+// [b_col, b_col + columns) of map b_map, at out[w_off + col_off + row *
+// ldw + col]. ranges: the point ranges (0: ranges_for's). variant:
+// DwVariant. partial: scratch of partial_floats floats, the ranges x
+// round_up(out_cols, 64) partials (unused at one range). info[4] gets the
+// ranges, units, kernel launches and the last wave's pieces a unit.
+// Returns a cudaError_t code.
+extern "C" int nm_field_layers_dw(int n_maps, const long long* bases, const int* cols,
+                                  const long long* lds, long long m, int n_jobs, const int* jobs,
+                                  long long out_cols, int ranges, int variant, float* out,
+                                  float* partial, long long partial_floats, int* info,
+                                  void* stream) {
+  if (n_maps <= 0 || n_maps > N_MAPS || m <= 0 || m > INT_MAX - SLAB_K || n_jobs <= 0 ||
+      n_jobs > MAX_JOBS || out_cols <= 0 || ranges < 0 || variant < DW_ROUTE ||
+      variant > DW_PLAIN)
+    return (int)cudaErrorInvalidValue;
+  std::vector<DwMapSpec> maps;
+  for (int i = 0; i < n_maps; ++i) {
+    if (bases[i] % 16 != 0 || cols[i] <= 0 || lds[i] < cols[i] || lds[i] % 8 != 0)
+      return (int)cudaErrorInvalidValue;
+    maps.push_back({reinterpret_cast<const bf16*>(bases[i]), cols[i], lds[i]});
+  }
+  std::vector<DwJob> js;
+  long long per_range = 0;
+  for (int j = 0; j < n_jobs; ++j) {
+    const int* v = jobs + 10 * j;
+    if (v[0] < 0 || v[0] >= n_maps || v[2] < 0 || v[2] >= n_maps || v[1] < 0 || v[3] < 0 ||
+        v[5] <= 0 || v[4] < v[5] || v[6] <= 0 || v[6] % 2 != 0 || v[7] < 0 || v[8] < v[6] ||
+        v[9] < 0 || (long long)v[7] + v[9] + (long long)(v[5] - 1) * v[8] + v[6] > out_cols)
+      return (int)cudaErrorInvalidValue;
+    js.push_back({v[0], 0, v[1], v[2], 0, v[3], v[4], v[5], v[6], v[7], v[8], v[9], 0, 0});
+    per_range += job_units(v[4], v[6]);
+  }
+  Card card;
+  int rc = query_card(&card);
+  if (rc == 0) rc = dw_attributes();
+  if (rc != 0) return rc;
+  const DwGroup grp = {0, out_cols, ranges > 0 ? ranges : ranges_for(per_range)};
+  const long long n_pad = (long long)round_up((size_t)m, SLAB_K);
+  const long long range_pts = (long long)round_up((size_t)blocks(n_pad, grp.ranges), SLAB_K);
+  const long long used = blocks(n_pad, range_pts);
+  if ((used > 1 || variant == DW_FUSED) &&
+      partial_floats < used * (long long)round_up((size_t)out_cols, 64))
+    return (int)cudaErrorInvalidValue;
+  int launches[N_COUNTERS] = {};
+  return launch_layer_dw(grp, maps.data(), n_maps, js.data(), n_jobs, m, partial, out,
+                         card.sms, static_cast<cudaStream_t>(stream), launches, variant, info);
 }

@@ -87,6 +87,7 @@ SIGNATURES = {
     "nm_field_layers_product_plan": (_I, [_I, _P]),
     "nm_field_layers_heads_bwd": (_I, [_P, _P, _LL, _I, _P, _P, _P, _P, _P, _P, _P]),
     "nm_field_layers_bias": (_I, [_I, _P, _P, _P, _P, _P, _P, _LL, _P]),
+    "nm_field_layers_dw": (_I, [_I, _P, _P, _P, _LL, _I, _P, _LL, _I, _I, _P, _P, _LL, _P, _P]),
     "nm_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

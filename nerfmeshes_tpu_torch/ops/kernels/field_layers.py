@@ -11,10 +11,14 @@ kernel, one product kernel launch per layer (persistent, warp-specialised
 wgmma on TMA-staged tiles, bias / ReLU / mask epilogues staged in shared
 memory and stored by TMA; `product_plan` mirrors its shared-memory plan,
 `product_tiles` its tile walk), a heads kernel, and for the backward its
-own heads kernel (one pass over h a block of points), the fused
-backward's dW leg with its fixed-order reductions (csrc/dw_leg.cuh), and
-one reduction of every bias grad a slab (`bias_segments`,
-`bias_scratch`).
+own heads kernel (one pass over h a block of points), a persistent dW
+kernel (a CTA per SM over the 128 x 256 blocks of dW a point range,
+range by range: the whole waves at 256 columns, the last wave's blocks in
+128- or 64-column pieces across the SMs, so that dW keeps its bits:
+`dw_groups` mirrors its ranges, `dw_plan` / `dw_walk` its launches and
+walk) with the fixed-order reduction of its range partials
+(csrc/dw_leg.cuh), and one reduction of every bias grad a slab
+(`bias_segments`, `bias_scratch`).
 
 What bounds it on an H100: each product moves its bf16 activations
 through device memory, H/2 FLOP per byte, above the card's ~295 FLOP/B
@@ -37,10 +41,11 @@ dispatch sends CPU tensors to the plain versions. `launches`,
 sigma and backward; `kernel_launches` each of its kernels' launches in
 those calls; a list put in `call_log` records each call's spec, kind and
 points (against which `call_launches` predicts kernel_launches). The PE,
-product, backward heads and bias-grad kernels alone (`layers_pe_cuda`,
-`layers_product_cuda`, `layers_heads_bwd_cuda`, `layers_bias_cuda`) are
-for their checks, beside their plain versions (`layers_bias_launcher`: the
-reduction's launch alone, to time it).
+product, backward heads, bias-grad and dW kernels alone (`layers_pe_cuda`,
+`layers_product_cuda`, `layers_heads_bwd_cuda`, `layers_bias_cuda`,
+`layers_dw_cuda` on a weight matrix's jobs, `route_dw_jobs`) are for their
+checks, beside their plain versions (`layers_bias_launcher`,
+`layers_dw_launcher`: a launch alone, to time it).
 """
 
 from __future__ import annotations
@@ -81,14 +86,19 @@ KINDS = {"fwd": 0, "sigma": 1, "bwd": 2}
 
 # csrc/field_layers.cu's constants: points per product tile (the slab's
 # step), points per heads block, the heads' cotangent rows, a PE column's
-# table entry, the dW units a weight matrix's launch aims at and its most
-# point ranges (csrc/fused_mlp_bwd.cuh:DW_RANGES).
+# table entry, the dW units a weight matrix's point ranges aim at and its
+# most ranges (csrc/fused_mlp_bwd.cuh:DW_RANGES), a dW unit's columns and
+# its last wave's narrowest piece; and the SMs dw_plan assumes (an
+# H100's).
 _ROWS = 128
 _HEAD_ROWS = 64
 _HEAD_LD = 16
 _PE_COL = 8
 _DW_UNITS = 264
 _DW_RANGES = 24
+_DW_COLS = 256
+_DW_MIN_PIECE = 64
+SMS = 132
 _MAX_SLAB = 65535 * _ROWS  # nm_field_layers' largest slab, in 128-point tiles
 
 
@@ -101,7 +111,8 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _job_units(m: int, n: int) -> int:
-    """dw_kernel's blocks for one point range of an m x n weight matrix."""
+    """dW units (128-row x 256-column blocks) of one point range of an m x n
+    job."""
     return _blocks(m, 128) * _blocks(n, 256)
 
 
@@ -109,19 +120,109 @@ def _ranges_for(units: int) -> int:
     return max(1, min(_DW_RANGES, _blocks(_DW_UNITS, units)))
 
 
+def _group_jobs(spec: MLPSpec) -> list[list[tuple[int, int]]]:
+    """(rows computed, columns) of each job of each dW launch, in
+    field_layers.cu's order: layer1, the trunk and feat products ([x | PE]
+    at skips), dir with the heads (16 cotangent rows each)."""
+    H, pxp, pdp = spec.hidden, spec.pxp, spec.pdp
+    ks = [k for _, k in spec.gemm_shapes()]
+    out = [[(H, pxp)]]
+    out += [[(H, H)] + ([(H, pxp)] if ks[g] > H else []) for g in range(1, spec.num_layers + 1)]
+    out.append([(H // 2, H), (H // 2, pdp), (_HEAD_LD, H), (_HEAD_LD, H // 2)])
+    return out
+
+
 def dw_groups(spec: MLPSpec) -> list[tuple[int, int]]:
     """The backward's dW launches (field_layers.cu:dw_groups): per weight
     matrix (layer1, trunk and feat products, then dir with the heads),
     (grads it writes, point ranges)."""
-    H, pxp, pdp = spec.hidden, spec.pxp, spec.pdp
-    ks = [k for _, k in spec.gemm_shapes()]
-    out = [(H * pxp, _ranges_for(_job_units(H, pxp)))]
-    for g in range(1, spec.num_layers + 1):
-        units = _job_units(H, H) + (_job_units(H, pxp) if ks[g] > H else 0)
-        out.append((H * ks[g], _ranges_for(units)))
-    out.append(((H // 2) * (H + pdp) + H + 3 * (H // 2),
-                _ranges_for(_job_units(H // 2, H) + _job_units(H // 2, pdp)
-                            + _job_units(_HEAD_LD, H) + _job_units(_HEAD_LD, H // 2))))
+    H, pdp = spec.hidden, spec.pdp
+    cols = [n * k for n, k in spec.gemm_shapes()[:-1]]
+    cols.append((H // 2) * (H + pdp) + H + 3 * (H // 2))
+    return [(c, _ranges_for(sum(_job_units(m, n) for m, n in jobs)))
+            for c, jobs in zip(cols, _group_jobs(spec))]
+
+
+class DwPlan(NamedTuple):
+    """A dW launch over m points: its point ranges (the points of each but
+    the last, a multiple of 64), units a range and in all, the units of
+    whole waves (at 256 columns), the column pieces a unit of the last wave
+    takes, and the kernel launches."""
+
+    ranges: int
+    range_pts: int
+    per_range: int
+    units: int
+    whole: int
+    pieces: int
+    launches: int
+
+
+def _range_split(m: int, ranges: int) -> tuple[int, int]:
+    """(points a range, ranges) of m points split into `ranges`: a multiple
+    of 64 points a range, so a short slab may take fewer."""
+    n_pad = _round_up(m, 64)
+    range_pts = _round_up(_blocks(n_pad, ranges), 64)
+    return range_pts, _blocks(n_pad, range_pts)
+
+
+def dw_pieces(left: int, sms: int = SMS) -> int:
+    """field_layers.cu:dw_pieces: column pieces a unit of the last wave
+    takes, the most of 1, 2 and 4 (256, 128, 64 columns) whose pieces the
+    SMs hold at once."""
+    pieces = 1
+    while pieces * _DW_MIN_PIECE < _DW_COLS and left * pieces * 2 <= sms:
+        pieces *= 2
+    return pieces
+
+
+def dw_plan(jobs: list[tuple[int, int]], m: int, ranges: int, sms: int = SMS,
+            plain: bool = False) -> DwPlan:
+    """field_layers.cu:launch_layer_dw's plan for jobs of (rows computed,
+    columns) over m points split into `ranges` ranges (a group's, from
+    dw_groups): the units of whole waves of `sms` SMs at 256 columns, in
+    one launch, then the rest in pieces of 128 or 64 columns (dw_pieces)
+    in a second (`plain`, the timing probe's variant: every unit at 256
+    columns, one launch)."""
+    range_pts, used = _range_split(m, ranges)
+    per_range = sum(_job_units(r, c) for r, c in jobs)
+    units = per_range * used
+    whole = units if plain else units // sms * sms
+    pieces = dw_pieces(units - whole, sms) if units > whole else 1
+    return DwPlan(used, range_pts, per_range, units, whole, pieces,
+                  int(whole > 0) + int(units > whole))
+
+
+def dw_walk(jobs: list[tuple[int, int]], plan: DwPlan, sms: int = SMS
+            ) -> list[list[list[tuple[int, int, int, int, int]]]]:
+    """layer_dw_kernel's walk: per launch, per CTA (one per SM, at most one
+    an item), in order, the (range, job, first column, first row, columns)
+    of each piece of a 128 x 256 block of a job over a point range it sums:
+    units go range by range, within a range job by job, each job's
+    256-column blocks, each block's 128-row blocks; the first launch's
+    whole units at 256 columns, the second's units in plan.pieces pieces
+    (none past a block's columns)."""
+    blocks = [(j, c0, r0, min(_DW_COLS, cols - c0)) for j, (rows, cols) in enumerate(jobs)
+              for c0 in range(0, cols, _DW_COLS) for r0 in range(0, rows, 128)]
+    assert len(blocks) == plan.per_range
+    out = []
+    for first, units, pieces in ((0, plan.whole, 1),
+                                 (plan.whole, plan.units - plan.whole, plan.pieces)):
+        if units == 0:
+            continue
+        items, width = units * pieces, _DW_COLS // pieces
+        ctas = min(items, sms)
+        launch = []
+        for cta in range(ctas):
+            parts = []
+            for i in range(cta, items, ctas):
+                u, q = first + i // pieces, i % pieces
+                j, c0, r0, n = blocks[u % plan.per_range]
+                if q * width < n:
+                    parts.append((u // plan.per_range, j, c0 + q * width, r0,
+                                  min(width, n - q * width)))
+            launch.append(parts)
+        out.append(launch)
     return out
 
 
@@ -258,13 +359,17 @@ def slab_launches(spec: MLPSpec, kind: str, m: int) -> dict[str, int]:
     """Each kernel's launches (KERNELS) in one slab of m points of a call of
     `kind`, as nm_field_layers launches them: a PE, the route's products
     (route_products), a heads launch (the forward's and sigma's heads
-    kernel, or the backward's); in the backward a dW launch and a
-    reduction of its range partials per weight matrix (dw_groups) and the
-    slab's bias grads in a launch per 32 bias vectors."""
+    kernel, or the backward's); in the backward per weight matrix
+    (dw_groups) a dW launch for its units of whole waves and one for the
+    rest (dw_plan, on an H100's SMs), a reduction of its range partials
+    where the slab splits into more than one range, and the slab's bias
+    grads in a launch per 32 bias vectors."""
     out = dict.fromkeys(KERNELS, 0)
     out.update(pe=1, product=len(route_products(spec, kind)))
     if kind == "bwd":
-        out.update(heads_bwd=1, dw=len(dw_groups(spec)), reduce=len(dw_groups(spec)),
+        plans = [dw_plan(jobs, m, r) for (_, r), jobs in zip(dw_groups(spec), _group_jobs(spec))]
+        out.update(heads_bwd=1, dw=sum(p.launches for p in plans),
+                   reduce=sum(p.ranges > 1 for p in plans),
                    bias=_blocks(len(bias_segments(spec, m)), _MAX_BIAS_SEGS))
     else:
         out.update(heads=1)
@@ -313,6 +418,11 @@ def _check_packed(packed: PackedMLP, device: torch.device, what: str) -> None:
 
 def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def card_sms(device: torch.device) -> int:
+    """The SMs of the CUDA card `device`, which the C plans the dW leg on."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _run(kind: str, packed: PackedMLP, src: torch.Tensor, dirs: torch.Tensor | None,
@@ -424,9 +534,10 @@ def layers_pe_plain(packed: PackedMLP, src: torch.Tensor, directions: torch.Tens
 
 
 def layers_pe_cuda(packed: PackedMLP, src: torch.Tensor, directions: torch.Tensor | None = None,
-                   z_vals: torch.Tensor | None = None
+                   z_vals: torch.Tensor | None = None, *, lib=None
                    ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """The PE kernel alone (nm_field_layers_pe), as layers_pe_plain."""
+    """The PE kernel alone (nm_field_layers_pe, of `lib`, default this
+    tree's build), as layers_pe_plain."""
     device = src.device
     if device.type != "cuda":
         raise ValueError(f"layers_pe_cuda needs CUDA tensors, got {device}")
@@ -445,7 +556,7 @@ def layers_pe_cuda(packed: PackedMLP, src: torch.Tensor, directions: torch.Tenso
     src = src.float().contiguous()
     dirs = None if directions is None else directions.float().contiguous()
     z = None if z_vals is None else z_vals.float().contiguous()
-    lib = build.load_library()
+    lib = lib or build.load_library()
     with torch.cuda.device(device):
         rc = lib.nm_field_layers_pe(
             src.data_ptr(), _ptr(dirs), _ptr(z), n_rays, samples,
@@ -453,7 +564,7 @@ def layers_pe_cuda(packed: PackedMLP, src: torch.Tensor, directions: torch.Tenso
             packed.freqs.size, table.data_ptr(), pe_x.data_ptr(), _ptr(pe_d),
             torch.cuda.current_stream(device).cuda_stream,
         )
-    build.check(lib, rc, "field_layers PE launch")
+    build.check(build.load_library(), rc, "field_layers PE launch")
     return pe_x, pe_d
 
 
@@ -607,6 +718,142 @@ def layers_bias_cuda(parts: list[torch.Tensor], outs: list[torch.Tensor]) -> lis
     outs = [o.float().clone() for o in outs]
     layers_bias_launcher(parts, outs)()
     return outs
+
+
+class DwJob(NamedTuple):
+    """One product of a dW launch: dy (P, rows) and x (P, cols) bf16, each
+    a view with unit column stride of a row-major array (its rows 16 B
+    aligned), whose (rows, cols) grads dy^T x are added at
+    out[w_off + col_off + row * ldw + col] of a flat f32 out."""
+
+    dy: torch.Tensor
+    x: torch.Tensor
+    w_off: int
+    ldw: int
+    col_off: int
+
+
+# launch_layer_dw's variants (field_layers.cu:DwVariant), for timing
+# probes: the route's kernel, the fused backward's dw_kernel on its
+# job-major units, every range reading the first range's points, every
+# unit at 256 columns (no pieces).
+DW_VARIANTS = {"route": 0, "fused": 1, "same_points": 2, "plain": 3}
+
+
+def route_dw_jobs(packed: PackedMLP, g: int, dy: torch.Tensor, x: torch.Tensor,
+                  pe: torch.Tensor | None = None, heads: tuple | None = None
+                  ) -> tuple[list[DwJob], int, int]:
+    """The jobs of the route's dW launch for weight matrix g (0 layer1, 1..L
+    the trunk and feat products, L + 1 dir with the heads) over one slab,
+    as nm_field_layers makes them: (jobs, offset of the group's grads in
+    the packed weights, their count). dy: the matrix's output cotangent
+    (P, n_g); x its input (P, H), or PE(xyz) for layer1; pe the PE part of
+    [x | PE] (a skip's PE(xyz), dir's PE(dir)); heads, for dir: (dy_a
+    (P, 16), trunk (P, H), dy_rgb (P, 16), h (P, H/2)), the alpha and rgb
+    heads' cotangents (their first 1 and 3 columns kept) and inputs."""
+    spec = packed.spec
+    n, k = spec.gemm_shapes()[g]
+    base = int(packed.desc[13 + g])
+    jobs = [DwJob(dy, x, 0, k, 0)]
+    if pe is not None:
+        jobs.append(DwJob(dy, pe, 0, k, k - pe.shape[1]))
+    cols = n * k
+    if g == spec.num_layers + 1:
+        dy_a, trunk, dy_rgb, h = heads
+        wa_off, _, wr_off, _ = (int(v) for v in packed.desc[9:13])
+        H = spec.hidden
+        jobs += [DwJob(dy_a[:, :1], trunk, wa_off - base, H, 0),
+                 DwJob(dy_rgb[:, :3], h, wr_off - base, H // 2, 0)]
+        cols = wr_off + 3 * (H // 2) - base
+    return jobs, base, cols
+
+
+def _dw_maps(jobs: list[DwJob]) -> list[tuple[int, int, int]]:
+    """The distinct operands of the jobs, as nm_field_layers_dw maps them:
+    (address, columns, row pitch)."""
+    return list(dict.fromkeys((t.data_ptr(), t.shape[1], t.stride(0))
+                              for j in jobs for t in (j.dy, j.x)))
+
+
+def _dw_ranges_of(jobs: list[DwJob]) -> int:
+    """The point ranges nm_field_layers_dw plans for these jobs
+    (ranges_for)."""
+    return _ranges_for(sum(_job_units(j.dy.shape[1], j.x.shape[1]) for j in jobs))
+
+
+def layers_dw_plain(jobs: list[DwJob], out: torch.Tensor, *, ranges: int = 0) -> torch.Tensor:
+    """Plain version of the dW leg (layer_dw_kernel and its range
+    reduction): out (flat f32) plus the jobs' grads dy^T x in f32 (bf16
+    products are exact in f32), taken per point range of the kernel's plan
+    (or `ranges`), the ranges added to out in order."""
+    m = jobs[0].dy.shape[0]
+    range_pts, used = _range_split(m, ranges or _dw_ranges_of(jobs))
+    result = out.float().clone()
+    for r in range(used):
+        rows = slice(r * range_pts, min(m, (r + 1) * range_pts))
+        part = torch.zeros_like(result)
+        for j in jobs:
+            block = j.dy[rows].float().t() @ j.x[rows].float()
+            part.as_strided(block.shape, (j.ldw, 1), j.w_off + j.col_off).copy_(block)
+        result += part
+    return result
+
+
+def layers_dw_launcher(jobs: list[DwJob], out: torch.Tensor, *, ranges: int = 0,
+                       variant: str = "route", lib=None):
+    """A launch of the dW leg alone (nm_field_layers_dw, of `lib`, default
+    this tree's build) on CUDA bf16 jobs over one slab of points, adding
+    their grads into the flat f32 CUDA tensor out in place: its host
+    arrays and scratch made once, so the returned function launches the
+    kernel (and its reduction) and nothing else; it returns (point ranges,
+    units, kernel launches, the last wave's pieces a unit). ranges 0: the
+    plan's (ranges_for); variant: a key of DW_VARIANTS."""
+    device = out.device
+    if device.type != "cuda" or any(t.device.type != "cuda" for j in jobs for t in (j.dy, j.x)):
+        raise ValueError(f"layers_dw_cuda needs CUDA tensors, got {device}")
+    m = jobs[0].dy.shape[0]
+    for t in (t for j in jobs for t in (j.dy, j.x)):
+        if t.dtype != torch.bfloat16 or t.dim() != 2 or t.shape[0] != m or t.stride(1) != 1:
+            raise ValueError(f"dW operands must be (m, cols) bf16 row views, got {tuple(t.shape)}"
+                             f" {t.dtype} strides {t.stride()}")
+    maps = _dw_maps(jobs)
+    index = {key: i for i, key in enumerate(maps)}
+
+    def map_of(t: torch.Tensor) -> int:
+        return index[(t.data_ptr(), t.shape[1], t.stride(0))]
+
+    rows = [(map_of(j.dy), 0, map_of(j.x), 0, j.dy.shape[1], j.dy.shape[1], j.x.shape[1],
+             j.w_off, j.ldw, j.col_off) for j in jobs]
+    cols = out.numel()
+    used = _range_split(m, ranges or _dw_ranges_of(jobs))[1]
+    scratch = torch.empty(used * _round_up(cols, 64), dtype=torch.float32, device=device)
+    arr = [np.asarray(v, dtype=dtype) for v, dtype in (
+        ([k[0] for k in maps], np.int64), ([k[1] for k in maps], np.int32),
+        ([k[2] for k in maps], np.int64), ([v for r in rows for v in r], np.int32))]
+    info = (ctypes.c_int * 4)()
+    lib = lib or build.load_library()
+
+    def launch() -> tuple[int, int, int, int]:
+        with torch.cuda.device(device):
+            rc = lib.nm_field_layers_dw(len(maps), arr[0].ctypes.data, arr[1].ctypes.data,
+                                        arr[2].ctypes.data, m, len(rows), arr[3].ctypes.data,
+                                        cols, ranges, DW_VARIANTS[variant], out.data_ptr(),
+                                        scratch.data_ptr(), scratch.numel(),
+                                        ctypes.addressof(info),
+                                        torch.cuda.current_stream(device).cuda_stream)
+        build.check(build.load_library(), rc, "field_layers dW launch")
+        return info[0], info[1], info[2], info[3]
+    return launch
+
+
+def layers_dw_cuda(jobs: list[DwJob], out: torch.Tensor, *, ranges: int = 0,
+                   variant: str = "route", lib=None) -> torch.Tensor:
+    """The dW leg alone (nm_field_layers_dw), as layers_dw_plain with the
+    ranges the kernel plans on this card (or `ranges`): out plus the jobs'
+    grads, in a copy of out."""
+    result = out.float().clone()
+    layers_dw_launcher(jobs, result, ranges=ranges, variant=variant, lib=lib)()
+    return result
 
 
 def layers_workspace_c(packed: PackedMLP, kind: str, slab: int) -> int:

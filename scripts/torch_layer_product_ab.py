@@ -75,10 +75,12 @@ def compile_tree(root: Path) -> Path:
 
 
 def load(lib_path: Path) -> ctypes.CDLL:
+    """The library with the signature of every entry point it has."""
     lib = ctypes.CDLL(str(lib_path))
-    for name in ("nm_field_layers", "nm_field_layers_product"):
-        fn = getattr(lib, name)
-        fn.restype, fn.argtypes = build.SIGNATURES[name]
+    for name, signature in build.SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = signature
     return lib
 
 

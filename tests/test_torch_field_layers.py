@@ -316,7 +316,9 @@ def test_product_plain_and_wrappers_refuse_cpu_tensors(rng):
                  lambda: fl.layers_pe_cuda(packed, o, d, z),
                  lambda: fl.layers_product_cuda(a1, a2, w, 64),
                  lambda: fl.layers_heads_bwd_cuda(packed, h, torch.zeros((4, R * S))),
-                 lambda: fl.layers_bias_cuda([torch.zeros((3, 4))], [torch.zeros(4)])):
+                 lambda: fl.layers_bias_cuda([torch.zeros((3, 4))], [torch.zeros(4)]),
+                 lambda: fl.layers_dw_cuda([fl.DwJob(h, h, 0, h.shape[1], 0)],
+                                           torch.zeros(h.shape[1] ** 2))):
         with pytest.raises(ValueError, match="CUDA"):
             call()
 
@@ -521,20 +523,27 @@ def test_launch_mirror_of_a_call(kw, slabs):
     """The launches the chip smoke holds the route's counts to: per slab a
     PE, the route's products, a heads launch (the backward's heads kernel
     counted apart from the forward's and sigma's); in the backward, per
-    weight matrix a dW launch and a reduction of its range partials, and
-    one bias-grad launch: 11 reduction launches a slab at 8 layers (21
-    before the bias grads shared one launch); per call the slabs'."""
+    weight matrix a dW launch (two where its units leave a last wave part
+    full: dw_plan) and a reduction of its range partials, and one
+    bias-grad launch: 11 reduction launches a slab at 8 layers (21 before
+    the bias grads shared one launch); per call the slabs'."""
     spec = fm.spec_from_model(FlexibleNeRFModel(**kw, device="meta"))
     per_slab = fl.slab_launches(spec, "bwd", 128)
-    assert per_slab == {"pe": 1, "product": 2 * 8 + 3, "heads": 0, "dw": 10, "reduce": 10,
-                        "bias": 1, "heads_bwd": 1}
+    groups = list(zip(fl.dw_groups(spec), fl._group_jobs(spec)))
+    dw = sum(fl.dw_plan(jobs, 128, r).launches for (_, r), jobs in groups)
+    assert per_slab == {"pe": 1, "product": 2 * 8 + 3, "heads": 0, "dw": dw, "reduce": 10,
+                        "bias": 1, "heads_bwd": 1} and 10 <= dw <= 20
     assert per_slab["reduce"] + per_slab["bias"] == 11
     assert fl.slab_launches(spec, "fwd", 128) == {"pe": 1, "product": 10, "heads": 1, "dw": 0,
                                                   "reduce": 0, "bias": 0, "heads_bwd": 0}
     assert fl.slab_launches(spec, "sigma", 128)["product"] == 8
     n = 2048 * 192
-    assert -(-n // fl.slab_points(spec, "bwd", n)) == slabs
-    assert fl.call_launches(spec, "bwd", n) == {k: v * slabs for k, v in per_slab.items()}
+    slab = fl.slab_points(spec, "bwd", n)
+    assert -(-n // slab) == slabs
+    want = {k: v * slabs for k, v in per_slab.items()}
+    want["dw"] = sum(fl.dw_plan(jobs, min(slab, n - row0), r).launches
+                     for row0 in range(0, n, slab) for (_, r), jobs in groups)
+    assert fl.call_launches(spec, "bwd", n) == want and 10 * slabs < want["dw"] <= 20 * slabs
     assert fl.call_launches(spec, "fwd", 0) == dict.fromkeys(fl.KERNELS, 0)
     # past 29 layers the bias vectors take two launches a slab
     deep = fm.spec_from_model(FlexibleNeRFModel(**dict(LEGO, num_layers=40, skip_step=3),
@@ -573,3 +582,153 @@ def test_heads_and_bias_plain_are_the_plain_backward_s(rng, kw):
     assert torch.equal(dy_a[:, 0], cot[3].reshape(-1).bfloat16())
     assert not dy_rgb[:, 3:].float().any() and not dy_a[:, 1:].float().any()
     assert dy_dir.dtype == torch.bfloat16 and dy_dir.shape == (R * S, H // 2)
+
+
+# The dW leg's plan (dw_groups, dw_plan, dw_walk: the mirrors of
+# field_layers.cu's): the (block, range) units, the whole waves and the last
+# wave's pieces.
+DW_ROWS = [1, 63, 64, 65, 4097, 39936, 82944]
+
+
+@pytest.mark.parametrize("spec", [s for _, s in LAYER_SPECS], ids=[i for i, _ in LAYER_SPECS])
+def test_dw_walk_covers_every_block_and_range_once(spec):
+    """For every dW launch of the field at its 2048 x 192 backward slab and
+    at ragged point counts: the walk (132 SMs) sums every column of each
+    128 x 256 block of each job over each point range exactly once; the
+    ranges cover the points in whole 64-point slabs (the last one short);
+    the first launch's units fill whole waves at 256 columns, the second
+    takes the rest in pieces of 128 or 64 columns, as many as the SMs hold
+    at once; a launch's CTAs walk their items in unit order, range by
+    range."""
+    slab = fl.slab_points(spec, "bwd", 2048 * 192)
+    for (cols, ranges), jobs in zip(fl.dw_groups(spec), fl._group_jobs(spec)):
+        assert 1 <= ranges <= 24
+        for m in DW_ROWS + [slab]:
+            plan = fl.dw_plan(jobs, m, ranges)
+            n_pad = -(-m // 64) * 64
+            assert plan.range_pts % 64 == 0 and (plan.ranges - 1) * plan.range_pts < n_pad
+            assert plan.ranges * plan.range_pts >= n_pad and plan.ranges <= ranges
+            assert plan.whole % 132 == 0 and plan.units - plan.whole < 132
+            left = plan.units - plan.whole
+            assert plan.pieces in (1, 2, 4) and (left == 0 or left * plan.pieces <= 132)
+            assert plan.pieces == 4 or left == 0 or left * plan.pieces * 2 > 132
+            walk = fl.dw_walk(jobs, plan)
+            assert len(walk) == plan.launches == (plan.whole > 0) + (left > 0)
+            want = {(r, j, c0, r0): set(range(c0, c0 + min(256, n - c0)))
+                    for r in range(plan.ranges) for j, (rows, n) in enumerate(jobs)
+                    for c0 in range(0, n, 256) for r0 in range(0, rows, 128)}
+            got = {}
+            for launch in walk:
+                assert len(launch) <= 132
+                for parts in launch:
+                    units = [(r, j, b, r0) for r, j, b, r0, _ in parts]
+                    assert units == sorted(units)
+                    for r, j, c, r0, width in parts:
+                        block = (r, j, c - c % 256, r0)
+                        cols_ = set(range(c, c + width))
+                        assert not cols_ & got.get(block, set())
+                        got.setdefault(block, set()).update(cols_)
+            assert got == want
+
+
+# (width, the trunk matrices' whole-wave units and last-wave pieces a
+# unit) at the smoke's 2048 x 192 backward slab of an 8-layer field.
+WAVE_WIDTHS = [(512, 132, 2), (1024, 264, 4), (2048, 264, 1)]
+
+
+@pytest.mark.parametrize("hidden,whole,pieces", WAVE_WIDTHS)
+def test_dw_units_fill_whole_waves(hidden, whole, pieces):
+    """At the smoke's backward slab, every dW launch of an 8-layer field
+    keeps the route's point ranges (dw_groups, so dW keeps its bits) and
+    runs its units in whole waves of the 132 SMs, then the last wave's
+    units in as many column pieces as fill the SMs: at 1024 wide 264 units
+    and 24 in 64-column pieces (96 CTAs), where a CTA a unit ran a third
+    wave of 24 units on 132 SMs; the modelled time (waves of a unit's
+    slabs, a piece a quarter or half of one) never longer than that."""
+    spec = fm.spec_from_model(FlexibleNeRFModel(**dict(LEGO, hidden_size=hidden),
+                                                device="meta"))
+    slab = fl.slab_points(spec, "bwd", 2048 * 192)
+    for g, ((cols, r), jobs) in enumerate(zip(fl.dw_groups(spec), fl._group_jobs(spec))):
+        plan = fl.dw_plan(jobs, slab, r)
+        if jobs == [(hidden, hidden)]:
+            assert (plan.whole, plan.pieces) == (whole, pieces), plan
+        left = plan.units - plan.whole
+        modelled = plan.whole // 132 + (left > 0) / plan.pieces
+        assert modelled <= -(-plan.units // 132), (g, plan)
+
+
+def test_dw_pieces_fill_the_sms():
+    """dw_pieces: 64-column pieces where four a unit fit the SMs, 128 where
+    two do, else whole units; more SMs take more pieces."""
+    assert [fl.dw_pieces(n) for n in (1, 33, 34, 66, 67, 131)] == [4, 4, 2, 2, 1, 1]
+    assert fl.dw_pieces(66, sms=264) == 4
+    assert fl.dw_plan([(1024, 1024)], 82944, 9) == fl.DwPlan(9, 9216, 32, 288, 264, 4, 2)
+    assert fl.dw_plan([(1024, 1024)], 82944, 9, plain=True) == fl.DwPlan(9, 9216, 32, 288,
+                                                                         288, 1, 1)
+    assert fl.dw_plan([(256, 256)], 131072, 24) == fl.DwPlan(24, 5504, 2, 48, 0, 2, 1)
+
+
+@pytest.mark.parametrize("spec", [s for _, s in LAYER_SPECS], ids=[i for i, _ in LAYER_SPECS])
+def test_workspace_holds_the_dw_partials(spec):
+    """The backward workspace's dW region holds the largest launch's
+    partials, ranges x grads rounded to 64 floats, which every slab of a
+    call fits (a short last slab takes no more ranges); the carries lie
+    beside the workspace (fl.dw_scratch_for), so the slabs are the ones
+    the route planned before its dW kernel carried units."""
+    for n in (2048 * 192, 65536 * 192, 5000):
+        slab = fl.slab_points(spec, "bwd", n)
+        layout = fl.workspace_layout(spec, "bwd", slab)
+        need = max(r * -(-c // 64) * 64 for c, r in fl.dw_groups(spec)) * 4
+        assert layout["dwpart"][1] == need and list(layout)[-2:] == ["dwpart", "total"]
+        for m in (slab, n - (n - 1) // slab * slab, 1):
+            for (c, r), jobs in zip(fl.dw_groups(spec), fl._group_jobs(spec)):
+                assert fl.dw_plan(jobs, m, r).ranges * -(-c // 64) * 64 * 4 <= need
+
+
+@pytest.mark.parametrize("kw", [ARCHS[0], ARCHS[3]], ids=["3x1152", "16x128"])
+def test_dw_plain_is_the_plain_backward_s(rng, kw):
+    """The dW leg's plain version over the route's jobs (route_dw_jobs: each
+    weight matrix's, [x | PE] at skips, dir's with the heads') on the
+    activations and cotangents of a plain backward (fm.fused_mlp_bwd_plain,
+    held to JAX's Pallas kernel above) gives that backward's dW, every
+    packed weight once, at one point range and at the kernel's plan; f32
+    sums of exact bf16 products in another order: within 1e-5 of the sum
+    of magnitudes."""
+    _, _, tm = _pair(kw)
+    packed = fm.pack_weights(tm)
+    spec = packed.spec
+    H, L = spec.hidden, spec.num_layers
+    o, d, z = (torch.from_numpy(a) for a in _rays(rng))
+    cot = torch.from_numpy(rng.standard_normal((4, R, S)).astype(np.float32))
+    dW, _ = fm.fused_mlp_bwd_plain(packed, o, d, z, cot)
+    bf = torch.bfloat16
+    pe_x, pe_d = fl.layers_pe_plain(packed, o, d, z)
+    xs = [fm._layer(packed, pe_x.float(), 0, H, relu=False).to(bf)]
+    for i in range(L - 1):
+        a = torch.cat([xs[-1].float(), pe_x.float()], 1) if i in spec.skip_layers else xs[-1]
+        xs.append(fm._layer(packed, a.float(), 1 + i, H, relu=True).to(bf))
+    feat = fm._layer(packed, xs[-1].float(), L, H, relu=True).to(bf)
+    h = fm._layer(packed, torch.cat([feat, pe_d], 1).float(), L + 1, H // 2, relu=True).to(bf)
+    dy_rgb, dy_a, dy_dir, _ = fl.layers_heads_bwd_plain(packed, h, cot.reshape(4, -1))
+    wa, _, _, _ = packed.heads()
+    groups = {L + 1: (dy_dir, feat, pe_d, (dy_a, xs[-1], dy_rgb, h))}
+    w = lambda g: packed.gemm(g, *spec.gemm_shapes()[g])[0][:, :H].float()  # noqa: E731
+    df = (dy_dir.float() @ w(L + 1) * (feat.float() > 0)).to(bf)
+    groups[L] = (df, xs[-1], None, None)
+    dy = df.float() @ w(L) + dy_a[:, :1].float() @ wa.float()
+    for i in reversed(range(L - 1)):  # trunk product 1 + i: input xs[i], output xs[i + 1]
+        dy = (dy * (xs[i + 1].float() > 0)).to(bf)
+        groups[1 + i] = (dy, xs[i], pe_x if i in spec.skip_layers else None, None)
+        dy = dy.float() @ w(1 + i)
+    groups[0] = (dy.to(bf), pe_x, None, None)
+    covered = 0
+    for g, (dy_g, x_g, pe_g, heads) in sorted(groups.items()):
+        jobs, base, cols = fl.route_dw_jobs(packed, g, dy_g, x_g, pe_g, heads)
+        want = dW[base:base + cols]
+        mag = fl.layers_dw_plain([j._replace(dy=j.dy.abs(), x=j.x.abs()) for j in jobs],
+                                 torch.zeros(cols), ranges=1)
+        for ranges in (1, 0):
+            got = fl.layers_dw_plain(jobs, torch.zeros(cols), ranges=ranges)
+            assert bool(((got - want).abs() <= 1e-5 * mag + 1e-6).all()), (g, ranges)
+        covered += cols
+    assert covered == packed.weights.numel()

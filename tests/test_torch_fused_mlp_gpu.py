@@ -8,9 +8,10 @@ grad bits on a seeded case; the backward's dW leg alone
 (nm_dw_product) against torch.mm: one MN-major wgmma product, then the
 edges of its 64-point stages, 128-row blocks and point ranges; and the
 layer route (csrc/field_layers.cu): its product kernel, its backward's
-heads kernel and bias-grad reduction alone, and the route's forward,
-sigma and backward at every shape field_route sends it (512-1024 wide
-among them), in slabs, with its bits.
+heads kernel, bias-grad reduction and dW leg alone, its PE kernel bit for
+bit the fused kernels' PE, and the route's forward, sigma and backward at
+every shape field_route sends it (512-1024 wide among them), in slabs,
+with its bits.
 
 A CUDA kernel has no CPU mode, so these tests carry the `gpu` marker and
 skip without a card. On a GPU host:
@@ -891,37 +892,183 @@ def test_layer_route_in_slabs(cuda, kw, monkeypatch):
                       fm.fused_mlp_bwd_plain(packed, o, d, z, cot))
 
 
-def test_layer_pe_is_the_fused_pe(cuda):
-    """On a model both routes could take (lego, 1000 x 7 rays), the layer
-    route's PE kernel gives bit for bit the PE the fused backward's tile
-    kernel builds for its first product (and stashes: the first
-    pxp + pdp columns of each of the workspace's first rows); at points,
-    the fused sigma kernel's PE(xyz) alike."""
-    packed, args = _grad_case(LEGO, 1000, 7, cuda, seed=4)
-    spec = packed.spec
+def _fused_stash_pe(kw, R, S, device, seed):
+    """(packed, rays, the PE the fused backward's tile kernel builds for its
+    first product and stashes: [PE(xyz) | PE(dir)] rows of the workspace)."""
+    packed, args = _grad_case(kw, R, S, device, seed=seed)
     lib = build.load_library()
     nbytes = ctypes.c_longlong(0)
     rc = lib.nm_fused_mlp_bwd_workspace(packed.desc.ctypes.data, packed.desc.size,
-                                        packed.freqs.ctypes.data, packed.freqs.size, 7000,
+                                        packed.freqs.ctypes.data, packed.freqs.size, R * S,
                                         ctypes.byref(nbytes))
     build.check(lib, rc, "fused_mlp_bwd workspace")
-    workspace = torch.zeros(nbytes.value, dtype=torch.uint8, device=cuda)
+    workspace = torch.zeros(nbytes.value, dtype=torch.uint8, device=device)
     _bwd_into(packed, args, workspace)
-    cols = spec.pxp + spec.pdp
-    stash = workspace[:7000 * cols * 2].view(torch.bfloat16).view(7000, cols)
+    cols = packed.spec.pxp + packed.spec.pdp
+    stash = workspace[:R * S * cols * 2].view(torch.bfloat16).view(R * S, cols)
+    return packed, args, stash
+
+
+# (bands, rays, samples): the lego's 10/4 at 7 samples a ray (blocks of
+# 128 points over 19 rays), mip-NeRF's 16/4 (sin and cos arguments past
+# the fast path's range) at 192 samples (a block inside one ray) and at one
+# (a ray a point), and 32/4 at 64 samples, past the fused kernels' 24
+# bands: its first 24 bands are a 24-band field's, which the fused kernels
+# build.
+PE_CASES = [(10, 1000, 7), (16, 40, 192), (16, 5000, 1), (32, 100, 64)]
+
+
+@pytest.mark.parametrize("L_x,R,S", PE_CASES, ids=["L10-S7", "L16-S192", "L16-S1", "L32-S64"])
+def test_layer_pe_is_the_fused_pe(cuda, L_x, R, S):
+    """On a model both routes could take (lego, L_x/4 bands), the layer
+    route's PE kernel gives bit for bit the PE the fused backward's tile
+    kernel builds for its first product (and stashes: the first pxp + pdp
+    columns of each of the workspace's first rows); at points, the same
+    PE(xyz) as of the rays. Past 24 bands the fused kernels take none: the
+    32-band PE's raw columns, first 24 bands of sin and cos, padding and
+    PE(dir) are the 24-band fused PE's, bit for bit, its last 8 bands
+    finite sines and cosines."""
+    kw = dict(LEGO, num_encoding_fn_xyz=L_x)
+    packed, args, stash = _fused_stash_pe(dict(kw, num_encoding_fn_xyz=min(L_x, 24)), R, S, cuda,
+                                          L_x)
+    fused_spec = packed.spec
+    if L_x > 24:
+        torch.manual_seed(L_x)
+        packed = fm.pack_weights(FlexibleNeRFModel(**kw, compute_dtype=torch.bfloat16,
+                                                   device=cuda))
+    spec = packed.spec
     pe_x, pe_d = fl.layers_pe_cuda(packed, *args[:3])
     torch.cuda.synchronize()
-    assert torch.equal(pe_x, stash[:, :spec.pxp]) and torch.equal(pe_d, stash[:, spec.pxp:])
-    want_x, want_d = fl.layers_pe_plain(packed, *args[:3])
-    torch.testing.assert_close(pe_x.float(), want_x.float(), atol=1e-2, rtol=1e-2)
-    torch.testing.assert_close(pe_d.float(), want_d.float(), atol=1e-2, rtol=1e-2)
+    assert torch.equal(pe_d, stash[:, fused_spec.pxp:])
+    want_x = stash[:, :fused_spec.pxp]
+    if L_x > 24:  # columns of the first 24 bands: raw 3, sin (c, l) at 3 + c L + l, cos after
+        L, F = L_x, 24
+        cols = [0, 1, 2] + [3 + k * 3 * L + c * L + band for k in (0, 1) for c in range(3)
+                            for band in range(F)]
+        want_cols = [0, 1, 2] + [3 + k * 3 * F + c * F + band for k in (0, 1) for c in range(3)
+                                 for band in range(F)]
+        assert torch.equal(pe_x[:, cols], want_x[:, want_cols])
+        rest = [c for c in range(3, 3 + 6 * L) if c not in cols]
+        assert bool(torch.isfinite(pe_x[:, rest].float()).all())
+        assert float(pe_x[:, rest].float().abs().max()) <= 1.0
+        assert not pe_x[:, 3 + 6 * L:].float().any() and pe_x.shape[1] == spec.pxp
+    else:
+        assert torch.equal(pe_x, want_x)
+        want_x, want_d = fl.layers_pe_plain(packed, *args[:3])
+        torch.testing.assert_close(pe_x.float(), want_x.float(), atol=1e-2, rtol=1e-2)
+        torch.testing.assert_close(pe_d.float(), want_d.float(), atol=1e-2, rtol=1e-2)
     # at points (the sigma kernel's input), PE(xyz) of the rays' points
-    pts = args[0][:, None, :] + args[1][:, None, :] * args[2][..., None]
-    zeros = torch.zeros((7000, 3), device=cuda)
-    at_points = fl.layers_pe_cuda(packed, pts.reshape(-1, 3))[0]
-    assert torch.equal(at_points, fl.layers_pe_cuda(packed, pts.reshape(-1, 3), zeros,
-                                                    zeros[:, :1])[0])
+    pts = (args[0][:, None, :] + args[1][:, None, :] * args[2][..., None]).reshape(-1, 3)
+    zeros = torch.zeros((R * S, 3), device=cuda)
+    at_points = fl.layers_pe_cuda(packed, pts)[0]
+    assert torch.equal(at_points, fl.layers_pe_cuda(packed, pts, zeros, zeros[:, :1])[0])
 
+
+# The route's dW leg alone (layer_dw_kernel and its range reduction):
+# each LAYER_ARCHS field's launches (layer1, a skip's [x | PE], feat, dir
+# with the heads' jobs) over a slab of points not a multiple of 64;
+# its plan's ranges, and forced ones: one range (the unit adds to the
+# running grads itself), more units than the SMs take at once.
+DW_POINTS = 4097
+
+
+def _dw_jobs(packed, g, m, device, seed):
+    """Seeded bf16 operands of weight matrix g's dW launch over m points
+    (route_dw_jobs), and the group's flat running grads."""
+    spec = packed.spec
+    H = spec.hidden
+    n, k = spec.gemm_shapes()[g]
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def randn(cols):
+        return torch.randn((m, cols), generator=gen, device=device).to(torch.bfloat16)
+
+    dy = randn(n)
+    if g == 0:
+        x, pe, heads = randn(spec.pxp), None, None
+    else:
+        x = randn(H)
+        pe = randn(k - H) if k > H else None
+        heads = (randn(16), randn(H), randn(16), randn(H // 2)) if g == spec.num_layers + 1 \
+            else None
+    jobs, _, cols = fl.route_dw_jobs(packed, g, dy, x, pe, heads)
+    out = torch.randn(cols, generator=gen, device=device)
+    return jobs, out
+
+
+def _hold_dw(jobs, out, got, ranges):
+    """got against the plain version at the same ranges and against an f32
+    torch.mm of the bf16 operands, within 1e-4 of the sum of the products'
+    magnitudes (each sums exact bf16 products in f32 in another order)."""
+    want = fl.layers_dw_plain(jobs, out, ranges=ranges)
+    mag = fl.layers_dw_plain([j._replace(dy=j.dy.abs(), x=j.x.abs()) for j in jobs],
+                             out.abs(), ranges=1)
+    mm = out.clone()
+    for j in jobs:
+        block = j.dy.float().t() @ j.x.float()
+        view = mm.as_strided(block.shape, (j.ldw, 1), j.w_off + j.col_off)
+        view += block
+    for ref in (want, mm):
+        assert bool(((got - ref).abs() <= 1e-4 * mag + 1e-6).all()), \
+            float(((got - ref).abs() / (mag + 1e-6)).max())
+
+
+@pytest.mark.parametrize("kw", LAYER_ARCHS, ids=LAYER_IDS)
+def test_layer_dw_matches_plain(cuda, kw):
+    """layer_dw_kernel against its plain version and torch.mm at the ranges
+    of its plan, for every weight matrix kind of the field; two launches
+    bitwise equal, and bit for bit the fused backward's dw_kernel on the
+    same ranges (the last wave's column pieces sum each element as a whole
+    unit does); the launch's ranges, units, kernel launches and pieces are
+    the Python mirror's (dw_plan)."""
+    packed = _layer_model(kw, cuda)
+    spec = packed.spec
+    L = spec.num_layers
+    skips = [g for g in range(1, L + 1) if spec.gemm_shapes()[g][1] > spec.hidden]
+    sms = fl.card_sms(cuda)
+    for g in [0, *skips[:1], L, L + 1]:
+        jobs, out = _dw_jobs(packed, g, DW_POINTS, cuda, seed=g)
+        got = fl.layers_dw_cuda(jobs, out)
+        again = fl.layers_dw_cuda(jobs, out)
+        fused = fl.layers_dw_cuda(jobs, out, variant="fused")
+        info = fl.layers_dw_launcher(jobs, out.clone())()
+        torch.cuda.synchronize()
+        assert torch.equal(got, again) and torch.equal(got, fused), g
+        shapes = [(j.dy.shape[1], j.x.shape[1]) for j in jobs]
+        ranges = fl._dw_ranges_of(jobs)
+        plan = fl.dw_plan(shapes, DW_POINTS, ranges, sms)
+        assert info == (plan.ranges, plan.units, plan.launches, plan.pieces), g
+        _hold_dw(jobs, out, got, ranges)
+
+
+# (hidden, points, forced ranges) of the trunk matrix: one range over a
+# ragged slab (adding to the grads in place); 2048 wide at 9 ranges (1152
+# units: 8 whole waves and 96 units at 256 columns); 1024 wide over 5,000
+# points at 24 ranges (20 ranges of 256 points: 640 units, 4 waves and 112
+# at 256 columns) and over 20,000 at 5 (160: a wave and 28 units in
+# 64-column pieces); 128 wide at 3 ranges (3 units of 128 columns, in two
+# 64-column pieces each); one point; ranges past the slabs (as many as the
+# 64-point slabs take).
+DW_EDGES = [(1024, 1000, 1), (2048, 20000, 9), (1024, 5000, 24), (1024, 20000, 5),
+            (128, 777, 3), (512, 1, 1), (256, 300, 7)]
+
+
+@pytest.mark.parametrize("H,m,ranges", DW_EDGES)
+def test_layer_dw_edges(cuda, H, m, ranges):
+    """The trunk matrix's and the dir group's (heads) dW at forced ranges,
+    against plain and torch.mm, and bit for bit the fused backward's
+    dw_kernel and the kernel without column pieces on the same ranges."""
+    torch.manual_seed(0)
+    packed = fm.pack_weights(FlexibleNeRFModel(**dict(LEGO, num_layers=2, hidden_size=H),
+                                               compute_dtype=torch.bfloat16, device=cuda))
+    for g in (1, 3):
+        jobs, out = _dw_jobs(packed, g, m, cuda, seed=H + m + g)
+        got = fl.layers_dw_cuda(jobs, out, ranges=ranges)
+        fused = fl.layers_dw_cuda(jobs, out, ranges=ranges, variant="fused")
+        plain = fl.layers_dw_cuda(jobs, out, ranges=ranges, variant="plain")
+        torch.cuda.synchronize()
+        _hold_dw(jobs, out, got, ranges)
+        assert torch.equal(got, fused) and torch.equal(got, plain), g
 
 @pytest.mark.parametrize("kw", LAYER_ARCHS, ids=LAYER_IDS)
 def test_layer_workspace_is_the_c_layout(cuda, kw):
