@@ -204,6 +204,7 @@ import functools
 import gc
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -415,15 +416,13 @@ def _dw_products(spec, n_pts: int) -> tuple[list, int]:
     stash of n_pts points: ([(dY offset, dY row stride, dW rows, X offset,
     X row stride, X's first column, dW columns)], stash elements), offsets
     in bf16 elements of stash_layout, rows padded to 128 points."""
+    from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
+
     H, L, pxp, pdp = spec.hidden, spec.num_layers, spec.pxp, spec.pdp
     n = -(-n_pts // 128) * 128
-    act = n * (pxp + pdp)
-    feat = act + n * H * L
-    h = feat + n * H
-    dy = h + n * H // 2
-    dy_dir = dy + n * H * (L + 1)
-    dy_a = dy_dir + n * H // 2
-    dy_rgb = dy_a + n * 16
+    st = fm.stash_layout(spec, n)
+    act, feat, h, dy, dy_dir, dy_a, dy_rgb = (
+        st[k] for k in ("act", "feat", "h", "dy", "dy_dir", "dy_a", "dy_rgb"))
     jobs = [(dy, H, H, 0, pxp + pdp, 0, pxp)]
     for i in range(L - 1):
         jobs.append((dy + (1 + i) * n * H, H, H, act + i * n * H, H, 0, H))
@@ -434,7 +433,7 @@ def _dw_products(spec, n_pts: int) -> tuple[list, int]:
              (dy_dir, H // 2, H // 2, 0, pxp + pdp, pxp, pdp),
              (dy_a, 16, 1, act + (L - 1) * n * H, H, 0, H),
              (dy_rgb, 16, 3, h, H // 2, 0, H // 2)]
-    return jobs, dy_rgb + n * 16
+    return jobs, st["end"]
 
 
 def _dw_library_ms(spec, n_pts: int, device) -> float:
@@ -1480,9 +1479,11 @@ def breakdowns(card: str, device) -> dict:
     process's use of the card can lack kernels): the fused backward's legs
     (fused_legs) on the lego field and at WIDE_LEG_WIDTHS, the layer
     route's kernels at LAYER_LEG_CASES (layer_legs), the chord kernel at
-    the per-rank shape (per_rank_chords_ms). {"fused": {"lego" | "w512" |
-    "w1024": legs}, "layers": layer_legs' result, "per_rank_chords": ms}."""
-    fused = {"lego": fused_legs(_lego_bf16_cfg(), card, device)}
+    the per-rank shape (per_rank_chords_ms). {"fused": {"lego" |
+    "lego_coarse" (its coarse call) | "w512" | "w1024": legs}, "layers":
+    layer_legs' result, "per_rank_chords": ms}."""
+    fused = {"lego": fused_legs(_lego_bf16_cfg(), card, device),
+             "lego_coarse": fused_legs(_lego_bf16_cfg(), card, device, coarse=True)}
     for H in WIDE_LEG_WIDTHS:
         fused[f"w{H}"] = fused_legs(wide_cfg(H), card, device)
         gc.collect()
@@ -1958,13 +1959,13 @@ def _bwd_leg_bounds(model, packed, R: int, S: int) -> dict:
     }
 
 
-def fused_legs(cfg, card: str, device) -> dict:
+def fused_legs(cfg, card: str, device, coarse: bool = False) -> dict:
     """The fused backward's legs, by kernel name from torch.profiler (7
-    calls, _device_ms_by_group), at bwd_kernel_phase's fine shape on the
-    config's fine field (weights from SEED, the same seeded rays and
-    cotangent), each beside its bound (_bwd_leg_bounds) and, for the dW
-    leg, its library yardstick: {leg: {ms, bound_ms, bound_by,
-    library_ms}}."""
+    calls, _device_ms_by_group), at bwd_kernel_phase's fine shape (or with
+    `coarse` its coarse one) on the config's fine field (weights from SEED,
+    the same seeded rays and cotangent), each beside its bound
+    (_bwd_leg_bounds) and, for the dW leg, its library yardstick: {leg:
+    {ms, bound_ms, bound_by, library_ms}}."""
     from nerfmeshes_tpu_torch.models import build_model
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
     from nerfmeshes_tpu_torch.train.system import init_params
@@ -1975,11 +1976,15 @@ def fused_legs(cfg, card: str, device) -> dict:
     model.to(device)
     packed = fm.pack_weights(model)
     rng = np.random.default_rng(SEED)
-    R, coarse = int(cfg.nerf.train.num_random_rays), int(cfg.nerf.train.num_coarse)
-    for S in (coarse, coarse + int(cfg.nerf.train.num_fine)):  # bwd_kernel_phase's draws
+    R, S0 = int(cfg.nerf.train.num_random_rays), int(cfg.nerf.train.num_coarse)
+    draws = []
+    for S in (S0, S0 + int(cfg.nerf.train.num_fine)):  # bwd_kernel_phase's draws
         o, d, z = _rays(R, S, rng, device)
         cot = torch.from_numpy(rng.standard_normal((4, R, S)).astype(np.float32)).to(device)
-    args, shape = (o, d, z, cot), f"{R}x{S}"
+        draws.append((o, d, z, cot))
+    args = draws[0 if coarse else -1]
+    S = args[2].shape[1]
+    shape = f"{R}x{S}"
     leg_bounds = _bwd_leg_bounds(model, packed, R, S)
     legs = _device_ms_by_group(lambda: fm.fused_mlp_bwd_cuda(packed, *args), BWD_LEGS)
     library = {leg: None for leg in legs}
@@ -3335,6 +3340,8 @@ ZOO_RAYS, ZOO_SAMPLES = 2048, 64
 # flips its ReLU, and a leaf whose units fire at few points moves by that
 # point's whole term: 1e-4 of max |grad| at 2048 x 64 points, 4.4e-4 at
 # 256 x 64 on an H100 (the fields agree within 1.8e-7 meanwhile).
+# Both bars hold given the same x @ B: zoo_compare holds the encodings'
+# projections apart, to f32's rounding bound.
 ZOO_FIELD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 ZOO_GRAD_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
 
@@ -3464,12 +3471,110 @@ def _zoo_step(model, pts, dirs, **kw):
     return field.detach(), loss.detach()
 
 
+class _TakeProjection(torch.autograd.Function):
+    """Forward: `value`, another device's x @ B; backward: the gradient
+    goes to `own` (this device's x @ B) as it would through `own` itself."""
+
+    @staticmethod
+    def forward(ctx, own, value):
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def zoo_compare(cpu, card_model, pts, dirs, dtype: str) -> tuple[torch.Tensor, dict]:
+    """One forward and backward of sum(field^2) of `card_model` at (pts,
+    dirs) against the same of `cpu` (the same weights, on the CPU) at the
+    zoo bars: (the card's field, reads).
+
+    The Fourier projections x @ B of the encodings (layers.SpatialEmbedding
+    and its subclasses) are held apart. At the class defaults |B| reaches
+    2^31 and |x @ B| 2^32, where an ulp is 2^9, so sin(x @ B) of two
+    summation orders of the same 3-term sum may differ by anything, and the
+    field by 5e-2 (one ulp on every feature): held end to end, the f32
+    field bar would test the order of that sum. So each of the card's
+    projections is held within 2 gamma_K (|x| |B|) of the CPU's, the most
+    two f32 sums of the K products can differ by (gamma_K = K u / (1 - K
+    u), u = F32_UNIT, operands rounded to the compute dtype), and the
+    CPU's run then goes on from the card's projection, its gradient still
+    reaching B. Where the two projections agree bit for bit, as on every
+    call read so far, this is the end-to-end comparison itself. Reads:
+    field_err, field_ok, grad_err, worst (its leaf), proj_ok, proj_ratio
+    (the worst |card - cpu| / bound), proj_moved (elements not equal bit
+    for bit) of proj_elements."""
+    from nerfmeshes_tpu_torch.models import layers
+
+    card_enc = [m for m in card_model.modules() if isinstance(m, layers.SpatialEmbedding)]
+    cpu_enc = [m for m in cpu.modules() if isinstance(m, layers.SpatialEmbedding)]
+    seen = [[] for _ in card_enc]
+
+    def recording(mod, out):
+        def projection(x):
+            p = type(mod).projection(mod, x)
+            out.append(p.detach())
+            return p
+        return projection
+
+    for mod, out in zip(card_enc, seen):
+        mod.projection = recording(mod, out)
+    try:
+        card_model.zero_grad(set_to_none=True)
+        got, _ = _zoo_step(card_model, pts, dirs)
+    finally:
+        for mod in card_enc:
+            del mod.projection
+
+    reads = dict(proj_ok=True, proj_ratio=0.0, proj_moved=0, proj_elements=0)
+
+    def replaying(mod, queue):
+        def projection(x):
+            own = type(mod).projection(mod, x)
+            if not queue:
+                raise AssertionError("the CPU run projects more often than the card's")
+            theirs = queue.pop(0).to(own.device)
+            xr = x.detach().to(mod.compute_dtype).double()
+            br = mod.b.detach().to(mod.compute_dtype).double()
+            k = xr.shape[-1]
+            bound = 2.0 * (k * F32_UNIT / (1.0 - k * F32_UNIT)) * (xr.abs() @ br.abs())
+            diff = (theirs.double() - own.detach().double()).abs()
+            reads["proj_ok"] &= bool((diff <= bound).all())
+            ratio = diff / torch.where(bound > 0, bound, torch.ones_like(bound))
+            reads["proj_ratio"] = max(reads["proj_ratio"], float(ratio.max()))
+            reads["proj_moved"] += int((diff != 0).sum())
+            reads["proj_elements"] += diff.numel()
+            return _TakeProjection.apply(own, theirs)
+        return projection
+
+    queues = [list(out) for out in seen]
+    for mod, queue in zip(cpu_enc, queues):
+        mod.projection = replaying(mod, queue)
+    try:
+        cpu.zero_grad(set_to_none=True)
+        want, _ = _zoo_step(cpu, pts.cpu(), dirs.cpu())
+    finally:
+        for mod in cpu_enc:
+            del mod.projection
+    if len(cpu_enc) != len(card_enc) or any(queues):
+        raise AssertionError("the CPU run projects less often than the card's")
+
+    diff = (got.cpu().float() - want.float()).abs()
+    # assert_allclose's test: |card - cpu| <= atol + rtol |cpu|, atol = rtol.
+    reads["field_ok"] = bool((diff <= ZOO_FIELD_TOL[dtype] * (1.0 + want.float().abs())).all())
+    reads["field_err"] = float(diff.max())
+    reads["grad_err"], reads["worst"] = worst_grad_error(cpu, card_model)
+    reads["want"] = want
+    return got, reads
+
+
 def zoo_phase(card: str, device) -> dict:
     """The six zoo models (no kernel of their own: XLA in the JAX package,
     torch ops here) at their class defaults, in f32 and bf16: one forward
     and one backward of sum(field^2) at ZOO_RAYS x ZOO_SAMPLES points on
     the card, held against the CPU run of the same module with the same
-    weights (ZOO_FIELD_TOL, ZOO_GRAD_TOL); ms per forward + backward on the
+    weights (ZOO_FIELD_TOL, ZOO_GRAD_TOL; the encodings' x @ B held apart
+    to f32's rounding bound, zoo_compare); ms per forward + backward on the
     card, CUDA events, median of 5 after one warm-up. DropModel's dropout
     in training then draws from a CUDA generator: the share kept among the
     trunk's non-zero values within 3 sigma of 0.5."""
@@ -3477,7 +3582,6 @@ def zoo_phase(card: str, device) -> dict:
     from nerfmeshes_tpu_torch.train.system import init_params
 
     pts, dirs = _zoo_points(device)
-    pts_cpu, dirs_cpu = pts.cpu(), dirs.cpu()
     out = {}
     for name in ZOO:
         for dtype in ("float32", "bfloat16"):
@@ -3493,24 +3597,22 @@ def zoo_phase(card: str, device) -> dict:
                 return _zoo_step(card_model, pts, dirs)
 
             ms = _median_ms(step, runs=5, warmup=1)
-            got, _ = step()
-            want, _ = _zoo_step(cpu, pts_cpu, dirs_cpu)
-            diff = (got.cpu().float() - want.float()).abs()
-            field_err = float(diff.max())
-            # assert_allclose's test: |card - cpu| <= atol + rtol |cpu|, atol = rtol.
-            field_ok = bool((diff <= ZOO_FIELD_TOL[dtype] * (1.0 + want.float().abs())).all())
-            grad_err, worst = worst_grad_error(cpu, card_model)
+            got, r = zoo_compare(cpu, card_model, pts, dirs, dtype)
+            field_err, grad_err, worst = r["field_err"], r["grad_err"], r["worst"]
             params = sum(p.numel() for p in cpu.parameters())
             print(f"zoo {name} {dtype}: {params} parameters; {ZOO_RAYS}x{ZOO_SAMPLES} points "
-                  f"forward + backward {ms:.4f} ms on the card; vs the CPU run: field max abs "
-                  f"err {field_err:.3e} (bar {ZOO_FIELD_TOL[dtype]}), grads worst rel err "
+                  f"forward + backward {ms:.4f} ms on the card; vs the CPU run: x @ B "
+                  f"{r['proj_moved']} of {r['proj_elements']} elements not bitwise, worst "
+                  f"|diff| / f32 bound {r['proj_ratio']:.3e} (bar 1); field max abs err "
+                  f"{field_err:.3e} (bar {ZOO_FIELD_TOL[dtype]}), grads worst rel err "
                   f"{grad_err:.3e} at {worst} (bar {ZOO_GRAD_TOL[dtype]}) [{card}]")
-            if not (field_ok and grad_err < ZOO_GRAD_TOL[dtype]):
-                if not field_ok:
-                    zoo_excursion(cpu, card_model, pts, dirs, got, want)
+            if not (r["proj_ok"] and r["field_ok"] and grad_err < ZOO_GRAD_TOL[dtype]):
+                if not r["field_ok"]:
+                    zoo_excursion(cpu, card_model, pts, dirs, got, r["want"])
                 raise AssertionError(f"zoo {name} {dtype}: the card's run differs from the CPU's")
             out[f"{name}_{dtype}"] = dict(ms=ms, field_err=field_err, grad_err=grad_err,
-                                          params=params)
+                                          params=params, proj_moved=r["proj_moved"],
+                                          proj_ratio=r["proj_ratio"])
             if name == "DropModel" and dtype == "bfloat16":
                 out["dropout"] = _dropout_check(tm, card_model, pts, dirs)
             del cpu, card_model
@@ -4695,19 +4797,36 @@ def _print_ptxas(log: str) -> None:
     (registers, spills) under its entry's name, each nvcc's finish, and
     every C7519 note (ptxas serialising a kernel's wgmma) with its count
     per kernel."""
-    notes = {}
+    from nerfmeshes_tpu_torch.ops.kernels import build
+
+    shown = set()
     for line in log.splitlines():
         if "C7519" in line:  # before "registers": the note's text names them
             name = line.rsplit("function", 1)[-1].strip(" '")
-            notes[name] = notes.get(name, 0) + 1
-            if notes[name] == 1:
+            if name not in shown:
+                shown.add(name)
                 print("  ptxas:", line.strip())
         elif "Compiling entry function" in line:
             print("  ptxas: entry", line.split("'")[1] if "'" in line else line)
         elif "registers" in line or "spill" in line or line.startswith("nvcc "):
             print("  ptxas:", line.strip())
+    notes = {k: u["c7519"] for k, u in build.ptxas_usage(log).items() if u["c7519"]}
     print("  ptxas C7519 notes per kernel: "
           + (", ".join(f"{k} {v}" for k, v in notes.items()) or "none"))
+
+
+def tile_kernel_usage(log: str) -> dict:
+    """ptxas's report (build.ptxas_usage) of each instantiation of the
+    fused backward's tile kernel, bwd_tile_kernel<H>, in an nvcc log, by
+    H."""
+    from nerfmeshes_tpu_torch.ops.kernels import build
+
+    out = {}
+    for name, usage in build.ptxas_usage(log).items():
+        m = re.search(r"bwd_tile_kernelILi(\d+)E", name)
+        if m:
+            out[int(m.group(1))] = usage
+    return dict(sorted(out.items()))
 
 
 def main(argv=None) -> int:
@@ -4748,6 +4867,13 @@ def main(argv=None) -> int:
     build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {path.name}")
     _print_ptxas(log)
+    tile_ptxas = {f"H={H}": u for H, u in tile_kernel_usage(log).items()}
+    for H, u in tile_ptxas.items():
+        print(f"bwd_tile_kernel {H}: {u['registers']} registers, {u['spill_stores']} B spill "
+              f"stores, {u['spill_loads']} B spill loads, {u['stack']} B stack, {u['c7519']} "
+              "C7519 notes (ptxas, this run's build)")
+    if log and not tile_ptxas:
+        raise AssertionError("the build log has no ptxas report of bwd_tile_kernel")
     if opts.breakdowns:
         print(json.dumps(breakdowns(card, device)))
         return 0
@@ -4791,6 +4917,7 @@ def main(argv=None) -> int:
     del buff_system
     legs = breakdowns_process(card)
     bkern["legs"] = legs["fused"]["lego"]
+    bkern["legs_coarse"] = legs["fused"]["lego_coarse"]
     h128 = h128_kernel_phase(card, device)
     dist = dist_phase(card, device, {"fused_mlp_fwd": kern, "fused_mlp_bwd": bkern,
                                      "fused_sigma": skern, "fused_chords": ckern},
@@ -4863,7 +4990,8 @@ def main(argv=None) -> int:
         entry("fused_mlp_bwd", "fused_mlp_bwd.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397", bkern,
               {"train": train["bwd_launches"], "buff_train": buff["bwd_launches"], **cli["bwd"],
                "buff_random_train": buff_random["train"]["bwd"], **dist["launches"]["bwd"]},
-              max_rel_err=bkern["max_rel_err"], legs=bkern["legs"], shape="2048x192",
+              max_rel_err=bkern["max_rel_err"], legs=bkern["legs"],
+              legs_2048x64=bkern["legs_coarse"], tile_ptxas=tile_ptxas, shape="2048x192",
               hidden=256, direct=direct["bwd"], per_rank={
                   k: v for k, v in dist["per_rank"].items() if k.startswith("fused_mlp_bwd")}),
         entry("fused_sigma", "fused_sigma.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:675", skern,

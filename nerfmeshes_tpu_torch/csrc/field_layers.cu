@@ -450,43 +450,6 @@ struct ProductArgs {
   float* colsum;       // (row blocks, n): column sums of the tile's rows, or none
 };
 
-// TMA store of the box at (c0 = column, c1 = row) of `map` from src, in
-// the issuing thread's bulk group.
-__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
-                                             int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(c0), "r"(c1), "r"(smem_u32(src))
-      : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-// The issuing thread's bulk stores have read their shared memory.
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-}
-// ... and written global memory.
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-// Four 8 x 8 bf16 matrices between the mma fragment and shared memory: lane
-// l gives the address of row l % 8 of matrix l / 8; register i holds row
-// lane / 4, columns 2 (lane % 4) and + 1 of matrix i.
-__device__ __forceinline__ void stmatrix_x4(uint32_t addr, const uint32_t (&r)[4]) {
-  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};" ::"r"(addr),
-               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
-               : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
 __device__ __forceinline__ float2 unpack_bf16(uint32_t w) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
 }

@@ -5,10 +5,11 @@
 // shared memory by TMA. Both entry points run the same trunk and alpha head code, so on equal
 // points their sigma agrees bit for bit. The backward's tile kernel
 // (fused_mlp_bwd.cu) is built from the same pieces: Producer, Ring,
-// layer_product, and the epilogue and PE builder with their STASH flag,
-// which also store what they compute to device memory; its dW kernel uses
-// the ring's TMA and barriers with the MN-major operands of
-// sw128_mn_desc / wgmma_bf16_mn.
+// layer_product and the PE builder with its STASH flag (each PE row to
+// device memory); it writes its own epilogues' tiles by stmatrix and sends
+// them on to its stash by TMA stores (tma_store_2d); its dW kernel uses the
+// ring's TMA and barriers with the MN-major operands of sw128_mn_desc /
+// wgmma_bf16_mn.
 //
 // What bounds it on an H100: ~1.19 MFLOP per point at lego width (8x256,
 // L 10/4) against ~44 bytes of rays in and field out per point, so the
@@ -242,6 +243,43 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
 
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// TMA store of the box at (c0 = column, c1 = row) of `map` from src, in
+// the issuing thread's bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(smem_u32(src))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// The issuing thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+// ... and written global memory.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// Four 8 x 8 bf16 matrices between the mma fragment and shared memory: lane
+// l gives the address of row l % 8 of matrix l / 8; register i holds row
+// lane / 4, columns 2 (lane % 4) and + 1 of matrix i.
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
 }
 
 // Barrier of one warpgroup's 128 threads (ids 1, 2; 0 is __syncthreads).
@@ -765,28 +803,16 @@ __device__ __forceinline__ float2 bf16x2_at(const bf16* p) {
 // from hoisting every load ahead, which costs the registers that hold
 // loop-invariant addresses (their spills go to L2, round trips of ~1 us).
 //
-// STASH (the backward's recompute): the same bf16 values also go to rows r
-// and r + 8 of `stash`, a row-major array of rows `ld` elements apart (N,
-// or H for a warpgroup's N = H/2 columns under split_n), straight from the
-// registers; and, where `bits` is given, whether each is > 0 (the ReLU
-// mask the backward applies) as R bits, bit k for acc[k], in R/32 words,
-// word w at bits[w * WG_THREADS] (a warp's stores of a word are
-// contiguous; the last group of R/4 chunks not a multiple of 8 fills part
-// of its word).
-//
 // PAIR (pair_n): act is the tile's base and c0 the warpgroup's first column
 // in it; each value also goes to the peer CTA's tile, at `peer` (the tile's
 // base in the cluster's window).
-template <int R, bool STASH = false, bool PAIR = false>
+template <int R, bool PAIR = false>
 __device__ __forceinline__ void epilogue(const float (&acc)[R], const float* bias, bool relu,
                                          unsigned char* act, int r, int q, const bf16* wa,
-                                         float& s0, float& s1, bf16* stash = nullptr,
-                                         uint32_t* bits = nullptr, int ld = 2 * R, int c0 = 0,
-                                         uint32_t peer = 0) {
+                                         float& s0, float& s1, int c0 = 0, uint32_t peer = 0) {
   constexpr int CHUNKS = R / 4;  // of 8 columns
 #pragma unroll
   for (int n0 = 0; n0 < CHUNKS; n0 += 8) {
-    uint32_t mb = 0;  // STASH: this group's word of mask bits
 #pragma unroll
     for (int n = n0; n < n0 + 8 && n < CHUNKS; ++n) {
       const int col = 8 * n + 2 * q;
@@ -804,15 +830,6 @@ __device__ __forceinline__ void epilogue(const float (&acc)[R], const float* bia
         st_peer(peer + swz(r, c0 + col), lo);
         st_peer(peer + swz(r + 8, c0 + col), hi);
       }
-      if constexpr (STASH) {
-        *reinterpret_cast<uint32_t*>(stash + r * ld + col) = lo;
-        *reinterpret_cast<uint32_t*>(stash + (r + 8) * ld + col) = hi;
-        const float2 x0 = bf16x2_at(reinterpret_cast<const bf16*>(&lo));
-        const float2 x1 = bf16x2_at(reinterpret_cast<const bf16*>(&hi));
-        mb |= ((uint32_t)(x0.x > 0.f) | (uint32_t)(x0.y > 0.f) << 1 |
-               (uint32_t)(x1.x > 0.f) << 2 | (uint32_t)(x1.y > 0.f) << 3)
-              << (4 * (n - n0));
-      }
       if (wa != nullptr) {
         const float2 w = bf16x2_at(wa + col);
         const float2 x0 = bf16x2_at(reinterpret_cast<const bf16*>(&lo));
@@ -820,9 +837,6 @@ __device__ __forceinline__ void epilogue(const float (&acc)[R], const float* bia
         s0 += x0.x * w.x + x0.y * w.y;
         s1 += x1.x * w.x + x1.y * w.y;
       }
-    }
-    if constexpr (STASH) {
-      if (bits != nullptr) bits[n0 / 8 * WG_THREADS] = mb;
     }
     asm volatile("" ::: "memory");
   }
@@ -1206,10 +1220,10 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
                                            g == 0 || skip ? d.pxp : 0, lane, work, b_w);
         tsync.products_done();
         const unsigned char* params = ring.params(slot);
-        epilogue<NW / 2, false, PAIR>(
+        epilogue<NW / 2, PAIR>(
             acc, reinterpret_cast<const float*>(params) + col0, g > 0, act_w, r, q,
             g == L - 1 ? reinterpret_cast<const bf16*>(params + alpha_off(H)) + col0 : nullptr,
-            s0, s1, nullptr, nullptr, NW, c_w, act_p);
+            s0, s1, c_w, act_p);
         ring.release(slot, lane);
         tsync.writes_done();
       }
@@ -1243,9 +1257,8 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
         int slot = layer_product<SK>(acc, ring, act_a, H, 0, 0, 0, lane, work, b_w);
         tsync.products_done();
         float unused0 = 0.f, unused1 = 0.f;
-        epilogue<NW / 2, false, PAIR>(acc, reinterpret_cast<const float*>(ring.params(slot)) + col0,
-                                      true, act_w, r, q, nullptr, unused0, unused1, nullptr,
-                                      nullptr, NW, c_w, act_p);
+        epilogue<NW / 2, PAIR>(acc, reinterpret_cast<const float*>(ring.params(slot)) + col0,
+                               true, act_w, r, q, nullptr, unused0, unused1, c_w, act_p);
         ring.release(slot, lane);
         tsync.writes_done();
 

@@ -36,14 +36,20 @@
 //       128-point tiles (64-point tiles at H > 256, each product split in N
 //       across the two consumer warpgroups, and at H > 512 across a pair of
 //       CTAs as well, as the forward's: see fused_field.cuh): it recomputes
-//       the forward, each epilogue also
-//       storing its bf16 activation from the registers into the stash; the
-//       rgb and alpha heads' cotangents and the dir layer's in the dir
-//       product's epilogue, in registers; then the dX chain, L + 1 wgmma
-//       products on the activation tile, each epilogue writing bf16(dY) to
-//       the stash and in place as the next product's A tile, with each
-//       bias's f32 column sum over the warpgroup's 64 rows. 3.9 GB of stash
-//       at 2048 x 192 (15.4 GB at 8x1024).
+//       the forward, the rgb and alpha heads' cotangents and the dir
+//       layer's in the dir product's epilogue, in registers; then the dX
+//       chain, L + 1 wgmma products on the activation tile, each epilogue
+//       writing bf16(dY) in place as the next product's A tile, with each
+//       bias's f32 column sum over the warpgroup's 64 rows. Every epilogue
+//       writes its tile by stmatrix (four 8 x 8 matrices a lane's address:
+//       a quarter of the shared stores, and 4 swizzled offsets a thread to
+//       keep rather than 8, which at H = 256 had spilled), and one thread
+//       sends the tile to the stash by TMA stores (act, feat, dy, dy_dir:
+//       95% of its bytes at lego width), which drain under the next
+//       product: the stash's bytes leave in 8 KB boxes instead of 4-byte
+//       stores from the fragments, 8 rows a warp instruction, that had
+//       held the kernel at 22% of its bound. 3.9 GB of stash at 2048 x 192
+//       (15.4 GB at 8x1024).
 //   (c) dw_kernel, dW = dY^T X for every weight matrix: ~1.2 MFLOP per point
 //       against the ~10 KB of stash it reads, ~120 FLOP/B, under the ~295
 //       FLOP/B at which bf16 tensor cores rather than HBM set the pace. So

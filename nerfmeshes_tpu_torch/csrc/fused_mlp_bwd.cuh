@@ -72,10 +72,14 @@ wt_transpose_kernel(const Desc d, const bf16* __restrict__ W, bf16* __restrict__
 
 // Tensor maps of the tile kernel: the forward's products, then the
 // transposed copy wt, (L + 1) H rows of H columns, read in boxes of
-// slab_box_rows(H) rows.
+// slab_box_rows(H) rows; then the stash regions the activation tile goes
+// to by TMA stores, boxes of 64 rows x 64 columns (one 128 B swizzled atom
+// of the tile each): act and feat ((L + 1) n_pad rows of H; feat follows
+// act[L - 1]), dy ((L + 1) n_pad rows of H) and dy_dir (n_pad rows of H/2).
 struct BwdMaps {
   FieldMaps fwd;
   CUtensorMap wt;
+  CUtensorMap act, dy, dy_dir;
 };
 
 // The tile kernel's arguments, in the parameter space: read there when
@@ -159,50 +163,123 @@ __device__ __forceinline__ void flush_colsum(const float* part, int ld, int n, f
     dst[c] = part[c] + part[ld + c] + part[2 * ld + c] + part[3 * ld + c];
 }
 
+// Chunks j and j + 1 of a fragment, y = {row r's j, row r + 8's j, row
+// r's j + 1, row r + 8's j + 1} (bf16 pairs), into the warpgroup's A tile:
+// one stmatrix at this lane's address for chunk pair j (stm_addr), or in a
+// pair element by element into both CTAs' tiles (the tile's base act, the
+// columns from col = c0 + 8 j + 2q; the peer's at `peer`).
+template <bool PAIR>
+__device__ __forceinline__ void put_pair(const uint32_t (&y)[4], uint32_t sm,
+                                         unsigned char* act, int r, int col, uint32_t peer) {
+  if constexpr (PAIR) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<uint32_t*>(act + swz(r, col + 8 * h)) = y[2 * h];
+      *reinterpret_cast<uint32_t*>(act + swz(r + 8, col + 8 * h)) = y[2 * h + 1];
+      st_peer(peer + swz(r, col + 8 * h), y[2 * h]);
+      st_peer(peer + swz(r + 8, col + 8 * h), y[2 * h + 1]);
+    }
+  } else {
+    stmatrix_x4(sm, y);
+  }
+}
+
+// This lane's stmatrix address of chunk pair j in the A tile at `act`: the
+// row (lane % 8, + 8 for lanes 8-15 and 24-31) of its matrix among the
+// warp's 16 (r is the fragment's first row), chunk j or (lanes 16-31) j + 1.
+__device__ __forceinline__ uint32_t stm_addr(uint32_t act, int r, int lane, int j) {
+  return act + swz(r - (lane >> 2) + ((lane >> 3) & 1) * 8 + (lane & 7), 8 * (j + (lane >> 4)));
+}
+
+// The recompute's epilogue of an N = 2R-column product (rows r, r + 8 of
+// the fragment): relu?(acc + bias), bias from shared memory, as bf16 into
+// the warpgroup's A tile (put_pair), from which the kernel sends it to the
+// stash; where `bits` is given, whether each bf16 value is > 0 (the ReLU
+// mask the dX chain applies) as R bits, bit k for acc[k], in R/32 words,
+// word w at bits[w * WG_THREADS] (a warp's stores of a word are
+// contiguous; the last group of R/4 chunks not a multiple of 8 fills part
+// of its word). Tested on the f32 value: bf16(v) > 0 exactly where v >
+// 2^-134 (round to nearest even takes 2^-134, half the least bf16, and
+// below to zero; negatives and NaN fail both), which spares unpacking the
+// bf16 pair. In groups of 8 chunks, as epilogue() (fused_field.cuh).
+template <int R, bool PAIR>
+__device__ __forceinline__ void recompute_epilogue(const float (&acc)[R], const float* bias,
+                                                   bool relu, unsigned char* act, int r, int q,
+                                                   int lane, uint32_t* bits, int c0,
+                                                   uint32_t peer) {
+  constexpr int CHUNKS = R / 4;  // of 8 columns, an even number
+  const uint32_t act_a = smem_u32(act);
+#pragma unroll
+  for (int n0 = 0; n0 < CHUNKS; n0 += 8) {
+    uint32_t mb = 0;  // this group's word of mask bits
+#pragma unroll
+    for (int j = n0; j < n0 + 8 && j < CHUNKS; j += 2) {
+      uint32_t y[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = j + h, col = 8 * n + 2 * q;
+        const float2 b = *reinterpret_cast<const float2*>(bias + col);
+        float v[4] = {acc[4 * n] + b.x, acc[4 * n + 1] + b.y, acc[4 * n + 2] + b.x,
+                      acc[4 * n + 3] + b.y};
+        if (relu) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[i] = fmaxf(v[i], 0.f);
+        }
+        y[2 * h] = pack_bf16(v[0], v[1]);
+        y[2 * h + 1] = pack_bf16(v[2], v[3]);
+        constexpr float half_least = 0x1p-134f;
+        mb |= ((uint32_t)(v[0] > half_least) | (uint32_t)(v[1] > half_least) << 1 |
+               (uint32_t)(v[2] > half_least) << 2 | (uint32_t)(v[3] > half_least) << 3)
+              << (4 * (n - n0));
+      }
+      put_pair<PAIR>(y, stm_addr(act_a, r, lane, j), act, r, c0 + 8 * j + 2 * q, peer);
+    }
+    if (bits != nullptr) bits[n0 / 8 * WG_THREADS] = mb;
+    asm volatile("" ::: "memory");
+  }
+}
+
 // The epilogue of a dX product of N = 2R columns (rows r, r + 8 of the
 // fragment): v = acc (+ bf16(dalpha) wa[col] for the trunk output), zeroed
 // where bit k of mw is clear (masked: the forward's bf16 output of that
-// product was not > 0; layer1 has no ReLU); bf16(v) to the stash's dY rows
-// (`ld` elements apart) and in place into the warpgroup's A tile (PAIR:
-// the tile's base, the columns from c0, and the peer's tile at `peer` as
-// well, as epilogue()); v's column sums over the warp's 16 rows into
-// `part`.
+// product was not > 0; layer1 has no ReLU); bf16(v) in place into the
+// warpgroup's A tile (put_pair), from which the kernel sends it to the
+// stash's dY rows; v's column sums over the warp's 16 rows into `part`.
 template <int R, bool PAIR = false>
 __device__ __forceinline__ void dx_epilogue(const float (&acc)[R], unsigned char* act, int r,
                                             int q, int lane, bool masked,
                                             const uint32_t (&mw)[(R + 31) / 32], const bf16* wa,
-                                            float a0, float a1, bf16* dy, float* part,
-                                            int ld = 2 * R, int c0 = 0, uint32_t peer = 0) {
+                                            float a0, float a1, float* part, int c0 = 0,
+                                            uint32_t peer = 0) {
+  const uint32_t act_a = smem_u32(act);
 #pragma unroll
   for (int n0 = 0; n0 < R / 4; n0 += 4) {
     float cs[8];
 #pragma unroll
-    for (int n = n0; n < n0 + 4; ++n) {
-      const int col = 8 * n + 2 * q;
-      float v[4] = {acc[4 * n], acc[4 * n + 1], acc[4 * n + 2], acc[4 * n + 3]};
-      if (wa != nullptr) {
-        const float2 w = bf16x2_at(wa + col);
-        v[0] += a0 * w.x;
-        v[1] += a0 * w.y;
-        v[2] += a1 * w.x;
-        v[3] += a1 * w.y;
-      }
-      if (masked) {
+    for (int j = n0; j < n0 + 4; j += 2) {
+      uint32_t y[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (!((mw[n / 8] >> (4 * (n % 8) + i)) & 1u)) v[i] = 0.f;
+      for (int h = 0; h < 2; ++h) {
+        const int n = j + h, col = 8 * n + 2 * q;
+        float v[4] = {acc[4 * n], acc[4 * n + 1], acc[4 * n + 2], acc[4 * n + 3]};
+        if (wa != nullptr) {
+          const float2 w = bf16x2_at(wa + col);
+          v[0] += a0 * w.x;
+          v[1] += a0 * w.y;
+          v[2] += a1 * w.x;
+          v[3] += a1 * w.y;
+        }
+        if (masked) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (!((mw[n / 8] >> (4 * (n % 8) + i)) & 1u)) v[i] = 0.f;
+        }
+        y[2 * h] = pack_bf16(v[0], v[1]);
+        y[2 * h + 1] = pack_bf16(v[2], v[3]);
+        cs[2 * (n - n0)] = v[0] + v[2];
+        cs[2 * (n - n0) + 1] = v[1] + v[3];
       }
-      const uint32_t lo = pack_bf16(v[0], v[1]), hi = pack_bf16(v[2], v[3]);
-      *reinterpret_cast<uint32_t*>(act + swz(r, c0 + col)) = lo;
-      *reinterpret_cast<uint32_t*>(act + swz(r + 8, c0 + col)) = hi;
-      if constexpr (PAIR) {
-        st_peer(peer + swz(r, c0 + col), lo);
-        st_peer(peer + swz(r + 8, c0 + col), hi);
-      }
-      *reinterpret_cast<uint32_t*>(dy + r * ld + col) = lo;
-      *reinterpret_cast<uint32_t*>(dy + (r + 8) * ld + col) = hi;
-      cs[2 * (n - n0)] = v[0] + v[2];
-      cs[2 * (n - n0) + 1] = v[1] + v[3];
+      put_pair<PAIR>(y, stm_addr(act_a, r, lane, j), act, r, c0 + 8 * j + 2 * q, peer);
     }
     colsum8<R / 4>(cs, part, n0, q, lane);
   }
@@ -298,6 +375,27 @@ bwd_tile_kernel(const __grid_constant__ BwdMaps maps, const Desc desc, const Fie
     // The column partials share the PE arena (field_layout): the next
     // tile's PE is built only once every warpgroup has read them.
     const bool part_in_pe = lay.extra_off == lay.pe_off;
+    // The stash's act, feat, dy and dy_dir rows leave from the activation
+    // tile itself by TMA stores, a 64 x 64 box per 128 B swizzled atom (the
+    // maps' swizzle undoes the tile's, so the stash stays row-major): one
+    // thread issues them, this warpgroup's first (or the CTA's, where the
+    // warpgroups share the tile; in a pair each CTA sends its half of the
+    // atoms), once the epilogue's writes are fenced and met at the
+    // barrier (writes_done); it waits for their reads before the barrier
+    // after the next product (products_done), past which an epilogue writes
+    // the tile again.
+    const bool storer = SPLIT ? tid == 0 : t == 0;
+    auto store = [&](const CUtensorMap* map, int atoms, long long row) {
+      if (!storer) return;
+      const int share = PAIR ? (atoms + 1) / 2 : atoms;
+      for (int i = rank * share; i < atoms && i < (rank + 1) * share; ++i)
+        tma_store_2d(map, act + i * ATOM_BYTES, 64 * i, (int)row);
+      bulk_commit();
+    };
+    auto products_done = [&] {
+      if (storer) bulk_wait_read();
+      tsync.products_done();
+    };
 
     const int chunks = lay.pe_cols / 8;
     const int pt = SPLIT ? tid : t;  // the PE builder's thread
@@ -330,24 +428,21 @@ bwd_tile_kernel(const __grid_constant__ BwdMaps maps, const Desc desc, const Fie
       auto no_work = [] {};
 
       // ---- the forward, as field_body<H, true>, stashing every output
-      // (and the ReLU masks of products 1..L) ----
+      // (and the ReLU masks of products 1..L; feat's rows follow act's) ----
       float acc[NW / 2];
 #pragma unroll
       for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
-      float unused0 = 0.f, unused1 = 0.f;
       for (int g = 0; g <= L; ++g) {  // layer1, the trunk, feat
         const bool skip = g > 0 && g < L && ((d.skip_mask >> (g - 1)) & 1);
         const int slot = layer_product<SK>(acc, ring, act_a, g == 0 ? 0 : H, pe_a, pe_base,
                                            g == 0 || skip ? d.pxp : 0, lane, work, b_w);
-        tsync.products_done();  // every warp's products have read the tile
-        bf16* const out = a.stash + (g < L ? a.st.act + (size_t)g * a.n_pad * H : a.st.feat) +
-                          row0 * H + col0;
-        epilogue<NW / 2, true, PAIR>(
+        products_done();  // every warp's products have read the tile
+        recompute_epilogue<NW / 2, PAIR>(
             acc, reinterpret_cast<const float*>(ring.params(slot)) + col0, g > 0, act_w, r, q,
-            nullptr, unused0, unused1, out,
-            g > 0 ? a.bits + mask_words(H, a.n_tiles, g, tile, u, t) : nullptr, H, c_w, act_p);
+            lane, g > 0 ? a.bits + mask_words(H, a.n_tiles, g, tile, u, t) : nullptr, c_w, act_p);
         ring.release(slot, lane);
         tsync.writes_done();
+        store(&maps.act, H / 64, g * a.n_pad + row0);
       }
 
       // dir on [feat | PE(dir)] -> H/2, then the heads in registers.
@@ -356,7 +451,7 @@ bwd_tile_kernel(const __grid_constant__ BwdMaps maps, const Desc desc, const Fie
       for (int i = 0; i < ND / 2; ++i) acc_d[i] = 0.f;
       int slot = layer_product<SK>(acc_d, ring, act_a, H, pe_a, pe_base + d.pxp, d.pdp, lane,
                                    work, b_d);
-      tsync.products_done();
+      products_done();
       if (ahead) pb.finish(tab, chunks, pe, pt);
       const float* bd = reinterpret_cast<const float*>(ring.params(slot)) + cd0;
       const bf16* wr = reinterpret_cast<const bf16*>(ring.params(slot) + rgb_off(H)) + cd0;
@@ -435,8 +530,9 @@ bwd_tile_kernel(const __grid_constant__ BwdMaps maps, const Desc desc, const Fie
             q == 0 ? make_uint2(pack_bf16(da1, 0.f), 0u) : zero;
       }
       // The dir layer's output cotangent dh = sum_c bf16(drgb_c) Wr[c, :],
-      // masked by h > 0: to the stash, and as the A tile of the first dX
-      // product (feat is stashed already; in a pair, to both CTAs' tiles).
+      // masked by h > 0: the A tile of the first dX product (feat has been
+      // sent to the stash; in a pair, to both CTAs' tiles), and from it the
+      // stash's dy_dir.
       {
         float rb0[3], rb1[3];
 #pragma unroll
@@ -444,7 +540,6 @@ bwd_tile_kernel(const __grid_constant__ BwdMaps maps, const Desc desc, const Fie
           rb0[c] = bf16_round(dr0[c]);
           rb1[c] = bf16_round(dr1[c]);
         }
-        bf16* const dh_out = a.stash + a.st.dy_dir + row0 * (H / 2) + cd0;
         float* const my_part = part + warp * part_ld(H);
 #pragma unroll
         for (int n0 = 0; n0 < ND / 8; n0 += 4) {
@@ -481,8 +576,6 @@ bwd_tile_kernel(const __grid_constant__ BwdMaps maps, const Desc desc, const Fie
               st_peer(act_p + swz(r, cd0 + col), lo);
               st_peer(act_p + swz(r + 8, cd0 + col), hi);
             }
-            *reinterpret_cast<uint32_t*>(dh_out + r * (H / 2) + col) = lo;
-            *reinterpret_cast<uint32_t*>(dh_out + (r + 8) * (H / 2) + col) = hi;
             cs[2 * (n - n0)] = v[0] + v[2];
             cs[2 * (n - n0) + 1] = v[1] + v[3];
           }
@@ -502,6 +595,7 @@ bwd_tile_kernel(const __grid_constant__ BwdMaps maps, const Desc desc, const Fie
       }
       ring.release(slot, lane);
       tsync.writes_done();
+      store(&maps.dy_dir, H / 128, row0);
       float* const db = a.dbpart + (row0 / 64) * a.nb_ld;  // one row per 64 points
       flush_colsum(part, part_ld(H), ND, db + d.b_off[L + 1] + cd0, t);
       if (writer && t < 4) {
@@ -524,15 +618,15 @@ bwd_tile_kernel(const __grid_constant__ BwdMaps maps, const Desc desc, const Fie
         if (g > 0) load_mask(mw, a.bits + mask_words(H, a.n_tiles, g, tile, u, t));
         slot = layer_product<SK>(acc, ring, act_a, j == 0 ? H / 2 : H, 0, 0, 0, lane, no_work,
                                  b_w);
-        tsync.products_done();
+        products_done();
         const bf16* wa =
             j == 1 ? reinterpret_cast<const bf16*>(ring.params(slot) + alpha_off(H)) + col0
                    : nullptr;
         dx_epilogue<NW / 2, PAIR>(acc, act_w, r, q, lane, g > 0, mw, wa, a0, a1,
-                                  a.stash + a.st.dy + ((size_t)g * a.n_pad + row0) * H + col0,
-                                  part + warp * part_ld(H), H, c_w, act_p);
+                                  part + warp * part_ld(H), c_w, act_p);
         ring.release(slot, lane);
         tsync.writes_done();
+        store(&maps.dy, H / 64, g * a.n_pad + row0);
         flush_colsum(part, part_ld(H), NW, db + d.b_off[g] + col0, t);
       }
       // With one PE slot, the next tile's PE now (the dir product, the
@@ -544,6 +638,7 @@ bwd_tile_kernel(const __grid_constant__ BwdMaps maps, const Desc desc, const Fie
         pb.finish(tab, chunks, pe, pt);
       }
     }
+    if (storer) bulk_wait();  // the stash's last rows are written before the CTA leaves
   }
   if constexpr (PAIR) cluster_sync_all();  // no CTA leaves while its peer may reach into it
 }
@@ -608,6 +703,15 @@ int launch_tiles(const Desc& d, const Workspace& ws, const float* o, const float
   rc = encode_slab_map(&maps.wt, wt, H, (d.num_layers + 1) * H,
                        slab_box_rows(cta_rows(H, H)), slab_k(H));
   if (rc != 0) return rc;
+  // The stash's maps (TMA coordinates are 32-bit: (L + 1) n_pad rows).
+  const long long rows = (long long)(d.num_layers + 1) * ws.n_pad;
+  if (rows > INT_MAX) return (int)cudaErrorInvalidValue;
+  const Stash st = stash_layout(d, ws.n_pad);
+  const bf16* stash = reinterpret_cast<const bf16*>(base);
+  rc = encode_slab_map(&maps.act, stash + st.act, H, (int)rows, 64);
+  if (rc == 0) rc = encode_slab_map(&maps.dy, stash + st.dy, H, (int)rows, 64);
+  if (rc == 0) rc = encode_slab_map(&maps.dy_dir, stash + st.dy_dir, H / 2, (int)ws.n_pad, 64);
+  if (rc != 0) return rc;
   FieldLayout lay;
   rc = field_layout(d, true, smem_limit, &lay, part_bytes(H));
   if (rc != 0) return rc;
@@ -625,7 +729,7 @@ int launch_tiles(const Desc& d, const Workspace& ws, const float* o, const float
   args.W = W;
   args.B = B;
   args.stash = reinterpret_cast<bf16*>(base);
-  args.st = stash_layout(d, ws.n_pad);
+  args.st = st;
   args.bits = reinterpret_cast<uint32_t*>(base + ws.bits);
   args.dbpart = reinterpret_cast<float*>(base + ws.dbpart);
   args.n_pts = n_pts;

@@ -175,6 +175,32 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+def ptxas_usage(log: str) -> dict[str, dict[str, int]]:
+    """What `-Xptxas -v` reports per kernel in an nvcc log: {mangled
+    entry name: {"registers", "stack", "spill_stores", "spill_loads" (bytes
+    a thread), "c7519" (notes that ptxas serialised the kernel's wgmma)}}."""
+    usage: dict[str, dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            name = (line.split("'")[1] if "'" in line else line.split()[-1]).strip()
+            usage.setdefault(name, dict(registers=0, stack=0, spill_stores=0, spill_loads=0,
+                                        c7519=0))
+        elif "C7519" in line:
+            key = line.rsplit("function", 1)[-1].strip(" '")
+            usage.setdefault(key, dict(registers=0, stack=0, spill_stores=0, spill_loads=0,
+                                       c7519=0))["c7519"] += 1
+        elif name is not None and "bytes stack frame" in line:
+            words = line.replace(",", " ").split()
+            usage[name]["stack"] = int(words[words.index("stack") - 2])
+            usage[name]["spill_stores"] = int(words[words.index("stores") - 3])
+            usage[name]["spill_loads"] = int(words[words.index("loads") - 3])
+        elif name is not None and "Used" in line and "registers" in line:
+            words = line.replace(",", " ").split()
+            usage[name]["registers"] = int(words[words.index("registers") - 1])
+    return usage
+
+
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if code != 0:

@@ -32,8 +32,10 @@ activation tensor is ever written to device memory. The backward
 contracts the weight grads over all points, which needs a stash of each
 layer's input and output cotangent in device memory and a fixed-order
 reduction: its tile kernel, which recomputes the forward and runs the dX
-chain, is that same design with the stash stores added; the dW products
-over the stash follow (the .cu file describes both).
+chain, is that same design with each activation tile sent on to the stash
+by TMA stores; the dW products over the stash follow (the .cu file
+describes both; `stash_layout` and `stash_store_boxes` mirror the stash
+and the stores).
 
 Numerics, shared by kernels and plain versions: bf16 operands, f32
 accumulation, f32 bias/ReLU/sigmoid; an activation is rounded to bf16
@@ -658,10 +660,15 @@ def fused_mlp_bwd_plain(packed: PackedMLP, origins: torch.Tensor, directions: to
 
 
 def fused_mlp_bwd_cuda(packed: PackedMLP, origins: torch.Tensor, directions: torch.Tensor,
-                       z_vals: torch.Tensor, grad: torch.Tensor
+                       z_vals: torch.Tensor, grad: torch.Tensor, *, lib=None,
+                       workspace: torch.Tensor | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the backward kernel (csrc/fused_mlp_bwd.cu). o, d (R, 3),
-    z (R, S), grad (4, R, S) f32 on one CUDA device -> f32 (dW, dB)."""
+    z (R, S), grad (4, R, S) f32 on one CUDA device -> f32 (dW, dB).
+    `lib`: the kernel library (default this tree's build; another
+    checkout's build has the same C contract). `workspace`: uint8 device
+    memory of at least bwd_workspace_bytes, which the call leaves holding
+    the stash (stash_layout), else a fresh one."""
     global bwd_launches
     _check_rays(origins, directions, z_vals)
     _check_grad(grad, z_vals)
@@ -682,25 +689,93 @@ def fused_mlp_bwd_cuda(packed: PackedMLP, origins: torch.Tensor, directions: tor
     d = directions.float().contiguous()
     z = z_vals.float().contiguous()
     g = grad.float().contiguous()
-    lib = build.load_library()
-    nbytes = ctypes.c_longlong(0)
-    rc = lib.nm_fused_mlp_bwd_workspace(packed.desc.ctypes.data, packed.desc.size,
-                                        packed.freqs.ctypes.data, packed.freqs.size,
-                                        R * S, ctypes.byref(nbytes))
-    build.check(lib, rc, "fused_mlp_bwd workspace")
-    workspace = torch.empty(nbytes.value, dtype=torch.uint8, device=device)
+    lib = lib or build.load_library()
+    nbytes = bwd_workspace_bytes(packed, R * S, lib)
+    if workspace is None:
+        workspace = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    elif (workspace.device != device or workspace.dtype != torch.uint8
+          or not workspace.is_contiguous() or workspace.numel() < nbytes):
+        raise ValueError(f"workspace must be {nbytes} contiguous uint8 bytes on {device}")
     with torch.cuda.device(device):
         rc = lib.nm_fused_mlp_bwd(
             o.data_ptr(), d.data_ptr(), z.data_ptr(), R, S, g.data_ptr(),
             packed.weights.data_ptr(), packed.biases.data_ptr(),
             packed.desc.ctypes.data, packed.desc.size,
             packed.freqs.ctypes.data, packed.freqs.size,
-            workspace.data_ptr(), nbytes.value, dW.data_ptr(), dB.data_ptr(),
+            workspace.data_ptr(), workspace.numel(), dW.data_ptr(), dB.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream,
         )
-    build.check(lib, rc, "fused_mlp_bwd launch")
+    build.check(build.load_library(), rc, "fused_mlp_bwd launch")
     bwd_launches += 1
     return dW, dB
+
+
+def bwd_workspace_bytes(packed: PackedMLP, n_pts: int, lib=None) -> int:
+    """Bytes of device workspace the backward kernel takes for n_pts
+    points (nm_fused_mlp_bwd_workspace of `lib`, default this tree's)."""
+    lib = lib or build.load_library()
+    nbytes = ctypes.c_longlong(0)
+    rc = lib.nm_fused_mlp_bwd_workspace(packed.desc.ctypes.data, packed.desc.size,
+                                        packed.freqs.ctypes.data, packed.freqs.size,
+                                        n_pts, ctypes.byref(nbytes))
+    build.check(build.load_library(), rc, "fused_mlp_bwd workspace")
+    return nbytes.value
+
+
+def stash_layout(spec: MLPSpec, n_pad: int) -> dict[str, int]:
+    """The backward's bf16 stash (csrc/fused_mlp_bwd.cuh:stash_layout):
+    each region's offset in bf16 elements from the workspace's start, and
+    "end". Row-major regions of n_pad rows: pe (pxp + pdp columns), act (L
+    x H: layer1's and the trunk layers' outputs), feat (H), h (H/2), dy
+    ((L + 1) x H: the output cotangents of layer1, the trunk and feat),
+    dy_dir (H/2), dy_a and dy_rgb (16 each)."""
+    H, L = spec.hidden, spec.num_layers
+    widths = {"pe": spec.pxp + spec.pdp, "act": H * L, "feat": H, "h": H // 2,
+              "dy": H * (L + 1), "dy_dir": H // 2, "dy_a": 16, "dy_rgb": 16}
+    out, at = {}, 0
+    for name, width in widths.items():
+        out[name] = at
+        at += n_pad * width
+    out["end"] = at
+    return out
+
+
+def stash_maps(spec: MLPSpec, n_pad: int) -> dict[str, tuple[int, int, int]]:
+    """The tile kernel's tensor maps over the stash that its TMA stores
+    write (csrc/fused_mlp_bwd.cuh:launch_tiles): name -> (first element,
+    row width, rows). "act" covers act and feat, whose rows follow act's."""
+    H, L = spec.hidden, spec.num_layers
+    st = stash_layout(spec, n_pad)
+    return {"act": (st["act"], H, (L + 1) * n_pad), "dy": (st["dy"], H, (L + 1) * n_pad),
+            "dy_dir": (st["dy_dir"], H // 2, n_pad)}
+
+
+def stash_store_boxes(spec: MLPSpec, n_pad: int, tile: int) -> list[tuple[str, int, int]]:
+    """The TMA stores bwd_tile_kernel issues for tile `tile` (of 128 points
+    at H <= 256, else 64) as (map of stash_maps, first column, first row)
+    of 64 x 64 boxes, one per 128 B swizzled atom of the activation tile,
+    each sending thread's in the order it issues them: after each forward
+    epilogue the tile's H columns to act[g] (feat at g = L), after the dir
+    layer's the H/2 of dy_dir, after each dX epilogue the H to dy[g], g = L
+    down to 0. Each warpgroup sends its own 64 rows; where the warpgroups
+    share a 64-row tile one thread sends it, and in a pair (H > 512) each
+    block its half of the atoms."""
+    H, L = spec.hidden, spec.num_layers
+    split, pair = H > 256, H > 512
+    rows = 64 if split else 128
+    boxes = []
+    for row0 in range(tile * rows, (tile + 1) * rows, 64):
+        for rank in range(2 if pair else 1):
+            def atoms(n):
+                share = (n + 1) // 2 if pair else n
+                return range(rank * share, min(n, (rank + 1) * share))
+
+            for g in range(L + 1):
+                boxes += [("act", 64 * i, g * n_pad + row0) for i in atoms(H // 64)]
+            boxes += [("dy_dir", 64 * i, row0) for i in atoms(H // 128)]
+            for g in reversed(range(L + 1)):
+                boxes += [("dy", 64 * i, g * n_pad + row0) for i in atoms(H // 64)]
+    return boxes
 
 
 def fused_mlp_bwd(packed: PackedMLP, origins: torch.Tensor, directions: torch.Tensor,

@@ -1,23 +1,33 @@
 #!/usr/bin/env python3
-"""Where the forward field kernel's time goes, on the card: the kernel of
-nerfmeshes_tpu_torch/csrc/fused_mlp_fwd.cu timed at 2048 x 192 points (the
-render and train path's fine pass, lego width) as it is and with parts cut
-out of a copy of its source.
+"""Where the fused field kernels' time goes, on the card: the forward of
+nerfmeshes_tpu_torch/csrc/fused_mlp_fwd.cu and the backward's tile kernel
+(csrc/fused_mlp_bwd.cuh) timed at 2048 x 192 points (the train path's fine
+pass, lego width; the backward at hard-llff.yml's 8x128 too) as they are
+and with parts cut out of a copy of their sources.
 
-    python3 scripts/torch_field_ablation.py      # needs one CUDA card and nvcc
+    python3 scripts/torch_field_ablation.py [--fwd | --bwd]   # needs one CUDA card and nvcc
 
 Variants (compile-time switches patched into a copy under
-build/field_ablation/, never into the package):
+build/field_ablation/, never into the package). The forward:
 - full: the kernel as it is;
 - no PE: the positional-encoding tiles are never built (the products read
   whatever the tiles hold);
 - no epilogue: no bias, ReLU or store between products (each layer reads
   the activation tile as the layer before left it);
 - neither: both cut, leaving the TMA weight ring and the wgmma products.
+The backward's tile kernel:
+- full;
+- no stash stores: neither the TMA stores of the activation tiles (act,
+  feat, dy, dy_dir) nor the PE rows and the dir layer's h;
+- no column sums: no colsum8 and no flush of the bias partials;
+- no mask words: the forward's ReLU mask bits neither stored nor loaded
+  (the dX epilogues mask with zero words);
+- none of the three.
 The cut variants compute garbage; only their times mean anything. Each
-variant is built with its own nvcc, all in parallel, and timed twice in
-turn (CUDA events, median of 7 after 2 warm-ups), beside the card's name and
-power limit.
+variant is built with its own nvcc (the backward's two sources each), all
+in parallel, and timed twice in turn (the forward by CUDA events, median of
+7 after 2 warm-ups; the tile kernel by torch.profiler, median of 7 calls,
+and its call by CUDA events), beside the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
+import chip_smoke  # noqa: E402
 from nerfmeshes_tpu_torch.models import FlexibleNeRFModel  # noqa: E402
 from nerfmeshes_tpu_torch.ops.kernels import build  # noqa: E402
 from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm  # noqa: E402
@@ -43,37 +54,94 @@ OUT = REPO / "build" / "field_ablation"
 R, S = 2048, 192
 VARIANTS = {"full": [], "no PE": ["-DABLATE_PE"], "no epilogue": ["-DABLATE_EPILOGUE"],
             "neither": ["-DABLATE_PE", "-DABLATE_EPILOGUE"]}
+BWD_VARIANTS = {"full": [], "no stash stores": ["-DABLATE_STASH"],
+                "no column sums": ["-DABLATE_COLSUM"], "no mask words": ["-DABLATE_MASK"],
+                "none of the three": ["-DABLATE_STASH", "-DABLATE_COLSUM", "-DABLATE_MASK"]}
+BWD_WIDTHS = (256, 128)
+
+# (file, line to patch, its replacement): each switch, off by default.
+EDITS = [
+    ("fused_field.cuh", "    if (chunk >= chunks) return;\n",
+     "#ifdef ABLATE_PE\n    chunk = chunks;\n#endif\n    if (chunk >= chunks) return;\n"),
+    ("fused_field.cuh", "#pragma unroll\n  for (int n0 = 0; n0 < CHUNKS; n0 += 8) {",
+     "#ifdef ABLATE_EPILOGUE\n  if (wa != nullptr) s0 += acc[0];\n  return;\n#endif\n"
+     "#pragma unroll\n  for (int n0 = 0; n0 < CHUNKS; n0 += 8) {"),
+    ("fused_field.cuh", "      if constexpr (STASH)\n",
+     "#ifndef ABLATE_STASH\n      if constexpr (STASH)\n#else\n      if constexpr (false)\n#endif\n"),
+    ("fused_mlp_bwd.cuh", "    if (bits != nullptr) bits[n0 / 8 * WG_THREADS] = mb;\n",
+     "#ifndef ABLATE_MASK\n    if (bits != nullptr) bits[n0 / 8 * WG_THREADS] = mb;\n#endif\n"),
+    ("fused_mlp_bwd.cuh", "      if (!storer) return;\n",
+     "#ifdef ABLATE_STASH\n      return;\n#endif\n      if (!storer) return;\n"),
+    ("fused_mlp_bwd.cuh",
+     "        *reinterpret_cast<uint32_t*>(h_out + r * (H / 2) + col) = lo;\n"
+     "        *reinterpret_cast<uint32_t*>(h_out + (r + 8) * (H / 2) + col) = hi;\n",
+     "#ifndef ABLATE_STASH\n"
+     "        *reinterpret_cast<uint32_t*>(h_out + r * (H / 2) + col) = lo;\n"
+     "        *reinterpret_cast<uint32_t*>(h_out + (r + 8) * (H / 2) + col) = hi;\n#endif\n"),
+    ("fused_mlp_bwd.cuh", "    colsum8<R / 4>(cs, part, n0, q, lane);\n",
+     "#ifndef ABLATE_COLSUM\n    colsum8<R / 4>(cs, part, n0, q, lane);\n#endif\n"),
+    ("fused_mlp_bwd.cuh", "        flush_colsum(part, part_ld(H), NW, db + d.b_off[g] + col0, t);\n",
+     "#ifndef ABLATE_COLSUM\n"
+     "        flush_colsum(part, part_ld(H), NW, db + d.b_off[g] + col0, t);\n#endif\n"),
+    ("fused_mlp_bwd.cuh",
+     "        if (g > 0) load_mask(mw, a.bits + mask_words(H, a.n_tiles, g, tile, u, t));\n",
+     "#ifndef ABLATE_MASK\n"
+     "        if (g > 0) load_mask(mw, a.bits + mask_words(H, a.n_tiles, g, tile, u, t));\n"
+     "#endif\n"),
+]
 
 
-def patched_sources() -> Path:
-    """A copy of csrc/ whose field kernel honours ABLATE_PE and
-    ABLATE_EPILOGUE."""
-    shutil.rmtree(OUT, ignore_errors=True)
-    shutil.copytree(build.CSRC_DIR, OUT)
-    path = OUT / "fused_field.cuh"
-    text = path.read_text()
-    edits = [
-        ("    if (chunk >= chunks) return;\n",
-         "#ifdef ABLATE_PE\n    chunk = chunks;\n#endif\n    if (chunk >= chunks) return;\n"),
-        ("#pragma unroll\n  for (int n0 = 0; n0 < R / 4; n0 += 8) {",
-         "#ifdef ABLATE_EPILOGUE\n  if (wa != nullptr) s0 += acc[0];\n  return;\n#endif\n"
-         "#pragma unroll\n  for (int n0 = 0; n0 < R / 4; n0 += 8) {"),
-    ]
-    for old, new in edits:
+def patched_sources(out: Path = OUT) -> Path:
+    """A copy of csrc/ at `out` whose field kernels honour the ABLATE_*
+    switches (EDITS); raises where a source no longer has a line to
+    patch."""
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(build.CSRC_DIR, out)
+    for name, old, new in EDITS:
+        path = out / name
+        text = path.read_text()
         if text.count(old) != 1:
-            raise RuntimeError(f"fused_field.cuh no longer has the line to patch: {old!r}")
-        text = text.replace(old, new)
-    path.write_text(text)
-    return OUT
+            raise RuntimeError(f"{name} no longer has the line to patch: {old!r}")
+        path.write_text(text.replace(old, new))
+    return out
 
 
-def main() -> int:
+def bwd_ablation(src: Path, card: str) -> None:
+    """The backward's variants (BWD_VARIANTS) at 2048 x 192 points on 8x256
+    and 8x128 fields at L 10/4 (torch_bwd_tile_ab.py's shapes)."""
+    import torch_bwd_tile_ab as ab
+
+    libs = {name: ab.load(lib) for name, (lib, _) in
+            zip(BWD_VARIANTS, ab.compile_many([(src, tuple(f)) for f in BWD_VARIANTS.values()]))}
+    device = torch.device("cuda")
+    build.load_library()
+    for H in BWD_WIDTHS:
+        shape = f"w{H} 2048x{192 if H == 256 else 128}"
+        inputs = ab.shape_inputs(shape, device)
+        for turn in range(2):
+            for name, lib in libs.items():
+                def call(lib=lib):
+                    return fm.fused_mlp_bwd_cuda(*inputs, lib=lib)
+
+                tile = chip_smoke._kernel_device_ms(call, ab.TILE_KERNEL)
+                ms = chip_smoke._median_ms(call)
+                print(f"bwd ablation turn {turn}, {shape}, {name}: tile kernel {tile:.4f} ms "
+                      f"(torch.profiler, median of 7), call {ms:.4f} ms (CUDA events, median of "
+                      f"7) [{card}]", flush=True)
+
+
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         raise SystemExit("torch_field_ablation.py needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.splitlines()[0]
     src = patched_sources()
+    if "--fwd" not in args:
+        bwd_ablation(src, card)
+    if "--bwd" in args:
+        return 0
     nvcc = build.find_nvcc()
     jobs = {}
     for name, flags in VARIANTS.items():

@@ -5,7 +5,11 @@ printed as one JSON line: the check that a change to a kernel leaves the
 bits it does not mean to change as they were (the forward and sigma
 kernels share nerfmeshes_tpu_torch/csrc/fused_field.cuh with the
 backward's tile kernel; the backward's dB comes from the tile kernel
-alone, its dW also from the dW leg). With --layers, the same four of the
+alone, its dW also from the dW leg). With --bwd, the fused backward's dW
+and dB and its stash (bwd_digests) at H = 128, 256
+and 384 on seeded 8-layer fields (BWD_R x S rays: a ragged last tile),
+through another checkout's build with --tree ROOT (its fused_mlp_bwd.cu,
+compiled alone as scripts/torch_bwd_tile_ab.py does). With --layers, the same four of the
 layer route (csrc/field_layers.cu) on a seeded 8x1024 field at mip-NeRF's
 16 position bands, and the digest of the dir layer's cotangent dy_dir
 that its backward heads kernel leaves in the workspace: the check that a
@@ -15,7 +19,7 @@ alone, as scripts/torch_layer_product_ab.py does).
 tests/test_torch_fused_mlp_gpu.py holds the kernels to the digests this
 script printed before such a change.
 
-    python scripts/torch_field_digest.py [--layers [--tree ROOT]]   # needs a CUDA card
+    python scripts/torch_field_digest.py [--layers | --bwd] [--tree ROOT]   # needs a CUDA card
 
 The weights and inputs come from numpy's generator seeded 0, so the case
 does not depend on torch's random streams.
@@ -41,6 +45,8 @@ from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm  # noqa: E402
 
 R, S, POINTS = 2048, 64, 65536
 LAYER_R = 512  # rays of the layer route's case (x S samples)
+BWD_R = 1999  # rays of the fused backward's cases: 127,936 points, 64 past the last whole tile
+BWD_WIDTHS = (128, 256, 384)
 
 
 def _sha(t: torch.Tensor) -> str:
@@ -84,6 +90,33 @@ def digests(device) -> dict:
     return {"fwd": _sha(fwd), "sigma": _sha(sigma), "bwd_dB": _sha(dB), "bwd_dW": _sha(dW)}
 
 
+def bwd_digests(device, lib=None) -> dict:
+    """{"w128" | "w256" | "w384": {"dW", "dB": of the fused backward's f32
+    grads, "act", "dy", "stash": of its stash's act and feat regions, its
+    dy and dy_dir regions (the rows the tile kernel sends by TMA stores),
+    and the whole stash}}
+    on an 8-layer field at L 10/4 of each of BWD_WIDTHS, weights, BWD_R x
+    S rays and cotangent seeded, launched on `device` through `lib`
+    (default this tree's build)."""
+    out = {}
+    for hidden in BWD_WIDTHS:
+        packed, o, d, z, _, cot = _seeded_case(
+            np.random.default_rng(0), device, BWD_R, num_layers=8, hidden_size=hidden,
+            skip_step=4, num_encoding_fn_xyz=10, num_encoding_fn_dir=4)
+        n = z.numel()
+        workspace = torch.empty(fm.bwd_workspace_bytes(packed, n, lib), dtype=torch.uint8,
+                                device=device)
+        dW, dB = fm.fused_mlp_bwd_cuda(packed, o, d, z, cot, lib=lib, workspace=workspace)
+        torch.cuda.synchronize()
+        st = fm.stash_layout(packed.spec, -(-n // 128) * 128)
+        stash = workspace.view(torch.bfloat16)
+        out[f"w{hidden}"] = {"dW": _sha(dW), "dB": _sha(dB),
+                             "act": _sha(stash[st["act"]:st["h"]]),
+                             "dy": _sha(stash[st["dy"]:st["dy_a"]]),
+                             "stash": _sha(stash[:st["end"]])}
+    return out
+
+
 def layer_digests(device, lib=None) -> dict:
     """The same four digests of the layer route on an 8x1024 field at L
     16/4 (LAYER_R x S rays, POINTS sigma points), launched on `device`
@@ -111,10 +144,14 @@ if __name__ == "__main__":
         raise SystemExit("needs a CUDA device")
     args = sys.argv[1:]
     device = torch.device("cuda")
-    if "--tree" in args:
+    tree = Path(args[args.index("--tree") + 1]).resolve() if "--tree" in args else None
+    if "--bwd" in args:
+        from torch_bwd_tile_ab import compile_tree as compile_bwd
+
+        print(json.dumps(bwd_digests(device, compile_bwd(tree) if tree else None)))
+    elif tree is not None:
         from torch_layer_product_ab import compile_tree, load
 
-        tree = Path(args[args.index("--tree") + 1]).resolve()
         print(json.dumps(layer_digests(device, load(compile_tree(tree)))))
     else:
         print(json.dumps((layer_digests if "--layers" in args else digests)(device)))

@@ -613,3 +613,88 @@ def test_chip_smoke_groups_kernels_the_sources_define():
     names = {k for keys in (*smoke.BWD_LEGS.values(), *smoke.PROFILE_GROUPS.values())
              for k in keys}
     assert names <= defined, sorted(names - defined)
+
+
+def _script(name: str):
+    path = Path(__file__).resolve().parents[1] / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("n_pad", [128, 384])
+@pytest.mark.parametrize("kw", PACK_GRID, ids=lambda kw: "-".join(map(str, kw.values())))
+def test_stash_store_boxes_cover_each_region_once(kw, n_pad):
+    """The mirror of the tile kernel's TMA stores (fm.stash_store_boxes,
+    csrc/fused_mlp_bwd.cuh) on every architecture of the packing grid, so
+    on both tile heights (128 points to 256 wide, 64 past it) and in the
+    2-CTA pairs: the maps (fm.stash_maps) lie over stash_layout's act and
+    feat, dy, and dy_dir regions exactly, and a tile's 64 x 64 boxes cover
+    each of those regions' rows of the tile's points once and nothing else.
+    The stash's rows are padded to 128 points at every width
+    (workspace_layout)."""
+    spec = fm.spec_from_model(FlexibleNeRFModel(**kw))
+    H, L = spec.hidden, spec.num_layers
+    rows = 64 if H > 256 else 128
+    st = fm.stash_layout(spec, n_pad)
+    maps = fm.stash_maps(spec, n_pad)
+    assert maps == {"act": (st["act"], H, (L + 1) * n_pad),
+                    "dy": (st["dy"], H, (L + 1) * n_pad), "dy_dir": (st["dy_dir"], H // 2, n_pad)}
+    assert (st["feat"], st["h"]) == (st["act"] + L * n_pad * H, st["feat"] + n_pad * H)
+    assert st["dy_a"] == st["dy_dir"] + n_pad * H // 2
+    for tile in range(n_pad // rows):
+        cover = {name: np.zeros((n, width), np.int32) for name, (_, width, n) in maps.items()}
+        for name, col, row in fm.stash_store_boxes(spec, n_pad, tile):
+            assert col % 64 == 0 and 0 <= row and row + 64 <= cover[name].shape[0]
+            cover[name][row:row + 64, col:col + 64] += 1
+        for name, grid in cover.items():
+            want = np.zeros_like(grid)
+            blocks = 1 if name == "dy_dir" else L + 1
+            for g in range(blocks):
+                want[g * n_pad + tile * rows:g * n_pad + (tile + 1) * rows] = 1
+            assert np.array_equal(grid, want), (name, tile)
+
+
+def test_ablation_patches_apply(tmp_path):
+    """scripts/torch_field_ablation.py patches its switches into a copy of
+    csrc/: every line it patches is in the sources once, so a change to a
+    kernel that moves one fails here, not in a run on the card."""
+    out = _script("torch_field_ablation").patched_sources(tmp_path / "csrc")
+    fwd = (out / "fused_field.cuh").read_text()
+    bwd = (out / "fused_mlp_bwd.cuh").read_text()
+    for flag in ("ABLATE_PE", "ABLATE_EPILOGUE", "ABLATE_STASH"):
+        assert flag in fwd
+    for flag in ("ABLATE_STASH", "ABLATE_COLSUM", "ABLATE_MASK"):
+        assert flag in bwd
+
+
+def test_ptxas_usage_reads_the_report():
+    """build.ptxas_usage on ptxas's -v lines as nvcc prints them: registers,
+    stack, spill stores and loads per entry, and C7519 notes per kernel;
+    chip_smoke.tile_kernel_usage keeps the tile kernel's, by width."""
+    from nerfmeshes_tpu_torch.ops.kernels import build
+
+    tile = "_ZN12_GLOBAL__N_115bwd_tile_kernelILi{}EEEvNS_7BwdMapsENS_4DescE"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{tile.format(256)}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {tile.format(256)}",
+        "    240 bytes stack frame, 236 bytes spill stores, 232 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 4088 bytes cmem[0]",
+        f"ptxas info    : Compiling entry function '{tile.format(128)}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {tile.format(128)}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 154 registers, used 1 barriers, 4088 bytes cmem[0]",
+        "ptxas /tmp/x.ptx, line 9; warning : (C7519) Potential Performance Loss: wgmma.mma_async "
+        f"instructions are serialized in the function '{tile.format(128)}'",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_19dw_kernelENS_6DwArgsE' "
+        "for 'sm_90a'",
+        "ptxas info    : Used 90 registers, used 1 barriers",
+    ])
+    usage = build.ptxas_usage(log)
+    assert usage[tile.format(256)] == dict(registers=168, stack=240, spill_stores=236,
+                                           spill_loads=232, c7519=0)
+    assert usage[tile.format(128)] == dict(registers=154, stack=0, spill_stores=0,
+                                           spill_loads=0, c7519=1)
+    assert usage["_ZN12_GLOBAL__N_19dw_kernelENS_6DwArgsE"]["registers"] == 90
+    assert sorted(_chip_smoke().tile_kernel_usage(log)) == [128, 256]

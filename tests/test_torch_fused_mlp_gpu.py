@@ -3,8 +3,8 @@ versions, on the card: every architecture at the ragged edges of the
 128-point tiles and past two persistent waves, skips the models do not
 make (after layer1, after the last trunk layer), a backward workspace
 full of NaN, bitwise repeats, launches refused for their shared memory,
-the forward's and sigma kernel's output bits and the backward's bias
-grad bits on a seeded case; the backward's dW leg alone
+the forward's and sigma kernel's output bits and the backward's grad
+and stash bits on seeded cases; the backward's dW leg alone
 (nm_dw_product) against torch.mm: one MN-major wgmma product, then the
 edges of its 64-point stages, 128-row blocks and point ranges; and the
 layer route (csrc/field_layers.cu): its product kernel, its backward's
@@ -453,19 +453,8 @@ def test_bwd_kernel_tile_edges(cuda, kw, R, S):
 
 
 def _bwd_into(packed, args, workspace):
-    """The C entry point on a workspace the caller made."""
-    o, d, z, cot = args
-    R, S = z.shape
-    lib = build.load_library()
-    dW = torch.zeros(packed.weights.shape, dtype=torch.float32, device=z.device)
-    dB = torch.zeros(packed.biases.shape, dtype=torch.float32, device=z.device)
-    rc = lib.nm_fused_mlp_bwd(
-        o.data_ptr(), d.data_ptr(), z.data_ptr(), R, S, cot.data_ptr(),
-        packed.weights.data_ptr(), packed.biases.data_ptr(), packed.desc.ctypes.data,
-        packed.desc.size, packed.freqs.ctypes.data, packed.freqs.size, workspace.data_ptr(),
-        workspace.numel(), dW.data_ptr(), dB.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    build.check(lib, rc, "fused_mlp_bwd launch")
-    return dW, dB
+    """The kernel on a workspace the caller made."""
+    return fm.fused_mlp_bwd_cuda(packed, *args, workspace=workspace)
 
 
 @pytest.mark.parametrize("R,S", [(37, 5), (1000, 7)])
@@ -474,14 +463,9 @@ def test_bwd_kernel_writes_every_row_it_reads(cuda, R, S):
     and every bias partial the dW products and reductions read, the tail
     rows of the last tile included (finite activations, zero cotangents)."""
     packed, args = _grad_case(LEGO, R, S, cuda, seed=3)
-    lib = build.load_library()
-    nbytes = ctypes.c_longlong(0)
-    rc = lib.nm_fused_mlp_bwd_workspace(packed.desc.ctypes.data, packed.desc.size,
-                                        packed.freqs.ctypes.data, packed.freqs.size, R * S,
-                                        ctypes.byref(nbytes))
-    build.check(lib, rc, "fused_mlp_bwd workspace")
-    assert nbytes.value % 4 == 0
-    workspace = torch.full((nbytes.value // 4,), float("nan"), device=cuda).view(torch.uint8)
+    nbytes = fm.bwd_workspace_bytes(packed, R * S)
+    assert nbytes % 4 == 0
+    workspace = torch.full((nbytes // 4,), float("nan"), device=cuda).view(torch.uint8)
     got = _bwd_into(packed, args, workspace)
     torch.cuda.synchronize()
     assert all(bool(torch.isfinite(g).all()) for g in got)
@@ -490,6 +474,8 @@ def test_bwd_kernel_writes_every_row_it_reads(cuda, R, S):
     assert worst < GRAD_BAR, f"worst grad rel err {worst}"
     again = fm.fused_mlp_bwd_cuda(packed, *args)  # on a fresh torch.empty workspace
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+    with pytest.raises(ValueError, match="workspace"):
+        fm.fused_mlp_bwd_cuda(packed, *args, workspace=workspace[:nbytes - 1])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -671,6 +657,46 @@ def test_backward_keeps_its_bias_grad_bits(field_digests):
     """The bias grads come from the tile kernel and the reductions alone:
     they stay bit for bit what they were when the dW leg changed."""
     assert field_digests["bwd_dB"] == BWD_DB_DIGEST
+
+
+# SHA-256 of the backward's f32 dW on that seeded lego case ("bwd_dW"), and
+# per width of scripts/torch_field_digest.py's BWD_WIDTHS (`--bwd`: 8
+# layers at L 10/4, 1999 x 64 rays, a ragged last tile) of dW, dB, the
+# stash's act and feat rows, its dy and dy_dir rows and the whole stash, as
+# the tile kernel gave them while it stored the stash from its fragments
+# (the script on that tree, and through `--bwd --tree` on it; NVIDIA H100
+# 80GB HBM3). The TMA stores send the same bytes and the products keep
+# their K order, so every one stays.
+BWD_DW_DIGEST = "42700af8f84565b8dd36d7683446de25e292cd1d714fc9f7af007cd4a4ef5643"
+BWD_DIGESTS = {
+    "w128": {"dW": "90796abb95c5e465751d6df2c849e2fe7cf16eb672f438bf9759c8c4f5827bfd",
+             "dB": "fcc5ac029fded36b24a9aa2b14f407767b9ab842990d454acd54744f172812ee",
+             "act": "877efb11bc239d3d71939b5fa7c763e3d4a63f683d2d548a7e3695677557cf9d",
+             "dy": "22a24a61ff3ce59a6157c4c7815a6f9fdfce892d79542416cc7e8dd279a68506",
+             "stash": "6945dac558cdb68b45e52a5715381d14730348c6ba07377c624a76ae8701b523"},
+    "w256": {"dW": "26aec0eda93a732522dbbf2f2ac2fd123e0ffeeca4e359baf345845388e2d45c",
+             "dB": "164133396381b797f46b43862bb40a08e0057489c1036a821ac8c146e921c677",
+             "act": "e5b2ad0c60191770eb180716410687f902a7341a73c39bb460df3a1db5183c1a",
+             "dy": "90f906c853cdd49eab2407a1d69fbaba3a921e76d592996904fa03b0cd1a04e2",
+             "stash": "6615d96340783fba36a3921da8aa66c54286a73729cdbd1faff208f1e51e92f1"},
+    "w384": {"dW": "508fe6663e4fe9518306f928e4d0d86fe76b6cc5274424cd0496ce9de6a9a853",
+             "dB": "b30b84a3008ea9714f7ccac12095a1e7b186a0c309edc323dc79dd3e3c4c9748",
+             "act": "3649e34511d13d9f308f8b7ed1a599a8caa8fa15c59d1f094f1b6639b9a5e846",
+             "dy": "4bbf48507074c80f00b995f27b88c91f3bb253fce6a8eb6afbf371ad454c9ead",
+             "stash": "7c7b30abc2e6d2527e7e460797efa38a01a81e51f27df85f0f86978629a015dc"}}
+
+
+def test_backward_keeps_its_weight_grad_bits(field_digests):
+    """dW on the lego case stays bit for bit what it was before the tile
+    kernel's stash went out by TMA stores."""
+    assert field_digests["bwd_dW"] == BWD_DW_DIGEST
+
+
+def test_backward_keeps_its_stash_bits(cuda):
+    """At 128, 256 and 384 wide, dW, dB and every stash region the tile
+    kernel writes (the TMA stores' act, feat, dy and dy_dir rows among
+    them) stay bit for bit what they were."""
+    assert _digest_script().bwd_digests(cuda) == BWD_DIGESTS
 
 
 # SHA-256 of the layer route's forward (4, 512, 64) and sigma (65,536,)
@@ -896,13 +922,8 @@ def _fused_stash_pe(kw, R, S, device, seed):
     """(packed, rays, the PE the fused backward's tile kernel builds for its
     first product and stashes: [PE(xyz) | PE(dir)] rows of the workspace)."""
     packed, args = _grad_case(kw, R, S, device, seed=seed)
-    lib = build.load_library()
-    nbytes = ctypes.c_longlong(0)
-    rc = lib.nm_fused_mlp_bwd_workspace(packed.desc.ctypes.data, packed.desc.size,
-                                        packed.freqs.ctypes.data, packed.freqs.size, R * S,
-                                        ctypes.byref(nbytes))
-    build.check(lib, rc, "fused_mlp_bwd workspace")
-    workspace = torch.zeros(nbytes.value, dtype=torch.uint8, device=device)
+    workspace = torch.zeros(fm.bwd_workspace_bytes(packed, R * S), dtype=torch.uint8,
+                            device=device)
     _bwd_into(packed, args, workspace)
     cols = packed.spec.pxp + packed.spec.pdp
     stash = workspace[:R * S * cols * 2].view(torch.bfloat16).view(R * S, cols)

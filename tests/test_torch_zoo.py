@@ -656,3 +656,59 @@ def test_chip_smoke_zoo_chain_builds_the_class_defaults():
     assert sum(p.numel() for p in coarse.parameters()) == smoke.ZOO_COARSE_PARAMS
     assert type(fine).__name__ == "FlexibleNeRFModel" and t_render.supports_fused(fine)
     assert (first, second) == (500, 1000)
+
+
+@pytest.mark.parametrize("fault", ["ulp", "projection", "head"])
+def test_chip_smoke_zoo_compare_holds_the_projection_apart(fault):
+    """chip_smoke.zoo_compare on two CPU copies of SimpleModel (class
+    defaults, |B| up to 2^31), the second standing in for the card. One
+    ulp on the largest x @ B, the most another summation order of the
+    3-term sum moves it, sends the end-to-end field past the f32 bar, yet
+    lies within f32's rounding bound: zoo_compare passes it. A projection
+    off by 1e-4 of itself, or a sigma head's bias off by 1e-4, fails it."""
+    import importlib.util
+    from pathlib import Path
+
+    from nerfmeshes_tpu_torch.models.nerf_models import field_of
+
+    repo = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke", repo / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cpu = tm.build_model("SimpleModel", {}, compute_dtype=torch.float32)
+    t_system.init_params(cpu, None, torch.Generator().manual_seed(0))
+    other = tm.build_model("SimpleModel", {}, compute_dtype=torch.float32)
+    other.load_state_dict(cpu.state_dict())
+    pts, dirs = smoke._zoo_points(torch.device("cpu"))
+    pts, dirs = pts[:8, :16].contiguous(), dirs[:8, :16].contiguous()
+    enc = other.encode_xyz
+    assert isinstance(enc, tl.SpatialEmbedding) and float(enc.b.detach().abs().max()) >= 2.0 ** 31
+
+    class Moved(type(enc)):
+        def projection(self, x):
+            p = super().projection(x).flatten()
+            i = int(p.abs().argmax())
+            if fault == "projection":
+                step = p[i] * (1.0 + 1e-4)
+            else:
+                step = torch.nextafter(p[i], torch.tensor(float("inf")))
+            return torch.cat([p[:i], step[None], p[i + 1:]]).view(*x.shape[:-1], -1)
+
+    if fault == "head":
+        with torch.no_grad():
+            other.fc_depth.bias += 1e-4
+    else:
+        enc.__class__ = Moved
+    _, reads = smoke.zoo_compare(cpu, other, pts, dirs, "float32")
+    holds = reads["proj_ok"] and reads["field_ok"] and reads["grad_err"] < smoke.ZOO_GRAD_TOL[
+        "float32"]
+    if fault == "ulp":
+        with torch.no_grad():
+            plain = (field_of(other(pts, dirs)) - field_of(cpu(pts, dirs))).abs()
+        assert float(plain.max()) > smoke.ZOO_FIELD_TOL["float32"] * 10
+        assert reads["proj_moved"] == 1 and reads["proj_ratio"] <= 1.0
+        assert holds, reads
+    elif fault == "projection":
+        assert not reads["proj_ok"] and not holds
+    else:
+        assert reads["proj_moved"] == 0 and not reads["field_ok"] and not holds
