@@ -87,9 +87,10 @@ and the BuFF ones:
   frames re-encoded as `{f}.jpg` by the port's g++-built JPEG encoder;
   each decodes within 30 dB PSNR of its source frame at least; host ms per
   1296x968 encode.
-- H = 128: the forward kernel at 2048 x 64 and 2048 x 128 and the
-  backward at 2048 x 128, at the width of configs/hard-llff.yml (8x128),
-  held against their plain versions and timed (h128_kernel_phase).
+- H = 128: the forward kernel at 2048 x 64 and 2048 x 128, the backward
+  at 2048 x 128 and sigma at a 262,144-point grid tile, at the width of
+  configs/hard-llff.yml (8x128), held against their plain versions (sigma
+  against the forward's channel 3 too) and timed (h128_kernel_phase).
 - the wide fields (wide_phase, last): hard-blender.yml's two 8-layer L
   10/4 FlexibleNeRFs widened to 384-1024, the fused kernels called
   directly (64-point tiles split in N; from 640 on across a 2-CTA
@@ -869,12 +870,14 @@ def _fwd_times(model, packed, o, d, z, card: str, route: str = "fused") -> dict:
 
 
 def h128_kernel_phase(card: str, device) -> dict:
-    """The forward and backward kernels at the width of configs/hard-llff.yml
-    (8x128 FlexibleNeRF, PE 10/4), at its train shapes: 2048 rays x 64
-    coarse and x 128 fine samples. Each shape of the forward is held
-    against its plain version (atol = rtol = 2e-2) and timed
-    (_fwd_times); the backward is held at both shapes and timed at 2048 x
-    128 (bwd_kernel_phase). Returns {"fwd": {S: row}, "bwd": row}."""
+    """The forward, backward and sigma kernels at the width of
+    configs/hard-llff.yml (8x128 FlexibleNeRF, PE 10/4), at its train
+    shapes: 2048 rays x 64 coarse and x 128 fine samples. Each shape of the
+    forward is held against its plain version (atol = rtol = 2e-2) and
+    timed (_fwd_times); the backward is held at both shapes and timed at
+    2048 x 128 (bwd_kernel_phase); sigma is held and timed at a
+    262,144-point grid tile (sigma_kernel_phase). Returns {"fwd": {S:
+    row}, "bwd": row, "sigma": row}."""
     from nerfmeshes_tpu_torch.models import build_model
     from nerfmeshes_tpu_torch.ops.kernels import fused_mlp as fm
     from nerfmeshes_tpu_torch.train.system import init_params
@@ -896,7 +899,9 @@ def h128_kernel_phase(card: str, device) -> dict:
         rows[S] = dict(max_abs_err=_fwd_check(packed, o, d, z, model.hidden_size),
                        shape=f"{R}x{S}", **_fwd_times(model, packed, o, d, z, card))
     bwd = bwd_kernel_phase(cfg, card, device)
-    return {"fwd": rows, "bwd": dict(bwd, shape=f"{R}x{S}")}
+    sigma = sigma_kernel_phase(cfg, card, device)
+    return {"fwd": rows, "bwd": dict(bwd, shape=f"{R}x{S}"),
+            "sigma": dict(sigma, shape=f"{GRID_TILE} points")}
 
 
 # The wide fields (csrc/fused_field.cuh at H > 256: 64-point tiles whose
@@ -4829,6 +4834,20 @@ def tile_kernel_usage(log: str) -> dict:
     return dict(sorted(out.items()))
 
 
+def field_kernel_usage(log: str, widths=(128, 256)) -> list:
+    """ptxas's report (build.ptxas_usage) of the forward's and the sigma
+    kernel's instantiations at `widths` in an nvcc log: [(H, kernel name,
+    usage)], kernel name fused_mlp_fwd_kernel or fused_sigma_kernel."""
+    from nerfmeshes_tpu_torch.ops.kernels import build
+
+    out = []
+    for name, usage in build.ptxas_usage(log).items():
+        m = re.search(r"(fused_mlp_fwd_kernel|fused_sigma_kernel)ILi(\d+)E", name)
+        if m and int(m.group(2)) in widths:
+            out.append((int(m.group(2)), m.group(1), usage))
+    return sorted(out)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile-mesh", type=int, nargs="*", metavar="STEPS",
@@ -4874,6 +4893,14 @@ def main(argv=None) -> int:
               "C7519 notes (ptxas, this run's build)")
     if log and not tile_ptxas:
         raise AssertionError("the build log has no ptxas report of bwd_tile_kernel")
+    field_ptxas = {"fused_mlp_fwd_kernel": {}, "fused_sigma_kernel": {}}
+    for H, kernel, u in field_kernel_usage(log, (128, 256, 384)):
+        field_ptxas[kernel][f"H={H}"] = u
+        print(f"{kernel} H={H}: {u['registers']} registers, {u['spill_stores']} B spill "
+              f"stores, {u['spill_loads']} B spill loads, {u['stack']} B stack, {u['c7519']} "
+              "C7519 notes (ptxas, this run's build)")
+    if log and not all(field_ptxas.values()):
+        raise AssertionError("the build log has no ptxas report of the forward or sigma kernel")
     if opts.breakdowns:
         print(json.dumps(breakdowns(card, device)))
         return 0
@@ -4972,6 +4999,12 @@ def main(argv=None) -> int:
                            "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397", h128["bwd"], llff_bwd,
                            shape=h128["bwd"]["shape"], hidden=128,
                            max_rel_err=h128["bwd"]["max_rel_err"]))
+    # sigma at 128 is on no chain's path (hard-llff.yml meshes nothing)
+    h128_rows.append(entry("fused_sigma H=128", "fused_sigma.cu",
+                           "nerfmeshes_tpu/ops/pallas/fused_mlp.py:675", h128["sigma"], {},
+                           shape=h128["sigma"]["shape"], hidden=128,
+                           bitwise_fwd_channel3=h128["sigma"]["bitwise"],
+                           ptxas=field_ptxas["fused_sigma_kernel"].get("H=128")))
 
     wide_rows, direct, layer_rows = wide_and_layer_rows(wide, layers)
     print(f"smoke total: {time.perf_counter() - t_start:.2f} s, the wide phase and the "
@@ -4986,7 +5019,8 @@ def main(argv=None) -> int:
               chunk_ms=kern["chunk_ms"], chunk_bound_ms=kern["chunk_bound_ms"],
               chunk_library_ms=kern["chunk_library_ms"], chunk_plain_ms=kern["chunk_plain_ms"],
               shape="2048x192", hidden=256, direct=direct["fwd"], per_rank={
-                  k: v for k, v in dist["per_rank"].items() if k.startswith("fused_mlp_fwd")}),
+                  k: v for k, v in dist["per_rank"].items() if k.startswith("fused_mlp_fwd")},
+              ptxas=field_ptxas["fused_mlp_fwd_kernel"]),
         entry("fused_mlp_bwd", "fused_mlp_bwd.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397", bkern,
               {"train": train["bwd_launches"], "buff_train": buff["bwd_launches"], **cli["bwd"],
                "buff_random_train": buff_random["train"]["bwd"], **dist["launches"]["bwd"]},
@@ -4998,7 +5032,8 @@ def main(argv=None) -> int:
               {"mesh": mesh["sigma_launches"], "buff_mesh": buff_mesh["sigma_launches"],
                **cli["sigma"], **dist["launches"]["sigma"]},
               direct=direct["sigma"], per_rank={k: v for k, v in dist["per_rank"].items()
-                                                if k.startswith("fused_sigma")}),
+                                                if k.startswith("fused_sigma")},
+              ptxas=field_ptxas["fused_sigma_kernel"]),
         entry("fused_chords", "chords.cu", "nerfmeshes_tpu/ops/pallas/chords.py:98",
               dict(ckern, library_ms=None),
               {"train": buff["chords_launches"], "render": buff_render["chords_launches"],

@@ -1,15 +1,15 @@
 // The field kernel that the forward (fused_mlp_fwd.cu) and the sigma-only
 // (fused_sigma.cu) entry points share, for Hopper (sm_90a): one persistent
 // CTA per SM walks tiles of 128 points (64 at H > 256, below); every layer
-// product is a wgmma on weight slabs that a producer warp streams into
-// shared memory by TMA. Both entry points run the same trunk and alpha head code, so on equal
-// points their sigma agrees bit for bit. The backward's tile kernel
-// (fused_mlp_bwd.cu) is built from the same pieces: Producer, Ring,
-// layer_product and the PE builder with its STASH flag (each PE row to
-// device memory); it writes its own epilogues' tiles by stmatrix and sends
-// them on to its stash by TMA stores (tma_store_2d); its dW kernel uses the
-// ring's TMA and barriers with the MN-major operands of sw128_mn_desc /
-// wgmma_bf16_mn.
+// product is a wgmma on weight slabs that a producer thread streams into
+// shared memory by TMA. Both entry points run the same trunk and alpha head
+// code, so on equal points their sigma agrees bit for bit. The backward's
+// tile kernel (fused_mlp_bwd.cu) is built from the pieces of the split
+// design below: Producer, Ring, layer_product and the PE builder with its
+// STASH flag (each PE row to device memory); it writes its own epilogues'
+// tiles by stmatrix and sends them on to its stash by TMA stores
+// (tma_store_2d); its dW kernel uses the ring's TMA and barriers with the
+// MN-major operands of sw128_mn_desc / wgmma_bf16_mn.
 //
 // What bounds it on an H100: ~1.19 MFLOP per point at lego width (8x256,
 // L 10/4) against ~44 bytes of rays in and field out per point, so the
@@ -17,40 +17,48 @@
 // wgmma), and after them the weights: 1.19 MB of bf16 that no CTA can hold,
 // read from L2 once per tile, ~9.3 KB per point at 128-point tiles.
 //
-// Design, per CTA (3 warpgroups, 384 threads):
-// - Warpgroup 2, the producer (setmaxnreg down to 40 registers): one thread
-//   walks the same (tile, product, K-slab) sequence as the consumers and
-//   copies each slab, 64 K-columns x N rows of one packed (N, K) row-major
-//   matrix (K-major: no transpose, no repack), into a ring of slots with TMA
-//   (one tensor map per product, 128 B swizzle, zeros past K), a full and an
-//   empty mbarrier per slot. A product's last slab also brings its bias and
-//   head weights by bulk copy (L1 holds little beside ~200 KB of shared
-//   memory). It runs ahead across product and tile boundaries: every tile
-//   reads the same weight sequence.
-// - Warpgroups 0 and 1, the consumers (setmaxnreg up to 232): 64 rows each.
-//   Each product is wgmma.mma_async m64 x N x k16, A (activations or PE)
-//   and B (the slab) from shared memory, the f32 sum in registers (m64n256:
-//   128 a thread). The skip and dir layers switch A between the activation
-//   tile and the PE tile per k16 step. A slab is released once the next
-//   slab's products are issued and its own are done (wgmma.wait_group 1),
-//   so the tensor cores always hold queued work.
-// - Epilogue in registers: bias, ReLU, bf16, written in place into the
-//   warpgroup's activation tile (after wait_group 0 and a warpgroup
-//   barrier), then fence.proxy.async and a barrier before the next product
-//   reads it. The alpha (H -> 1) and rgb (H/2 -> 3) heads are dot products
-//   over the accumulator fragment on bf16-rounded inputs, summed across the
-//   4 threads of a row by shuffles.
-// - PE: each consumer thread owns one row of its warpgroup's PE tile and
-//   builds the next tile's two columns at a time between this tile's
-//   products (a table in shared memory says what each column computes), so
-//   the sines overlap the tensor cores.
-// - Shared memory: the ring (slots of [64 x H bf16 slab | 2 KB of params]:
-//   34 KB at H = 256), the activation tiles (128 x H bf16), the PE arena
-//   (two tiles of [PE(xyz) | PE(dir)] per warpgroup, or one where two leave
-//   fewer than 3 ring slots). Lego forward: 3 slots, 2 PE tiles, 215 KB;
-//   the 24-band, 14-layer edge: 2 slots, 1 PE tile. The plan is made at
-//   launch from the card's limit; a descriptor that leaves fewer than 2
-//   slots is refused (cudaErrorInvalidValue), never launched.
+// Design at H = 128 and 256 (the register design, field_body_regs), per
+// CTA (3 warpgroups, 384 threads):
+// - Warpgroup 2: its first thread walks the (tile, product, K-slab)
+//   sequence and copies each slab, 64 K-columns x N rows of one packed (N,
+//   K) row-major matrix (K-major: no transpose, no repack), into a ring of
+//   slots with TMA (one tensor map per product, 128 B swizzle, zeros past
+//   K), a full and an empty mbarrier per slot; it runs ahead across product
+//   and tile boundaries (every tile reads the same weight sequence). Its
+//   warps 1-3 build every tile's PE (pe_warps) a PE slot ahead, behind a
+//   full and an empty mbarrier per slot.
+// - Warpgroups 0 and 1, the consumers: 64 points each. A product is
+//   wgmma.mma_async m64 x N x k16 with the f32 sum in registers and the
+//   activations as A in registers too (wgmma_rs): the bf16 pairs an
+//   epilogue packs from an accumulator fragment are, in order, the A
+//   fragments of the next product's k16 blocks. The skip, layer1 and dir
+//   products take their PE columns from shared memory (wgmma_bf16). A slab
+//   is released once the next slab's products are issued and its own are
+//   done (wait_group 1), the last one before the epilogue.
+// - Epilogue in registers: bias, ReLU, bf16 (one cvt.relu a pair), nothing
+//   stored and no barrier; the alpha (H -> 1) and rgb (H/2 -> 3) heads are
+//   dot products over the accumulator fragment on bf16-rounded inputs,
+//   summed across the 4 threads of a row by shuffles. The biases and head
+//   weights are resident in shared memory (params_bytes), so a slot holds a
+//   slab alone. The warpgroups meet only at the ring and the PE slots.
+// - Shared memory: the ring (slots of a 64 x H bf16 slab: 32 KB at H =
+//   256), the PE arena (two tiles of [PE(xyz) | PE(dir)] per warpgroup, or
+//   one where two leave fewer than 3 ring slots), the resident parameters.
+//   Lego forward: 5 slots, 2 PE tiles, 225,316 B; the 24-band, 14-layer
+//   edge: 3 slots, 1 PE tile. The plan is made at launch from the card's
+//   limit; a descriptor that leaves fewer than 2 slots is refused
+//   (cudaErrorInvalidValue), never launched.
+//
+// The split designs (field_body_split; the backward's tile kernel at every
+// width) keep the activations in shared memory instead: each consumer
+// warpgroup's product reads A from its activation tile (or, split in N,
+// from the tile both share), its epilogue writes the bf16 values back in
+// place (after wait_group 0 and a barrier), then fence.proxy.async and a
+// barrier come before the next product reads them; a product's last slab
+// brings its bias and head weights into the slot (param_bytes), which the
+// epilogue holds; each consumer thread builds the next tile's PE two
+// columns at a time between this tile's products (a table in shared memory
+// says what each column computes).
 //
 // Wide models (H = 384, 512; the TPU kernel takes any H % 128 == 0). Four
 // limits stop the design above there: a product's f32 sum over H columns
@@ -75,8 +83,8 @@
 // ~72 KB a point, twice the bytes a point of a 128-point tile. The other
 // way, 128-point tiles with each product's output in a spare buffer, needs
 // 64 KB more at H = 512 beside 128 KB of activations and a ring of two
-// 66 KB slots: it does not fit. H = 128 and 256 keep the code above
-// (`if constexpr` on split_n), bit for bit.
+// 66 KB slots: it does not fit. (Nor does the register design: 3 H / 4
+// registers a thread for a product's sums and its A fragments.)
 //
 // Wider still (H = 640, 768, 896, 1024; pair_n): one 64-row activation tile
 // of H bf16 (80-128 KB) and two ring slots of 64 x H (80-128 KB each)
@@ -134,6 +142,7 @@ constexpr int MAX_STAGES = 8;
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
 constexpr int MAX_BOX_ROWS = 256;  // TMA's limit on a box dimension
+constexpr int PE_WARP_THREADS = 3 * 32;  // the register design's PE warps (field_body_regs)
 
 // Whether a width-H model's products are chunked in N across the two
 // consumer warpgroups on 64-point tiles (see the top of the file).
@@ -206,8 +215,8 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
                : "memory");
 }
 
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
+// Waits until the mbarrier at shared address a has passed phase `parity`.
+__device__ __forceinline__ void mbar_wait_at(uint32_t a, uint32_t parity) {
   uint32_t done;
   do {
     asm volatile(
@@ -218,6 +227,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(a), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  mbar_wait_at(smem_u32(bar), parity);
 }
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
@@ -638,6 +651,87 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[112], uint64_t a, uint64_t
       : "l"(a), "l"(b), "r"(acc));
 }
 
+// D(64 x N, f32) (+)= A(64 x 16) B(16 x N), bf16, A from registers (the
+// thread's 4 words of the k16 block: rows r and r + 8 of its fragment,
+// columns 2q, 2q + 1 and 2q + 8, 2q + 9, as an accumulator fragment's two
+// chunks pack them), B K-major in shared memory; D's fragment as
+// wgmma_bf16's. N = 256, 128 and 64: the trunk and the dir products of the
+// 256- and 128-wide fields.
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
+        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]),
+        "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(acc));
+}
+
 // wgmma shared-memory descriptor of an MN-major operand in the 128 B
 // swizzled layout, as TMA writes a box of 64 columns (M or N) x rows (K):
 // one 128 B row per k, 8-row groups 1024 B apart (SBO), 64-column atoms
@@ -1011,12 +1105,26 @@ __device__ __forceinline__ const bf16* product_head(const Desc& d, const bf16* W
   return g == L - 1 ? W + d.wa_off : (g == L + 1 ? W + d.wr_off : nullptr);
 }
 
+// The resident parameters of the register design (H <= 256, forward and
+// sigma; field_body_regs), at lay.extra_off: the packed f32 biases whole
+// (every product's at b_off, the alpha head's at ba_off, the rgb head's at
+// br_off), then the alpha head's H and the rgb head's 3 H/2 bf16 weights.
+__host__ __device__ __forceinline__ int bias_bytes(const Desc& d) {
+  return (4 * (d.br_off + 3) + 15) / 16 * 16;
+}
+__host__ __device__ __forceinline__ int params_bytes(const Desc& d) {
+  return bias_bytes(d) + (5 * d.hidden + 15) / 16 * 16;
+}
+
 // Shared-memory set-up of a kernel on the ring: the descriptor's copy (its
 // arrays are indexed at run time), the ring's barriers (and a pair's two
 // after them, Pair), the PE column table (pe_col with `fwd`). Ends with a
-// block barrier, or a cluster barrier in a pair.
+// block barrier, or a cluster barrier in a pair. Given the packed weights
+// and biases (the register design), also the PE slots' full and empty
+// barriers after the ring's, and the resident parameters (params_bytes).
 __device__ __forceinline__ Desc& field_setup(unsigned char* smem, const Desc& desc,
-                                             const FieldLayout& lay, bool fwd) {
+                                             const FieldLayout& lay, bool fwd,
+                                             const bf16* W = nullptr, const float* B = nullptr) {
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
   uint64_t* empty = full + MAX_STAGES;
   PeCol* tab = reinterpret_cast<PeCol*>(smem + lay.tab_off);
@@ -1029,10 +1137,23 @@ __device__ __forceinline__ Desc& field_setup(unsigned char* smem, const Desc& de
     }
     if (lay.cluster > 1)  // the pair's barriers: both CTAs' leaders arrive
       for (int i = 0; i < 2; ++i) mbar_init(&empty[MAX_STAGES + i], lay.cluster);
+    if (W != nullptr)  // PE slots: every PE warp thread fills, every consumer warp empties
+      for (int s = 0; s < 2; ++s) {
+        mbar_init(&empty[MAX_STAGES + s], PE_WARP_THREADS);
+        mbar_init(&empty[MAX_STAGES + 2 + s], 2 * WG_THREADS / 32);
+      }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
   for (int c = threadIdx.x; c < lay.pe_cols; c += FIELD_THREADS) tab[c] = pe_col(d, c, fwd);
+  if (W != nullptr) {
+    float* pb = reinterpret_cast<float*>(smem + lay.extra_off);
+    bf16* ph = reinterpret_cast<bf16*>(smem + lay.extra_off + bias_bytes(d));
+    for (int i = threadIdx.x; i < d.br_off + 3; i += FIELD_THREADS) pb[i] = B[i];
+    for (int i = threadIdx.x; i < d.hidden; i += FIELD_THREADS) ph[i] = W[d.wa_off + i];
+    for (int i = threadIdx.x; i < 3 * d.hidden / 2; i += FIELD_THREADS)
+      ph[d.hidden + i] = W[d.wr_off + i];
+  }
   if (lay.cluster > 1)
     cluster_sync_all();  // the peer's barriers are ready before any arrive on them
   else
@@ -1104,32 +1225,428 @@ __device__ __forceinline__ TileSync<H> tile_sync(unsigned char* smem, const Fiel
           xch, pair ? peer_addr(smem_u32(xch), peer) : 0u, wg, rank * 2 + wg};
 }
 
+// ---- the register design (H = 128, 256: the forward and sigma; the top
+// of the file). The warpgroups meet nowhere but at the ring and the PE
+// slots, so that one's epilogue can run while the other's products do
+// (holding warpgroup 1 a product behind, or having the two take turns on
+// the tensor cores by halves of a product, measured no faster: PERF.md's
+// findings).
+
+// Stores bf16(v) at (row r, column c) of a swizzled PE tile.
+__device__ __forceinline__ void st_pe(unsigned char* pe, int r, int c, float v) {
+  *reinterpret_cast<bf16*>(pe + swz(r, c)) = __float2bfloat16_rn(v);
+}
+
+// Component c (0, 1, 2) of N rows' encodings (PE(xyz) or PE(dir)) of
+// coordinates v (that component of each row's point or direction) into
+// columns [c0, c0 + width) of rows r of the swizzled PE tiles at pe, as
+// pe_col lays them out: the raw coordinate at column c, sin(v f_l) at s0 +
+// c L + l and cos(v f_l) at s0 + 3 L + c L + l for each band l, both from
+// one range reduction (sincosf gives sinf's and cosf's bits); component 0
+// also writes the zero padding past s0 + 6 L. The N rows' arguments are
+// independent, so their sincosf chains overlap.
+template <int N>
+__device__ __forceinline__ void pe_component(unsigned char* const (&pe)[N], const int (&r)[N],
+                                             int c0, const float (&v)[N], int c, const float* f,
+                                             int L, int inc, int width) {
+  const int s0 = inc ? 3 : 0;
+  if (inc) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) st_pe(pe[i], r[i], c0 + c, v[i]);
+  }
+  if (c == 0)
+    for (int col = s0 + 6 * L; col < width; ++col) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) st_pe(pe[i], r[i], c0 + col, 0.f);
+    }
+  const int sc = c0 + s0 + c * L;  // the sin column of band 0
+  for (int l = 0; l < L; ++l) {
+    const float fl = f[l];
+    float sn[N], cs[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) sincosf(__fmul_rn(v[i], fl), &sn[i], &cs[i]);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      st_pe(pe[i], r[i], sc + l, sn[i]);
+      st_pe(pe[i], r[i], sc + 3 * L + l, cs[i]);
+    }
+  }
+}
+
+// The PE warps (warps 1-3 of the producer warpgroup; pt = 0..95): every
+// tile's PE, [PE(xyz) | PE(dir)] (sigma: PE(xyz)) of its 128 points into
+// each consumer warpgroup's arena (rows 0-63: warpgroup 0's), in PE slot
+// after slot once the consumers have emptied it. Warp c takes component c
+// of every point (its raw coordinate and its L sin/cos pairs: the same work
+// for the three warps), N rows a lane at a time (rows lane + 32 i of the
+// tile), so its lanes' branches agree. Rows past n_pts take the point 0.
+// Forward: the point is o + d*z of its ray, unfused, as the plain version
+// computes it.
+template <bool FWD, int N>
+__device__ __forceinline__ void pe_warps(unsigned char* smem, const FieldLayout& lay,
+                                         const Desc& d, const float* __restrict__ src,
+                                         const float* __restrict__ dirs,
+                                         const float* __restrict__ z, long long n_pts,
+                                         int samples, long long first, long long stride,
+                                         long long n_tiles, int pt) {
+  static_assert(4 % N == 0, "a tile's 128 rows in passes of 32 N");
+  uint64_t* pe_full = reinterpret_cast<uint64_t*>(smem + lay.bar_off) + 2 * MAX_STAGES;
+  uint64_t* pe_empty = pe_full + 2;
+  const int lane = pt & 31, c = pt >> 5;
+  const bool narrow = n_pts <= 0xffffffffLL;  // a point's ray by 32-bit division
+  int slot = 0;
+  uint32_t phase = 0;
+  for (long long tile = first; tile < n_tiles; tile += stride) {
+    mbar_wait(&pe_empty[slot], phase ^ 1);
+    const int c0 = slot * lay.pe_cols;
+    for (int pass = 0; pass < 4 / N; ++pass) {
+      unsigned char* pe[N];
+      int r[N];
+      float x[N], v[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const int row = 32 * (N * pass + i) + lane;  // of the tile
+        pe[i] = smem + lay.pe_off + (row >> 6) * lay.pe_blocks * ATOM_BYTES;
+        r[i] = row & 63;
+        const long long g = tile * 128 + row;
+        x[i] = v[i] = 0.f;
+        if (g < n_pts) {
+          if constexpr (FWD) {
+            const long long ray = narrow ? (long long)((uint32_t)g / (uint32_t)samples)
+                                         : g / samples;
+            v[i] = dirs[3 * ray + c];
+            x[i] = __fadd_rn(src[3 * ray + c], __fmul_rn(v[i], z[g]));
+          } else {
+            x[i] = src[3 * g + c];
+          }
+        }
+      }
+      pe_component(pe, r, c0, x, c, d.fx, d.lx, d.inc_x, d.pxp);
+      if constexpr (FWD) pe_component(pe, r, c0 + d.pxp, v, c, d.fd, d.ld, d.inc_d, d.pdp);
+    }
+    fence_proxy_async();  // the tile's PE, to the consumers' products
+    mbar_arrive(&pe_full[slot]);
+    if (++slot == lay.pe_slots) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+// Keeps registers an asynchronous product reads live until wait_group.
+template <int N>
+__device__ __forceinline__ void keep_regs(const uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" ::"r"(a[i]));
+}
+
+// The register design's place in the ring: the stage and the parity its
+// full barrier is at. The slots' addresses and the ring's depth come from
+// the launch's plan (kernel parameters), the barriers' from the shared
+// window's 32-bit addresses, so that a consumer thread holds two registers
+// of the ring beside its sums and A fragments.
+struct RingPos {
+  int stage;
+  uint32_t phase;
+  __device__ __forceinline__ void advance(int stages) {
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// Every consumer warp releases slot `slot` once it is done with it (full:
+// the shared address of the ring's first full barrier).
+__device__ __forceinline__ void release_at(uint32_t full, int slot, int lane) {
+  __syncwarp();
+  if (lane == 0)
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(full + 8 * (MAX_STAGES + slot))
+                 : "memory");
+}
+
+// bf16 pairs of relu(lo), relu(hi) in one conversion: the bits of
+// pack_bf16(fmaxf(lo, 0.f), fmaxf(hi, 0.f)) at every value but NaN and -0
+// (rounding to bf16 keeps a nonzero value's sign; the clamp takes a
+// negative result to +0).
+__device__ __forceinline__ uint32_t pack_bf16_relu(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// acc = [x | PE] @ W^T, W the product's slabs as they come through the
+// ring: x the warpgroup's activations, AS slabs of 64 K-columns as wgmma A
+// fragments in registers (a[4 kb .. 4 kb + 3]: k16 block kb, as
+// reg_epilogue packs them), then k2 columns (a multiple of 16) of the
+// warpgroup's PE tile at shared address pe from column c2 on. Past K the
+// last slab holds TMA's zeros, so the last valid k16 step's PE columns add
+// exact zeros there (no branch between the products). Each slot is
+// released once its products are done; ends with every product done
+// (wait_group 0) and every slot released.
+template <int AS, int R, int NA>
+__device__ __forceinline__ void reg_product(float (&acc)[R], const FieldLayout& lay, RingPos& pos,
+                                            const uint32_t (&a)[NA], uint32_t pe, int c2, int k2,
+                                            int lane) {
+  static_assert(AS * 16 <= NA, "fewer A fragments than the product's x columns");
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = smem_u32(smem), full = base + lay.bar_off;
+  int prev = -1;
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int k0 = 0; k0 < SLAB_K * AS; k0 += SLAB_K) {
+    mbar_wait_at(full + 8 * pos.stage, pos.phase);
+    const uint32_t b = base + pos.stage * lay.slot_bytes;
+#pragma unroll
+    for (int k = 0; k < SLAB_K / 16; ++k)
+      wgmma_rs(acc, a[4 * (k0 / 16 + k)], a[4 * (k0 / 16 + k) + 1],
+               a[4 * (k0 / 16 + k) + 2], a[4 * (k0 / 16 + k) + 3], sw128_desc(b + 32 * k),
+               k0 + k);
+    wgmma_commit();
+    if (prev >= 0) {
+      wgmma_wait<1>();  // the previous slab's products are done: release it
+      release_at(full, prev, lane);
+    }
+    prev = pos.stage;
+    pos.advance(lay.stages);
+  }
+  for (int k0 = 0; k0 < k2; k0 += SLAB_K) {
+    mbar_wait_at(full + 8 * pos.stage, pos.phase);
+    const uint32_t b = base + pos.stage * lay.slot_bytes;
+#pragma unroll
+    for (int k = 0; k < SLAB_K / 16; ++k) {
+      const int c = c2 + min(k0 + 16 * k, k2 - 16);
+      wgmma_bf16(acc, sw128_desc(pe + col_addr(c)), sw128_desc(b + 32 * k), AS + k0 + k);
+    }
+    wgmma_commit();
+    if (prev >= 0) {
+      wgmma_wait<1>();
+      release_at(full, prev, lane);
+    }
+    prev = pos.stage;
+    pos.advance(lay.stages);
+  }
+  wgmma_wait<0>();
+  release_at(full, prev, lane);
+  fence_regs(acc);
+  keep_regs(a);
+}
+
+// The epilogue of an N = 2R-column product in registers: act = relu?(acc +
+// bias) (bias in shared memory), rounded to bf16 pairs in fragment order,
+// which are the next product's A fragments (a[2 n], a[2 n + 1]: chunk n's
+// rows r and r + 8). With wa, also the alpha head's partial dot products of
+// those rows over this thread's columns, on the bf16-rounded values. In
+// groups of 8 chunks, as epilogue().
+template <int R>
+__device__ __forceinline__ void reg_epilogue(const float (&acc)[R], const float* bias, bool relu,
+                                             uint32_t (&a)[R / 2], int q, const bf16* wa,
+                                             float& s0, float& s1) {
+  constexpr int KB = R / 8;  // k16 blocks of the output
+#pragma unroll
+  for (int kb = 0; kb < KB; ++kb) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = 2 * kb + h, col = 8 * n + 2 * q;
+      const float2 b = *reinterpret_cast<const float2*>(bias + col);
+      const float v[4] = {acc[4 * n] + b.x, acc[4 * n + 1] + b.y, acc[4 * n + 2] + b.x,
+                          acc[4 * n + 3] + b.y};
+      const uint32_t lo = relu ? pack_bf16_relu(v[0], v[1]) : pack_bf16(v[0], v[1]);
+      const uint32_t hi = relu ? pack_bf16_relu(v[2], v[3]) : pack_bf16(v[2], v[3]);
+      a[2 * n] = lo;
+      a[2 * n + 1] = hi;
+      if (wa != nullptr) {
+        const float2 w = bf16x2_at(wa + col);
+        const float2 x0 = bf16x2_at(reinterpret_cast<const bf16*>(&lo));
+        const float2 x1 = bf16x2_at(reinterpret_cast<const bf16*>(&hi));
+        s0 += x0.x * w.x + x0.y * w.y;
+        s1 += x1.x * w.x + x1.y * w.y;
+      }
+    }
+    if (kb % 4 == 3) asm volatile("" ::: "memory");
+  }
+}
+
+// field_body at H = 128 and 256: the register design (above). Warpgroups 0
+// and 1 take rows 0-63 and 64-127 of each 128-point tile; warpgroup 2's
+// first thread streams the slabs (Producer, no params), its warps 1-3
+// build the PE (pe_warps). The products, their K order, the epilogues'
+// and heads' arithmetic are field_body's, so the outputs are its bits.
+template <int H, bool FWD>
+__device__ __forceinline__ void field_body_regs(const FieldMaps& maps, const Desc& desc,
+                                                const FieldLayout& lay,
+                                                const float* __restrict__ src,
+                                                const float* __restrict__ dirs,
+                                                const float* __restrict__ z, long long n_pts,
+                                                int samples, const bf16* __restrict__ W,
+                                                const float* __restrict__ B,
+                                                float* __restrict__ out, int channels_first) {
+  constexpr int R = H / 2;   // accumulator floats a thread of an H-wide product
+  constexpr int RD = H / 4;  // of the dir product (H/2 wide)
+  constexpr int AS = H / 64; // slabs of a product's x columns
+  // Registers a thread: the consumers hold a product's sums and its A
+  // fragments (3 H / 4 at once); the producer warpgroup's PE warps take the
+  // rest of the launch's 168 a thread (sincosf's slow path among them).
+  constexpr int CREGS = H == 256 ? 224 : 200;
+  constexpr int PREGS = PRODUCER_REGS + 2 * (CONSUMER_REGS - CREGS);
+  constexpr int PE_ROWS = 2;  // rows a PE warp lane builds at once (pe_warps)
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
+  uint64_t* empty = full + MAX_STAGES;
+  uint64_t* pe_full = full + 2 * MAX_STAGES;
+  uint64_t* pe_empty = pe_full + 2;
+  const Desc& d = field_setup(smem, desc, lay, FWD, W, B);
+  const int tid = threadIdx.x;
+  const long long first = blockIdx.x, stride = gridDim.x;
+  const long long n_tiles = (n_pts + 127) / 128;
+  const int L = d.num_layers;
+  const int wg = tid / WG_THREADS;
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PREGS));
+    if (tid == 2 * WG_THREADS) {
+      // Producer: every product's slabs, tile after tile.
+      const int n_gemms = FWD ? L + 2 : L;
+      Producer prod{0, 0};
+      for (long long t = first; t < n_tiles; t += stride)
+        for (int g = 0; g < n_gemms; ++g)
+          prod.product<SLAB_K>(smem, lay, full, empty, &maps.w[g], 0, gemm_k(d, g), gemm_n(d, g),
+                               gemm_n(d, g), nullptr, nullptr, 0, 0);
+    } else if (tid >= 2 * WG_THREADS + 32) {
+      pe_warps<FWD, PE_ROWS>(smem, lay, d, src, dirs, z, n_pts, samples, first, stride,
+                             n_tiles, tid - 2 * WG_THREADS - 32);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CREGS));
+  const int t = tid % WG_THREADS, warp = t / 32, lane = t % 32;
+  const int r = warp * 16 + lane / 4, q = lane % 4;  // fragment rows r, r + 8
+  const uint32_t pe_a = smem_u32(smem + lay.pe_off + wg * lay.pe_blocks * ATOM_BYTES);
+  const float* pb = reinterpret_cast<const float*>(smem + lay.extra_off);  // biases
+  const bf16* wa = reinterpret_cast<const bf16*>(smem + lay.extra_off + bias_bytes(d));
+  const bf16* wr = wa + H;
+  RingPos ring{0, 0};
+  int ps = 0;  // the PE slot of this tile, and the parity its full barrier is at
+  uint32_t pphase = 0;
+  uint32_t a[R / 2];
+#pragma unroll
+  for (int i = 0; i < R / 2; ++i) a[i] = 0u;
+
+  for (long long tile = first; tile < n_tiles; tile += stride) {
+    const long long row0 = tile * 128 + wg * 64;
+    // Declared per tile, so the trunk's sums are dead while the dir
+    // layer's are live.
+    float acc[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = 0.f;
+    const int pe_base = ps * lay.pe_cols;  // this tile's first PE column
+    const float ba = pb[d.ba_off];
+    mbar_wait(&pe_full[ps], pphase);
+
+    // layer1 (no activation), then the ReLU trunk; the alpha head off the
+    // trunk's output. The sigma entry point runs exactly this.
+    float s0 = 0.f, s1 = 0.f;
+    reg_product<0>(acc, lay, ring, a, pe_a, pe_base, d.pxp, lane);
+    reg_epilogue(acc, pb + d.b_off[0], false, a, q, L == 1 ? wa : nullptr, s0, s1);
+    for (int g = 1; g < L; ++g) {
+      const bool skip = (d.skip_mask >> (g - 1)) & 1;
+      reg_product<AS>(acc, lay, ring, a, pe_a, pe_base, skip ? d.pxp : 0, lane);
+      reg_epilogue(acc, pb + d.b_off[g], true, a, q, g == L - 1 ? wa : nullptr, s0, s1);
+    }
+    const float alpha0 = quad_sum(s0) + ba, alpha1 = quad_sum(s1) + ba;
+    const long long g0 = row0 + r, g1 = g0 + 8;
+
+    if constexpr (!FWD) {
+      if (q == 0) {
+        if (g0 < n_pts) out[g0] = alpha0;
+        if (g1 < n_pts) out[g1] = alpha1;
+      }
+    } else {
+      // sigma, channel 3, now (lane 3 of a quad), so that the sums hold no
+      // registers through feat and dir.
+      if (q == 3) {
+        if (g0 < n_pts) out[channels_first ? 3 * n_pts + g0 : g0 * 4 + 3] = alpha0;
+        if (g1 < n_pts) out[channels_first ? 3 * n_pts + g1 : g1 * 4 + 3] = alpha1;
+      }
+      // feat, then dir on [feat | PE(dir)] -> H/2, then the rgb head in
+      // registers.
+      float unused0 = 0.f, unused1 = 0.f;
+      reg_product<AS>(acc, lay, ring, a, pe_a, 0, 0, lane);
+      reg_epilogue(acc, pb + d.b_off[L], true, a, q, nullptr, unused0, unused1);
+      float acc_d[RD];
+#pragma unroll
+      for (int i = 0; i < RD; ++i) acc_d[i] = 0.f;
+      reg_product<AS>(acc_d, lay, ring, a, pe_a, pe_base + d.pxp, d.pdp, lane);
+      const float* bd = pb + d.b_off[L + 1];
+      float c0[3] = {0.f, 0.f, 0.f}, c1[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < RD / 4; ++n) {
+        if (n % 8 == 0) asm volatile("" ::: "memory");  // as in epilogue()
+        const int col = 8 * n + 2 * q;
+        const float2 b = *reinterpret_cast<const float2*>(bd + col);
+        const float2 h0 = __bfloat1622float2(__floats2bfloat162_rn(
+            fmaxf(acc_d[4 * n] + b.x, 0.f), fmaxf(acc_d[4 * n + 1] + b.y, 0.f)));
+        const float2 h1 = __bfloat1622float2(__floats2bfloat162_rn(
+            fmaxf(acc_d[4 * n + 2] + b.x, 0.f), fmaxf(acc_d[4 * n + 3] + b.y, 0.f)));
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float2 w = bf16x2_at(wr + c * (H / 2) + col);
+          c0[c] += h0.x * w.x + h0.y * w.y;
+          c1[c] += h1.x * w.x + h1.y * w.y;
+        }
+      }
+      float v0 = 0.f, v1 = 0.f;  // lane q < 3 writes channel q
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float x0 = quad_sum(c0[c]), x1 = quad_sum(c1[c]);
+        const float br = pb[d.br_off + c];
+        const float rgb0 = 1.f / (1.f + expf(-(x0 + br)));
+        const float rgb1 = 1.f / (1.f + expf(-(x1 + br)));
+        if (q == c) {
+          v0 = rgb0;
+          v1 = rgb1;
+        }
+      }
+      const long long h0 = row0 + r, h1 = h0 + 8;
+      if (q < 3) {
+        if (h0 < n_pts) out[channels_first ? (long long)q * n_pts + h0 : h0 * 4 + q] = v0;
+        if (h1 < n_pts) out[channels_first ? (long long)q * n_pts + h1 : h1 * 4 + q] = v1;
+      }
+    }
+    // The tile's products are done with its PE slot (wait_group 0).
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&pe_empty[ps]);
+    if (++ps == lay.pe_slots) {
+      ps = 0;
+      pphase ^= 1;
+    }
+  }
+}
+
 // ------------------------------------------------------------- kernel ----
 
-// The body of the forward and the sigma kernel, each a __global__ of its own
-// name (fused_mlp_fwd_kernel, fused_sigma_kernel) so that a profile tells
-// them apart. FWD: rays (src = origins (R, 3), dirs (R, 3), z (R, S)) ->
-// [rgb, sigma] per point into out, channels-first (4, N) or (N, 4). !FWD:
-// points (src = (N, 3)) -> raw sigma (N,). `maps`, `desc` and `lay` are the
-// kernel's parameters.
+// field_body above 256 wide: the split designs (split_n, pair_n; the top
+// of the file), activation tiles in shared memory that the warpgroups (and
+// the CTAs of a pair) share.
 template <int H, bool FWD>
-__device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& desc,
-                                           const FieldLayout& lay, const float* __restrict__ src,
-                                           const float* __restrict__ dirs,
-                                           const float* __restrict__ z, long long n_pts,
-                                           int samples, const bf16* __restrict__ W,
-                                           const float* __restrict__ B, float* __restrict__ out,
-                                           int channels_first) {
-  // SPLIT: one 64-point tile that both consumer warpgroups share, each
-  // computing NW of an H-wide product's columns and ND of the dir
-  // product's; else a warpgroup's own 64 points, every column. PAIR: the
-  // tile is shared by the two CTAs of a cluster as well, NW = H/4.
-  constexpr bool SPLIT = split_n(H);
+__device__ __forceinline__ void field_body_split(const FieldMaps& maps, const Desc& desc,
+                                                 const FieldLayout& lay,
+                                                 const float* __restrict__ src,
+                                                 const float* __restrict__ dirs,
+                                                 const float* __restrict__ z, long long n_pts,
+                                                 int samples, const bf16* __restrict__ W,
+                                                 const float* __restrict__ B,
+                                                 float* __restrict__ out, int channels_first) {
+  // One 64-point tile that both consumer warpgroups share, each computing
+  // NW of an H-wide product's columns and ND of the dir product's. PAIR:
+  // the tile is shared by the two CTAs of a cluster as well, NW = H/4.
+  static_assert(split_n(H), "H <= 256 takes field_body_regs");
   constexpr bool PAIR = pair_n(H);
   constexpr int C = cluster_ctas(H);
   constexpr int SK = slab_k(H);
   constexpr int ROWS = tile_rows(H);
-  constexpr int NW = SPLIT ? H / (2 * C) : H;
+  constexpr int NW = H / (2 * C);
   constexpr int ND = NW / 2;
   extern __shared__ __align__(1024) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar_off);
@@ -1169,13 +1686,12 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
     const int t = tid % WG_THREADS, warp = t / 32, lane = t % 32;
     const int r = warp * 16 + lane / 4, q = lane % 4;  // fragment rows r, r + 8
-    const int tile_row = SPLIT ? 0 : wg * 64;         // the warpgroup's first row of a tile
-    const int u = rank * 2 + wg;  // SPLIT: the warpgroup's part of the tile's columns
-    const int col0 = SPLIT ? u * NW : 0, cd0 = SPLIT ? u * ND : 0;  // its first columns
+    const int u = rank * 2 + wg;  // the warpgroup's part of the tile's columns
+    const int col0 = u * NW, cd0 = u * ND;  // its first columns
     // their rows of this CTA's slabs (2 SK bytes a row)
-    const uint32_t b_w = SPLIT ? wg * NW * SK * 2 : 0, b_d = SPLIT ? wg * ND * SK * 2 : 0;
-    unsigned char* act = smem + lay.act_off + (SPLIT ? 0 : wg * (H / 64) * ATOM_BYTES);
-    unsigned char* pe = smem + lay.pe_off + (SPLIT ? 0 : wg * lay.pe_blocks * ATOM_BYTES);
+    const uint32_t b_w = wg * NW * SK * 2, b_d = wg * ND * SK * 2;
+    unsigned char* act = smem + lay.act_off;
+    unsigned char* pe = smem + lay.pe_off;
     // its output columns: PAIR passes the tile and col0 to the epilogue
     unsigned char* act_w = PAIR ? act : act + col0 / 64 * ATOM_BYTES;
     const int c_w = PAIR ? col0 : 0;
@@ -1185,23 +1701,23 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
     TileSync<H> tsync = tile_sync<H>(smem, lay, rank, wg);
 
     const int chunks = lay.pe_cols / 8;
-    const int pt = SPLIT ? tid : t;  // the PE builder's thread
-    PeBuild<FWD, false, SPLIT ? 4 : 2> pb;  // the first tile's PE, then each next tile's
-    pb.start(src, dirs, z, n_pts, samples, first * ROWS + tile_row, 0, pt);
+    const int pt = tid;  // the PE builder's thread: all 256 build the shared tile
+    PeBuild<FWD, false, 4> pb;  // the first tile's PE, then each next tile's
+    pb.start(src, dirs, z, n_pts, samples, first * ROWS, 0, pt);
     pb.finish(tab, chunks, pe, pt);
 
     for (long long tile = first; tile < n_tiles; tile += stride) {
-      const long long row0 = tile * ROWS + tile_row;
+      const long long row0 = tile * ROWS;
       const long long next = tile + stride;
       const int pe_base = pb.base;  // this tile's first PE column
       const float ba = B[d.ba_off];
       fence_proxy_async();  // this tile's PE, built by every thread, to the products
-      tile_barrier<SPLIT>(wg);
+      tile_barrier<true>(wg);
       // With two PE slots the next tile's PE is built in the other one,
       // a chunk per slab, while this tile's products run.
       const bool ahead = lay.pe_slots == 2 && next < n_tiles;
       if (ahead)
-        pb.start(src, dirs, z, n_pts, samples, next * ROWS + tile_row, lay.pe_cols - pe_base, pt);
+        pb.start(src, dirs, z, n_pts, samples, next * ROWS, lay.pe_cols - pe_base, pt);
       auto work = [&] {
         if (ahead) pb.step(tab, chunks, pe, pt);
       };
@@ -1227,24 +1743,19 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
         ring.release(slot, lane);
         tsync.writes_done();
       }
-      // SPLIT: the heads' dot products go through the exchange (TileSync).
+      // The heads' dot products go through the exchange (TileSync).
       float alpha0 = 0.f, alpha1 = 0.f;
-      if constexpr (SPLIT) {
+      {
         const float p0 = quad_sum(s0), p1 = quad_sum(s1);
         if (q == 0) tsync.put(3, r, p0, p1);
-      } else {
-        alpha0 = quad_sum(s0) + ba;
-        alpha1 = quad_sum(s1) + ba;
       }
       const long long g0 = row0 + r, g1 = g0 + 8;
-      const bool writer = !SPLIT || u == 0;  // who writes a shared tile's output
+      const bool writer = u == 0;  // who writes a shared tile's output
 
       if constexpr (!FWD) {
-        if constexpr (SPLIT) {
-          tsync.exchanged();
-          alpha0 = tsync.sum(3, r) + ba;
-          alpha1 = tsync.sum(3, r + 8) + ba;
-        }
+        tsync.exchanged();
+        alpha0 = tsync.sum(3, r) + ba;
+        alpha1 = tsync.sum(3, r + 8) + ba;
         if (q == 0 && writer) {
           if (g0 < n_pts) out[g0] = alpha0;
           if (g1 < n_pts) out[g1] = alpha1;
@@ -1289,21 +1800,18 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
           }
         }
         ring.release(slot, lane);
-        if constexpr (SPLIT) {
 #pragma unroll
-          for (int c = 0; c < 3; ++c) {
-            const float p0 = quad_sum(c0[c]), p1 = quad_sum(c1[c]);
-            if (q == 0) tsync.put(c, r, p0, p1);
-          }
-          tsync.exchanged();
-          alpha0 = tsync.sum(3, r) + ba;
-          alpha1 = tsync.sum(3, r + 8) + ba;
+        for (int c = 0; c < 3; ++c) {
+          const float p0 = quad_sum(c0[c]), p1 = quad_sum(c1[c]);
+          if (q == 0) tsync.put(c, r, p0, p1);
         }
+        tsync.exchanged();
+        alpha0 = tsync.sum(3, r) + ba;
+        alpha1 = tsync.sum(3, r + 8) + ba;
         float v0 = alpha0, v1 = alpha1;  // lane q writes channel q
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          const float x0 = SPLIT ? tsync.sum(c, r) : quad_sum(c0[c]);
-          const float x1 = SPLIT ? tsync.sum(c, r + 8) : quad_sum(c1[c]);
+          const float x0 = tsync.sum(c, r), x1 = tsync.sum(c, r + 8);
           const float rgb0 = 1.f / (1.f + expf(-(x0 + br[c])));
           const float rgb1 = 1.f / (1.f + expf(-(x1 + br[c])));
           if (q == c) {
@@ -1320,12 +1828,35 @@ __device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& de
       // (this tile's products are done with the slot: a barrier followed
       // the last product that read it).
       if (next < n_tiles) {
-        if (!ahead) pb.start(src, dirs, z, n_pts, samples, next * ROWS + tile_row, 0, pt);
+        if (!ahead) pb.start(src, dirs, z, n_pts, samples, next * ROWS, 0, pt);
         pb.finish(tab, chunks, pe, pt);
       }
     }
   }
   if constexpr (PAIR) cluster_sync_all();  // no CTA leaves while its peer may reach into it
+}
+
+// The body of the forward and the sigma kernel, each a __global__ of its own
+// name (fused_mlp_fwd_kernel, fused_sigma_kernel) so that a profile tells
+// them apart: the register design at H = 128 and 256 (field_body_regs), the
+// split designs above (field_body_split). FWD: rays (src = origins (R, 3),
+// dirs (R, 3), z (R, S)) -> [rgb, sigma] per point into out, channels-first
+// (4, N) or (N, 4). !FWD: points (src = (N, 3)) -> raw sigma (N,). `maps`,
+// `desc` and `lay` are the kernel's parameters.
+template <int H, bool FWD>
+__device__ __forceinline__ void field_body(const FieldMaps& maps, const Desc& desc,
+                                           const FieldLayout& lay, const float* __restrict__ src,
+                                           const float* __restrict__ dirs,
+                                           const float* __restrict__ z, long long n_pts,
+                                           int samples, const bf16* __restrict__ W,
+                                           const float* __restrict__ B, float* __restrict__ out,
+                                           int channels_first) {
+  if constexpr (split_n(H))
+    field_body_split<H, FWD>(maps, desc, lay, src, dirs, z, n_pts, samples, W, B, out,
+                             channels_first);
+  else
+    field_body_regs<H, FWD>(maps, desc, lay, src, dirs, z, n_pts, samples, W, B, out,
+                            channels_first);
 }
 
 // ---------------------------------------------------------------- host ----
@@ -1409,23 +1940,27 @@ int field_prepare(const Desc& d, const bf16* W, const float* B, int n_gemms, int
 // exchange at xch_off; in a pair with one PE slot they lie in the PE arena
 // instead where it holds them (the kernel keeps them out of the PE's way:
 // extra_off == pe_off). Activation and PE tiles are one per consumer
-// warpgroup, or under split_n one that both share. Mirrored in Python by
+// warpgroup, or under split_n one that both share. `regs` (the register
+// design, field_body_regs): no activation tiles, slots of slabs alone, the
+// resident parameters (params_bytes) as the extra bytes, and the PE slots'
+// four barriers after the ring's. Mirrored in Python by
 // nerfmeshes_tpu_torch/ops/kernels/fused_mlp.py:field_plan, which the
 // gate supports_fused reads: keep the two alike.
 int field_layout(const Desc& d, bool fwd, int smem_limit, FieldLayout* out,
-                 int extra_bytes = 0) {
+                 int extra_bytes = 0, bool regs = false) {
   FieldLayout lay = {};
   const int H = d.hidden;
   const bool pair = pair_n(H);
   const int tiles = split_n(H) ? 1 : 2;  // 64-row activation and PE tiles
   lay.cluster = cluster_ctas(H);
   lay.slab_bytes = slab_k(H) * cta_rows(H, H) * (int)sizeof(bf16);
-  lay.slot_bytes = lay.slab_bytes + param_bytes(H);
+  lay.slot_bytes = lay.slab_bytes + (regs ? 0 : param_bytes(H));
   lay.pe_cols = d.pxp + (fwd ? d.pdp : 0);
-  const int act_bytes = tiles * (H / 64) * ATOM_BYTES;
+  const int act_bytes = regs ? 0 : tiles * (H / 64) * ATOM_BYTES;
+  if (regs) extra_bytes = params_bytes(d);
   const int xch = xch_bytes(H);
-  // the ring's full and empty barriers, then a pair's two
-  const int bar_bytes = (2 * MAX_STAGES + (pair ? 2 : 0)) * (int)sizeof(uint64_t);
+  // the ring's full and empty barriers, then a pair's two, or the PE slots'
+  const int bar_bytes = (2 * MAX_STAGES + (pair ? 2 : 0) + (regs ? 4 : 0)) * (int)sizeof(uint64_t);
   const int tab_bytes = lay.pe_cols * (int)sizeof(PeCol);
   const int aux = xch + bar_bytes + tab_bytes + (int)sizeof(Desc);
   for (lay.pe_slots = 2; lay.pe_slots >= 1; --lay.pe_slots) {
@@ -1510,7 +2045,7 @@ int field_launch(FieldKernel kernel, const Desc& d, const float* src, const floa
                          &maps);
   if (rc != 0) return rc;
   FieldLayout lay;
-  rc = field_layout(d, FWD, smem_limit, &lay);
+  rc = field_layout(d, FWD, smem_limit, &lay, 0, !split_n(H));
   if (rc != 0) return rc;
   const long long tiles = (n_pts + tile_rows(H) - 1) / tile_rows(H);
   return ring_launch(kernel, cluster_ctas(H), tiles, sms, lay.bytes, stream, maps, d, lay, src,

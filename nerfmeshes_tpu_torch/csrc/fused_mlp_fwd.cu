@@ -17,14 +17,17 @@
 // per tile: ~9.3 KB per point at 128-point tiles.
 //
 // Design: fused_field.cuh's persistent kernel (one CTA per SM, a producer
-// warp streaming K-slabs of every product's weights by TMA into a ring of
+// thread streaming K-slabs of every product's weights by TMA into a ring of
 // shared-memory slots, two consumer warpgroups of 64 points running
 // wgmma.mma_async on them with the sums in registers, epilogues and the
-// alpha and rgb heads in registers). The sigma kernel (fused_sigma.cu) runs
-// the same code up to the alpha head. Instantiated at H = 128 to 1024 in
-// steps of 128: from 384 on 64-point tiles whose products the two consumer
+// alpha and rgb heads in registers). At H = 128 and 256 the activations
+// stay in registers as the next product's A operand and the producer
+// warpgroup's other warps build the PE (field_body_regs); from 384 on
+// 64-point tiles in shared memory whose products the two consumer
 // warpgroups split in N, from 640 on split across a 2-CTA cluster as well,
-// launched as clusters (fused_field.cuh).
+// launched as clusters (field_body_split). The sigma kernel
+// (fused_sigma.cu) runs the same code up to the alpha head. Instantiated at
+// H = 128 to 1024 in steps of 128.
 
 #include "fused_field.cuh"
 

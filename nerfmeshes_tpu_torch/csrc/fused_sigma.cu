@@ -16,9 +16,10 @@
 // tile.
 //
 // Design: the forward kernel's (fused_field.cuh), stopped after the alpha
-// head: the same persistent CTAs, TMA weight ring, wgmma products and
-// register epilogues, and the very same trunk and alpha head code, so on
-// equal points the two kernels give the same sigma bit for bit. Its PE
+// head: the same persistent CTAs, TMA weight ring, wgmma products, register
+// epilogues and PE builders (at H = 128 and 256 the register design, its
+// activations in registers), and the very same trunk and alpha head code,
+// so on equal points the two kernels give the same sigma bit for bit. Its PE
 // tiles hold PE(xyz) only. It reads the same packed weights and descriptor
 // as the forward kernel (the TPU kernel's separate sigma weight list and its
 // (8, N) input with zero direction rows are TPU layouts, not carried over):

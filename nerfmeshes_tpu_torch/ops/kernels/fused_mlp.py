@@ -200,24 +200,39 @@ class FieldPlan(NamedTuple):
     cluster: int = 1
 
 
+def params_bytes(spec: MLPSpec) -> int:
+    """csrc/fused_field.cuh:params_bytes: the register design's resident
+    parameters in shared memory, every packed f32 bias (the products', the
+    alpha and rgb heads') and the heads' 5 H/2 bf16 weights, each part on
+    16 B."""
+    n_biases = sum(n for n, _ in spec.gemm_shapes()) + 4
+    return _round_up(4 * n_biases, 16) + _round_up(5 * spec.hidden, 16)
+
+
 def field_plan(spec: MLPSpec, kernel: str, smem_limit: int = SMEM_LIMIT) -> FieldPlan | None:
     """The plan csrc/fused_field.cuh:field_layout makes at launch for
     `kernel` ("fwd", "sigma" or "bwd", whose tile kernel adds its column
     partials), or None where it refuses: fewer than 2 ring stages. A
     mirror of the C++ (keep the two alike), so that the gate never admits
-    what a launch would refuse."""
+    what a launch would refuse. The forward and sigma at H <= 256 take the
+    register design (field_body_regs): no activation tiles, slots of slabs
+    alone, the resident parameters (params_bytes) and the PE slots' four
+    barriers."""
     H = spec.hidden
     split = H > 256  # split_n: one 64-row tile that both consumer warpgroups share
     pair = H > 512  # pair_n: ... and both blocks of a cluster
+    regs = not split and kernel != "bwd"
     cluster, slab_k = (2, 32) if pair else (1, _SLAB_K)
     tiles = 1 if split else 2
-    slot = slab_k * (H // cluster) * 2 + (2048 if H <= 256 else _round_up(6 * H, 1024))
+    params = 0 if regs else (2048 if H <= 256 else _round_up(6 * H, 1024))
+    slot = slab_k * (H // cluster) * 2 + params
     pe_cols = spec.pxp + (spec.pdp if kernel != "sigma" else 0)
-    act = tiles * (H // 64) * _ATOM
+    act = 0 if regs else tiles * (H // 64) * _ATOM
     wg_cols = H // (2 * cluster) if split else H
-    extra = 2 * 4 * (wg_cols + 4) * 4 if kernel == "bwd" else 0
+    extra = (params_bytes(spec) if regs
+             else 2 * 4 * (wg_cols + 4) * 4 if kernel == "bwd" else 0)
     xch = 2 * cluster * _XCH_WG if split else 0
-    bars = (2 * _MAX_STAGES + (2 if pair else 0)) * 8
+    bars = (2 * _MAX_STAGES + (2 if pair else 0) + (4 if regs else 0)) * 8
     aux = xch + bars + pe_cols * _PE_COL + _DESC
     for pe_slots in (2, 1):
         pe = tiles * (_round_up(pe_slots * pe_cols, 64) // 64) * _ATOM
@@ -448,9 +463,11 @@ def fused_mlp_plain(packed: PackedMLP, origins: torch.Tensor, directions: torch.
 
 
 def fused_mlp_cuda(packed: PackedMLP, origins: torch.Tensor, directions: torch.Tensor,
-                   z_vals: torch.Tensor, *, channels_first: bool = True) -> torch.Tensor:
+                   z_vals: torch.Tensor, *, channels_first: bool = True,
+                   lib=None) -> torch.Tensor:
     """Launch the CUDA kernel. o, d (R, 3), z (R, S) f32 on one CUDA device
-    -> (4, R, S) or (R, S, 4) f32."""
+    -> (4, R, S) or (R, S, 4) f32. `lib`: the kernel library (default this
+    tree's build; another checkout's build has the same C contract)."""
     global launches
     _check_rays(origins, directions, z_vals)
     device = z_vals.device
@@ -468,7 +485,7 @@ def fused_mlp_cuda(packed: PackedMLP, origins: torch.Tensor, directions: torch.T
                       dtype=torch.float32, device=device)
     if R * S == 0:
         return out
-    lib = build.load_library()
+    lib = lib or build.load_library()
     with torch.cuda.device(device):
         rc = lib.nm_fused_mlp_fwd(
             o.data_ptr(), d.data_ptr(), z.data_ptr(), R, S,
@@ -520,9 +537,9 @@ def fused_sigma_plain(packed: PackedMLP, points: torch.Tensor) -> torch.Tensor:
     return _trunk_alpha_plain(packed, pe_x)[1][:, 0]
 
 
-def fused_sigma_cuda(packed: PackedMLP, points: torch.Tensor) -> torch.Tensor:
+def fused_sigma_cuda(packed: PackedMLP, points: torch.Tensor, *, lib=None) -> torch.Tensor:
     """Launch the sigma kernel (csrc/fused_sigma.cu). (N, 3) f32 on one CUDA
-    device -> (N,) f32."""
+    device -> (N,) f32. `lib` as fused_mlp_cuda's."""
     global sigma_launches
     _check_points(points)
     device = points.device
@@ -537,7 +554,7 @@ def fused_sigma_cuda(packed: PackedMLP, points: torch.Tensor) -> torch.Tensor:
     out = torch.empty(p.shape[0], dtype=torch.float32, device=device)
     if p.shape[0] == 0:
         return out
-    lib = build.load_library()
+    lib = lib or build.load_library()
     with torch.cuda.device(device):
         rc = lib.nm_fused_sigma(
             p.data_ptr(), p.shape[0], packed.weights.data_ptr(), packed.biases.data_ptr(),

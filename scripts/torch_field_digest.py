@@ -15,11 +15,15 @@ layer route (csrc/field_layers.cu) on a seeded 8x1024 field at mip-NeRF's
 that its backward heads kernel leaves in the workspace: the check that a
 change to the route's kernels keeps its bits. With --tree ROOT, the layer
 route's digests through another checkout's field_layers.cu (compiled
-alone, as scripts/torch_layer_product_ab.py does).
+alone, as scripts/torch_layer_product_ab.py does). With --fwd, the fused
+forward's (4, BWD_R, S) output and the sigma kernel's (POINTS,) output at
+H = 128, 256 and 384 on seeded 8-layer fields (fwd_digests), through
+another checkout's fused_mlp_fwd.cu and fused_sigma.cu with --tree ROOT
+(compiled alone, as scripts/torch_fwd_tile_ab.py does).
 tests/test_torch_fused_mlp_gpu.py holds the kernels to the digests this
 script printed before such a change.
 
-    python scripts/torch_field_digest.py [--layers | --bwd] [--tree ROOT]   # needs a CUDA card
+    python scripts/torch_field_digest.py [--layers | --bwd | --fwd] [--tree ROOT]   # a CUDA card
 
 The weights and inputs come from numpy's generator seeded 0, so the case
 does not depend on torch's random streams.
@@ -117,6 +121,24 @@ def bwd_digests(device, lib=None) -> dict:
     return out
 
 
+def fwd_digests(device, lib=None) -> dict:
+    """{"w128" | "w256" | "w384": {"fwd": of the forward's (4, BWD_R, S)
+    output (a ragged last tile), "sigma": of the sigma kernel's (POINTS,)
+    output}} on an 8-layer field at L 10/4 of each of BWD_WIDTHS, weights,
+    rays and points seeded, launched on `device` through `lib` (default
+    this tree's build)."""
+    out = {}
+    for hidden in BWD_WIDTHS:
+        packed, o, d, z, pts, _ = _seeded_case(
+            np.random.default_rng(0), device, BWD_R, num_layers=8, hidden_size=hidden,
+            skip_step=4, num_encoding_fn_xyz=10, num_encoding_fn_dir=4)
+        fwd = fm.fused_mlp_cuda(packed, o, d, z, lib=lib)
+        sigma = fm.fused_sigma_cuda(packed, pts, lib=lib)
+        torch.cuda.synchronize()
+        out[f"w{hidden}"] = {"fwd": _sha(fwd), "sigma": _sha(sigma)}
+    return out
+
+
 def layer_digests(device, lib=None) -> dict:
     """The same four digests of the layer route on an 8x1024 field at L
     16/4 (LAYER_R x S rays, POINTS sigma points), launched on `device`
@@ -149,6 +171,13 @@ if __name__ == "__main__":
         from torch_bwd_tile_ab import compile_tree as compile_bwd
 
         print(json.dumps(bwd_digests(device, compile_bwd(tree) if tree else None)))
+    elif "--fwd" in args:
+        from torch_fwd_tile_ab import compile_many
+        from torch_layer_product_ab import load
+
+        lib = (load(compile_many([(tree / "nerfmeshes_tpu_torch" / "csrc", ())])[0][0])
+               if tree else None)
+        print(json.dumps(fwd_digests(device, lib)))
     elif tree is not None:
         from torch_layer_product_ab import compile_tree, load
 

@@ -393,17 +393,58 @@ def test_gate_admits_only_what_the_plans_hold(kw):
 
 def test_plans_of_the_lego_and_wide_fields():
     """The plans the kernels' launches make for the lego field (as the
-    header of csrc/fused_field.cuh states: 3 slots, 2 PE tiles, 215 KB)
-    and for 8x384 and 8x512 at L 10/4: 64-point tiles of 48 / 64 KB, ring
-    slots of 51 / 67 KB (3 / 2 stages), one PE tile."""
+    header of csrc/fused_field.cuh states: the forward on the register
+    design, 5 slots of 32 KB, 2 PE tiles, 225,316 B) and for 8x384 and
+    8x512 at L 10/4: 64-point tiles of 48 / 64 KB, ring slots of 51 / 67 KB
+    (3 / 2 stages), one PE tile."""
     lego = dict(num_layers=8, skip_step=4, num_encoding_fn_xyz=10, num_encoding_fn_dir=4)
     plan = {H: {k: fm.field_plan(fm.spec_from_model(FlexibleNeRFModel(**lego, hidden_size=H)), k)
                 for k in ("fwd", "sigma", "bwd")} for H in (256, 384, 512)}
-    assert plan[256]["fwd"] == fm.FieldPlan(3, 2, 220404)
+    assert plan[256]["fwd"] == fm.FieldPlan(5, 2, 225316)
     assert (plan[384]["fwd"].stages, plan[384]["fwd"].pe_slots) == (3, 1)
     assert (plan[512]["fwd"].stages, plan[512]["fwd"].pe_slots) == (2, 1)
     assert (plan[512]["bwd"].stages, plan[512]["bwd"].pe_slots) == (2, 1)
     assert plan[512]["bwd"].bytes == 230772 <= fm.SMEM_LIMIT
+
+
+# The plans of csrc/fused_field.cuh:field_layout at 128 and 256 wide:
+# (stages, PE tiles, bytes) of the forward and sigma on the register design
+# (no activation tiles; ring slots of a 64-column slab alone, 32 KB at 256
+# and 16 KB at 128, at most 8; the resident biases and head weights,
+# params_bytes; 20 barriers: the ring's 16 and the PE slots' 4) and of the
+# backward's tile kernel on its own plan (activation tiles, slots with 2 KB
+# of params, its column partials). Lego: PE 64 + 32 columns, params 9,744 +
+# 1,280 B; hard-llff.yml's 8x128 at L 10/4 likewise, params 4,880 + 640 B;
+# the gate's edge (14 layers, 24 bands: PE 160 + 160 columns) at both.
+REGS_PLANS = {
+    "lego": ({}, {"fwd": (5, 2, 225316), "sigma": (5, 2, 208676), "bwd": (3, 2, 228724)}),
+    "llff": ({"hidden_size": 128},
+             {"fwd": (8, 2, 187044), "sigma": (8, 2, 170404), "bwd": (7, 2, 216436)}),
+    "edge": ({"num_layers": 14, "num_encoding_fn_xyz": 24, "num_encoding_fn_dir": 24},
+             {"fwd": (3, 1, 200484), "sigma": (4, 2, 231972), "bwd": (2, 1, 228468)}),
+    "edge-w128": ({"hidden_size": 128, "num_layers": 14, "num_encoding_fn_xyz": 24,
+                   "num_encoding_fn_dir": 24},
+                  {"fwd": (3, 2, 224676), "sigma": (8, 2, 223396), "bwd": (5, 1, 214132)}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REGS_PLANS))
+def test_plans_of_the_register_design(case):
+    """field_plan at 128 and 256 wide equals the C plan of each kernel
+    (REGS_PLANS), under the card's 232,448 B; the register design's
+    resident parameters are every packed bias and the heads' weights."""
+    over, want = REGS_PLANS[case]
+    kw = dict(num_layers=8, hidden_size=256, skip_step=4, num_encoding_fn_xyz=10,
+              num_encoding_fn_dir=4)
+    model = FlexibleNeRFModel(**{**kw, **over})
+    spec = fm.spec_from_model(model)
+    packed = fm.pack_params(model)
+    assert fm.params_bytes(spec) == (-(-4 * packed.biases.numel() // 16) * 16
+                                     + -(-5 * spec.hidden // 16) * 16)
+    for kernel, plan in want.items():
+        assert fm.field_plan(spec, kernel) == fm.FieldPlan(*plan), kernel
+        assert fm.field_plan(spec, kernel).bytes <= fm.SMEM_LIMIT
+    assert fm.field_route(spec) == "fused"
 
 
 # The plans of csrc/fused_field.cuh:field_layout for 8 layers at L 10/4
@@ -658,15 +699,22 @@ def test_stash_store_boxes_cover_each_region_once(kw, n_pad):
 
 def test_ablation_patches_apply(tmp_path):
     """scripts/torch_field_ablation.py patches its switches into a copy of
-    csrc/: every line it patches is in the sources once, so a change to a
-    kernel that moves one fails here, not in a run on the card."""
-    out = _script("torch_field_ablation").patched_sources(tmp_path / "csrc")
+    csrc/: every text it patches is in the sources at most once, and each
+    switch finds one, so a change to a kernel that moves one fails here,
+    not in a run on the card. The register design (field_body_regs) takes
+    each forward switch: its PE warps' arguments, its epilogue and its
+    register-A products."""
+    out = _script("torch_field_ablation").patched_sources(out=tmp_path / "csrc")
     fwd = (out / "fused_field.cuh").read_text()
     bwd = (out / "fused_mlp_bwd.cuh").read_text()
-    for flag in ("ABLATE_PE", "ABLATE_EPILOGUE", "ABLATE_STASH"):
+    for flag in ("ABLATE_PE", "ABLATE_EPILOGUE", "ABLATE_STASH", "ABLATE_MMA"):
         assert flag in fwd
     for flag in ("ABLATE_STASH", "ABLATE_COLSUM", "ABLATE_MASK"):
         assert flag in bwd
+    regs = fwd[fwd.index("void pe_component("):fwd.index("void field_body_split(")]
+    assert regs.count("ABLATE_PE") == 1 and regs.count("ABLATE_EPILOGUE") == 1
+    assert "#ifdef ABLATE_MMA\n      if constexpr (false)\n#endif\n      wgmma_rs(" in regs
+    assert regs.count("ABLATE_MMA") == 2
 
 
 def test_ptxas_usage_reads_the_report():
@@ -698,3 +746,22 @@ def test_ptxas_usage_reads_the_report():
                                            spill_loads=0, c7519=1)
     assert usage["_ZN12_GLOBAL__N_19dw_kernelENS_6DwArgsE"]["registers"] == 90
     assert sorted(_chip_smoke().tile_kernel_usage(log)) == [128, 256]
+    fwd = "_ZN12_GLOBAL__N_120fused_mlp_fwd_kernelILi{}EEEvNS_9FieldMapsE"
+    sigma = "_ZN12_GLOBAL__N_118fused_sigma_kernelILi128EEEvNS_9FieldMapsE"
+    log += "\n" + "\n".join([
+        f"ptxas info    : Compiling entry function '{fwd.format(128)}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {fwd.format(128)}",
+        "    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 16 barriers, 32 bytes cumulative stack size",
+        f"ptxas info    : Compiling entry function '{fwd.format(512)}' for 'sm_90a'",
+        "ptxas info    : Used 168 registers, used 4 barriers",
+        f"ptxas info    : Compiling entry function '{sigma}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {sigma}",
+        "    40 bytes stack frame, 8 bytes spill stores, 16 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 16 barriers",
+    ])
+    got = _chip_smoke().field_kernel_usage(log, (128, 256))
+    assert [(H, k) for H, k, _ in got] == [(128, "fused_mlp_fwd_kernel"),
+                                           (128, "fused_sigma_kernel")]
+    assert got[0][2] == dict(registers=168, stack=32, spill_stores=0, spill_loads=0, c7519=0)
+    assert got[1][2] == dict(registers=168, stack=40, spill_stores=8, spill_loads=16, c7519=0)

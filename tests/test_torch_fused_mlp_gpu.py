@@ -647,6 +647,67 @@ def field_digests():
     return _digest_script().digests(torch.device("cuda"))
 
 
+# SHA-256 per width of scripts/torch_field_digest.py's BWD_WIDTHS (`--fwd`:
+# 8 layers at L 10/4, the forward on 1999 x 64 rays, a ragged last tile,
+# and sigma on 65,536 points) of the forward's and the sigma kernel's
+# outputs, as the kernels gave them while the 128- and 256-wide fields kept
+# their activations in shared memory (the script through `--fwd --tree` on
+# that tree; NVIDIA H100 80GB HBM3). The register design runs the same
+# products in the same K order on the same bf16 values, so each stays.
+FWD_DIGESTS = {
+    "w128": {"fwd": "49d0229fb281aab61a4a6173b60bda54b7cf1a2c080ea9366da2d03fd759cb55",
+             "sigma": "cdb4644595a51c98803760c76e0c8ba349ea1f243ba13f06df696b1868c2dbc3"},
+    "w256": {"fwd": "ed2492db93520193fcdc94321f0151bbc6fe2625b3a022b55f5d5dcc7c1e2ebf",
+             "sigma": "ac8fb9f8e4de18abf971713aaa445d1752df70424d80b7432fbe458b7a348e17"},
+    "w384": {"fwd": "c03488eafdc8ac6b9d5d8fcb75a12884d393441adc9aa2f7049d34d23752b3a0",
+             "sigma": "ec681584b518998fd8411acb615485ed53f09fdcf90bb4d7ffc3c697d25a001e"}}
+
+
+def test_forward_and_sigma_keep_their_bits_at_each_width(cuda):
+    """At 128, 256 (the register design) and 384 wide (the split design),
+    the forward's and the sigma kernel's outputs stay bit for bit what
+    they were."""
+    assert _digest_script().fwd_digests(cuda) == FWD_DIGESTS
+
+
+# The register design's widths (csrc/fused_field.cuh:field_body_regs):
+# lego's 8x256 and hard-llff.yml's 8x128 at L 10/4, and the 24-band,
+# 14-layer edge of the gate at both (one PE slot at 256, so the PE warps
+# build a tile only once the consumers are done with the last).
+REGS_ARCHS = [LEGO, dict(LEGO, hidden_size=128),
+              dict(LEGO, num_layers=fm.MAX_LAYERS, num_encoding_fn_xyz=fm.MAX_BANDS,
+                   num_encoding_fn_dir=fm.MAX_BANDS),
+              dict(LEGO, hidden_size=128, num_layers=fm.MAX_LAYERS,
+                   num_encoding_fn_xyz=fm.MAX_BANDS, num_encoding_fn_dir=fm.MAX_BANDS)]
+REGS_IDS = ["lego", "llff", "edge", "edge-w128"]
+
+
+@pytest.mark.parametrize("kw", REGS_ARCHS, ids=REGS_IDS)
+@pytest.mark.parametrize("R,S", [(1, 1), (1, 7), (1024, 64), (333, 77), (8191, 3), (2500, 40)])
+def test_register_design_matches_plain(cuda, kw, R, S):
+    """The forward and the sigma kernel at 128 and 256 wide against their
+    plain versions (atol = rtol = 2e-2) at point counts off the 128-point
+    tile: one point, one ray, fewer tiles than SMs (1024 x 64: 512 tiles,
+    1 x 7: one tile of 7 rows), CTAs that walk two tiles and more (25,641,
+    24,573 and 100,000 points), so that the PE slots' barriers turn over;
+    sigma bit for bit the forward's channel 3 at the same points."""
+    torch.manual_seed(0)
+    model = FlexibleNeRFModel(**kw, compute_dtype=torch.bfloat16, device=cuda)
+    packed = fm.pack_weights(model)
+    o, d, z = _rays(R, S, cuda, seed=R + S)
+    before = (fm.launches, fm.sigma_launches)
+    got = fm.fused_mlp_cuda(packed, o, d, z)
+    pts = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
+    sigma = fm.fused_sigma_cuda(packed, pts)
+    torch.cuda.synchronize()
+    assert (fm.launches, fm.sigma_launches) == (before[0] + 1, before[1] + 1)
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(sigma).all())
+    torch.testing.assert_close(got, fm.fused_mlp_plain(packed, o, d, z), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(sigma, fm.fused_sigma_plain(packed, pts), atol=2e-2, rtol=2e-2)
+    zeros = torch.zeros_like(pts)
+    assert torch.equal(sigma, fm.fused_mlp_cuda(packed, pts, zeros, zeros[:, :1])[3, :, 0])
+
+
 def test_forward_and_sigma_keep_their_bits(field_digests):
     """The backward reuses fused_field.cuh; the forward's and the sigma
     kernel's outputs stay bit for bit what they were."""
