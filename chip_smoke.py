@@ -183,6 +183,13 @@ and the BuFF ones:
   grid 422) as the code predicts; then each kernel alone at the per-rank
   shapes, beside its bound and its library yardstick (the nn.Module under
   bf16 autocast; none for chords).
+- quality: scripts/torch_quality_parity.py's runners cut to 300 steps at
+  seed 42 (quality_phase): the kernel-width protocol (lego's 2 x 8x256
+  fields through the fused kernels on 12 synthetic 64^2 views, 2 + 2
+  launches a step, read at steps 0 and 300) and blobs hierarchical and
+  BuFF (4x64 nn.Module fields, one chord launch a BuFF step); the losses
+  fall and every PSNR is finite and above its untrained read; the entries
+  go to build/quality_smoke.json.
 
 Prints, on lines of their own: the card's name and power limit as
 nvidia-smi reports them, the build time, per-kernel error, times, bound
@@ -3743,6 +3750,81 @@ def buff_random_phase(card: str, device) -> dict:
                 loss_first=first, loss_last=last)
 
 
+QUALITY_STEPS = 300  # the quality protocols' runs, cut
+QUALITY_SEED = 42
+
+
+def quality_phase(card: str, device) -> dict:
+    """The runners of scripts/torch_quality_parity.py, cut to QUALITY_STEPS
+    steps at seed 42, their entries written to build/quality_smoke.json
+    (never the repo's torch_quality_parity.json): the kernel-width protocol
+    (configs/nerf-synthetic-lego.yml's 2 x 8x256 fields through the fused
+    kernels, 12 views at 64^2; reads at 0 and QUALITY_STEPS), then blobs
+    hierarchical and BuFF (4x64 nn.Module fields; BuFF's chords through the
+    chord kernel). Exact launch counts: 2 forward and 2 backward a
+    kernel-width train step, 1 chord launch a BuFF step, no field kernel on
+    blobs; the losses fall; every PSNR is finite and above the run's
+    untrained read. One line of reads."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_quality_parity", REPO / "scripts" / "torch_quality_parity.py")
+    quality = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quality)
+    out = REPO / "build" / "quality_smoke.json"
+    out.unlink(missing_ok=True)
+    kept = quality.OUT.read_bytes() if quality.OUT.exists() else None
+    t0 = time.perf_counter()
+    kw = quality.run("kernel_width", "hier", "on", QUALITY_SEED, device, out,
+                     reads=[QUALITY_STEPS])
+    blobs = {system: quality.run("blobs", system, "module", QUALITY_SEED, device, out,
+                                 steps=QUALITY_STEPS) for system in ("hier", "buff")}
+    seconds = time.perf_counter() - t0
+    if set(json.loads(out.read_text())) != {
+            f"kernel_width_hier_on_{QUALITY_SEED}", f"blobs_hier_module_{QUALITY_SEED}",
+            f"blobs_buff_module_{QUALITY_SEED}"}:
+        raise AssertionError(f"quality entries in {out}: {sorted(json.loads(out.read_text()))}")
+    if (quality.OUT.read_bytes() if quality.OUT.exists() else None) != kept:
+        raise AssertionError(f"the quality phase wrote {quality.OUT}")
+
+    steps = kw["steps"]
+    if steps != QUALITY_STEPS or kw["launches"] != {"fwd": 2 * steps, "bwd": 2 * steps}:
+        raise AssertionError(f"kernel width: {steps} steps, launches {kw['launches']}; "
+                             f"expected 2 + 2 a step")
+    first, last = (kw["reads"][k] for k in ("0", str(QUALITY_STEPS)))
+    for view in ("validation", "train_views"):
+        if not last[view]["validation/loss"] < first[view]["validation/loss"]:
+            raise AssertionError(f"kernel width {view} loss did not fall: "
+                                 f"{first[view]['validation/loss']} -> "
+                                 f"{last[view]['validation/loss']}")
+        for name in ("fine", "coarse"):
+            a, b = (r[view][f"validation/{name}_psnr"] for r in (first, last))
+            if not (math.isfinite(b) and b > a):
+                raise AssertionError(f"kernel width {view} {name} PSNR {a} -> {b}")
+    for system, entry in blobs.items():
+        want = {"chords": QUALITY_STEPS if system == "buff" else 0, "fwd": 0, "bwd": 0}
+        if entry["steps"] != QUALITY_STEPS or entry["launches"] != want:
+            raise AssertionError(f"blobs {system}: launches {entry['launches']}, expected {want}")
+        if not entry["loss_last_100"] < entry["loss_first_100"]:
+            raise AssertionError(f"blobs {system} loss did not fall: {entry['loss_first_100']} "
+                                 f"-> {entry['loss_last_100']}")
+        for name in ("psnr", "coarse_psnr"):
+            if name in entry and not (math.isfinite(entry[name])
+                                      and entry[name] > entry["untrained"][name]):
+                raise AssertionError(f"blobs {system} {name} {entry['untrained'][name]} -> "
+                                     f"{entry[name]}")
+    print(f"quality_phase ({QUALITY_STEPS} steps, seed {QUALITY_SEED}, {seconds:.2f} s): "
+          "kernel width fine / coarse dB " + ", ".join(
+              f"step {k} {r['validation']['validation/fine_psnr']:.4f} / "
+              f"{r['validation']['validation/coarse_psnr']:.4f}" for k, r in kw["reads"].items())
+          + f", {kw['train_s']:.2f} s of training; blobs hier "
+          f"{blobs['hier']['untrained']['psnr']:.4f} -> {blobs['hier']['psnr']:.4f} dB (coarse "
+          f"{blobs['hier']['coarse_psnr']:.4f}), BuFF {blobs['buff']['untrained']['psnr']:.4f} -> "
+          f"{blobs['buff']['psnr']:.4f} dB; launches fwd {kw['launches']['fwd']}, bwd "
+          f"{kw['launches']['bwd']}, chords {blobs['buff']['launches']['chords']} [{card}]")
+    return {"kernel_width": kw, "blobs": blobs, "seconds": seconds}
+
+
 def jpeg_phase(card: str) -> dict:
     """The port's JPEG decoder (host C++, built with this host's g++) on
     every colour frame of data/hard_scannet/scene.sens: 1296x968 baseline
@@ -4958,6 +5040,7 @@ def main(argv=None) -> int:
     depth_sampling_phase(card, device)
     zoo_phase(card, device)
     buff_random = buff_random_phase(card, device)
+    quality = quality_phase(card, device)
     t0 = time.perf_counter()
     wide = wide_phase(card, device, legs["fused"])  # last: its wide runs take the most memory
     layers = layers_phase(card, device, legs["layers"])
@@ -5015,7 +5098,9 @@ def main(argv=None) -> int:
                "mesh": mesh["fwd_launches"], "buff_train": buff["fwd_launches"],
                "buff_render": buff_render["fwd_launches"], "buff_mesh": buff_mesh["fwd_launches"],
                **cli["fwd"], "buff_random_train": buff_random["train"]["fwd"],
-               "buff_random_view": buff_random["view"]["fwd"], **dist["launches"]["fwd"]},
+               "buff_random_view": buff_random["view"]["fwd"],
+               "quality_kernel_width_train": quality["kernel_width"]["launches"]["fwd"],
+               **dist["launches"]["fwd"]},
               chunk_ms=kern["chunk_ms"], chunk_bound_ms=kern["chunk_bound_ms"],
               chunk_library_ms=kern["chunk_library_ms"], chunk_plain_ms=kern["chunk_plain_ms"],
               shape="2048x192", hidden=256, direct=direct["fwd"], per_rank={
@@ -5023,7 +5108,9 @@ def main(argv=None) -> int:
               ptxas=field_ptxas["fused_mlp_fwd_kernel"]),
         entry("fused_mlp_bwd", "fused_mlp_bwd.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:397", bkern,
               {"train": train["bwd_launches"], "buff_train": buff["bwd_launches"], **cli["bwd"],
-               "buff_random_train": buff_random["train"]["bwd"], **dist["launches"]["bwd"]},
+               "buff_random_train": buff_random["train"]["bwd"],
+               "quality_kernel_width_train": quality["kernel_width"]["launches"]["bwd"],
+               **dist["launches"]["bwd"]},
               max_rel_err=bkern["max_rel_err"], legs=bkern["legs"],
               legs_2048x64=bkern["legs_coarse"], tile_ptxas=tile_ptxas, shape="2048x192",
               hidden=256, direct=direct["bwd"], per_rank={
@@ -5038,6 +5125,7 @@ def main(argv=None) -> int:
               dict(ckern, library_ms=None),
               {"train": buff["chords_launches"], "render": buff_render["chords_launches"],
                "mesh": buff_mesh["chords_launches"], **cli["chords"],
+               "quality_blobs_buff_train": quality["blobs"]["buff"]["launches"]["chords"],
                **dist["launches"]["chords"]},
               per_rank={k: v for k, v in dist["per_rank"].items()
                         if k.startswith("fused_chords")},

@@ -7,10 +7,10 @@ update count, in float32 as optax evaluates them, driving
 update uses is the schedule at the update count before the increment,
 as optax reads it. `build_optimizer` takes the six optimizer names of
 the JAX package with optax's (0.2.6) defaults:
-- Adam: b1 0.9, b2 0.999, eps 1e-8 outside the square root
-  (torch.optim.Adam's defaults);
+- Adam: b1 0.9, b2 0.999, eps 1e-8 outside the square root, the bias
+  corrections taken as optax takes them (`OptaxAdam`);
 - AdamW: Adam with weight decay 1e-4 on every parameter, decoupled and
-  scaled by the lr (torch.optim.AdamW with weight_decay=1e-4);
+  scaled by the lr (`OptaxAdam` with weight_decay=1e-4);
 - Adamax: nu = max(b2 nu, |g| + eps), eps 1e-8 (torch.optim.Adamax);
 - SGD: no momentum (torch.optim.SGD);
 - RMSprop: decay 0.9, eps 1e-8 inside the square root, initial scale 0,
@@ -85,6 +85,63 @@ def accumulation_steps(cfg) -> int:
     return max(1, int(cfg.optimizer.get("accumulate_steps", 1)))
 
 
+class OptaxAdam(torch.optim.Optimizer):
+    """optax.adam(lr) (scale_by_adam, then scale_by_learning_rate), and with
+    `weight_decay` optax.adamw(lr) (the decayed weights added to the Adam
+    direction before the lr scales it):
+    mu = (1 - b1) g + b1 mu, nu = (1 - b2) g^2 + b2 nu, then
+    p -= lr (mu / c1) / (sqrt(nu / c2) + eps) (+ lr weight_decay p),
+    with c = 1 - b^t taken in the parameters' dtype, as optax takes it.
+
+    torch.optim.Adam takes c in float64 on the host. In float32, b2 = 0.999
+    rounds to 0.99900001, so optax's 1 - b2^t stands 1.3e-5 below the exact
+    one and every update of the first thousands is about 6.5e-6 shorter
+    than torch's; over a run the parameters drift apart by that step size
+    bias (tests/test_torch_trajectory.py holds the trajectories). The state
+    keeps torch.optim.Adam's names (step, exp_avg, exp_avg_sq), so a
+    checkpoint of either loads into the other."""
+
+    def __init__(self, params, lr: float = 1.0, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            grads = [p.grad for p in params]
+            states = [self.state[p] for p in params]
+            for p, state in zip(params, states):
+                if not state:
+                    state["step"] = 0
+                    state["exp_avg"] = torch.zeros_like(p)
+                    state["exp_avg_sq"] = torch.zeros_like(p)
+            mu = [s["exp_avg"] for s in states]
+            nu = [s["exp_avg_sq"] for s in states]
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+            # One count for the group: every parameter steps together.
+            t = int(states[0]["step"]) + 1
+            for s in states:
+                s["step"] = t
+            kind = np.float32 if params[0].dtype != torch.float64 else np.float64
+            c1 = float(kind(1) - kind(b1) ** kind(t))
+            c2 = float(kind(1) - kind(b2) ** kind(t))
+            denom = torch._foreach_div(nu, c2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            update = torch._foreach_div(mu, c1)
+            torch._foreach_div_(update, denom)
+            if group["weight_decay"]:
+                torch._foreach_add_(update, params, alpha=group["weight_decay"])
+            torch._foreach_add_(params, update, alpha=-group["lr"])
+
+
 class OptaxRMSprop(torch.optim.Optimizer):
     """optax.rmsprop(lr) with its defaults: nu = decay nu + (1 - decay) g^2
     from nu = initial_scale, and p -= lr g / sqrt(nu + eps)
@@ -139,10 +196,9 @@ def make_rule(kind: str, params: list) -> torch.optim.Optimizer:
     """The update rule of optimizer `kind` at a base lr of 1 (the schedule
     scales it), with optax's defaults."""
     if kind == "Adam":
-        return torch.optim.Adam(params, lr=1.0, betas=(0.9, 0.999), eps=1e-8)
+        return OptaxAdam(params, lr=1.0)
     if kind == "AdamW":
-        return torch.optim.AdamW(params, lr=1.0, betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=1e-4)
+        return OptaxAdam(params, lr=1.0, weight_decay=1e-4)
     if kind == "Adamax":
         return torch.optim.Adamax(params, lr=1.0, betas=(0.9, 0.999), eps=1e-8)
     if kind == "SGD":

@@ -629,7 +629,10 @@ def test_zoo_system_trains_on_cpu():
         assert torch.equal(a, b)
     metrics = system.fit(4)
     assert system.state.step == 4 and np.isfinite(metrics["train/loss"])
-    assert type(system.optimizer.rule).__name__ == "AdamW"
+    # AdamW: optax's rule (train/optim.py:OptaxAdam) with its decay of 1e-4.
+    rule = system.optimizer.rule
+    assert system.optimizer.kind == "AdamW" and type(rule).__name__ == "OptaxAdam"
+    assert rule.param_groups[0]["weight_decay"] == 1e-4
 
 
 def test_chip_smoke_zoo_chain_builds_the_class_defaults():
