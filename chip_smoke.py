@@ -187,9 +187,14 @@ and the BuFF ones:
   seed 42 (quality_phase): the kernel-width protocol (lego's 2 x 8x256
   fields through the fused kernels on 12 synthetic 64^2 views, 2 + 2
   launches a step, read at steps 0 and 300) and blobs hierarchical and
-  BuFF (4x64 nn.Module fields, one chord launch a BuFF step); the losses
-  fall and every PSNR is finite and above its untrained read; the entries
-  go to build/quality_smoke.json.
+  BuFF (4x64 nn.Module fields, one chord launch a BuFF step); the
+  forward-facing protocol (hard-llff.yml's 2 x 8x128 fields through the
+  CLIs on data/hard_llff, 2 + 2 launches a step, eval on one test view)
+  and quality_800 (the lego workload on 64^2 hard-scene views, 2 + 2 a
+  step, a 128^3 mesh at 8 sigma launches, its chamfer distance to the
+  analytic surface); the losses fall, every PSNR is finite and above its
+  untrained read, the chamfer distance is finite; the entries go to
+  build/quality_smoke.json.
 
 Prints, on lines of their own: the card's name and power limit as
 nvidia-smi reports them, the build time, per-kernel error, times, bound
@@ -3752,6 +3757,8 @@ def buff_random_phase(card: str, device) -> dict:
 
 QUALITY_STEPS = 300  # the quality protocols' runs, cut
 QUALITY_SEED = 42
+QUALITY_800_VIEW = 64  # quality_800's views and mesh, cut
+QUALITY_800_MESH = 128
 
 
 def quality_phase(card: str, device) -> dict:
@@ -3761,11 +3768,19 @@ def quality_phase(card: str, device) -> dict:
     (configs/nerf-synthetic-lego.yml's 2 x 8x256 fields through the fused
     kernels, 12 views at 64^2; reads at 0 and QUALITY_STEPS), then blobs
     hierarchical and BuFF (4x64 nn.Module fields; BuFF's chords through the
-    chord kernel). Exact launch counts: 2 forward and 2 backward a
-    kernel-width train step, 1 chord launch a BuFF step, no field kernel on
-    blobs; the losses fall; every PSNR is finite and above the run's
-    untrained read. One line of reads."""
+    chord kernel); the forward-facing protocol (configs/hard-llff.yml's 2 x
+    8x128 fields on data/hard_llff's 400^2 NDC views through train_nerf,
+    eval_nerf on the first test view) and quality_800 (the lego workload on
+    the hard scene's 64^2 views, a 128^3 mesh through the sigma kernel, its
+    chamfer distance to the analytic surface). Exact launch counts: 2
+    forward and 2 backward a train step on the field kernels (kernel width,
+    forward-facing, quality_800), the same forward launches a view in every
+    forward-facing read, one sigma launch a grid tile, 1 chord launch a
+    BuFF step, no field kernel on blobs; the losses fall; every PSNR is
+    finite and above the run's untrained read; the chamfer distance is
+    finite. Two lines of reads."""
     import importlib.util
+    import tempfile
 
     spec = importlib.util.spec_from_file_location(
         "torch_quality_parity", REPO / "scripts" / "torch_quality_parity.py")
@@ -3780,9 +3795,18 @@ def quality_phase(card: str, device) -> dict:
     blobs = {system: quality.run("blobs", system, "module", QUALITY_SEED, device, out,
                                  steps=QUALITY_STEPS) for system in ("hier", "buff")}
     seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ff = quality.run("forward_facing", "hier", "on", QUALITY_SEED, device, out,
+                         steps=QUALITY_STEPS, eval_views=1, logdir=tmp)
+    q8 = quality.run("quality_800", "hier", "on", QUALITY_SEED, device, out,
+                     steps=QUALITY_STEPS, image_size=QUALITY_800_VIEW,
+                     mesh_res=QUALITY_800_MESH)
+    new_seconds = time.perf_counter() - t0
     if set(json.loads(out.read_text())) != {
             f"kernel_width_hier_on_{QUALITY_SEED}", f"blobs_hier_module_{QUALITY_SEED}",
-            f"blobs_buff_module_{QUALITY_SEED}"}:
+            f"blobs_buff_module_{QUALITY_SEED}", f"forward_facing_hier_on_{QUALITY_SEED}",
+            f"quality_800_hier_on_{QUALITY_SEED}"}:
         raise AssertionError(f"quality entries in {out}: {sorted(json.loads(out.read_text()))}")
     if (quality.OUT.read_bytes() if quality.OUT.exists() else None) != kept:
         raise AssertionError(f"the quality phase wrote {quality.OUT}")
@@ -3813,6 +3837,7 @@ def quality_phase(card: str, device) -> dict:
                                       and entry[name] > entry["untrained"][name]):
                 raise AssertionError(f"blobs {system} {name} {entry['untrained'][name]} -> "
                                      f"{entry[name]}")
+    hold_new_quality_runs(ff, q8)
     print(f"quality_phase ({QUALITY_STEPS} steps, seed {QUALITY_SEED}, {seconds:.2f} s): "
           "kernel width fine / coarse dB " + ", ".join(
               f"step {k} {r['validation']['validation/fine_psnr']:.4f} / "
@@ -3822,7 +3847,64 @@ def quality_phase(card: str, device) -> dict:
           f"{blobs['hier']['coarse_psnr']:.4f}), BuFF {blobs['buff']['untrained']['psnr']:.4f} -> "
           f"{blobs['buff']['psnr']:.4f} dB; launches fwd {kw['launches']['fwd']}, bwd "
           f"{kw['launches']['bwd']}, chords {blobs['buff']['launches']['chords']} [{card}]")
-    return {"kernel_width": kw, "blobs": blobs, "seconds": seconds}
+    last = ff["validations"][str(QUALITY_STEPS)]
+    print(f"quality_phase new protocols ({QUALITY_STEPS} steps, seed {QUALITY_SEED}, "
+          f"{new_seconds:.2f} s): forward-facing validation fine / coarse "
+          f"{ff['untrained']['validation/fine_psnr']:.4f} / "
+          f"{ff['untrained']['validation/coarse_psnr']:.4f} -> "
+          f"{last['validation/fine_psnr']:.4f} / {last['validation/coarse_psnr']:.4f} dB, test "
+          f"view 0 {ff['test']['psnr']:.4f} dB / SSIM {ff['test']['ssim']:.4f}, "
+          f"{ff['train_s']:.2f} s of training, launches fwd {ff['launches']['fwd']} (+ "
+          f"{ff['untrained_launches']} untrained, {ff['validate_launches']['fwd']} validation, "
+          f"{ff['eval_launches']} eval), bwd {ff['launches']['bwd']}; quality_800 "
+          f"{QUALITY_800_VIEW}^2 {q8['untrained']['psnr']:.4f} -> {q8['held_out']['psnr']:.4f} dB"
+          f" / SSIM {q8['held_out']['ssim']:.4f}, {QUALITY_800_MESH}^3 mesh "
+          f"{q8['mesh_vertices']} vertices at iso {q8['iso_effective']:.6g}, chamfer "
+          f"{q8['chamfer_sq']:.6e} (RMS {q8['chamfer_rms']:.6f}), {q8['train_s']:.2f} s of "
+          f"training, launches fwd {q8['launches']['fwd']} (+ {q8['eval_launches']} eval), bwd "
+          f"{q8['launches']['bwd']}, sigma {q8['sigma_launches']} [{card}]")
+    return {"kernel_width": kw, "blobs": blobs, "forward_facing": ff, "quality_800": q8,
+            "seconds": seconds + new_seconds}
+
+
+def hold_new_quality_runs(ff: dict, q8: dict) -> None:
+    """The forward-facing and quality_800 cuts of quality_phase: exact
+    launches (2 + 2 a train step; every forward-facing read the same
+    forward launches a view: 3 views untrained, num_samples 2 at the one
+    validation, 1 in the eval; one sigma launch a grid tile), falling
+    losses, every PSNR finite and above the untrained read, a finite
+    chamfer distance on a non-empty mesh."""
+    steps = QUALITY_STEPS
+    want = {"fwd": 2 * steps, "bwd": 2 * steps}
+    for name, entry in (("forward-facing", ff), ("quality_800", q8)):
+        if entry["steps"] != steps or entry["launches"] != want:
+            raise AssertionError(f"{name}: {entry['steps']} steps, launches "
+                                 f"{entry['launches']}; expected 2 + 2 a step")
+    per_view = ff["eval_launches"]
+    if not (per_view > 0 and ff["untrained_launches"] == 3 * per_view
+            and ff["validate_launches"] == {"fwd": 2 * per_view, "bwd": 0}):
+        raise AssertionError(f"forward-facing reads: untrained {ff['untrained_launches']}, "
+                             f"validation {ff['validate_launches']}, eval {per_view} launches; "
+                             "expected 3 : 2 : 1 views of forward launches")
+    first, last = ff["untrained"], ff["validations"][str(steps)]
+    if not last["validation/loss"] < first["validation/loss"]:
+        raise AssertionError(f"forward-facing validation loss did not fall: "
+                             f"{first['validation/loss']} -> {last['validation/loss']}")
+    reads = [(f"validation {k}", first[f"validation/{k}_psnr"], last[f"validation/{k}_psnr"])
+             for k in ("fine", "coarse")]
+    reads.append(("test", first["validation/fine_psnr"], ff["test"]["psnr"]))
+    reads += [(f"quality_800 view {i}", a, b) for i, (a, b) in enumerate(
+        zip(q8["untrained"]["psnr_per_view"], q8["held_out"]["psnr_per_view"]))]
+    for name, a, b in reads:
+        if not (math.isfinite(b) and b > a):
+            raise AssertionError(f"{name} PSNR {a} -> {b}")
+    tiles = math.ceil(QUALITY_800_MESH ** 3 / GRID_TILE)
+    if q8["sigma_launches"] != tiles:
+        raise AssertionError(f"quality_800: {q8['sigma_launches']} sigma launches for {tiles} "
+                             "grid tiles")
+    if not (q8["mesh_vertices"] > 0 and math.isfinite(q8["chamfer_sq"])):
+        raise AssertionError(f"quality_800: {q8['mesh_vertices']} vertices, chamfer "
+                             f"{q8['chamfer_sq']}")
 
 
 def jpeg_phase(card: str) -> dict:
@@ -5067,10 +5149,17 @@ def main(argv=None) -> int:
     entry = _kernel_entry
 
     # The H = 128 rows: the same kernels at hard-llff.yml's width; their
-    # launches are the llff chain's, every train step and render chunk one
-    # coarse (S = 64) and one fine (S = 128) launch.
+    # launches are the llff chain's and the forward-facing quality run's,
+    # every train step and render chunk one coarse (S = 64) and one fine
+    # (S = 128) launch.
+    ff = quality["forward_facing"]
     llff_fwd = {k: v for k, v in cli["fwd"].items() if k.startswith("llff_cli_")}
+    llff_fwd.update(quality_forward_facing_train=ff["launches"]["fwd"],
+                    quality_forward_facing_reads=ff["untrained_launches"]
+                    + ff["validate_launches"]["fwd"] + ff["projection_launches"]["fwd"]
+                    + ff["eval_launches"])
     llff_bwd = {k: v for k, v in cli["bwd"].items() if k.startswith("llff_cli_")}
+    llff_bwd["quality_forward_facing_train"] = ff["launches"]["bwd"]
     coarse, fine = sorted(h128["fwd"])
     h128_rows = [
         entry(f"fused_mlp_fwd H=128 S={S}", "fused_mlp_fwd.cu",
@@ -5100,6 +5189,8 @@ def main(argv=None) -> int:
                **cli["fwd"], "buff_random_train": buff_random["train"]["fwd"],
                "buff_random_view": buff_random["view"]["fwd"],
                "quality_kernel_width_train": quality["kernel_width"]["launches"]["fwd"],
+               "quality_800_train": quality["quality_800"]["launches"]["fwd"],
+               "quality_800_eval": quality["quality_800"]["eval_launches"],
                **dist["launches"]["fwd"]},
               chunk_ms=kern["chunk_ms"], chunk_bound_ms=kern["chunk_bound_ms"],
               chunk_library_ms=kern["chunk_library_ms"], chunk_plain_ms=kern["chunk_plain_ms"],
@@ -5110,6 +5201,7 @@ def main(argv=None) -> int:
               {"train": train["bwd_launches"], "buff_train": buff["bwd_launches"], **cli["bwd"],
                "buff_random_train": buff_random["train"]["bwd"],
                "quality_kernel_width_train": quality["kernel_width"]["launches"]["bwd"],
+               "quality_800_train": quality["quality_800"]["launches"]["bwd"],
                **dist["launches"]["bwd"]},
               max_rel_err=bkern["max_rel_err"], legs=bkern["legs"],
               legs_2048x64=bkern["legs_coarse"], tile_ptxas=tile_ptxas, shape="2048x192",
@@ -5117,7 +5209,8 @@ def main(argv=None) -> int:
                   k: v for k, v in dist["per_rank"].items() if k.startswith("fused_mlp_bwd")}),
         entry("fused_sigma", "fused_sigma.cu", "nerfmeshes_tpu/ops/pallas/fused_mlp.py:675", skern,
               {"mesh": mesh["sigma_launches"], "buff_mesh": buff_mesh["sigma_launches"],
-               **cli["sigma"], **dist["launches"]["sigma"]},
+               **cli["sigma"], "quality_800_mesh": quality["quality_800"]["sigma_launches"],
+               **dist["launches"]["sigma"]},
               direct=direct["sigma"], per_rank={k: v for k, v in dist["per_rank"].items()
                                                 if k.startswith("fused_sigma")},
               ptxas=field_ptxas["fused_sigma_kernel"]),

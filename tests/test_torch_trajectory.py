@@ -13,8 +13,11 @@ carried along from its own render) and its consolidation rule. JAX's
 BuFF render takes the port's samples: the two samplers are held apart
 (hold_samplers), since where a sample target meets a chord end the order
 of f32 sums places it, and on the tree's regular grid a quarter of the
-rays have one there. Settings are deterministic: perturb off, sigma
-noise 0.
+rays have one there. Case d trains on data/hard_llff's forward-facing
+views instead (configs/hard-llff.yml's NDC rays, sampled in the [0, 1]
+frustum): there each stack loads the scene with its own LLFF loader and
+ColmapDataset and makes its own rays of the same numpy-drawn pixels.
+Settings are deterministic: perturb off, sigma noise 0.
 
 JAX follows the port's parameters rather than its own: two free runs part
 at the render's discontinuities. A ray's last sample has a 1e10 interval,
@@ -34,7 +37,7 @@ fall on its two sides), and at least 2^-23 (one f32 ulp):
 - loss (relative), grads (norm of the difference over the norm of the
   reference's grads): the port in float64 (cases a, c; BuFF's chord
   sampler stays f32, its inputs being f32 data), the port's f32
-  nn.Module (case b, the bf16 fused path);
+  nn.Module (cases b and d, the bf16 fused path);
 - the optimizer's update (norm of the difference over the norm of the
   update): the port's optimizer on float64 shadow parameters, fed the
   same grads (OptimizerTwins);
@@ -66,6 +69,7 @@ import copy
 import math
 import types
 from functools import partial
+from pathlib import Path
 from unittest import mock
 
 import jax
@@ -77,13 +81,18 @@ import torch.nn.functional as F
 
 from nerfmeshes_tpu.buff import system as j_buff
 from nerfmeshes_tpu.buff import tree as j_tree
-from nerfmeshes_tpu.config import get_default_cfg
+from nerfmeshes_tpu.config import get_default_cfg, load_config
+from nerfmeshes_tpu.data import colmap_dataset as j_colmap
+from nerfmeshes_tpu.data.datasets import DatasetType as JDatasetType
 from nerfmeshes_tpu.ops.math import img2mse as j_img2mse
+from nerfmeshes_tpu.ops import rays as j_rays
 from nerfmeshes_tpu.train import optim as j_optim
 from nerfmeshes_tpu.train import render as j_render
 from nerfmeshes_tpu.train import system as j_system
 from nerfmeshes_tpu_torch.buff import system as t_buff
 from nerfmeshes_tpu_torch.buff import tree as t_tree
+from nerfmeshes_tpu_torch.data.colmap_dataset import ColmapDataset
+from nerfmeshes_tpu_torch.data.datasets import DatasetType
 from nerfmeshes_tpu_torch.data.synthetic import make_synthetic_dataset
 from nerfmeshes_tpu_torch.models.layers import TorchLinear
 from nerfmeshes_tpu_torch.models.transplant import flax_paths, state_dict_from_flax
@@ -106,6 +115,7 @@ FACTOR = 4.0
 ULP = 2.0 ** -23
 DB = 10.0 / math.log(10.0)
 EVAL_RAYS = 256
+REPO = Path(__file__).resolve().parents[1]
 Z_TOL = 1e-5 * FAR  # tests/test_torch_buff.py: the samplers' cumsums run in other orders
 
 
@@ -129,6 +139,58 @@ def scene():
     return train, [a[pick] for a in held]
 
 
+@pytest.fixture(scope="module")
+def llff():
+    """data/hard_llff under configs/hard-llff.yml (400^2 views, NDC, views 0,
+    8 and 16 held out): 10 batches of 4 pixels (one train image a step, as
+    the train step draws) and EVAL_RAYS pixels of the test views, drawn
+    with numpy; each stack's rays, targets and bounds of those pixels from
+    its own LLFF loader and ColmapDataset, its rays NDC by its own code
+    (the port's rays_from_indices, JAX's _sample_ray_batch's steps on the
+    drawn indices). Returns ((port batches, JAX batches), (port held-out,
+    JAX held-out)) as numpy f32 triples."""
+    cfg = load_config(str(REPO / "configs" / "hard-llff.yml"))
+    cfg.dataset.basedir = str(REPO / "data" / "hard_llff")
+    rng = np.random.default_rng(3)
+    draws = {"train": [(rng.integers(21), rng.integers(0, 400 * 400, 4)) for _ in range(10)],
+             "test": [(rng.integers(0, 3, EVAL_RAYS), rng.integers(0, 400 * 400, EVAL_RAYS))]}
+    out = {}
+    for split, picks in draws.items():
+        port = ColmapDataset(cfg, DatasetType(split), device=CPU)
+        jds = j_colmap.ColmapDataset(cfg, JDatasetType(split))
+        H, W, focal = port.device_arrays()["hwf"]
+        t_data = port.device_arrays()
+        j_data = {k: jnp.asarray(v) for k, v in jds.device_arrays().items() if k != "hwf"}
+        assert t_data["bounds"].tolist() == np.asarray(j_data["bounds"]).tolist() == [0, 1]
+        intrinsics = j_rays.CameraIntrinsics.from_hwf(H, W, focal)
+        port_rays, jax_rays = [], []
+        for img, pix in picks:
+            o, d, t, near, far, _ = t_step.rays_from_indices(
+                t_data, torch.as_tensor(img), torch.as_tensor(pix), H=H, W=W, focal=focal,
+                use_ndc=True)
+            assert (float(near), float(far)) == (0.0, 1.0)
+            port_rays.append(tuple(a.numpy() for a in (o, d, t)))
+            # JAX's _sample_ray_batch (nerfmeshes_tpu/train/step.py:92-110) on
+            # these indices.
+            pose = j_data["poses"][jnp.asarray(img)]
+            dirs = j_rays.pixel_directions(jnp.asarray(pix % W, jnp.float32),
+                                           jnp.asarray(pix // W, jnp.float32), intrinsics)
+            if pose.ndim == 3:
+                d = jnp.einsum("rij,rj->ri", pose[:, :3, :3], dirs)
+                o = pose[:, :3, 3]
+            else:
+                d = jnp.einsum("ij,rj->ri", pose[:3, :3], dirs)
+                o = jnp.broadcast_to(pose[:3, 3], d.shape)
+            o, d = j_rays.ndc_rays(H, W, focal, 1.0, o, d)
+            t = j_data["targets"].reshape(-1, H * W, 3)[jnp.asarray(img), jnp.asarray(pix)]
+            jax_rays.append(tuple(np.asarray(a, np.float32) for a in (o, d, t)))
+        for g, w in zip(port_rays[-1], jax_rays[-1]):
+            np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)
+        out[split] = (port_rays, jax_rays)
+    (train, j_train), ((held,), (j_held,)) = out["train"], out["test"]
+    return (train, j_train), (held, j_held)
+
+
 def batches(train, steps, R, seed):
     """`steps` batches of R pixels of the train views, drawn with numpy."""
     rng = np.random.default_rng(seed)
@@ -136,10 +198,10 @@ def batches(train, steps, R, seed):
     return [tuple(a[r] for a in train) for r in rows]
 
 
-def as_rays(batch, dtype=torch.float32):
+def as_rays(batch, dtype=torch.float32, near=NEAR, far=FAR):
     """A batch as the step functions take it: (origins, directions,
     targets, near, far, depth)."""
-    return tuple(torch.from_numpy(a).to(dtype) for a in batch) + (NEAR, FAR, None)
+    return tuple(torch.from_numpy(a).to(dtype) for a in batch) + (near, far, None)
 
 
 # -- configs and weights ---------------------------------------------------------------
@@ -367,40 +429,44 @@ def report(case, losses, helds, mses):
 
 # -- hierarchical ------------------------------------------------------------------------
 
-def jax_hier_fns(cfg, jc, jf):
+def jax_hier_fns(cfg, jc, jf, near=NEAR, far=FAR):
     settings = j_render.RenderSettings.from_cfg(cfg, train=True)
     eval_settings = j_render.RenderSettings.from_cfg(cfg, train=False)
 
     @jax.jit
     def loss_and_grads(p, o, d, t):
         def loss_fn(p):
-            c, f = j_render.render_rays(jc, jf, p, o, d, NEAR, FAR, settings, train=True)
+            c, f = j_render.render_rays(jc, jf, p, o, d, near, far, settings, train=True)
             return j_img2mse(c.rgb_map, t) + j_img2mse(f.rgb_map, t)
 
         return jax.value_and_grad(loss_fn)(p)
 
     @jax.jit
     def render(p, o, d):
-        c, f = j_render.render_rays(jc, jf, p, o, d, NEAR, FAR, eval_settings, train=False)
+        c, f = j_render.render_rays(jc, jf, p, o, d, near, far, eval_settings, train=False)
         return c.rgb_map, f.rgb_map
 
     return loss_and_grads, render
 
 
-def port_mses(cfg, models: dict, held, dtype=torch.float32) -> dict:
+def port_mses(cfg, models: dict, held, dtype=torch.float32, near=NEAR, far=FAR) -> dict:
     settings = t_render.RenderSettings.from_cfg(cfg, train=False)
     with torch.no_grad():
         c, f = t_render.render_rays(models["coarse"], models["fine"],
                                     *(torch.from_numpy(a).to(dtype) for a in held[:2]),
-                                    NEAR, FAR, settings, train=False)
+                                    near, far, settings, train=False)
     return {"coarse": mse_of(c.rgb_map.double(), held[2]),
             "fine": mse_of(f.rgb_map.double(), held[2])}
 
 
-def run_hier(cfg, ref_cfg, data, held):
+def run_hier(cfg, ref_cfg, data, held, near=NEAR, far=FAR, jax_data=None, jax_held=None):
     """Train the port `len(data)` steps, holding every step to JAX. The
     reference evaluation runs under `ref_cfg`: the port in float64 when it
-    is `cfg`, else the port's models as `ref_cfg` builds them (f32)."""
+    is `cfg`, else the port's models as `ref_cfg` builds them (f32). JAX
+    takes `jax_data` and `jax_held` (its own rays of the same pixels)
+    where they are given, else the port's."""
+    jax_data = data if jax_data is None else jax_data
+    jax_held = held if jax_held is None else jax_held
     jc, jf, params = jax_weights(cfg, fine=True)
     coarse, fine = t_system.create_models(cfg)
     models = {"coarse": coarse, "fine": fine}
@@ -413,18 +479,18 @@ def run_hier(cfg, ref_cfg, data, held):
         twins, ref_dtype = {t: f64_twin(m) for t, m in models.items()}, torch.float64
     else:
         twins, ref_dtype = dict(zip(models, t_system.create_models(ref_cfg))), torch.float32
-    loss_and_grads, render = jax_hier_fns(cfg, jc, jf)
+    loss_and_grads, render = jax_hier_fns(cfg, jc, jf, near, far)
     opt_twins = OptimizerTwins(cfg, models)
     loss_held, grad_held = Held("loss"), Held("grads")
     losses = []
-    for s, batch in enumerate(data):
+    for s, (batch, j_batch) in enumerate(zip(data, jax_data)):
         before = named(models)
         sync(twins, models)
         ref_loss, _ = t_step.train_loss(ref_cfg, twins["coarse"], twins["fine"],
-                                        *as_rays(batch, ref_dtype)[:5])
+                                        *as_rays(batch, ref_dtype, near, far)[:5])
         ref_grads = grads_of(twins, ref_loss)
-        j_loss, j_grads = loss_and_grads(flax_params(models), *batch)
-        state, metrics = step_fn(state, None, as_rays(batch))
+        j_loss, j_grads = loss_and_grads(flax_params(models), *j_batch)
+        state, metrics = step_fn(state, None, as_rays(batch, near=near, far=far))
         loss, ref_loss = float(metrics["train/loss"]), float(ref_loss.detach())
         losses.append(loss)
         loss_held.add(s, abs(loss - ref_loss) / ref_loss, abs(loss - float(j_loss)) / ref_loss)
@@ -435,10 +501,10 @@ def run_hier(cfg, ref_cfg, data, held):
     for held_ in (loss_held, grad_held, opt_twins.held):
         held_.close()
     sync(twins, models)
-    got = port_mses(cfg, models, held)
-    ref = port_mses(ref_cfg, twins, held, ref_dtype)
-    c_rgb, f_rgb = render(flax_params(models), held[0], held[1])
-    want = {"coarse": mse_of(c_rgb, held[2]), "fine": mse_of(f_rgb, held[2])}
+    got = port_mses(cfg, models, held, near=near, far=far)
+    ref = port_mses(ref_cfg, twins, held, ref_dtype, near, far)
+    c_rgb, f_rgb = render(flax_params(models), jax_held[0], jax_held[1])
+    want = {"coarse": mse_of(c_rgb, jax_held[2]), "fine": mse_of(f_rgb, jax_held[2])}
     hold_psnr("hierarchical", got, ref, want, loss_held.floor)
     return np.array(losses), (loss_held, grad_held, opt_twins.held), (got, want)
 
@@ -462,6 +528,20 @@ def test_hierarchical_bf16_fused_run_follows_jax(scene):
                                    batches(train, 10, 4, seed=2), held)
     assert (fm.launches, fm.bwd_launches) == before
     report("b", losses, helds, mses)
+
+
+def test_forward_facing_bf16_fused_run_follows_jax(llff):
+    """d. The forward-facing path as in b (the bf16 fused path, JAX's
+    interpreted Pallas, the port's plain kernels), on data/hard_llff's NDC
+    rays sampled in the [0, 1] frustum, each stack on its own rays of the
+    same pixels; 4 rays, 8 + 8 samples, 10 steps."""
+    (train, j_train), (held, j_held) = llff
+    before = (fm.launches, fm.bwd_launches)
+    losses, helds, mses = run_hier(hier_cfg("bfloat16", True, 8), hier_cfg("float32", False, 8),
+                                   train, held, near=0.0, far=1.0, jax_data=j_train,
+                                   jax_held=j_held)
+    assert (fm.launches, fm.bwd_launches) == before
+    report("d", losses, helds, mses)
 
 
 # -- BuFF ----------------------------------------------------------------------------------------
