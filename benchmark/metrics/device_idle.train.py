@@ -1,0 +1,9 @@
+"""Device: percent of the traced stretch of training in which no kernel,
+copy or fill ran on the card (one minus the union of their intervals).
+Moves train_rays_per_s."""
+
+from harness.readers import idle_percent
+
+
+def read(ctx):
+    return idle_percent(ctx)
